@@ -9,9 +9,13 @@ an H100, sm_90a):
 It builds the CUDA window kernels from ``helen_tpu_torch/ops/csrc``, holds
 each kernel against its plain PyTorch version at the flagship shapes, times
 both and cuDNN's GRU as a yardstick, polishes the golden fixtures and an
-unseen sequence with the trained checkpoint through the port's CLI, and
+unseen sequence with the trained checkpoint through the port's CLI,
 drives a full-width polish (>= 2048 images at batch 512) while counting the
-kernel launches. Every phase fails the script on error; nothing falls back.
+kernel launches, and then the training path: the backward kernel against
+its plain version and cuDNN's GRU backward, one TBPTT batch through the
+kernels against the plain route, and ``train`` then ``test`` through the
+CLI on the full-width images with the launches counted. Every phase fails
+the script on error; nothing falls back.
 The second-to-last line is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
 checkout, it exits non-zero and prints no result. It imports nothing of JAX.
@@ -43,6 +47,13 @@ PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 N_FULL = 2048
 FULL_CONTIG_BP = 800_000
+# training: batch, the held-out contig, epochs, and the backward's tolerance
+# (1e-5 times the output's largest magnitude, at least 1: the weight
+# cotangents are sums over the window's 25,600 rows)
+TB = 256
+TEST_CONTIG_BP = 200_000
+TRAIN_EPOCHS = 3
+BWD_PASSES = ("bigru_window_bwd_rec", "bigru_window_bwd_wgrad")
 
 
 def fail(msg: str) -> None:
@@ -172,13 +183,15 @@ def check_kernels(images_u8, results) -> None:
 
     bt = B * T
     specs = [
-        ("bigru_window_in1", "helen_tpu/ops/gru_pallas.py:426", k1, p1, cud1,
+        ("bigru_window_in1", "helen_tpu/ops/gru_pallas.py:426 (_kernel_inproj1); "
+         "helen_tpu/ops/gru_pallas_train.py:259 (_fwd_kernel_ip, layer 0)", k1, p1, cud1,
          lambda: gw.bigru_window_in1(images_u8, start, T, h0[0], h0[1], l1),
          lambda: gw.bigru_window_in1_plain(images_u8, start, T, h0[0], h0[1], l1),
          lambda: g1(x_f32, torch.stack([h0[0], h0[1]])),
          2.0 * bt * 2 * (F * 3 * H + H * 3 * H),
          bt * F + 2 * 4 * ((F + H) * 3 * H + 6 * H) + 4 * 4 * B * H + 2 * 4 * bt * H),
-        ("bigru_window_in2", "helen_tpu/ops/gru_pallas.py:474", k2, p2, cud2,
+        ("bigru_window_in2", "helen_tpu/ops/gru_pallas.py:474 (_kernel_inproj2); "
+         "helen_tpu/ops/gru_pallas_train.py:259 (_fwd_kernel_ip, later layers)", k2, p2, cud2,
          lambda: gw.bigru_window_in2(xa, xb, h0[2], h0[3], l2),
          lambda: gw.bigru_window_in2_plain(xa, xb, h0[2], h0[3], l2),
          lambda: g2(x_cat, torch.stack([h0[2], h0[3]])),
@@ -345,6 +358,332 @@ def run_full_width(img_dir: str, truth, n_images: int, work: str, results) -> No
         fail("the kernel path's labels disagree with the plain path")
 
 
+def timed_passes(fn, iters: int = 10, warmup: int = 2) -> dict:
+    """Device ms of each of the backward wrapper's two launches: CUDA events
+    recorded around each call into the kernel library while ``fn`` runs."""
+    import torch
+
+    from helen_tpu_torch.ops import gru_window as gw
+
+    lib = gw.get_lib()
+    orig = {n: getattr(lib, n) for n in BWD_PASSES}
+    spans = {n: [] for n in BWD_PASSES}
+
+    def timed(name):
+        def call(*args):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            err = orig[name](*args)
+            e1.record()
+            spans[name].append((e0, e1))
+            return err
+        return call
+
+    for _ in range(warmup):
+        fn()
+    try:
+        for n in BWD_PASSES:
+            setattr(lib, n, timed(n))
+        for _ in range(iters):
+            fn()
+    finally:
+        for n in BWD_PASSES:
+            setattr(lib, n, orig[n])
+    torch.cuda.synchronize()
+    return {n: sum(a.elapsed_time(b) for a, b in spans[n]) / iters for n in BWD_PASSES}
+
+
+def check_backward(images_u8, results) -> None:
+    """Phase 7a: the backward kernel against its plain version at the
+    flagship training shapes (B=256, T=100, H=128; layer 0 on the uint8
+    image, D=90, no dx; the decoder on two halves, D=256), bit-identity of
+    two launches, and times beside the plain version, the bound and the
+    libraries (cuDNN's GRU backward for pass 1, cuBLAS's products for
+    pass 2; the port calls neither)."""
+    import numpy as np
+    import torch
+
+    from helen_tpu_torch.ops import gru_window as gw
+    from helen_tpu_torch.ops import gru_window_bwd as gb
+
+    dev = images_u8.device
+    rng = np.random.default_rng(20261017)
+    img = images_u8[:TB]
+    r = lambda *s: torch.from_numpy(rng.uniform(-1, 1, s).astype("float32")).to(dev)  # noqa: E731
+    n = TB * T
+    sums = {name: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+                   "flops": 0.0, "bytes": 0.0, "max_abs_err": 0.0, "max_scaled_err": 0.0}
+            for name in BWD_PASSES}
+    for label, D in (("layer 0, image D=90", F), ("decoder, halves D=256", 2 * H)):
+        layer = random_layer(rng, D, H, dev)
+        h0f, h0b, dhf, dhb = (r(TB, H) for _ in range(4))
+        dof, dob = r(T, TB, H), r(T, TB, H)
+        if D == F:
+            src, start, need_dx = img, 450, False
+            fwd = lambda: gw.bigru_window_in1(img, start, T, h0f, h0b, layer)  # noqa: E731
+            fwd_plain = lambda: gw.bigru_window_in1_plain(  # noqa: E731
+                img, start, T, h0f, h0b, layer)
+            x_bytes = n * F
+        else:
+            src, start, need_dx = (r(T, TB, H), r(T, TB, H)), 0, True
+            fwd = lambda: gw.bigru_window_in2(*src, h0f, h0b, layer)  # noqa: E731
+            fwd_plain = lambda: gw.bigru_window_in2_plain(*src, h0f, h0b, layer)  # noqa: E731
+            x_bytes = 4 * n * D
+        of, ob, _, _ = fwd()
+        args = (src, start, h0f, h0b, of, ob, dof, dob, dhf, dhb, layer)
+        got = gb.bigru_window_bwd(*args)
+        again = gb.bigru_window_bwd(*args)
+        want = gb.bigru_window_bwd_plain(*args, need_dx=need_dx)
+        torch.cuda.synchronize()
+        flat = lambda res: ([("dx", res[0])] if res[0] is not None else []) + [  # noqa: E731
+            ("dh0_f", res[1]), ("dh0_b", res[2])] + [
+            (f"{d}.{k}", res[3][d][k]) for d in ("fwd", "bwd")
+            for k in ("w_ih", "w_hh", "b_ih", "b_hh")]
+        worst = worst_scaled = 0.0
+        for (what, g), (_, w), (_, a) in zip(flat(got), flat(want), flat(again)):
+            err = float((g - w).abs().max())
+            scale = max(1.0, float(w.abs().max()))
+            worst = max(worst, err)
+            worst_scaled = max(worst_scaled, err / scale)
+            log(f"backward {label}: {what}: max |kernel - plain| {err:.3g} "
+                f"(limit {TOL:g} x {scale:.4g})")
+            if err > TOL * scale:
+                fail(f"backward {label}: {what} disagrees with its plain version")
+            if not torch.equal(g, a):
+                fail(f"backward {label}: {what} differs between two launches")
+        log(f"backward {label}: two launches bit-identical")
+
+        ms = timed_passes(lambda: gb.bigru_window_bwd(*args))
+        dxp, dhpn, *_ = gb.bigru_window_bwd_rec_plain(*args, need_dx=need_dx)
+        plain = {
+            BWD_PASSES[0]: cuda_ms(lambda: gb.bigru_window_bwd_rec_plain(
+                *args, need_dx=need_dx), iters=3, warmup=1),
+            BWD_PASSES[1]: cuda_ms(lambda: gb.bigru_window_bwd_wgrad_plain(
+                src, start, h0f, h0b, of, ob, dxp, dhpn), iters=3, warmup=1),
+        }
+        # the libraries: cuDNN's GRU backward (forward+backward minus
+        # forward) for the recurrence; cuBLAS's products with a row of ones
+        # for the bias sums, for the weight cotangents
+        gru = cudnn_gru(layer, D, H, dev)
+        x = gb.window_input(src, start, T, torch.float32).contiguous()
+        x.requires_grad_(need_dx)
+        hx = torch.stack([h0f, h0b]).requires_grad_(True)
+        dout_cat, dh_cat = torch.cat([dof, dob], -1), torch.stack([dhf, dhb])
+
+        def fwd_bwd():
+            out, hn = gru(x, hx)
+            torch.autograd.backward([out, hn], [dout_cat, dh_cat])
+
+        cudnn_ms = cuda_ms(fwd_bwd) - cuda_ms(lambda: gru(x, hx))
+        # the training forward is K1/K2 as they stand: their times at B=256
+        with torch.no_grad():
+            fwd_ms, fwd_plain_ms = cuda_ms(fwd), cuda_ms(fwd_plain, iters=3, warmup=1)
+            fwd_cudnn_ms = cuda_ms(lambda: gru(x, hx))
+        fwd_bound, fwd_by = bound(2.0 * n * 2 * 3 * H * (D + H),
+                                  x_bytes + 2 * 4 * ((D + H) * 3 * H + 6 * H)
+                                  + 4 * 4 * TB * H + 2 * 4 * n * H)
+        log(f"training forward ({label}, {'K1' if D == F else 'K2'}) at B={TB}: kernel "
+            f"{fwd_ms:.4f} ms, plain {fwd_plain_ms:.3f} ms, cuDNN GRU {fwd_cudnn_ms:.4f} ms, "
+            f"bound {fwd_bound:.4f} ms ({fwd_by})")
+        ones = torch.ones(n, 1, device=dev)
+        x1 = torch.cat([x.detach().reshape(n, D), ones], 1)
+        prods = []
+        for i, (out, h0, rev) in enumerate(((of, h0f, False), (ob, h0b, True))):
+            g_x = dxp[i].reshape(n, 3 * H)
+            g_h = torch.cat([g_x[:, :2 * H], dhpn[i].reshape(n, H)], 1)
+            h1 = torch.cat([gb._h_prev(out, h0, rev).reshape(n, H), ones], 1)
+            prods += [(x1, g_x), (h1, g_h)]
+        cublas_ms = cuda_ms(lambda: [a.T @ b for a, b in prods])
+        library = {BWD_PASSES[0]: cudnn_ms, BWD_PASSES[1]: cublas_ms}
+        w_bytes = 4 * 2 * ((D + H) * 3 * H + 6 * H)
+        vec = 4 * TB * H  # one (B, H) float32 array
+        stream = 4 * n * H  # one (T, B, H) float32 array
+        cost = {
+            BWD_PASSES[0]: (
+                2 * 2.0 * n * 3 * H * (D + 2 * H + (D if need_dx else 0)),
+                x_bytes + 4 * stream + 4 * vec + w_bytes   # x, out, dout, h0, dh, W
+                + 2 * (3 * stream + stream) + 2 * vec      # dxp, dhp_n, dh0
+                + (2 * 4 * n * D if need_dx else 0)),      # dx per direction
+            BWD_PASSES[1]: (
+                2 * 2.0 * n * 3 * H * (D + 1 + H + 1),
+                x_bytes + 2 * stream + 2 * vec + 2 * (3 * stream + stream) + w_bytes),
+        }
+        for name in BWD_PASSES:
+            flops, nbytes = cost[name]
+            bound_ms, bound_by = bound(flops, nbytes)
+            log(f"{name} ({label}): kernel {ms[name]:.4f} ms, plain {plain[name]:.3f} ms, "
+                f"library {library[name]:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+                f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+            acc = sums[name]
+            for key, v in (("ms", ms[name]), ("plain_ms", plain[name]),
+                           ("bound_ms", bound_ms), ("library_ms", library[name]),
+                           ("flops", flops), ("bytes", nbytes)):
+                acc[key] += v
+            acc["max_abs_err"] = max(acc["max_abs_err"], worst)
+            acc["max_scaled_err"] = max(acc["max_scaled_err"], worst_scaled)
+    for name in BWD_PASSES:
+        acc = sums[name]
+        _, bound_by = bound(acc["flops"], acc["bytes"])
+        results[name] = {
+            "name": name, "route": "cuda",
+            "source": "helen_tpu_torch/ops/csrc/gru_window_bwd.cu",
+            "replaces": "helen_tpu/ops/gru_pallas_train.py:321 (_bwd_kernel_ip)",
+            "max_abs_err": acc["max_abs_err"],
+            # max |kernel - plain| / max(1, max |plain|) over the outputs
+            "max_scaled_err": acc["max_scaled_err"],
+            "ms": acc["ms"], "kernel_ms": acc["ms"],
+            "plain_ms": acc["plain_ms"], "bound_ms": acc["bound_ms"], "bound_by": bound_by,
+            "library_ms": acc["library_ms"],
+            "per": "one training window: layer 0 (D=90) + decoder (D=256), B=256",
+        }
+        log(f"{name}, one training window (layer 0 + decoder): kernel {acc['ms']:.4f} ms, "
+            f"bound {acc['bound_ms']:.4f} ms ({bound_by}), plain {acc['plain_ms']:.3f} ms, "
+            f"library {acc['library_ms']:.4f} ms")
+
+
+def load_labeled(img_dir: str, n: int):
+    """The first ``n`` labeled images of a directory, on the card."""
+    import numpy as np
+    import torch
+
+    from helen_tpu_torch.io.images import MarginPolishDataset
+
+    ds = MarginPolishDataset(sorted(os.path.join(img_dir, f) for f in os.listdir(img_dir)),
+                             with_labels=True)
+    recs = [ds.load(i) for i in range(n)]
+    t = lambda a: torch.from_numpy(np.stack(a)).cuda()  # noqa: E731
+    return (t([r.image for r in recs]), t([r.label_base for r in recs]).long(),
+            t([r.label_rle for r in recs]).long())
+
+
+def check_tbptt(img_dir: str) -> None:
+    """Phase 7b: one TBPTT batch of 256 full-width images (19 windows, 19
+    Adam updates at lr 1e-4) through the kernels and through the plain
+    route on the card, from the same initial params."""
+    import torch
+
+    from helen_tpu_torch.config import MODEL
+    from helen_tpu_torch.io.checkpoint import opt_leaves, params_to_torch
+    from helen_tpu_torch.models.transducer import init_params, param_leaves
+    from helen_tpu_torch.train.train_loop import Adam, tbptt_step
+
+    images, yb, yr = load_labeled(img_dir, TB)
+    params0 = init_params(torch.Generator().manual_seed(7), MODEL)
+    runs = {}
+    for backend in ("cuda", "torch"):
+        p = params_to_torch(params0, images.device)
+        for t in param_leaves(p):
+            t.requires_grad_(True)
+        adam = Adam(0.0)
+        state = adam.init(p)
+        t0 = time.perf_counter()
+        tot = tbptt_step(p, adam, state, 1e-4, images, yb, yr, TB, backend)
+        sums = [float(v) for v in tot]
+        log(f"one TBPTT batch via {backend}: loss sums {sums} in "
+            f"{time.perf_counter() - t0:.2f} s")
+        runs[backend] = (sums, [t.detach() for t in param_leaves(p)],
+                         [torch.as_tensor(v) for v in opt_leaves(state)[1:]])
+    (ks, kp, ko), (ps, pp, po) = runs["cuda"], runs["torch"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(ks, ps))
+    perr = max(float((a - b).abs().max()) for a, b in zip(kp, pp))
+    oerr = max(float((a - b).abs().max()) for a, b in zip(ko, po))
+    log(f"one TBPTT batch, kernels vs plain: loss sums rel diff {rel:.3g} (limit 1e-5), "
+        f"params max abs diff {perr:.3g} (limit 2e-5), Adam moments {oerr:.3g}")
+    if rel > 1e-5 or perr > 2e-5:
+        fail("the kernel path's TBPTT batch disagrees with the plain path")
+
+
+def run_train(img_dir: str, n_images: int, work: str, results) -> None:
+    """Phase 7c: ``train`` then ``test`` through the CLI (its main, in this
+    process) on the full-width labeled images at -b 256, held out on a
+    separate labeled contig, with the kernel launches counted."""
+    import glob
+
+    import torch
+
+    from helen_tpu_torch.cli import main as cli
+    from helen_tpu_torch.config import IMAGE, WINDOW
+    from helen_tpu_torch.io.synthetic import random_sequence, write_image_file
+    from helen_tpu_torch.ops import gru_window as gw
+    from helen_tpu_torch.ops import gru_window_bwd as gb
+
+    test_dir = os.path.join(work, "train_test")
+    os.makedirs(test_dir)
+    n_test = write_image_file(os.path.join(test_dir, "held_out.h5"),
+                              {"held_out": random_sequence(TEST_CONTIG_BP, seed=777)},
+                              region_cols=1000, overlap_cols=80, noise=0.1, seed=778)
+    out = os.path.join(work, "train_out")
+    counts = lambda: {**gw.launch_counts, **gb.launch_counts}  # noqa: E731
+    torch.cuda.reset_peak_memory_stats()
+    gw.reset_launch_counts()
+    gb.reset_launch_counts()
+    t0 = time.perf_counter()
+    if cli(["train", "--train_image_dir", img_dir, "--test_image_dir", test_dir,
+            "-b", str(TB), "-e", str(TRAIN_EPOCHS), "-w", "8", "-o", out,
+            "--lr", "3e-3", "--seed", "11"]) != 0:
+        fail("train returned non-zero")
+    wall = time.perf_counter() - t0
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    run = glob.glob(os.path.join(out, "trained_models_*"))[0]
+    with open(os.path.join(run, "stats", "epochs.jsonl")) as f:
+        epochs = [json.loads(line) for line in f]
+    for e in epochs:
+        log(f"train epoch {e['epoch']}: train loss {e['train_loss']:.5f}, test loss "
+            f"{e['test_loss']:.5f}, base acc {e['base_accuracy']:.3f}%, rle acc "
+            f"{e['rle_accuracy']:.3f}%, training {e['train_seconds']:.2f} s = "
+            f"{e['train_windows'] / e['train_seconds']:,.0f} train windows/s, "
+            f"evaluation {e['eval_seconds']:.2f} s")
+    log(f"train: {n_images} images x {TRAIN_EPOCHS} epochs at -b {TB}, held out "
+        f"{n_test} images; wall {wall:.2f} s, peak device memory {peak:.0f} MiB")
+    last = epochs[-1]
+    if len(epochs) != TRAIN_EPOCHS:
+        fail("train ran another number of epochs")
+    if not (last["base_accuracy"] > 90.0 and last["rle_accuracy"] > 90.0):
+        fail("training did not reach 90% base and rle accuracy on the held-out images")
+    if not last["test_loss"] < epochs[0]["test_loss"]:
+        fail("the held-out loss did not fall")
+
+    n_win = WINDOW.num_windows(IMAGE.seq_length)
+    train_batches, test_batches = -(-n_images // TB), -(-n_test // TB)
+    fwd = TRAIN_EPOCHS * (train_batches + test_batches) * n_win
+    bwd = TRAIN_EPOCHS * train_batches * n_win * 2  # layer 0 + decoder
+    want = {"bigru_window_in1": fwd, "bigru_window_in2": fwd,
+            BWD_PASSES[0]: bwd, BWD_PASSES[1]: bwd}
+    log(f"train launches {launches}, expected {want} ({TRAIN_EPOCHS} epochs x "
+        f"({train_batches} train + {test_batches} test batches) x {n_win} windows; "
+        f"the backward: 2 layers per training window, each pass counted)")
+    if launches != want:
+        fail("train launch counts differ from batches x windows x layers")
+    for name in BWD_PASSES:
+        results[name]["launches"] = launches[name]
+    for name in ("bigru_window_in1", "bigru_window_in2"):
+        results[name]["launches_train"] = launches[name]
+
+    gw.reset_launch_counts()
+    gb.reset_launch_counts()
+    tout = os.path.join(work, "test_out")
+    latest = os.path.join(run, "models", "HELEN_latest_checkpoint.npz")
+    if cli(["test", "--test_image_dir", test_dir, "-m", latest, "-b", str(TB),
+            "-o", tout]) != 0:
+        fail("test returned non-zero")
+    with open(os.path.join(tout, "test_stats.json")) as f:
+        stats = json.load(f)
+    same = (stats["loss"] == last["test_loss"]
+            and stats["base_confusion_matrix"] == last["base_confusion_matrix"]
+            and stats["rle_confusion_matrix"] == last["rle_confusion_matrix"])
+    tl = counts()
+    log(f"test of the latest checkpoint: loss {stats['loss']!r} (last epoch "
+        f"{last['test_loss']!r}), both confusion matrices equal: {same}; "
+        f"launches {tl}")
+    if not same:
+        fail("test did not reproduce the last epoch's loss and confusion matrices")
+    if tl != {"bigru_window_in1": test_batches * n_win,
+              "bigru_window_in2": test_batches * n_win, BWD_PASSES[0]: 0, BWD_PASSES[1]: 0}:
+        fail("test launch counts differ from batches x windows")
+
+
 def main() -> int:
     import torch
 
@@ -407,7 +746,16 @@ def main() -> int:
         phase("6. full-width polish")
         run_full_width(img_dir, truth, n_images, work, results)
 
-    phase("7. result")
+        phase("7a. backward kernel against its plain version (B=256, T=100, H=128)")
+        check_backward(images_u8, results)
+
+        phase("7b. one TBPTT batch: kernels against the plain route")
+        check_tbptt(img_dir)
+
+        phase("7c. train and test through the CLI")
+        run_train(img_dir, n_images, work, results)
+
+    phase("8. result")
     log(smi)
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {

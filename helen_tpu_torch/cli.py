@@ -1,9 +1,10 @@
 """Command-line interface for helen_tpu_torch.
 
 Subcommands and flags mirror helen_tpu/cli.py, so one command line runs
-either package: ``polish``, ``call_consensus``, ``stitch``, ``devices`` and
-``version``. The consensus subcommands run on the GPU by default
-(``--device cuda``, an error when there is none) and take ``--device cpu``.
+either package: ``polish``, ``call_consensus``, ``stitch``, ``train``,
+``test``, ``devices`` and ``version``. The model subcommands run on the GPU
+by default (``--device cuda``, an error when there is none) and take
+``--device cpu``.
 Flags of helen_tpu paths that are not ported yet are accepted and raise a
 "not yet ported" error instead of doing something else.
 
@@ -92,6 +93,45 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-t", "--threads", type=int, default=4)
     p.add_argument("--fastq", action="store_true", help="(not yet ported)")
 
+    p = sub.add_parser("train", help="train the transducer model")
+    p.add_argument("--train_image_dir", required=True)
+    p.add_argument("--test_image_dir", required=True)
+    p.add_argument("-b", "--batch_size", type=int, default=100)
+    p.add_argument("-e", "--epoch_size", type=int, default=10, help="epochs to run")
+    p.add_argument("-w", "--num_workers", type=int, default=16)
+    p.add_argument("-o", "--model_out", default="./model_out/",
+                   help="output dir for checkpoints and stats")
+    p.add_argument("--retrain_model_path", default=None,
+                   help="checkpoint to continue training from")
+    p.add_argument("--lr", type=float, default=1e-4)
+    p.add_argument("--decay", type=float, default=0.0)
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="compute device (default cuda: an error without a GPU)")
+    p.add_argument("--backend", default="auto",
+                   choices=["auto", "cuda", "torch", "xla", "pallas_train"],
+                   help="auto: the CUDA window kernels (forward and backward) on "
+                        "the GPU, plain torch on the CPU; helen_tpu's xla and "
+                        "pallas_train are aliases of torch and cuda")
+    p.add_argument("--hidden_size", type=int, default=128,
+                   help="GRU hidden size for a FRESH model (retraining "
+                        "follows the checkpoint's geometry)")
+    p.add_argument("--gru_layers", type=int, default=1,
+                   help="stacked GRU layers per encoder/decoder for a FRESH model")
+    p.add_argument("--pack", action="store_true", help="(not yet ported)")
+    p.add_argument("--model_parallel", type=int, default=1,
+                   help="tensor-parallel width (> 1 not yet ported)")
+
+    p = sub.add_parser("test", help="evaluate a model on labeled images")
+    p.add_argument("--test_image_dir", required=True)
+    p.add_argument("-m", "--model_path", required=True)
+    p.add_argument("-b", "--batch_size", type=int, default=100)
+    p.add_argument("-w", "--num_workers", type=int, default=8)
+    p.add_argument("-o", "--output_dir", default="./test_out/")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="compute device (default cuda: an error without a GPU)")
+    p.add_argument("--debug_mismatches", action="store_true", help="(not yet ported)")
+
     sub.add_parser("devices", help="show the CUDA devices torch sees")
     sub.add_parser("version", help="print version")
     return parser
@@ -125,6 +165,8 @@ def _unported(args):
         ("--barrier_timeout", getattr(args, "barrier_timeout", None) is not None),
         ("--fastq/--qualities", getattr(args, "fastq", False)
          or getattr(args, "qualities", False)),
+        ("--model_parallel > 1", getattr(args, "model_parallel", 1) > 1),
+        ("--debug_mismatches", getattr(args, "debug_mismatches", False)),
     ]
     return next((what for what, given in checks if given), None)
 
@@ -139,7 +181,7 @@ def main(argv=None) -> int:
     if unported:
         parser.error(f"{unported} is not yet ported to helen_tpu_torch "
                      "(ROADMAP.md, queue A); use helen_tpu")
-    if args.command in ("polish", "call_consensus"):
+    if args.command in ("polish", "call_consensus", "train", "test"):
         from helen_tpu_torch.infer.consensus import resolve_device
 
         try:
@@ -194,6 +236,40 @@ def main(argv=None) -> int:
         )
         for f in files:
             print(f)
+        return 0
+
+    if args.command == "train":
+        from helen_tpu_torch.train.train_loop import train_interface
+
+        train_interface(
+            train_dir=args.train_image_dir,
+            test_dir=args.test_image_dir,
+            batch_size=args.batch_size,
+            epochs=args.epoch_size,
+            num_workers=args.num_workers,
+            output_dir=args.model_out,
+            retrain_model_path=args.retrain_model_path,
+            learning_rate=args.lr,
+            weight_decay=args.decay,
+            seed=args.seed,
+            backend=args.backend,
+            hidden_size=args.hidden_size,
+            gru_layers=args.gru_layers,
+            device=args.device,
+        )
+        return 0
+
+    if args.command == "test":
+        from helen_tpu_torch.train import evaluate
+
+        evaluate.test_interface(
+            test_dir=args.test_image_dir,
+            model_path=args.model_path,
+            batch_size=args.batch_size,
+            num_workers=args.num_workers,
+            output_dir=args.output_dir,
+            device=args.device,
+        )
         return 0
 
     if args.command == "stitch":

@@ -1,9 +1,13 @@
-"""Checkpoint I/O for the port: params only, no optimizer state.
+"""Checkpoint I/O for the port: params, and the Adam state of training.
 
 Reads the two formats helen_tpu reads (helen_tpu/io/checkpoint.py):
 
 * the native ``.npz``: every parameter leaf under ``params/<key path>``
-  plus a JSON ``__meta__`` blob (model dims, epoch, format version);
+  plus a JSON ``__meta__`` blob (model dims, epoch, format version), and
+  in a training checkpoint the optimizer state under ``opt/%05d`` in
+  optax's flatten order (``count``, then the ``mu`` leaves, then the ``nu``
+  leaves, each in sorted key-path order) — a checkpoint from either
+  package resumes in the other;
 * the reference torch ``.pkl`` ``{model_state_dict, hidden_size,
   gru_layers, epochs, ...}`` (reference ModelHander.py:127-133), mapped onto
   the same param tree: torch nn.GRU / nn.Linear weights transposed for
@@ -12,7 +16,9 @@ Reads the two formats helen_tpu reads (helen_tpu/io/checkpoint.py):
 Params load as a nested dict of numpy arrays — the same tree helen_tpu
 builds — and :func:`params_to_torch` is the weight bridge that turns that
 tree into the port's tensors on a device. The tests hand both packages
-identical weights through it.
+identical weights through it; :func:`opt_state_to_torch` and
+:func:`opt_state_to_numpy` do the same for the Adam state
+(``{"count", "mu", "nu"}``).
 """
 from __future__ import annotations
 
@@ -54,11 +60,26 @@ def _to_numpy(leaf: Any) -> np.ndarray:
     return np.asarray(leaf)
 
 
+def opt_leaves(opt_state: Dict[str, Any]) -> list:
+    """The Adam state's leaves in optax's flatten order: ``count`` (int32),
+    the ``mu`` leaves, the ``nu`` leaves. optax's
+    ``chain(add_decayed_weights, scale_by_adam)`` state has the same leaves
+    (its first element is empty)."""
+    return ([np.asarray(_to_numpy(opt_state["count"]), dtype=np.int32)]
+            + list(flatten_tree(opt_state["mu"]).values())
+            + list(flatten_tree(opt_state["nu"]).values()))
+
+
 def save_checkpoint(path: str, params: Any,
-                    meta: Optional[Dict[str, Any]] = None) -> None:
-    """Atomically write params (numpy arrays or torch tensors) to ``path``
-    in the native .npz layout, readable by helen_tpu too."""
+                    meta: Optional[Dict[str, Any]] = None,
+                    opt_state: Optional[Dict[str, Any]] = None) -> None:
+    """Atomically write params (numpy arrays or torch tensors) and, when
+    given, the Adam state ``{"count", "mu", "nu"}`` to ``path`` in the
+    native .npz layout, readable by helen_tpu too."""
     arrays = {f"params/{k}": v for k, v in flatten_tree(params).items()}
+    if opt_state is not None:
+        for i, leaf in enumerate(opt_leaves(opt_state)):
+            arrays[f"opt/{i:05d}"] = leaf
     meta = dict(meta or {})
     meta["format_version"] = FORMAT_VERSION
     buf = io.BytesIO()
@@ -70,14 +91,30 @@ def save_checkpoint(path: str, params: Any,
     os.replace(tmp, path)  # atomic: a preempted writer never corrupts the file
 
 
-def load_checkpoint(path: str) -> Tuple[Dict[str, Any], Dict[str, Any]]:
-    """Load (params, meta) from a native .npz; optimizer leaves are skipped."""
+def load_checkpoint(path: str, with_opt_state: bool = False):
+    """Load (params, meta) from a native .npz; with ``with_opt_state``,
+    (params, meta, opt_state), where opt_state is the numpy
+    ``{"count", "mu", "nu"}`` or None when the file holds none."""
     with np.load(path) as data:
         meta = json.loads(bytes(data["__meta__"].tobytes()).decode())
         params_flat = {
             k[len("params/"):]: data[k] for k in data.files if k.startswith("params/")
         }
-    return unflatten_tree(params_flat), meta
+        opt = [data[k] for k in sorted(k for k in data.files if k.startswith("opt/"))]
+    params = unflatten_tree(params_flat)
+    if not with_opt_state:
+        return params, meta
+    if not opt:
+        return params, meta, None
+    keys = list(flatten_tree(params))
+    n = len(keys)
+    if len(opt) != 1 + 2 * n:
+        raise ValueError(f"{path}: {len(opt)} optimizer leaves, expected 1 + 2 x "
+                         f"{n} (count, mu, nu of the Adam state)")
+    state = {"count": np.asarray(opt[0], dtype=np.int32).reshape(()),
+             "mu": unflatten_tree(dict(zip(keys, opt[1:1 + n]))),
+             "nu": unflatten_tree(dict(zip(keys, opt[1 + n:])))}
+    return params, meta, state
 
 
 _GRU_MAP = {"gru_encoder": "encoder", "gru_decoder": "decoder"}
@@ -169,3 +206,20 @@ def params_to_torch(params_np: Dict[str, Any], device) -> Dict[str, Any]:
         return {k: params_to_torch(v, device) for k, v in params_np.items()}
     # torch.tensor copies: the tensors never alias the caller's arrays
     return torch.tensor(np.asarray(params_np, dtype=np.float32), device=device)
+
+
+def opt_state_to_torch(state_np: Dict[str, Any], device) -> Dict[str, Any]:
+    """The Adam-state bridge: numpy ``{count, mu, nu}`` (as helen_tpu's
+    optax state flattens, or :func:`load_checkpoint` returns it) -> the
+    port's state: ``count`` a Python int, ``mu``/``nu`` float32 tensors on
+    ``device``."""
+    return {"count": int(np.asarray(state_np["count"])),
+            "mu": params_to_torch(state_np["mu"], device),
+            "nu": params_to_torch(state_np["nu"], device)}
+
+
+def opt_state_to_numpy(state: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's Adam state -> numpy ``{count (int32), mu, nu}``."""
+    return {"count": np.asarray(int(state["count"]), dtype=np.int32),
+            "mu": unflatten_tree(flatten_tree(state["mu"])),
+            "nu": unflatten_tree(flatten_tree(state["nu"]))}

@@ -10,7 +10,11 @@ Every bi-GRU window runs through the two window kernels of ops.gru_window
 of the encoder reads the window straight from the uint8 image (K1), every
 later layer — deeper encoder layers and the whole decoder — reads the
 previous layer's two output halves (K2), so no concat or projection array
-is built between layers.
+is built between layers. On the ``"cuda"`` backend the windows go through
+the autograd Functions of ops.gru_window_autograd, so the same ``forward``
+trains: its backward is the hand-written backward kernel
+(ops.gru_window_bwd). On ``"torch"`` torch's autograd differentiates the
+plain ops.
 
 Hidden-state contract (the reference's "transducer windowing",
 predict_gpu.py:99-129): the hidden is (B, 2L, H), layer-major (slot 2l is
@@ -25,20 +29,21 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from helen_tpu_torch.config import WINDOW, ModelConfig, WindowConfig
+from helen_tpu_torch.config import MODEL, WINDOW, ModelConfig, WindowConfig
 from helen_tpu_torch.ops.gru_window import (
     MAX_H,
-    bigru_window_in1,
     bigru_window_in1_plain,
-    bigru_window_in2,
     bigru_window_in2_plain,
 )
+from helen_tpu_torch.ops.gru_window_autograd import window_in1, window_in2
 
 Params = Dict[str, Any]
 
 #: values of --backend: "auto" resolves to "cuda" on a CUDA device and to
 #: "torch" on the CPU
 BACKENDS = ("auto", "cuda", "torch")
+#: helen_tpu's train backends, accepted as aliases on the train surface
+TRAIN_ALIASES = {"xla": "torch", "pallas_train": "cuda"}
 
 
 def set_fp32_precision() -> None:
@@ -72,6 +77,54 @@ def model_geometry(params: Params) -> ModelConfig:
     )
 
 
+def init_params(generator: torch.Generator, cfg: ModelConfig = MODEL) -> Params:
+    """A fresh param tree in float32 on the CPU, with the distributions of
+    helen_tpu's ``init_params``: every GRU tensor uniform(-1/sqrt(H),
+    1/sqrt(H)) (``models/gru.py:33-43``, torch's nn.GRU init), each head
+    uniform(-1/sqrt(in), 1/sqrt(in)) with in = 2H (``transducer.py:30-66``).
+    Draws come from ``generator`` in a fixed order; the values differ from
+    ``jax.random``'s."""
+    if not cfg.bidirectional or cfg.gru_layers < 1:
+        raise ValueError("the transducer is a stack of >= 1 bidirectional GRUs")
+    h = cfg.hidden_size
+
+    def uniform(k: float, *shape) -> torch.Tensor:
+        u = torch.rand(shape, generator=generator, dtype=torch.float32)
+        return (u * 2.0 - 1.0) * k
+
+    def bigru(input_dim: int) -> Params:
+        k = 1.0 / h ** 0.5
+        return {d: {"w_ih": uniform(k, input_dim, 3 * h), "w_hh": uniform(k, h, 3 * h),
+                    "b_ih": uniform(k, 3 * h), "b_hh": uniform(k, 3 * h)}
+                for d in ("fwd", "bwd")}
+
+    def stack(input_dim: int) -> Params:
+        s = bigru(input_dim)
+        for i in range(1, cfg.gru_layers):
+            s[f"l{i}"] = bigru(2 * h)
+        return s
+
+    def linear(out_dim: int) -> Params:
+        k = 1.0 / (2 * h) ** 0.5
+        return {"w": uniform(k, 2 * h, out_dim), "b": uniform(k, out_dim)}
+
+    return {"encoder": stack(cfg.input_features), "decoder": stack(2 * h),
+            "base_head": linear(cfg.num_base_classes),
+            "rle_head": linear(cfg.num_rle_classes)}
+
+
+def param_leaves(params: Params) -> List[torch.Tensor]:
+    """The param tensors in sorted key-path order — jax's tree_leaves order
+    for a dict tree, so optimizer state lines up with helen_tpu's."""
+    if isinstance(params, dict):
+        return [t for k in sorted(params) for t in param_leaves(params[k])]
+    return [params]
+
+
+def num_params(params: Params) -> int:
+    return sum(int(p.numel()) for p in param_leaves(params))
+
+
 def init_hidden(batch_size: int, cfg: ModelConfig, device=None) -> torch.Tensor:
     """Zero hidden state (B, 2L, H) in the layer-major layout."""
     return torch.zeros((batch_size, 2 * cfg.gru_layers, cfg.hidden_size),
@@ -92,14 +145,23 @@ def _apply_heads(params: Params, dec_out: torch.Tensor
 
 
 def resolve_backend(requested: Optional[str], device: torch.device,
-                    params: Optional[Params] = None) -> str:
+                    params: Optional[Params] = None, kind: str = "infer") -> str:
     """Resolve a --backend value to ``"cuda"`` (the window kernels) or
     ``"torch"`` (their plain versions).
 
     ``None``/``"auto"`` picks the kernels on a CUDA device and the plain
     versions on the CPU. ``"cuda"`` off a CUDA device, or on a geometry the
     kernels do not take, raises — nothing falls back silently. helen_tpu's
-    fast tier (``pallas_fast``) is not ported yet and raises too."""
+    fast tier (``pallas_fast``) is not ported yet and raises too.
+
+    ``kind="train"`` is the training surface: helen_tpu's ``xla`` and
+    ``pallas_train`` are accepted as aliases of ``torch`` and ``cuda``, and
+    ``"cuda"`` also needs a hidden size the backward kernel takes (the same
+    ``MAX_H``: one thread per hidden unit in its recurrence pass)."""
+    if kind not in ("infer", "train"):
+        raise ValueError(f"kind must be 'infer' or 'train', got {kind!r}")
+    if kind == "train":
+        requested = TRAIN_ALIASES.get(requested, requested)
     if requested in ("pallas_fast", "fast"):
         raise NotImplementedError(
             "the fast (bf16) tier is not yet ported to helen_tpu_torch")
@@ -114,7 +176,8 @@ def resolve_backend(requested: Optional[str], device: torch.device,
         if params is not None and model_geometry(params).hidden_size > MAX_H:
             raise ValueError(
                 f"hidden_size {model_geometry(params).hidden_size} exceeds the "
-                f"window kernels' maximum {MAX_H}; use --backend torch")
+                f"window kernels' maximum {MAX_H} (forward and backward); use "
+                "--backend torch")
     return requested
 
 
@@ -132,12 +195,13 @@ def forward(
         ``[start, start + window)`` (``window`` defaults to all L columns,
         so a (B, W, F) window with the defaults is helen_tpu's ``forward``)
     :param hidden: (B, 2L, H) carried hidden, layer-major
-    :param backend: ``"cuda"`` (window kernels) or ``"torch"`` (plain)
+    :param backend: ``"cuda"`` (window kernels, differentiable through the
+        backward kernel) or ``"torch"`` (plain ops, differentiated by torch)
     :returns: (base logits (B, W, nb), rle logits (B, W, nr), new hidden
         (B, 2L, H))
     """
     if backend == "cuda":
-        in1, in2 = bigru_window_in1, bigru_window_in2
+        in1, in2 = window_in1, window_in2
     elif backend == "torch":
         in1, in2 = bigru_window_in1_plain, bigru_window_in2_plain
     else:

@@ -117,11 +117,19 @@ def get_lib() -> ctypes.CDLL:
                 [p, ll, ll, i, i, p, p] + [p] * 8 + [p] * 4 + [i, i, i, p])
             lib.bigru_window_in2.restype = i
             lib.bigru_window_in2.argtypes = [p] * 4 + [p] * 8 + [p] * 4 + [i, i, i, p]
+            # the backward (csrc/gru_window_bwd.cu; wrapper in gru_window_bwd.py)
+            lib.bigru_window_bwd_rec.restype = i
+            lib.bigru_window_bwd_rec.argtypes = (
+                [p, ll, ll, i, p, p, i] + [p] * 8 + [p] * 12 + [p] * 6 + [i, i, i, p])
+            lib.bigru_window_bwd_wgrad.restype = i
+            lib.bigru_window_bwd_wgrad.argtypes = (
+                [p, ll, ll, i, p, p, i] + [p] * 6 + [p] * 8 + [i, i, i, p])
+            lib.gru_window_bwd_max_h.restype = i
             lib.gru_window_error_string.restype = ctypes.c_char_p
             lib.gru_window_error_string.argtypes = [i]
             lib.gru_window_max_h.restype = i
-            if lib.gru_window_max_h() != MAX_H:
-                raise RuntimeError("MAX_H disagrees with csrc/gru_window.cu")
+            if lib.gru_window_max_h() != MAX_H or lib.gru_window_bwd_max_h() != MAX_H:
+                raise RuntimeError("MAX_H disagrees with csrc/gru_window*.cu")
             _lib = lib
     return _lib
 
@@ -141,8 +149,10 @@ def bigru_window_in1_plain(image: torch.Tensor, start: int, T: int,
                            h0_f: torch.Tensor, h0_b: torch.Tensor,
                            layer: Layer) -> Outputs:
     """K1's plain version: the window ``image[:, start:start+T]`` (uint8 or
-    float) projected per direction, then the two ``gru_scan`` recurrences."""
-    x = image[:, start:start + T].to(torch.float32).transpose(0, 1)  # (T, B, F)
+    float) projected per direction, then the two ``gru_scan`` recurrences.
+    It computes in the dtype of ``h0_f`` (float32 on every path; float64
+    for the gradient checks)."""
+    x = image[:, start:start + T].to(h0_f.dtype).transpose(0, 1)  # (T, B, F)
     f, b = layer["fwd"], layer["bwd"]
     return _bidir(x @ f["w_ih"] + f["b_ih"], x @ b["w_ih"] + b["b_ih"],
                   h0_f, h0_b, layer)

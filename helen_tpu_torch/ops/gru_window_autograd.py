@@ -1,0 +1,96 @@
+"""Differentiable bi-GRU window layers: the port of helen_tpu's
+``_window_core_ip`` (``helen_tpu/ops/gru_pallas_train.py:663``, a
+``jax.custom_vjp`` around the in-projection training kernels).
+
+Two ``torch.autograd.Function``s, one per layer kind:
+
+* :func:`window_in1` — layer 0 of the encoder: forward K1
+  (``gru_window.bigru_window_in1``) on the uint8 image window, read in
+  place; backward :func:`gru_window_bwd.bigru_window_bwd` with dx off (the
+  image is data);
+* :func:`window_in2` — every later layer: forward K2 on the previous
+  layer's ``(out_f, out_b)`` halves; the backward returns their cotangents.
+
+Each saves the forward's ``out_f``/``out_b``, its inputs and the weights,
+and nothing else: the backward recomputes the gates. On CPU tensors the
+wrappers compute the plain versions, forward and backward; on CUDA tensors
+they launch the kernels or raise. Under ``torch.no_grad()`` (evaluation,
+consensus) only the forward runs.
+"""
+from __future__ import annotations
+
+from typing import List
+
+import torch
+
+from helen_tpu_torch.ops.gru_window import (
+    Layer,
+    Outputs,
+    bigru_window_in1,
+    bigru_window_in2,
+)
+from helen_tpu_torch.ops.gru_window_bwd import KEYS, bigru_window_bwd
+
+
+def flat_layer(layer: Layer) -> List[torch.Tensor]:
+    return [layer[d][k] for d in ("fwd", "bwd") for k in KEYS]
+
+
+def tree_layer(ws) -> Layer:
+    return {d: dict(zip(KEYS, ws[4 * i:4 * i + 4]))
+            for i, d in enumerate(("fwd", "bwd"))}
+
+
+def _cotangents(outs, grads):
+    """Output cotangents, contiguous, with zeros where an output got none
+    (the carried final state of the decoder, whose use is detached)."""
+    return [torch.zeros_like(o) if g is None else g.contiguous()
+            for o, g in zip(outs, grads)]
+
+
+class _ImageWindow(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, image, start, T, h0_f, h0_b, *ws):
+        outs = bigru_window_in1(image, start, T, h0_f, h0_b, tree_layer(ws))
+        ctx.start = start
+        ctx.save_for_backward(image, h0_f, h0_b, outs[0], outs[1], *ws)
+        return outs
+
+    @staticmethod
+    def backward(ctx, *grads):
+        image, h0_f, h0_b, out_f, out_b, *ws = ctx.saved_tensors
+        cts = _cotangents((out_f, out_b, h0_f, h0_b), grads)
+        _, dh0_f, dh0_b, g = bigru_window_bwd(
+            image, ctx.start, h0_f, h0_b, out_f, out_b, *cts, tree_layer(ws),
+            need_dx=False)
+        return (None, None, None, dh0_f, dh0_b, *flat_layer(g))
+
+
+class _PairWindow(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xa, xb, h0_f, h0_b, *ws):
+        outs = bigru_window_in2(xa, xb, h0_f, h0_b, tree_layer(ws))
+        ctx.save_for_backward(xa, xb, h0_f, h0_b, outs[0], outs[1], *ws)
+        return outs
+
+    @staticmethod
+    def backward(ctx, *grads):
+        xa, xb, h0_f, h0_b, out_f, out_b, *ws = ctx.saved_tensors
+        cts = _cotangents((out_f, out_b, h0_f, h0_b), grads)
+        dx, dh0_f, dh0_b, g = bigru_window_bwd(
+            (xa, xb), 0, h0_f, h0_b, out_f, out_b, *cts, tree_layer(ws),
+            need_dx=True)
+        H = xa.shape[-1]
+        return (dx[..., :H], dx[..., H:], dh0_f, dh0_b, *flat_layer(g))
+
+
+def window_in1(image: torch.Tensor, start: int, T: int, h0_f: torch.Tensor,
+               h0_b: torch.Tensor, layer: Layer) -> Outputs:
+    """Differentiable K1: ``bigru_window_in1``'s arguments and outputs."""
+    return _ImageWindow.apply(image, start, T, h0_f, h0_b, *flat_layer(layer))
+
+
+def window_in2(xa: torch.Tensor, xb: torch.Tensor, h0_f: torch.Tensor,
+               h0_b: torch.Tensor, layer: Layer) -> Outputs:
+    """Differentiable K2: ``bigru_window_in2``'s arguments and outputs."""
+    return _PairWindow.apply(xa, xb, h0_f, h0_b, *flat_layer(layer))

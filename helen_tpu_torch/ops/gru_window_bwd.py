@@ -1,0 +1,239 @@
+"""The backward of one bi-GRU window layer: the hand-written CUDA kernel,
+its plain version and its launch counters.
+
+:func:`bigru_window_bwd` is the port of helen_tpu's ``_bwd_kernel_ip``
+(``helen_tpu/ops/gru_pallas_train.py:321``), the backward of the training
+window with the input projection in-kernel. Its source is
+``ops/csrc/gru_window_bwd.cu``, built into the one kernel library with the
+window kernels (``gru_window.build_kernels``). It runs as two launches,
+each counted in :data:`launch_counts`:
+
+* ``bigru_window_bwd_rec`` (pass 1): the recurrence, unwound in reverse
+  per direction; recomputes the gates from x and h_prev, carries dh, and
+  streams ``dxp`` and the n block of ``dhp`` to scratch; writes dh0 and,
+  for later layers, dx per direction;
+* ``bigru_window_bwd_wgrad`` (pass 2): dW_ih, db_ih, dW_hh, db_hh as a
+  tiled reduction over the window's T*B rows in one fixed order (no
+  atomics: bit-identical across launches).
+
+The forward needs no kernel of its own: ``_fwd_kernel_ip`` computes what
+K1/K2 (``ops.gru_window``) compute, and the backward saves nothing beyond
+the forward's outputs (it recomputes the gates), so K1/K2 serve as the
+training forward as they stand.
+
+The layer's input ``src`` is either the ``(B, L, F)`` uint8 image, read in
+place at column ``start`` (layer 0: no dx, the image is data), or the pair
+``(xa, xb)`` of the previous layer's ``(T, B, H)`` halves. On a CPU tensor
+the wrapper computes the plain version; on a CUDA tensor it launches the
+kernels or raises.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple, Union
+
+import torch
+
+from helen_tpu_torch.ops.gru_window import (
+    MAX_H,
+    Layer,
+    _check,
+    _cuda_device,
+    _layer_args,
+    _raise_on,
+    get_lib,
+)
+
+Source = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
+#: (dx (T, B, D) summed over the directions, or None; dh0_f; dh0_b;
+#: {"fwd", "bwd"} of {"w_ih", "w_hh", "b_ih", "b_hh"} cotangents)
+Grads = Tuple[Optional[torch.Tensor], torch.Tensor, torch.Tensor, Layer]
+
+#: launches of each pass since the last reset_launch_counts() — counted
+#: where the kernel is launched and nowhere else
+launch_counts: Dict[str, int] = {"bigru_window_bwd_rec": 0,
+                                 "bigru_window_bwd_wgrad": 0}
+
+#: one direction's params, in the order the kernel library takes them
+KEYS = ("w_ih", "w_hh", "b_ih", "b_hh")
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+def window_input(src: Source, start: int, T: int, dtype) -> torch.Tensor:
+    """The layer's time-major input ``(T, B, D)`` as a float tensor."""
+    if isinstance(src, tuple):
+        return torch.cat([src[0], src[1]], dim=-1).to(dtype)
+    return src[:, start:start + T].to(dtype).transpose(0, 1)
+
+
+# ---------------------------------------------------------------------------
+# plain version (CPU path, tests, and the on-card comparison)
+# ---------------------------------------------------------------------------
+
+def _h_prev(out: torch.Tensor, h0: torch.Tensor, rev: bool) -> torch.Tensor:
+    """Each step's previous hidden: the output stream shifted one step
+    (forward direction: out[t-1]; backward direction: out[t+1]), h0 at the
+    window boundary."""
+    if rev:
+        return torch.cat([out[1:], h0[None]], dim=0)
+    return torch.cat([h0[None], out[:-1]], dim=0)
+
+
+def bigru_window_bwd_rec_plain(src: Source, start: int, h0_f, h0_b, out_f, out_b,
+                               dout_f, dout_b, dh_f, dh_b, layer: Layer,
+                               need_dx: bool = True):
+    """Pass 1's plain version: the gates recomputed for the whole window at
+    once, the carry unwound step by step (helen_tpu's equations,
+    ``gru_pallas_train.py:51-62``, ``_bwd_dir_ip`` ``:300-318``).
+
+    :returns: (dxp (2, T, B, 3H), dhp_n (2, T, B, H) — the kernel's
+        scratch streams, direction-major —, dx (T, B, D) summed over the
+        directions or None, dh0_f, dh0_b)"""
+    T, B, H = out_f.shape
+    x = window_input(src, start, T, out_f.dtype)
+    dxps, dhpns, dh0 = [], [], []
+    dx = None
+    for d, out, h0, dout, dh_final, rev in (
+            ("fwd", out_f, h0_f, dout_f, dh_f, False),
+            ("bwd", out_b, h0_b, dout_b, dh_b, True)):
+        p = layer[d]
+        h_prev = _h_prev(out, h0, rev)
+        xp = x @ p["w_ih"] + p["b_ih"]
+        hp = h_prev @ p["w_hh"] + p["b_hh"]
+        r = torch.sigmoid(xp[..., :H] + hp[..., :H])
+        z = torch.sigmoid(xp[..., H:2 * H] + hp[..., H:2 * H])
+        hp_n = hp[..., 2 * H:]
+        n = torch.tanh(xp[..., 2 * H:] + r * hp_n)
+        dxp = [None] * T
+        dhpn = [None] * T
+        carry = dh_final
+        for t in (range(T) if rev else range(T - 1, -1, -1)):
+            dh = dout[t] + carry
+            dz = dh * (h_prev[t] - n[t])
+            da = dh * (1.0 - z[t]) * (1.0 - n[t] * n[t])
+            dr = da * hp_n[t]
+            drpre = dr * r[t] * (1.0 - r[t])
+            dzpre = dz * z[t] * (1.0 - z[t])
+            dxp[t] = torch.cat([drpre, dzpre, da], dim=-1)
+            dhpn[t] = da * r[t]
+            dhp = torch.cat([drpre, dzpre, dhpn[t]], dim=-1)
+            carry = dh * z[t] + dhp @ p["w_hh"].T
+        dxps.append(torch.stack(dxp))
+        dhpns.append(torch.stack(dhpn))
+        if need_dx:
+            dx_d = dxps[-1] @ p["w_ih"].T
+            dx = dx_d if dx is None else dx + dx_d
+        dh0.append(carry)
+    return torch.stack(dxps), torch.stack(dhpns), dx, dh0[0], dh0[1]
+
+
+def bigru_window_bwd_wgrad_plain(src: Source, start: int, h0_f, h0_b, out_f, out_b,
+                                 dxp: torch.Tensor, dhpn: torch.Tensor) -> Layer:
+    """Pass 2's plain version: the weight cotangents as sums over all T*B
+    rows, ``dW_ih = x^T dxp``, ``db_ih = sum dxp``, ``dW_hh = h_prev^T dhp``,
+    ``db_hh = sum dhp`` with ``dhp = [dxp_r | dxp_z | dhp_n]``."""
+    T, B, H = out_f.shape
+    x = window_input(src, start, T, out_f.dtype).reshape(T * B, -1)
+    grads: Layer = {}
+    for i, (d, out, h0, rev) in enumerate((("fwd", out_f, h0_f, False),
+                                           ("bwd", out_b, h0_b, True))):
+        g_x = dxp[i].reshape(T * B, 3 * H)
+        g_h = torch.cat([g_x[:, :2 * H], dhpn[i].reshape(T * B, H)], dim=-1)
+        h_prev = _h_prev(out, h0, rev).reshape(T * B, H)
+        grads[d] = {"w_ih": x.T @ g_x, "w_hh": h_prev.T @ g_h,
+                    "b_ih": g_x.sum(dim=0), "b_hh": g_h.sum(dim=0)}
+    return grads
+
+
+def bigru_window_bwd_plain(src: Source, start: int, h0_f, h0_b, out_f, out_b,
+                           dout_f, dout_b, dh_f, dh_b, layer: Layer,
+                           need_dx: bool = True) -> Grads:
+    """The backward in explicit torch ops: pass 1's then pass 2's plain
+    version, with the kernel's outputs."""
+    dxp, dhpn, dx, dh0_f, dh0_b = bigru_window_bwd_rec_plain(
+        src, start, h0_f, h0_b, out_f, out_b, dout_f, dout_b, dh_f, dh_b, layer,
+        need_dx)
+    grads = bigru_window_bwd_wgrad_plain(src, start, h0_f, h0_b, out_f, out_b,
+                                         dxp, dhpn)
+    return dx, dh0_f, dh0_b, grads
+
+
+# ---------------------------------------------------------------------------
+# kernel wrapper
+# ---------------------------------------------------------------------------
+
+def bigru_window_bwd(src: Source, start: int, h0_f, h0_b, out_f, out_b,
+                     dout_f, dout_b, dh_f, dh_b, layer: Layer,
+                     need_dx: bool = True) -> Grads:
+    """The backward of one bi-GRU window layer (see the module docstring):
+    pass 1 then pass 2 on the current stream. ``need_dx`` is ignored for
+    the image (layer 0 has no dx)."""
+    pair = isinstance(src, tuple)
+    lead = src[0] if pair else src
+    if lead.device.type == "cpu":
+        return bigru_window_bwd_plain(src, start, h0_f, h0_b, out_f, out_b,
+                                      dout_f, dout_b, dh_f, dh_b, layer,
+                                      need_dx and pair)
+    dev = _cuda_device(lead, "bigru_window_bwd")
+    T, B, H = out_f.shape
+    if not 0 < H <= MAX_H:
+        raise ValueError(f"H={H} exceeds the backward kernel's maximum {MAX_H}")
+    if pair:
+        xa, xb = src
+        _check("xa", xa, (T, B, H), torch.float32, dev)
+        _check("xb", xb, (T, B, H), torch.float32, dev)
+        D = 2 * H
+        img_args = [None, 0, 0, 0, xa.data_ptr(), xb.data_ptr(), D]
+    else:
+        if src.dtype != torch.uint8 or src.dim() != 3 or src.stride(2) != 1:
+            raise ValueError("bigru_window_bwd takes a (B, L, F) uint8 image "
+                             "with unit feature stride, or an (xa, xb) pair")
+        Bi, L, D = src.shape
+        if Bi != B or not (0 <= start and start + T <= L):
+            raise ValueError(f"window [{start}, {start + T}) of a {tuple(src.shape)} "
+                             f"image for outputs of {(T, B, H)}")
+        img_args = [src.data_ptr(), src.stride(0), src.stride(1), start, None, None, D]
+    for name, t, shape in (("h0_f", h0_f, (B, H)), ("h0_b", h0_b, (B, H)),
+                           ("out_f", out_f, (T, B, H)), ("out_b", out_b, (T, B, H)),
+                           ("dout_f", dout_f, (T, B, H)), ("dout_b", dout_b, (T, B, H)),
+                           ("dh_f", dh_f, (B, H)), ("dh_b", dh_b, (B, H))):
+        _check(name, t, shape, torch.float32, dev)
+    w = _layer_args(layer, D, H, dev)  # checks, and the forward's pointers
+    # the transposes the kernel reads coalesced (helen_tpu's wrapper makes
+    # the same swapaxes copies, gru_pallas_train.py:655-656)
+    wT = {d: (layer[d]["w_ih"].T.contiguous(), layer[d]["w_hh"].T.contiguous())
+          for d in ("fwd", "bwd")}
+    weights = []
+    for i, d in enumerate(("fwd", "bwd")):
+        wi, wh, bi, bh = w[4 * i:4 * i + 4]
+        weights += [wi, wh, wT[d][0].data_ptr(), wT[d][1].data_ptr(), bi, bh]
+    e = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)  # noqa: E731
+    dxp, dhpn = e(2, T, B, 3 * H), e(2, T, B, H)
+    want_dx = need_dx and pair
+    dx_f, dx_b = (e(T, B, D), e(T, B, D)) if want_dx else (None, None)
+    dh0_f, dh0_b = e(B, H), e(B, H)
+    grads = {d: {"w_ih": e(D, 3 * H), "w_hh": e(H, 3 * H), "b_ih": e(3 * H),
+                 "b_hh": e(3 * H)} for d in ("fwd", "bwd")}
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    lib = get_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.bigru_window_bwd_rec(
+            *img_args, *(t.data_ptr() for t in (h0_f, h0_b, out_f, out_b, dout_f,
+                                                dout_b, dh_f, dh_b)),
+            *weights, dxp.data_ptr(), dhpn.data_ptr(), ptr(dx_f), ptr(dx_b),
+            dh0_f.data_ptr(), dh0_b.data_ptr(), T, B, H, stream)
+        _raise_on(err, "bigru_window_bwd_rec")
+        launch_counts["bigru_window_bwd_rec"] += 1
+        err = lib.bigru_window_bwd_wgrad(
+            *img_args, *(t.data_ptr() for t in (h0_f, h0_b, out_f, out_b)),
+            dxp.data_ptr(), dhpn.data_ptr(),
+            *(grads[d][k].data_ptr() for d in ("fwd", "bwd") for k in KEYS),
+            T, B, H, stream)
+        _raise_on(err, "bigru_window_bwd_wgrad")
+        launch_counts["bigru_window_bwd_wgrad"] += 1
+    dx = dx_f + dx_b if want_dx else None
+    return dx, dh0_f, dh0_b, grads

@@ -1,4 +1,5 @@
-"""The CUDA window kernels against their plain versions, on the GPU.
+"""The CUDA window kernels (forward K1/K2, and the backward) against their
+plain versions, on the GPU.
 
 These tests need an NVIDIA GPU with ``nvcc`` (the kernels build for sm_90a
 from helen_tpu_torch/ops/csrc at first use); elsewhere they skip. They
@@ -8,7 +9,9 @@ import neither JAX nor helen_tpu, so they run on a GPU host without JAX:
 
 Tolerance 1e-5: kernel and plain version compute the same fp32 arithmetic
 with sums taken in another order (the kernel's FMA chain against the CPU's
-or cuBLAS's blocked products).
+or cuBLAS's blocked products). For the backward the bound is 1e-5 times
+the output's largest magnitude (at least 1): its weight cotangents are sums
+over all T*B rows of the window, whose rounding grows with their size.
 """
 import numpy as np
 import pytest
@@ -128,3 +131,131 @@ def test_consensus_kernels_match_plain_labels(dev):
     pb, pr = consensus_probs(params, images, backend="torch")
     assert float((kb - pb).abs().max()) <= 1e-4
     assert float((kr - pr).abs().max()) <= 1e-4
+
+
+def _scaled_close(got, want, what):
+    scale = max(1.0, float(want.abs().max()))
+    err = float((got - want).abs().max())
+    assert err <= TOL * scale, f"{what}: max |kernel - plain| {err} (scale {scale})"
+
+
+def bwd_case(rng, kind, T, B, H, dev):
+    """Inputs of one backward launch: the layer input, forward outputs (from
+    the plain forward), nonzero h0, dout and final-state cotangents."""
+    from helen_tpu_torch.ops import gru_window as gw
+
+    r = lambda *s: torch.from_numpy(rng.uniform(-1, 1, s).astype(np.float32)).to(dev)  # noqa: E731
+    h0f, h0b, dhf, dhb = (r(B, H) for _ in range(4))
+    if kind == "image":
+        start = 11
+        src = torch.from_numpy(rng.integers(0, 256, (B, T + 20, 90), dtype=np.uint8)).to(dev)
+        layer = make_layer(rng, 90, H, dev, w_ih_scale=1 / 64)
+        of, ob, _, _ = gw.bigru_window_in1_plain(src, start, T, h0f, h0b, layer)
+    else:
+        start = 0
+        src = (r(T, B, H), r(T, B, H))
+        layer = make_layer(rng, 2 * H, H, dev)
+        of, ob, _, _ = gw.bigru_window_in2_plain(*src, h0f, h0b, layer)
+    return (src, start, h0f, h0b, of.contiguous(), ob.contiguous(), r(T, B, H),
+            r(T, B, H), dhf, dhb, layer)
+
+
+def assert_grads_close(got, want):
+    dx, dh0f, dh0b, g = got
+    wdx, wdh0f, wdh0b, wg = want
+    assert (dx is None) == (wdx is None)
+    if dx is not None:
+        _scaled_close(dx, wdx, "dx")
+    _scaled_close(dh0f, wdh0f, "dh0_f")
+    _scaled_close(dh0b, wdh0b, "dh0_b")
+    for d in ("fwd", "bwd"):
+        for k in ("w_ih", "w_hh", "b_ih", "b_hh"):
+            assert g[d][k].shape == wg[d][k].shape, (d, k)
+            _scaled_close(g[d][k], wg[d][k], f"{d}.{k}")
+
+
+# ragged batches (1, 13, 257 rows against the 8-row block), H=160, both
+# layer kinds; layer 0 (the image) has no dx
+@pytest.mark.parametrize("kind,T,B,H", [("image", 7, 1, 128), ("image", 9, 13, 128),
+                                        ("pair", 6, 257, 128), ("image", 5, 13, 160),
+                                        ("pair", 5, 13, 160), ("pair", 100, 64, 128)])
+def test_backward_kernel_matches_plain(dev, kind, T, B, H):
+    from helen_tpu_torch.ops import gru_window_bwd as gb
+
+    args = bwd_case(np.random.default_rng(T * B + H), kind, T, B, H, dev)
+    before = dict(gb.launch_counts)
+    got = gb.bigru_window_bwd(*args)
+    torch.cuda.synchronize()
+    assert gb.launch_counts == {k: v + 1 for k, v in before.items()}
+    assert (got[0] is None) == (kind == "image")
+    assert_grads_close(got, gb.bigru_window_bwd_plain(*args, need_dx=kind == "pair"))
+
+
+def test_backward_kernel_dx_off_for_pairs(dev):
+    from helen_tpu_torch.ops import gru_window_bwd as gb
+
+    args = bwd_case(np.random.default_rng(3), "pair", 5, 9, 128, dev)
+    got = gb.bigru_window_bwd(*args, need_dx=False)
+    assert got[0] is None
+    assert_grads_close(got, gb.bigru_window_bwd_plain(*args, need_dx=False))
+
+
+def test_backward_kernel_is_bit_identical_across_launches(dev):
+    from helen_tpu_torch.ops import gru_window_bwd as gb
+
+    args = bwd_case(np.random.default_rng(4), "pair", 50, 100, 128, dev)
+    a, b = gb.bigru_window_bwd(*args), gb.bigru_window_bwd(*args)
+    flat = lambda r: [r[0], r[1], r[2]] + [r[3][d][k] for d in ("fwd", "bwd")  # noqa: E731
+                                            for k in ("w_ih", "w_hh", "b_ih", "b_hh")]
+    for x, y in zip(flat(a), flat(b)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("layers", [1, 2])
+def test_window_gradients_kernel_route_match_plain_route(dev, layers):
+    """One transducer window, loss on both heads and the new hidden:
+    gradients through the kernels (forward K1/K2, backward kernel) against
+    torch's autograd of the plain route, with 1 and 2 layers."""
+    from helen_tpu_torch.config import MODEL
+    from helen_tpu_torch.io.checkpoint import params_to_torch
+    from helen_tpu_torch.models.transducer import forward, init_params, param_leaves
+
+    cfg = __import__("dataclasses").replace(MODEL, gru_layers=layers)
+    params_cpu = init_params(torch.Generator().manual_seed(layers), cfg)
+    rng = np.random.default_rng(layers)
+    image = torch.from_numpy(rng.integers(0, 30, (40, 300, 90), dtype=np.uint8)).to(dev)
+    hidden = torch.from_numpy(rng.uniform(-1, 1, (40, 2 * layers, 128)).astype(np.float32)).to(dev)
+    w = [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)
+         for s in ((40, 100, 5), (40, 100, 11), (40, 2 * layers, 128))]
+    grads = {}
+    for backend in ("cuda", "torch"):
+        p = params_to_torch(params_cpu, dev)
+        for t in param_leaves(p):
+            t.requires_grad_(True)
+        h = hidden.clone().requires_grad_(True)
+        base, rle, hn = forward(p, image, h, backend, start=150, window=100)
+        ((base * w[0]).sum() + (rle * w[1]).sum() + (hn * w[2]).sum()).backward()
+        grads[backend] = [t.grad for t in param_leaves(p)] + [h.grad]
+    for i, (k, q) in enumerate(zip(grads["cuda"], grads["torch"])):
+        _scaled_close(k, q, f"leaf {i}")
+
+
+def test_backward_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    from helen_tpu_torch.ops import gru_window_bwd as gb
+
+    src, start, h0f, h0b, of, ob, dof, dob, dhf, dhb, layer = bwd_case(
+        np.random.default_rng(6), "image", 4, 8, 128, dev)
+    rest = (h0f, h0b, of, ob, dof, dob, dhf, dhb, layer)
+    with pytest.raises(ValueError):  # float image
+        gb.bigru_window_bwd(src.float(), start, *rest)
+    with pytest.raises(ValueError):  # window past the image's end
+        gb.bigru_window_bwd(src, src.shape[1] - 2, *rest)
+    with pytest.raises(ValueError):  # a cotangent on the CPU
+        gb.bigru_window_bwd(src, start, h0f, h0b, of, ob, dof.cpu(), dob, dhf, dhb, layer)
+    with pytest.raises(TypeError):  # a float64 cotangent
+        gb.bigru_window_bwd(src, start, h0f, h0b, of, ob, dof.double(), dob, dhf, dhb, layer)
+    with pytest.raises(ValueError):  # a cotangent of the wrong shape
+        gb.bigru_window_bwd(src, start, h0f, h0b, of, ob, dof[:-1], dob, dhf, dhb, layer)
+    with pytest.raises(ValueError):  # non-contiguous forward output
+        gb.bigru_window_bwd(src, start, h0f, h0b, of.transpose(0, 1).contiguous()
+                            .transpose(0, 1), ob, dof, dob, dhf, dhb, layer)

@@ -1,9 +1,9 @@
 """helen_tpu_torch stands alone: it imports neither JAX nor helen_tpu.
 
 An AST scan of every module of the port (and of chip_smoke.py, which drives
-it on the GPU) fails on any import of ``jax`` or ``helen_tpu``; a subprocess
-with ``jax`` and ``h5py`` blocked imports the package and polishes the golden
-images on the CPU.
+it on the GPU) fails on any import of ``jax`` or ``helen_tpu``; subprocesses
+with ``jax`` and ``h5py`` blocked import the package and polish the golden
+images, and train and test a small model, on the CPU.
 """
 import ast
 import glob
@@ -104,3 +104,40 @@ def test_polishes_on_cpu_with_jax_and_h5py_blocked(tmp_path):
     with open(out / "HELEN_prediction.fa", "rb") as a, \
             open(os.path.join(GOLDEN_DIR, "golden.fa"), "rb") as b:
         assert a.read() == b.read()
+
+
+def test_trains_and_tests_on_cpu_with_jax_and_h5py_blocked(tmp_path):
+    """``train --device cpu`` (one epoch, a fresh H=16 model on labeled
+    synthetic images written by the port) then ``test`` of its latest
+    checkpoint, with ``import jax`` and ``import h5py`` made to fail; the
+    test run reproduces the epoch's test loss."""
+    code = (
+        "import glob, json, os, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['h5py'] = None\n"
+        "import torch\n"
+        "torch.set_num_threads(2)\n"
+        "from helen_tpu_torch.cli import main\n"
+        "from helen_tpu_torch.io.synthetic import random_sequence, write_image_file\n"
+        f"root = {str(tmp_path)!r}\n"
+        "for name, bp in (('tr', 6000), ('te', 2500)):\n"
+        "    os.makedirs(os.path.join(root, name))\n"
+        "    write_image_file(os.path.join(root, name, 'i.h5'), {name: random_sequence(bp, seed=bp)},\n"
+        "                     region_cols=1000, overlap_cols=0, noise=0.05)\n"
+        "out = os.path.join(root, 'out')\n"
+        "assert main(['train', '--train_image_dir', os.path.join(root, 'tr'), '--test_image_dir',\n"
+        "             os.path.join(root, 'te'), '-b', '4', '-e', '1', '-w', '2', '-o', out,\n"
+        "             '--device', 'cpu', '--hidden_size', '16']) == 0\n"
+        "run = glob.glob(os.path.join(out, 'trained_models_*'))[0]\n"
+        "epoch = json.loads(open(os.path.join(run, 'stats', 'epochs.jsonl')).read())\n"
+        "assert main(['test', '--test_image_dir', os.path.join(root, 'te'), '-m',\n"
+        "             os.path.join(run, 'models', 'HELEN_latest_checkpoint.npz'), '-b', '4',\n"
+        "             '-o', os.path.join(root, 'tout'), '--device', 'cpu']) == 0\n"
+        "stats = json.load(open(os.path.join(root, 'tout', 'test_stats.json')))\n"
+        "assert stats['loss'] == epoch['test_loss'], (stats['loss'], epoch['test_loss'])\n"
+        "assert stats['rle_confusion_matrix'] == epoch['rle_confusion_matrix']\n"
+        "assert not any(m in ('jax', 'helen_tpu') or m.startswith(('jax.', 'helen_tpu.'))"
+        " for m in sys.modules if sys.modules[m] is not None)\n"
+    )
+    proc = _run(code, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]

@@ -4,7 +4,8 @@ The golden images polish to a FASTA whose sha256 equals the one recorded by
 the reference torch code, with the streaming stitch and with the classic
 one; the trained checkpoint polishes an unseen sequence to the truth; the
 port's prediction store stitches to the same FASTA in helen_tpu. The CLI
-refuses to fall back to the CPU, and refuses flags of paths not yet ported.
+(polish, call_consensus, train, test) refuses to fall back to the CPU, and
+refuses flags of paths not yet ported.
 """
 import hashlib
 import os
@@ -83,6 +84,20 @@ def test_cuda_is_the_default_and_never_falls_back_to_cpu(tmp_path, capsys):
     assert not os.path.exists(tmp_path / "o") and not os.path.exists(tmp_path / "o2")
 
 
+@pytest.mark.parametrize("argv", [
+    ["train", "--train_image_dir", "tr", "--test_image_dir", "te"],
+    ["test", "--test_image_dir", "te", "-m", "model.npz"],
+], ids=["train", "test"])
+def test_train_and_test_need_a_gpu_or_device_cpu(argv, tmp_path, capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is visible: the default device is usable here")
+    with pytest.raises(SystemExit) as exc:
+        cli(*argv, "-o", tmp_path / "o")
+    assert exc.value.code == 2
+    assert "needs a CUDA GPU" in capsys.readouterr().err
+    assert not os.path.exists(tmp_path / "o")
+
+
 UNPORTED = [
     ("--fast", ["polish", "--fast"]),
     ("pallas_fast", ["polish", "--backend", "pallas_fast"]),
@@ -94,12 +109,29 @@ UNPORTED = [
     ("--host_shard", ["polish", "--host_shard", "image"]),
     ("--num_processes", ["--num_processes", "2", "polish"]),
 ]
+TRAIN_ARGS = ["--train_image_dir", "tr", "--test_image_dir", "te", "--device", "cpu"]
+TEST_ARGS = ["--test_image_dir", "te", "-m", "model.npz", "--device", "cpu"]
+UNPORTED_TRAIN = [
+    ("train--pack", ["train", "--pack", *TRAIN_ARGS]),
+    ("train--model_parallel", ["train", "--model_parallel", "2", *TRAIN_ARGS]),
+    ("train--distributed", ["--distributed", "train", *TRAIN_ARGS]),
+    ("test--debug_mismatches", ["test", "--debug_mismatches", *TEST_ARGS]),
+]
 
 
 @pytest.mark.parametrize("argv", [a for _, a in UNPORTED], ids=[i for i, _ in UNPORTED])
 def test_unported_flags_are_refused(argv, capsys):
     with pytest.raises(SystemExit) as exc:
         cli(*argv, "-i", "imgs", "-m", "model.pkl", "--device", "cpu")
+    assert exc.value.code == 2
+    assert "not yet ported" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv", [a for _, a in UNPORTED_TRAIN],
+                         ids=[i for i, _ in UNPORTED_TRAIN])
+def test_unported_train_flags_are_refused(argv, capsys):
+    with pytest.raises(SystemExit) as exc:
+        cli(*argv)
     assert exc.value.code == 2
     assert "not yet ported" in capsys.readouterr().err
 
