@@ -14,8 +14,12 @@ drives a full-width polish (>= 2048 images at batch 512) while counting the
 kernel launches, and then the training path: the backward kernel against
 its plain version and cuDNN's GRU backward, one TBPTT batch through the
 kernels against the plain route, and ``train`` then ``test`` through the
-CLI on the full-width images with the launches counted. Every phase fails
-the script on error; nothing falls back.
+CLI on the full-width images with the launches counted. Phase 9 drives the
+wide models (H=1024) through the xp-stream kernels: K3 and K4 against their
+plain versions, the golden fixtures and a cross-route check at H=512
+through the forced xp route, then ``train``, ``test`` and ``polish`` at
+H=1024 with the launches counted. Every phase fails the script on error;
+nothing falls back.
 The second-to-last line is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
 checkout, it exits non-zero and prints no result. It imports nothing of JAX.
@@ -54,6 +58,11 @@ TB = 256
 TEST_CONTIG_BP = 200_000
 TRAIN_EPOCHS = 3
 BWD_PASSES = ("bigru_window_bwd_rec", "bigru_window_bwd_wgrad")
+# the wide configuration (phase 9): the flagship transducer at H=1024,
+# trained at -b 64 on 128 images, polished at -b 256
+WH = 1024
+WB_TRAIN, N_WIDE_TRAIN, WB_POLISH = 64, 128, 256
+XP_PASSES = ("bigru_window_xp_bwd_rec", "bigru_window_xp_bwd_wgrad")
 
 
 def fail(msg: str) -> None:
@@ -358,16 +367,16 @@ def run_full_width(img_dir: str, truth, n_images: int, work: str, results) -> No
         fail("the kernel path's labels disagree with the plain path")
 
 
-def timed_passes(fn, iters: int = 10, warmup: int = 2) -> dict:
-    """Device ms of each of the backward wrapper's two launches: CUDA events
+def timed_passes(fn, iters: int = 10, warmup: int = 2, passes=BWD_PASSES) -> dict:
+    """Device ms of each of a backward wrapper's two launches: CUDA events
     recorded around each call into the kernel library while ``fn`` runs."""
     import torch
 
     from helen_tpu_torch.ops import gru_window as gw
 
     lib = gw.get_lib()
-    orig = {n: getattr(lib, n) for n in BWD_PASSES}
-    spans = {n: [] for n in BWD_PASSES}
+    orig = {n: getattr(lib, n) for n in passes}
+    spans = {n: [] for n in passes}
 
     def timed(name):
         def call(*args):
@@ -383,15 +392,15 @@ def timed_passes(fn, iters: int = 10, warmup: int = 2) -> dict:
     for _ in range(warmup):
         fn()
     try:
-        for n in BWD_PASSES:
+        for n in passes:
             setattr(lib, n, timed(n))
         for _ in range(iters):
             fn()
     finally:
-        for n in BWD_PASSES:
+        for n in passes:
             setattr(lib, n, orig[n])
     torch.cuda.synchronize()
-    return {n: sum(a.elapsed_time(b) for a, b in spans[n]) / iters for n in BWD_PASSES}
+    return {n: sum(a.elapsed_time(b) for a, b in spans[n]) / iters for n in passes}
 
 
 def check_backward(images_u8, results) -> None:
@@ -684,6 +693,397 @@ def run_train(img_dir: str, n_images: int, work: str, results) -> None:
         fail("test launch counts differ from batches x windows")
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the wide models (H > 512) through the xp-stream kernels K3/K4
+# ---------------------------------------------------------------------------
+
+def project(x, layer):
+    """The xp route's input projections ``x @ W_ih + b_ih`` per direction."""
+    return tuple(x @ layer[d]["w_ih"] + layer[d]["b_ih"] for d in ("fwd", "bwd"))
+
+
+def check_xp_kernel(images_u8, results) -> None:
+    """Phase 9a: K3 against its plain version at B=512, T=100, H=1024 for
+    both layer kinds (xp from the uint8 image window, D=90; from the pair
+    of K3's outputs, D=2048), timed beside its plain version, the
+    projection GEMMs and cuDNN's GRU forward at the same (D, H)."""
+    import numpy as np
+    import torch
+
+    from helen_tpu_torch.ops import gru_window_xp as gx
+
+    dev = images_u8.device
+    rng = np.random.default_rng(20261018)
+    h0 = [torch.from_numpy(rng.uniform(-0.5, 0.5, (B, WH)).astype("float32")).to(dev)
+          for _ in range(4)]
+    start = 450
+    x0 = images_u8[:, start:start + T].to(torch.float32).transpose(0, 1).contiguous()
+    acc = {k: 0.0 for k in ("ms", "plain_ms", "library_ms", "projection_ms", "err")}
+    flops = 2.0 * T * B * 3 * WH * WH * 2
+    nbytes = (2 * 4 * T * B * 3 * WH + 2 * 4 * T * B * WH
+              + 2 * 4 * (WH * 3 * WH + 3 * WH) + 4 * 4 * B * WH)
+    bound_ms, bound_by = bound(flops, nbytes)
+    x, hf, hb = x0, h0[0], h0[1]
+    for label, D in (("layer 0, image D=90", F), ("decoder, pair D=2048", 2 * WH)):
+        layer = random_layer(rng, D, WH, dev)
+        with torch.no_grad():
+            xp_f, xp_b = project(x, layer)
+            got = gx.bigru_window_xp(xp_f, xp_b, hf, hb, layer)
+            want = gx.bigru_window_xp_plain(xp_f, xp_b, hf, hb, layer)
+            torch.cuda.synchronize()
+            err = max_err(got, want)
+            ms = cuda_ms(lambda: gx.bigru_window_xp(xp_f, xp_b, hf, hb, layer),
+                         iters=5, warmup=1)
+            plain_ms = cuda_ms(lambda: gx.bigru_window_xp_plain(xp_f, xp_b, hf, hb, layer),
+                               iters=2, warmup=1)
+            proj_ms = cuda_ms(lambda: project(x, layer), iters=5, warmup=1)
+            gru = cudnn_gru(layer, D, WH, dev)
+            hx = torch.stack([hf, hb])
+            lib_ms = cuda_ms(lambda: gru(x, hx), iters=5, warmup=1)
+        log(f"K3 bigru_window_xp ({label}): max |kernel - plain| {err:.3g} (limit {TOL:g}); "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, projection GEMMs {proj_ms:.4f} ms, "
+            f"cuDNN GRU forward {lib_ms:.4f} ms (TF32 off), bound {bound_ms:.4f} ms "
+            f"({bound_by}: {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)")
+        if not err <= TOL:
+            fail(f"K3 ({label}) disagrees with its plain version")
+        for k, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                     ("projection_ms", proj_ms)):
+            acc[k] += v / 2
+        acc["err"] = max(acc["err"], err)
+        # the decoder reads layer 0's outputs, as on the main path
+        x, hf, hb = torch.cat([got[0], got[1]], -1), h0[2], h0[3]
+    results["bigru_window_xp"] = {
+        "name": "bigru_window_xp", "route": "cuda",
+        "source": "helen_tpu_torch/ops/csrc/gru_window_xp.cu",
+        "replaces": "helen_tpu/ops/gru_pallas.py:231 (_kernel); "
+                    "helen_tpu/ops/gru_pallas_train.py:119 (_fwd_kernel)",
+        "max_abs_err": acc["err"], "ms": acc["ms"], "kernel_ms": acc["ms"],
+        "plain_ms": acc["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": acc["library_ms"], "projection_ms": acc["projection_ms"],
+        "per": "one launch at B=512, T=100, H=1024 (mean of layer 0, D=90, and the "
+               "decoder, D=2048; library: cuDNN's GRU forward of the layer, "
+               "projection included)",
+    }
+
+
+def check_xp_backward(results) -> None:
+    """Phase 9b: K4 against its plain version at B=64, T=100, H=1024, the
+    decoder layer of a training window, bit-identity of two launches, and
+    each pass's time beside the plain version, the bound and the libraries
+    (cuDNN's GRU backward at D=2048 for pass 1, cuBLAS's products for pass
+    2; the port calls neither)."""
+    import numpy as np
+    import torch
+
+    from helen_tpu_torch.ops import gru_window_xp as gx
+    from helen_tpu_torch.ops import gru_window_xp_bwd as gxb
+    from helen_tpu_torch.ops.gru_window_bwd import _h_prev
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(20261019)
+    r = lambda *s: torch.from_numpy(rng.uniform(-1, 1, s).astype("float32")).to(dev)  # noqa: E731
+    Bw, D, n = WB_TRAIN, 2 * WH, WB_TRAIN * T
+    layer = random_layer(rng, D, WH, dev)
+    x = r(T, Bw, D)
+    h0f, h0b, dhf, dhb = (r(Bw, WH) for _ in range(4))
+    dof, dob = r(T, Bw, WH), r(T, Bw, WH)
+    with torch.no_grad():
+        xp_f, xp_b = project(x, layer)
+        of, ob, _, _ = gx.bigru_window_xp(xp_f, xp_b, h0f, h0b, layer)
+    args = (xp_f, xp_b, h0f, h0b, of, ob, dof, dob, dhf, dhb, layer)
+    got = gxb.bigru_window_xp_bwd(*args)
+    again = gxb.bigru_window_xp_bwd(*args)
+    want = gxb.bigru_window_xp_bwd_plain(*args)
+    torch.cuda.synchronize()
+    flat = lambda res: [("dxp_f", res[0]), ("dxp_b", res[1]), ("dh0_f", res[2]),  # noqa: E731
+                        ("dh0_b", res[3])] + [(f"{d}.{k}", res[4][d][k])
+                                              for d in ("fwd", "bwd")
+                                              for k in ("w_hh", "b_hh")]
+    worst = worst_scaled = 0.0
+    for (what, g), (_, w), (_, a) in zip(flat(got), flat(want), flat(again)):
+        err = float((g - w).abs().max())
+        scale = max(1.0, float(w.abs().max()))
+        worst, worst_scaled = max(worst, err), max(worst_scaled, err / scale)
+        log(f"K4 backward: {what}: max |kernel - plain| {err:.3g} (limit {TOL:g} x {scale:.4g})")
+        if err > TOL * scale:
+            fail(f"K4: {what} disagrees with its plain version")
+        if not torch.equal(g, a):
+            fail(f"K4: {what} differs between two launches")
+    log("K4 backward: two launches bit-identical")
+
+    ms = timed_passes(lambda: gxb.bigru_window_xp_bwd(*args), iters=5, warmup=1,
+                      passes=XP_PASSES)
+    dxp, dhpn, *_ = gxb.bigru_window_xp_bwd_rec_plain(*args)
+    plain = {
+        XP_PASSES[0]: cuda_ms(lambda: gxb.bigru_window_xp_bwd_rec_plain(*args),
+                              iters=2, warmup=1),
+        XP_PASSES[1]: cuda_ms(lambda: gxb.bigru_window_xp_bwd_wgrad_plain(
+            h0f, h0b, of, ob, dxp, dhpn), iters=3, warmup=1),
+    }
+    gru = cudnn_gru(layer, D, WH, dev)
+    xg = x.clone().requires_grad_(True)
+    hx = torch.stack([h0f, h0b]).requires_grad_(True)
+    dout_cat, dh_cat = torch.cat([dof, dob], -1), torch.stack([dhf, dhb])
+
+    def fwd_bwd():
+        out, hn = gru(xg, hx)
+        torch.autograd.backward([out, hn], [dout_cat, dh_cat])
+
+    cudnn_ms = cuda_ms(fwd_bwd, iters=5, warmup=1) - cuda_ms(lambda: gru(xg, hx), iters=5,
+                                                             warmup=1)
+    ones = torch.ones(n, 1, device=dev)
+    prods = []
+    for i, (out, h0, rev) in enumerate(((of, h0f, False), (ob, h0b, True))):
+        g_x = dxp[i].reshape(n, 3 * WH)
+        g_h = torch.cat([g_x[:, :2 * WH], dhpn[i].reshape(n, WH)], 1)
+        prods.append((torch.cat([_h_prev(out, h0, rev).reshape(n, WH), ones], 1), g_h))
+    cublas_ms = cuda_ms(lambda: [a.T @ b for a, b in prods], iters=5, warmup=1)
+    library = {XP_PASSES[0]: cudnn_ms, XP_PASSES[1]: cublas_ms}
+    stream, stream3, vec = 4 * n * WH, 4 * n * 3 * WH, 4 * Bw * WH
+    w_bytes = 2 * 4 * (WH * 3 * WH + 3 * WH)
+    cost = {
+        XP_PASSES[0]: (2 * 2 * 2.0 * n * 3 * WH * WH,              # gates + carry, 2 dirs
+                       2 * (stream3 + 2 * stream) + 4 * vec + w_bytes   # xp, out, dout, h0, dh
+                       + 2 * (stream3 + stream) + 2 * vec),             # dxp, dhp_n, dh0
+        XP_PASSES[1]: (2 * 2.0 * n * (WH + 1) * 3 * WH,
+                       2 * stream + 2 * vec + 2 * (stream3 + stream) + w_bytes),
+    }
+    for name in XP_PASSES:
+        flops, nbytes = cost[name]
+        bound_ms, bound_by = bound(flops, nbytes)
+        log(f"{name} (B={Bw}, T={T}, H={WH}): kernel {ms[name]:.4f} ms, plain "
+            f"{plain[name]:.3f} ms, library {library[name]:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+        results[name] = {
+            "name": name, "route": "cuda",
+            "source": "helen_tpu_torch/ops/csrc/gru_window_xp_bwd.cu"
+                      + (" (pass 2's kernel: gru_window_common.cuh)"
+                         if name == XP_PASSES[1] else ""),
+            "replaces": "helen_tpu/ops/gru_pallas_train.py:166 (_bwd_kernel)",
+            "max_abs_err": worst, "max_scaled_err": worst_scaled,
+            "ms": ms[name], "kernel_ms": ms[name], "plain_ms": plain[name],
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library[name],
+            "per": "one launch at B=64, T=100, H=1024 (library: cuDNN's GRU backward "
+                   "at D=2048 for pass 1, cuBLAS's products for pass 2)",
+        }
+
+
+def check_golden_xp() -> None:
+    """Phase 9c: the three golden fixtures through the xp route, forced on
+    the cuda backend, on the card: 0 + 0 label flips."""
+    import numpy as np
+    import torch
+
+    from helen_tpu_torch.io.checkpoint import load_model_any, params_to_torch
+    from helen_tpu_torch.io.images import MarginPolishDataset
+    from helen_tpu_torch.models.transducer import consensus_labels
+    from helen_tpu_torch.ops import gru_window_xp as gx
+
+    with tempfile.TemporaryDirectory(prefix="golden_xp_") as d:
+        path = os.path.join(d, "golden_images.h5")
+        with gzip.open(os.path.join(GOLDEN, "golden_images.h5.gz"), "rb") as src, \
+                open(path, "wb") as dst:
+            shutil.copyfileobj(src, dst)
+        ds = MarginPolishDataset([path])
+        recs = [ds.load(i) for i in range(len(ds))]
+    images = torch.from_numpy(np.stack([r.image for r in recs])).cuda()
+    keys = [f"{r.contig}-{r.contig_start}-{r.contig_end}-{r.chunk_id}" for r in recs]
+    for name in FIXTURES:
+        stem = "golden" if name == "model" else f"golden_{name}"
+        params, _ = load_model_any(os.path.join(GOLDEN, f"golden_{name}.pkl"))
+        before = gx.launch_counts["bigru_window_xp"]
+        with torch.no_grad():
+            base, rle = consensus_labels(params_to_torch(params, images.device), images,
+                                         backend="cuda", route="xp")
+        launched = gx.launch_counts["bigru_window_xp"] - before
+        want = np.load(os.path.join(GOLDEN, f"{stem}_labels.npz"))
+        base, rle = base.cpu().numpy(), rle.cpu().numpy()
+        fb = sum(int((base[j] != want[f"base/{k}"]).sum()) for j, k in enumerate(keys))
+        fr = sum(int((rle[j] != want[f"rle/{k}"]).sum()) for j, k in enumerate(keys))
+        log(f"golden {name} through the xp route: {fb}+{fr} base+rle label flips of "
+            f"{base.size} per head ({launched} K3 launches)")
+        if fb or fr or not launched:
+            fail(f"golden {name}: the xp route flips labels")
+
+
+def check_routes_h512(images_u8) -> None:
+    """Phase 9d: at H=512, where both routes serve, a random-weight model on
+    the full-width images through the in-projection route and the xp
+    route: label flips between the two, and each route's time per window
+    (in turns: inproj, xp, xp, inproj)."""
+    import dataclasses
+
+    import torch
+
+    from helen_tpu_torch.config import MODEL, WINDOW
+    from helen_tpu_torch.io.checkpoint import params_to_torch
+    from helen_tpu_torch.models.transducer import consensus_labels, init_params
+
+    params = params_to_torch(init_params(torch.Generator().manual_seed(512),
+                                         dataclasses.replace(MODEL, hidden_size=512)),
+                             images_u8.device)
+    n_win = len(WINDOW.starts(images_u8.shape[1]))
+    labels, secs = {}, {"inproj": [], "xp": []}
+    for route in ("inproj", "xp", "xp", "inproj"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = consensus_labels(params, images_u8, backend="cuda", route=route)
+        torch.cuda.synchronize()
+        secs[route].append(time.perf_counter() - t0)
+        labels[route] = [o.cpu() for o in out]
+    (ib, ir), (xb, xr) = labels["inproj"], labels["xp"]
+    fb, fr = int((ib != xb).sum()), int((ir != xr).sum())
+    per = {k: 1e3 * min(v) / n_win for k, v in secs.items()}
+    log(f"H=512, {images_u8.shape[0]} full-width images, random weights: {fb}+{fr} "
+        f"base+rle label flips of {ib.numel()} per head between the routes; per window "
+        f"(B={images_u8.shape[0]}, the faster of two runs): in-projection K1/K2 "
+        f"{per['inproj']:.2f} ms, xp (projection GEMMs + K3) {per['xp']:.2f} ms")
+    if max(fb, fr) > FLIPS_PER_LABEL * ib.numel():
+        fail("the two routes disagree at H=512")
+
+
+def write_exact(path: str, name: str, n: int, seed: int) -> None:
+    """A labeled synthetic image file of exactly ``n`` full-width images: the
+    sequence is cut where its RLE columns give ``n`` overlapping regions."""
+    from helen_tpu_torch.io.synthetic import random_sequence, rle_encode, write_image_file
+
+    seq = random_sequence(4000 * n, seed=seed)
+    _, runs = rle_encode(seq)
+    seq = seq[:int(runs[:1000 + (n - 1) * 920].sum())]
+    got = write_image_file(path, {name: seq}, region_cols=1000, overlap_cols=80,
+                           noise=0.1, seed=seed + 1)
+    if got != n:
+        fail(f"wrote {got} images, wanted {n}")
+
+
+def run_wide_cli(work: str, results) -> None:
+    """Phase 9e: ``train --hidden_size 1024 -b 64`` for one epoch on 128
+    labeled full-width images, ``test`` of its checkpoint, and ``polish``
+    with it on 256 images at ``-b 256`` (the function behind the CLI, with a
+    stage timer), each with every kernel's launches counted from 0; the
+    polish labels against the plain route on the card."""
+    import glob
+
+    import numpy as np
+    import torch
+
+    from helen_tpu_torch.cli import main as cli
+    from helen_tpu_torch.config import IMAGE, WINDOW
+    from helen_tpu_torch.infer.consensus import ConsensusStep
+    from helen_tpu_torch.infer.polish import polish
+    from helen_tpu_torch.io.checkpoint import load_model_any
+    from helen_tpu_torch.io.images import MarginPolishDataset
+    from helen_tpu_torch.models.transducer import engaged_kernel
+    from helen_tpu_torch.obs import StageTimer
+    from helen_tpu_torch.ops import gru_window as gw
+    from helen_tpu_torch.ops import gru_window_bwd as gb
+    from helen_tpu_torch.ops import gru_window_xp as gx
+    from helen_tpu_torch.ops import gru_window_xp_bwd as gxb
+
+    mods = (gw, gb, gx, gxb)
+    counts = lambda: {k: v for m in mods for k, v in m.launch_counts.items()}  # noqa: E731
+
+    def reset():
+        for m in mods:
+            m.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+
+    dirs = {k: os.path.join(work, f"wide_{k}") for k in ("train", "test", "polish")}
+    for (k, d), (n, seed) in zip(dirs.items(), ((N_WIDE_TRAIN, 901), (WB_TRAIN, 903),
+                                                 (WB_POLISH, 905))):
+        os.makedirs(d)
+        write_exact(os.path.join(d, f"{k}.h5"), f"wide_{k}", n, seed)
+    n_win = WINDOW.num_windows(IMAGE.seq_length)
+    zero_inproj = {k: 0 for m in (gw, gb) for k in m.launch_counts}
+
+    out = os.path.join(work, "wide_train_out")
+    reset()
+    t0 = time.perf_counter()
+    if cli(["train", "--train_image_dir", dirs["train"], "--test_image_dir", dirs["test"],
+            "-b", str(WB_TRAIN), "-e", "1", "-w", "8", "-o", out, "--hidden_size", str(WH),
+            "--seed", "17"]) != 0:
+        fail("wide train returned non-zero")
+    wall = time.perf_counter() - t0
+    launches, peak = counts(), torch.cuda.max_memory_allocated() / 2**20
+    run = glob.glob(os.path.join(out, "trained_models_*"))[0]
+    with open(os.path.join(run, "stats", "epochs.jsonl")) as f:
+        epoch = json.loads(f.readline())
+    train_b, test_b = N_WIDE_TRAIN // WB_TRAIN, 1
+    want = {**zero_inproj, "bigru_window_xp": (train_b + test_b) * n_win * 2,
+            XP_PASSES[0]: train_b * n_win * 2, XP_PASSES[1]: train_b * n_win * 2}
+    log(f"wide train (H={WH}, {N_WIDE_TRAIN} images, -b {WB_TRAIN}, 1 epoch): train loss "
+        f"{epoch['train_loss']:.5f}, test loss {epoch['test_loss']:.5f}, base acc "
+        f"{epoch['base_accuracy']:.3f}%, training {epoch['train_seconds']:.2f} s = "
+        f"{epoch['train_windows'] / epoch['train_seconds']:,.1f} train windows/s, "
+        f"evaluation {epoch['eval_seconds']:.2f} s; wall {wall:.2f} s, peak device "
+        f"memory {peak:.0f} MiB")
+    log(f"wide train launches {launches}, expected {want} ({train_b} train + {test_b} "
+        f"test batches x {n_win} windows x 2 layers; K4 on the train batches only)")
+    if launches != want:
+        fail("wide train launch counts differ from batches x windows x layers")
+    results[XP_PASSES[0]]["launches"] = launches[XP_PASSES[0]]
+    results[XP_PASSES[1]]["launches"] = launches[XP_PASSES[1]]
+    results["bigru_window_xp"]["launches_train"] = launches["bigru_window_xp"]
+
+    latest = os.path.join(run, "models", "HELEN_latest_checkpoint.npz")
+    params, _ = load_model_any(latest)
+    kernels = engaged_kernel(params, "cuda")
+    log(f"the checkpoint's kernels on the card: {kernels}")
+    if kernels != "cuda_xp":
+        fail("the wide checkpoint does not take the xp route")
+    tout = os.path.join(work, "wide_test_out")
+    reset()
+    if cli(["test", "--test_image_dir", dirs["test"], "-m", latest, "-b", str(WB_TRAIN),
+            "-o", tout]) != 0:
+        fail("wide test returned non-zero")
+    with open(os.path.join(tout, "test_stats.json")) as f:
+        stats = json.load(f)
+    same = (stats["loss"] == epoch["test_loss"]
+            and stats["base_confusion_matrix"] == epoch["base_confusion_matrix"]
+            and stats["rle_confusion_matrix"] == epoch["rle_confusion_matrix"])
+    tl = counts()
+    log(f"wide test: loss {stats['loss']!r} (the epoch's {epoch['test_loss']!r}), both "
+        f"confusion matrices equal: {same}; launches {tl}")
+    if not same:
+        fail("wide test did not reproduce the epoch's loss and confusion matrices")
+    if tl != {**zero_inproj, "bigru_window_xp": test_b * n_win * 2, XP_PASSES[0]: 0,
+              XP_PASSES[1]: 0}:
+        fail("wide test launch counts differ from batches x windows x layers")
+
+    pout = os.path.join(work, "wide_polish_out")
+    timer = StageTimer()
+    reset()
+    t0 = time.perf_counter()
+    polish(dirs["polish"], latest, pout, batch_size=WB_POLISH, threads=4,
+           stage_timer=timer)
+    wall = time.perf_counter() - t0
+    pl, peak = counts(), torch.cuda.max_memory_allocated() / 2**20
+    consensus_s = timer.stages["call_consensus"]
+    log(f"wide polish ({WB_POLISH} images at -b {WB_POLISH}): wall {wall:.2f} s, consensus "
+        f"{consensus_s:.2f} s = {WB_POLISH * n_win / consensus_s:,.1f} windows/s, peak "
+        f"device memory {peak:.0f} MiB; launches {pl}")
+    if pl != {**zero_inproj, "bigru_window_xp": n_win * 2, XP_PASSES[0]: 0,
+              XP_PASSES[1]: 0}:
+        fail("wide polish launch counts differ from batches x windows x layers")
+    results["bigru_window_xp"]["launches"] = pl["bigru_window_xp"]
+
+    ds = MarginPolishDataset(glob.glob(os.path.join(dirs["polish"], "*.h5")))
+    recs = [ds.load(i) for i in range(len(ds))]
+    base, rle = ConsensusStep(params, torch.device("cuda"), backend="torch")(
+        np.stack([r.image for r in recs]))
+    got = store_labels(glob.glob(os.path.join(pout, "predictions_*"))[0])
+    fb = fr = 0
+    for j, r in enumerate(recs):
+        kb, kr = got[f"{r.contig}-{r.contig_start}-{r.contig_end}-{r.chunk_id}"]
+        fb += int((kb != base[j]).sum())
+        fr += int((kr != rle[j]).sum())
+    log(f"wide polish, K3 vs the plain route (--backend torch) on the card: {fb}+{fr} "
+        f"base+rle label flips of {base.size} per head")
+    if max(fb, fr) > FLIPS_PER_LABEL * base.size:
+        fail("the wide polish labels disagree with the plain route")
+
+
 def main() -> int:
     import torch
 
@@ -754,6 +1154,23 @@ def main() -> int:
 
         phase("7c. train and test through the CLI")
         run_train(img_dir, n_images, work, results)
+
+        t9 = time.perf_counter()
+        phase(f"9a. K3 against its plain version (B={B}, T={T}, H={WH})")
+        check_xp_kernel(images_u8, results)
+
+        phase(f"9b. K4 against its plain version (B={WB_TRAIN}, T={T}, H={WH})")
+        check_xp_backward(results)
+
+        phase("9c. golden fixtures through the xp route")
+        check_golden_xp()
+
+        phase("9d. both routes at H=512")
+        check_routes_h512(images_u8[:WB_POLISH])
+
+        phase(f"9e. the wide model through the CLI (H={WH})")
+        run_wide_cli(work, results)
+        log(f"phase 9: {time.perf_counter() - t9:.1f} s")
 
     phase("8. result")
     log(smi)

@@ -215,8 +215,11 @@ def call_consensus(
             log.info("streaming stitch: overlapping region merges with "
                      "consensus")
 
+    from helen_tpu_torch.models.transducer import engaged_kernel
+
     step = ConsensusStep(params, dev, backend)
-    log.info("consensus device: %s, backend: %s", dev, step.backend)
+    log.info("consensus device: %s, backend: %s (kernels: %s)", dev, step.backend,
+             engaged_kernel(step.params, step.backend))
 
     timer = stage_timer if stage_timer is not None else StageTimer()
     windows = Throughput(unit="windows")

@@ -5,16 +5,24 @@ of tensors that io.checkpoint.params_to_torch builds: ``encoder`` and
 ``decoder`` stacks (layer 0 under {"fwd", "bwd"}, deeper layers under "l1",
 "l2", ...), ``base_head`` and ``rle_head`` ({"w" (2H, C), "b" (C,)}).
 
-Every bi-GRU window runs through the two window kernels of ops.gru_window
-(backend ``"cuda"``) or their plain versions (backend ``"torch"``): layer 0
-of the encoder reads the window straight from the uint8 image (K1), every
-later layer — deeper encoder layers and the whole decoder — reads the
-previous layer's two output halves (K2), so no concat or projection array
-is built between layers. On the ``"cuda"`` backend the windows go through
-the autograd Functions of ops.gru_window_autograd, so the same ``forward``
-trains: its backward is the hand-written backward kernel
-(ops.gru_window_bwd). On ``"torch"`` torch's autograd differentiates the
-plain ops.
+Every bi-GRU window runs through the window kernels (backend ``"cuda"``)
+or their plain versions (backend ``"torch"``). The ``"cuda"`` backend has
+two routes, chosen by :func:`kernel_route` from the hidden size:
+
+* ``"inproj"`` (H <= MAX_H = 512): the in-projection kernels of
+  ops.gru_window. Layer 0 of the encoder reads the window straight from the
+  uint8 image (K1), every later layer — deeper encoder layers and the whole
+  decoder — reads the previous layer's two output halves (K2), so no concat
+  or projection array is built between layers;
+* ``"xp"`` (MAX_H < H <= XP_MAX_H = 1024, the wide models): each layer's
+  input projection is one float32 matrix product per direction in torch,
+  and only the recurrence runs in a kernel (K3, ops.gru_window_xp), as
+  helen_tpu's xp-stream kernels do.
+
+The windows go through the autograd Functions of ops.gru_window_autograd,
+so the same ``forward`` trains: its backward is the hand-written backward
+kernel of the route (ops.gru_window_bwd, ops.gru_window_xp_bwd). On
+``"torch"`` torch's autograd differentiates the plain ops.
 
 Hidden-state contract (the reference's "transducer windowing",
 predict_gpu.py:99-129): the hidden is (B, 2L, H), layer-major (slot 2l is
@@ -32,10 +40,11 @@ import torch
 from helen_tpu_torch.config import MODEL, WINDOW, ModelConfig, WindowConfig
 from helen_tpu_torch.ops.gru_window import (
     MAX_H,
+    XP_MAX_H,
     bigru_window_in1_plain,
     bigru_window_in2_plain,
 )
-from helen_tpu_torch.ops.gru_window_autograd import window_in1, window_in2
+from helen_tpu_torch.ops.gru_window_autograd import window_in1, window_in2, window_xp
 
 Params = Dict[str, Any]
 
@@ -44,6 +53,9 @@ Params = Dict[str, Any]
 BACKENDS = ("auto", "cuda", "torch")
 #: helen_tpu's train backends, accepted as aliases on the train surface
 TRAIN_ALIASES = {"xla": "torch", "pallas_train": "cuda"}
+#: the kernel families of the "cuda" backend and the largest hidden size
+#: each takes
+ROUTES = {"inproj": MAX_H, "xp": XP_MAX_H}
 
 
 def set_fp32_precision() -> None:
@@ -52,6 +64,50 @@ def set_fp32_precision() -> None:
     the Hopper form of helen_tpu's "fp32 parity trap")."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def require_fp32_precision(device) -> None:
+    """Refuse to run a float32 product of the parity tier on the card under
+    TF32: the xp route moves each layer's input projection into
+    ``torch.matmul``, so every entry that reaches it calls
+    :func:`set_fp32_precision` first."""
+    if torch.device(device).type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("TF32 is on for float32 matmuls, and the xp route's "
+                           "projections must run in true fp32: call "
+                           "set_fp32_precision() first")
+
+
+def kernel_route(hidden_size: int, route: Optional[str] = None) -> str:
+    """THE dispatch predicate of the ``"cuda"`` backend, shared by
+    :func:`forward` (which acts on it), :func:`engaged_kernel` (which
+    records it) and :func:`resolve_backend` (which refuses what it
+    refuses): ``"inproj"`` for H <= MAX_H, ``"xp"`` for MAX_H < H <=
+    XP_MAX_H. ``route`` forces one family (library only, for testing);
+    a hidden size the family does not take raises, past XP_MAX_H naming
+    ``--backend torch``. Nothing falls back."""
+    if route is not None and route not in ROUTES:
+        raise ValueError(f"route {route!r} is not one of {tuple(ROUTES)}")
+    chosen = route or ("inproj" if hidden_size <= MAX_H else "xp")
+    if not 0 < hidden_size <= ROUTES[chosen]:
+        family = "window kernels'" if route is None else f"{route} window kernels'"
+        raise ValueError(f"hidden_size {hidden_size} exceeds the {family} maximum "
+                         f"{ROUTES[chosen]} (forward and backward); use --backend torch")
+    return chosen
+
+
+def engaged_kernel(params: Params, backend: str, route: Optional[str] = None) -> str:
+    """Which kernel family :func:`forward` runs for ``(params, backend,
+    route)`` (helen_tpu's ``engaged_kernel``, ``transducer.py:431``):
+    ``"torch"`` (the plain versions), ``"cuda_inproj"`` (K1/K2 and their
+    backward) or ``"cuda_xp"`` (projection GEMMs, K3/K4). The backend must
+    be resolved already (:func:`resolve_backend`)."""
+    if backend == "torch":
+        if route is not None:
+            raise ValueError("route selects the kernels of backend 'cuda'")
+        return "torch"
+    if backend != "cuda":
+        raise ValueError(f"unresolved backend {backend!r}")
+    return "cuda_" + kernel_route(model_geometry(params).hidden_size, route)
 
 
 def _stack_layers(stack: Params) -> List[Params]:
@@ -154,10 +210,10 @@ def resolve_backend(requested: Optional[str], device: torch.device,
     kernels do not take, raises — nothing falls back silently. helen_tpu's
     fast tier (``pallas_fast``) is not ported yet and raises too.
 
+    With ``params``, ``"cuda"`` also needs a hidden size the kernels take
+    (:func:`kernel_route`: up to ``XP_MAX_H``, forward and backward).
     ``kind="train"`` is the training surface: helen_tpu's ``xla`` and
-    ``pallas_train`` are accepted as aliases of ``torch`` and ``cuda``, and
-    ``"cuda"`` also needs a hidden size the backward kernel takes (the same
-    ``MAX_H``: one thread per hidden unit in its recurrence pass)."""
+    ``pallas_train`` are accepted as aliases of ``torch`` and ``cuda``."""
     if kind not in ("infer", "train"):
         raise ValueError(f"kind must be 'infer' or 'train', got {kind!r}")
     if kind == "train":
@@ -173,11 +229,8 @@ def resolve_backend(requested: Optional[str], device: torch.device,
     if requested == "cuda":
         if not on_cuda:
             raise ValueError(f"backend 'cuda' needs a CUDA device, got {device}")
-        if params is not None and model_geometry(params).hidden_size > MAX_H:
-            raise ValueError(
-                f"hidden_size {model_geometry(params).hidden_size} exceeds the "
-                f"window kernels' maximum {MAX_H} (forward and backward); use "
-                "--backend torch")
+        if params is not None:
+            kernel_route(model_geometry(params).hidden_size)
     return requested
 
 
@@ -188,6 +241,7 @@ def forward(
     backend: str = "torch",
     start: int = 0,
     window: Optional[int] = None,
+    route: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One window of the transducer.
 
@@ -196,16 +250,22 @@ def forward(
         so a (B, W, F) window with the defaults is helen_tpu's ``forward``)
     :param hidden: (B, 2L, H) carried hidden, layer-major
     :param backend: ``"cuda"`` (window kernels, differentiable through the
-        backward kernel) or ``"torch"`` (plain ops, differentiated by torch)
+        backward kernels) or ``"torch"`` (plain ops, differentiated by torch)
+    :param route: the ``"cuda"`` backend's kernel family, ``"inproj"`` or
+        ``"xp"``; None takes :func:`kernel_route`'s rule
     :returns: (base logits (B, W, nb), rle logits (B, W, nr), new hidden
         (B, 2L, H))
     """
-    if backend == "cuda":
+    kernels = engaged_kernel(params, backend, route)
+    if kernels == "cuda_xp":
+        require_fp32_precision(x.device)
+        in1 = window_xp
+        in2 = lambda xa, xb, h0f, h0b, lp: window_xp(  # noqa: E731
+            (xa, xb), 0, xa.shape[0], h0f, h0b, lp)
+    elif kernels == "cuda_inproj":
         in1, in2 = window_in1, window_in2
-    elif backend == "torch":
-        in1, in2 = bigru_window_in1_plain, bigru_window_in2_plain
     else:
-        raise ValueError(f"unresolved backend {backend!r}")
+        in1, in2 = bigru_window_in1_plain, bigru_window_in2_plain
     T = x.shape[1] - start if window is None else window
 
     def h0(li):
@@ -232,6 +292,7 @@ def consensus_probs(
     images: torch.Tensor,
     window_cfg: WindowConfig = WINDOW,
     backend: str = "torch",
+    route: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-image consensus: sliding windows + softmax-sum overlap voting.
 
@@ -240,8 +301,9 @@ def consensus_probs(
     hidden carries between windows; each window's per-column softmax is
     added, in window order and in fp32, to (B, L, C) vote tensors.
 
-    :param images: (B, L, F) uint8 (the kernel route takes uint8 only; the
-        plain route also takes float)
+    :param images: (B, L, F) uint8 (the in-projection kernels take uint8
+        only; the plain route also takes float)
+    :param route: as in :func:`forward`
     :returns: (base votes (B, L, nb), rle votes (B, L, nr))
     """
     B, L, _ = images.shape
@@ -254,7 +316,7 @@ def consensus_probs(
     hidden = init_hidden(B, geom, images.device)
     for start in window_cfg.starts(L):
         base, rle, hidden = forward(params, images, hidden, backend,
-                                    start=start, window=W)
+                                    start=start, window=W, route=route)
         base_acc[:, start:start + W] += torch.softmax(base, dim=-1)
         rle_acc[:, start:start + W] += torch.softmax(rle, dim=-1)
     return base_acc, rle_acc
@@ -265,9 +327,10 @@ def consensus_labels(
     images: torch.Tensor,
     window_cfg: WindowConfig = WINDOW,
     backend: str = "torch",
+    route: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Vote then argmax -> uint8 labels. ``torch.argmax`` returns the first
     maximal index, the same tie-break as ``jnp.argmax`` and ``torch.max``."""
-    base_probs, rle_probs = consensus_probs(params, images, window_cfg, backend)
+    base_probs, rle_probs = consensus_probs(params, images, window_cfg, backend, route)
     return (torch.argmax(base_probs, dim=-1).to(torch.uint8),
             torch.argmax(rle_probs, dim=-1).to(torch.uint8))

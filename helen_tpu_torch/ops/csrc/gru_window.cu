@@ -8,14 +8,9 @@
 //   bigru_window_in2 <- _kernel_inproj2 (helen_tpu/ops/gru_pallas.py:474):
 //       the same layer over the previous layer's (out_f, out_b) halves, with
 //       no concat (decoder layers and every stacked layer >= 1).
-// Both compute, per direction, the torch nn.GRU cell with gates [r, z, n]
-// and b_hh INSIDE the reset product:
-//   xp = x W_ih + b_ih,  hp = h W_hh + b_hh
-//   r = sigmoid(xp_r + hp_r), z = sigmoid(xp_z + hp_z)
-//   n = tanh(xp_n + r * hp_n),  h' = (1 - z) n + z h
-// The forward direction reads time t at step t, the backward direction time
-// T-1-t, and each writes its output at the time it read; the final state is
-// the h after the last step (for the backward direction: after time 0).
+// Both compute, per direction, the GRU cell of gru_window_common.cuh; the
+// final state is the h after the last step (for the backward direction:
+// after time 0).
 //
 // What bounds it on this card. One launch at B=512, T=100, H=128 does
 // 17.1 GFLOP (K1, D=90) or 30.2 GFLOP (K2, D=256) of fp32 FMA and must move
@@ -51,13 +46,9 @@
 // Tensor cores (3xTF32 wgmma), TMA and weights split across a cluster's
 // shared memory are later work.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "gru_window_common.cuh"
 
 namespace {
-
-constexpr int BT = 8;        // batch rows per block
-constexpr int MAX_H = 512;   // hidden units = threads per block
 
 struct DirParams {
   const float* w_ih;  // (D, 3H)
@@ -65,21 +56,6 @@ struct DirParams {
   const float* b_ih;  // (3H,)
   const float* b_hh;  // (3H,)
 };
-
-struct WindowIn {
-  // K1: uint8 image (B, L, D) with element strides (sb, sl), unit feature
-  // stride; time t of the window is image column start + t
-  const uint8_t* img;
-  long long sb, sl;
-  int start;
-  // K2: previous layer's halves (T, B, H) each; input row = [xa | xb]
-  const float* xa;
-  const float* xb;
-};
-
-__device__ __forceinline__ float sigmoidf_(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
 
 template <bool PAIR>
 __device__ __forceinline__ void load_rows(const WindowIn& in, int tt, int b0,
@@ -202,16 +178,7 @@ int launch(const WindowIn& in, int D, const float* h0_f, const float* h0_b,
            float* hn_f, float* hn_b, int T, int B, int H, void* stream) {
   if (H < 1 || H > MAX_H || D < 1 || T < 1 || B < 1) return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * 2 * BT * ((size_t)H + D);
-  int dev = 0, max_smem = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (smem > (size_t)max_smem) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(bigru_window_kernel<PAIR>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  if (int e = allow_smem(bigru_window_kernel<PAIR>, smem)) return e;
   dim3 grid((B + BT - 1) / BT, 2);
   bigru_window_kernel<PAIR><<<grid, H, smem, (cudaStream_t)stream>>>(
       in, D, h0_f, h0_b, pf, pb, out_f, out_b, hn_f, hn_b, T, B, H);

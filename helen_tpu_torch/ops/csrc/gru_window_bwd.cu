@@ -33,7 +33,8 @@
 //     and, for K2-kind layers, dx per direction (the wrapper adds the two,
 //     as helen_tpu's wrapper does at gru_pallas_train.py:658). Layer 0 reads
 //     the uint8 image in place at column `start`, as K1 does; it has no dx.
-//   pass 2 (bwd_wgrad_kernel): the weight cotangents as a tiled reduction
+//   pass 2 (bwd_wgrad_kernel, gru_window_common.cuh, shared with the
+//     xp-stream backward): the weight cotangents as a tiled reduction
 //     over the N = T * B rows. One block per 32 x 32 tile of [dW_ih; db_ih]
 //     ((D + 1) x 3H, the bias as a row of ones) and of [dW_hh; db_hh]
 //     ((H + 1) x 3H), per direction; each block sums all N rows itself in
@@ -59,17 +60,9 @@
 // H is a runtime value up to MAX_H = 512 (threads of a pass-1 block; the
 // launch bound holds a thread to 128 registers).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "gru_window_common.cuh"
 
 namespace {
-
-constexpr int BT = 8;        // batch rows per pass-1 block
-constexpr int MAX_H = 512;   // hidden units = threads per pass-1 block
-constexpr int TM = 32;       // pass 2: output rows per tile
-constexpr int TN = 32;       // pass 2: output columns per tile
-constexpr int TR = 32;       // pass 2: reduction rows per shared-memory chunk
-constexpr int WG_THREADS = 256;
 
 struct DirW {
   const float* w_ih;   // (D, 3H)
@@ -79,48 +72,6 @@ struct DirW {
   const float* b_ih;   // (3H,)
   const float* b_hh;   // (3H,)
 };
-
-struct DirG {
-  float* w_ih;  // (D, 3H)
-  float* w_hh;  // (H, 3H)
-  float* b_ih;  // (3H,)
-  float* b_hh;  // (3H,)
-};
-
-struct WindowIn {
-  // layer 0: uint8 image (B, L, D), element strides (sb, sl), unit feature
-  // stride; time t of the window is image column start + t
-  const uint8_t* img;
-  long long sb, sl;
-  int start;
-  // later layers: the previous layer's halves (T, B, H); row = [xa | xb]
-  const float* xa;
-  const float* xb;
-};
-
-__device__ __forceinline__ float sigmoidf_(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
-template <bool PAIR>
-__device__ __forceinline__ float x_at(const WindowIn& in, int tt, int b, int k,
-                                      int B, int H) {
-  if (PAIR) {
-    return (k < H) ? in.xa[((size_t)tt * B + b) * H + k]
-                   : in.xb[((size_t)tt * B + b) * H + (k - H)];
-  }
-  return (float)in.img[(size_t)b * in.sb + (size_t)(in.start + tt) * in.sl + k];
-}
-
-// h_prev of direction `dir` at window time tt: the forward output stream
-// shifted by one step, or h0 at the window boundary
-__device__ __forceinline__ float hprev_at(const float* out, const float* h0,
-                                          int dir, int tt, int b, int k, int T,
-                                          int B, int H) {
-  const int tp = dir ? tt + 1 : tt - 1;
-  return (tp >= 0 && tp < T) ? out[((size_t)tp * B + b) * H + k]
-                             : h0[(size_t)b * H + k];
-}
 
 template <bool PAIR>
 __global__ void __launch_bounds__(MAX_H)
@@ -283,95 +234,6 @@ bwd_rec_kernel(WindowIn in, int D, const float* __restrict__ h0_f,
   }
 }
 
-// Pass 2. blockIdx.x walks the tiles of [dW_ih; db_ih] first, then those of
-// [dW_hh; db_hh]; blockIdx.y is the direction. 256 threads, each owning a
-// 2 x 2 patch of the 32 x 32 tile.
-template <bool PAIR>
-__global__ void __launch_bounds__(WG_THREADS)
-bwd_wgrad_kernel(WindowIn in, int D, const float* __restrict__ h0_f,
-                 const float* __restrict__ h0_b, const float* __restrict__ out_f,
-                 const float* __restrict__ out_b,
-                 const float* __restrict__ dxp_all,
-                 const float* __restrict__ dhpn_all, DirG gf, DirG gb, int T,
-                 int B, int H) {
-  const int dir = blockIdx.y;
-  const DirG g = dir ? gb : gf;
-  const float* __restrict__ h0 = dir ? h0_b : h0_f;
-  const float* __restrict__ out = dir ? out_b : out_f;
-  const int H3 = 3 * H;
-  const float* __restrict__ dxp = dxp_all + (size_t)dir * T * B * H3;
-  const float* __restrict__ dhpn = dhpn_all + (size_t)dir * T * B * H;
-  const int col_tiles = (H3 + TN - 1) / TN;
-  const int ih_tiles = ((D + 1 + TM - 1) / TM) * col_tiles;
-  int tile = blockIdx.x;
-  const bool hh = tile >= ih_tiles;
-  if (hh) tile -= ih_tiles;
-  const int M = hh ? H : D;  // row M of the tile grid is the bias row
-  const int m0 = (tile / col_tiles) * TM;
-  const int c0 = (tile % col_tiles) * TN;
-
-  __shared__ float As[TR][TM];
-  __shared__ float Bs[TR][TN];
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc00 = 0.0f, acc01 = 0.0f, acc10 = 0.0f, acc11 = 0.0f;
-  const int N = T * B;
-  for (int n0 = 0; n0 < N; n0 += TR) {
-    for (int idx = threadIdx.x; idx < TR * TM; idx += WG_THREADS) {
-      const int i = idx / TM, m = idx % TM;
-      const int n = n0 + i, mm = m0 + m;
-      float v = 0.0f;
-      if (n < N && mm <= M) {
-        const int tt = n / B, b = n - (n / B) * B;
-        if (mm == M) {
-          v = 1.0f;
-        } else if (hh) {
-          v = hprev_at(out, h0, dir, tt, b, mm, T, B, H);
-        } else {
-          v = x_at<PAIR>(in, tt, b, mm, B, H);
-        }
-      }
-      As[i][m] = v;
-    }
-    for (int idx = threadIdx.x; idx < TR * TN; idx += WG_THREADS) {
-      const int i = idx / TN, c = idx % TN;
-      const int n = n0 + i, cc = c0 + c;
-      float v = 0.0f;
-      if (n < N && cc < H3) {
-        v = (!hh || cc < 2 * H) ? dxp[(size_t)n * H3 + cc]
-                                : dhpn[(size_t)n * H + (cc - 2 * H)];
-      }
-      Bs[i][c] = v;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int i = 0; i < TR; ++i) {
-      const float a0 = As[i][2 * ty], a1 = As[i][2 * ty + 1];
-      const float v0 = Bs[i][2 * tx], v1 = Bs[i][2 * tx + 1];
-      acc00 = fmaf(a0, v0, acc00);
-      acc01 = fmaf(a0, v1, acc01);
-      acc10 = fmaf(a1, v0, acc10);
-      acc11 = fmaf(a1, v1, acc11);
-    }
-    __syncthreads();
-  }
-  const float accs[2][2] = {{acc00, acc01}, {acc10, acc11}};
-  float* w = hh ? g.w_hh : g.w_ih;
-  float* bias = hh ? g.b_hh : g.b_ih;
-#pragma unroll
-  for (int u = 0; u < 2; ++u) {
-#pragma unroll
-    for (int v = 0; v < 2; ++v) {
-      const int mm = m0 + 2 * ty + u, cc = c0 + 2 * tx + v;
-      if (cc >= H3 || mm > M) continue;
-      if (mm < M) {
-        w[(size_t)mm * H3 + cc] = accs[u][v];
-      } else {
-        bias[cc] = accs[u][v];
-      }
-    }
-  }
-}
-
 int check_geometry(int D, int T, int B, int H) {
   if (H < 1 || H > MAX_H || D < 1 || T < 1 || B < 1) return (int)cudaErrorInvalidValue;
   return 0;
@@ -385,34 +247,11 @@ int launch_rec(const WindowIn& in, int D, const float* h0_f, const float* h0_b,
                float* dh0_f, float* dh0_b, int T, int B, int H, void* stream) {
   if (int e = check_geometry(D, T, B, H)) return e;
   const size_t smem = sizeof(float) * BT * ((size_t)D + 5 * (size_t)H);
-  int dev = 0, max_smem = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (smem > (size_t)max_smem) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(bwd_rec_kernel<PAIR>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  if (int e = allow_smem(bwd_rec_kernel<PAIR>, smem)) return e;
   dim3 grid((B + BT - 1) / BT, 2);
   bwd_rec_kernel<PAIR><<<grid, H, smem, (cudaStream_t)stream>>>(
       in, D, h0_f, h0_b, out_f, out_b, dout_f, dout_b, dhf, dhb, pf, pb, dxp,
       dhpn, dx_f, dx_b, dh0_f, dh0_b, T, B, H);
-  return (int)cudaGetLastError();
-}
-
-template <bool PAIR>
-int launch_wgrad(const WindowIn& in, int D, const float* h0_f, const float* h0_b,
-                 const float* out_f, const float* out_b, const float* dxp,
-                 const float* dhpn, DirG gf, DirG gb, int T, int B, int H,
-                 void* stream) {
-  if (int e = check_geometry(D, T, B, H)) return e;
-  const int col_tiles = (3 * H + TN - 1) / TN;
-  const int tiles = ((D + 1 + TM - 1) / TM + (H + 1 + TM - 1) / TM) * col_tiles;
-  dim3 grid(tiles, 2);
-  bwd_wgrad_kernel<PAIR><<<grid, WG_THREADS, 0, (cudaStream_t)stream>>>(
-      in, D, h0_f, h0_b, out_f, out_b, dxp, dhpn, gf, gb, T, B, H);
   return (int)cudaGetLastError();
 }
 
@@ -465,13 +304,14 @@ int bigru_window_bwd_wgrad(const uint8_t* img, long long sb, long long sl,
   const WindowIn in{img, sb, sl, start, xa, xb};
   const DirG gf{dwi_f, dwh_f, dbi_f, dbh_f};
   const DirG gb{dwi_b, dwh_b, dbi_b, dbh_b};
+  if (int e = check_geometry(D, T, B, H)) return e;
   if (img != nullptr) {
-    return launch_wgrad<false>(in, D, h0_f, h0_b, out_f, out_b, dxp, dhpn, gf, gb,
-                               T, B, H, stream);
+    return launch_wgrad<false>(in, D, true, h0_f, h0_b, out_f, out_b, dxp, dhpn, gf,
+                               gb, T, B, H, stream);
   }
   if (D != 2 * H) return (int)cudaErrorInvalidValue;
-  return launch_wgrad<true>(in, D, h0_f, h0_b, out_f, out_b, dxp, dhpn, gf, gb, T,
-                            B, H, stream);
+  return launch_wgrad<true>(in, D, true, h0_f, h0_b, out_f, out_b, dxp, dhpn, gf, gb,
+                            T, B, H, stream);
 }
 
 }  // extern "C"

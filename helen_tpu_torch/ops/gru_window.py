@@ -47,13 +47,18 @@ Outputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 #: where the kernel is launched and nowhere else
 launch_counts: Dict[str, int] = {"bigru_window_in1": 0, "bigru_window_in2": 0}
 
-#: the largest hidden size the kernels take (one thread per hidden unit,
-#: csrc/gru_window.cu MAX_H)
+#: the largest hidden size the in-projection kernels take (K1/K2 and their
+#: backward: one thread per hidden unit, csrc/gru_window_common.cuh MAX_H)
 MAX_H = 512
+#: the largest hidden size the xp-stream kernels take (K3/K4: a block's
+#: threads loop over the hidden units; the backward's shared memory holds
+#: 5 x 8 x H floats, csrc/gru_window_common.cuh XP_MAX_H)
+XP_MAX_H = 1024
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+#: nvcc flags of each source's object; the library links them with -shared
+NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib = None
@@ -77,9 +82,10 @@ def _nvcc() -> str:
 
 def build_kernels() -> str:
     """Compile ``ops/csrc/*.cu`` into the kernel library unless a build of
-    these exact sources exists; returns its path. nvcc's ``-Xptxas -v``
-    report (registers, shared memory, spills) is kept beside it as
-    ``<library>.log``."""
+    these exact sources exists; returns its path. Each source compiles in
+    its own nvcc process, all started together, then one nvcc links the
+    objects. nvcc's ``-Xptxas -v`` reports (registers, shared memory,
+    spills) are kept beside the library as ``<library>.log``."""
     from helen_tpu_torch.utils.build import build_dir
 
     sources = sorted(glob.glob(os.path.join(_CSRC, "*.cu"))
@@ -93,14 +99,33 @@ def build_kernels() -> str:
     if os.path.exists(so):
         return so
     tmp = f"{so}.tmp{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[s for s in sources if s.endswith(".cu")]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}): "
-                           f"{' '.join(cmd)}\n{proc.stderr}")
+    nvcc = _nvcc()
+    objs, procs = [], []
+    for src in (s for s in sources if s.endswith(".cu")):
+        obj = f"{tmp}.{os.path.basename(src)}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.PIPE, text=True)))
+    log, failed = [], None
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        log.append(f"$ {' '.join(cmd)}\n{out}{err}")
+        if proc.returncode != 0 and failed is None:
+            failed = f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{err}"
+    if failed is None:
+        cmd = [nvcc, *_ARCH, "-shared", "-o", tmp, *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            failed = (f"nvcc link failed (exit {proc.returncode}): {' '.join(cmd)}\n"
+                      f"{proc.stderr}")
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if failed is not None:
+        raise RuntimeError(failed)
     with open(so + ".log", "w") as f:
-        f.write(proc.stdout + proc.stderr)
+        f.write("\n".join(log))
     os.replace(tmp, so)
     return so
 
@@ -125,11 +150,22 @@ def get_lib() -> ctypes.CDLL:
             lib.bigru_window_bwd_wgrad.argtypes = (
                 [p, ll, ll, i, p, p, i] + [p] * 6 + [p] * 8 + [i, i, i, p])
             lib.gru_window_bwd_max_h.restype = i
+            # the xp-stream kernels (csrc/gru_window_xp*.cu; wrappers in
+            # gru_window_xp.py and gru_window_xp_bwd.py)
+            lib.bigru_window_xp.restype = i
+            lib.bigru_window_xp.argtypes = [p] * 12 + [i, i, i, p]
+            lib.bigru_window_xp_bwd_rec.restype = i
+            lib.bigru_window_xp_bwd_rec.argtypes = [p] * 20 + [i, i, i, p]
+            lib.bigru_window_xp_bwd_wgrad.restype = i
+            lib.bigru_window_xp_bwd_wgrad.argtypes = [p] * 10 + [i, i, i, p]
+            lib.gru_window_xp_max_h.restype = i
             lib.gru_window_error_string.restype = ctypes.c_char_p
             lib.gru_window_error_string.argtypes = [i]
             lib.gru_window_max_h.restype = i
             if lib.gru_window_max_h() != MAX_H or lib.gru_window_bwd_max_h() != MAX_H:
                 raise RuntimeError("MAX_H disagrees with csrc/gru_window*.cu")
+            if lib.gru_window_xp_max_h() != XP_MAX_H:
+                raise RuntimeError("XP_MAX_H disagrees with csrc/gru_window_xp*.cu")
             _lib = lib
     return _lib
 

@@ -1,8 +1,10 @@
-"""Differentiable bi-GRU window layers: the port of helen_tpu's
-``_window_core_ip`` (``helen_tpu/ops/gru_pallas_train.py:663``, a
-``jax.custom_vjp`` around the in-projection training kernels).
+"""Differentiable bi-GRU window layers: the ports of helen_tpu's
+``_window_core_ip`` and ``_window_core``
+(``helen_tpu/ops/gru_pallas_train.py:663`` and ``:698``, the
+``jax.custom_vjp``s around its two families of training kernels).
 
-Two ``torch.autograd.Function``s, one per layer kind:
+The in-projection route (H <= MAX_H), one ``torch.autograd.Function`` per
+layer kind:
 
 * :func:`window_in1` — layer 0 of the encoder: forward K1
   (``gru_window.bigru_window_in1``) on the uint8 image window, read in
@@ -11,11 +13,17 @@ Two ``torch.autograd.Function``s, one per layer kind:
 * :func:`window_in2` — every later layer: forward K2 on the previous
   layer's ``(out_f, out_b)`` halves; the backward returns their cotangents.
 
-Each saves the forward's ``out_f``/``out_b``, its inputs and the weights,
-and nothing else: the backward recomputes the gates. On CPU tensors the
-wrappers compute the plain versions, forward and backward; on CUDA tensors
-they launch the kernels or raise. Under ``torch.no_grad()`` (evaluation,
-consensus) only the forward runs.
+The xp route (the wide models, H <= XP_MAX_H), :func:`window_xp` for both
+layer kinds: the projection ``xp = x @ W_ih + b_ih`` per direction in torch
+ops (autograd gives its dx, dW_ih and db_ih), then ``_XpWindow``: forward
+K3 (``gru_window_xp.bigru_window_xp``), backward K4
+(``gru_window_xp_bwd.bigru_window_xp_bwd``).
+
+Each Function saves its inputs, the forward's ``out_f``/``out_b`` and the
+weights, and nothing else: the backward recomputes the gates. On CPU
+tensors the wrappers compute the plain versions, forward and backward; on
+CUDA tensors they launch the kernels or raise. Under ``torch.no_grad()``
+(evaluation, consensus) only the forward runs.
 """
 from __future__ import annotations
 
@@ -29,7 +37,9 @@ from helen_tpu_torch.ops.gru_window import (
     bigru_window_in1,
     bigru_window_in2,
 )
-from helen_tpu_torch.ops.gru_window_bwd import KEYS, bigru_window_bwd
+from helen_tpu_torch.ops.gru_window_bwd import KEYS, Source, bigru_window_bwd, window_input
+from helen_tpu_torch.ops.gru_window_xp import bigru_window_xp
+from helen_tpu_torch.ops.gru_window_xp_bwd import bigru_window_xp_bwd
 
 
 def flat_layer(layer: Layer) -> List[torch.Tensor]:
@@ -94,3 +104,40 @@ def window_in2(xa: torch.Tensor, xb: torch.Tensor, h0_f: torch.Tensor,
                h0_b: torch.Tensor, layer: Layer) -> Outputs:
     """Differentiable K2: ``bigru_window_in2``'s arguments and outputs."""
     return _PairWindow.apply(xa, xb, h0_f, h0_b, *flat_layer(layer))
+
+
+def _recurrent(w_hh_f, b_hh_f, w_hh_b, b_hh_b) -> Layer:
+    return {"fwd": {"w_hh": w_hh_f, "b_hh": b_hh_f},
+            "bwd": {"w_hh": w_hh_b, "b_hh": b_hh_b}}
+
+
+class _XpWindow(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xp_f, xp_b, h0_f, h0_b, w_hh_f, b_hh_f, w_hh_b, b_hh_b):
+        ws = (w_hh_f, b_hh_f, w_hh_b, b_hh_b)
+        outs = bigru_window_xp(xp_f, xp_b, h0_f, h0_b, _recurrent(*ws))
+        ctx.save_for_backward(xp_f, xp_b, h0_f, h0_b, outs[0], outs[1], *ws)
+        return outs
+
+    @staticmethod
+    def backward(ctx, *grads):
+        xp_f, xp_b, h0_f, h0_b, out_f, out_b, *ws = ctx.saved_tensors
+        cts = _cotangents((out_f, out_b, h0_f, h0_b), grads)
+        dxp_f, dxp_b, dh0_f, dh0_b, g = bigru_window_xp_bwd(
+            xp_f, xp_b, h0_f, h0_b, out_f, out_b, *cts, _recurrent(*ws))
+        return (dxp_f, dxp_b, dh0_f, dh0_b, g["fwd"]["w_hh"], g["fwd"]["b_hh"],
+                g["bwd"]["w_hh"], g["bwd"]["b_hh"])
+
+
+def window_xp(src: Source, start: int, T: int, h0_f: torch.Tensor,
+              h0_b: torch.Tensor, layer: Layer) -> Outputs:
+    """One bi-GRU layer over one window on the xp route, differentiable:
+    the projection of the layer's input (the uint8 image window, cast to
+    float32, which is exact; or the previous layer's halves concatenated),
+    then K3 (backward K4). ``src``, ``start``, ``T`` as in
+    :func:`gru_window_bwd.bigru_window_bwd`; returns ``(out_f, out_b, h_f,
+    h_b)``."""
+    x = window_input(src, start, T, h0_f.dtype)
+    f, b = layer["fwd"], layer["bwd"]
+    return _XpWindow.apply(x @ f["w_ih"] + f["b_ih"], x @ b["w_ih"] + b["b_ih"],
+                           h0_f, h0_b, f["w_hh"], f["b_hh"], b["w_hh"], b["b_hh"])

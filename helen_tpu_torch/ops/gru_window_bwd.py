@@ -82,17 +82,60 @@ def _h_prev(out: torch.Tensor, h0: torch.Tensor, rev: bool) -> torch.Tensor:
     return torch.cat([h0[None], out[:-1]], dim=0)
 
 
+def unwind_plain(xp: torch.Tensor, h_prev: torch.Tensor, dout: torch.Tensor,
+                 dh_final: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
+                 rev: bool):
+    """One direction's backward recurrence from its projected input ``xp``
+    (T, B, 3H) and its ``h_prev`` stream: the gates recomputed for the whole
+    window at once, the carry unwound step by step (helen_tpu's equations,
+    ``gru_pallas_train.py:51-62``, ``_bwd_dir`` ``:151-163``).
+
+    :returns: (dxp (T, B, 3H), dhp_n (T, B, H), dh0 (B, H))"""
+    T, _, H3 = xp.shape
+    H = H3 // 3
+    hp = h_prev @ w_hh + b_hh
+    r = torch.sigmoid(xp[..., :H] + hp[..., :H])
+    z = torch.sigmoid(xp[..., H:2 * H] + hp[..., H:2 * H])
+    hp_n = hp[..., 2 * H:]
+    n = torch.tanh(xp[..., 2 * H:] + r * hp_n)
+    dxp = [None] * T
+    dhpn = [None] * T
+    carry = dh_final
+    for t in (range(T) if rev else range(T - 1, -1, -1)):
+        dh = dout[t] + carry
+        dz = dh * (h_prev[t] - n[t])
+        da = dh * (1.0 - z[t]) * (1.0 - n[t] * n[t])
+        dr = da * hp_n[t]
+        drpre = dr * r[t] * (1.0 - r[t])
+        dzpre = dz * z[t] * (1.0 - z[t])
+        dxp[t] = torch.cat([drpre, dzpre, da], dim=-1)
+        dhpn[t] = da * r[t]
+        dhp = torch.cat([drpre, dzpre, dhpn[t]], dim=-1)
+        carry = dh * z[t] + dhp @ w_hh.T
+    return torch.stack(dxp), torch.stack(dhpn), carry
+
+
+def hh_grads_plain(dxp: torch.Tensor, dhpn: torch.Tensor,
+                   h_prev: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """One direction's ``dW_hh = h_prev^T dhp`` and ``db_hh = sum dhp`` over
+    the window's T*B rows, ``dhp = [dxp_r | dxp_z | dhp_n]``."""
+    H = dhpn.shape[-1]
+    g_x = dxp.reshape(-1, 3 * H)
+    g_h = torch.cat([g_x[:, :2 * H], dhpn.reshape(-1, H)], dim=-1)
+    return {"w_hh": h_prev.reshape(-1, H).T @ g_h, "b_hh": g_h.sum(dim=0)}
+
+
 def bigru_window_bwd_rec_plain(src: Source, start: int, h0_f, h0_b, out_f, out_b,
                                dout_f, dout_b, dh_f, dh_b, layer: Layer,
                                need_dx: bool = True):
-    """Pass 1's plain version: the gates recomputed for the whole window at
-    once, the carry unwound step by step (helen_tpu's equations,
-    ``gru_pallas_train.py:51-62``, ``_bwd_dir_ip`` ``:300-318``).
+    """Pass 1's plain version: the projection recomputed from the layer's
+    input, then :func:`unwind_plain` per direction (``_bwd_dir_ip``,
+    ``gru_pallas_train.py:300-318``).
 
     :returns: (dxp (2, T, B, 3H), dhp_n (2, T, B, H) — the kernel's
         scratch streams, direction-major —, dx (T, B, D) summed over the
         directions or None, dh0_f, dh0_b)"""
-    T, B, H = out_f.shape
+    T = out_f.shape[0]
     x = window_input(src, start, T, out_f.dtype)
     dxps, dhpns, dh0 = [], [], []
     dx = None
@@ -100,31 +143,12 @@ def bigru_window_bwd_rec_plain(src: Source, start: int, h0_f, h0_b, out_f, out_b
             ("fwd", out_f, h0_f, dout_f, dh_f, False),
             ("bwd", out_b, h0_b, dout_b, dh_b, True)):
         p = layer[d]
-        h_prev = _h_prev(out, h0, rev)
-        xp = x @ p["w_ih"] + p["b_ih"]
-        hp = h_prev @ p["w_hh"] + p["b_hh"]
-        r = torch.sigmoid(xp[..., :H] + hp[..., :H])
-        z = torch.sigmoid(xp[..., H:2 * H] + hp[..., H:2 * H])
-        hp_n = hp[..., 2 * H:]
-        n = torch.tanh(xp[..., 2 * H:] + r * hp_n)
-        dxp = [None] * T
-        dhpn = [None] * T
-        carry = dh_final
-        for t in (range(T) if rev else range(T - 1, -1, -1)):
-            dh = dout[t] + carry
-            dz = dh * (h_prev[t] - n[t])
-            da = dh * (1.0 - z[t]) * (1.0 - n[t] * n[t])
-            dr = da * hp_n[t]
-            drpre = dr * r[t] * (1.0 - r[t])
-            dzpre = dz * z[t] * (1.0 - z[t])
-            dxp[t] = torch.cat([drpre, dzpre, da], dim=-1)
-            dhpn[t] = da * r[t]
-            dhp = torch.cat([drpre, dzpre, dhpn[t]], dim=-1)
-            carry = dh * z[t] + dhp @ p["w_hh"].T
-        dxps.append(torch.stack(dxp))
-        dhpns.append(torch.stack(dhpn))
+        dxp, dhpn, carry = unwind_plain(x @ p["w_ih"] + p["b_ih"], _h_prev(out, h0, rev),
+                                        dout, dh_final, p["w_hh"], p["b_hh"], rev)
+        dxps.append(dxp)
+        dhpns.append(dhpn)
         if need_dx:
-            dx_d = dxps[-1] @ p["w_ih"].T
+            dx_d = dxp @ p["w_ih"].T
             dx = dx_d if dx is None else dx + dx_d
         dh0.append(carry)
     return torch.stack(dxps), torch.stack(dhpns), dx, dh0[0], dh0[1]
@@ -133,18 +157,16 @@ def bigru_window_bwd_rec_plain(src: Source, start: int, h0_f, h0_b, out_f, out_b
 def bigru_window_bwd_wgrad_plain(src: Source, start: int, h0_f, h0_b, out_f, out_b,
                                  dxp: torch.Tensor, dhpn: torch.Tensor) -> Layer:
     """Pass 2's plain version: the weight cotangents as sums over all T*B
-    rows, ``dW_ih = x^T dxp``, ``db_ih = sum dxp``, ``dW_hh = h_prev^T dhp``,
-    ``db_hh = sum dhp`` with ``dhp = [dxp_r | dxp_z | dhp_n]``."""
+    rows, ``dW_ih = x^T dxp``, ``db_ih = sum dxp`` and
+    :func:`hh_grads_plain`."""
     T, B, H = out_f.shape
     x = window_input(src, start, T, out_f.dtype).reshape(T * B, -1)
     grads: Layer = {}
     for i, (d, out, h0, rev) in enumerate((("fwd", out_f, h0_f, False),
                                            ("bwd", out_b, h0_b, True))):
         g_x = dxp[i].reshape(T * B, 3 * H)
-        g_h = torch.cat([g_x[:, :2 * H], dhpn[i].reshape(T * B, H)], dim=-1)
-        h_prev = _h_prev(out, h0, rev).reshape(T * B, H)
-        grads[d] = {"w_ih": x.T @ g_x, "w_hh": h_prev.T @ g_h,
-                    "b_ih": g_x.sum(dim=0), "b_hh": g_h.sum(dim=0)}
+        grads[d] = {"w_ih": x.T @ g_x, "b_ih": g_x.sum(dim=0),
+                    **hh_grads_plain(dxp[i], dhpn[i], _h_prev(out, h0, rev))}
     return grads
 
 

@@ -6,8 +6,9 @@ the 19-window sweep with the hidden state carried, 5x5 base and 11x11 RLE
 confusion matrices (rows truth, columns prediction), and the loss summed
 per window and normalised by images-per-window. Padded rows are masked out
 of the loss and the matrices, padded columns of short images out of the
-matrices (as helen_tpu does). The forward is the inference one (K1/K2 on
-the ``"cuda"`` backend) under ``torch.no_grad()``.
+matrices (as helen_tpu does). The forward is the inference one (on the
+``"cuda"`` backend K1/K2, or K3 for the wide models) under
+``torch.no_grad()``.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ from helen_tpu_torch.infer.consensus import resolve_device
 from helen_tpu_torch.io.checkpoint import load_model_any, params_to_torch
 from helen_tpu_torch.io.images import MarginPolishDataset, batched_image_iterator
 from helen_tpu_torch.models.transducer import (
+    engaged_kernel,
     forward,
     init_hidden,
     model_geometry,
@@ -160,11 +162,13 @@ def test_interface(test_dir: str, model_path: str, batch_size: int = 100,
     set_fp32_precision()
     params_np, _ = load_model_any(model_path)
     params = params_to_torch(params_np, dev)
+    backend = resolve_backend(backend, dev, params)
     stats = evaluate(params, list_image_files(test_dir), batch_size, num_workers,
                      backend=backend)
     ensure_output_dir(output_dir)
-    log.info("test loss %.6f | base acc %.3f%% | rle acc %.3f%%",
-             stats["loss"], stats["base_accuracy"], stats["rle_accuracy"])
+    log.info("test loss %.6f | base acc %.3f%% | rle acc %.3f%% (backend %s, "
+             "kernels: %s)", stats["loss"], stats["base_accuracy"],
+             stats["rle_accuracy"], backend, engaged_kernel(params, backend))
     np.set_printoptions(linewidth=200)
     with open(os.path.join(output_dir, "confusion_matrix.txt"), "w") as f:
         f.write("base confusion matrix (rows=truth)\n")

@@ -16,10 +16,11 @@ reference semantics are kept (train.py:144-250):
 * per epoch: evaluation, a checkpoint with optimizer and scheduler state
   (never pruned), the train/test CSVs and a confusion-matrix log.
 
-On the ``"cuda"`` backend each window's bi-GRU layers run forward through
-the window kernels K1/K2 and backward through the hand-written backward
-kernel (ops.gru_window_autograd); on ``"torch"`` torch's autograd
-differentiates the plain ops. The data order (the per-epoch permutation),
+On the ``"cuda"`` backend each window's bi-GRU layers run forward and
+backward through hand-written kernels (ops.gru_window_autograd): K1/K2 and
+the in-projection backward up to H=512, the projection GEMMs with K3/K4
+for the wide models; on ``"torch"`` torch's autograd differentiates the
+plain ops. The data order (the per-epoch permutation),
 the checkpoints and the CSVs are byte-compatible with helen_tpu's, so a run
 of either package resumes in the other.
 """
@@ -47,6 +48,7 @@ from helen_tpu_torch.io.checkpoint import (
 from helen_tpu_torch.io.images import MarginPolishDataset, batched_image_iterator
 from helen_tpu_torch.models.transducer import (
     Params,
+    engaged_kernel,
     forward,
     init_hidden,
     init_params,
@@ -143,7 +145,8 @@ class Adam:
 
 def tbptt_step(params: Params, adam: Adam, opt_state: Dict, lr: float,
                images: torch.Tensor, label_base: torch.Tensor,
-               label_rle: torch.Tensor, valid: int, backend: str):
+               label_rle: torch.Tensor, valid: int, backend: str,
+               route: Optional[str] = None):
     """One batch of truncated BPTT (helen_tpu ``build_tbptt_fn``,
     ``train_loop.py:89-177``): 19 windows, each a forward, a backward and an
     Adam update of ``params`` (leaf tensors with ``requires_grad``) in place.
@@ -151,6 +154,8 @@ def tbptt_step(params: Params, adam: Adam, opt_state: Dict, lr: float,
     :param images: (B, L, F) uint8 on the device; labels (B, L) int
     :param valid: number of real rows; rows >= valid are padding and are
         masked out of both losses
+    :param route: the ``"cuda"`` backend's kernel family (library only;
+        ``models.transducer.forward``)
     :returns: device scalars (loss sum, base loss sum, rle loss sum) over
         the windows, each window's loss a mean over its real rows
     """
@@ -167,7 +172,7 @@ def tbptt_step(params: Params, adam: Adam, opt_state: Dict, lr: float,
     tot_r = torch.zeros((), device=dev)
     for start in WINDOW.starts(L):
         base, rle, hidden_new = forward(params, images, hidden, backend,
-                                        start=start, window=W)
+                                        start=start, window=W, route=route)
         nb, db = masked_cross_entropy_parts(base, label_base[:, start:start + W],
                                             row_mask)
         nr, dr = masked_weighted_cross_entropy_parts(
@@ -250,9 +255,10 @@ class Trainer:
                           else self.adam.init(self.params))
         self.model_cfg = model_geometry(self.params)
         self.backend = resolve_backend(backend, self.device, self.params, kind="train")
-        log.info("model parameters: %d (hidden %d, %d gru layer(s)), backend %s on %s",
-                 num_params(self.params), self.model_cfg.hidden_size,
-                 self.model_cfg.gru_layers, self.backend, self.device)
+        log.info("model parameters: %d (hidden %d, %d gru layer(s)), backend %s "
+                 "(kernels: %s) on %s", num_params(self.params),
+                 self.model_cfg.hidden_size, self.model_cfg.gru_layers, self.backend,
+                 engaged_kernel(self.params, self.backend), self.device)
         self.dataset = MarginPolishDataset(self.train_files, IMAGE, with_labels=True)
         if len(self.dataset) == 0:
             raise ValueError("no labeled training images found")

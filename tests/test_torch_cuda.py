@@ -1,5 +1,5 @@
-"""The CUDA window kernels (forward K1/K2, and the backward) against their
-plain versions, on the GPU.
+"""The CUDA window kernels (forward K1/K2 and their backward; the xp-stream
+K3 and K4 of the wide models) against their plain versions, on the GPU.
 
 These tests need an NVIDIA GPU with ``nvcc`` (the kernels build for sm_90a
 from helen_tpu_torch/ops/csrc at first use); elsewhere they skip. They
@@ -259,3 +259,151 @@ def test_backward_wrapper_refuses_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError):  # non-contiguous forward output
         gb.bigru_window_bwd(src, start, h0f, h0b, of.transpose(0, 1).contiguous()
                             .transpose(0, 1), ob, dof, dob, dhf, dhb, layer)
+
+
+# ---------------------------------------------------------------------------
+# the xp-stream kernels (K3, K4) of the wide models
+# ---------------------------------------------------------------------------
+
+def xp_case(rng, T, B, H, dev):
+    """Projected streams, h0 pair and a layer (its w_ih is not read)."""
+    r = lambda *s: torch.from_numpy(rng.uniform(-1, 1, s).astype(np.float32)).to(dev)  # noqa: E731
+    return r(T, B, 3 * H), r(T, B, 3 * H), r(B, H), r(B, H), make_layer(rng, 2 * H, H, dev)
+
+
+# the wide training and inference widths, an off-grid one and one that is
+# not a multiple of the block's threads, ragged batches (1, 13, 17 rows
+# against the 8-row block)
+@pytest.mark.parametrize("T,B,H", [(100, 64, 1024), (7, 13, 640), (5, 3, 160),
+                                   (9, 17, 1000), (4, 1, 1024)])
+def test_k3_kernel_matches_plain(dev, T, B, H):
+    from helen_tpu_torch.ops import gru_window_xp as gx
+
+    args = xp_case(np.random.default_rng(T * B + H), T, B, H, dev)
+    before = gx.launch_counts["bigru_window_xp"]
+    got = gx.bigru_window_xp(*args)
+    torch.cuda.synchronize()
+    assert gx.launch_counts["bigru_window_xp"] == before + 1
+    assert_outputs_close(got, gx.bigru_window_xp_plain(*args))
+
+
+def xp_bwd_case(rng, T, B, H, dev):
+    """Inputs of one K4 launch: streams, forward outputs (from the plain
+    forward), nonzero h0, dout and final-state cotangents."""
+    from helen_tpu_torch.ops import gru_window_xp as gx
+
+    xp_f, xp_b, h0f, h0b, layer = xp_case(rng, T, B, H, dev)
+    of, ob, _, _ = gx.bigru_window_xp_plain(xp_f, xp_b, h0f, h0b, layer)
+    r = lambda *s: torch.from_numpy(rng.uniform(-1, 1, s).astype(np.float32)).to(dev)  # noqa: E731
+    return (xp_f, xp_b, h0f, h0b, of.contiguous(), ob.contiguous(), r(T, B, H),
+            r(T, B, H), r(B, H), r(B, H), layer)
+
+
+def assert_xp_grads_close(got, want):
+    for what, g, w in zip(("dxp_f", "dxp_b", "dh0_f", "dh0_b"), got[:4], want[:4]):
+        _scaled_close(g, w, what)
+    for d in ("fwd", "bwd"):
+        for k in ("w_hh", "b_hh"):
+            assert got[4][d][k].shape == want[4][d][k].shape, (d, k)
+            _scaled_close(got[4][d][k], want[4][d][k], f"{d}.{k}")
+
+
+@pytest.mark.parametrize("T,B,H", [(7, 1, 1024), (6, 13, 640), (5, 9, 160),
+                                   (50, 64, 1024)])
+def test_xp_backward_kernel_matches_plain(dev, T, B, H):
+    from helen_tpu_torch.ops import gru_window_xp_bwd as gxb
+
+    args = xp_bwd_case(np.random.default_rng(T * B + H), T, B, H, dev)
+    before = dict(gxb.launch_counts)
+    got = gxb.bigru_window_xp_bwd(*args)
+    torch.cuda.synchronize()
+    assert gxb.launch_counts == {k: v + 1 for k, v in before.items()}
+    assert_xp_grads_close(got, gxb.bigru_window_xp_bwd_plain(*args))
+
+
+def test_xp_backward_kernel_is_bit_identical_across_launches(dev):
+    from helen_tpu_torch.ops import gru_window_xp_bwd as gxb
+
+    args = xp_bwd_case(np.random.default_rng(8), 40, 24, 1024, dev)
+    a, b = gxb.bigru_window_xp_bwd(*args), gxb.bigru_window_xp_bwd(*args)
+    flat = lambda r: list(r[:4]) + [r[4][d][k] for d in ("fwd", "bwd")  # noqa: E731
+                                    for k in ("w_hh", "b_hh")]
+    for x, y in zip(flat(a), flat(b)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("H,route", [(128, "xp"), (640, None)])
+def test_window_gradients_xp_route_match_plain_route(dev, H, route):
+    """One transducer window through the xp route (projection GEMMs, K3,
+    K4; forced at H=128, the dispatch rule's own at H=640) against torch's
+    autograd of the plain route: every param and the carried hidden."""
+    import dataclasses
+
+    from helen_tpu_torch.config import MODEL
+    from helen_tpu_torch.io.checkpoint import params_to_torch
+    from helen_tpu_torch.models.transducer import (
+        engaged_kernel,
+        forward,
+        init_params,
+        param_leaves,
+    )
+
+    params_cpu = init_params(torch.Generator().manual_seed(H),
+                             dataclasses.replace(MODEL, hidden_size=H))
+    rng = np.random.default_rng(H)
+    image = torch.from_numpy(rng.integers(0, 30, (24, 300, 90), dtype=np.uint8)).to(dev)
+    hidden = torch.from_numpy(rng.uniform(-1, 1, (24, 2, H)).astype(np.float32)).to(dev)
+    w = [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)
+         for s in ((24, 100, 5), (24, 100, 11), (24, 2, H))]
+    grads = {}
+    for backend in ("cuda", "torch"):
+        p = params_to_torch(params_cpu, dev)
+        for t in param_leaves(p):
+            t.requires_grad_(True)
+        h = hidden.clone().requires_grad_(True)
+        r = route if backend == "cuda" else None
+        if backend == "cuda":
+            assert engaged_kernel(p, backend, r) == "cuda_xp"
+        base, rle, hn = forward(p, image, h, backend, start=150, window=100, route=r)
+        ((base * w[0]).sum() + (rle * w[1]).sum() + (hn * w[2]).sum()).backward()
+        grads[backend] = [t.grad for t in param_leaves(p)] + [h.grad]
+    for i, (k, q) in enumerate(zip(grads["cuda"], grads["torch"])):
+        _scaled_close(k, q, f"leaf {i}")
+
+
+def test_xp_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    from helen_tpu_torch.ops import gru_window_xp as gx
+    from helen_tpu_torch.ops import gru_window_xp_bwd as gxb
+
+    xp_f, xp_b, h0f, h0b, layer = xp_case(np.random.default_rng(2), 4, 8, 640, dev)
+    with pytest.raises(TypeError):  # a float64 stream
+        gx.bigru_window_xp(xp_f.double(), xp_b, h0f, h0b, layer)
+    with pytest.raises(ValueError):  # the streams' shapes differ
+        gx.bigru_window_xp(xp_f, xp_b[:-1], h0f, h0b, layer)
+    with pytest.raises(ValueError):  # h0 on the CPU
+        gx.bigru_window_xp(xp_f, xp_b, h0f.cpu(), h0b, layer)
+    with pytest.raises(ValueError):  # a weight on the CPU
+        gx.bigru_window_xp(xp_f, xp_b, h0f, h0b,
+                           {"fwd": {k: v.cpu() for k, v in layer["fwd"].items()},
+                            "bwd": layer["bwd"]})
+    with pytest.raises(ValueError):  # non-contiguous stream
+        gx.bigru_window_xp(xp_f.transpose(0, 1).contiguous().transpose(0, 1), xp_b,
+                           h0f, h0b, layer)
+    wide = xp_case(np.random.default_rng(3), 2, 8, 1056, dev)
+    with pytest.raises(ValueError, match="maximum 1024"):  # H > XP_MAX_H
+        gx.bigru_window_xp(*wide)
+
+    args = xp_bwd_case(np.random.default_rng(4), 4, 8, 640, dev)
+    xp_f, xp_b, h0f, h0b, of, ob, dof, dob, dhf, dhb, layer = args
+    with pytest.raises(TypeError):  # a float64 cotangent
+        gxb.bigru_window_xp_bwd(xp_f, xp_b, h0f, h0b, of, ob, dof.double(), dob, dhf,
+                                dhb, layer)
+    with pytest.raises(ValueError):  # a cotangent on the CPU
+        gxb.bigru_window_xp_bwd(xp_f, xp_b, h0f, h0b, of, ob, dof, dob, dhf.cpu(), dhb,
+                                layer)
+    with pytest.raises(ValueError):  # a stream of the wrong shape
+        gxb.bigru_window_xp_bwd(xp_f[:, :-1], xp_b, h0f, h0b, of, ob, dof, dob, dhf, dhb,
+                                layer)
+    wide = xp_bwd_case(np.random.default_rng(5), 2, 8, 1056, dev)
+    with pytest.raises(ValueError, match="maximum 1024"):  # H > XP_MAX_H
+        gxb.bigru_window_xp_bwd(*wide)

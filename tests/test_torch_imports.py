@@ -47,7 +47,9 @@ def imported_names(path: str):
 
 def test_port_has_modules():
     assert len(PORT_FILES) > 20
-    assert "helen_tpu_torch/ops/gru_window.py" in PORT_FILES
+    for mod in ("gru_window", "gru_window_bwd", "gru_window_autograd", "gru_window_xp",
+                "gru_window_xp_bwd"):
+        assert f"helen_tpu_torch/ops/{mod}.py" in PORT_FILES
 
 
 @pytest.mark.parametrize("rel", PORT_FILES)
