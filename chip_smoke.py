@@ -18,8 +18,12 @@ CLI on the full-width images with the launches counted. Phase 9 drives the
 wide models (H=1024) through the xp-stream kernels: K3 and K4 against their
 plain versions, the golden fixtures and a cross-route check at H=512
 through the forced xp route, then ``train``, ``test`` and ``polish`` at
-H=1024 with the launches counted. Every phase fails the script on error;
-nothing falls back.
+H=1024 with the launches counted. Phase 10 drives the fast (bf16) tier,
+``polish --fast``: K1f, K2f and K3f against their plain versions, a label
+flip audit against the fast plain route and the fp32 route, the trained
+checkpoint under ``--fast`` against the parity tier, and the flagship and
+wide polishes through the fast kernels with the launches counted. Every
+phase fails the script on error; nothing falls back.
 The second-to-last line is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
 checkout, it exits non-zero and prints no result. It imports nothing of JAX.
@@ -49,6 +53,12 @@ FLIPS_PER_LABEL = 1e-4
 # cores, and HBM3 bandwidth
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
+# the fast tier (phase 10): its products are bf16 with fp32 sums, so its
+# bound counts them at the dense bf16 tensor-core peak (NVIDIA data sheet);
+# kernel vs plain version, and the flips the kernels may add per head
+PEAK_BF16 = 989e12
+FAST_TOL = 1e-3
+N_AUDIT = 128
 N_FULL = 2048
 FULL_CONTIG_BP = 800_000
 # training: batch, the held-out contig, epochs, and the backward's tolerance
@@ -63,6 +73,9 @@ BWD_PASSES = ("bigru_window_bwd_rec", "bigru_window_bwd_wgrad")
 WH = 1024
 WB_TRAIN, N_WIDE_TRAIN, WB_POLISH = 64, 128, 256
 XP_PASSES = ("bigru_window_xp_bwd_rec", "bigru_window_xp_bwd_wgrad")
+# the fast tier's in-projection kernels (phase 10), which ops.gru_window
+# counts beside K1/K2: no parity path launches them
+FAST_ZERO = {"bigru_window_in1_fast": 0, "bigru_window_in2_fast": 0}
 
 
 def fail(msg: str) -> None:
@@ -92,8 +105,8 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return t0.elapsed_time(t1) / iters
 
 
-def bound(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
+def bound(flops: float, nbytes: float, peak: float = PEAK_FP32):
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -107,11 +120,14 @@ def random_layer(rng, d: int, h: int, device):
                  "b_ih": u(3 * h), "b_hh": u(3 * h)} for d_ in ("fwd", "bwd")}
 
 
-def cudnn_gru(layer, d: int, h: int, device):
-    """torch.nn.GRU (cuDNN) holding the same weights: the library yardstick."""
+def cudnn_gru(layer, d: int, h: int, device, dtype=None):
+    """torch.nn.GRU (cuDNN) holding the same weights, made in ``dtype``
+    (float32 by default) so that cuDNN keeps them in one flat buffer: the
+    library yardstick."""
     import torch
 
-    gru = torch.nn.GRU(d, h, bidirectional=True).to(device)
+    gru = torch.nn.GRU(d, h, bidirectional=True, device=device, dtype=dtype)
+    gru.flatten_parameters()
     with torch.no_grad():
         for name, p in (("", layer["fwd"]), ("_reverse", layer["bwd"])):
             getattr(gru, f"weight_ih_l0{name}").copy_(p["w_ih"].T)
@@ -260,8 +276,9 @@ def check_golden(work: str) -> None:
             fail(f"golden {name}: too many label flips")
 
 
-def check_trained(work: str) -> None:
-    """Phase 5: the trained checkpoint polishes an unseen sequence exactly."""
+def check_trained(work: str) -> tuple:
+    """Phase 5: the trained checkpoint polishes an unseen sequence exactly.
+    Returns (image dir, FASTA path, predictions dir) for phase 10d."""
     from helen_tpu_torch.io.fasta import read_fasta
     from helen_tpu_torch.io.synthetic import random_sequence, write_image_file
 
@@ -270,12 +287,13 @@ def check_trained(work: str) -> None:
     seq = random_sequence(20000, seed=555)
     write_image_file(os.path.join(img_dir, "img.h5"), {"unseen_ctg": seq},
                      region_cols=1000, overlap_cols=80, noise=0.1, seed=556)
-    fasta, _ = polish_cli(img_dir, os.path.join(GOLDEN, "trained_synth30mb.npz"),
-                          os.path.join(work, "out_unseen"))
+    fasta, preds = polish_cli(img_dir, os.path.join(GOLDEN, "trained_synth30mb.npz"),
+                              os.path.join(work, "out_unseen"))
     exact = dict(read_fasta(fasta)).get("unseen_ctg") == seq
     log(f"trained checkpoint on an unseen 20 kb sequence: polished == truth: {exact}")
     if not exact:
         fail("the trained checkpoint did not polish the unseen sequence exactly")
+    return img_dir, fasta, preds
 
 
 def make_full_width(img_dir: str):
@@ -336,15 +354,16 @@ def run_full_width(img_dir: str, truth, n_images: int, work: str, results) -> No
     if exact != len(truth):
         fail("the trained checkpoint did not polish every full-width contig exactly")
     layers = 1  # the trained checkpoint is the flagship geometry
-    want = {"bigru_window_in1": batches * n_win * layers,
+    want = {**FAST_ZERO, "bigru_window_in1": batches * n_win * layers,
             "bigru_window_in2": batches * n_win * (2 * layers - 1)}
     log(f"kernel launches {launches}, expected {want} ({batches} batches x "
         f"{n_win} windows x layers)")
     if launches != want:
         fail("kernel launch counts differ from batches x windows x layers")
-    for name, n in launches.items():
-        results[name]["launches"] = n
-    busy = sum(n * results[name]["ms"] for name, n in launches.items()) / 1e3
+    parity = ("bigru_window_in1", "bigru_window_in2")
+    for name in parity:
+        results[name]["launches"] = launches[name]
+    busy = sum(launches[name] * results[name]["ms"] for name in parity) / 1e3
     log(f"window kernels' share of call_consensus (launches x phase-3 ms): "
         f"{busy:.3f} s of {consensus_s:.3f} s = {100 * busy / consensus_s:.1f}%")
 
@@ -658,7 +677,7 @@ def run_train(img_dir: str, n_images: int, work: str, results) -> None:
     train_batches, test_batches = -(-n_images // TB), -(-n_test // TB)
     fwd = TRAIN_EPOCHS * (train_batches + test_batches) * n_win
     bwd = TRAIN_EPOCHS * train_batches * n_win * 2  # layer 0 + decoder
-    want = {"bigru_window_in1": fwd, "bigru_window_in2": fwd,
+    want = {**FAST_ZERO, "bigru_window_in1": fwd, "bigru_window_in2": fwd,
             BWD_PASSES[0]: bwd, BWD_PASSES[1]: bwd}
     log(f"train launches {launches}, expected {want} ({TRAIN_EPOCHS} epochs x "
         f"({train_batches} train + {test_batches} test batches) x {n_win} windows; "
@@ -688,7 +707,7 @@ def run_train(img_dir: str, n_images: int, work: str, results) -> None:
         f"launches {tl}")
     if not same:
         fail("test did not reproduce the last epoch's loss and confusion matrices")
-    if tl != {"bigru_window_in1": test_batches * n_win,
+    if tl != {**FAST_ZERO, "bigru_window_in1": test_batches * n_win,
               "bigru_window_in2": test_batches * n_win, BWD_PASSES[0]: 0, BWD_PASSES[1]: 0}:
         fail("test launch counts differ from batches x windows")
 
@@ -957,12 +976,13 @@ def write_exact(path: str, name: str, n: int, seed: int) -> None:
         fail(f"wrote {got} images, wanted {n}")
 
 
-def run_wide_cli(work: str, results) -> None:
+def run_wide_cli(work: str, results) -> tuple:
     """Phase 9e: ``train --hidden_size 1024 -b 64`` for one epoch on 128
     labeled full-width images, ``test`` of its checkpoint, and ``polish``
     with it on 256 images at ``-b 256`` (the function behind the CLI, with a
     stage timer), each with every kernel's launches counted from 0; the
-    polish labels against the plain route on the card."""
+    polish labels against the plain route on the card. Returns (the
+    checkpoint, the polish images, the polish output) for phase 10e."""
     import glob
 
     import numpy as np
@@ -1011,6 +1031,7 @@ def run_wide_cli(work: str, results) -> None:
         epoch = json.loads(f.readline())
     train_b, test_b = N_WIDE_TRAIN // WB_TRAIN, 1
     want = {**zero_inproj, "bigru_window_xp": (train_b + test_b) * n_win * 2,
+            "bigru_window_xp_fast": 0,
             XP_PASSES[0]: train_b * n_win * 2, XP_PASSES[1]: train_b * n_win * 2}
     log(f"wide train (H={WH}, {N_WIDE_TRAIN} images, -b {WB_TRAIN}, 1 epoch): train loss "
         f"{epoch['train_loss']:.5f}, test loss {epoch['test_loss']:.5f}, base acc "
@@ -1047,8 +1068,8 @@ def run_wide_cli(work: str, results) -> None:
         f"confusion matrices equal: {same}; launches {tl}")
     if not same:
         fail("wide test did not reproduce the epoch's loss and confusion matrices")
-    if tl != {**zero_inproj, "bigru_window_xp": test_b * n_win * 2, XP_PASSES[0]: 0,
-              XP_PASSES[1]: 0}:
+    if tl != {**zero_inproj, "bigru_window_xp": test_b * n_win * 2,
+              "bigru_window_xp_fast": 0, XP_PASSES[0]: 0, XP_PASSES[1]: 0}:
         fail("wide test launch counts differ from batches x windows x layers")
 
     pout = os.path.join(work, "wide_polish_out")
@@ -1063,8 +1084,8 @@ def run_wide_cli(work: str, results) -> None:
     log(f"wide polish ({WB_POLISH} images at -b {WB_POLISH}): wall {wall:.2f} s, consensus "
         f"{consensus_s:.2f} s = {WB_POLISH * n_win / consensus_s:,.1f} windows/s, peak "
         f"device memory {peak:.0f} MiB; launches {pl}")
-    if pl != {**zero_inproj, "bigru_window_xp": n_win * 2, XP_PASSES[0]: 0,
-              XP_PASSES[1]: 0}:
+    if pl != {**zero_inproj, "bigru_window_xp": n_win * 2, "bigru_window_xp_fast": 0,
+              XP_PASSES[0]: 0, XP_PASSES[1]: 0}:
         fail("wide polish launch counts differ from batches x windows x layers")
     results["bigru_window_xp"]["launches"] = pl["bigru_window_xp"]
 
@@ -1082,6 +1103,287 @@ def run_wide_cli(work: str, results) -> None:
         f"base+rle label flips of {base.size} per head")
     if max(fb, fr) > FLIPS_PER_LABEL * base.size:
         fail("the wide polish labels disagree with the plain route")
+    return latest, dirs["polish"], pout
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the fast (bf16) tier, polish --fast, through K1f, K2f and K3f
+# ---------------------------------------------------------------------------
+
+def timed_once(fn):
+    """(fn(), its ms on the card): one call, for plain versions too slow to
+    repeat."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return out, t0.elapsed_time(t1)
+
+
+def fast_entry(name: str, source: str, replaces: str, err: float, ms: float,
+               plain_ms: float, lib_ms: float, flops: float, nbytes: float, per: str):
+    bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16)
+    log(f"{name}: max |kernel - plain| {err:.3g} (limit {FAST_TOL:g}); kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.3f} ms, cuDNN GRU in bf16 {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}: {flops / 1e9:.1f} GFLOP at the bf16 peak, {nbytes / 1e6:.1f} MB)")
+    if not err <= FAST_TOL:
+        fail(f"{name} disagrees with its plain version")
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "max_abs_err": err, "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+            "library": "torch.nn.GRU in bf16 (cuDNN), timed only", "per": per}
+
+
+def check_fast_inproj(images_u8, results) -> None:
+    """Phase 10a: K1f on the uint8 image window and K2f on K1f's outputs
+    against their plain versions at the flagship shapes, timed beside the
+    plain versions and cuDNN's GRU in bf16."""
+    import numpy as np
+    import torch
+
+    from helen_tpu_torch.io.checkpoint import fast_layer
+    from helen_tpu_torch.ops import gru_window as gw
+
+    dev = images_u8.device
+    rng = np.random.default_rng(20261020)
+    f1, f2 = random_layer(rng, F, H, dev), random_layer(rng, 2 * H, H, dev)
+    l1, l2 = fast_layer(f1), fast_layer(f2)
+    h0 = [torch.from_numpy(rng.uniform(-0.5, 0.5, (B, H)).astype("float32")).to(dev)
+          for _ in range(4)]
+    start = 450
+    with torch.no_grad():
+        k1 = gw.bigru_window_in1_fast(images_u8, start, T, h0[0], h0[1], l1)
+        p1, plain1 = timed_once(
+            lambda: gw.bigru_window_in1_fast_plain(images_u8, start, T, h0[0], h0[1], l1))
+        xa, xb = k1[0], k1[1]  # K2f reads K1f's outputs, as on the main path
+        k2 = gw.bigru_window_in2_fast(xa, xb, h0[2], h0[3], l2)
+        p2, plain2 = timed_once(lambda: gw.bigru_window_in2_fast_plain(xa, xb, h0[2], h0[3], l2))
+        ms1 = cuda_ms(lambda: gw.bigru_window_in1_fast(images_u8, start, T, h0[0], h0[1], l1))
+        ms2 = cuda_ms(lambda: gw.bigru_window_in2_fast(xa, xb, h0[2], h0[3], l2))
+        bf = torch.bfloat16
+        x0 = images_u8[:, start:start + T].to(bf).transpose(0, 1).contiguous()
+        x1 = torch.cat([xa, xb], -1).to(bf)
+        hx1, hx2 = torch.stack(h0[:2]).to(bf), torch.stack(h0[2:]).to(bf)
+        # the library yardstick, timed and never compared: cuDNN's GRU in
+        # bf16 keeps a bf16 state, so it is not the same function
+        g1, g2 = cudnn_gru(f1, F, H, dev, bf), cudnn_gru(f2, 2 * H, H, dev, bf)
+        lib1, lib2 = cuda_ms(lambda: g1(x0, hx1)), cuda_ms(lambda: g2(x1, hx2))
+    bt = B * T
+    per = f"one launch at B={B}, T={T}, H={H} (library: cuDNN's bf16 GRU of the layer)"
+    results["bigru_window_in1_fast"] = fast_entry(
+        "bigru_window_in1_fast", "helen_tpu_torch/ops/csrc/gru_window.cu",
+        "helen_tpu/ops/gru_pallas.py:426 (_kernel_inproj1, fast=True)", max_err(k1, p1),
+        ms1, plain1, lib1, 2.0 * bt * 2 * (F * 3 * H + H * 3 * H),
+        bt * F + 2 * 2 * (F + H) * 3 * H + 2 * 4 * 6 * H + 4 * 4 * B * H + 2 * 4 * bt * H,
+        per)
+    results["bigru_window_in2_fast"] = fast_entry(
+        "bigru_window_in2_fast", "helen_tpu_torch/ops/csrc/gru_window.cu",
+        "helen_tpu/ops/gru_pallas.py:474 (_kernel_inproj2, fast=True)", max_err(k2, p2),
+        ms2, plain2, lib2, 2.0 * bt * 2 * (2 * H * 3 * H + H * 3 * H),
+        2 * 4 * bt * H + 2 * 2 * 3 * H * 3 * H + 2 * 4 * 6 * H + 4 * 4 * B * H
+        + 2 * 4 * bt * H, per)
+
+
+def check_fast_xp(images_u8, results) -> None:
+    """Phase 10b: K3f against its plain version at B=512, T=100, H=1024 for
+    both layer kinds (layer 0 on the uint8 window, D=90; the decoder on
+    K3f's outputs rounded to bf16, D=2048), each over the streams of the
+    fast projection (a float32 GEMM of bf16 values, the bias, one rounding
+    to bf16), timed beside its plain version, that projection and cuDNN's
+    GRU in bf16 at the same (D, H)."""
+    import numpy as np
+    import torch
+
+    from helen_tpu_torch.io.checkpoint import fast_layer
+    from helen_tpu_torch.models.gru import bf16_round
+    from helen_tpu_torch.ops import gru_window_xp as gx
+
+    dev = images_u8.device
+    rng = np.random.default_rng(20261021)
+    h0 = [torch.from_numpy(rng.uniform(-0.5, 0.5, (B, WH)).astype("float32")).to(dev)
+          for _ in range(4)]
+    start = 450
+    x = images_u8[:, start:start + T].to(torch.float32).transpose(0, 1).contiguous()
+    hf, hb = h0[0], h0[1]
+    acc = {k: 0.0 for k in ("ms", "plain_ms", "library_ms", "projection_ms", "err")}
+    for label, D in (("layer 0, image D=90", F), ("decoder, pair D=2048", 2 * WH)):
+        f32 = random_layer(rng, D, WH, dev)
+        layer = fast_layer(f32)
+        proj = lambda: (gx.project_fast(x, layer["fwd"]),  # noqa: E731
+                        gx.project_fast(x, layer["bwd"]))
+        with torch.no_grad():
+            xp_f, xp_b = proj()
+            got = gx.bigru_window_xp_fast(xp_f, xp_b, hf, hb, layer)
+            want, plain_ms = timed_once(
+                lambda: gx.bigru_window_xp_fast_plain(xp_f, xp_b, hf, hb, layer))
+            err = max_err(got, want)
+            ms = cuda_ms(lambda: gx.bigru_window_xp_fast(xp_f, xp_b, hf, hb, layer),
+                         iters=5, warmup=1)
+            proj_ms = cuda_ms(proj, iters=5, warmup=1)
+            gru = cudnn_gru(f32, D, WH, dev, torch.bfloat16)
+            xb16, hx = x.to(torch.bfloat16), torch.stack([hf, hb]).to(torch.bfloat16)
+            lib_ms = cuda_ms(lambda: gru(xb16, hx), iters=5, warmup=1)
+        log(f"K3f ({label}): max |kernel - plain| {err:.3g}; kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.3f} ms, fast projection {proj_ms:.4f} ms, cuDNN bf16 GRU {lib_ms:.4f} ms")
+        for k, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                     ("projection_ms", proj_ms)):
+            acc[k] += v / 2
+        acc["err"] = max(acc["err"], err)
+        # the decoder reads layer 0's outputs rounded to bf16, as on the main path
+        x, hf, hb = bf16_round(torch.cat([got[0], got[1]], -1)), h0[2], h0[3]
+    entry = fast_entry(
+        "bigru_window_xp_fast", "helen_tpu_torch/ops/csrc/gru_window_xp.cu",
+        "helen_tpu/ops/gru_pallas.py:231 (_kernel, fast=True)", acc["err"], acc["ms"],
+        acc["plain_ms"], acc["library_ms"], 2.0 * T * B * 3 * WH * WH * 2,
+        2 * 2 * T * B * 3 * WH + 2 * 4 * T * B * WH + 2 * (2 * WH * 3 * WH + 4 * 3 * WH)
+        + 4 * 4 * B * WH,
+        f"one launch at B={B}, T={T}, H={WH} (mean of layer 0, D=90, and the decoder, "
+        "D=2048; library: cuDNN's bf16 GRU of the layer, projection included)")
+    entry["projection_ms"] = acc["projection_ms"]
+    log(f"K3f projection (float32 GEMM of bf16 values + b_ih, one rounding): "
+        f"{acc['projection_ms']:.4f} ms per layer")
+    results["bigru_window_xp_fast"] = entry
+
+
+def audit_fast_flips(images_u8) -> None:
+    """Phase 10c: a random-weight flagship model on full-width images
+    through the fast kernels, the fast plain versions (on the card) and the
+    fp32 kernels. The fast kernels may flip at most FLIPS_PER_LABEL of the
+    labels per head against the fast plain route; their flips against the
+    fp32 route are reported beside the plain fast route's own."""
+    import torch
+
+    from helen_tpu_torch.config import MODEL
+    from helen_tpu_torch.io.checkpoint import fast_weights, params_to_torch
+    from helen_tpu_torch.models.transducer import consensus_labels, init_params
+
+    params = params_to_torch(init_params(torch.Generator().manual_seed(10), MODEL),
+                             images_u8.device)
+    fast = fast_weights(params)
+    with torch.no_grad():
+        (kb, kr), fast_ms = timed_once(lambda: consensus_labels(fast, images_u8,
+                                                                backend="cuda_fast"))
+        pb, pr = consensus_labels(fast, images_u8, backend="torch_fast")
+        (rb, rr), fp32_ms = timed_once(lambda: consensus_labels(params, images_u8,
+                                                                backend="cuda"))
+    n = kb.numel()
+    flips = lambda a, b: int((a != b).sum())  # noqa: E731
+    kp = (flips(kb, pb), flips(kr, pr))
+    log(f"{images_u8.shape[0]} images, random weights: fast kernels vs fast plain route "
+        f"{kp[0]}+{kp[1]} base+rle flips of {n} per head (limit "
+        f"{FLIPS_PER_LABEL * n:g}); vs the fp32 route: fast kernels "
+        f"{flips(kb, rb)}+{flips(kr, rr)}, fast plain route {flips(pb, rb)}+{flips(pr, rr)}; "
+        f"consensus: fast kernels {fast_ms:.1f} ms, fp32 kernels {fp32_ms:.1f} ms")
+    if max(kp) > FLIPS_PER_LABEL * n:
+        fail("the fast kernels flip labels against the fast plain route")
+
+
+def check_trained_fast(work: str, img_dir: str, fasta: str, preds: str) -> None:
+    """Phase 10d: ``polish --fast`` of the trained checkpoint on phase 5's
+    images through the CLI: a FASTA byte-identical to phase 5's and 0 + 0
+    label flips against its prediction store (BENCH_r05's regime)."""
+    fast_fasta, fast_preds = polish_cli(img_dir, os.path.join(GOLDEN, "trained_synth30mb.npz"),
+                                        os.path.join(work, "out_unseen_fast"), ["--fast"])
+    with open(fasta, "rb") as a, open(fast_fasta, "rb") as b:
+        same = a.read() == b.read()
+    want, got = store_labels(preds), store_labels(fast_preds)
+    if sorted(got) != sorted(want):
+        fail("polish --fast stored other images than polish")
+    fb = sum(int((got[k][0] != want[k][0]).sum()) for k in want)
+    fr = sum(int((got[k][1] != want[k][1]).sum()) for k in want)
+    log(f"trained checkpoint, polish --fast vs polish: {fb}+{fr} base+rle label flips, "
+        f"FASTA byte-identical: {same}")
+    if fb or fr or not same:
+        fail("polish --fast differs from polish with the trained checkpoint")
+
+
+def run_fast_polish(img_dir: str, truth, n_images: int, work: str, wide_ckpt: str,
+                    wide_dir: str, wide_parity_out: str, results) -> None:
+    """Phase 10e: ``polish`` with ``backend="pallas_fast"`` (what ``polish
+    --fast`` calls; a stage timer of its own) of phase 6's images at -b 512
+    with the trained checkpoint, and of phase 9e's 256 images at -b 256 with
+    its H=1024 checkpoint, every kernel's launches counted from 0: K1f/K2f
+    batches x windows each on the flagship, K3f windows x 2 layers on the
+    wide model, no parity kernel. Labels against the parity runs of phases
+    6 and 9e."""
+    import glob
+
+    import torch
+
+    from helen_tpu_torch.config import IMAGE, WINDOW
+    from helen_tpu_torch.infer.polish import polish
+    from helen_tpu_torch.io.fasta import read_fasta
+    from helen_tpu_torch.obs import StageTimer
+    from helen_tpu_torch.ops import gru_window as gw
+    from helen_tpu_torch.ops import gru_window_bwd as gb
+    from helen_tpu_torch.ops import gru_window_xp as gx
+    from helen_tpu_torch.ops import gru_window_xp_bwd as gxb
+
+    mods = (gw, gb, gx, gxb)
+    n_win = WINDOW.num_windows(IMAGE.seq_length)
+
+    def run(images, model, out, batch):
+        timer = StageTimer()
+        for m in mods:
+            m.reset_launch_counts()
+        t0 = time.perf_counter()
+        fasta = polish(images, model, out, batch_size=batch, threads=4,
+                       backend="pallas_fast", stage_timer=timer)
+        wall = time.perf_counter() - t0
+        counts = {k: v for m in mods for k, v in m.launch_counts.items()}
+        return fasta, wall, timer, counts
+
+    def flips_against(out, parity_out):
+        got = store_labels(glob.glob(os.path.join(out, "predictions_*"))[0])
+        want = store_labels(glob.glob(os.path.join(parity_out, "predictions_*"))[0])
+        if sorted(got) != sorted(want):
+            fail(f"{out} stored other images than {parity_out}")
+        n = sum(v[0].size for v in want.values())
+        return (sum(int((got[k][0] != want[k][0]).sum()) for k in want),
+                sum(int((got[k][1] != want[k][1]).sum()) for k in want), n)
+
+    zero = {k: 0 for m in mods for k in m.launch_counts}
+    batches = -(-n_images // B)
+    out = os.path.join(work, "out_full_fast")
+    fasta, wall, timer, counts = run(img_dir, os.path.join(GOLDEN, "trained_synth30mb.npz"),
+                                     out, B)
+    consensus_s = timer.stages["call_consensus"]
+    want = {**zero, "bigru_window_in1_fast": batches * n_win,
+            "bigru_window_in2_fast": batches * n_win}
+    polished = dict(read_fasta(fasta))
+    exact = sum(polished.get(c) == s for c, s in truth.items())
+    fb, fr, n = flips_against(out, os.path.join(work, "out_full"))
+    log(f"polish --fast, flagship: {n_images} images at -b {B}: wall {wall:.2f} s, "
+        f"consensus {consensus_s:.2f} s = {n_images * n_win / consensus_s:,.0f} windows/s; "
+        f"{exact}/{len(truth)} contigs == truth; {fb}+{fr} base+rle flips of {n} per head "
+        f"against phase 6's parity labels")
+    log("stage timings:\n" + timer.report())
+    log(f"launches {counts}, expected {want} ({batches} batches x {n_win} windows)")
+    if counts != want:
+        fail("polish --fast launch counts differ from batches x windows x layers")
+    if max(fb, fr) > FLIPS_PER_LABEL * n:
+        fail("polish --fast labels disagree with the parity tier's")
+    for name in ("bigru_window_in1_fast", "bigru_window_in2_fast"):
+        results[name]["launches"] = counts[name]
+
+    out = os.path.join(work, "wide_polish_fast")
+    _, wall, timer, counts = run(wide_dir, wide_ckpt, out, WB_POLISH)
+    consensus_s = timer.stages["call_consensus"]
+    want = {**zero, "bigru_window_xp_fast": n_win * 2}
+    fb, fr, n = flips_against(out, wide_parity_out)
+    log(f"polish --fast, wide (H={WH}): {WB_POLISH} images at -b {WB_POLISH}: wall "
+        f"{wall:.2f} s, consensus {consensus_s:.2f} s = "
+        f"{WB_POLISH * n_win / consensus_s:,.1f} windows/s; {fb}+{fr} base+rle flips of "
+        f"{n} per head against phase 9e's parity labels")
+    log("stage timings:\n" + timer.report())
+    log(f"launches {counts}, expected {want} (1 batch x {n_win} windows x 2 layers)")
+    if counts != want:
+        fail("wide polish --fast launch counts differ from windows x layers")
+    results["bigru_window_xp_fast"]["launches"] = counts["bigru_window_xp_fast"]
 
 
 def main() -> int:
@@ -1141,7 +1443,7 @@ def main() -> int:
         check_golden(work)
 
         phase("5. trained checkpoint, unseen sequence")
-        check_trained(work)
+        unseen = check_trained(work)
 
         phase("6. full-width polish")
         run_full_width(img_dir, truth, n_images, work, results)
@@ -1169,8 +1471,25 @@ def main() -> int:
         check_routes_h512(images_u8[:WB_POLISH])
 
         phase(f"9e. the wide model through the CLI (H={WH})")
-        run_wide_cli(work, results)
+        wide = run_wide_cli(work, results)
         log(f"phase 9: {time.perf_counter() - t9:.1f} s")
+
+        t10 = time.perf_counter()
+        phase(f"10a. K1f and K2f against their plain versions (B={B}, T={T}, H={H}, F={F})")
+        check_fast_inproj(images_u8, results)
+
+        phase(f"10b. K3f against its plain version (B={B}, T={T}, H={WH})")
+        check_fast_xp(images_u8, results)
+
+        phase(f"10c. label flip audit of the fast tier ({N_AUDIT} images, random weights)")
+        audit_fast_flips(images_u8[:N_AUDIT])
+
+        phase("10d. the trained checkpoint under polish --fast")
+        check_trained_fast(work, *unseen)
+
+        phase("10e. polish --fast: the flagship and the wide model")
+        run_fast_polish(img_dir, truth, n_images, work, *wide, results)
+        log(f"phase 10: {time.perf_counter() - t10:.1f} s")
 
     phase("8. result")
     log(smi)

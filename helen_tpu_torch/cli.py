@@ -29,10 +29,11 @@ def _add_common_consensus_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="compute device (default cuda: an error without a GPU)")
     p.add_argument("--backend", default=None,
-                   choices=["auto", "cuda", "torch", "pallas_fast"],
+                   choices=["auto", "cuda", "torch", "xla", "pallas", "pallas_fast"],
                    help="auto: the CUDA window kernels on the GPU, their plain "
                         "torch versions on the CPU; cuda: the kernels; torch: "
-                        "the plain versions")
+                        "the plain versions; helen_tpu's names: xla = torch, "
+                        "pallas = auto, pallas_fast = the fast (bf16) tier")
     p.add_argument("--profile_dir", default=None,
                    help="write a torch.profiler trace (trace.json) here")
     p.add_argument("--pipeline_depth", type=int, default=2,
@@ -42,9 +43,11 @@ def _add_common_consensus_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--no_data_parallel", action="store_true",
                    help="accepted for helen_tpu compatibility; the port runs "
                         "on one device")
-    # helen_tpu paths not ported yet: accepted, and they raise
     p.add_argument("--fast", action="store_true",
-                   help="bf16 tier (not yet ported)")
+                   help="the fast tier (--backend pallas_fast): bf16 operands, "
+                        "float32 sums, gates and state; labels can flip on "
+                        "near-tie votes")
+    # helen_tpu paths not ported yet: accepted, and they raise
     p.add_argument("--resume", action="store_true", help="(not yet ported)")
     p.add_argument("--pack", action="store_true", help="(not yet ported)")
     p.add_argument("--writers", type=int, default=1,
@@ -156,8 +159,6 @@ def _unported(args):
          "--num_processes/--process_id)",
          args.distributed or args.coordinator_address is not None
          or args.num_processes is not None or args.process_id is not None),
-        ("--fast", getattr(args, "fast", False)
-         or getattr(args, "backend", None) == "pallas_fast"),
         ("--resume", getattr(args, "resume", False)),
         ("--pack", getattr(args, "pack", False)),
         ("--writers > 1", getattr(args, "writers", 1) > 1),
@@ -181,6 +182,11 @@ def main(argv=None) -> int:
     if unported:
         parser.error(f"{unported} is not yet ported to helen_tpu_torch "
                      "(ROADMAP.md, queue A); use helen_tpu")
+    if getattr(args, "fast", False):
+        if args.backend:
+            parser.error("--fast and --backend are mutually exclusive "
+                         "(--fast means --backend pallas_fast)")
+        args.backend = "pallas_fast"
     if args.command in ("polish", "call_consensus", "train", "test"):
         from helen_tpu_torch.infer.consensus import resolve_device
 

@@ -66,6 +66,8 @@ class ConsensusStep:
 
         from helen_tpu_torch.io.checkpoint import params_to_torch
         from helen_tpu_torch.models.transducer import (
+            FAST_BACKENDS,
+            engaged_kernel,
             model_geometry,
             resolve_backend,
             set_fp32_precision,
@@ -74,7 +76,12 @@ class ConsensusStep:
         set_fp32_precision()
         self.device = torch.device(device)
         self.backend = resolve_backend(backend, self.device, params)
-        self.params = params_to_torch(params, self.device)
+        # the fast tier's bf16 weight copies, made once for the whole run
+        self.params = params_to_torch(params, self.device,
+                                      fast=self.backend in FAST_BACKENDS)
+        self.kernels = engaged_kernel(self.params, self.backend)
+        log.info("consensus device: %s, backend: %s (kernels: %s)", self.device,
+                 self.backend, self.kernels)
         if self.device.type == "cuda" and torch.cuda.device_count() > 1:
             log.warning("%d GPUs visible: consensus runs on %s only (multi-GPU "
                         "data parallelism is not yet ported)",
@@ -177,7 +184,7 @@ def call_consensus(
     Writes ``<output_dir>/<output_prefix>_0.hdf`` (rank 0 of a one-process
     job) and returns ``[that path]``. ``device`` is ``"cuda"`` (default;
     raises without a GPU) or ``"cpu"``; ``backend`` is resolved by
-    models.transducer.resolve_backend.
+    models.transducer.resolve_backend (``"pallas_fast"``: the fast tier).
 
     ``stream_sink_factory`` (polish's streaming-stitch hook) is called once
     with the resolved ``(dataset, indices)`` and may return a sink whose
@@ -215,11 +222,7 @@ def call_consensus(
             log.info("streaming stitch: overlapping region merges with "
                      "consensus")
 
-    from helen_tpu_torch.models.transducer import engaged_kernel
-
     step = ConsensusStep(params, dev, backend)
-    log.info("consensus device: %s, backend: %s (kernels: %s)", dev, step.backend,
-             engaged_kernel(step.params, step.backend))
 
     timer = stage_timer if stage_timer is not None else StageTimer()
     windows = Throughput(unit="windows")

@@ -108,8 +108,10 @@ def polish(
     when the metadata pre-scan fails, or on any mid-stream failure.
     ``stage_timer`` receives the polish stages (call_consensus, stitch) and
     the consensus stages inside them (device transfer, submit, read, store
-    write). ``resume``, ``pack``, ``num_writers > 1`` and
-    ``fastq`` raise in call_consensus (not yet ported).
+    write). ``backend`` goes to call_consensus as it is (``"pallas_fast"``,
+    what ``--fast`` sets, is the fast tier). ``resume``, ``pack``,
+    ``num_writers > 1`` and ``fastq`` raise in call_consensus (not yet
+    ported).
     """
     from helen_tpu_torch.infer.consensus import call_consensus, resolve_device
     from helen_tpu_torch.stitch.engine import prewarm_stitch_pool

@@ -15,10 +15,11 @@ Reads the two formats helen_tpu reads (helen_tpu/io/checkpoint.py):
 
 Params load as a nested dict of numpy arrays — the same tree helen_tpu
 builds — and :func:`params_to_torch` is the weight bridge that turns that
-tree into the port's tensors on a device. The tests hand both packages
-identical weights through it; :func:`opt_state_to_torch` and
-:func:`opt_state_to_numpy` do the same for the Adam state
-(``{"count", "mu", "nu"}``).
+tree into the port's tensors on a device, and :func:`fast_weights` adds
+the bf16 weight copies of the fast tier to such a tree, once per run. The
+tests hand both packages identical weights through it;
+:func:`opt_state_to_torch` and :func:`opt_state_to_numpy` do the same for
+the Adam state (``{"count", "mu", "nu"}``).
 """
 from __future__ import annotations
 
@@ -196,12 +197,15 @@ def load_model_any(path: str) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     return import_torch_checkpoint(path)
 
 
-def params_to_torch(params_np: Dict[str, Any], device) -> Dict[str, Any]:
+def params_to_torch(params_np: Dict[str, Any], device, fast: bool = False) -> Dict[str, Any]:
     """The weight bridge: a param tree of numpy arrays (as helen_tpu or
     :func:`load_model_any` hold it) -> the same tree of contiguous float32
-    torch tensors on ``device``."""
+    torch tensors on ``device``; with ``fast``, passed through
+    :func:`fast_weights`."""
     import torch
 
+    if fast:
+        return fast_weights(params_to_torch(params_np, device))
     if isinstance(params_np, dict):
         return {k: params_to_torch(v, device) for k, v in params_np.items()}
     # torch.tensor copies: the tensors never alias the caller's arrays
@@ -223,3 +227,43 @@ def opt_state_to_numpy(state: Dict[str, Any]) -> Dict[str, Any]:
     return {"count": np.asarray(int(state["count"]), dtype=np.int32),
             "mu": unflatten_tree(flatten_tree(state["mu"])),
             "nu": unflatten_tree(flatten_tree(state["nu"]))}
+
+
+def is_fast(params: Dict[str, Any]) -> bool:
+    """Whether a torch param tree holds the fast tier's bf16 weights."""
+    import torch
+
+    return params["encoder"]["fwd"]["w_hh"].dtype == torch.bfloat16
+
+
+def fast_layer(layer: Dict[str, Any]) -> Dict[str, Any]:
+    """One bi-GRU layer ``{"fwd", "bwd"}`` of float32 tensors in the fast
+    tier's form: ``w_ih`` and ``w_hh`` as bf16 copies, rounded to nearest
+    even as helen_tpu's ``astype(jnp.bfloat16)`` rounds them
+    (``ops/gru_pallas.py:533``); ``w_ih_f32``, the same bf16 values widened
+    to float32 for the xp route's float32 projection GEMM; the biases as
+    they were (float32)."""
+    import torch
+
+    def direction(p):
+        w_ih = p["w_ih"].to(torch.bfloat16)
+        return {"w_ih": w_ih, "w_hh": p["w_hh"].to(torch.bfloat16),
+                "b_ih": p["b_ih"], "b_hh": p["b_hh"], "w_ih_f32": w_ih.float()}
+
+    return {d: direction(layer[d]) for d in ("fwd", "bwd")}
+
+
+def fast_weights(params: Dict[str, Any]) -> Dict[str, Any]:
+    """The fast tier's param tree from a float32 torch tree: every GRU layer
+    through :func:`fast_layer`, the heads as they were (float32). Built once
+    per run, not per window: a cast per window would add launches and weight
+    traffic to every window. A tree that is fast already comes back as it
+    is."""
+    if is_fast(params):
+        return params
+    out = dict(params)
+    for stack in ("encoder", "decoder"):
+        s = params[stack]
+        out[stack] = {**fast_layer(s), **{k: fast_layer(v) for k, v in s.items()
+                                          if k not in ("fwd", "bwd")}}
+    return out

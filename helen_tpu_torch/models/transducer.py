@@ -24,6 +24,13 @@ so the same ``forward`` trains: its backward is the hand-written backward
 kernel of the route (ops.gru_window_bwd, ops.gru_window_xp_bwd). On
 ``"torch"`` torch's autograd differentiates the plain ops.
 
+The fast tier (helen_tpu's ``pallas_fast``; inference only) is backend
+``"cuda_fast"``, with the same two routes: K1f/K2f (ops.gru_window) up to
+H=512, the fast xp layer (projection GEMMs, K3f; ops.gru_window_xp) up to
+1024; ``"torch_fast"`` runs their plain versions. Both take the bf16 weight
+copies of io.checkpoint.fast_weights, made once per consensus call; the
+heads and the softmax vote stay float32 on every backend.
+
 Hidden-state contract (the reference's "transducer windowing",
 predict_gpu.py:99-129): the hidden is (B, 2L, H), layer-major (slot 2l is
 layer l's forward direction, 2l+1 its backward one); the encoder's final
@@ -38,20 +45,31 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from helen_tpu_torch.config import MODEL, WINDOW, ModelConfig, WindowConfig
+from helen_tpu_torch.io.checkpoint import fast_weights
 from helen_tpu_torch.ops.gru_window import (
     MAX_H,
     XP_MAX_H,
+    bigru_window_in1_fast,
+    bigru_window_in1_fast_plain,
     bigru_window_in1_plain,
+    bigru_window_in2_fast,
+    bigru_window_in2_fast_plain,
     bigru_window_in2_plain,
 )
 from helen_tpu_torch.ops.gru_window_autograd import window_in1, window_in2, window_xp
+from helen_tpu_torch.ops.gru_window_xp import window_xp_fast, window_xp_fast_plain
 
 Params = Dict[str, Any]
 
-#: values of --backend: "auto" resolves to "cuda" on a CUDA device and to
-#: "torch" on the CPU
-BACKENDS = ("auto", "cuda", "torch")
-#: helen_tpu's train backends, accepted as aliases on the train surface
+#: resolved backends: the window kernels and their plain versions, in the
+#: parity tier and in the fast (bf16) tier
+BACKENDS = ("cuda", "torch", "cuda_fast", "torch_fast")
+FAST_BACKENDS = ("cuda_fast", "torch_fast")
+#: helen_tpu's backend names on each surface (``helen_tpu/cli.py:34-36``,
+#: ``transducer.py:427-428``) and what they mean in the port: "auto" is the
+#: kernels on a CUDA device and the plain versions on the CPU, "fast" the
+#: same in the fast tier
+INFER_ALIASES = {"xla": "torch", "pallas": "auto", "pallas_fast": "fast"}
 TRAIN_ALIASES = {"xla": "torch", "pallas_train": "cuda"}
 #: the kernel families of the "cuda" backend and the largest hidden size
 #: each takes
@@ -99,15 +117,17 @@ def engaged_kernel(params: Params, backend: str, route: Optional[str] = None) ->
     """Which kernel family :func:`forward` runs for ``(params, backend,
     route)`` (helen_tpu's ``engaged_kernel``, ``transducer.py:431``):
     ``"torch"`` (the plain versions), ``"cuda_inproj"`` (K1/K2 and their
-    backward) or ``"cuda_xp"`` (projection GEMMs, K3/K4). The backend must
-    be resolved already (:func:`resolve_backend`)."""
-    if backend == "torch":
+    backward), ``"cuda_xp"`` (projection GEMMs, K3/K4), and in the fast
+    tier ``"cuda_fast_inproj"`` (K1f/K2f), ``"cuda_fast_xp"`` (projection
+    GEMMs, K3f) or ``"torch_fast"`` (their plain versions). The backend
+    must be resolved already (:func:`resolve_backend`)."""
+    if backend in ("torch", "torch_fast"):
         if route is not None:
-            raise ValueError("route selects the kernels of backend 'cuda'")
-        return "torch"
-    if backend != "cuda":
+            raise ValueError("route selects the kernels of backend 'cuda' or 'cuda_fast'")
+        return backend
+    if backend not in ("cuda", "cuda_fast"):
         raise ValueError(f"unresolved backend {backend!r}")
-    return "cuda_" + kernel_route(model_geometry(params).hidden_size, route)
+    return f"{backend}_" + kernel_route(model_geometry(params).hidden_size, route)
 
 
 def _stack_layers(stack: Params) -> List[Params]:
@@ -202,36 +222,56 @@ def _apply_heads(params: Params, dec_out: torch.Tensor
 
 def resolve_backend(requested: Optional[str], device: torch.device,
                     params: Optional[Params] = None, kind: str = "infer") -> str:
-    """Resolve a --backend value to ``"cuda"`` (the window kernels) or
-    ``"torch"`` (their plain versions).
+    """Resolve a --backend value to one of :data:`BACKENDS`: ``"cuda"``
+    (the window kernels), ``"torch"`` (their plain versions), or the fast
+    tier's ``"cuda_fast"``/``"torch_fast"``.
 
     ``None``/``"auto"`` picks the kernels on a CUDA device and the plain
-    versions on the CPU. ``"cuda"`` off a CUDA device, or on a geometry the
-    kernels do not take, raises — nothing falls back silently. helen_tpu's
-    fast tier (``pallas_fast``) is not ported yet and raises too.
+    versions on the CPU; ``"fast"`` does the same in the fast tier. The
+    inference surface takes helen_tpu's names (:data:`INFER_ALIASES`:
+    ``xla`` is ``torch``, ``pallas`` is ``auto``, ``pallas_fast`` is
+    ``fast``), the train surface its own (:data:`TRAIN_ALIASES`); the fast
+    tier is not a train backend, as in helen_tpu. A kernel backend off a
+    CUDA device, or on a geometry its kernels do not take, raises: nothing
+    falls back, to another tier or to another device.
 
-    With ``params``, ``"cuda"`` also needs a hidden size the kernels take
-    (:func:`kernel_route`: up to ``XP_MAX_H``, forward and backward).
-    ``kind="train"`` is the training surface: helen_tpu's ``xla`` and
-    ``pallas_train`` are accepted as aliases of ``torch`` and ``cuda``."""
+    With ``params``, a kernel backend also needs a hidden size the kernels
+    take (:func:`kernel_route`: up to ``XP_MAX_H``, forward and backward)."""
     if kind not in ("infer", "train"):
         raise ValueError(f"kind must be 'infer' or 'train', got {kind!r}")
-    if kind == "train":
-        requested = TRAIN_ALIASES.get(requested, requested)
-    if requested in ("pallas_fast", "fast"):
-        raise NotImplementedError(
-            "the fast (bf16) tier is not yet ported to helen_tpu_torch")
-    if requested not in (None,) + BACKENDS:
-        raise ValueError(f"backend {requested!r} is not one of {BACKENDS}")
+    fast = INFER_ALIASES.get(requested, requested) in ("fast",) + FAST_BACKENDS
+    if kind == "train" and fast:
+        raise ValueError(f"backend {requested!r} is not a train backend: the fast "
+                         "(bf16) tier is inference only")
+    aliases = INFER_ALIASES if kind == "infer" else TRAIN_ALIASES
+    requested = aliases.get(requested, requested)
+    allowed = ("auto", "cuda", "torch") + (("fast",) + FAST_BACKENDS if kind == "infer"
+                                           else ())
+    if requested not in (None,) + allowed:
+        raise ValueError(f"backend {requested!r} is not one of {allowed + tuple(aliases)}")
     on_cuda = torch.device(device).type == "cuda"
-    if requested in (None, "auto"):
-        requested = "cuda" if on_cuda else "torch"
-    if requested == "cuda":
+    if requested in (None, "auto", "fast"):
+        requested = ("cuda" if on_cuda else "torch") + ("_fast" if fast else "")
+    if requested in ("cuda", "cuda_fast"):
         if not on_cuda:
-            raise ValueError(f"backend 'cuda' needs a CUDA device, got {device}")
+            raise ValueError(f"backend {requested!r} needs a CUDA device, got {device}")
         if params is not None:
             kernel_route(model_geometry(params).hidden_size)
     return requested
+
+
+#: the layer functions of each kernel family: (layer 0 on the image, later
+#: layers on the previous layer's halves), or (both kinds, None) on an xp
+#: route
+_LAYERS = {
+    "torch": (bigru_window_in1_plain, bigru_window_in2_plain),
+    "cuda_inproj": (window_in1, window_in2),
+    "cuda_xp": (window_xp, None),
+    "cuda_fast_inproj": (bigru_window_in1_fast, bigru_window_in2_fast),
+    "cuda_fast_xp": (window_xp_fast, None),
+    "torch_fast_inproj": (bigru_window_in1_fast_plain, bigru_window_in2_fast_plain),
+    "torch_fast_xp": (window_xp_fast_plain, None),
+}
 
 
 def forward(
@@ -250,22 +290,32 @@ def forward(
         so a (B, W, F) window with the defaults is helen_tpu's ``forward``)
     :param hidden: (B, 2L, H) carried hidden, layer-major
     :param backend: ``"cuda"`` (window kernels, differentiable through the
-        backward kernels) or ``"torch"`` (plain ops, differentiated by torch)
-    :param route: the ``"cuda"`` backend's kernel family, ``"inproj"`` or
-        ``"xp"``; None takes :func:`kernel_route`'s rule
+        backward kernels), ``"torch"`` (plain ops, differentiated by torch),
+        or the fast tier's ``"cuda_fast"``/``"torch_fast"`` (inference
+        only: they raise with grad enabled; a float32 ``params`` tree is
+        cast by :func:`io.checkpoint.fast_weights` in each call, so pass a
+        fast tree to call this per window)
+    :param route: the kernel family of ``"cuda"``/``"cuda_fast"``,
+        ``"inproj"`` or ``"xp"``; None takes :func:`kernel_route`'s rule
     :returns: (base logits (B, W, nb), rle logits (B, W, nr), new hidden
         (B, 2L, H))
     """
     kernels = engaged_kernel(params, backend, route)
-    if kernels == "cuda_xp":
+    if backend in FAST_BACKENDS:
+        if torch.is_grad_enabled():
+            raise RuntimeError(f"backend {backend!r} is inference only (the fast tier "
+                               "has no backward): run it under torch.no_grad()")
+        params = fast_weights(params)
+        if kernels == "torch_fast":
+            # the plain versions of the kernels the rule picks, with no upper
+            # limit on H
+            kernels += "_inproj" if model_geometry(params).hidden_size <= MAX_H else "_xp"
+    if kernels.endswith("_xp"):
         require_fp32_precision(x.device)
-        in1 = window_xp
-        in2 = lambda xa, xb, h0f, h0b, lp: window_xp(  # noqa: E731
+    in1, in2 = _LAYERS[kernels]
+    if in2 is None:  # an xp route: one layer function for both layer kinds
+        in2 = lambda xa, xb, h0f, h0b, lp: in1(  # noqa: E731
             (xa, xb), 0, xa.shape[0], h0f, h0b, lp)
-    elif kernels == "cuda_inproj":
-        in1, in2 = window_in1, window_in2
-    else:
-        in1, in2 = bigru_window_in1_plain, bigru_window_in2_plain
     T = x.shape[1] - start if window is None else window
 
     def h0(li):
@@ -305,7 +355,16 @@ def consensus_probs(
         only; the plain route also takes float)
     :param route: as in :func:`forward`
     :returns: (base votes (B, L, nb), rle votes (B, L, nr))
+
+    On a fast backend the bf16 weight copies are made here, once for all
+    windows, unless ``params`` holds them already (ConsensusStep makes them
+    once per run). The heads, softmax and vote stay float32: helen_tpu's
+    ``pallas_fast`` leaves the heads at its default precision, which is
+    float32 off the TPU and single-pass bf16 only on it, a TPU artefact the
+    port does not copy.
     """
+    if backend in FAST_BACKENDS:
+        params = fast_weights(params)
     B, L, _ = images.shape
     W = window_cfg.window
     geom = model_geometry(params)

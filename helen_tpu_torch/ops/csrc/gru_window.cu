@@ -45,19 +45,42 @@
 //     launch bound keeps 128 registers per thread). D=90 is not padded.
 // Tensor cores (3xTF32 wgmma), TMA and weights split across a cluster's
 // shared memory are later work.
+//
+// The fast tier (FAST = true; bigru_window_in1_fast / _in2_fast, K1f / K2f)
+// replaces the same two Pallas bodies run with fast=True: one bf16 pass for
+// each product with fp32 accumulation (_proj_passes and _gru_gates with
+// w_lo None, gru_pallas.py:220-221 and :190-192). Here that is the same
+// kernel with bf16 weights widened in registers (exact) and fp32 FMAs on the
+// CUDA cores: a product of two bf16 values is exact in fp32, so this is the
+// TPU's single-pass bf16 product up to the order of the sums. K2f rounds the
+// previous layer's fp32 halves to bf16 as it stages them (K1f's uint8 image
+// is exact in bf16), and a second shared buffer holds the bf16-rounded
+// operand copy of h; the gates, z * h and every output stay fp32.
+// Bound on this card, counted at the bf16 tensor-core rate (989 TFLOP/s)
+// with bf16 weights: K1f 17.1 GFLOP and 59 MB, K2f 30.2 GFLOP and 107 MB at
+// B=512, T=100, H=128, both about 0.02-0.03 ms and bound by bytes. As
+// written they are bound by the same L2 weight re-reads as K1/K2, at half
+// the bytes per weight, and by the CUDA cores' fp32 rate; bf16 mma.sync or
+// wgmma tiles (tensor cores) are later work.
+
+#include <type_traits>
 
 #include "gru_window_common.cuh"
 
 namespace {
 
+// one direction's weights: fp32 for the parity tier, bf16 for the fast one
+template <typename W>
 struct DirParams {
-  const float* w_ih;  // (D, 3H)
-  const float* w_hh;  // (H, 3H)
-  const float* b_ih;  // (3H,)
-  const float* b_hh;  // (3H,)
+  const W* w_ih;       // (D, 3H)
+  const W* w_hh;       // (H, 3H)
+  const float* b_ih;   // (3H,)
+  const float* b_hh;   // (3H,)
 };
 
-template <bool PAIR>
+// the input rows of one step into shared memory; the fast pair kernel
+// rounds the previous layer's fp32 halves to bf16 here (uint8 is exact)
+template <bool PAIR, bool FAST>
 __device__ __forceinline__ void load_rows(const WindowIn& in, int tt, int b0,
                                           int B, int D, int H, float* dst) {
   for (int idx = threadIdx.x; idx < BT * D; idx += blockDim.x) {
@@ -69,6 +92,7 @@ __device__ __forceinline__ void load_rows(const WindowIn& in, int tt, int b0,
       if (PAIR) {
         v = (k < H) ? in.xa[((size_t)tt * B + b) * H + k]
                     : in.xb[((size_t)tt * B + b) * H + (k - H)];
+        if (FAST) v = bf16_rn(v);
       } else {
         v = (float)in.img[(size_t)b * in.sb + (size_t)(in.start + tt) * in.sl + k];
       }
@@ -77,15 +101,17 @@ __device__ __forceinline__ void load_rows(const WindowIn& in, int tt, int b0,
   }
 }
 
-template <bool PAIR>
+template <bool PAIR, bool FAST>
 __global__ void __launch_bounds__(MAX_H)
 bigru_window_kernel(WindowIn in, int D, const float* __restrict__ h0_f,
-                    const float* __restrict__ h0_b, DirParams pf, DirParams pb,
+                    const float* __restrict__ h0_b,
+                    DirParams<typename std::conditional<FAST, __nv_bfloat16, float>::type> pf,
+                    DirParams<typename std::conditional<FAST, __nv_bfloat16, float>::type> pb,
                     float* __restrict__ out_f, float* __restrict__ out_b,
                     float* __restrict__ hn_f, float* __restrict__ hn_b,
                     int T, int B, int H) {
   const int dir = blockIdx.y;
-  const DirParams p = dir ? pb : pf;
+  const auto p = dir ? pb : pf;
   const float* __restrict__ h0 = dir ? h0_b : h0_f;
   float* __restrict__ out = dir ? out_b : out_f;
   float* __restrict__ hn = dir ? hn_b : hn_f;
@@ -93,15 +119,19 @@ bigru_window_kernel(WindowIn in, int D, const float* __restrict__ h0_f,
   const int j = threadIdx.x;  // hidden unit; blockDim.x == H
 
   extern __shared__ float smem[];
-  float* hbuf = smem;               // [2][BT][H]
+  float* hbuf = smem;               // [2][BT][H] the fp32 state
   float* xbuf = smem + 2 * BT * H;  // [2][BT][D]
+  // [2][BT][H] the operand copy of h: bf16-rounded (fast), or the state
+  float* hop = FAST ? xbuf + 2 * BT * D : hbuf;
 
 #pragma unroll
   for (int r = 0; r < BT; ++r) {
     const int b = b0 + r;
-    hbuf[r * H + j] = (b < B) ? h0[(size_t)b * H + j] : 0.0f;
+    const float h = (b < B) ? h0[(size_t)b * H + j] : 0.0f;
+    hbuf[r * H + j] = h;
+    if (FAST) hop[r * H + j] = bf16_rn(h);
   }
-  load_rows<PAIR>(in, dir ? T - 1 : 0, b0, B, D, H, xbuf);
+  load_rows<PAIR, FAST>(in, dir ? T - 1 : 0, b0, B, D, H, xbuf);
   __syncthreads();
 
   const float bir = p.b_ih[j], biz = p.b_ih[H + j], bin = p.b_ih[2 * H + j];
@@ -112,8 +142,10 @@ bigru_window_kernel(WindowIn in, int D, const float* __restrict__ h0_f,
   for (int t = 0; t < T; ++t) {
     const int cur = t & 1;
     const float* hc = hbuf + cur * BT * H;
+    const float* ho = hop + cur * BT * H;
     const float* xc = xbuf + cur * BT * D;
     float* hx = hbuf + (cur ^ 1) * BT * H;
+    float* hox = hop + (cur ^ 1) * BT * H;
     const int tt = dir ? T - 1 - t : t;
 
     float xr[BT], xz[BT], xn[BT], hr[BT], hz[BT], hq[BT];
@@ -125,8 +157,8 @@ bigru_window_kernel(WindowIn in, int D, const float* __restrict__ h0_f,
     // input projection x W_ih over the D inputs of this step
 #pragma unroll 2
     for (int k = 0; k < D; ++k) {
-      const float* w = p.w_ih + (size_t)k * H3;
-      const float wr = __ldg(w + j), wz = __ldg(w + H + j), wn = __ldg(w + 2 * H + j);
+      const auto* w = p.w_ih + (size_t)k * H3;
+      const float wr = ldg_f(w + j), wz = ldg_f(w + H + j), wn = ldg_f(w + 2 * H + j);
 #pragma unroll
       for (int r = 0; r < BT; ++r) {
         const float xv = xc[r * D + k];
@@ -135,14 +167,14 @@ bigru_window_kernel(WindowIn in, int D, const float* __restrict__ h0_f,
         xn[r] = fmaf(xv, wn, xn[r]);
       }
     }
-    // recurrent product h W_hh
+    // recurrent product h W_hh (the fast tier: bf16(h) W_hh)
 #pragma unroll 2
     for (int k = 0; k < H; ++k) {
-      const float* w = p.w_hh + (size_t)k * H3;
-      const float wr = __ldg(w + j), wz = __ldg(w + H + j), wn = __ldg(w + 2 * H + j);
+      const auto* w = p.w_hh + (size_t)k * H3;
+      const float wr = ldg_f(w + j), wz = ldg_f(w + H + j), wn = ldg_f(w + 2 * H + j);
 #pragma unroll
       for (int r = 0; r < BT; ++r) {
-        const float hv = hc[r * H + k];
+        const float hv = ho[r * H + k];
         hr[r] = fmaf(hv, wr, hr[r]);
         hz[r] = fmaf(hv, wz, hz[r]);
         hq[r] = fmaf(hv, wn, hq[r]);
@@ -152,16 +184,17 @@ bigru_window_kernel(WindowIn in, int D, const float* __restrict__ h0_f,
     for (int r = 0; r < BT; ++r) {
       const float rg = sigmoidf_((xr[r] + bir) + (hr[r] + bhr));
       const float zg = sigmoidf_((xz[r] + biz) + (hz[r] + bhz));
-      const float ng = tanhf((xn[r] + bin) + rg * (hq[r] + bhn));
-      const float hnew = (1.0f - zg) * ng + zg * hc[r * H + j];
+      const float ng = gate_n<FAST>(xn[r] + bin, rg, hq[r] + bhn);
+      const float hnew = blend<FAST>(zg, ng, hc[r * H + j]);
       hx[r * H + j] = hnew;
+      if (FAST) hox[r * H + j] = bf16_rn(hnew);
       hlast[r] = hnew;
       const int b = b0 + r;
       if (b < B) out[((size_t)tt * B + b) * H + j] = hnew;
     }
     if (t + 1 < T) {
-      load_rows<PAIR>(in, dir ? T - 2 - t : t + 1, b0, B, D, H,
-                      xbuf + (cur ^ 1) * BT * D);
+      load_rows<PAIR, FAST>(in, dir ? T - 2 - t : t + 1, b0, B, D, H,
+                            xbuf + (cur ^ 1) * BT * D);
     }
     __syncthreads();
   }
@@ -172,15 +205,15 @@ bigru_window_kernel(WindowIn in, int D, const float* __restrict__ h0_f,
   }
 }
 
-template <bool PAIR>
+template <bool PAIR, bool FAST, typename W>
 int launch(const WindowIn& in, int D, const float* h0_f, const float* h0_b,
-           DirParams pf, DirParams pb, float* out_f, float* out_b,
+           DirParams<W> pf, DirParams<W> pb, float* out_f, float* out_b,
            float* hn_f, float* hn_b, int T, int B, int H, void* stream) {
   if (H < 1 || H > MAX_H || D < 1 || T < 1 || B < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * 2 * BT * ((size_t)H + D);
-  if (int e = allow_smem(bigru_window_kernel<PAIR>, smem)) return e;
+  const size_t smem = sizeof(float) * 2 * BT * ((size_t)H * (FAST ? 2 : 1) + D);
+  if (int e = allow_smem(bigru_window_kernel<PAIR, FAST>, smem)) return e;
   dim3 grid((B + BT - 1) / BT, 2);
-  bigru_window_kernel<PAIR><<<grid, H, smem, (cudaStream_t)stream>>>(
+  bigru_window_kernel<PAIR, FAST><<<grid, H, smem, (cudaStream_t)stream>>>(
       in, D, h0_f, h0_b, pf, pb, out_f, out_b, hn_f, hn_b, T, B, H);
   return (int)cudaGetLastError();
 }
@@ -207,9 +240,10 @@ int bigru_window_in1(const uint8_t* img, long long sb, long long sl, int start,
                      float* out_b, float* hn_f, float* hn_b, int T, int B,
                      int H, void* stream) {
   WindowIn in{img, sb, sl, start, nullptr, nullptr};
-  return launch<false>(in, D, h0_f, h0_b, DirParams{wi_f, wh_f, bi_f, bh_f},
-                       DirParams{wi_b, wh_b, bi_b, bh_b}, out_f, out_b, hn_f,
-                       hn_b, T, B, H, stream);
+  return launch<false, false>(in, D, h0_f, h0_b,
+                              DirParams<float>{wi_f, wh_f, bi_f, bh_f},
+                              DirParams<float>{wi_b, wh_b, bi_b, bh_b}, out_f, out_b,
+                              hn_f, hn_b, T, B, H, stream);
 }
 
 // K2: xa, xb (T, B, H) f32, W_ih (2H, 3H): rows [0, H) take xa, [H, 2H) xb.
@@ -220,9 +254,42 @@ int bigru_window_in2(const float* xa, const float* xb, const float* h0_f,
                      float* out_f, float* out_b, float* hn_f, float* hn_b,
                      int T, int B, int H, void* stream) {
   WindowIn in{nullptr, 0, 0, 0, xa, xb};
-  return launch<true>(in, 2 * H, h0_f, h0_b, DirParams{wi_f, wh_f, bi_f, bh_f},
-                      DirParams{wi_b, wh_b, bi_b, bh_b}, out_f, out_b, hn_f,
-                      hn_b, T, B, H, stream);
+  return launch<true, false>(in, 2 * H, h0_f, h0_b,
+                             DirParams<float>{wi_f, wh_f, bi_f, bh_f},
+                             DirParams<float>{wi_b, wh_b, bi_b, bh_b}, out_f, out_b,
+                             hn_f, hn_b, T, B, H, stream);
+}
+
+// K1f: K1's arguments with bf16 W_ih, W_hh (biases fp32); outputs fp32.
+int bigru_window_in1_fast(const uint8_t* img, long long sb, long long sl, int start,
+                          int D, const float* h0_f, const float* h0_b,
+                          const __nv_bfloat16* wi_f, const __nv_bfloat16* wh_f,
+                          const float* bi_f, const float* bh_f,
+                          const __nv_bfloat16* wi_b, const __nv_bfloat16* wh_b,
+                          const float* bi_b, const float* bh_b, float* out_f,
+                          float* out_b, float* hn_f, float* hn_b, int T, int B,
+                          int H, void* stream) {
+  WindowIn in{img, sb, sl, start, nullptr, nullptr};
+  return launch<false, true>(in, D, h0_f, h0_b,
+                             DirParams<__nv_bfloat16>{wi_f, wh_f, bi_f, bh_f},
+                             DirParams<__nv_bfloat16>{wi_b, wh_b, bi_b, bh_b}, out_f,
+                             out_b, hn_f, hn_b, T, B, H, stream);
+}
+
+// K2f: K2's arguments with bf16 W_ih, W_hh; the fp32 halves are rounded to
+// bf16 in the kernel.
+int bigru_window_in2_fast(const float* xa, const float* xb, const float* h0_f,
+                          const float* h0_b, const __nv_bfloat16* wi_f,
+                          const __nv_bfloat16* wh_f, const float* bi_f,
+                          const float* bh_f, const __nv_bfloat16* wi_b,
+                          const __nv_bfloat16* wh_b, const float* bi_b,
+                          const float* bh_b, float* out_f, float* out_b, float* hn_f,
+                          float* hn_b, int T, int B, int H, void* stream) {
+  WindowIn in{nullptr, 0, 0, 0, xa, xb};
+  return launch<true, true>(in, 2 * H, h0_f, h0_b,
+                            DirParams<__nv_bfloat16>{wi_f, wh_f, bi_f, bh_f},
+                            DirParams<__nv_bfloat16>{wi_b, wh_b, bi_b, bh_b}, out_f,
+                            out_b, hn_f, hn_b, T, B, H, stream);
 }
 
 }  // extern "C"

@@ -9,9 +9,15 @@
 //   n = tanh(xp_n + r * hp_n),  h' = (1 - z) n + z h
 // The forward direction reads time t at step t, the backward direction time
 // T-1-t, and each writes its output at the time it read.
+//
+// The fast tier's forward kernels (FAST = true) read bf16 weights (and K3f a
+// bf16 xp stream) and round their input rows and the operand copy of h to
+// bf16, round-to-nearest-even; every product of two bf16 values is exact in
+// fp32 and summed there, and the gates and the carried h stay fp32.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -43,6 +49,38 @@ struct DirG {
 
 __device__ __forceinline__ float sigmoidf_(float x) {
   return 1.0f / (1.0f + expf(-x));
+}
+
+// A weight or stream element as fp32: through the read-only cache, widening
+// a bf16 one (exact).
+__device__ __forceinline__ float ldg_f(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg_f(const __nv_bfloat16* p) {
+  return __bfloat162float(__ldg(p));
+}
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// The n gate tanh(xn + r * hn) and the blend (1 - z) n + z h. The fast tier
+// rounds each product and each sum on its own (no fused multiply-add), as
+// the plain version's separate torch ops do, so that on the card kernel and
+// plain version round h to bf16 alike (models/gru.py); the parity tier lets
+// nvcc fuse them.
+template <bool FAST>
+__device__ __forceinline__ float gate_n(float xn, float r, float hn) {
+  return FAST ? tanhf(__fadd_rn(xn, __fmul_rn(r, hn))) : tanhf(xn + r * hn);
+}
+
+template <bool FAST>
+__device__ __forceinline__ float blend(float z, float n, float h) {
+  return FAST ? __fadd_rn(__fmul_rn(1.0f - z, n), __fmul_rn(z, h))
+              : (1.0f - z) * n + z * h;
+}
+
+// v rounded to bf16 (nearest even), held in fp32: the fast tier's operand
+// copy of an fp32 value
+__device__ __forceinline__ float bf16_rn(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
 }
 
 template <bool PAIR>

@@ -41,37 +41,66 @@
 //   * true fp32 FMAs on the CUDA cores, no fast-math. Tensor cores (3xTF32
 //     wgmma), weights split across a cluster's shared memory and more blocks
 //     per direction are later work.
+//
+// The fast tier (FAST = true; bigru_window_xp_fast, K3f) replaces _kernel
+// run with fast=True, as bigru_apply_fused (gru_pallas.py:1080-1091) feeds
+// it: xp = bf16(x W_ih + b_ih) streamed as bf16, W_hh in bf16, one bf16
+// pass for h W_hh with fp32 accumulation and fp32 gates (_gru_gates with
+// w_lo None, :190-192). Here: xp and W_hh read as bf16 and widened in
+// registers (exact), the operand copy of h rounded to bf16 in a second
+// shared buffer (64 KB at H=1024 beside the fp32 state's 64 KB), fp32 FMAs,
+// fp32 gates, z * h on the fp32 state, fp32 outputs. Its projection is a
+// float32 GEMM outside (ops/gru_window_xp.py window_xp_fast). Bound on this
+// card at B=512, T=100, H=1024, counted at the bf16 tensor-core rate
+// (989 TFLOP/s): 644 GFLOP against about 1.06 GB (bf16 xp in, fp32 out),
+// 0.65 ms, by operations. As written it runs on the CUDA cores' fp32 rate
+// and the L2 re-reads of W_hh (half K3's bytes); bf16 wgmma tiles are later
+// work.
+
+#include <type_traits>
 
 #include "gru_window_common.cuh"
 
 namespace {
 
+// one direction's streams and weights: fp32 xp and W_hh for the parity
+// tier, bf16 for the fast one (X)
+template <typename X>
 struct DirXp {
-  const float* xp;    // (T, B, 3H): x W_ih + b_ih
+  const X* xp;        // (T, B, 3H): x W_ih + b_ih
   const float* h0;    // (B, H)
-  const float* w_hh;  // (H, 3H)
+  const X* w_hh;      // (H, 3H)
   const float* b_hh;  // (3H,)
   float* out;         // (T, B, H)
   float* hn;          // (B, H)
 };
 
+template <bool FAST>
 __global__ void __launch_bounds__(XP_THREADS)
-xp_window_kernel(DirXp pf, DirXp pb, int T, int B, int H) {
+xp_window_kernel(DirXp<typename std::conditional<FAST, __nv_bfloat16, float>::type> pf,
+                 DirXp<typename std::conditional<FAST, __nv_bfloat16, float>::type> pb,
+                 int T, int B, int H) {
   const int dir = blockIdx.y;
-  const DirXp p = dir ? pb : pf;
+  const auto p = dir ? pb : pf;
   const int b0 = blockIdx.x * BT;
   const int H3 = 3 * H;
 
-  extern __shared__ float hbuf[];  // [2][BT][H]
+  extern __shared__ float hbuf[];  // [2][BT][H] the fp32 state
+  // [2][BT][H] the operand copy of h: bf16-rounded (fast), or the state
+  float* hop = FAST ? hbuf + 2 * BT * H : hbuf;
   for (int idx = threadIdx.x; idx < BT * H; idx += blockDim.x) {
     const int r = idx / H, b = b0 + r;
-    hbuf[idx] = (b < B) ? p.h0[(size_t)b * H + (idx - r * H)] : 0.0f;
+    const float h = (b < B) ? p.h0[(size_t)b * H + (idx - r * H)] : 0.0f;
+    hbuf[idx] = h;
+    if (FAST) hop[idx] = bf16_rn(h);
   }
   __syncthreads();
 
   for (int t = 0; t < T; ++t) {
     const float* hc = hbuf + (t & 1) * BT * H;
+    const float* ho = hop + (t & 1) * BT * H;
     float* hx = hbuf + ((t & 1) ^ 1) * BT * H;
+    float* hox = hop + ((t & 1) ^ 1) * BT * H;
     const int tt = dir ? T - 1 - t : t;
     for (int j = threadIdx.x; j < H; j += blockDim.x) {
       float hr[BT], hz[BT], hq[BT];
@@ -79,11 +108,11 @@ xp_window_kernel(DirXp pf, DirXp pb, int T, int B, int H) {
       for (int r = 0; r < BT; ++r) hr[r] = hz[r] = hq[r] = 0.0f;
 #pragma unroll 8
       for (int k = 0; k < H; ++k) {
-        const float* w = p.w_hh + (size_t)k * H3;
-        const float wr = __ldg(w + j), wz = __ldg(w + H + j), wn = __ldg(w + 2 * H + j);
+        const auto* w = p.w_hh + (size_t)k * H3;
+        const float wr = ldg_f(w + j), wz = ldg_f(w + H + j), wn = ldg_f(w + 2 * H + j);
 #pragma unroll
         for (int r = 0; r < BT; ++r) {
-          const float hv = hc[r * H + k];
+          const float hv = ho[r * H + k];
           hr[r] = fmaf(hv, wr, hr[r]);
           hz[r] = fmaf(hv, wz, hz[r]);
           hq[r] = fmaf(hv, wn, hq[r]);
@@ -95,16 +124,17 @@ xp_window_kernel(DirXp pf, DirXp pb, int T, int B, int H) {
         const int b = b0 + r;
         float xr = 0.0f, xz = 0.0f, xn = 0.0f;
         if (b < B) {
-          const float* x = p.xp + ((size_t)tt * B + b) * H3;
-          xr = x[j];
-          xz = x[H + j];
-          xn = x[2 * H + j];
+          const auto* x = p.xp + ((size_t)tt * B + b) * H3;
+          xr = to_f(x[j]);
+          xz = to_f(x[H + j]);
+          xn = to_f(x[2 * H + j]);
         }
         const float rg = sigmoidf_(xr + (hr[r] + bhr));
         const float zg = sigmoidf_(xz + (hz[r] + bhz));
-        const float ng = tanhf(xn + rg * (hq[r] + bhn));
-        const float hnew = (1.0f - zg) * ng + zg * hc[r * H + j];
+        const float ng = gate_n<FAST>(xn, rg, hq[r] + bhn);
+        const float hnew = blend<FAST>(zg, ng, hc[r * H + j]);
         hx[r * H + j] = hnew;
+        if (FAST) hox[r * H + j] = bf16_rn(hnew);
         if (b < B) p.out[((size_t)tt * B + b) * H + j] = hnew;
       }
     }
@@ -115,6 +145,17 @@ xp_window_kernel(DirXp pf, DirXp pb, int T, int B, int H) {
     const int r = idx / H, b = b0 + r;
     if (b < B) p.hn[(size_t)b * H + (idx - r * H)] = hfin[idx];
   }
+}
+
+template <bool FAST, typename X>
+int launch_xp(DirXp<X> pf, DirXp<X> pb, int T, int B, int H, void* stream) {
+  if (H < 1 || H > XP_MAX_H || T < 1 || B < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * 2 * BT * (size_t)H * (FAST ? 2 : 1);
+  if (int e = allow_smem(xp_window_kernel<FAST>, smem)) return e;
+  dim3 grid((B + BT - 1) / BT, 2);
+  xp_window_kernel<FAST><<<grid, xp_threads(H), smem, (cudaStream_t)stream>>>(pf, pb, T,
+                                                                             B, H);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -131,15 +172,22 @@ int bigru_window_xp(const float* xp_f, const float* xp_b, const float* h0_f,
                     const float* wh_b, const float* bh_b, float* out_f,
                     float* out_b, float* hn_f, float* hn_b, int T, int B, int H,
                     void* stream) {
-  if (H < 1 || H > XP_MAX_H || T < 1 || B < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * 2 * BT * (size_t)H;
-  if (int e = allow_smem(xp_window_kernel, smem)) return e;
-  const DirXp pf{xp_f, h0_f, wh_f, bh_f, out_f, hn_f};
-  const DirXp pb{xp_b, h0_b, wh_b, bh_b, out_b, hn_b};
-  dim3 grid((B + BT - 1) / BT, 2);
-  xp_window_kernel<<<grid, xp_threads(H), smem, (cudaStream_t)stream>>>(pf, pb, T, B,
-                                                                       H);
-  return (int)cudaGetLastError();
+  return launch_xp<false>(DirXp<float>{xp_f, h0_f, wh_f, bh_f, out_f, hn_f},
+                          DirXp<float>{xp_b, h0_b, wh_b, bh_b, out_b, hn_b}, T, B, H,
+                          stream);
+}
+
+// K3f: K3's arguments with bf16 xp streams and bf16 W_hh (b_hh, h0 and the
+// outputs fp32).
+int bigru_window_xp_fast(const __nv_bfloat16* xp_f, const __nv_bfloat16* xp_b,
+                         const float* h0_f, const float* h0_b,
+                         const __nv_bfloat16* wh_f, const float* bh_f,
+                         const __nv_bfloat16* wh_b, const float* bh_b, float* out_f,
+                         float* out_b, float* hn_f, float* hn_b, int T, int B, int H,
+                         void* stream) {
+  return launch_xp<true>(DirXp<__nv_bfloat16>{xp_f, h0_f, wh_f, bh_f, out_f, hn_f},
+                         DirXp<__nv_bfloat16>{xp_b, h0_b, wh_b, bh_b, out_b, hn_b}, T,
+                         B, H, stream);
 }
 
 }  // extern "C"

@@ -12,6 +12,15 @@ ctypes) carry every bi-GRU window on the main path:
 * :func:`bigru_window_in2` (K2, replaces ``_kernel_inproj2``, ``:474``):
   the same over the previous layer's ``(out_f, out_b)`` halves, no concat.
 
+Their fast-tier instantiations (the same source, ``FAST = true``) carry the
+fast tier (``polish --fast``): :func:`bigru_window_in1_fast` (K1f) and
+:func:`bigru_window_in2_fast` (K2f) replace the same two Pallas bodies run
+with ``fast=True``. They take the layer's bf16 ``w_ih``/``w_hh`` (float32
+biases; io.checkpoint.fast_weights makes the copies once per run), round
+K2f's float32 input halves and the operand copy of h to bf16, and keep the
+gates, the carried state and every output in float32. They are inference
+only: no autograd Function wraps them.
+
 Each wrapper takes the layer's ``{"fwd", "bwd"}`` params (``w_ih (D, 3H)``,
 ``w_hh (H, 3H)``, ``b_ih``/``b_hh (3H,)`` float32) and returns
 ``(out_f (T, B, H), out_b (T, B, H), h_f (B, H), h_b (B, H))``. On a CPU
@@ -38,14 +47,15 @@ from typing import Dict, Tuple
 
 import torch
 
-from helen_tpu_torch.models.gru import gru_scan
+from helen_tpu_torch.models.gru import bf16_round, gru_scan, ordered_product
 
 Layer = Dict[str, Dict[str, torch.Tensor]]
 Outputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 #: launches of each kernel since the last reset_launch_counts() — counted
 #: where the kernel is launched and nowhere else
-launch_counts: Dict[str, int] = {"bigru_window_in1": 0, "bigru_window_in2": 0}
+launch_counts: Dict[str, int] = {"bigru_window_in1": 0, "bigru_window_in2": 0,
+                                 "bigru_window_in1_fast": 0, "bigru_window_in2_fast": 0}
 
 #: the largest hidden size the in-projection kernels take (K1/K2 and their
 #: backward: one thread per hidden unit, csrc/gru_window_common.cuh MAX_H)
@@ -142,6 +152,11 @@ def get_lib() -> ctypes.CDLL:
                 [p, ll, ll, i, i, p, p] + [p] * 8 + [p] * 4 + [i, i, i, p])
             lib.bigru_window_in2.restype = i
             lib.bigru_window_in2.argtypes = [p] * 4 + [p] * 8 + [p] * 4 + [i, i, i, p]
+            # the fast tier's instantiations: the same arguments, bf16 weights
+            lib.bigru_window_in1_fast.restype = i
+            lib.bigru_window_in1_fast.argtypes = lib.bigru_window_in1.argtypes
+            lib.bigru_window_in2_fast.restype = i
+            lib.bigru_window_in2_fast.argtypes = lib.bigru_window_in2.argtypes
             # the backward (csrc/gru_window_bwd.cu; wrapper in gru_window_bwd.py)
             lib.bigru_window_bwd_rec.restype = i
             lib.bigru_window_bwd_rec.argtypes = (
@@ -154,6 +169,8 @@ def get_lib() -> ctypes.CDLL:
             # gru_window_xp.py and gru_window_xp_bwd.py)
             lib.bigru_window_xp.restype = i
             lib.bigru_window_xp.argtypes = [p] * 12 + [i, i, i, p]
+            lib.bigru_window_xp_fast.restype = i
+            lib.bigru_window_xp_fast.argtypes = lib.bigru_window_xp.argtypes
             lib.bigru_window_xp_bwd_rec.restype = i
             lib.bigru_window_xp_bwd_rec.argtypes = [p] * 20 + [i, i, i, p]
             lib.bigru_window_xp_bwd_wgrad.restype = i
@@ -208,6 +225,35 @@ def bigru_window_in2_plain(xa: torch.Tensor, xb: torch.Tensor,
     return _bidir(proj(f), proj(b), h0_f, h0_b, layer)
 
 
+def bigru_window_in1_fast_plain(image: torch.Tensor, start: int, T: int,
+                                h0_f: torch.Tensor, h0_b: torch.Tensor,
+                                layer: Layer) -> Outputs:
+    """K1f's plain version: the window rounded to bf16 (a uint8 image is
+    exact), ``x @ W_ih`` of bf16 values summed in float32 in K1f's order
+    (``ordered_product``), ``+ b_ih``, then the two fast ``gru_scan``
+    recurrences (bf16 ``w_hh``). No bf16 matmul: the products run in
+    float32 on bf16-valued operands."""
+    x = bf16_round(image[:, start:start + T].to(h0_f.dtype)).transpose(0, 1)
+    f, b = layer["fwd"], layer["bwd"]
+    return _bidir(ordered_product(x, f["w_ih"].to(x.dtype)) + f["b_ih"],
+                  ordered_product(x, b["w_ih"].to(x.dtype)) + b["b_ih"],
+                  h0_f, h0_b, layer)
+
+
+def bigru_window_in2_fast_plain(xa: torch.Tensor, xb: torch.Tensor,
+                                h0_f: torch.Tensor, h0_b: torch.Tensor,
+                                layer: Layer) -> Outputs:
+    """K2f's plain version: the halves rounded to bf16, projected in K2f's
+    order (one sum over the rows ``[xa | xb]``; helen_tpu sums the two
+    half-projections apart, another order of the same sum), ``+ b_ih``,
+    then the fast recurrences."""
+    x = torch.cat([bf16_round(xa), bf16_round(xb)], dim=-1)
+    f, b = layer["fwd"], layer["bwd"]
+    return _bidir(ordered_product(x, f["w_ih"].to(x.dtype)) + f["b_ih"],
+                  ordered_product(x, b["w_ih"].to(x.dtype)) + b["b_ih"],
+                  h0_f, h0_b, layer)
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -223,12 +269,15 @@ def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _layer_args(layer: Layer, D: int, H: int, device) -> list:
+def _layer_args(layer: Layer, D: int, H: int, device, wdtype=torch.float32) -> list:
+    """Checked pointers of both directions' ``[w_ih, w_hh, b_ih, b_hh]``:
+    weights of ``wdtype`` (float32, or bf16 for the fast tier), biases
+    float32."""
     args = []
     for d in ("fwd", "bwd"):
         p = layer[d]
-        _check(f"{d}.w_ih", p["w_ih"], (D, 3 * H), torch.float32, device)
-        _check(f"{d}.w_hh", p["w_hh"], (H, 3 * H), torch.float32, device)
+        _check(f"{d}.w_ih", p["w_ih"], (D, 3 * H), wdtype, device)
+        _check(f"{d}.w_hh", p["w_hh"], (H, 3 * H), wdtype, device)
         _check(f"{d}.b_ih", p["b_ih"], (3 * H,), torch.float32, device)
         _check(f"{d}.b_hh", p["b_hh"], (3 * H,), torch.float32, device)
         args += [p["w_ih"].data_ptr(), p["w_hh"].data_ptr(),
@@ -253,17 +302,10 @@ def _cuda_device(t: torch.Tensor, name: str) -> torch.device:
     return t.device
 
 
-def bigru_window_in1(image: torch.Tensor, start: int, T: int,
-                     h0_f: torch.Tensor, h0_b: torch.Tensor,
-                     layer: Layer) -> Outputs:
-    """K1: one bi-GRU layer over the window ``image[:, start:start+T]`` of a
-    ``(B, L, F)`` uint8 image. See the module docstring."""
-    if image.device.type == "cpu":
-        return bigru_window_in1_plain(image, start, T, h0_f, h0_b, layer)
-    dev = _cuda_device(image, "bigru_window_in1")
+def _launch_in1(name: str, wdtype, image, start, T, h0_f, h0_b, layer) -> Outputs:
+    dev = _cuda_device(image, name)
     if image.dtype != torch.uint8 or image.dim() != 3 or image.stride(2) != 1:
-        raise ValueError("bigru_window_in1 takes a (B, L, F) uint8 image "
-                         "with unit feature stride")
+        raise ValueError(f"{name} takes a (B, L, F) uint8 image with unit feature stride")
     B, L, F = image.shape
     H = h0_f.shape[-1]
     if not (0 <= start and start + T <= L and 0 < H <= MAX_H):
@@ -271,18 +313,49 @@ def bigru_window_in1(image: torch.Tensor, start: int, T: int,
                          f"H={H} (max {MAX_H})")
     _check("h0_f", h0_f, (B, H), torch.float32, dev)
     _check("h0_b", h0_b, (B, H), torch.float32, dev)
-    weights = _layer_args(layer, F, H, dev)
+    weights = _layer_args(layer, F, H, dev, wdtype)
     outs = _outputs(T, B, H, dev)
-    lib = get_lib()
     with torch.cuda.device(dev):
-        err = lib.bigru_window_in1(
+        err = getattr(get_lib(), name)(
             image.data_ptr(), image.stride(0), image.stride(1), start, F,
             h0_f.data_ptr(), h0_b.data_ptr(), *weights,
             *[o.data_ptr() for o in outs], T, B, H,
             torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "bigru_window_in1")
-    launch_counts["bigru_window_in1"] += 1
+    _raise_on(err, name)
+    launch_counts[name] += 1
     return outs
+
+
+def _launch_in2(name: str, wdtype, xa, xb, h0_f, h0_b, layer) -> Outputs:
+    dev = _cuda_device(xa, name)
+    T, B, H = xa.shape
+    if not 0 < H <= MAX_H:
+        raise ValueError(f"H={H} exceeds the kernel's maximum {MAX_H}")
+    _check("xa", xa, (T, B, H), torch.float32, dev)
+    _check("xb", xb, (T, B, H), torch.float32, dev)
+    _check("h0_f", h0_f, (B, H), torch.float32, dev)
+    _check("h0_b", h0_b, (B, H), torch.float32, dev)
+    weights = _layer_args(layer, 2 * H, H, dev, wdtype)
+    outs = _outputs(T, B, H, dev)
+    with torch.cuda.device(dev):
+        err = getattr(get_lib(), name)(
+            xa.data_ptr(), xb.data_ptr(), h0_f.data_ptr(), h0_b.data_ptr(),
+            *weights, *[o.data_ptr() for o in outs], T, B, H,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, name)
+    launch_counts[name] += 1
+    return outs
+
+
+def bigru_window_in1(image: torch.Tensor, start: int, T: int,
+                     h0_f: torch.Tensor, h0_b: torch.Tensor,
+                     layer: Layer) -> Outputs:
+    """K1: one bi-GRU layer over the window ``image[:, start:start+T]`` of a
+    ``(B, L, F)`` uint8 image. See the module docstring."""
+    if image.device.type == "cpu":
+        return bigru_window_in1_plain(image, start, T, h0_f, h0_b, layer)
+    return _launch_in1("bigru_window_in1", torch.float32, image, start, T, h0_f, h0_b,
+                       layer)
 
 
 def bigru_window_in2(xa: torch.Tensor, xb: torch.Tensor,
@@ -292,22 +365,26 @@ def bigru_window_in2(xa: torch.Tensor, xb: torch.Tensor,
     ``(T, B, H)``. See the module docstring."""
     if xa.device.type == "cpu":
         return bigru_window_in2_plain(xa, xb, h0_f, h0_b, layer)
-    dev = _cuda_device(xa, "bigru_window_in2")
-    T, B, H = xa.shape
-    if not 0 < H <= MAX_H:
-        raise ValueError(f"H={H} exceeds the kernel's maximum {MAX_H}")
-    _check("xa", xa, (T, B, H), torch.float32, dev)
-    _check("xb", xb, (T, B, H), torch.float32, dev)
-    _check("h0_f", h0_f, (B, H), torch.float32, dev)
-    _check("h0_b", h0_b, (B, H), torch.float32, dev)
-    weights = _layer_args(layer, 2 * H, H, dev)
-    outs = _outputs(T, B, H, dev)
-    lib = get_lib()
-    with torch.cuda.device(dev):
-        err = lib.bigru_window_in2(
-            xa.data_ptr(), xb.data_ptr(), h0_f.data_ptr(), h0_b.data_ptr(),
-            *weights, *[o.data_ptr() for o in outs], T, B, H,
-            torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "bigru_window_in2")
-    launch_counts["bigru_window_in2"] += 1
-    return outs
+    return _launch_in2("bigru_window_in2", torch.float32, xa, xb, h0_f, h0_b, layer)
+
+
+def bigru_window_in1_fast(image: torch.Tensor, start: int, T: int,
+                          h0_f: torch.Tensor, h0_b: torch.Tensor,
+                          layer: Layer) -> Outputs:
+    """K1f: K1 in the fast tier, with the layer's bf16 ``w_ih``/``w_hh``.
+    See the module docstring."""
+    if image.device.type == "cpu":
+        return bigru_window_in1_fast_plain(image, start, T, h0_f, h0_b, layer)
+    return _launch_in1("bigru_window_in1_fast", torch.bfloat16, image, start, T, h0_f,
+                       h0_b, layer)
+
+
+def bigru_window_in2_fast(xa: torch.Tensor, xb: torch.Tensor,
+                          h0_f: torch.Tensor, h0_b: torch.Tensor,
+                          layer: Layer) -> Outputs:
+    """K2f: K2 in the fast tier, with the layer's bf16 ``w_ih``/``w_hh``;
+    the float32 halves are rounded to bf16 in the kernel."""
+    if xa.device.type == "cpu":
+        return bigru_window_in2_fast_plain(xa, xb, h0_f, h0_b, layer)
+    return _launch_in2("bigru_window_in2_fast", torch.bfloat16, xa, xb, h0_f, h0_b,
+                       layer)

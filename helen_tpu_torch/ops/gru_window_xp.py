@@ -20,6 +20,14 @@ keys are not read) and returns ``(out_f (T, B, H), out_b (T, B, H), h_f
 computes its plain version (the two ``gru_scan`` recurrences); on a CUDA
 tensor it launches the kernel or raises. Each launch adds one to
 :data:`launch_counts`.
+
+The fast tier: :func:`bigru_window_xp_fast` (K3f, the ``FAST``
+instantiation of the same source) replaces ``_kernel`` run with
+``fast=True``: bf16 ``xp`` streams and bf16 ``w_hh``, the operand copy of h
+rounded to bf16, float32 gates, state and outputs. :func:`window_xp_fast`
+is the whole fast xp layer, as helen_tpu's ``bigru_apply_fused(fast=True)``
+(``gru_pallas.py:1080-1091``): the float32 projection of the bf16-rounded
+layer input, rounded once to bf16 after the bias, then K3f. Inference only.
 """
 from __future__ import annotations
 
@@ -27,6 +35,7 @@ from typing import Dict
 
 import torch
 
+from helen_tpu_torch.models.gru import bf16_round
 from helen_tpu_torch.ops.gru_window import (
     XP_MAX_H,
     Layer,
@@ -38,10 +47,11 @@ from helen_tpu_torch.ops.gru_window import (
     _raise_on,
     get_lib,
 )
+from helen_tpu_torch.ops.gru_window_bwd import Source, window_input
 
 #: launches since the last reset_launch_counts() — counted where the kernel
 #: is launched and nowhere else
-launch_counts: Dict[str, int] = {"bigru_window_xp": 0}
+launch_counts: Dict[str, int] = {"bigru_window_xp": 0, "bigru_window_xp_fast": 0}
 
 
 def reset_launch_counts() -> None:
@@ -57,15 +67,48 @@ def bigru_window_xp_plain(xp_f: torch.Tensor, xp_b: torch.Tensor,
     return _bidir(xp_f, xp_b, h0_f, h0_b, layer)
 
 
-def recurrent_args(layer: Layer, H: int, device) -> list:
-    """Checked pointers of ``[w_hh_f, b_hh_f, w_hh_b, b_hh_b]``."""
+def bigru_window_xp_fast_plain(xp_f: torch.Tensor, xp_b: torch.Tensor,
+                               h0_f: torch.Tensor, h0_b: torch.Tensor,
+                               layer: Layer) -> Outputs:
+    """K3f's plain version: the bf16 streams widened to float32 (exact),
+    then the fast ``gru_scan`` recurrences (bf16 ``w_hh``)."""
+    return _bidir(xp_f.to(h0_f.dtype), xp_b.to(h0_f.dtype), h0_f, h0_b, layer)
+
+
+def recurrent_args(layer: Layer, H: int, device, wdtype=torch.float32) -> list:
+    """Checked pointers of ``[w_hh_f, b_hh_f, w_hh_b, b_hh_b]``, ``w_hh`` of
+    ``wdtype`` (bf16 for the fast tier)."""
     args = []
     for d in ("fwd", "bwd"):
         p = layer[d]
-        _check(f"{d}.w_hh", p["w_hh"], (H, 3 * H), torch.float32, device)
+        _check(f"{d}.w_hh", p["w_hh"], (H, 3 * H), wdtype, device)
         _check(f"{d}.b_hh", p["b_hh"], (3 * H,), torch.float32, device)
         args += [p["w_hh"].data_ptr(), p["b_hh"].data_ptr()]
     return args
+
+
+def _launch_xp(name: str, dtype, xp_f, xp_b, h0_f, h0_b, layer) -> Outputs:
+    dev = _cuda_device(xp_f, name)
+    if xp_f.dim() != 3 or xp_f.shape[-1] % 3:
+        raise ValueError(f"xp_f must be (T, B, 3H), got {tuple(xp_f.shape)}")
+    T, B, H3 = xp_f.shape
+    H = H3 // 3
+    if not 0 < H <= XP_MAX_H:
+        raise ValueError(f"H={H} exceeds the xp-stream kernel's maximum {XP_MAX_H}")
+    _check("xp_f", xp_f, (T, B, H3), dtype, dev)
+    _check("xp_b", xp_b, (T, B, H3), dtype, dev)
+    _check("h0_f", h0_f, (B, H), torch.float32, dev)
+    _check("h0_b", h0_b, (B, H), torch.float32, dev)
+    weights = recurrent_args(layer, H, dev, dtype)
+    outs = _outputs(T, B, H, dev)
+    with torch.cuda.device(dev):
+        err = getattr(get_lib(), name)(
+            xp_f.data_ptr(), xp_b.data_ptr(), h0_f.data_ptr(), h0_b.data_ptr(),
+            *weights, *[o.data_ptr() for o in outs], T, B, H,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, name)
+    launch_counts[name] += 1
+    return outs
 
 
 def bigru_window_xp(xp_f: torch.Tensor, xp_b: torch.Tensor,
@@ -75,25 +118,51 @@ def bigru_window_xp(xp_f: torch.Tensor, xp_b: torch.Tensor,
     module docstring."""
     if xp_f.device.type == "cpu":
         return bigru_window_xp_plain(xp_f, xp_b, h0_f, h0_b, layer)
-    dev = _cuda_device(xp_f, "bigru_window_xp")
-    if xp_f.dim() != 3 or xp_f.shape[-1] % 3:
-        raise ValueError(f"xp_f must be (T, B, 3H), got {tuple(xp_f.shape)}")
-    T, B, H3 = xp_f.shape
-    H = H3 // 3
-    if not 0 < H <= XP_MAX_H:
-        raise ValueError(f"H={H} exceeds the xp-stream kernel's maximum {XP_MAX_H}")
-    _check("xp_f", xp_f, (T, B, H3), torch.float32, dev)
-    _check("xp_b", xp_b, (T, B, H3), torch.float32, dev)
-    _check("h0_f", h0_f, (B, H), torch.float32, dev)
-    _check("h0_b", h0_b, (B, H), torch.float32, dev)
-    weights = recurrent_args(layer, H, dev)
-    outs = _outputs(T, B, H, dev)
-    lib = get_lib()
-    with torch.cuda.device(dev):
-        err = lib.bigru_window_xp(
-            xp_f.data_ptr(), xp_b.data_ptr(), h0_f.data_ptr(), h0_b.data_ptr(),
-            *weights, *[o.data_ptr() for o in outs], T, B, H,
-            torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "bigru_window_xp")
-    launch_counts["bigru_window_xp"] += 1
-    return outs
+    return _launch_xp("bigru_window_xp", torch.float32, xp_f, xp_b, h0_f, h0_b, layer)
+
+
+def bigru_window_xp_fast(xp_f: torch.Tensor, xp_b: torch.Tensor,
+                         h0_f: torch.Tensor, h0_b: torch.Tensor,
+                         layer: Layer) -> Outputs:
+    """K3f: K3 in the fast tier, over bf16 ``xp`` streams with the layer's
+    bf16 ``w_hh``. See the module docstring."""
+    if xp_f.device.type == "cpu":
+        return bigru_window_xp_fast_plain(xp_f, xp_b, h0_f, h0_b, layer)
+    return _launch_xp("bigru_window_xp_fast", torch.bfloat16, xp_f, xp_b, h0_f, h0_b,
+                      layer)
+
+
+def project_fast(x: torch.Tensor, p) -> torch.Tensor:
+    """One direction's fast-tier stream ``bf16(x @ W_ih + b_ih)`` of a
+    bf16-valued float32 ``x``: the product of bf16 values as a float32 GEMM
+    (exact products, float32 sums: TF32 must be off, as on every route), the
+    bias added in float32, then ONE rounding to bf16. Not a bf16 matmul:
+    that rounds its result to bf16 before ``b_ih`` is added, a second
+    rounding that helen_tpu (``preferred_element_type=f32``) does not do."""
+    return (x @ p["w_ih_f32"] + p["b_ih"]).to(torch.bfloat16)
+
+
+def _fast_streams(src: Source, start: int, T: int, dtype, layer: Layer):
+    x = window_input(src, start, T, dtype)
+    if isinstance(src, tuple):
+        x = bf16_round(x)
+    return project_fast(x, layer["fwd"]), project_fast(x, layer["bwd"])
+
+
+def window_xp_fast(src: Source, start: int, T: int, h0_f: torch.Tensor,
+                   h0_b: torch.Tensor, layer: Layer) -> Outputs:
+    """One bi-GRU layer of the fast tier on the xp route: the layer input
+    (the uint8 image window, exact in bf16, or the previous layer's float32
+    halves concatenated and rounded to bf16) projected by
+    :func:`project_fast` per direction, then K3f. ``layer`` is a fast layer
+    (io.checkpoint.fast_weights); ``src``, ``start``, ``T`` as in
+    :func:`gru_window_bwd.window_input`."""
+    return bigru_window_xp_fast(*_fast_streams(src, start, T, h0_f.dtype, layer),
+                                h0_f, h0_b, layer)
+
+
+def window_xp_fast_plain(src: Source, start: int, T: int, h0_f: torch.Tensor,
+                         h0_b: torch.Tensor, layer: Layer) -> Outputs:
+    """:func:`window_xp_fast` with K3f's plain version, on any device."""
+    return bigru_window_xp_fast_plain(*_fast_streams(src, start, T, h0_f.dtype, layer),
+                                      h0_f, h0_b, layer)

@@ -1,5 +1,6 @@
 """The CUDA window kernels (forward K1/K2 and their backward; the xp-stream
-K3 and K4 of the wide models) against their plain versions, on the GPU.
+K3 and K4 of the wide models; the fast tier's K1f, K2f and K3f) against
+their plain versions, on the GPU.
 
 These tests need an NVIDIA GPU with ``nvcc`` (the kernels build for sm_90a
 from helen_tpu_torch/ops/csrc at first use); elsewhere they skip. They
@@ -12,6 +13,9 @@ with sums taken in another order (the kernel's FMA chain against the CPU's
 or cuBLAS's blocked products). For the backward the bound is 1e-5 times
 the output's largest magnitude (at least 1): its weight cotangents are sums
 over all T*B rows of the window, whose rounding grows with their size.
+The fast kernels are held to 1e-3 (FAST_TOL): where kernel and plain version
+sum in another order, the bf16 rounding of h can land one bf16 ulp (2^-8
+relative) apart, times a weight of at most 1/sqrt(H).
 """
 import numpy as np
 import pytest
@@ -20,6 +24,7 @@ import torch
 pytestmark = pytest.mark.cuda
 
 TOL = 1e-5
+FAST_TOL = 1e-3
 
 
 @pytest.fixture
@@ -40,11 +45,11 @@ def make_layer(rng, d, h, dev, w_ih_scale=1.0):
                   ("b_ih", u(3 * h)), ("b_hh", u(3 * h)))} for dr in ("fwd", "bwd")}
 
 
-def assert_outputs_close(got, want):
+def assert_outputs_close(got, want, tol=TOL):
     for g, w, what in zip(got, want, ("out_f", "out_b", "h_f", "h_b")):
         assert g.shape == w.shape and g.dtype == torch.float32, what
         err = float((g - w).abs().max())
-        assert err <= TOL, f"{what}: max |kernel - plain| {err}"
+        assert err <= tol, f"{what}: max |kernel - plain| {err}"
 
 
 # ragged batch edges (not a multiple of the kernel's 8-row block), the
@@ -407,3 +412,150 @@ def test_xp_wrappers_refuse_what_the_kernels_do_not_take(dev):
     wide = xp_bwd_case(np.random.default_rng(5), 2, 8, 1056, dev)
     with pytest.raises(ValueError, match="maximum 1024"):  # H > XP_MAX_H
         gxb.bigru_window_xp_bwd(*wide)
+
+
+# ---------------------------------------------------------------------------
+# the fast tier: K1f, K2f (H <= 512) and K3f (the wide models)
+# ---------------------------------------------------------------------------
+
+def fast(layer):
+    from helen_tpu_torch.io.checkpoint import fast_layer
+
+    return fast_layer(layer)
+
+
+@pytest.mark.parametrize("T,B,H", [(100, 512, 128), (7, 13, 160), (5, 3, 512)])
+def test_k1f_kernel_matches_plain(dev, T, B, H):
+    from helen_tpu_torch.ops import gru_window as gw
+
+    rng = np.random.default_rng(T * B + H + 2)
+    L, start = T + 30, 17
+    image = torch.from_numpy(rng.integers(0, 256, size=(B, L, 90), dtype=np.uint8)).to(dev)
+    h0f, h0b = (torch.from_numpy(rng.uniform(-1, 1, (B, H)).astype(np.float32)).to(dev)
+                for _ in range(2))
+    layer = fast(make_layer(rng, 90, H, dev, w_ih_scale=1 / 64))
+    before = dict(gw.launch_counts)
+    got = gw.bigru_window_in1_fast(image, start, T, h0f, h0b, layer)
+    torch.cuda.synchronize()
+    assert gw.launch_counts == {**before, "bigru_window_in1_fast":
+                                before["bigru_window_in1_fast"] + 1}
+    assert_outputs_close(got, gw.bigru_window_in1_fast_plain(image, start, T, h0f, h0b,
+                                                             layer), FAST_TOL)
+
+
+@pytest.mark.parametrize("T,B,H", [(100, 512, 128), (7, 13, 160), (5, 3, 512)])
+def test_k2f_kernel_matches_plain(dev, T, B, H):
+    from helen_tpu_torch.ops import gru_window as gw
+
+    rng = np.random.default_rng(T * B + H + 3)
+    xa, xb = (torch.from_numpy(rng.standard_normal((T, B, H)).astype(np.float32)).to(dev)
+              for _ in range(2))
+    h0f, h0b = (torch.from_numpy(rng.uniform(-1, 1, (B, H)).astype(np.float32)).to(dev)
+                for _ in range(2))
+    layer = fast(make_layer(rng, 2 * H, H, dev))
+    before = dict(gw.launch_counts)
+    got = gw.bigru_window_in2_fast(xa, xb, h0f, h0b, layer)
+    torch.cuda.synchronize()
+    assert gw.launch_counts == {**before, "bigru_window_in2_fast":
+                                before["bigru_window_in2_fast"] + 1}
+    assert_outputs_close(got, gw.bigru_window_in2_fast_plain(xa, xb, h0f, h0b, layer),
+                         FAST_TOL)
+
+
+@pytest.mark.parametrize("T,B,H", [(100, 64, 1024), (7, 13, 640), (9, 17, 1000),
+                                   (4, 1, 1024), (5, 3, 160)])
+def test_k3f_kernel_matches_plain(dev, T, B, H):
+    from helen_tpu_torch.ops import gru_window_xp as gx
+
+    xp_f, xp_b, h0f, h0b, layer = xp_case(np.random.default_rng(T * B + H + 4), T, B, H,
+                                          dev)
+    args = (xp_f.to(torch.bfloat16), xp_b.to(torch.bfloat16), h0f, h0b, fast(layer))
+    before = dict(gx.launch_counts)
+    got = gx.bigru_window_xp_fast(*args)
+    torch.cuda.synchronize()
+    assert gx.launch_counts == {**before, "bigru_window_xp_fast":
+                                before["bigru_window_xp_fast"] + 1}
+    assert_outputs_close(got, gx.bigru_window_xp_fast_plain(*args), FAST_TOL)
+
+
+def test_fast_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    from helen_tpu_torch.ops import gru_window as gw
+    from helen_tpu_torch.ops import gru_window_xp as gx
+
+    rng = np.random.default_rng(7)
+    T, B, H = 4, 8, 128
+    l1, l2 = make_layer(rng, 90, H, dev), make_layer(rng, 2 * H, H, dev)
+    h0 = torch.zeros(B, H, device=dev)
+    image = torch.zeros(B, 10, 90, dtype=torch.uint8, device=dev)
+    x = torch.zeros(T, B, H, device=dev)
+    with pytest.raises(TypeError):  # float32 weights
+        gw.bigru_window_in1_fast(image, 0, T, h0, h0, l1)
+    with pytest.raises(TypeError):
+        gw.bigru_window_in2_fast(x, x, h0, h0, l2)
+    with pytest.raises(ValueError):  # K1f's weights given to K2f
+        gw.bigru_window_in2_fast(x, x, h0, h0, fast(l1))
+    with pytest.raises(ValueError):  # window past the image's end
+        gw.bigru_window_in1_fast(image, 8, T, h0, h0, fast(l1))
+    with pytest.raises(ValueError):  # h0 on the CPU
+        gw.bigru_window_in1_fast(image, 0, T, h0.cpu(), h0, fast(l1))
+    with pytest.raises(ValueError):  # a half on the CPU
+        gw.bigru_window_in2_fast(x, x.cpu(), h0, h0, fast(l2))
+    with pytest.raises(ValueError):  # a weight on the CPU
+        gw.bigru_window_in2_fast(x, x, h0, h0, fast({d: {k: v.cpu() for k, v in p.items()}
+                                                     for d, p in l2.items()}))
+
+    xp_f, xp_b, h0f, h0b, layer = xp_case(rng, T, B, 640, dev)
+    xb_f, xb_b, fl = xp_f.to(torch.bfloat16), xp_b.to(torch.bfloat16), fast(layer)
+    with pytest.raises(TypeError):  # float32 streams
+        gx.bigru_window_xp_fast(xp_f, xp_b, h0f, h0b, fl)
+    with pytest.raises(TypeError):  # float32 W_hh
+        gx.bigru_window_xp_fast(xb_f, xb_b, h0f, h0b, layer)
+    with pytest.raises(ValueError):  # the streams' shapes differ
+        gx.bigru_window_xp_fast(xb_f, xb_b[:-1], h0f, h0b, fl)
+    with pytest.raises(ValueError):  # h0 on the CPU
+        gx.bigru_window_xp_fast(xb_f, xb_b, h0f.cpu(), h0b, fl)
+    wide = xp_case(rng, 2, 8, 1056, dev)
+    with pytest.raises(ValueError, match="maximum 1024"):  # H > XP_MAX_H
+        gx.bigru_window_xp_fast(wide[0].to(torch.bfloat16), wide[1].to(torch.bfloat16),
+                                wide[2], wide[3], fast(wide[4]))
+
+
+@pytest.mark.parametrize("H,want", [(128, "cuda_fast_inproj"), (640, "cuda_fast_xp")])
+def test_fast_consensus_launch_counts(dev, H, want):
+    """One fast consensus_labels batch launches exactly the fast kernels of
+    its route, once per window and layer, and none of the parity tier's; its
+    labels agree with the fast plain route."""
+    import dataclasses
+
+    from helen_tpu_torch.config import MODEL, WINDOW
+    from helen_tpu_torch.io.checkpoint import params_to_torch
+    from helen_tpu_torch.models.transducer import consensus_labels, engaged_kernel, init_params
+    from helen_tpu_torch.ops import gru_window as gw
+    from helen_tpu_torch.ops import gru_window_bwd as gb
+    from helen_tpu_torch.ops import gru_window_xp as gx
+    from helen_tpu_torch.ops import gru_window_xp_bwd as gxb
+
+    params = params_to_torch(init_params(torch.Generator().manual_seed(H),
+                                         dataclasses.replace(MODEL, hidden_size=H)),
+                             dev, fast=True)
+    assert engaged_kernel(params, "cuda_fast") == want
+    rng = np.random.default_rng(H)
+    images = torch.from_numpy(rng.integers(0, 40, size=(24, 1000, 90), dtype=np.uint8)).to(dev)
+    mods = (gw, gb, gx, gxb)
+    for m in mods:
+        m.reset_launch_counts()
+    with torch.no_grad():
+        kb, kr = consensus_labels(params, images, backend="cuda_fast")
+    torch.cuda.synchronize()
+    counts = {k: v for m in mods for k, v in m.launch_counts.items()}
+    n_win = WINDOW.num_windows(1000)
+    expect = {k: 0 for k in counts}
+    if want == "cuda_fast_inproj":
+        expect.update(bigru_window_in1_fast=n_win, bigru_window_in2_fast=n_win)
+    else:
+        expect.update(bigru_window_xp_fast=2 * n_win)
+    assert counts == expect
+    with torch.no_grad():
+        pb, pr = consensus_labels(params, images, backend="torch_fast")
+    assert int((kb != pb).sum()) <= 1e-3 * kb.numel()
+    assert int((kr != pr).sum()) <= 1e-3 * kr.numel()

@@ -136,7 +136,11 @@ def test_resolve_backend():
     assert resolve_backend("torch", cpu) == "torch"
     with pytest.raises(ValueError, match="needs a CUDA device"):
         resolve_backend("cuda", cpu)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        resolve_backend("pallas_fast", cpu)
+    # helen_tpu's inference backend names (helen_tpu/cli.py:34-36); none
+    # changes the device
+    assert resolve_backend("xla", cpu) == "torch"
+    assert resolve_backend("pallas", cpu) == "torch"
+    assert resolve_backend("pallas", torch.device("cuda")) == "cuda"
+    assert resolve_backend("pallas_fast", cpu) == "torch_fast"
     with pytest.raises(ValueError, match="not one of"):
-        resolve_backend("xla", cpu)
+        resolve_backend("pallas_train", cpu)

@@ -98,9 +98,86 @@ def test_train_and_test_need_a_gpu_or_device_cpu(argv, tmp_path, capsys):
     assert not os.path.exists(tmp_path / "o")
 
 
-UNPORTED = [
+@pytest.mark.parametrize("backend", ["xla", "pallas"])
+def test_helen_tpu_backend_names_run(backend, tmp_path):
+    """``--backend xla`` and ``--backend pallas`` run as in helen_tpu: on
+    the CPU both are the plain float32 path, which reproduces the golden
+    FASTA."""
+    images = stage_golden_images(tmp_path / "images")
+    out = tmp_path / "out"
+    assert cli("polish", "-i", images, "-m", golden("golden_model.pkl"), "-o", out,
+               "--device", "cpu", "-t", 2, "--backend", backend) == 0
+    assert sha256(out / "HELEN_prediction.fa") == sha256(golden("golden.fa"))
+
+
+FAST = [
     ("--fast", ["polish", "--fast"]),
     ("pallas_fast", ["polish", "--backend", "pallas_fast"]),
+]
+
+
+@pytest.fixture(scope="module")
+def golden_fast_labels(tmp_path_factory):
+    """{"contig-start-end-chunk": (bases, rles)}: the golden images' labels
+    from the library's fast tier (``consensus_labels(backend="torch_fast")``,
+    all images in one batch)."""
+    import numpy as np
+
+    from helen_tpu_torch.io.checkpoint import load_model_any, params_to_torch
+    from helen_tpu_torch.io.images import MarginPolishDataset
+    from helen_tpu_torch.models.transducer import consensus_labels
+
+    images = stage_golden_images(tmp_path_factory.mktemp("golden_fast"))
+    ds = MarginPolishDataset([os.path.join(images, "golden_images.h5")])
+    recs = [ds.load(i) for i in range(len(ds))]
+    params, _ = load_model_any(golden("golden_model.pkl"))
+    with torch.no_grad():
+        base, rle = consensus_labels(params_to_torch(params, "cpu", fast=True),
+                                     torch.from_numpy(np.stack([r.image for r in recs])),
+                                     backend="torch_fast")
+    return {f"{r.contig}-{r.contig_start}-{r.contig_end}-{r.chunk_id}":
+            (base[j].numpy(), rle[j].numpy()) for j, r in enumerate(recs)}
+
+
+@pytest.mark.parametrize("argv", [a for _, a in FAST], ids=[i for i, _ in FAST])
+def test_fast_tier_polishes_on_cpu(argv, tmp_path, golden_fast_labels):
+    """``polish --fast`` and ``--backend pallas_fast`` run the fast tier
+    (its plain versions with ``--device cpu``): the stored labels are the
+    library's fast-tier labels of the same images, and within 1 flip per
+    100 per head of the recorded float32 ones (the golden model's weights
+    are random, so many of its votes are near ties; the tier's flips
+    against helen_tpu's own fast tier are held in tests/test_torch_fast.py)."""
+    import glob
+
+    import numpy as np
+
+    from torch_port_fixtures import store_labels
+
+    images = stage_golden_images(tmp_path / "images")
+    out = tmp_path / "out"
+    assert cli(*argv, "-i", images, "-m", golden("golden_model.pkl"), "-o", out,
+               "--device", "cpu", "-t", 2) == 0
+    assert os.path.getsize(out / "HELEN_prediction.fa") > 0
+    got = store_labels(glob.glob(str(out / "predictions_*" / "*.hdf"))[0])
+    assert sorted(got) == sorted(golden_fast_labels)
+    want = np.load(golden("golden_labels.npz"))
+    n = sum(b.size for b, _ in got.values())
+    for i, head in enumerate(("base", "rle")):
+        for k, v in got.items():
+            np.testing.assert_array_equal(v[i], golden_fast_labels[k][i], err_msg=k)
+        flips = sum(int((v[i] != want[f"{head}/{k}"]).sum()) for k, v in got.items())
+        assert flips <= 1e-2 * n, (head, flips, n)
+
+
+def test_fast_and_backend_together_are_refused(capsys):
+    with pytest.raises(SystemExit) as exc:
+        cli("polish", "--fast", "--backend", "pallas", "-i", "imgs", "-m", "model.pkl",
+            "--device", "cpu")
+    assert exc.value.code == 2
+    assert "mutually exclusive" in capsys.readouterr().err
+
+
+UNPORTED = [
     ("--pack", ["polish", "--pack"]),
     ("--resume", ["call_consensus", "--resume"]),
     ("--writers", ["polish", "--writers", "2"]),

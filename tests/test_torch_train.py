@@ -506,5 +506,5 @@ def test_resolve_backend_for_the_train_surface():
         resolve_backend("cuda", cpu, kind="train")
     with pytest.raises(ValueError):  # a train alias on the inference surface
         resolve_backend("pallas_train", cpu)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="not a train backend"):
         resolve_backend("pallas_fast", cpu, kind="train")
