@@ -22,8 +22,13 @@ H=1024 with the launches counted. Phase 10 drives the fast (bf16) tier,
 ``polish --fast``: K1f, K2f and K3f against their plain versions, a label
 flip audit against the fast plain route and the fp32 route, the trained
 checkpoint under ``--fast`` against the parity tier, and the flagship and
-wide polishes through the fast kernels with the launches counted. Every
-phase fails the script on error; nothing falls back.
+wide polishes through the fast kernels with the launches counted. Phase 11
+drives the fused encoder+decoder window (``route="encdec"``, library only):
+K5 and K5f against the chained kernels (bit for bit) and their plain
+versions, timed beside K1+K2 and cuDNN, the full-width images with the
+trained checkpoint through the route in both tiers with the launches
+counted, and the golden fixtures through it. Every phase fails the script
+on error; nothing falls back.
 The second-to-last line is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
 checkout, it exits non-zero and prints no result. It imports nothing of JAX.
@@ -73,9 +78,11 @@ BWD_PASSES = ("bigru_window_bwd_rec", "bigru_window_bwd_wgrad")
 WH = 1024
 WB_TRAIN, N_WIDE_TRAIN, WB_POLISH = 64, 128, 256
 XP_PASSES = ("bigru_window_xp_bwd_rec", "bigru_window_xp_bwd_wgrad")
-# the fast tier's in-projection kernels (phase 10), which ops.gru_window
-# counts beside K1/K2: no parity path launches them
-FAST_ZERO = {"bigru_window_in1_fast": 0, "bigru_window_in2_fast": 0}
+# the kernels ops.gru_window counts beside K1/K2 that no parity path of
+# the default route launches: the fast tier's (phase 10) and the fused
+# encoder+decoder window's (phase 11, route="encdec" only)
+OFF_PATH_ZERO = {"bigru_window_in1_fast": 0, "bigru_window_in2_fast": 0,
+                 "transducer_window_encdec": 0, "transducer_window_encdec_fast": 0}
 
 
 def fail(msg: str) -> None:
@@ -354,7 +361,7 @@ def run_full_width(img_dir: str, truth, n_images: int, work: str, results) -> No
     if exact != len(truth):
         fail("the trained checkpoint did not polish every full-width contig exactly")
     layers = 1  # the trained checkpoint is the flagship geometry
-    want = {**FAST_ZERO, "bigru_window_in1": batches * n_win * layers,
+    want = {**OFF_PATH_ZERO, "bigru_window_in1": batches * n_win * layers,
             "bigru_window_in2": batches * n_win * (2 * layers - 1)}
     log(f"kernel launches {launches}, expected {want} ({batches} batches x "
         f"{n_win} windows x layers)")
@@ -677,7 +684,7 @@ def run_train(img_dir: str, n_images: int, work: str, results) -> None:
     train_batches, test_batches = -(-n_images // TB), -(-n_test // TB)
     fwd = TRAIN_EPOCHS * (train_batches + test_batches) * n_win
     bwd = TRAIN_EPOCHS * train_batches * n_win * 2  # layer 0 + decoder
-    want = {**FAST_ZERO, "bigru_window_in1": fwd, "bigru_window_in2": fwd,
+    want = {**OFF_PATH_ZERO, "bigru_window_in1": fwd, "bigru_window_in2": fwd,
             BWD_PASSES[0]: bwd, BWD_PASSES[1]: bwd}
     log(f"train launches {launches}, expected {want} ({TRAIN_EPOCHS} epochs x "
         f"({train_batches} train + {test_batches} test batches) x {n_win} windows; "
@@ -707,7 +714,7 @@ def run_train(img_dir: str, n_images: int, work: str, results) -> None:
         f"launches {tl}")
     if not same:
         fail("test did not reproduce the last epoch's loss and confusion matrices")
-    if tl != {**FAST_ZERO, "bigru_window_in1": test_batches * n_win,
+    if tl != {**OFF_PATH_ZERO, "bigru_window_in1": test_batches * n_win,
               "bigru_window_in2": test_batches * n_win, BWD_PASSES[0]: 0, BWD_PASSES[1]: 0}:
         fail("test launch counts differ from batches x windows")
 
@@ -1386,6 +1393,203 @@ def run_fast_polish(img_dir: str, truth, n_images: int, work: str, wide_ckpt: st
     results["bigru_window_xp_fast"]["launches"] = counts["bigru_window_xp_fast"]
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the fused encoder+decoder window (route="encdec"), K5 and K5f
+# ---------------------------------------------------------------------------
+
+def check_encdec(images_u8, results) -> None:
+    """Phase 11a: K5 and K5f at the flagship shapes against K1 -> K2 and
+    K1f -> K2f launched one after the other (max abs diff 0.0, outputs and
+    final states) and against their plain versions (TOL, FAST_TOL); timed
+    beside the chained kernels, the plain versions and two cuDNN GRU calls
+    (the encoder at D=90, the decoder on its output at D=256). Their ptxas
+    report (registers, spills) is in phase 2's build log."""
+    import numpy as np
+    import torch
+
+    from helen_tpu_torch.io.checkpoint import fast_layer
+    from helen_tpu_torch.ops import gru_window as gw
+    from helen_tpu_torch.ops import gru_window_encdec as ge
+
+    dev = images_u8.device
+    rng = np.random.default_rng(20261022)
+    f1, f2 = random_layer(rng, F, H, dev), random_layer(rng, 2 * H, H, dev)
+    h0f, h0b = (torch.from_numpy(rng.uniform(-0.5, 0.5, (B, H)).astype("float32")).to(dev)
+                for _ in range(2))
+    start = 450
+    budget = ge.device_smem_budget()
+    log(f"the card's opt-in shared memory per block: {budget} bytes")
+    bt = B * T
+    flops = 2.0 * bt * 2 * 3 * H * (F + H + 2 * H + H)
+    for fast in (False, True):
+        name = "transducer_window_encdec" + ("_fast" if fast else "")
+        enc, dec = (fast_layer(f1), fast_layer(f2)) if fast else (f1, f2)
+        kernel = getattr(ge, name)
+        plain = getattr(ge, name + "_plain")
+        in1, in2 = ((gw.bigru_window_in1_fast, gw.bigru_window_in2_fast) if fast
+                    else (gw.bigru_window_in1, gw.bigru_window_in2))
+        rows = ge.encdec_block_rows(H, F, T, fast, budget)
+        smem = ge.encdec_smem_bytes(H, rows, F, T, fast)
+        wdt = torch.bfloat16 if fast else torch.float32
+        x0 = images_u8[:, start:start + T].to(wdt).transpose(0, 1).contiguous()
+        hx = torch.stack([h0f, h0b]).to(wdt)
+        g1, g2 = cudnn_gru(f1, F, H, dev, wdt), cudnn_gru(f2, 2 * H, H, dev, wdt)
+        run = lambda: kernel(images_u8, start, T, h0f, h0b, enc, dec)  # noqa: E731
+        chained = lambda: in2(*in1(images_u8, start, T, h0f, h0b, enc), dec)  # noqa: E731
+        with torch.no_grad():
+            got, want_chain = run(), chained()
+            want, plain_ms = timed_once(
+                lambda: plain(images_u8, start, T, h0f, h0b, enc, dec))
+            chain_err, err = max_err(got, want_chain), max_err(got, want)
+            ms, chain_ms = cuda_ms(run), cuda_ms(chained)
+            lib_ms = cuda_ms(lambda: g2(*g1(x0, hx)))
+        w_bytes = (2 if fast else 4) * 2 * (F + H + 2 * H + H) * 3 * H + 4 * 2 * 2 * 6 * H
+        nbytes = bt * F + w_bytes + 2 * 4 * B * H + 2 * 4 * bt * H + 2 * 4 * B * H
+        bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16 if fast else PEAK_FP32)
+        tol = FAST_TOL if fast else TOL
+        log(f"{name}: BT={rows} rows per block, {-(-B // rows)} blocks of {2 * H} threads, "
+            f"{smem} bytes of shared memory each")
+        log(f"{name}: max |K5 - chained kernels| {chain_err:.3g} (limit 0.0); max |kernel - "
+            f"plain| {err:.3g} (limit {tol:g})")
+        log(f"{name}: kernel {ms:.4f} ms, chained {'K1f+K2f' if fast else 'K1+K2'} "
+            f"{chain_ms:.4f} ms, plain {plain_ms:.3f} ms, two cuDNN GRU calls"
+            f"{' in bf16' if fast else ''} {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}: {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)")
+        if chain_err != 0.0:
+            fail(f"{name} differs from the chained kernels")
+        if not err <= tol:
+            fail(f"{name} disagrees with its plain version")
+        results[name] = {
+            "name": name, "route": "cuda",
+            "source": "helen_tpu_torch/ops/csrc/gru_window_encdec.cu",
+            "replaces": "helen_tpu/ops/gru_pallas.py:756 (_kernel_fused_encdec"
+                        + (", fast=True)" if fast else ")"),
+            "max_abs_err": err, "max_abs_diff_chained": chain_err,
+            "ms": ms, "kernel_ms": ms, "chained_ms": chain_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+            "library": "two torch.nn.GRU calls (cuDNN), encoder then decoder"
+                       + (", in bf16" if fast else ""),
+            "block_rows": rows, "smem_bytes": smem,
+            "per": f"one launch at B={B}, T={T}, H={H}, F={F}",
+        }
+
+
+def load_images(img_dir: str):
+    """Every image of a directory, stacked on the card."""
+    import numpy as np
+    import torch
+
+    from helen_tpu_torch.io.images import MarginPolishDataset
+
+    ds = MarginPolishDataset(sorted(os.path.join(img_dir, f) for f in os.listdir(img_dir)))
+    return torch.from_numpy(np.stack([ds.load(i).image for i in range(len(ds))])).cuda()
+
+
+def run_encdec_route(img_dir: str, results) -> None:
+    """Phase 11b: the full-width images with the trained checkpoint through
+    ``consensus_labels`` at B=512 in both tiers, on the default route and on
+    ``route="encdec"`` (in turns: default, encdec, encdec, default). The
+    first encdec run is counted from 0: exactly batches x 19 K5 (K5f)
+    launches and no other kernel; its labels equal the default route's."""
+    import torch
+
+    from helen_tpu_torch.config import IMAGE, WINDOW
+    from helen_tpu_torch.io.checkpoint import load_model_any, params_to_torch
+    from helen_tpu_torch.models.transducer import consensus_labels
+    from helen_tpu_torch.ops import gru_window as gw
+    from helen_tpu_torch.ops import gru_window_bwd as gb
+    from helen_tpu_torch.ops import gru_window_xp as gx
+    from helen_tpu_torch.ops import gru_window_xp_bwd as gxb
+
+    t0 = time.perf_counter()
+    images = load_images(img_dir)
+    n = images.shape[0]
+    log(f"{n} full-width images on the card in {time.perf_counter() - t0:.1f} s")
+    params, _ = load_model_any(os.path.join(GOLDEN, "trained_synth30mb.npz"))
+    mods = (gw, gb, gx, gxb)
+    n_win = WINDOW.num_windows(IMAGE.seq_length)
+    batches = -(-n // B)
+
+    def consensus(p, backend, route):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = [consensus_labels(p, images[i:i + B], backend=backend, route=route)
+                   for i in range(0, n, B)]
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        return [torch.cat([o[k] for o in out]) for k in (0, 1)], secs
+
+    for backend in ("cuda", "cuda_fast"):
+        name = "transducer_window_encdec" + ("_fast" if backend == "cuda_fast" else "")
+        p = params_to_torch(params, images.device, fast=backend == "cuda_fast")
+        secs = {"default": [], "encdec": []}
+        (db, dr), s = consensus(p, backend, None)
+        secs["default"].append(s)
+        for m in mods:
+            m.reset_launch_counts()
+        (kb, kr), s = consensus(p, backend, "encdec")
+        counts = {k: v for m in mods for k, v in m.launch_counts.items()}
+        secs["encdec"].append(s)
+        secs["encdec"].append(consensus(p, backend, "encdec")[1])
+        secs["default"].append(consensus(p, backend, None)[1])
+        fb, fr = int((kb != db).sum()), int((kr != dr).sum())
+        rate = {k: n * n_win / min(v) for k, v in secs.items()}
+        want = {**{k: 0 for k in counts}, name: batches * n_win}
+        log(f"{backend}: {n} images at B={B}, route='encdec' vs the default route: {fb}+{fr} "
+            f"base+rle label flips of {kb.numel()} per head; {rate['encdec']:,.0f} vs "
+            f"{rate['default']:,.0f} windows/s (consensus on the card, the faster of two "
+            f"runs each: encdec {secs['encdec']}, default {secs['default']} s)")
+        log(f"{backend} route='encdec' launches {counts}, expected {want} ({batches} "
+            f"batches x {n_win} windows)")
+        if counts != want:
+            fail(f"{name} launch counts differ from batches x windows")
+        if fb or fr:
+            fail(f"route 'encdec' flips labels against the default route ({backend})")
+        results[name]["launches"] = counts[name]
+        results[name]["windows_per_s"] = rate["encdec"]
+        results[name]["chained_windows_per_s"] = rate["default"]
+
+
+def check_golden_encdec() -> None:
+    """Phase 11c: the one-layer golden fixtures (the flagship and H=160)
+    through ``route="encdec"`` on the card: 0 + 0 label flips against the
+    recorded labels, through K5."""
+    import numpy as np
+    import torch
+
+    from helen_tpu_torch.io.checkpoint import load_model_any, params_to_torch
+    from helen_tpu_torch.io.images import MarginPolishDataset
+    from helen_tpu_torch.models.transducer import consensus_labels
+    from helen_tpu_torch.ops import gru_window as gw
+
+    with tempfile.TemporaryDirectory(prefix="golden_encdec_") as d:
+        path = os.path.join(d, "golden_images.h5")
+        with gzip.open(os.path.join(GOLDEN, "golden_images.h5.gz"), "rb") as src, \
+                open(path, "wb") as dst:
+            shutil.copyfileobj(src, dst)
+        ds = MarginPolishDataset([path])
+        recs = [ds.load(i) for i in range(len(ds))]
+    images = torch.from_numpy(np.stack([r.image for r in recs])).cuda()
+    keys = [f"{r.contig}-{r.contig_start}-{r.contig_end}-{r.chunk_id}" for r in recs]
+    for name in ("model", "h160"):
+        stem = "golden" if name == "model" else f"golden_{name}"
+        params, _ = load_model_any(os.path.join(GOLDEN, f"golden_{name}.pkl"))
+        before = gw.launch_counts["transducer_window_encdec"]
+        with torch.no_grad():
+            base, rle = consensus_labels(params_to_torch(params, images.device), images,
+                                         backend="cuda", route="encdec")
+        launched = gw.launch_counts["transducer_window_encdec"] - before
+        want = np.load(os.path.join(GOLDEN, f"{stem}_labels.npz"))
+        base, rle = base.cpu().numpy(), rle.cpu().numpy()
+        fb = sum(int((base[j] != want[f"base/{k}"]).sum()) for j, k in enumerate(keys))
+        fr = sum(int((rle[j] != want[f"rle/{k}"]).sum()) for j, k in enumerate(keys))
+        log(f"golden {name} through route 'encdec': {fb}+{fr} base+rle label flips of "
+            f"{base.size} per head ({launched} K5 launches)")
+        if fb or fr or not launched:
+            fail(f"golden {name}: route 'encdec' flips labels")
+
+
 def main() -> int:
     import torch
 
@@ -1490,6 +1694,17 @@ def main() -> int:
         phase("10e. polish --fast: the flagship and the wide model")
         run_fast_polish(img_dir, truth, n_images, work, *wide, results)
         log(f"phase 10: {time.perf_counter() - t10:.1f} s")
+
+        t11 = time.perf_counter()
+        phase(f"11a. K5 and K5f against the chained kernels (B={B}, T={T}, H={H}, F={F})")
+        check_encdec(images_u8, results)
+
+        phase("11b. the full-width images through route 'encdec', both tiers")
+        run_encdec_route(img_dir, results)
+
+        phase("11c. golden fixtures through route 'encdec'")
+        check_golden_encdec()
+        log(f"phase 11: {time.perf_counter() - t11:.1f} s")
 
     phase("8. result")
     log(smi)

@@ -19,6 +19,13 @@ two routes, chosen by :func:`kernel_route` from the hidden size:
   and only the recurrence runs in a kernel (K3, ops.gru_window_xp), as
   helen_tpu's xp-stream kernels do.
 
+A third family, ``"encdec"`` (ops.gru_window_encdec: K5, and K5f in the
+fast tier), runs the whole window of a model with one encoder and one
+decoder layer in one launch, the encoder's outputs held on chip. No rule
+picks it: only ``route="encdec"`` does (library only, inference only), as
+helen_tpu keeps its fused kernel off its dispatch (its
+``models/transducer.py:168-175``).
+
 The windows go through the autograd Functions of ops.gru_window_autograd,
 so the same ``forward`` trains: its backward is the hand-written backward
 kernel of the route (ops.gru_window_bwd, ops.gru_window_xp_bwd). On
@@ -57,6 +64,10 @@ from helen_tpu_torch.ops.gru_window import (
     bigru_window_in2_plain,
 )
 from helen_tpu_torch.ops.gru_window_autograd import window_in1, window_in2, window_xp
+from helen_tpu_torch.ops.gru_window_encdec import (
+    transducer_window_encdec,
+    transducer_window_encdec_fast,
+)
 from helen_tpu_torch.ops.gru_window_xp import window_xp_fast, window_xp_fast_plain
 
 Params = Dict[str, Any]
@@ -72,8 +83,9 @@ FAST_BACKENDS = ("cuda_fast", "torch_fast")
 INFER_ALIASES = {"xla": "torch", "pallas": "auto", "pallas_fast": "fast"}
 TRAIN_ALIASES = {"xla": "torch", "pallas_train": "cuda"}
 #: the kernel families of the "cuda" backend and the largest hidden size
-#: each takes
-ROUTES = {"inproj": MAX_H, "xp": XP_MAX_H}
+#: each takes ("encdec": 2H threads per block; its shared memory bounds H
+#: further, by the window, ops.gru_window_encdec.encdec_fits_smem)
+ROUTES = {"inproj": MAX_H, "xp": XP_MAX_H, "encdec": MAX_H}
 
 
 def set_fp32_precision() -> None:
@@ -100,13 +112,17 @@ def kernel_route(hidden_size: int, route: Optional[str] = None) -> str:
     :func:`forward` (which acts on it), :func:`engaged_kernel` (which
     records it) and :func:`resolve_backend` (which refuses what it
     refuses): ``"inproj"`` for H <= MAX_H, ``"xp"`` for MAX_H < H <=
-    XP_MAX_H. ``route`` forces one family (library only, for testing);
-    a hidden size the family does not take raises, past XP_MAX_H naming
-    ``--backend torch``. Nothing falls back."""
+    XP_MAX_H. ``route`` forces one family (library only, for testing;
+    ``"encdec"`` only ever by this argument); a hidden size the family
+    does not take raises, past XP_MAX_H naming ``--backend torch``.
+    Nothing falls back."""
     if route is not None and route not in ROUTES:
         raise ValueError(f"route {route!r} is not one of {tuple(ROUTES)}")
     chosen = route or ("inproj" if hidden_size <= MAX_H else "xp")
     if not 0 < hidden_size <= ROUTES[chosen]:
+        if chosen == "encdec":
+            raise ValueError(f"hidden_size {hidden_size} exceeds the encdec kernel's maximum "
+                             f"{MAX_H} (2H threads per block)")
         family = "window kernels'" if route is None else f"{route} window kernels'"
         raise ValueError(f"hidden_size {hidden_size} exceeds the {family} maximum "
                          f"{ROUTES[chosen]} (forward and backward); use --backend torch")
@@ -117,17 +133,28 @@ def engaged_kernel(params: Params, backend: str, route: Optional[str] = None) ->
     """Which kernel family :func:`forward` runs for ``(params, backend,
     route)`` (helen_tpu's ``engaged_kernel``, ``transducer.py:431``):
     ``"torch"`` (the plain versions), ``"cuda_inproj"`` (K1/K2 and their
-    backward), ``"cuda_xp"`` (projection GEMMs, K3/K4), and in the fast
-    tier ``"cuda_fast_inproj"`` (K1f/K2f), ``"cuda_fast_xp"`` (projection
-    GEMMs, K3f) or ``"torch_fast"`` (their plain versions). The backend
-    must be resolved already (:func:`resolve_backend`)."""
+    backward), ``"cuda_xp"`` (projection GEMMs, K3/K4), ``"cuda_encdec"``
+    (K5, forced only), and in the fast tier ``"cuda_fast_inproj"``
+    (K1f/K2f), ``"cuda_fast_xp"`` (projection GEMMs, K3f),
+    ``"cuda_fast_encdec"`` (K5f) or ``"torch_fast"`` (their plain
+    versions). The backend must be resolved already
+    (:func:`resolve_backend`). ``"encdec"`` takes one encoder and one
+    decoder layer, as helen_tpu's fused entry does
+    (``gru_pallas.py:1019-1020``); a deeper model raises."""
     if backend in ("torch", "torch_fast"):
         if route is not None:
             raise ValueError("route selects the kernels of backend 'cuda' or 'cuda_fast'")
         return backend
     if backend not in ("cuda", "cuda_fast"):
         raise ValueError(f"unresolved backend {backend!r}")
-    return f"{backend}_" + kernel_route(model_geometry(params).hidden_size, route)
+    chosen = kernel_route(model_geometry(params).hidden_size, route)
+    if chosen == "encdec":
+        layers = (len(_stack_layers(params["encoder"])), len(_stack_layers(params["decoder"])))
+        if layers != (1, 1):
+            raise ValueError(f"route 'encdec' takes one encoder and one decoder layer, "
+                             f"got {layers[0]} and {layers[1]}; the chained kernels take "
+                             'them: route="inproj"')
+    return f"{backend}_{chosen}"
 
 
 def _stack_layers(stack: Params) -> List[Params]:
@@ -296,7 +323,10 @@ def forward(
         cast by :func:`io.checkpoint.fast_weights` in each call, so pass a
         fast tree to call this per window)
     :param route: the kernel family of ``"cuda"``/``"cuda_fast"``,
-        ``"inproj"`` or ``"xp"``; None takes :func:`kernel_route`'s rule
+        ``"inproj"``, ``"xp"`` or ``"encdec"`` (the whole window in one
+        launch, inference only: it raises with grad enabled, and for a
+        window its shared memory does not hold); None takes
+        :func:`kernel_route`'s rule, which never picks ``"encdec"``
     :returns: (base logits (B, W, nb), rle logits (B, W, nr), new hidden
         (B, 2L, H))
     """
@@ -310,17 +340,26 @@ def forward(
             # the plain versions of the kernels the rule picks, with no upper
             # limit on H
             kernels += "_inproj" if model_geometry(params).hidden_size <= MAX_H else "_xp"
+    T = x.shape[1] - start if window is None else window
+
+    def h0(li):
+        return hidden[:, 2 * li].contiguous(), hidden[:, 2 * li + 1].contiguous()
+
+    if kernels.endswith("_encdec"):
+        if torch.is_grad_enabled():
+            raise RuntimeError("route 'encdec' is inference only (helen_tpu's fused kernel "
+                               "has no backward): run it under torch.no_grad()")
+        fused = (transducer_window_encdec_fast if backend in FAST_BACKENDS
+                 else transducer_window_encdec)
+        of, ob, hf, hb = fused(x, start, T, *h0(0), _stack_layers(params["encoder"])[0],
+                               _stack_layers(params["decoder"])[0])
+        return _window_out(params, of, ob, [(hf, hb)])
     if kernels.endswith("_xp"):
         require_fp32_precision(x.device)
     in1, in2 = _LAYERS[kernels]
     if in2 is None:  # an xp route: one layer function for both layer kinds
         in2 = lambda xa, xb, h0f, h0b, lp: in1(  # noqa: E731
             (xa, xb), 0, xa.shape[0], h0f, h0b, lp)
-    T = x.shape[1] - start if window is None else window
-
-    def h0(li):
-        return hidden[:, 2 * li].contiguous(), hidden[:, 2 * li + 1].contiguous()
-
     enc = _stack_layers(params["encoder"])
     of, ob, hf, hb = in1(x, start, T, *h0(0), enc[0])
     enc_finals = [(hf, hb)]
@@ -331,7 +370,14 @@ def forward(
     for li, lp in enumerate(_stack_layers(params["decoder"])):
         of, ob, hf, hb = in2(of, ob, *enc_finals[li], lp)
         dec_finals.append((hf, hb))
-    # heads on the time-major (T, B, 2H) output, logits moved to (B, T, C)
+    return _window_out(params, of, ob, dec_finals)
+
+
+def _window_out(params: Params, of: torch.Tensor, ob: torch.Tensor,
+                dec_finals: List[Tuple[torch.Tensor, torch.Tensor]]
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The heads on the decoder's time-major (T, B, 2H) output, logits moved
+    to (B, T, C), and the new hidden from the decoder's final states."""
     base, rle = _apply_heads(params, torch.cat([of, ob], dim=-1))
     new_hidden = torch.stack([h for pair in dec_finals for h in pair], dim=1)
     return base.transpose(0, 1), rle.transpose(0, 1), new_hidden

@@ -8,9 +8,10 @@
 //   bigru_window_in2 <- _kernel_inproj2 (helen_tpu/ops/gru_pallas.py:474):
 //       the same layer over the previous layer's (out_f, out_b) halves, with
 //       no concat (decoder layers and every stacked layer >= 1).
-// Both compute, per direction, the GRU cell of gru_window_common.cuh; the
-// final state is the h after the last step (for the backward direction:
-// after time 0).
+// Both compute, per direction, the GRU cell of gru_window_common.cuh, one
+// step at a time through its gru_step, which the fused encoder+decoder
+// kernel (gru_window_encdec.cu) shares; the final state is the h after the
+// last step (for the backward direction: after time 0).
 //
 // What bounds it on this card. One launch at B=512, T=100, H=128 does
 // 17.1 GFLOP (K1, D=90) or 30.2 GFLOP (K2, D=256) of fp32 FMA and must move
@@ -69,38 +70,6 @@
 
 namespace {
 
-// one direction's weights: fp32 for the parity tier, bf16 for the fast one
-template <typename W>
-struct DirParams {
-  const W* w_ih;       // (D, 3H)
-  const W* w_hh;       // (H, 3H)
-  const float* b_ih;   // (3H,)
-  const float* b_hh;   // (3H,)
-};
-
-// the input rows of one step into shared memory; the fast pair kernel
-// rounds the previous layer's fp32 halves to bf16 here (uint8 is exact)
-template <bool PAIR, bool FAST>
-__device__ __forceinline__ void load_rows(const WindowIn& in, int tt, int b0,
-                                          int B, int D, int H, float* dst) {
-  for (int idx = threadIdx.x; idx < BT * D; idx += blockDim.x) {
-    const int r = idx / D;
-    const int k = idx - r * D;
-    const int b = b0 + r;
-    float v = 0.0f;
-    if (b < B) {
-      if (PAIR) {
-        v = (k < H) ? in.xa[((size_t)tt * B + b) * H + k]
-                    : in.xb[((size_t)tt * B + b) * H + (k - H)];
-        if (FAST) v = bf16_rn(v);
-      } else {
-        v = (float)in.img[(size_t)b * in.sb + (size_t)(in.start + tt) * in.sl + k];
-      }
-    }
-    dst[idx] = v;
-  }
-}
-
 template <bool PAIR, bool FAST>
 __global__ void __launch_bounds__(MAX_H)
 bigru_window_kernel(WindowIn in, int D, const float* __restrict__ h0_f,
@@ -131,70 +100,31 @@ bigru_window_kernel(WindowIn in, int D, const float* __restrict__ h0_f,
     hbuf[r * H + j] = h;
     if (FAST) hop[r * H + j] = bf16_rn(h);
   }
-  load_rows<PAIR, FAST>(in, dir ? T - 1 : 0, b0, B, D, H, xbuf);
+  load_rows<PAIR, FAST, BT>(in, dir ? T - 1 : 0, b0, B, D, H, xbuf, j, H);
   __syncthreads();
 
-  const float bir = p.b_ih[j], biz = p.b_ih[H + j], bin = p.b_ih[2 * H + j];
-  const float bhr = p.b_hh[j], bhz = p.b_hh[H + j], bhn = p.b_hh[2 * H + j];
-  const int H3 = 3 * H;
+  const CellBias bias = load_bias(p, H, j);
   float hlast[BT];
 
   for (int t = 0; t < T; ++t) {
     const int cur = t & 1;
-    const float* hc = hbuf + cur * BT * H;
-    const float* ho = hop + cur * BT * H;
     const float* xc = xbuf + cur * BT * D;
-    float* hx = hbuf + (cur ^ 1) * BT * H;
-    float* hox = hop + (cur ^ 1) * BT * H;
     const int tt = dir ? T - 1 - t : t;
-
-    float xr[BT], xz[BT], xn[BT], hr[BT], hz[BT], hq[BT];
+    // x W_ih over the D inputs of this step, then h W_hh (the fast tier:
+    // bf16(h) W_hh), then the gates
+    float hnew[BT];
+    gru_step<BT, FAST, CHAIN_UNROLL>(p, bias, H, j, xc, D, xc, 0, D, hbuf + cur * BT * H,
+                       hop + cur * BT * H, hbuf + (cur ^ 1) * BT * H,
+                       hop + (cur ^ 1) * BT * H, hnew);
 #pragma unroll
     for (int r = 0; r < BT; ++r) {
-      xr[r] = xz[r] = xn[r] = 0.0f;
-      hr[r] = hz[r] = hq[r] = 0.0f;
-    }
-    // input projection x W_ih over the D inputs of this step
-#pragma unroll 2
-    for (int k = 0; k < D; ++k) {
-      const auto* w = p.w_ih + (size_t)k * H3;
-      const float wr = ldg_f(w + j), wz = ldg_f(w + H + j), wn = ldg_f(w + 2 * H + j);
-#pragma unroll
-      for (int r = 0; r < BT; ++r) {
-        const float xv = xc[r * D + k];
-        xr[r] = fmaf(xv, wr, xr[r]);
-        xz[r] = fmaf(xv, wz, xz[r]);
-        xn[r] = fmaf(xv, wn, xn[r]);
-      }
-    }
-    // recurrent product h W_hh (the fast tier: bf16(h) W_hh)
-#pragma unroll 2
-    for (int k = 0; k < H; ++k) {
-      const auto* w = p.w_hh + (size_t)k * H3;
-      const float wr = ldg_f(w + j), wz = ldg_f(w + H + j), wn = ldg_f(w + 2 * H + j);
-#pragma unroll
-      for (int r = 0; r < BT; ++r) {
-        const float hv = ho[r * H + k];
-        hr[r] = fmaf(hv, wr, hr[r]);
-        hz[r] = fmaf(hv, wz, hz[r]);
-        hq[r] = fmaf(hv, wn, hq[r]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < BT; ++r) {
-      const float rg = sigmoidf_((xr[r] + bir) + (hr[r] + bhr));
-      const float zg = sigmoidf_((xz[r] + biz) + (hz[r] + bhz));
-      const float ng = gate_n<FAST>(xn[r] + bin, rg, hq[r] + bhn);
-      const float hnew = blend<FAST>(zg, ng, hc[r * H + j]);
-      hx[r * H + j] = hnew;
-      if (FAST) hox[r * H + j] = bf16_rn(hnew);
-      hlast[r] = hnew;
+      hlast[r] = hnew[r];
       const int b = b0 + r;
-      if (b < B) out[((size_t)tt * B + b) * H + j] = hnew;
+      if (b < B) out[((size_t)tt * B + b) * H + j] = hnew[r];
     }
     if (t + 1 < T) {
-      load_rows<PAIR, FAST>(in, dir ? T - 2 - t : t + 1, b0, B, D, H,
-                            xbuf + (cur ^ 1) * BT * D);
+      load_rows<PAIR, FAST, BT>(in, dir ? T - 2 - t : t + 1, b0, B, D, H,
+                                xbuf + (cur ^ 1) * BT * D, j, H);
     }
     __syncthreads();
   }

@@ -1,6 +1,7 @@
 // What the bi-GRU window kernels (gru_window*.cu) share: their limits, the
-// gate nonlinearity, the readers of a layer's input and of h_prev, and the
-// fixed-order weight-cotangent reduction of both backwards.
+// gate nonlinearity, the forward cell step of the in-projection kernels and
+// of the fused encoder+decoder kernel, the readers of a layer's input and of
+// h_prev, and the fixed-order weight-cotangent reduction of both backwards.
 //
 // Every kernel computes, per direction, the torch nn.GRU cell with gates
 // [r, z, n] and b_hh INSIDE the reset product:
@@ -24,6 +25,10 @@
 namespace {
 
 constexpr int BT = 8;            // batch rows per recurrence block
+// k steps per unrolled iteration of the in-projection kernels' FMA chains
+// (fma_chain): 4 takes K1, K2, K1f and K2f 10-21% under 2 on the H100, where
+// ptxas stopped issuing K1f's next weight loads before its FMAs (PERF.md, PR 5)
+constexpr int CHAIN_UNROLL = 4;
 constexpr int MAX_H = 512;       // in-projection kernels: one thread per hidden unit
 constexpr int XP_MAX_H = 1024;   // xp-stream kernels (gru_window_xp*.cu)
 constexpr int XP_THREADS = 512;  // xp-stream kernels: threads per block
@@ -81,6 +86,114 @@ __device__ __forceinline__ float blend(float z, float n, float h) {
 // copy of an fp32 value
 __device__ __forceinline__ float bf16_rn(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// ---------------------------------------------------------------------------
+// The forward cell step of the in-projection kernels (K1/K2 and their fast
+// twins, gru_window.cu; K5, gru_window_encdec.cu): one direction, ROWS batch
+// rows, one thread per hidden unit j. Every kernel that calls it does the
+// same FMAs in the same k order, so K5 equals K1 -> K2 bit for bit.
+// ---------------------------------------------------------------------------
+
+// one direction's weights: fp32 for the parity tier, bf16 for the fast one
+template <typename W>
+struct DirParams {
+  const W* w_ih;       // (D, 3H)
+  const W* w_hh;       // (H, 3H)
+  const float* b_ih;   // (3H,)
+  const float* b_hh;   // (3H,)
+};
+
+// unit j's six bias values, held in registers across the steps
+struct CellBias {
+  float ir, iz, in, hr, hz, hn;
+};
+
+template <typename W>
+__device__ __forceinline__ CellBias load_bias(const DirParams<W>& p, int H, int j) {
+  return {p.b_ih[j], p.b_ih[H + j], p.b_ih[2 * H + j],
+          p.b_hh[j], p.b_hh[H + j], p.b_hh[2 * H + j]};
+}
+
+// a[r] += x[r * ldx + k] * W[k, g * H + j] for the gates g = r, z, n, one FMA
+// chain per (row, gate) over k = 0, 1, ..., d - 1 in order; x in shared memory
+// (fp32, or K5f's bf16 boundary), W in device memory through the read-only
+// cache. UNROLL changes the schedule only, never the order of the sums.
+template <int ROWS, int UNROLL, typename X, typename W>
+__device__ __forceinline__ void fma_chain(const X* x, int ldx, int d, const W* w, int H,
+                                          int j, float (&ar)[ROWS], float (&az)[ROWS],
+                                          float (&an)[ROWS]) {
+  const int H3 = 3 * H;
+#pragma unroll (UNROLL)
+  for (int k = 0; k < d; ++k) {
+    const W* wk = w + (size_t)k * H3;
+    const float wr = ldg_f(wk + j), wz = ldg_f(wk + H + j), wn = ldg_f(wk + 2 * H + j);
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      const float xv = to_f(x[r * ldx + k]);
+      ar[r] = fmaf(xv, wr, ar[r]);
+      az[r] = fmaf(xv, wz, az[r]);
+      an[r] = fmaf(xv, wn, an[r]);
+    }
+  }
+}
+
+// One step: xp = [x0 | x1] W_ih (x0's d0 inputs take W_ih rows [0, d0), x1's
+// d1 inputs the rows after; both with row stride ldx), hp = ho W_hh over the
+// operand copy of h (the state itself in the parity tier, its bf16 rounding
+// in the fast tier), the gates, and h' = (1 - z) n + z h from the fp32 state
+// hc. Writes h' to hx (and its bf16 copy to hox in the fast tier) and
+// returns it in hnew. The caller separates the steps with __syncthreads().
+template <int ROWS, bool FAST, int UNROLL, typename W, typename X>
+__device__ __forceinline__ void gru_step(const DirParams<W>& p, const CellBias& bias, int H,
+                                         int j, const X* x0, int d0, const X* x1, int d1,
+                                         int ldx, const float* hc, const float* ho, float* hx,
+                                         float* hox, float (&hnew)[ROWS]) {
+  float xr[ROWS], xz[ROWS], xn[ROWS], hr[ROWS], hz[ROWS], hq[ROWS];
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    xr[r] = xz[r] = xn[r] = 0.0f;
+    hr[r] = hz[r] = hq[r] = 0.0f;
+  }
+  fma_chain<ROWS, UNROLL>(x0, ldx, d0, p.w_ih, H, j, xr, xz, xn);
+  if (d1 > 0) {
+    fma_chain<ROWS, UNROLL>(x1, ldx, d1, p.w_ih + (size_t)d0 * 3 * H, H, j, xr, xz, xn);
+  }
+  fma_chain<ROWS, UNROLL>(ho, H, H, p.w_hh, H, j, hr, hz, hq);
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    const float rg = sigmoidf_((xr[r] + bias.ir) + (hr[r] + bias.hr));
+    const float zg = sigmoidf_((xz[r] + bias.iz) + (hz[r] + bias.hz));
+    const float ng = gate_n<FAST>(xn[r] + bias.in, rg, hq[r] + bias.hn);
+    hnew[r] = blend<FAST>(zg, ng, hc[r * H + j]);
+    hx[r * H + j] = hnew[r];
+    if (FAST) hox[r * H + j] = bf16_rn(hnew[r]);
+  }
+}
+
+// The input rows of one step into shared memory dst[ROWS][D], loaded by the
+// threads tid = 0 .. nthreads-1: a layer-0 window of the uint8 image, or
+// (PAIR) the previous layer's halves [xa | xb], which the fast tier rounds
+// to bf16 here (uint8 is exact). Rows past B are zeros.
+template <bool PAIR, bool FAST, int ROWS>
+__device__ __forceinline__ void load_rows(const WindowIn& in, int tt, int b0, int B, int D,
+                                          int H, float* dst, int tid, int nthreads) {
+  for (int idx = tid; idx < ROWS * D; idx += nthreads) {
+    const int r = idx / D;
+    const int k = idx - r * D;
+    const int b = b0 + r;
+    float v = 0.0f;
+    if (b < B) {
+      if (PAIR) {
+        v = (k < H) ? in.xa[((size_t)tt * B + b) * H + k]
+                    : in.xb[((size_t)tt * B + b) * H + (k - H)];
+        if (FAST) v = bf16_rn(v);
+      } else {
+        v = (float)in.img[(size_t)b * in.sb + (size_t)(in.start + tt) * in.sl + k];
+      }
+    }
+    dst[idx] = v;
+  }
 }
 
 template <bool PAIR>

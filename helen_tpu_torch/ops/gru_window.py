@@ -29,6 +29,11 @@ mirroring helen_tpu's ``gru_scan``); on a CUDA tensor it launches the kernel
 or raises — there is no fall-back from kernel to plain. Each launch adds one
 to :data:`launch_counts`.
 
+The same library holds the backward kernels (ops.gru_window_bwd), the
+xp-stream kernels (ops.gru_window_xp, ops.gru_window_xp_bwd) and the fused
+encoder+decoder window (ops.gru_window_encdec, K5/K5f, counted in
+:data:`launch_counts` beside K1/K2, whose cell step it shares).
+
 The library builds at first use, from the sources in ``ops/csrc``, into
 ``utils.build.build_dir("kernels")`` under a name keyed on a hash of the
 sources and flags, so a fresh checkout builds it by itself. A failed build
@@ -55,7 +60,10 @@ Outputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 #: launches of each kernel since the last reset_launch_counts() — counted
 #: where the kernel is launched and nowhere else
 launch_counts: Dict[str, int] = {"bigru_window_in1": 0, "bigru_window_in2": 0,
-                                 "bigru_window_in1_fast": 0, "bigru_window_in2_fast": 0}
+                                 "bigru_window_in1_fast": 0, "bigru_window_in2_fast": 0,
+                                 # the fused encoder+decoder window (ops.gru_window_encdec)
+                                 "transducer_window_encdec": 0,
+                                 "transducer_window_encdec_fast": 0}
 
 #: the largest hidden size the in-projection kernels take (K1/K2 and their
 #: backward: one thread per hidden unit, csrc/gru_window_common.cuh MAX_H)
@@ -176,6 +184,19 @@ def get_lib() -> ctypes.CDLL:
             lib.bigru_window_xp_bwd_wgrad.restype = i
             lib.bigru_window_xp_bwd_wgrad.argtypes = [p] * 10 + [i, i, i, p]
             lib.gru_window_xp_max_h.restype = i
+            # the fused encoder+decoder window (csrc/gru_window_encdec.cu;
+            # wrapper in gru_window_encdec.py): K1's arguments, both layers'
+            # weights, the outputs, T, B, H and the block's batch rows
+            lib.transducer_window_encdec.restype = i
+            lib.transducer_window_encdec.argtypes = (
+                [p, ll, ll, i, i, p, p] + [p] * 16 + [p] * 4 + [i, i, i, i, p])
+            lib.transducer_window_encdec_fast.restype = i
+            lib.transducer_window_encdec_fast.argtypes = lib.transducer_window_encdec.argtypes
+            lib.transducer_window_encdec_smem.restype = ll
+            lib.transducer_window_encdec_smem.argtypes = [i] * 5
+            lib.transducer_window_encdec_max_threads.restype = i
+            lib.transducer_window_encdec_max_threads.argtypes = [i]
+            lib.gru_window_smem_optin.restype = i
             lib.gru_window_error_string.restype = ctypes.c_char_p
             lib.gru_window_error_string.argtypes = [i]
             lib.gru_window_max_h.restype = i

@@ -155,10 +155,14 @@ def tbptt_step(params: Params, adam: Adam, opt_state: Dict, lr: float,
     :param valid: number of real rows; rows >= valid are padding and are
         masked out of both losses
     :param route: the ``"cuda"`` backend's kernel family (library only;
-        ``models.transducer.forward``)
+        ``models.transducer.forward``); ``"encdec"`` has no backward and
+        is refused
     :returns: device scalars (loss sum, base loss sum, rle loss sum) over
         the windows, each window's loss a mean over its real rows
     """
+    if route == "encdec":
+        raise ValueError("route 'encdec' is inference only (helen_tpu's fused kernel has "
+                         "no backward): train on route 'inproj' or 'xp'")
     W = WINDOW.window
     B, L, _ = images.shape
     dev = images.device

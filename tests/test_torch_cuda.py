@@ -1,6 +1,7 @@
 """The CUDA window kernels (forward K1/K2 and their backward; the xp-stream
-K3 and K4 of the wide models; the fast tier's K1f, K2f and K3f) against
-their plain versions, on the GPU.
+K3 and K4 of the wide models; the fast tier's K1f, K2f and K3f; the fused
+encoder+decoder K5 and K5f, also against K1 -> K2 chained, bit for bit)
+against their plain versions, on the GPU.
 
 These tests need an NVIDIA GPU with ``nvcc`` (the kernels build for sm_90a
 from helen_tpu_torch/ops/csrc at first use); elsewhere they skip. They
@@ -559,3 +560,123 @@ def test_fast_consensus_launch_counts(dev, H, want):
         pb, pr = consensus_labels(params, images, backend="torch_fast")
     assert int((kb != pb).sum()) <= 1e-3 * kb.numel()
     assert int((kr != pr).sum()) <= 1e-3 * kr.numel()
+
+
+# ---------------------------------------------------------------------------
+# the fused encoder+decoder window: K5 and K5f
+# ---------------------------------------------------------------------------
+
+# the flagship window (2 rows per block in parity, 4 in the fast tier), an
+# off-grid H at 1 row (parity), a short window at 4 rows with a ragged edge,
+# an H whose two directions share a warp, and the widest H a T=100 parity
+# block holds (1 row; 566 threads)
+@pytest.mark.parametrize("T,B,H", [(100, 512, 128), (7, 13, 160), (5, 3, 128), (9, 7, 40),
+                                   (100, 5, 283)])
+@pytest.mark.parametrize("tier", ["parity", "fast"])
+def test_k5_kernel_equals_chained_kernels(dev, T, B, H, tier):
+    """K5 (K5f) against K1 -> K2 (K1f -> K2f) launched one after the other:
+    bit-identical outputs and final states (the same FMAs in the same
+    order; only the stack boundary moves to shared memory); and against its
+    plain version within the tier's tolerance."""
+    from helen_tpu_torch.ops import gru_window as gw
+    from helen_tpu_torch.ops import gru_window_encdec as ge
+
+    rng = np.random.default_rng(T * B + H + 5)
+    L, start = T + 30, 17
+    image = torch.from_numpy(rng.integers(0, 256, size=(B, L, 90), dtype=np.uint8)).to(dev)
+    h0f, h0b = (torch.from_numpy(rng.uniform(-1, 1, (B, H)).astype(np.float32)).to(dev)
+                for _ in range(2))
+    enc = make_layer(rng, 90, H, dev, w_ih_scale=1 / 64)
+    dec = make_layer(rng, 2 * H, H, dev)
+    name = "transducer_window_encdec"
+    in1, in2 = gw.bigru_window_in1, gw.bigru_window_in2
+    plain, tol = ge.transducer_window_encdec_plain, TOL
+    if tier == "fast":
+        enc, dec, name = fast(enc), fast(dec), name + "_fast"
+        in1, in2 = gw.bigru_window_in1_fast, gw.bigru_window_in2_fast
+        plain, tol = ge.transducer_window_encdec_fast_plain, FAST_TOL
+    before = dict(gw.launch_counts)
+    got = getattr(ge, name)(image, start, T, h0f, h0b, enc, dec)
+    torch.cuda.synchronize()
+    assert gw.launch_counts == {**before, name: before[name] + 1}
+    chained = in2(*in1(image, start, T, h0f, h0b, enc), dec)
+    for g, c, what in zip(got, chained, ("out_f", "out_b", "h_f", "h_b")):
+        assert torch.equal(g, c), f"{what}: max |K5 - chained| {float((g - c).abs().max())}"
+    assert_outputs_close(got, plain(image, start, T, h0f, h0b, enc, dec), tol)
+
+
+def test_k5_fit_follows_the_card(dev):
+    """The Python fit functions agree with the kernel source's sizes and
+    thread limits, the card's opt-in shared memory is Hopper's, and a
+    geometry past the fit is refused before any launch."""
+    from helen_tpu_torch.ops import gru_window as gw
+    from helen_tpu_torch.ops import gru_window_encdec as ge
+
+    lib = gw.get_lib()
+    for h, bt, d, t, fst in ((128, 2, 90, 100, False), (128, 4, 90, 100, True),
+                             (283, 1, 90, 100, False), (40, 4, 90, 9, True)):
+        assert lib.transducer_window_encdec_smem(h, bt, d, t, int(fst)) == \
+            ge.encdec_smem_bytes(h, bt, d, t, fst)
+    for bt in ge.BLOCK_ROWS:
+        assert lib.transducer_window_encdec_max_threads(bt) == ge.encdec_max_threads(bt)
+    assert ge.device_smem_budget() == ge.HOPPER_SMEM_OPTIN
+    rng = np.random.default_rng(11)
+    H = 320
+    image = torch.zeros((4, 100, 90), dtype=torch.uint8, device=dev)
+    h0 = torch.zeros((4, H), device=dev)
+    before = dict(gw.launch_counts)
+    with pytest.raises(ValueError, match='route="inproj"'):
+        ge.transducer_window_encdec(image, 0, 100, h0, h0, make_layer(rng, 90, H, dev),
+                                    make_layer(rng, 2 * H, H, dev))
+    assert gw.launch_counts == before
+
+
+def test_k5_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    from helen_tpu_torch.ops import gru_window_encdec as ge
+
+    rng = np.random.default_rng(12)
+    T, B, H = 4, 8, 128
+    enc, dec = make_layer(rng, 90, H, dev), make_layer(rng, 2 * H, H, dev)
+    h0 = torch.zeros(B, H, device=dev)
+    image = torch.zeros(B, 10, 90, dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError):  # float image
+        ge.transducer_window_encdec(image.float(), 0, T, h0, h0, enc, dec)
+    with pytest.raises(ValueError):  # window past the image's end
+        ge.transducer_window_encdec(image, 8, T, h0, h0, enc, dec)
+    with pytest.raises(ValueError):  # h0 on the CPU
+        ge.transducer_window_encdec(image, 0, T, h0.cpu(), h0, enc, dec)
+    with pytest.raises(ValueError):  # the layers swapped
+        ge.transducer_window_encdec(image, 0, T, h0, h0, dec, enc)
+    with pytest.raises(TypeError):  # float32 weights to K5f
+        ge.transducer_window_encdec_fast(image, 0, T, h0, h0, enc, dec)
+
+
+@pytest.mark.parametrize("backend", ["cuda", "cuda_fast"])
+def test_encdec_route_consensus_launch_counts(dev, backend):
+    """One consensus_labels batch through ``route="encdec"`` launches K5
+    (K5f) once per window and nothing else, and its labels equal the
+    default route's (K1 -> K2 chained) exactly."""
+    from helen_tpu_torch.config import MODEL, WINDOW
+    from helen_tpu_torch.io.checkpoint import params_to_torch
+    from helen_tpu_torch.models.transducer import consensus_labels, init_params
+    from helen_tpu_torch.ops import gru_window as gw
+    from helen_tpu_torch.ops import gru_window_bwd as gb
+    from helen_tpu_torch.ops import gru_window_xp as gx
+    from helen_tpu_torch.ops import gru_window_xp_bwd as gxb
+
+    params = params_to_torch(init_params(torch.Generator().manual_seed(5), MODEL), dev,
+                             fast=backend == "cuda_fast")
+    rng = np.random.default_rng(5)
+    images = torch.from_numpy(rng.integers(0, 40, size=(24, 1000, 90), dtype=np.uint8)).to(dev)
+    mods = (gw, gb, gx, gxb)
+    for m in mods:
+        m.reset_launch_counts()
+    with torch.no_grad():
+        kb, kr = consensus_labels(params, images, backend=backend, route="encdec")
+    torch.cuda.synchronize()
+    counts = {k: v for m in mods for k, v in m.launch_counts.items()}
+    name = "transducer_window_encdec" + ("_fast" if backend == "cuda_fast" else "")
+    assert counts == {**{k: 0 for k in counts}, name: WINDOW.num_windows(1000)}
+    with torch.no_grad():
+        db, dr = consensus_labels(params, images, backend=backend)
+    assert torch.equal(kb, db) and torch.equal(kr, dr)
