@@ -8,7 +8,11 @@ an H100, sm_90a):
 
 It builds the CUDA window kernels from ``helen_tpu_torch/ops/csrc``, holds
 each kernel against its plain PyTorch version at the flagship shapes, times
-both and cuDNN's GRU as a yardstick, polishes the golden fixtures and an
+both and cuDNN's GRU as a yardstick (phase 3: K1 and K2 in the main path's
+design, a projection pass plus a recurrence with W_hh in shared memory, at
+B=512 and B=256, bit for bit against the one-launch bigru_window_kernel and timed in
+turns with it; each of the three two-launch kernels alone; H=136 on the two-launch
+design and H=160 on the one-launch kernel), polishes the golden fixtures and an
 unseen sequence with the trained checkpoint through the port's CLI,
 drives a full-width polish (>= 2048 images at batch 512) while counting the
 kernel launches, and then the training path: the backward kernel against
@@ -83,6 +87,17 @@ XP_PASSES = ("bigru_window_xp_bwd_rec", "bigru_window_xp_bwd_wgrad")
 # encoder+decoder window's (phase 11, route="encdec" only)
 OFF_PATH_ZERO = {"bigru_window_in1_fast": 0, "bigru_window_in2_fast": 0,
                  "transducer_window_encdec": 0, "transducer_window_encdec_fast": 0}
+# the kernels of K1/K2's two-launch design (ops.gru_window_smem), which the
+# flagship's parity path runs
+SMEM_KERNELS = ("bigru_window_proj_in1", "bigru_window_proj_in2", "bigru_window_rec_smem")
+
+
+def parity_counts(in1: int, in2: int) -> dict:
+    """The launches of ``in1`` K1s and ``in2`` K2s on the two-launch design: each a
+    projection and a recurrence."""
+    return {"bigru_window_in1": in1, "bigru_window_in2": in2,
+            "bigru_window_proj_in1": in1, "bigru_window_proj_in2": in2,
+            "bigru_window_rec_smem": in1 + in2}
 
 
 def fail(msg: str) -> None:
@@ -177,13 +192,38 @@ def polish_cli(image_dir: str, model: str, out: str, extra=()) -> tuple:
     return os.path.join(out, "HELEN_prediction.fa"), os.path.join(out, preds[0])
 
 
+def window_cost(bsz: int, d: int, h: int = H, in_bytes: float = None) -> tuple:
+    """(FLOP, bytes) of one K1/K2 launch at batch ``bsz``, input width ``d``:
+    each input read once (``in_bytes``: the uint8 window, or two float32
+    halves), each output written once."""
+    bt = bsz * T
+    if in_bytes is None:
+        in_bytes = bt * d if d == F else 4 * bt * d
+    return (2.0 * bt * 2 * (d * 3 * h + h * 3 * h),
+            in_bytes + 2 * 4 * ((d + h) * 3 * h + 6 * h) + 4 * 4 * bsz * h + 2 * 4 * bt * h)
+
+
+def scratch_bytes(bsz: int, h: int = H) -> int:
+    """The two-launch design's xp scratch (2, T, B, 3H) float32."""
+    return 4 * 2 * T * bsz * 3 * h
+
+
 def check_kernels(images_u8, results) -> None:
-    """Phase 3: each kernel against its plain version at the flagship shapes,
-    timed beside its plain version and cuDNN."""
+    """Phase 3: K1 on the uint8 image window and K2 on K1's outputs at the
+    flagship shapes, at B=512 (polish) and B=256 (training). Each in the
+    main path's design (the projection pass plus the recurrence with W_hh
+    in shared memory) against its plain version (TOL) and against the
+    one-launch bigru_window_kernel (max abs diff exactly 0.0); both designs
+    timed in turns (two-launch, one-launch, one-launch, two-launch) beside
+    the plain version and cuDNN. Then each two-launch kernel alone against
+    its plain version, timed beside it and a library call, and the second
+    shapes: H=136 through the two-launch design, H=160 through the
+    one-launch kernel, told apart by the launch counters."""
     import numpy as np
     import torch
 
     from helen_tpu_torch.ops import gru_window as gw
+    from helen_tpu_torch.ops import gru_window_smem as gs
 
     dev = images_u8.device
     rng = np.random.default_rng(20261016)
@@ -191,67 +231,174 @@ def check_kernels(images_u8, results) -> None:
     h0 = [torch.from_numpy(rng.uniform(-0.5, 0.5, (B, H)).astype("float32")).to(dev)
           for _ in range(4)]
     start = 450
-
-    # K1 on the uint8 image window
-    k1 = gw.bigru_window_in1(images_u8, start, T, h0[0], h0[1], l1)
-    p1 = gw.bigru_window_in1_plain(images_u8, start, T, h0[0], h0[1], l1)
-    torch.cuda.synchronize()
-    # K2 on the K1 outputs, as on the main path
-    xa, xb = k1[0], k1[1]
-    k2 = gw.bigru_window_in2(xa, xb, h0[2], h0[3], l2)
-    p2 = gw.bigru_window_in2_plain(xa, xb, h0[2], h0[3], l2)
-    torch.cuda.synchronize()
-
-    x_f32 = images_u8[:, start:start + T].to(torch.float32).transpose(0, 1).contiguous()
-    x_cat = torch.cat([xa, xb], dim=-1)
     g1, g2 = cudnn_gru(l1, F, H, dev), cudnn_gru(l2, 2 * H, H, dev)
-    with torch.no_grad():
-        c1 = g1(x_f32, torch.stack([h0[0], h0[1]]))
-        c2 = g2(x_cat, torch.stack([h0[2], h0[3]]))
-    cud1 = max(float((c1[0] - torch.cat([k1[0], k1[1]], -1)).abs().max()),
-               float((c1[1] - torch.stack([k1[2], k1[3]])).abs().max()))
-    cud2 = max(float((c2[0] - torch.cat([k2[0], k2[1]], -1)).abs().max()),
-               float((c2[1] - torch.stack([k2[2], k2[3]])).abs().max()))
+    replaces = {
+        "bigru_window_in1": "helen_tpu/ops/gru_pallas.py:426 (_kernel_inproj1); "
+                            "helen_tpu/ops/gru_pallas_train.py:259 (_fwd_kernel_ip, layer 0)",
+        "bigru_window_in2": "helen_tpu/ops/gru_pallas.py:474 (_kernel_inproj2); "
+                            "helen_tpu/ops/gru_pallas_train.py:259 (_fwd_kernel_ip, later layers)",
+    }
+    for bsz in (B, TB):
+        img, hs = images_u8[:bsz], [h[:bsz] for h in h0]
+        x_f32 = img[:, start:start + T].to(torch.float32).transpose(0, 1).contiguous()
+        k1 = gw.bigru_window_in1(img, start, T, hs[0], hs[1], l1)
+        xa, xb = k1[0], k1[1]  # K2 reads K1's outputs, as on the main path
+        x_cat = torch.cat([xa, xb], dim=-1)
+        hx1, hx2 = torch.stack(hs[:2]), torch.stack(hs[2:])
+        kinds = {
+            "bigru_window_in1": (
+                lambda d: gw.bigru_window_in1(img, start, T, hs[0], hs[1], l1, design=d),
+                lambda: gw.bigru_window_in1_plain(img, start, T, hs[0], hs[1], l1),
+                lambda: g1(x_f32, hx1), window_cost(bsz, F)),
+            "bigru_window_in2": (
+                lambda d: gw.bigru_window_in2(xa, xb, hs[2], hs[3], l2, design=d),
+                lambda: gw.bigru_window_in2_plain(xa, xb, hs[2], hs[3], l2),
+                lambda: g2(x_cat, hx2), window_cost(bsz, 2 * H)),
+        }
+        for name, (run, pfn, lfn, (flops, nbytes)) in kinds.items():
+            if gw.window_design(H, bsz) != "smem":
+                fail(f"{name} at B={bsz} does not take the two-launch design")
+            new, old, plain = run("smem"), run("chain"), pfn()
+            with torch.no_grad():
+                lib_out = lfn()
+            torch.cuda.synchronize()
+            diff = max_err(new, old)
+            err_out, err_h = max_err(new[:2], plain[:2]), max_err(new[2:], plain[2:])
+            cud = max(float((lib_out[0] - torch.cat([new[0], new[1]], -1)).abs().max()),
+                      float((lib_out[1] - torch.stack([new[2], new[3]])).abs().max()))
+            with torch.no_grad():
+                turns = [cuda_ms(lambda: run(d)) for d in ("smem", "chain", "chain", "smem")]
+                plain_ms = cuda_ms(pfn, iters=3, warmup=1)
+                lib_ms = cuda_ms(lfn)
+            ms, chain_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+            bound_ms, bound_by = bound(flops, nbytes + 2 * scratch_bytes(bsz))
+            chain_bound_ms, _ = bound(flops, nbytes)
+            log(f"{name} at B={bsz}: max |two-launch - one-launch| {diff!r} (limit 0.0); "
+                f"max |two-launch - plain| outputs {err_out:.3g}, final states {err_h:.3g} "
+                f"(limit {TOL:g}); |two-launch - cuDNN| {cud:.3g}")
+            log(f"{name} at B={bsz}: two-launch {ms:.4f} ms, one-launch {chain_ms:.4f} ms "
+                f"(in turns: {', '.join(f'{t:.4f}' for t in turns)}), plain {plain_ms:.3f} ms, "
+                f"cuDNN GRU {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+                f"{flops / 1e9:.1f} GFLOP, {(nbytes + 2 * scratch_bytes(bsz)) / 1e6:.1f} MB "
+                f"with the scratch written and read; one-launch {chain_bound_ms:.4f} ms)")
+            if diff != 0.0:
+                fail(f"{name} at B={bsz}: the two designs differ")
+            if not (err_out <= TOL and err_h <= TOL):
+                fail(f"{name} at B={bsz} disagrees with its plain version")
+            entry = {"ms": ms, "chain_ms": chain_ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by, "chain_bound_ms": chain_bound_ms,
+                     "library_ms": lib_ms, "max_abs_err": max(err_out, err_h),
+                     "max_abs_diff_chain": diff}
+            if bsz == B:
+                results[name] = {
+                    "name": name, "route": "cuda",
+                    "source": "helen_tpu_torch/ops/csrc/gru_window_smem.cu (the projection "
+                              "pass + bigru_window_rec_smem, H <= 136 at 8 rows per block); "
+                              "helen_tpu_torch/ops/csrc/gru_window.cu (bigru_window_kernel, "
+                              "otherwise)",
+                    "replaces": replaces[name], **entry, "kernel_ms": ms,
+                    "per": f"one K1/K2 at B={B}, T={T}, H={H} (ms: the two-launch "
+                           "design; chain_ms: bigru_window_kernel in the same call; "
+                           "launches: layer-windows)"}
+            else:
+                results[name][f"b{bsz}"] = entry
 
-    bt = B * T
-    specs = [
-        ("bigru_window_in1", "helen_tpu/ops/gru_pallas.py:426 (_kernel_inproj1); "
-         "helen_tpu/ops/gru_pallas_train.py:259 (_fwd_kernel_ip, layer 0)", k1, p1, cud1,
-         lambda: gw.bigru_window_in1(images_u8, start, T, h0[0], h0[1], l1),
-         lambda: gw.bigru_window_in1_plain(images_u8, start, T, h0[0], h0[1], l1),
-         lambda: g1(x_f32, torch.stack([h0[0], h0[1]])),
-         2.0 * bt * 2 * (F * 3 * H + H * 3 * H),
-         bt * F + 2 * 4 * ((F + H) * 3 * H + 6 * H) + 4 * 4 * B * H + 2 * 4 * bt * H),
-        ("bigru_window_in2", "helen_tpu/ops/gru_pallas.py:474 (_kernel_inproj2); "
-         "helen_tpu/ops/gru_pallas_train.py:259 (_fwd_kernel_ip, later layers)", k2, p2, cud2,
-         lambda: gw.bigru_window_in2(xa, xb, h0[2], h0[3], l2),
-         lambda: gw.bigru_window_in2_plain(xa, xb, h0[2], h0[3], l2),
-         lambda: g2(x_cat, torch.stack([h0[2], h0[3]])),
-         2.0 * bt * 2 * (2 * H * 3 * H + H * 3 * H),
-         2 * 4 * bt * H + 2 * 4 * (3 * H * 3 * H + 6 * H) + 4 * 4 * B * H + 2 * 4 * bt * H),
-    ]
-    for name, replaces, kout, pout, cud, kfn, pfn, lfn, flops, nbytes in specs:
-        err_out = max_err(kout[:2], pout[:2])
-        err_h = max_err(kout[2:], pout[2:])
+    # the two-launch design's kernels alone at B=512, each against its plain version
+    x_f32 = images_u8[:, start:start + T].to(torch.float32).transpose(0, 1).contiguous()
+    k1 = gw.bigru_window_in1(images_u8, start, T, h0[0], h0[1], l1)
+    x_cat = torch.cat([k1[0], k1[1]], dim=-1)
+    stacked = lambda layer, k: torch.stack([layer[d][k] for d in ("fwd", "bwd")])  # noqa: E731
+    bt, n3 = B * T, 3 * H
+    xp_bytes = scratch_bytes(B)
+    projs = {
+        "bigru_window_proj_in1": (
+            "helen_tpu/ops/gru_pallas.py:426 (_kernel_inproj1: its input projection)",
+            lambda: gs.bigru_window_proj_in1(images_u8, start, T, l1), x_f32, l1, F, bt * F),
+        "bigru_window_proj_in2": (
+            "helen_tpu/ops/gru_pallas.py:474 (_kernel_inproj2: its input projection)",
+            lambda: gs.bigru_window_proj_in2(k1[0], k1[1], l2), x_cat, l2, 2 * H, 4 * bt * 2 * H),
+    }
+    xp2 = None
+    for name, (repl, kfn, x, layer, d, x_bytes) in projs.items():
+        got = kfn()
+        want = gs.window_proj_plain(x, layer)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        b_ih, w_ih = stacked(layer, "b_ih").unsqueeze(1), stacked(layer, "w_ih")
+        x2 = x.reshape(1, bt, d).expand(2, bt, d)
         with torch.no_grad():
             ms = cuda_ms(kfn)
-            plain_ms = cuda_ms(pfn, iters=3, warmup=1)
-            lib_ms = cuda_ms(lfn)
+            plain_ms = cuda_ms(lambda: gs.window_proj_plain(x, layer), iters=2, warmup=1)
+            lib_ms = cuda_ms(lambda: torch.baddbmm(b_ih, x2, w_ih))
+        flops, nbytes = 2.0 * bt * 2 * d * n3, x_bytes + 2 * 4 * (d * n3 + n3) + xp_bytes
         bound_ms, bound_by = bound(flops, nbytes)
-        log(f"{name}: max |kernel - plain| outputs {err_out:.3g}, final states "
-            f"{err_h:.3g} (limit {TOL:g}); |kernel - cuDNN| {cud:.3g}")
-        log(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, cuDNN GRU "
-            f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
-            f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)")
-        if not (err_out <= TOL and err_h <= TOL):
+        log(f"{name}: max |kernel - plain (k in order)| {err:.3g} (limit {TOL:g} x "
+            f"{max(1.0, float(want.abs().max())):.4g}); kernel {ms:.4f} ms, plain {plain_ms:.3f} "
+            f"ms, torch.baddbmm {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+            f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+        if not err <= TOL * max(1.0, float(want.abs().max())):
             fail(f"{name} disagrees with its plain version")
         results[name] = {
             "name": name, "route": "cuda",
-            "source": "helen_tpu_torch/ops/csrc/gru_window.cu",
-            "replaces": replaces, "max_abs_err": max(err_out, err_h),
-            "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
+            "source": "helen_tpu_torch/ops/csrc/gru_window_smem.cu", "replaces": repl,
+            "max_abs_err": err, "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
-        }
+            "library": "torch.baddbmm of the float32 input rows (cuBLAS, TF32 off)",
+            "per": f"one launch at B={B}, T={T}, H={H}, D={d}"}
+        xp2 = got
+    name = "bigru_window_rec_smem"
+    rec = lambda: gs.bigru_window_rec_smem(xp2, h0[2], h0[3], l2)  # noqa: E731
+    got, want = rec(), gs.window_rec_plain(xp2, h0[2], h0[3], l2)
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    with torch.no_grad():
+        ms = cuda_ms(rec)
+        plain_ms = cuda_ms(lambda: gs.window_rec_plain(xp2, h0[2], h0[3], l2), iters=2, warmup=1)
+    flops = 2.0 * bt * 2 * H * n3
+    nbytes = xp_bytes + 2 * 4 * (H * n3 + n3) + 2 * 4 * B * H + 2 * 4 * bt * H + 2 * 4 * B * H
+    bound_ms, bound_by = bound(flops, nbytes)
+    rows = gs.rec_block_rows(B)
+    log(f"{name}: {rows} rows per block, {2 * -(-B // rows)} blocks of "
+        f"{(gs.REC_SPLIT if rows >= 2 else 1) * H} threads, {gs.rec_smem_bytes(H, rows)} bytes "
+        f"of shared memory each; max |kernel - plain| {err:.3g} (limit {TOL:g}); kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+        f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+    if not err <= TOL:
+        fail(f"{name} disagrees with its plain version")
+    results[name] = {
+        "name": name, "route": "cuda", "source": "helen_tpu_torch/ops/csrc/gru_window_smem.cu",
+        "replaces": "helen_tpu/ops/gru_pallas.py:426 and :474 (_kernel_inproj1/2: the "
+                    "recurrence); helen_tpu/ops/gru_pallas_train.py:259 (_fwd_kernel_ip)",
+        "max_abs_err": err, "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "library": "none: no one PyTorch call runs a GRU recurrence without its projection",
+        "block_rows": rows, "smem_bytes": gs.rec_smem_bytes(H, rows),
+        "per": f"one launch at B={B}, T={T}, H={H}"}
+
+    # the second shapes: H=136 (the widest W_hh at 8 rows) and H=160
+    new_kernels = ("bigru_window_proj_in1", "bigru_window_proj_in2", "bigru_window_rec_smem")
+    for hx, want_design in ((136, "smem"), (160, "chain")):
+        la, lb = random_layer(rng, F, hx, dev), random_layer(rng, 2 * hx, hx, dev)
+        hh = [torch.from_numpy(rng.uniform(-0.5, 0.5, (B, hx)).astype("float32")).to(dev)
+              for _ in range(4)]
+        before = {k: gw.launch_counts[k] for k in new_kernels}
+        ka = gw.bigru_window_in1(images_u8, start, T, hh[0], hh[1], la)
+        kb = gw.bigru_window_in2(ka[0], ka[1], hh[2], hh[3], lb)
+        ran = {k: gw.launch_counts[k] - before[k] for k in new_kernels}
+        pa = gw.bigru_window_in1_plain(images_u8, start, T, hh[0], hh[1], la)
+        pb = gw.bigru_window_in2_plain(ka[0], ka[1], hh[2], hh[3], lb)
+        chain = gw.bigru_window_in2(ka[0], ka[1], hh[2], hh[3], lb, design="chain")
+        torch.cuda.synchronize()
+        err, diff = max(max_err(ka, pa), max_err(kb, pb)), max_err(kb, chain)
+        want = dict.fromkeys(new_kernels, 0) if want_design == "chain" else {
+            "bigru_window_proj_in1": 1, "bigru_window_proj_in2": 1, "bigru_window_rec_smem": 2}
+        which = "the two-launch design" if want_design == "smem" else "bigru_window_kernel"
+        log(f"H={hx}, B={B}: K1 and K2 ran {ran} (expected {want}: {which}); max |kernels - "
+            f"plain| {err:.3g} (limit {TOL:g}); K2 against bigru_window_kernel {diff!r}")
+        if ran != want:
+            fail(f"H={hx} did not take the expected design")
+        if not err <= TOL or diff != 0.0:
+            fail(f"H={hx}: the kernels disagree with their plain versions or each other")
 
 
 def check_golden(work: str) -> None:
@@ -361,16 +508,15 @@ def run_full_width(img_dir: str, truth, n_images: int, work: str, results) -> No
     if exact != len(truth):
         fail("the trained checkpoint did not polish every full-width contig exactly")
     layers = 1  # the trained checkpoint is the flagship geometry
-    want = {**OFF_PATH_ZERO, "bigru_window_in1": batches * n_win * layers,
-            "bigru_window_in2": batches * n_win * (2 * layers - 1)}
+    want = {**OFF_PATH_ZERO, **parity_counts(batches * n_win * layers,
+                                             batches * n_win * (2 * layers - 1))}
     log(f"kernel launches {launches}, expected {want} ({batches} batches x "
-        f"{n_win} windows x layers)")
+        f"{n_win} windows x layers; each K1/K2 a projection and a recurrence)")
     if launches != want:
         fail("kernel launch counts differ from batches x windows x layers")
-    parity = ("bigru_window_in1", "bigru_window_in2")
-    for name in parity:
+    for name in ("bigru_window_in1", "bigru_window_in2", *SMEM_KERNELS):
         results[name]["launches"] = launches[name]
-    busy = sum(launches[name] * results[name]["ms"] for name in parity) / 1e3
+    busy = sum(launches[name] * results[name]["ms"] for name in SMEM_KERNELS) / 1e3
     log(f"window kernels' share of call_consensus (launches x phase-3 ms): "
         f"{busy:.3f} s of {consensus_s:.3f} s = {100 * busy / consensus_s:.1f}%")
 
@@ -515,9 +661,7 @@ def check_backward(images_u8, results) -> None:
         with torch.no_grad():
             fwd_ms, fwd_plain_ms = cuda_ms(fwd), cuda_ms(fwd_plain, iters=3, warmup=1)
             fwd_cudnn_ms = cuda_ms(lambda: gru(x, hx))
-        fwd_bound, fwd_by = bound(2.0 * n * 2 * 3 * H * (D + H),
-                                  x_bytes + 2 * 4 * ((D + H) * 3 * H + 6 * H)
-                                  + 4 * 4 * TB * H + 2 * 4 * n * H)
+        fwd_bound, fwd_by = bound(*window_cost(TB, D))
         log(f"training forward ({label}, {'K1' if D == F else 'K2'}) at B={TB}: kernel "
             f"{fwd_ms:.4f} ms, plain {fwd_plain_ms:.3f} ms, cuDNN GRU {fwd_cudnn_ms:.4f} ms, "
             f"bound {fwd_bound:.4f} ms ({fwd_by})")
@@ -684,8 +828,7 @@ def run_train(img_dir: str, n_images: int, work: str, results) -> None:
     train_batches, test_batches = -(-n_images // TB), -(-n_test // TB)
     fwd = TRAIN_EPOCHS * (train_batches + test_batches) * n_win
     bwd = TRAIN_EPOCHS * train_batches * n_win * 2  # layer 0 + decoder
-    want = {**OFF_PATH_ZERO, "bigru_window_in1": fwd, "bigru_window_in2": fwd,
-            BWD_PASSES[0]: bwd, BWD_PASSES[1]: bwd}
+    want = {**OFF_PATH_ZERO, **parity_counts(fwd, fwd), BWD_PASSES[0]: bwd, BWD_PASSES[1]: bwd}
     log(f"train launches {launches}, expected {want} ({TRAIN_EPOCHS} epochs x "
         f"({train_batches} train + {test_batches} test batches) x {n_win} windows; "
         f"the backward: 2 layers per training window, each pass counted)")
@@ -693,7 +836,7 @@ def run_train(img_dir: str, n_images: int, work: str, results) -> None:
         fail("train launch counts differ from batches x windows x layers")
     for name in BWD_PASSES:
         results[name]["launches"] = launches[name]
-    for name in ("bigru_window_in1", "bigru_window_in2"):
+    for name in ("bigru_window_in1", "bigru_window_in2", *SMEM_KERNELS):
         results[name]["launches_train"] = launches[name]
 
     gw.reset_launch_counts()
@@ -714,8 +857,8 @@ def run_train(img_dir: str, n_images: int, work: str, results) -> None:
         f"launches {tl}")
     if not same:
         fail("test did not reproduce the last epoch's loss and confusion matrices")
-    if tl != {**OFF_PATH_ZERO, "bigru_window_in1": test_batches * n_win,
-              "bigru_window_in2": test_batches * n_win, BWD_PASSES[0]: 0, BWD_PASSES[1]: 0}:
+    if tl != {**OFF_PATH_ZERO, **parity_counts(test_batches * n_win, test_batches * n_win),
+              BWD_PASSES[0]: 0, BWD_PASSES[1]: 0}:
         fail("test launch counts differ from batches x windows")
 
 
@@ -944,13 +1087,15 @@ def check_routes_h512(images_u8) -> None:
     from helen_tpu_torch.config import MODEL, WINDOW
     from helen_tpu_torch.io.checkpoint import params_to_torch
     from helen_tpu_torch.models.transducer import consensus_labels, init_params
+    from helen_tpu_torch.ops import gru_window as gw
 
     params = params_to_torch(init_params(torch.Generator().manual_seed(512),
                                          dataclasses.replace(MODEL, hidden_size=512)),
                              images_u8.device)
     n_win = len(WINDOW.starts(images_u8.shape[1]))
     labels, secs = {}, {"inproj": [], "xp": []}
-    for route in ("inproj", "xp", "xp", "inproj"):
+    for i, route in enumerate(("inproj", "xp", "xp", "inproj")):
+        gw.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with torch.no_grad():
@@ -958,6 +1103,13 @@ def check_routes_h512(images_u8) -> None:
         torch.cuda.synchronize()
         secs[route].append(time.perf_counter() - t0)
         labels[route] = [o.cpu() for o in out]
+        if i == 0:
+            counts = {k: v for k, v in gw.launch_counts.items() if v}
+            want = {"bigru_window_in1": n_win, "bigru_window_in2": n_win}
+            log(f"H=512 in-projection route launches {counts}, expected {want}: "
+                "bigru_window_kernel (W_hh does not fit a block's shared memory)")
+            if counts != want:
+                fail("the in-projection route at H=512 did not run bigru_window_kernel")
     (ib, ir), (xb, xr) = labels["inproj"], labels["xp"]
     fb, fr = int((ib != xb).sum()), int((ir != xr).sum())
     per = {k: 1e3 * min(v) / n_win for k, v in secs.items()}
@@ -1437,7 +1589,10 @@ def check_encdec(images_u8, results) -> None:
         run = lambda: kernel(images_u8, start, T, h0f, h0b, enc, dec)  # noqa: E731
         chained = lambda: in2(*in1(images_u8, start, T, h0f, h0b, enc), dec)  # noqa: E731
         with torch.no_grad():
-            got, want_chain = run(), chained()
+            got = run()
+            before = {k: gw.launch_counts[k] for k in SMEM_KERNELS}
+            want_chain = chained()
+            chain_design = {k: gw.launch_counts[k] - before[k] for k in SMEM_KERNELS}
             want, plain_ms = timed_once(
                 lambda: plain(images_u8, start, T, h0f, h0b, enc, dec))
             chain_err, err = max_err(got, want_chain), max_err(got, want)
@@ -1449,8 +1604,12 @@ def check_encdec(images_u8, results) -> None:
         tol = FAST_TOL if fast else TOL
         log(f"{name}: BT={rows} rows per block, {-(-B // rows)} blocks of {2 * H} threads, "
             f"{smem} bytes of shared memory each")
-        log(f"{name}: max |K5 - chained kernels| {chain_err:.3g} (limit 0.0); max |kernel - "
-            f"plain| {err:.3g} (limit {tol:g})")
+        log(f"{name}: max |K5 - chained kernels| {chain_err:.3g} (limit 0.0; the chain's "
+            f"two-launch kernels {chain_design}); max |kernel - plain| {err:.3g} (limit {tol:g})")
+        if chain_design != (dict.fromkeys(SMEM_KERNELS, 0) if fast else {
+                "bigru_window_proj_in1": 1, "bigru_window_proj_in2": 1,
+                "bigru_window_rec_smem": 2}):
+            fail(f"{name}: the chain did not run K1/K2's design for its tier")
         log(f"{name}: kernel {ms:.4f} ms, chained {'K1f+K2f' if fast else 'K1+K2'} "
             f"{chain_ms:.4f} ms, plain {plain_ms:.3f} ms, two cuDNN GRU calls"
             f"{' in bf16' if fast else ''} {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
@@ -1524,8 +1683,18 @@ def run_encdec_route(img_dir: str, results) -> None:
         name = "transducer_window_encdec" + ("_fast" if backend == "cuda_fast" else "")
         p = params_to_torch(params, images.device, fast=backend == "cuda_fast")
         secs = {"default": [], "encdec": []}
+        for m in mods:
+            m.reset_launch_counts()
         (db, dr), s = consensus(p, backend, None)
         secs["default"].append(s)
+        counts = {k: v for m in mods for k, v in m.launch_counts.items()}
+        per = batches * n_win
+        want = {**{k: 0 for k in counts}, **(
+            {"bigru_window_in1_fast": per, "bigru_window_in2_fast": per}
+            if backend == "cuda_fast" else parity_counts(per, per))}
+        log(f"{backend} default route launches {counts}, expected {want}")
+        if counts != want:
+            fail(f"the {backend} default route's launch counts differ from batches x windows")
         for m in mods:
             m.reset_launch_counts()
         (kb, kr), s = consensus(p, backend, "encdec")
@@ -1640,7 +1809,8 @@ def main() -> int:
         batch = np.stack([ds.load(i).image for i in range(B)])
         images_u8 = torch.from_numpy(batch).cuda()
 
-        phase("3. kernels against their plain versions (B=512, T=100, H=128, F=90)")
+        phase(f"3. K1 and K2, both designs, against their plain versions (B={B} and {TB}, "
+              f"T={T}, H={H}, F={F}; then H=136 and H=160)")
         check_kernels(images_u8, results)
 
         phase("4. golden fixtures")

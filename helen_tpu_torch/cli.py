@@ -4,9 +4,10 @@ Subcommands and flags mirror helen_tpu/cli.py, so one command line runs
 either package: ``polish``, ``call_consensus``, ``stitch``, ``train``,
 ``test``, ``devices`` and ``version``. The model subcommands run on the GPU
 by default (``--device cuda``, an error when there is none) and take
-``--device cpu``.
-Flags of helen_tpu paths that are not ported yet are accepted and raise a
-"not yet ported" error instead of doing something else.
+``--device cpu``, or helen_tpu's top-level ``--platform cpu``.
+Flags and subcommands of helen_tpu paths that are not ported yet
+(``download_models``, ``convert``, ``hyperband``, ``assess``) are accepted
+and raise a "not yet ported" error instead of doing something else.
 
 Run as ``python -m helen_tpu_torch`` or via the ``helen_tpu_torch`` console
 script.
@@ -52,8 +53,9 @@ def _add_common_consensus_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--pack", action="store_true", help="(not yet ported)")
     p.add_argument("--writers", type=int, default=1,
                    help="prediction-writer processes (> 1 not yet ported)")
-    p.add_argument("--host_shard", default=None, choices=["image", "file"],
-                   help="multi-host work partition (not yet ported)")
+    p.add_argument("--host_shard", default="image", choices=["image", "file"],
+                   help="multi-host work partition; one host takes every image "
+                        "(multi-host jobs: not yet ported)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -61,6 +63,9 @@ def build_parser() -> argparse.ArgumentParser:
         prog="helen_tpu_torch",
         description="GPU assembly polisher: the PyTorch/CUDA port of helen_tpu",
     )
+    parser.add_argument("--platform", choices=["auto", "cpu"], default="auto",
+                        help="cpu = --device cpu for the model subcommands; auto "
+                             "keeps --device (default cuda)")
     # multi-process jobs are not ported yet: these raise when given
     parser.add_argument("--distributed", action="store_true",
                         help="(multi-process jobs: not yet ported)")
@@ -77,8 +82,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-t", "--threads", type=int, default=4, help="stitch process count")
     p.add_argument("-p", "--output_prefix", default="HELEN_prediction")
     p.add_argument("--fastq", action="store_true", help="(not yet ported)")
-    p.add_argument("--barrier_timeout", type=float, default=None,
-                   help="multi-host barrier timeout (not yet ported)")
+    p.add_argument("--barrier_timeout", type=float, default=86400.0,
+                   help="multi-host barrier timeout in seconds; unused on one host "
+                        "(multi-host jobs: not yet ported)")
     p.add_argument("--no_stream_stitch", action="store_true",
                    help="stitch after consensus from the prediction store "
                         "instead of overlapping the two (byte-identical)")
@@ -135,6 +141,31 @@ def build_parser() -> argparse.ArgumentParser:
                    help="compute device (default cuda: an error without a GPU)")
     p.add_argument("--debug_mismatches", action="store_true", help="(not yet ported)")
 
+    # helen_tpu's other subcommands, with its arguments: not ported yet
+    p = sub.add_parser("download_models", help="(not yet ported)")
+    p.add_argument("-o", "--output_dir", required=True)
+    p.add_argument("--manifest_url", default=None)
+
+    p = sub.add_parser("convert", help="(not yet ported)")
+    p.add_argument("-i", "--input", required=True)
+    p.add_argument("-o", "--output", required=True)
+
+    p = sub.add_parser("hyperband", help="(not yet ported)")
+    p.add_argument("--train_image_dir", required=True)
+    p.add_argument("--test_image_dir", required=True)
+    p.add_argument("-o", "--output_dir", default="./hyperband_out/")
+    p.add_argument("-b", "--batch_size", type=int, default=32)
+    p.add_argument("--max_epochs", type=int, default=9)
+    p.add_argument("--eta", type=int, default=3)
+    p.add_argument("--seed", type=int, default=0)
+
+    p = sub.add_parser("assess", help="(not yet ported)")
+    p.add_argument("-t", "--truth", required=True)
+    p.add_argument("-p", "--polished", required=True)
+    p.add_argument("--max_band", type=int, default=1 << 20)
+    p.add_argument("--json", action="store_true")
+    p.add_argument("-b", "--bed", default=None)
+
     sub.add_parser("devices", help="show the CUDA devices torch sees")
     sub.add_parser("version", help="print version")
     return parser
@@ -152,9 +183,16 @@ def cmd_devices() -> None:
     print(f"cuda devices: {n}")
 
 
+#: helen_tpu subcommands that parse and then raise "not yet ported"
+UNPORTED_COMMANDS = ("download_models", "convert", "hyperband", "assess")
+
+
 def _unported(args):
-    """The first flag given whose helen_tpu path is not ported, or None."""
+    """The first subcommand or flag given whose helen_tpu path is not
+    ported, or None. ``--host_shard`` and ``--barrier_timeout`` matter only
+    to a multi-process job, which the first check refuses."""
     checks = [
+        (f"the {args.command} subcommand", args.command in UNPORTED_COMMANDS),
         ("multi-process jobs (--distributed/--coordinator_address/"
          "--num_processes/--process_id)",
          args.distributed or args.coordinator_address is not None
@@ -162,8 +200,6 @@ def _unported(args):
         ("--resume", getattr(args, "resume", False)),
         ("--pack", getattr(args, "pack", False)),
         ("--writers > 1", getattr(args, "writers", 1) > 1),
-        ("--host_shard", getattr(args, "host_shard", None) is not None),
-        ("--barrier_timeout", getattr(args, "barrier_timeout", None) is not None),
         ("--fastq/--qualities", getattr(args, "fastq", False)
          or getattr(args, "qualities", False)),
         ("--model_parallel > 1", getattr(args, "model_parallel", 1) > 1),
@@ -182,6 +218,8 @@ def main(argv=None) -> int:
     if unported:
         parser.error(f"{unported} is not yet ported to helen_tpu_torch "
                      "(ROADMAP.md, queue A); use helen_tpu")
+    if args.platform == "cpu" and hasattr(args, "device"):
+        args.device = "cpu"
     if getattr(args, "fast", False):
         if args.backend:
             parser.error("--fast and --backend are mutually exclusive "

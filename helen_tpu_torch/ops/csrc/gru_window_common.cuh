@@ -138,6 +138,20 @@ __device__ __forceinline__ void fma_chain(const X* x, int ldx, int d, const W* w
   }
 }
 
+// The gates of one row and its h' = (1 - z) n + z h, from the input
+// projections with b_ih added (xr, xz, xn), the sums of h W_hh without b_hh
+// (hr, hz, hq) and the fp32 state hc. gru_step and the W_hh-in-shared-memory
+// recurrence (gru_window_smem.cu) both take their gates from here, so the
+// two designs round alike.
+template <bool FAST>
+__device__ __forceinline__ float gru_gates(float xr, float xz, float xn, float hr, float hz,
+                                           float hq, const CellBias& bias, float hc) {
+  const float rg = sigmoidf_(xr + (hr + bias.hr));
+  const float zg = sigmoidf_(xz + (hz + bias.hz));
+  const float ng = gate_n<FAST>(xn, rg, hq + bias.hn);
+  return blend<FAST>(zg, ng, hc);
+}
+
 // One step: xp = [x0 | x1] W_ih (x0's d0 inputs take W_ih rows [0, d0), x1's
 // d1 inputs the rows after; both with row stride ldx), hp = ho W_hh over the
 // operand copy of h (the state itself in the parity tier, its bf16 rounding
@@ -162,10 +176,8 @@ __device__ __forceinline__ void gru_step(const DirParams<W>& p, const CellBias& 
   fma_chain<ROWS, UNROLL>(ho, H, H, p.w_hh, H, j, hr, hz, hq);
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {
-    const float rg = sigmoidf_((xr[r] + bias.ir) + (hr[r] + bias.hr));
-    const float zg = sigmoidf_((xz[r] + bias.iz) + (hz[r] + bias.hz));
-    const float ng = gate_n<FAST>(xn[r] + bias.in, rg, hq[r] + bias.hn);
-    hnew[r] = blend<FAST>(zg, ng, hc[r * H + j]);
+    hnew[r] = gru_gates<FAST>(xr[r] + bias.ir, xz[r] + bias.iz, xn[r] + bias.in, hr[r],
+                              hz[r], hq[r], bias, hc[r * H + j]);
     hx[r * H + j] = hnew[r];
     if (FAST) hox[r * H + j] = bf16_rn(hnew[r]);
   }

@@ -1,16 +1,24 @@
 """The bi-GRU window kernels of the consensus path: build, binding, launch
 counters and plain versions.
 
-Two hand-written CUDA kernels (``ops/csrc/gru_window.cu``, compiled with
-nvcc for ``sm_90a`` into a shared library with a C ABI and loaded with
-ctypes) carry every bi-GRU window on the main path:
+Hand-written CUDA kernels (``ops/csrc/*.cu``, compiled with nvcc for
+``sm_90a`` into a shared library with a C ABI and loaded with ctypes) carry
+every bi-GRU window; two wrappers carry the main path's:
 
 * :func:`bigru_window_in1` (K1, replaces helen_tpu's ``_kernel_inproj1``,
   ``helen_tpu/ops/gru_pallas.py:426``): one bi-GRU layer over one window
   of the ``(B, L, F)`` uint8 image, read in place at column ``start``;
-  input projection and recurrence in one launch;
 * :func:`bigru_window_in2` (K2, replaces ``_kernel_inproj2``, ``:474``):
   the same over the previous layer's ``(out_f, out_b)`` halves, no concat.
+
+Each runs in one of two designs, by a fixed rule of the shape
+(:func:`window_design`): where one direction's ``W_hh`` and the state fit
+one block's shared memory (the parity tier up to H=136 at B=512; the main
+path), as two launches of ops.gru_window_smem, a projection pass over the
+whole window and a recurrence with ``W_hh`` in shared memory; elsewhere as
+one launch of ``bigru_window_kernel``, the projection inside the
+recurrence's FMA chains. Both take every sum in the same order, so they
+give the same bits.
 
 Their fast-tier instantiations (the same source, ``FAST = true``) carry the
 fast tier (``polish --fast``): :func:`bigru_window_in1_fast` (K1f) and
@@ -26,8 +34,9 @@ Each wrapper takes the layer's ``{"fwd", "bwd"}`` params (``w_ih (D, 3H)``,
 ``(out_f (T, B, H), out_b (T, B, H), h_f (B, H), h_b (B, H))``. On a CPU
 tensor it computes its plain version (``*_plain``, explicit torch ops
 mirroring helen_tpu's ``gru_scan``); on a CUDA tensor it launches the kernel
-or raises — there is no fall-back from kernel to plain. Each launch adds one
-to :data:`launch_counts`.
+or raises — there is no fall-back from kernel to plain. Each K1/K2 adds one
+to :data:`launch_counts` under its own name, whichever design ran, and each
+launch of the two-launch design adds one under the kernel's name.
 
 The same library holds the backward kernels (ops.gru_window_bwd), the
 xp-stream kernels (ops.gru_window_xp, ops.gru_window_xp_bwd) and the fused
@@ -60,6 +69,9 @@ Outputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 #: launches of each kernel since the last reset_launch_counts() — counted
 #: where the kernel is launched and nowhere else
 launch_counts: Dict[str, int] = {"bigru_window_in1": 0, "bigru_window_in2": 0,
+                                 # the two-launch design of K1/K2 (ops.gru_window_smem)
+                                 "bigru_window_proj_in1": 0, "bigru_window_proj_in2": 0,
+                                 "bigru_window_rec_smem": 0,
                                  "bigru_window_in1_fast": 0, "bigru_window_in2_fast": 0,
                                  # the fused encoder+decoder window (ops.gru_window_encdec)
                                  "transducer_window_encdec": 0,
@@ -68,6 +80,9 @@ launch_counts: Dict[str, int] = {"bigru_window_in1": 0, "bigru_window_in2": 0,
 #: the largest hidden size the in-projection kernels take (K1/K2 and their
 #: backward: one thread per hidden unit, csrc/gru_window_common.cuh MAX_H)
 MAX_H = 512
+#: K1/K2's designs: "smem", the projection pass plus the recurrence with
+#: W_hh in shared memory (ops.gru_window_smem); "chain", bigru_window_kernel
+DESIGNS = ("smem", "chain")
 #: the largest hidden size the xp-stream kernels take (K3/K4: a block's
 #: threads loop over the hidden units; the backward's shared memory holds
 #: 5 x 8 x H floats, csrc/gru_window_common.cuh XP_MAX_H)
@@ -196,6 +211,17 @@ def get_lib() -> ctypes.CDLL:
             lib.transducer_window_encdec_smem.argtypes = [i] * 5
             lib.transducer_window_encdec_max_threads.restype = i
             lib.transducer_window_encdec_max_threads.argtypes = [i]
+            # the two-launch design of K1/K2 (csrc/gru_window_smem.cu;
+            # wrappers in gru_window_smem.py)
+            lib.bigru_window_proj_in1.restype = i
+            lib.bigru_window_proj_in1.argtypes = [p, ll, ll, i, i] + [p] * 5 + [i, i, i, p]
+            lib.bigru_window_proj_in2.restype = i
+            lib.bigru_window_proj_in2.argtypes = [p] * 7 + [i, i, i, p]
+            lib.bigru_window_rec_smem.restype = i
+            lib.bigru_window_rec_smem.argtypes = [p] * 11 + [i, i, i, i, p]
+            lib.bigru_window_rec_smem_bytes.restype = ll
+            lib.bigru_window_rec_smem_bytes.argtypes = [i, i]
+            lib.bigru_window_rec_max_threads.restype = i
             lib.gru_window_smem_optin.restype = i
             lib.gru_window_error_string.restype = ctypes.c_char_p
             lib.gru_window_error_string.argtypes = [i]
@@ -204,6 +230,13 @@ def get_lib() -> ctypes.CDLL:
                 raise RuntimeError("MAX_H disagrees with csrc/gru_window*.cu")
             if lib.gru_window_xp_max_h() != XP_MAX_H:
                 raise RuntimeError("XP_MAX_H disagrees with csrc/gru_window_xp*.cu")
+            from helen_tpu_torch.ops import gru_window_smem as gs
+
+            if (lib.bigru_window_rec_max_threads() != gs.REC_MAX_THREADS
+                    or any(lib.bigru_window_rec_smem_bytes(h, r) != gs.rec_smem_bytes(h, r)
+                           for h in (1, 127, 128, 136, 137) for r in gs.BLOCK_ROWS)):
+                raise RuntimeError("the recurrence's fit disagrees with "
+                                   "csrc/gru_window_smem.cu")
             _lib = lib
     return _lib
 
@@ -323,7 +356,26 @@ def _cuda_device(t: torch.Tensor, name: str) -> torch.device:
     return t.device
 
 
-def _launch_in1(name: str, wdtype, image, start, T, h0_f, h0_b, layer) -> Outputs:
+def window_design(H: int, B: int, fast: bool = False, design=None) -> str:
+    """K1/K2's design at hidden size ``H`` and batch ``B``: ``"smem"`` where
+    ``gru_window_smem.takes_smem_design`` holds, else ``"chain"``. ``design``
+    forces one (tests, chip_smoke.py's comparison of the two); ``"smem"``
+    raises where that rule does not hold."""
+    from helen_tpu_torch.ops import gru_window_smem as gs
+
+    fits = gs.takes_smem_design(H, B, fast)
+    if design is None:
+        return "smem" if fits else "chain"
+    if design not in DESIGNS:
+        raise ValueError(f"design {design!r} is not one of {DESIGNS}")
+    if design == "smem" and not fits:
+        raise ValueError(f"design 'smem' does not take H={H}, B={B}"
+                         + (" in the fast tier" if fast else ""))
+    return design
+
+
+def _launch_in1(name: str, wdtype, image, start, T, h0_f, h0_b, layer,
+                design=None) -> Outputs:
     dev = _cuda_device(image, name)
     if image.dtype != torch.uint8 or image.dim() != 3 or image.stride(2) != 1:
         raise ValueError(f"{name} takes a (B, L, F) uint8 image with unit feature stride")
@@ -335,6 +387,13 @@ def _launch_in1(name: str, wdtype, image, start, T, h0_f, h0_b, layer) -> Output
     _check("h0_f", h0_f, (B, H), torch.float32, dev)
     _check("h0_b", h0_b, (B, H), torch.float32, dev)
     weights = _layer_args(layer, F, H, dev, wdtype)
+    if window_design(H, B, wdtype != torch.float32, design) == "smem":
+        from helen_tpu_torch.ops import gru_window_smem as gs
+
+        outs = gs.launch_rec(gs.launch_proj_in1(image, start, T, F, H, weights, dev),
+                             h0_f, h0_b, weights, dev)
+        launch_counts[name] += 1
+        return outs
     outs = _outputs(T, B, H, dev)
     with torch.cuda.device(dev):
         err = getattr(get_lib(), name)(
@@ -347,7 +406,7 @@ def _launch_in1(name: str, wdtype, image, start, T, h0_f, h0_b, layer) -> Output
     return outs
 
 
-def _launch_in2(name: str, wdtype, xa, xb, h0_f, h0_b, layer) -> Outputs:
+def _launch_in2(name: str, wdtype, xa, xb, h0_f, h0_b, layer, design=None) -> Outputs:
     dev = _cuda_device(xa, name)
     T, B, H = xa.shape
     if not 0 < H <= MAX_H:
@@ -357,6 +416,13 @@ def _launch_in2(name: str, wdtype, xa, xb, h0_f, h0_b, layer) -> Outputs:
     _check("h0_f", h0_f, (B, H), torch.float32, dev)
     _check("h0_b", h0_b, (B, H), torch.float32, dev)
     weights = _layer_args(layer, 2 * H, H, dev, wdtype)
+    if window_design(H, B, wdtype != torch.float32, design) == "smem":
+        from helen_tpu_torch.ops import gru_window_smem as gs
+
+        outs = gs.launch_rec(gs.launch_proj_in2(xa, xb, weights, dev), h0_f, h0_b,
+                             weights, dev)
+        launch_counts[name] += 1
+        return outs
     outs = _outputs(T, B, H, dev)
     with torch.cuda.device(dev):
         err = getattr(get_lib(), name)(
@@ -370,23 +436,25 @@ def _launch_in2(name: str, wdtype, xa, xb, h0_f, h0_b, layer) -> Outputs:
 
 def bigru_window_in1(image: torch.Tensor, start: int, T: int,
                      h0_f: torch.Tensor, h0_b: torch.Tensor,
-                     layer: Layer) -> Outputs:
+                     layer: Layer, design=None) -> Outputs:
     """K1: one bi-GRU layer over the window ``image[:, start:start+T]`` of a
-    ``(B, L, F)`` uint8 image. See the module docstring."""
+    ``(B, L, F)`` uint8 image, in the design :func:`window_design` picks
+    (``design`` forces one). See the module docstring."""
     if image.device.type == "cpu":
         return bigru_window_in1_plain(image, start, T, h0_f, h0_b, layer)
     return _launch_in1("bigru_window_in1", torch.float32, image, start, T, h0_f, h0_b,
-                       layer)
+                       layer, design)
 
 
 def bigru_window_in2(xa: torch.Tensor, xb: torch.Tensor,
                      h0_f: torch.Tensor, h0_b: torch.Tensor,
-                     layer: Layer) -> Outputs:
+                     layer: Layer, design=None) -> Outputs:
     """K2: one bi-GRU layer over the previous layer's halves ``xa``, ``xb``
-    ``(T, B, H)``. See the module docstring."""
+    ``(T, B, H)``, in the design :func:`window_design` picks (``design``
+    forces one). See the module docstring."""
     if xa.device.type == "cpu":
         return bigru_window_in2_plain(xa, xb, h0_f, h0_b, layer)
-    return _launch_in2("bigru_window_in2", torch.float32, xa, xb, h0_f, h0_b, layer)
+    return _launch_in2("bigru_window_in2", torch.float32, xa, xb, h0_f, h0_b, layer, design)
 
 
 def bigru_window_in1_fast(image: torch.Tensor, start: int, T: int,

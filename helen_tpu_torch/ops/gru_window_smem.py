@@ -1,0 +1,213 @@
+"""The parity K1/K2 of the main path as a projection pass plus a recurrence
+with W_hh in shared memory: the kernels' binding, their shape rules and
+their plain versions.
+
+Three hand-written CUDA kernels (``ops/csrc/gru_window_smem.cu``, in the
+library that ops.gru_window builds) carry a parity K1 or K2 as two
+launches:
+
+* :func:`bigru_window_proj_in1` / :func:`bigru_window_proj_in2`: the input
+  projection ``xp = x @ W_ih + b_ih`` of both directions over the window's
+  ``T * B`` rows, into a ``(2, T, B, 3H)`` float32 scratch; ``x`` is the
+  ``(B, L, F)`` uint8 image read in place at column ``start`` (K1) or the
+  previous layer's halves ``[xa | xb]`` (K2);
+* :func:`bigru_window_rec_smem`: the recurrence of both directions over that
+  scratch, each block holding its direction's ``W_hh`` in shared memory.
+
+Each output sum is taken in the order of ``bigru_window_kernel``'s FMA
+chains (``gru_window.cu``), so on the card the pair equals the one-launch
+K1/K2 bit for bit. :func:`ops.gru_window.bigru_window_in1` and ``_in2`` launch them
+where :func:`takes_smem_design` holds, a fixed rule of the shape: the parity
+tier, and a ``W_hh`` plus state buffers that fit one block's opt-in shared
+memory at :func:`rec_block_rows` rows (up to H=136 at 8 rows). Every other
+shape (H > 136, the fast tier) keeps ``bigru_window_kernel``.
+
+On a CPU tensor each wrapper computes its plain version
+(:func:`window_proj_plain`, the projection summed in k order; ``gru_scan``
+for the recurrence); on a CUDA tensor it launches its kernel or raises.
+Each launch adds one to ``ops.gru_window.launch_counts``.
+"""
+from __future__ import annotations
+
+import torch
+
+from helen_tpu_torch.models.gru import ordered_product
+from helen_tpu_torch.ops import gru_window as gw
+from helen_tpu_torch.ops.gru_window import Layer, Outputs
+from helen_tpu_torch.ops.gru_window_encdec import HOPPER_SMEM_OPTIN
+
+#: the streaming multiprocessors of an H100, which one wave of recurrence
+#: blocks (one per SM: its shared memory) should fill
+H100_SMS = 132
+#: the batch rows per recurrence block the kernel is built for, fewest first
+BLOCK_ROWS = (1, 2, 4, 8)
+#: threads per hidden unit at 2 rows per block and more (csrc REC_SPLIT)
+REC_SPLIT = 2
+#: the recurrence's most threads per block (csrc REC_MAX_THREADS)
+REC_MAX_THREADS = 320
+
+
+def rec_smem_bytes(h: int, rows: int) -> int:
+    """Dynamic shared memory of one recurrence block: h double-buffered
+    (``rows`` rows of ``h`` rounded up to 4 floats) and one direction's
+    ``W_hh`` ``(h, 3h)``, float32; csrc/gru_window_smem.cu ``rec_smem``."""
+    return 4 * (2 * rows * (-(-h // 4) * 4) + 3 * h * h)
+
+
+def rec_block_rows(b: int) -> int:
+    """Batch rows per recurrence block at batch ``b``: the fewest of 1, 2,
+    4, 8 whose grid of ``2 * ceil(b / rows)`` blocks fits the H100's 132 SMs
+    in one wave, else 8. 8 at B=512 (128 blocks), 4 at B=256 (128 blocks)."""
+    for rows in BLOCK_ROWS:
+        if 2 * -(-b // rows) <= H100_SMS:
+            return rows
+    return BLOCK_ROWS[-1]
+
+
+def rec_fits_smem(h: int, rows: int, budget: int = 0) -> bool:
+    """Whether the recurrence takes hidden size ``h`` at ``rows`` rows per
+    block: its shared memory within ``budget`` bytes (default
+    :data:`HOPPER_SMEM_OPTIN`) and its threads within the launch bound."""
+    threads = (REC_SPLIT if rows >= 2 else 1) * h
+    return (h > 0 and threads <= REC_MAX_THREADS
+            and rec_smem_bytes(h, rows) <= (budget or HOPPER_SMEM_OPTIN))
+
+
+def takes_smem_design(h: int, b: int, fast: bool = False) -> bool:
+    """Whether a K1/K2 of hidden size ``h`` at batch ``b`` runs as the
+    projection pass plus this recurrence: the parity tier only, where
+    ``W_hh`` and the state fit one block at :func:`rec_block_rows` rows."""
+    return not fast and rec_fits_smem(h, rec_block_rows(b))
+
+
+# ---------------------------------------------------------------------------
+# plain versions (CPU path, tests, and the on-card comparison)
+# ---------------------------------------------------------------------------
+
+def window_proj_plain(x: torch.Tensor, layer: Layer) -> torch.Tensor:
+    """The projection's plain version: ``x (T, B, D)`` times each
+    direction's ``w_ih``, summed over k in order (``ordered_product``), plus
+    ``b_ih``; returns ``(2, T, B, 3H)``."""
+    return torch.stack([ordered_product(x, layer[d]["w_ih"]) + layer[d]["b_ih"]
+                        for d in ("fwd", "bwd")])
+
+
+def window_rec_plain(xp: torch.Tensor, h0_f: torch.Tensor, h0_b: torch.Tensor,
+                     layer: Layer) -> Outputs:
+    """The recurrence's plain version: ``gru_scan`` over ``xp[0]`` forward
+    and ``xp[1]`` backward."""
+    return gw._bidir(xp[0], xp[1], h0_f, h0_b, layer)
+
+
+def image_window(image: torch.Tensor, start: int, T: int) -> torch.Tensor:
+    """K1's input rows ``(T, B, F)`` float32: the window of the image."""
+    return image[:, start:start + T].to(torch.float32).transpose(0, 1)
+
+
+# ---------------------------------------------------------------------------
+# launches (the arguments checked by the caller) and kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _scratch(T: int, B: int, H: int, dev) -> torch.Tensor:
+    return torch.empty((2, T, B, 3 * H), dtype=torch.float32, device=dev)
+
+
+def launch_proj_in1(image, start, T, F, H, w, dev) -> torch.Tensor:
+    """K1's projection into a new scratch; ``w`` the pointers of
+    ``gw._layer_args``."""
+    B = image.shape[0]
+    xp = _scratch(T, B, H, dev)
+    with torch.cuda.device(dev):
+        err = gw.get_lib().bigru_window_proj_in1(
+            image.data_ptr(), image.stride(0), image.stride(1), start, F,
+            w[0], w[2], w[4], w[6], xp.data_ptr(), T, B, H, _stream(dev))
+    gw._raise_on(err, "bigru_window_proj_in1")
+    gw.launch_counts["bigru_window_proj_in1"] += 1
+    return xp
+
+
+def launch_proj_in2(xa, xb, w, dev) -> torch.Tensor:
+    """K2's projection into a new scratch."""
+    T, B, H = xa.shape
+    xp = _scratch(T, B, H, dev)
+    with torch.cuda.device(dev):
+        err = gw.get_lib().bigru_window_proj_in2(
+            xa.data_ptr(), xb.data_ptr(), w[0], w[2], w[4], w[6], xp.data_ptr(), T, B, H,
+            _stream(dev))
+    gw._raise_on(err, "bigru_window_proj_in2")
+    gw.launch_counts["bigru_window_proj_in2"] += 1
+    return xp
+
+
+def launch_rec(xp, h0_f, h0_b, w, dev) -> Outputs:
+    """The recurrence over the scratch ``xp`` at :func:`rec_block_rows`
+    rows per block."""
+    _, T, B, H3 = xp.shape
+    H = H3 // 3
+    outs = gw._outputs(T, B, H, dev)
+    with torch.cuda.device(dev):
+        err = gw.get_lib().bigru_window_rec_smem(
+            xp.data_ptr(), h0_f.data_ptr(), h0_b.data_ptr(), w[1], w[3], w[5], w[7],
+            *[o.data_ptr() for o in outs], T, B, H, rec_block_rows(B), _stream(dev))
+    gw._raise_on(err, "bigru_window_rec_smem")
+    gw.launch_counts["bigru_window_rec_smem"] += 1
+    return outs
+
+
+def _fits(name: str, H: int, B: int) -> None:
+    if not takes_smem_design(H, B):
+        rows = rec_block_rows(B)
+        raise ValueError(f"{name}: W_hh at H={H} and {rows} rows per block take "
+                         f"{rec_smem_bytes(H, rows)} bytes of shared memory (budget "
+                         f"{HOPPER_SMEM_OPTIN}) or {REC_SPLIT * H} threads (max "
+                         f"{REC_MAX_THREADS}); bigru_window_kernel takes it")
+
+
+def bigru_window_proj_in1(image: torch.Tensor, start: int, T: int,
+                          layer: Layer) -> torch.Tensor:
+    """K1's projection of the window ``image[:, start:start+T]`` of a
+    ``(B, L, F)`` uint8 image: ``(2, T, B, 3H)``."""
+    if image.device.type == "cpu":
+        return window_proj_plain(image_window(image, start, T), layer)
+    dev = gw._cuda_device(image, "bigru_window_proj_in1")
+    if image.dtype != torch.uint8 or image.dim() != 3 or image.stride(2) != 1:
+        raise ValueError("bigru_window_proj_in1 takes a (B, L, F) uint8 image with unit "
+                         "feature stride")
+    B, L, F = image.shape
+    H = layer["fwd"]["w_hh"].shape[0]
+    if not (0 <= start and start + T <= L and T > 0):
+        raise ValueError(f"window [{start}, {start + T}) of {L} columns")
+    return launch_proj_in1(image, start, T, F, H, gw._layer_args(layer, F, H, dev), dev)
+
+
+def bigru_window_proj_in2(xa: torch.Tensor, xb: torch.Tensor, layer: Layer) -> torch.Tensor:
+    """K2's projection of the halves ``xa``, ``xb`` ``(T, B, H)``:
+    ``(2, T, B, 3H)``."""
+    if xa.device.type == "cpu":
+        return window_proj_plain(torch.cat([xa, xb], dim=-1), layer)
+    dev = gw._cuda_device(xa, "bigru_window_proj_in2")
+    T, B, H = xa.shape
+    gw._check("xa", xa, (T, B, H), torch.float32, dev)
+    gw._check("xb", xb, (T, B, H), torch.float32, dev)
+    return launch_proj_in2(xa, xb, gw._layer_args(layer, 2 * H, H, dev), dev)
+
+
+def bigru_window_rec_smem(xp: torch.Tensor, h0_f: torch.Tensor, h0_b: torch.Tensor,
+                          layer: Layer) -> Outputs:
+    """The recurrence of both directions over ``xp (2, T, B, 3H)`` from
+    ``h0_f``/``h0_b``: ``(out_f, out_b, h_f, h_b)``, as K1/K2 return them."""
+    if xp.device.type == "cpu":
+        return window_rec_plain(xp, h0_f, h0_b, layer)
+    dev = gw._cuda_device(xp, "bigru_window_rec_smem")
+    _, T, B, H3 = xp.shape
+    H = H3 // 3
+    _fits("bigru_window_rec_smem", H, B)
+    gw._check("xp", xp, (2, T, B, 3 * H), torch.float32, dev)
+    gw._check("h0_f", h0_f, (B, H), torch.float32, dev)
+    gw._check("h0_b", h0_b, (B, H), torch.float32, dev)
+    w_ih = layer["fwd"]["w_ih"]
+    return launch_rec(xp, h0_f, h0_b, gw._layer_args(layer, w_ih.shape[0], H, dev), dev)

@@ -680,3 +680,175 @@ def test_encdec_route_consensus_launch_counts(dev, backend):
     with torch.no_grad():
         db, dr = consensus_labels(params, images, backend=backend)
     assert torch.equal(kb, db) and torch.equal(kr, dr)
+
+
+# ---------------------------------------------------------------------------
+# the two-launch design of K1/K2: the projection pass plus the recurrence
+# with W_hh in shared memory (ops.gru_window_smem)
+# ---------------------------------------------------------------------------
+
+def k1_case(rng, T, B, H, dev):
+    L, start = T + 30, 17
+    image = torch.from_numpy(rng.integers(0, 256, size=(B, L, 90), dtype=np.uint8)).to(dev)
+    h0f, h0b = (torch.from_numpy(rng.uniform(-1, 1, (B, H)).astype(np.float32)).to(dev)
+                for _ in range(2))
+    return (image, start, T, h0f, h0b, make_layer(rng, 90, H, dev, w_ih_scale=1 / 64))
+
+
+def k2_case(rng, T, B, H, dev):
+    xa, xb, h0f, h0b = (torch.from_numpy(rng.uniform(-1, 1, s).astype(np.float32)).to(dev)
+                        for s in ((T, B, H), (T, B, H), (B, H), (B, H)))
+    return (xa, xb, h0f, h0b, make_layer(rng, 2 * H, H, dev))
+
+
+# the main path's batch (8 rows per block), the training batch (4 rows), a
+# ragged one (8 rows, a part-filled last block); the flagship H and the
+# widest at 8 rows
+@pytest.mark.parametrize("T,B,H", [(100, 512, 128), (100, 256, 128), (100, 300, 128),
+                                   (100, 512, 136), (100, 256, 136), (100, 300, 136)])
+@pytest.mark.parametrize("kind", ["in1", "in2"])
+def test_smem_design_equals_chain_design(dev, kind, T, B, H):
+    """K1/K2 as the projection pass plus the recurrence against
+    bigru_window_kernel: max abs diff exactly 0.0 (every sum in the same
+    order); each design counted as launched; the default design is the new
+    one at these shapes."""
+    from helen_tpu_torch.ops import gru_window as gw
+
+    rng = np.random.default_rng(T * B + H + (kind == "in2"))
+    case = (k1_case if kind == "in1" else k2_case)(rng, T, B, H, dev)
+    fn = getattr(gw, f"bigru_window_{kind}")
+    assert gw.window_design(H, B) == "smem"
+    plus_one = lambda before, *names: {**before, **{n: before[n] + 1 for n in names}}  # noqa: E731
+    before = dict(gw.launch_counts)
+    new = fn(*case, design="smem")
+    torch.cuda.synchronize()
+    assert gw.launch_counts == plus_one(before, f"bigru_window_{kind}",
+                                        f"bigru_window_proj_{kind}", "bigru_window_rec_smem")
+    before = dict(gw.launch_counts)
+    old = fn(*case, design="chain")
+    torch.cuda.synchronize()
+    assert gw.launch_counts == plus_one(before, f"bigru_window_{kind}")
+    for n, o, what in zip(new, old, ("out_f", "out_b", "h_f", "h_b")):
+        assert torch.equal(n, o), f"{what}: max |smem - chain| {float((n - o).abs().max())}"
+    assert_outputs_close(new, getattr(gw, f"bigru_window_{kind}_plain")(*case))
+
+
+# ragged batches at 1, 2 and 8 rows per block, an H that is no multiple of
+# 4 (scalar tail of the h chain, unaligned 3H columns)
+@pytest.mark.parametrize("T,B,H", [(100, 512, 128), (9, 13, 136), (5, 3, 40), (6, 67, 37)])
+def test_smem_kernels_match_their_plain_versions(dev, T, B, H):
+    """Each new kernel against its plain version on the same inputs: the
+    projections against window_proj_plain (sums in k order), the recurrence
+    against gru_scan over the kernel's own xp."""
+    from helen_tpu_torch.ops import gru_window_smem as gs
+
+    rng = np.random.default_rng(T + B + H)
+    image, start, _, h0f, h0b, l1 = k1_case(rng, T, B, H, dev)
+    xa, xb, _, _, l2 = k2_case(rng, T, B, H, dev)
+    xp1 = gs.bigru_window_proj_in1(image, start, T, l1)
+    xp2 = gs.bigru_window_proj_in2(xa, xb, l2)
+    torch.cuda.synchronize()
+    for got, want in ((xp1, gs.window_proj_plain(gs.image_window(image, start, T), l1)),
+                      (xp2, gs.window_proj_plain(torch.cat([xa, xb], -1), l2))):
+        assert got.shape == (2, T, B, 3 * H)
+        assert float((got - want).abs().max()) <= TOL * max(1.0, float(want.abs().max()))
+    for xp, layer in ((xp1, l1), (xp2, l2)):
+        got = gs.bigru_window_rec_smem(xp, h0f, h0b, layer)
+        assert_outputs_close(got, gs.window_rec_plain(xp, h0f, h0b, layer))
+
+
+def test_smem_recurrence_takes_an_unaligned_w_hh(dev):
+    """A W_hh view 4 bytes past a 16-byte boundary takes the kernel's
+    4-byte copies: the same bits as an aligned copy."""
+    from helen_tpu_torch.ops import gru_window_smem as gs
+
+    rng = np.random.default_rng(21)
+    T, B, H = 20, 16, 128
+    xa, xb, h0f, h0b, layer = k2_case(rng, T, B, H, dev)
+    xp = gs.bigru_window_proj_in2(xa, xb, layer)
+    shifted = {d: dict(p) for d, p in layer.items()}
+    for d in ("fwd", "bwd"):
+        buf = torch.empty(H * 3 * H + 1, device=dev)
+        w = buf[1:].view(H, 3 * H)
+        w.copy_(layer[d]["w_hh"])
+        shifted[d]["w_hh"] = w
+    for a, b in zip(gs.bigru_window_rec_smem(xp, h0f, h0b, layer),
+                    gs.bigru_window_rec_smem(xp, h0f, h0b, shifted)):
+        assert torch.equal(a, b)
+
+
+def test_smem_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    from helen_tpu_torch.ops import gru_window as gw
+    from helen_tpu_torch.ops import gru_window_smem as gs
+
+    rng = np.random.default_rng(22)
+    xa, xb, h0f, h0b, layer = k2_case(rng, 4, 8, 160, dev)
+    xp = torch.zeros(2, 4, 8, 3 * 160, device=dev)
+    before = dict(gw.launch_counts)
+    with pytest.raises(ValueError, match="bigru_window_kernel takes it"):
+        gs.bigru_window_rec_smem(xp, h0f, h0b, layer)
+    with pytest.raises(ValueError, match="does not take H=160"):
+        gw.bigru_window_in2(xa, xb, h0f, h0b, layer, design="smem")
+    assert gw.launch_counts == before
+    xa, xb, h0f, h0b, layer = k2_case(rng, 4, 8, 128, dev)
+    with pytest.raises(ValueError):  # xp of another batch
+        gs.bigru_window_rec_smem(torch.zeros(2, 4, 9, 384, device=dev), h0f, h0b, layer)
+    with pytest.raises(ValueError):  # K1's weights given to K2's projection
+        gs.bigru_window_proj_in2(xa, xb, make_layer(rng, 90, 128, dev))
+    lib = gw.get_lib()
+    for h in (1, 37, 128, 136, 137):
+        for rows in gs.BLOCK_ROWS:
+            assert lib.bigru_window_rec_smem_bytes(h, rows) == gs.rec_smem_bytes(h, rows)
+
+
+@pytest.mark.parametrize("design", ["smem", "chain"])
+def test_k5_equals_either_design_of_the_chain(dev, design):
+    """K5 against K1 -> K2 in each design at the flagship shape: 0.0."""
+    from helen_tpu_torch.ops import gru_window as gw
+    from helen_tpu_torch.ops import gru_window_encdec as ge
+
+    rng = np.random.default_rng(23)
+    image, start, T, h0f, h0b, enc = k1_case(rng, 100, 512, 128, dev)
+    dec = make_layer(rng, 256, 128, dev)
+    got = ge.transducer_window_encdec(image, start, T, h0f, h0b, enc, dec)
+    chained = gw.bigru_window_in2(
+        *gw.bigru_window_in1(image, start, T, h0f, h0b, enc, design=design), dec, design=design)
+    for g, c in zip(got, chained):
+        assert torch.equal(g, c), float((g - c).abs().max())
+
+
+def test_tbptt_batch_smem_design_equals_chain_design(dev, monkeypatch):
+    """One TBPTT batch (19 windows: forward, backward, Adam) with K1/K2 in
+    the two-launch design, then with every K1/K2 forced to bigru_window_kernel:
+    the same loss sums, params and Adam moments, bit for bit."""
+    from helen_tpu_torch.config import MODEL
+    from helen_tpu_torch.io.checkpoint import opt_leaves, params_to_torch
+    from helen_tpu_torch.models.transducer import init_params, param_leaves
+    from helen_tpu_torch.ops import gru_window as gw
+    from helen_tpu_torch.train.train_loop import Adam, tbptt_step
+
+    rng = np.random.default_rng(24)
+    B = 32
+    images = torch.from_numpy(rng.integers(0, 40, (B, 1000, 90), dtype=np.uint8)).to(dev)
+    yb = torch.from_numpy(rng.integers(0, 5, (B, 1000))).to(dev)
+    yr = torch.from_numpy(rng.integers(0, 11, (B, 1000))).to(dev)
+    params0 = init_params(torch.Generator().manual_seed(7), MODEL)
+    runs = {}
+    for design in ("smem", "chain"):
+        if design == "chain":
+            monkeypatch.setattr(gw, "window_design", lambda *a, **k: "chain")
+        p = params_to_torch(params0, dev)
+        for t in param_leaves(p):
+            t.requires_grad_(True)
+        adam = Adam(0.0)
+        state = adam.init(p)
+        gw.reset_launch_counts()
+        tot = tbptt_step(p, adam, state, 1e-4, images, yb, yr, B, "cuda")
+        torch.cuda.synchronize()
+        assert (gw.launch_counts["bigru_window_rec_smem"] > 0) == (design == "smem")
+        assert gw.launch_counts["bigru_window_in1"] == 19
+        runs[design] = ([t.detach().clone() for t in tot]
+                        + [t.detach() for t in param_leaves(p)]
+                        + [torch.as_tensor(v) for v in opt_leaves(state)[1:]])
+    for a, b in zip(runs["smem"], runs["chain"]):
+        assert torch.equal(a, b)

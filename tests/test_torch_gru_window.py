@@ -174,6 +174,8 @@ def test_wrappers_take_the_plain_version_on_cpu_and_count_no_launch():
     for g, p in zip(gw.bigru_window_in2(*args2), gw.bigru_window_in2_plain(*args2)):
         torch.testing.assert_close(g, p, rtol=0, atol=0)
     assert gw.launch_counts == {"bigru_window_in1": 0, "bigru_window_in2": 0,
+                                "bigru_window_proj_in1": 0, "bigru_window_proj_in2": 0,
+                                "bigru_window_rec_smem": 0,
                                 "bigru_window_in1_fast": 0, "bigru_window_in2_fast": 0,
                                 "transducer_window_encdec": 0,
                                 "transducer_window_encdec_fast": 0}

@@ -48,7 +48,7 @@ def imported_names(path: str):
 def test_port_has_modules():
     assert len(PORT_FILES) > 20
     for mod in ("gru_window", "gru_window_bwd", "gru_window_autograd", "gru_window_xp",
-                "gru_window_xp_bwd", "gru_window_encdec"):
+                "gru_window_xp_bwd", "gru_window_encdec", "gru_window_smem"):
         assert f"helen_tpu_torch/ops/{mod}.py" in PORT_FILES
 
 

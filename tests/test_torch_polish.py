@@ -183,7 +183,8 @@ UNPORTED = [
     ("--writers", ["polish", "--writers", "2"]),
     ("--fastq", ["polish", "--fastq"]),
     ("--qualities", ["call_consensus", "--qualities"]),
-    ("--host_shard", ["polish", "--host_shard", "image"]),
+    # --host_shard is helen_tpu's default on one host; a multi-host job raises
+    ("--host_shard", ["--distributed", "polish", "--host_shard", "file"]),
     ("--num_processes", ["--num_processes", "2", "polish"]),
 ]
 TRAIN_ARGS = ["--train_image_dir", "tr", "--test_image_dir", "te", "--device", "cpu"]
