@@ -15,10 +15,14 @@ turns with it; each of the three two-launch kernels alone; H=136 on the two-laun
 design and H=160 on the one-launch kernel), polishes the golden fixtures and an
 unseen sequence with the trained checkpoint through the port's CLI,
 drives a full-width polish (>= 2048 images at batch 512) while counting the
-kernel launches, and then the training path: the backward kernel against
-its plain version and cuDNN's GRU backward, one TBPTT batch through the
+kernel launches, and then the training path: the backward against its
+plain version and cuDNN's GRU backward (phase 7a: pass 1 in the main
+path's design, a gate pass, a recurrence with W_hh^T in shared memory and
+a dx pass, bit for bit against the one-launch bwd_rec_kernel and timed in
+turns with it; each of its new kernels alone), one TBPTT batch through the
 kernels against the plain route, and ``train`` then ``test`` through the
-CLI on the full-width images with the launches counted. Phase 9 drives the
+CLI on the full-width images with the launches counted (0 of
+bwd_rec_kernel). Phase 9 drives the
 wide models (H=1024) through the xp-stream kernels: K3 and K4 against their
 plain versions, the golden fixtures and a cross-route check at H=512
 through the forced xp route, then ``train``, ``test`` and ``polish`` at
@@ -77,6 +81,9 @@ TB = 256
 TEST_CONTIG_BP = 200_000
 TRAIN_EPOCHS = 3
 BWD_PASSES = ("bigru_window_bwd_rec", "bigru_window_bwd_wgrad")
+# pass 1's kernels in its main-path design (ops.gru_window_bwd_smem), beside
+# K1/K2's projection
+BWD_SMEM_KERNELS = ("bigru_window_bwd_hp", "bigru_window_bwd_rec_smem", "bigru_window_bwd_dx")
 # the wide configuration (phase 9): the flagship transducer at H=1024,
 # trained at -b 64 on 128 images, polished at -b 256
 WH = 1024
@@ -98,6 +105,20 @@ def parity_counts(in1: int, in2: int) -> dict:
     return {"bigru_window_in1": in1, "bigru_window_in2": in2,
             "bigru_window_proj_in1": in1, "bigru_window_proj_in2": in2,
             "bigru_window_rec_smem": in1 + in2}
+
+
+def train_counts(fwd: int, trained: int) -> dict:
+    """The launches of ``fwd`` flagship windows forward, ``trained`` of them
+    with a backward (layer 0 and the decoder each): K1/K2 in the two-launch
+    design, and each layer's backward as pass 2 plus pass 1 in its
+    shared-memory design (the projection, the hp product, the recurrence and,
+    for the decoder, the dx pass), never bwd_rec_kernel."""
+    counts = {**OFF_PATH_ZERO, **parity_counts(fwd, fwd)}
+    counts["bigru_window_proj_in1"] += trained
+    counts["bigru_window_proj_in2"] += trained
+    return {**counts, BWD_PASSES[0]: 2 * trained, BWD_PASSES[1]: 2 * trained,
+            "bigru_window_bwd_rec_chain": 0, "bigru_window_bwd_hp": 2 * trained,
+            "bigru_window_bwd_rec_smem": 2 * trained, "bigru_window_bwd_dx": trained}
 
 
 def fail(msg: str) -> None:
@@ -576,26 +597,35 @@ def timed_passes(fn, iters: int = 10, warmup: int = 2, passes=BWD_PASSES) -> dic
 
 
 def check_backward(images_u8, results) -> None:
-    """Phase 7a: the backward kernel against its plain version at the
-    flagship training shapes (B=256, T=100, H=128; layer 0 on the uint8
-    image, D=90, no dx; the decoder on two halves, D=256), bit-identity of
-    two launches, and times beside the plain version, the bound and the
-    libraries (cuDNN's GRU backward for pass 1, cuBLAS's products for
-    pass 2; the port calls neither)."""
+    """Phase 7a: the backward at the flagship training shapes (B=256, T=100,
+    H=128; layer 0 on the uint8 image, D=90, no dx; the decoder on two
+    halves, D=256). Pass 1 in the main path's design (the gate pass, the
+    recurrence with W_hh^T in shared memory, the dx pass) against its plain
+    version (TOL) and against the one-launch bwd_rec_kernel (exactly 0.0 in
+    dxp, dhp_n, dx, dh0 and every dW/db), bit-identity of two launches;
+    both designs timed in turns (new, one-launch, one-launch, new) beside
+    the plain version, the bound and the libraries (cuDNN's GRU backward
+    for pass 1, cuBLAS's products for pass 2; the port calls neither); then
+    each new kernel alone against its plain version, its bound and a
+    library call."""
     import numpy as np
     import torch
 
     from helen_tpu_torch.ops import gru_window as gw
     from helen_tpu_torch.ops import gru_window_bwd as gb
+    from helen_tpu_torch.ops import gru_window_bwd_smem as gbs
+    from helen_tpu_torch.ops import gru_window_smem as gs
 
     dev = images_u8.device
     rng = np.random.default_rng(20261017)
     img = images_u8[:TB]
     r = lambda *s: torch.from_numpy(rng.uniform(-1, 1, s).astype("float32")).to(dev)  # noqa: E731
     n = TB * T
-    sums = {name: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
-                   "flops": 0.0, "bytes": 0.0, "max_abs_err": 0.0, "max_scaled_err": 0.0}
-            for name in BWD_PASSES}
+    keys = ("ms", "chain_ms", "plain_ms", "bound_ms", "library_ms", "flops", "bytes")
+    sums = {name: {**dict.fromkeys(keys, 0.0), "max_abs_err": 0.0, "max_scaled_err": 0.0}
+            for name in (*BWD_PASSES, *BWD_SMEM_KERNELS)}
+    if gb.bwd_design(H, TB) != "smem":
+        fail(f"pass 1 at H={H}, B={TB} does not take the shared-memory design")
     for label, D in (("layer 0, image D=90", F), ("decoder, halves D=256", 2 * H)):
         layer = random_layer(rng, D, H, dev)
         h0f, h0b, dhf, dhb = (r(TB, H) for _ in range(4))
@@ -606,15 +636,20 @@ def check_backward(images_u8, results) -> None:
             fwd_plain = lambda: gw.bigru_window_in1_plain(  # noqa: E731
                 img, start, T, h0f, h0b, layer)
             x_bytes = n * F
+            proj = "bigru_window_proj_in1"
         else:
             src, start, need_dx = (r(T, TB, H), r(T, TB, H)), 0, True
             fwd = lambda: gw.bigru_window_in2(*src, h0f, h0b, layer)  # noqa: E731
             fwd_plain = lambda: gw.bigru_window_in2_plain(*src, h0f, h0b, layer)  # noqa: E731
             x_bytes = 4 * n * D
+            proj = "bigru_window_proj_in2"
         of, ob, _, _ = fwd()
         args = (src, start, h0f, h0b, of, ob, dof, dob, dhf, dhb, layer)
         got = gb.bigru_window_bwd(*args)
         again = gb.bigru_window_bwd(*args)
+        chain = gb.bigru_window_bwd(*args, design="chain")
+        rec_new = gb.bigru_window_bwd_rec(*args, design="smem")
+        rec_old = gb.bigru_window_bwd_rec(*args, design="chain")
         want = gb.bigru_window_bwd_plain(*args, need_dx=need_dx)
         torch.cuda.synchronize()
         flat = lambda res: ([("dx", res[0])] if res[0] is not None else []) + [  # noqa: E731
@@ -622,20 +657,50 @@ def check_backward(images_u8, results) -> None:
             (f"{d}.{k}", res[3][d][k]) for d in ("fwd", "bwd")
             for k in ("w_ih", "w_hh", "b_ih", "b_hh")]
         worst = worst_scaled = 0.0
-        for (what, g), (_, w), (_, a) in zip(flat(got), flat(want), flat(again)):
+        for (what, g), (_, w), (_, a), (_, c) in zip(flat(got), flat(want), flat(again),
+                                                     flat(chain)):
             err = float((g - w).abs().max())
             scale = max(1.0, float(w.abs().max()))
             worst = max(worst, err)
             worst_scaled = max(worst_scaled, err / scale)
-            log(f"backward {label}: {what}: max |kernel - plain| {err:.3g} "
-                f"(limit {TOL:g} x {scale:.4g})")
+            diff = float((g - c).abs().max())
+            log(f"backward {label}: {what}: max |kernels - plain| {err:.3g} "
+                f"(limit {TOL:g} x {scale:.4g}); max |new design - one-launch| {diff!r} "
+                "(limit 0.0)")
             if err > TOL * scale:
                 fail(f"backward {label}: {what} disagrees with its plain version")
             if not torch.equal(g, a):
                 fail(f"backward {label}: {what} differs between two launches")
-        log(f"backward {label}: two launches bit-identical")
+            if not torch.equal(g, c):
+                fail(f"backward {label}: {what} differs between pass 1's two designs")
+        for what, x, y in zip(("dxp", "dhp_n", "dx", "dh0_f", "dh0_b"), rec_new, rec_old):
+            if (x is None) != (y is None) or (x is not None and not torch.equal(x, y)):
+                fail(f"backward {label}: pass 1's {what} differs between the designs")
+        log(f"backward {label}: two launches bit-identical; pass 1's dxp, dhp_n, dx, dh0 and "
+            f"every dW/db equal in both designs")
 
-        ms = timed_passes(lambda: gb.bigru_window_bwd(*args))
+        # pass 1 in turns: new design (its kernels, the projection included),
+        # one-launch, one-launch, new; pass 2 beside the new design
+        new_names = (proj, "bigru_window_bwd_hp", "bigru_window_bwd_rec_smem",
+                     *(("bigru_window_bwd_dx",) if need_dx else ()))
+        turns = []
+        for d in ("smem", "chain", "chain", "smem"):
+            if d == "smem":
+                turns.append(timed_passes(lambda: gb.bigru_window_bwd(*args),
+                                          passes=(*new_names, BWD_PASSES[1])))
+            else:
+                turns.append(timed_passes(lambda: gb.bigru_window_bwd_rec(
+                    *args, design="chain"), passes=("bigru_window_bwd_rec",)))
+        kern = {k: (turns[0][k] + turns[3][k]) / 2 for k in turns[0]}
+        rec_ms = sum(kern[k] for k in new_names)
+        chain_ms = (turns[1]["bigru_window_bwd_rec"] + turns[2]["bigru_window_bwd_rec"]) / 2
+        log(f"pass 1 ({label}) at B={TB}: new design {rec_ms:.4f} ms ("
+            + ", ".join(f"{k} {kern[k]:.4f}" for k in new_names)
+            + f"), one-launch {chain_ms:.4f} ms (in turns: "
+            + ", ".join(f"{sum(t[k] for k in new_names):.4f}" if i in (0, 3)
+                        else f"{t['bigru_window_bwd_rec']:.4f}" for i, t in enumerate(turns))
+            + f"): {chain_ms / rec_ms:.2f}x")
+        ms = {BWD_PASSES[0]: rec_ms, BWD_PASSES[1]: kern[BWD_PASSES[1]]}
         dxp, dhpn, *_ = gb.bigru_window_bwd_rec_plain(*args, need_dx=need_dx)
         plain = {
             BWD_PASSES[0]: cuda_ms(lambda: gb.bigru_window_bwd_rec_plain(
@@ -691,9 +756,10 @@ def check_backward(images_u8, results) -> None:
         for name in BWD_PASSES:
             flops, nbytes = cost[name]
             bound_ms, bound_by = bound(flops, nbytes)
-            log(f"{name} ({label}): kernel {ms[name]:.4f} ms, plain {plain[name]:.3f} ms, "
-                f"library {library[name]:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
-                f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+            extra = f", one-launch {chain_ms:.4f} ms" if name == BWD_PASSES[0] else ""
+            log(f"{name} ({label}): kernels {ms[name]:.4f} ms{extra}, plain "
+                f"{plain[name]:.3f} ms, library {library[name]:.4f} ms, bound {bound_ms:.4f} ms "
+                f"({bound_by}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
             acc = sums[name]
             for key, v in (("ms", ms[name]), ("plain_ms", plain[name]),
                            ("bound_ms", bound_ms), ("library_ms", library[name]),
@@ -701,24 +767,101 @@ def check_backward(images_u8, results) -> None:
                 acc[key] += v
             acc["max_abs_err"] = max(acc["max_abs_err"], worst)
             acc["max_scaled_err"] = max(acc["max_scaled_err"], worst_scaled)
-    for name in BWD_PASSES:
+        sums[BWD_PASSES[0]]["chain_ms"] += chain_ms
+
+        # each new kernel alone, against its plain version and a library call
+        whl = {k: torch.stack([layer[d][k] for d in ("fwd", "bwd")]) for k in ("w_hh", "w_ih")}
+        xp = (gs.bigru_window_proj_in2(*src, layer) if need_dx
+              else gs.bigru_window_proj_in1(img, start, T, layer))
+        hprev = torch.stack([gb._h_prev(of, h0f, False), gb._h_prev(ob, h0b, True)]
+                            ).reshape(2, n, H)
+        rest = (h0f, h0b, of, ob, dof, dob, dhf, dhb, layer)
+        hp = gbs.bigru_window_bwd_hp(h0f, h0b, of, ob, layer)
+        rec = gbs.bigru_window_bwd_rec_smem(xp, hp, *rest)
+        kernels = {
+            "bigru_window_bwd_hp": (
+                lambda: gbs.bigru_window_bwd_hp(h0f, h0b, of, ob, layer),
+                lambda: gbs.bwd_hp_plain(h0f, h0b, of, ob, layer),
+                lambda: torch.bmm(hprev, whl["w_hh"]),
+                (2 * 2.0 * n * H * 3 * H,
+                 2 * stream + 2 * vec + 2 * 4 * H * 3 * H + 2 * 4 * n * 3 * H)),
+            "bigru_window_bwd_rec_smem": (
+                lambda: gbs.bigru_window_bwd_rec_smem(xp, hp, *rest),
+                lambda: gbs.bwd_rec_smem_plain(xp, hp, *rest),
+                None,
+                (2 * 2.0 * n * 3 * H * H,
+                 2 * 2 * 4 * n * 3 * H + 4 * stream + 4 * vec + 2 * 4 * (3 * H * H + 3 * H)
+                 + 2 * 4 * n * 3 * H + 2 * stream + 2 * vec)),
+        }
+        if need_dx:
+            dxp2, w_ihT = rec[0], whl["w_ih"].transpose(1, 2)
+            kernels["bigru_window_bwd_dx"] = (
+                lambda: gbs.bigru_window_bwd_dx(dxp2, layer),
+                lambda: gbs.bwd_dx_plain(dxp2, layer),
+                lambda: torch.bmm(dxp2.reshape(2, n, 3 * H), w_ihT),
+                (2 * 2.0 * n * 3 * H * D,
+                 2 * 4 * n * 3 * H + 2 * 4 * 3 * H * D + 2 * 4 * n * D))
+        for name, (kfn, pfn, lfn, (flops, nbytes)) in kernels.items():
+            out, ref = kfn(), pfn()
+            torch.cuda.synchronize()
+            outs = out if isinstance(out, tuple) else (out,)
+            refs = ref if isinstance(ref, tuple) else (ref,)
+            err = max(float((o - w).abs().max()) for o, w in zip(outs, refs))
+            scale = max(max(1.0, float(w.abs().max())) for w in refs)
+            with torch.no_grad():
+                k_ms = kern[name]
+                p_ms = cuda_ms(pfn, iters=2, warmup=1)
+                l_ms = cuda_ms(lfn) if lfn is not None else None
+            bound_ms, bound_by = bound(flops, nbytes)
+            log(f"{name} ({label}): max |kernel - plain| {err:.3g} (limit {TOL:g} x "
+                f"{scale:.4g}); kernel {k_ms:.4f} ms (timed in pass 1's turns), plain "
+                f"{p_ms:.3f} ms, library "
+                f"{'none' if l_ms is None else f'{l_ms:.4f} ms'}, bound {bound_ms:.4f} ms "
+                f"({bound_by}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+            if err > TOL * scale:
+                fail(f"{name} ({label}) disagrees with its plain version")
+            acc = sums[name]
+            for key, v in (("ms", k_ms), ("plain_ms", p_ms), ("bound_ms", bound_ms),
+                           ("flops", flops), ("bytes", nbytes)):
+                acc[key] += v
+            acc["library_ms"] = None if l_ms is None else acc["library_ms"] + l_ms
+            acc["max_abs_err"] = max(acc["max_abs_err"], err)
+            acc["max_scaled_err"] = max(acc["max_scaled_err"], err / scale)
+
+    per = "one training window: layer 0 (D=90) + decoder (D=256), B=256"
+    for name in (*BWD_PASSES, *BWD_SMEM_KERNELS):
         acc = sums[name]
         _, bound_by = bound(acc["flops"], acc["bytes"])
+        smem_kernel = name in BWD_SMEM_KERNELS
         results[name] = {
             "name": name, "route": "cuda",
-            "source": "helen_tpu_torch/ops/csrc/gru_window_bwd.cu",
-            "replaces": "helen_tpu/ops/gru_pallas_train.py:321 (_bwd_kernel_ip)",
+            "source": "helen_tpu_torch/ops/csrc/gru_window_bwd_smem.cu" if smem_kernel else (
+                "helen_tpu_torch/ops/csrc/gru_window_bwd_smem.cu with bigru_window_proj_in1/"
+                "_in2 (gru_window_smem.cu), W_hh^T fitting a block; "
+                "helen_tpu_torch/ops/csrc/gru_window_bwd.cu (bwd_rec_kernel), otherwise"
+                if name == BWD_PASSES[0] else "helen_tpu_torch/ops/csrc/gru_window_common.cuh "
+                "(bwd_wgrad_kernel), launched from gru_window_bwd.cu"),
+            "replaces": "helen_tpu/ops/gru_pallas_train.py:321 (_bwd_kernel_ip"
+                        + (", pass 1)" if name != BWD_PASSES[1] else ", pass 2)"),
             "max_abs_err": acc["max_abs_err"],
             # max |kernel - plain| / max(1, max |plain|) over the outputs
             "max_scaled_err": acc["max_scaled_err"],
             "ms": acc["ms"], "kernel_ms": acc["ms"],
             "plain_ms": acc["plain_ms"], "bound_ms": acc["bound_ms"], "bound_by": bound_by,
             "library_ms": acc["library_ms"],
-            "per": "one training window: layer 0 (D=90) + decoder (D=256), B=256",
+            "per": per + (" (the dx pass: the decoder only)"
+                          if name == "bigru_window_bwd_dx" else ""),
         }
-        log(f"{name}, one training window (layer 0 + decoder): kernel {acc['ms']:.4f} ms, "
-            f"bound {acc['bound_ms']:.4f} ms ({bound_by}), plain {acc['plain_ms']:.3f} ms, "
-            f"library {acc['library_ms']:.4f} ms")
+        if name == BWD_PASSES[0]:
+            results[name]["chain_ms"] = acc["chain_ms"]
+            results[name]["per"] += ("; ms: the new design's kernels, the projection "
+                                     "included; chain_ms: bwd_rec_kernel in the same call")
+        lib = acc["library_ms"]
+        log(f"{name}, one training window (layer 0 + decoder): kernel {acc['ms']:.4f} ms"
+            + (f" (one-launch {acc['chain_ms']:.4f} ms: {acc['chain_ms'] / acc['ms']:.2f}x)"
+               if name == BWD_PASSES[0] else "")
+            + f", bound {acc['bound_ms']:.4f} ms ({bound_by}), plain {acc['plain_ms']:.3f} ms, "
+            f"library {'none' if lib is None else f'{lib:.4f} ms'}")
 
 
 def load_labeled(img_dir: str, n: int):
@@ -742,13 +885,16 @@ def check_tbptt(img_dir: str) -> None:
     route on the card, from the same initial params."""
     import torch
 
-    from helen_tpu_torch.config import MODEL
+    from helen_tpu_torch.config import IMAGE, MODEL, WINDOW
     from helen_tpu_torch.io.checkpoint import opt_leaves, params_to_torch
     from helen_tpu_torch.models.transducer import init_params, param_leaves
+    from helen_tpu_torch.ops import gru_window as gw
+    from helen_tpu_torch.ops import gru_window_bwd as gb
     from helen_tpu_torch.train.train_loop import Adam, tbptt_step
 
     images, yb, yr = load_labeled(img_dir, TB)
     params0 = init_params(torch.Generator().manual_seed(7), MODEL)
+    n_win = WINDOW.num_windows(IMAGE.seq_length)
     runs = {}
     for backend in ("cuda", "torch"):
         p = params_to_torch(params0, images.device)
@@ -756,11 +902,19 @@ def check_tbptt(img_dir: str) -> None:
             t.requires_grad_(True)
         adam = Adam(0.0)
         state = adam.init(p)
+        gw.reset_launch_counts()
+        gb.reset_launch_counts()
         t0 = time.perf_counter()
         tot = tbptt_step(p, adam, state, 1e-4, images, yb, yr, TB, backend)
         sums = [float(v) for v in tot]
         log(f"one TBPTT batch via {backend}: loss sums {sums} in "
             f"{time.perf_counter() - t0:.2f} s")
+        launches = {**gw.launch_counts, **gb.launch_counts}
+        want = (train_counts(n_win, n_win) if backend == "cuda"
+                else dict.fromkeys(launches, 0))
+        log(f"one TBPTT batch via {backend}: launches {launches}, expected {want}")
+        if launches != want:
+            fail(f"the TBPTT batch via {backend} launched other kernels than expected")
         runs[backend] = (sums, [t.detach() for t in param_leaves(p)],
                          [torch.as_tensor(v) for v in opt_leaves(state)[1:]])
     (ks, kp, ko), (ps, pp, po) = runs["cuda"], runs["torch"]
@@ -827,14 +981,16 @@ def run_train(img_dir: str, n_images: int, work: str, results) -> None:
     n_win = WINDOW.num_windows(IMAGE.seq_length)
     train_batches, test_batches = -(-n_images // TB), -(-n_test // TB)
     fwd = TRAIN_EPOCHS * (train_batches + test_batches) * n_win
-    bwd = TRAIN_EPOCHS * train_batches * n_win * 2  # layer 0 + decoder
-    want = {**OFF_PATH_ZERO, **parity_counts(fwd, fwd), BWD_PASSES[0]: bwd, BWD_PASSES[1]: bwd}
+    trained = TRAIN_EPOCHS * train_batches * n_win  # windows with a backward
+    want = train_counts(fwd, trained)
     log(f"train launches {launches}, expected {want} ({TRAIN_EPOCHS} epochs x "
         f"({train_batches} train + {test_batches} test batches) x {n_win} windows; "
-        f"the backward: 2 layers per training window, each pass counted)")
+        f"the backward: 2 layers per training window, each pass counted, pass 1 as the "
+        f"projection, the hp product, the recurrence and (decoder) the dx pass, never "
+        f"bwd_rec_kernel)")
     if launches != want:
         fail("train launch counts differ from batches x windows x layers")
-    for name in BWD_PASSES:
+    for name in (*BWD_PASSES, *BWD_SMEM_KERNELS):
         results[name]["launches"] = launches[name]
     for name in ("bigru_window_in1", "bigru_window_in2", *SMEM_KERNELS):
         results[name]["launches_train"] = launches[name]
@@ -857,8 +1013,7 @@ def run_train(img_dir: str, n_images: int, work: str, results) -> None:
         f"launches {tl}")
     if not same:
         fail("test did not reproduce the last epoch's loss and confusion matrices")
-    if tl != {**OFF_PATH_ZERO, **parity_counts(test_batches * n_win, test_batches * n_win),
-              BWD_PASSES[0]: 0, BWD_PASSES[1]: 0}:
+    if tl != train_counts(test_batches * n_win, 0):
         fail("test launch counts differ from batches x windows")
 
 

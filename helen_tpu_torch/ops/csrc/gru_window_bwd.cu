@@ -24,7 +24,11 @@
 //
 // Two passes, because Hopper's blocks run in no order and the TPU kernel's
 // sequential-grid accumulation of dW/db in VMEM does not carry over:
-//   pass 1 (bwd_rec_kernel): the recurrence. Grid (ceil(B / BT), 2), one
+//   pass 1 (bwd_rec_kernel, the "chain" design; where W_hh^T fits one
+//     block's shared memory, the flagship's H=128 included, pass 1 runs as
+//     gru_window_bwd_smem.cu's three kernels instead, bit for bit the same,
+//     by the fixed shape rule of ops/gru_window_bwd.py bwd_design): the
+//     recurrence. Grid (ceil(B / BT), 2), one
 //     block per BT batch rows and direction, one thread per hidden unit, the
 //     T loop inside the block. h_prev and the step's input rows, dxp and the
 //     n block of dhp live in shared memory; dh_carry lives in registers (each
@@ -105,7 +109,7 @@ bwd_rec_kernel(WindowIn in, int D, const float* __restrict__ h0_f,
   float* gn = gx + BT * H3;   // [BT][H]  n block of dhp (da r)
 
   const float bir = p.b_ih[j], biz = p.b_ih[H + j], bin = p.b_ih[2 * H + j];
-  const float bhr = p.b_hh[j], bhz = p.b_hh[H + j], bhn = p.b_hh[2 * H + j];
+  const CellBias bias{bir, biz, bin, p.b_hh[j], p.b_hh[H + j], p.b_hh[2 * H + j]};
   float dhc[BT];  // dh_carry of unit j, for the block's BT rows
 #pragma unroll
   for (int r = 0; r < BT; ++r) {
@@ -160,29 +164,20 @@ bwd_rec_kernel(WindowIn in, int D, const float* __restrict__ h0_f,
 #pragma unroll
     for (int r = 0; r < BT; ++r) {
       const int b = b0 + r;
-      const float rg = sigmoidf_((xr[r] + bir) + (hr[r] + bhr));
-      const float zg = sigmoidf_((xz[r] + biz) + (hz[r] + bhz));
-      const float hpn = hq[r] + bhn;
-      const float ng = tanhf((xn[r] + bin) + rg * hpn);
-      const float hp = hs[r * H + j];
       const float dh = ((b < B) ? dout[((size_t)tt * B + b) * H + j] : 0.0f) + dhc[r];
-      const float dz = dh * (hp - ng);
-      const float da = dh * (1.0f - zg) * (1.0f - ng * ng);
-      const float dr = da * hpn;
-      const float drpre = dr * rg * (1.0f - rg);
-      const float dzpre = dz * zg * (1.0f - zg);
-      const float dn = da * rg;
-      gx[r * H3 + j] = drpre;
-      gx[r * H3 + H + j] = dzpre;
-      gx[r * H3 + 2 * H + j] = da;
-      gn[r * H + j] = dn;
-      dhz[r] = dh * zg;
+      const CellGrad c = gru_cell_bwd(xr[r] + bir, xz[r] + biz, xn[r] + bin, hr[r], hz[r],
+                                      hq[r], bias, hs[r * H + j], dh);
+      gx[r * H3 + j] = c.drpre;
+      gx[r * H3 + H + j] = c.dzpre;
+      gx[r * H3 + 2 * H + j] = c.da;
+      gn[r * H + j] = c.dn;
+      dhz[r] = c.dhz;
       if (b < B) {
         float* g = dxp_g + ((size_t)tt * B + b) * H3;
-        g[j] = drpre;
-        g[H + j] = dzpre;
-        g[2 * H + j] = da;
-        dhpn_g[((size_t)tt * B + b) * H + j] = dn;
+        g[j] = c.drpre;
+        g[H + j] = c.dzpre;
+        g[2 * H + j] = c.da;
+        dhpn_g[((size_t)tt * B + b) * H + j] = c.dn;
       }
     }
     __syncthreads();
@@ -204,7 +199,7 @@ bwd_rec_kernel(WindowIn in, int D, const float* __restrict__ h0_f,
       for (int r = 0; r < BT; ++r) acc[r] = fmaf(gn[r * H + k], w, acc[r]);
     }
 #pragma unroll
-    for (int r = 0; r < BT; ++r) dhc[r] = dhz[r] + acc[r];
+    for (int r = 0; r < BT; ++r) dhc[r] = __fadd_rn(dhz[r], acc[r]);  // never fused
 
     // dx[t] = dxp W_ih^T, one input feature per thread and pass
     if (dx != nullptr) {

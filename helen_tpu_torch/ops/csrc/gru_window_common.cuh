@@ -152,6 +152,32 @@ __device__ __forceinline__ float gru_gates(float xr, float xz, float xn, float h
   return blend<FAST>(zg, ng, hc);
 }
 
+// The backward of one row's cell step (parity tier): the gates recomputed as
+// gru_gates forms them, from xp with b_ih added (xr, xz, xn), the sums of
+// h_prev W_hh without b_hh (hr, hz, hq) and h_prev itself (hp), then the
+// cotangents for dh = dout + dh_carry:
+//   dz = dh (h_prev - n),  da = dh (1 - z)(1 - n^2),  dr = da hp_n
+//   dxp = [drpre | dzpre | da],  dhp = [drpre | dzpre | dn = da r]
+// and dh z, the carry's own term. The one-launch backward (gru_window_bwd.cu)
+// and the recurrence with W_hh^T in shared memory (gru_window_bwd_smem.cu)
+// both take their cotangents from here, so the two designs round alike.
+struct CellGrad {
+  float drpre, dzpre, da, dn, dhz;
+};
+
+__device__ __forceinline__ CellGrad gru_cell_bwd(float xr, float xz, float xn, float hr,
+                                                 float hz, float hq, const CellBias& bias,
+                                                 float hp, float dh) {
+  const float rg = sigmoidf_(xr + (hr + bias.hr));
+  const float zg = sigmoidf_(xz + (hz + bias.hz));
+  const float hpn = hq + bias.hn;
+  const float ng = tanhf(xn + rg * hpn);
+  const float dz = dh * (hp - ng);
+  const float da = dh * (1.0f - zg) * (1.0f - ng * ng);
+  const float dr = da * hpn;
+  return {dr * rg * (1.0f - rg), dz * zg * (1.0f - zg), da, da * rg, dh * zg};
+}
+
 // One step: xp = [x0 | x1] W_ih (x0's d0 inputs take W_ih rows [0, d0), x1's
 // d1 inputs the rows after; both with row stride ldx), hp = ho W_hh over the
 // operand copy of h (the state itself in the parity tier, its bf16 rounding

@@ -52,177 +52,25 @@
 // The scratch costs 2 x 157 MB of device traffic at B=512 (0.09 ms at 3.35
 // TB/s), which the design trades for a projection out of the serial chain.
 
-#include "gru_window_common.cuh"
+#include "gru_window_smem.cuh"
 
 namespace {
 
-constexpr int PJ_BM = 128;          // projection rows (t, b) per block
-constexpr int PJ_BN = 128;          // projection columns of 3H per block
-constexpr int PJ_BK = 8;            // k per shared-memory stage
-constexpr int PJ_THREADS = 256;     // 16 x 16 threads, 8 x 8 outputs each
-constexpr int PJ_APAD = PJ_BM + 4;  // row stride of the transposed x stage
-constexpr int REC_SPLIT = 2;        // threads per hidden unit at >= 2 rows
-constexpr int REC_MAX_THREADS = 320;  // the recurrence's launch bound
-
-// h's row stride in shared memory: H rounded up to 4 floats, for float4 reads
-__host__ __device__ inline int rec_hp(int H) { return (H + 3) / 4 * 4; }
-
 // The recurrence block's dynamic shared memory: h double-buffered, then W_hh.
 inline size_t rec_smem(int H, int rows) {
-  return sizeof(float) * (2 * (size_t)rows * rec_hp(H) + 3 * (size_t)H * H);
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-__device__ __forceinline__ float lane(const float4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+  return sizeof(float) * (2 * (size_t)rows * round4(H) + 3 * (size_t)H * H);
 }
 
 // ---------------------------------------------------------------------------
-// The projection pass
+// The projection pass: the tile product (gru_window_smem.cuh) of the window's
+// input rows and W_ih, + b_ih
 // ---------------------------------------------------------------------------
 
-// Element k of input row `base` (the image offset of (b, start + t), or
-// K2's row m = t * B + b times H); 0 past D
-template <bool PAIR>
-__device__ __forceinline__ float proj_x(const WindowIn& in, long long base, int k, int D,
-                                        int H) {
-  if (k >= D) return 0.0f;
-  if (PAIR) return k < H ? __ldg(in.xa + base + k) : __ldg(in.xb + base + (k - H));
-  return (float)__ldg(in.img + base + k);
-}
-
-template <bool PAIR>
-__global__ void __launch_bounds__(PJ_THREADS, 2)
-window_proj_kernel(WindowIn in, int D, const float* __restrict__ w_f,
-                   const float* __restrict__ w_b, const float* __restrict__ b_f,
-                   const float* __restrict__ b_b, float* __restrict__ xp, int T, int B,
-                   int H) {
-  const int dir = blockIdx.z;
-  const float* __restrict__ w = dir ? w_b : w_f;
-  const float* __restrict__ bias = dir ? b_b : b_f;
-  const int N = 3 * H, M = T * B;
-  const int m0 = blockIdx.x * PJ_BM, n0 = blockIdx.y * PJ_BN;
-  const int tid = threadIdx.x;
-
-  __shared__ __align__(16) float As[2][PJ_BK][PJ_APAD];  // x stage, transposed
-  __shared__ __align__(16) float Bs[2][PJ_BK][PJ_BN];    // W_ih stage
-
-  // each thread loads x rows ar + 32 i at k = ak, and W_ih rows bk + 2 i at
-  // column bn, of every stage
-  const int ak = tid % PJ_BK, ar = tid / PJ_BK;
-  const int bn = tid % PJ_BN, bk = tid / PJ_BN;
-  long long abase[4];
-  bool aok[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ar + 32 * i;
-    aok[i] = m < M;
-    const int t = aok[i] ? m / B : 0;
-    const int b = aok[i] ? m - t * B : 0;
-    abase[i] = PAIR ? (long long)m * H : (long long)b * in.sb + (long long)(in.start + t) * in.sl;
-  }
-  const bool bok = n0 + bn < N;
-  float av[4], bv[4];
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      av[i] = aok[i] ? proj_x<PAIR>(in, abase[i], k0 + ak, D, H) : 0.0f;
-      const int k = k0 + bk + 2 * i;
-      bv[i] = (bok && k < D) ? __ldg(w + (size_t)k * N + n0 + bn) : 0.0f;
-    }
-  };
-  auto store = [&](int s) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      As[s][ak][ar + 32 * i] = av[i];
-      Bs[s][bk + 2 * i][bn] = bv[i];
-    }
-  };
-
-  // thread (tx, ty) owns rows ty*4 + {0..3}, 64 + ty*4 + {0..3} and columns
-  // tx*4 + {0..3}, 64 + tx*4 + {0..3} of the block's tile
-  const int tx = tid % 16, ty = tid / 16;
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-  }
-  const int stages = (D + PJ_BK - 1) / PJ_BK;
-  load(0);
-  store(0);
-  __syncthreads();
-  for (int ks = 0; ks < stages; ++ks) {
-    const int s = ks & 1;
-    if (ks + 1 < stages) load((ks + 1) * PJ_BK);
-#pragma unroll
-    for (int kk = 0; kk < PJ_BK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[s][kk][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[s][kk][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[s][kk][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[s][kk][64 + tx * 4]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float v[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], v[j], acc[i][j]);
-      }
-    }
-    if (ks + 1 < stages) store(s ^ 1);
-    __syncthreads();
-  }
-
-  // xp = acc + b_ih, one rounding, as gru_step's `xr + bias.ir`
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + (i - 4));
-    if (m >= M) continue;
-    float* row = xp + ((size_t)dir * M + m) * N;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int n = n0 + half * 64 + tx * 4;
-      const int c = half * 4;
-      if ((N & 3) == 0) {
-        if (n < N) {
-          *reinterpret_cast<float4*>(row + n) = make_float4(
-              acc[i][c] + __ldg(bias + n), acc[i][c + 1] + __ldg(bias + n + 1),
-              acc[i][c + 2] + __ldg(bias + n + 2), acc[i][c + 3] + __ldg(bias + n + 3));
-        }
-      } else {
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          if (n + q < N) row[n + q] = acc[i][c + q] + __ldg(bias + n + q);
-        }
-      }
-    }
-  }
-}
-
-template <bool PAIR>
-int launch_proj(const WindowIn& in, int D, const float* w_f, const float* b_f,
-                const float* w_b, const float* b_b, float* xp, int T, int B, int H,
-                void* stream) {
+int check_proj(int D, int T, int B, int H) {
   if (H < 1 || D < 1 || T < 1 || B < 1 || (long long)T * B > (1LL << 30)) {
     return (int)cudaErrorInvalidValue;
   }
-  dim3 grid((T * B + PJ_BM - 1) / PJ_BM, (3 * H + PJ_BN - 1) / PJ_BN, 2);
-  window_proj_kernel<PAIR><<<grid, PJ_THREADS, 0, (cudaStream_t)stream>>>(
-      in, D, w_f, w_b, b_f, b_b, xp, T, B, H);
-  return (int)cudaGetLastError();
+  return 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -245,7 +93,7 @@ window_rec_kernel(const float* __restrict__ xp, const float* __restrict__ h0_f,
   const float* __restrict__ h0 = dir ? h0_b : h0_f;
   float* __restrict__ out = dir ? out_b : out_f;
   float* __restrict__ hn = dir ? hn_b : hn_f;
-  const int H3 = 3 * H, HP = rec_hp(H);
+  const int H3 = 3 * H, HP = round4(H);
   const int tid = threadIdx.x, nthreads = blockDim.x;  // blockDim.x == SPLIT * H
   const int j = tid % H;                // hidden unit
   const int g = tid / H;                // row group: rows g * RPT .. + RPT - 1
@@ -256,14 +104,7 @@ window_rec_kernel(const float* __restrict__ xp, const float* __restrict__ h0_f,
   float* ws = smem + 2 * ROWS * HP;  // [H][3H] W_hh, 16-byte aligned
 
   // W_hh into shared memory, once for all T steps
-  const int nw = H * H3;
-  if ((reinterpret_cast<uintptr_t>(w) & 15) == 0) {
-    const int n4 = nw / 4;
-    for (int i = tid; i < n4; i += nthreads) cp_async16(ws + 4 * i, w + 4 * i);
-    for (int i = 4 * n4 + tid; i < nw; i += nthreads) cp_async4(ws + i, w + i);
-  } else {
-    for (int i = tid; i < nw; i += nthreads) cp_async4(ws + i, w + i);
-  }
+  stage_async(ws, w, H * H3, tid, nthreads);
 
   const CellBias bias{0.0f, 0.0f, 0.0f, bh[j], bh[H + j], bh[2 * H + j]};
 #pragma unroll
@@ -385,8 +226,10 @@ int bigru_window_rec_max_threads() { return REC_MAX_THREADS; }
 int bigru_window_proj_in1(const uint8_t* img, long long sb, long long sl, int start, int D,
                           const float* wi_f, const float* bi_f, const float* wi_b,
                           const float* bi_b, float* xp, int T, int B, int H, void* stream) {
-  WindowIn in{img, sb, sl, start, nullptr, nullptr};
-  return launch_proj<false>(in, D, wi_f, bi_f, wi_b, bi_b, xp, T, B, H, stream);
+  if (int e = check_proj(D, T, B, H)) return e;
+  const ImageRows src{WindowIn{img, sb, sl, start, nullptr, nullptr}, D, B};
+  return launch_tile_product<true>(src, T * B, D, 3 * H, wi_f, wi_b, bi_f, bi_b, xp,
+                                   stream);
 }
 
 // K2's projection: xa, xb (T, B, H) fp32, W_ih (2H, 3H): rows [0, H) take
@@ -394,8 +237,10 @@ int bigru_window_proj_in1(const uint8_t* img, long long sb, long long sl, int st
 int bigru_window_proj_in2(const float* xa, const float* xb, const float* wi_f,
                           const float* bi_f, const float* wi_b, const float* bi_b, float* xp,
                           int T, int B, int H, void* stream) {
-  WindowIn in{nullptr, 0, 0, 0, xa, xb};
-  return launch_proj<true>(in, 2 * H, wi_f, bi_f, wi_b, bi_b, xp, T, B, H, stream);
+  if (int e = check_proj(2 * H, T, B, H)) return e;
+  const PairRows src{xa, xb, H};
+  return launch_tile_product<true>(src, T * B, 2 * H, 3 * H, wi_f, wi_b, bi_f, bi_b, xp,
+                                   stream);
 }
 
 // The recurrence over xp (2, T, B, 3H) from h0_f/h0_b (B, H), W_hh (H, 3H),

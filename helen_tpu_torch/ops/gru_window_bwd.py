@@ -1,20 +1,34 @@
-"""The backward of one bi-GRU window layer: the hand-written CUDA kernel,
-its plain version and its launch counters.
+"""The backward of one bi-GRU window layer: the hand-written CUDA kernels,
+their plain version and their launch counters.
 
 :func:`bigru_window_bwd` is the port of helen_tpu's ``_bwd_kernel_ip``
 (``helen_tpu/ops/gru_pallas_train.py:321``), the backward of the training
-window with the input projection in-kernel. Its source is
-``ops/csrc/gru_window_bwd.cu``, built into the one kernel library with the
-window kernels (``gru_window.build_kernels``). It runs as two launches,
-each counted in :data:`launch_counts`:
+window with the input projection in-kernel. It runs as two passes, each
+counted once per layer-window in :data:`launch_counts`:
 
-* ``bigru_window_bwd_rec`` (pass 1): the recurrence, unwound in reverse
-  per direction; recomputes the gates from x and h_prev, carries dh, and
-  streams ``dxp`` and the n block of ``dhp`` to scratch; writes dh0 and,
-  for later layers, dx per direction;
-* ``bigru_window_bwd_wgrad`` (pass 2): dW_ih, db_ih, dW_hh, db_hh as a
-  tiled reduction over the window's T*B rows in one fixed order (no
-  atomics: bit-identical across launches).
+* ``bigru_window_bwd_rec`` (pass 1, :func:`bigru_window_bwd_rec`): the
+  recurrence, unwound in reverse per direction; recomputes the gates from
+  x and h_prev, carries dh, and streams ``dxp`` and the n block of ``dhp``
+  to scratch; writes dh0 and, for later layers, dx. It has two designs,
+  picked by a fixed rule of the shape (:func:`bwd_design`):
+
+  - ``"smem"`` (ops.gru_window_bwd_smem, ``csrc/gru_window_bwd_smem.cu``),
+    where ``W_hh^T`` fits one block's shared memory (the flagship's
+    H=128): a gate pass over the whole window (K1/K2's projection
+    ``bigru_window_proj_in1``/``_in2`` and ``bigru_window_bwd_hp``), the
+    recurrence ``bigru_window_bwd_rec_smem`` with ``W_hh^T`` in shared
+    memory, and for later layers the dx pass ``bigru_window_bwd_dx``;
+  - ``"chain"``, elsewhere: one launch of ``bwd_rec_kernel``
+    (``csrc/gru_window_bwd.cu``, counted as ``bigru_window_bwd_rec_chain``),
+    the gate recompute and dx inside the serial loop.
+
+  Both take every sum in the same order and the same cotangent lines, so
+  they give the same bits;
+* ``bigru_window_bwd_wgrad`` (pass 2, ``csrc/gru_window_common.cuh``):
+  dW_ih, db_ih, dW_hh, db_hh as a tiled reduction over the window's T*B
+  rows in one fixed order (no atomics: bit-identical across launches).
+
+Every kernel also counts its own launches under its name.
 
 The forward needs no kernel of its own: ``_fwd_kernel_ip`` computes what
 K1/K2 (``ops.gru_window``) compute, and the backward saves nothing beyond
@@ -51,7 +65,15 @@ Grads = Tuple[Optional[torch.Tensor], torch.Tensor, torch.Tensor, Layer]
 #: launches of each pass since the last reset_launch_counts() — counted
 #: where the kernel is launched and nowhere else
 launch_counts: Dict[str, int] = {"bigru_window_bwd_rec": 0,
-                                 "bigru_window_bwd_wgrad": 0}
+                                 "bigru_window_bwd_wgrad": 0,
+                                 # pass 1's kernels: the one-launch design
+                                 "bigru_window_bwd_rec_chain": 0,
+                                 # and the other (ops.gru_window_bwd_smem)
+                                 "bigru_window_bwd_hp": 0,
+                                 "bigru_window_bwd_rec_smem": 0,
+                                 "bigru_window_bwd_dx": 0}
+#: pass 1's designs (see bwd_design)
+DESIGNS = ("smem", "chain")
 
 #: one direction's params, in the order the kernel library takes them
 KEYS = ("w_ih", "w_hh", "b_ih", "b_hh")
@@ -86,14 +108,25 @@ def unwind_plain(xp: torch.Tensor, h_prev: torch.Tensor, dout: torch.Tensor,
                  dh_final: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
                  rev: bool):
     """One direction's backward recurrence from its projected input ``xp``
-    (T, B, 3H) and its ``h_prev`` stream: the gates recomputed for the whole
-    window at once, the carry unwound step by step (helen_tpu's equations,
-    ``gru_pallas_train.py:51-62``, ``_bwd_dir`` ``:151-163``).
+    (T, B, 3H) and its ``h_prev`` stream: :func:`unwind_gates` with ``hp =
+    h_prev @ w_hh + b_hh``.
+
+    :returns: (dxp (T, B, 3H), dhp_n (T, B, H), dh0 (B, H))"""
+    return unwind_gates(xp, h_prev @ w_hh + b_hh, h_prev, dout, dh_final, w_hh, rev)
+
+
+def unwind_gates(xp: torch.Tensor, hp: torch.Tensor, h_prev: torch.Tensor,
+                 dout: torch.Tensor, dh_final: torch.Tensor, w_hh: torch.Tensor,
+                 rev: bool):
+    """The backward recurrence given both projections, ``xp`` (``b_ih``
+    added) and ``hp = h_prev @ w_hh + b_hh``, each (T, B, 3H): the gates
+    recomputed for the whole window at once, the carry unwound step by step
+    (helen_tpu's equations, ``gru_pallas_train.py:51-62``, ``_bwd_dir``
+    ``:151-163``).
 
     :returns: (dxp (T, B, 3H), dhp_n (T, B, H), dh0 (B, H))"""
     T, _, H3 = xp.shape
     H = H3 // 3
-    hp = h_prev @ w_hh + b_hh
     r = torch.sigmoid(xp[..., :H] + hp[..., :H])
     z = torch.sigmoid(xp[..., H:2 * H] + hp[..., H:2 * H])
     hp_n = hp[..., 2 * H:]
@@ -184,78 +217,174 @@ def bigru_window_bwd_plain(src: Source, start: int, h0_f, h0_b, out_f, out_b,
 
 
 # ---------------------------------------------------------------------------
-# kernel wrapper
+# kernel wrappers
 # ---------------------------------------------------------------------------
 
-def bigru_window_bwd(src: Source, start: int, h0_f, h0_b, out_f, out_b,
-                     dout_f, dout_b, dh_f, dh_b, layer: Layer,
-                     need_dx: bool = True) -> Grads:
-    """The backward of one bi-GRU window layer (see the module docstring):
-    pass 1 then pass 2 on the current stream. ``need_dx`` is ignored for
-    the image (layer 0 has no dx)."""
-    pair = isinstance(src, tuple)
-    lead = src[0] if pair else src
-    if lead.device.type == "cpu":
-        return bigru_window_bwd_plain(src, start, h0_f, h0_b, out_f, out_b,
-                                      dout_f, dout_b, dh_f, dh_b, layer,
-                                      need_dx and pair)
-    dev = _cuda_device(lead, "bigru_window_bwd")
-    T, B, H = out_f.shape
-    if not 0 < H <= MAX_H:
-        raise ValueError(f"H={H} exceeds the backward kernel's maximum {MAX_H}")
-    if pair:
-        xa, xb = src
-        _check("xa", xa, (T, B, H), torch.float32, dev)
-        _check("xb", xb, (T, B, H), torch.float32, dev)
-        D = 2 * H
-        img_args = [None, 0, 0, 0, xa.data_ptr(), xb.data_ptr(), D]
-    else:
-        if src.dtype != torch.uint8 or src.dim() != 3 or src.stride(2) != 1:
-            raise ValueError("bigru_window_bwd takes a (B, L, F) uint8 image "
-                             "with unit feature stride, or an (xa, xb) pair")
-        Bi, L, D = src.shape
-        if Bi != B or not (0 <= start and start + T <= L):
-            raise ValueError(f"window [{start}, {start + T}) of a {tuple(src.shape)} "
-                             f"image for outputs of {(T, B, H)}")
-        img_args = [src.data_ptr(), src.stride(0), src.stride(1), start, None, None, D]
-    for name, t, shape in (("h0_f", h0_f, (B, H)), ("h0_b", h0_b, (B, H)),
-                           ("out_f", out_f, (T, B, H)), ("out_b", out_b, (T, B, H)),
-                           ("dout_f", dout_f, (T, B, H)), ("dout_b", dout_b, (T, B, H)),
-                           ("dh_f", dh_f, (B, H)), ("dh_b", dh_b, (B, H))):
-        _check(name, t, shape, torch.float32, dev)
-    w = _layer_args(layer, D, H, dev)  # checks, and the forward's pointers
+def bwd_design(H: int, B: int, design=None) -> str:
+    """Pass 1's design at hidden size ``H`` and batch ``B``: ``"smem"``
+    where ``gru_window_bwd_smem.bwd_fits_smem`` holds (``W_hh^T`` and the
+    dhp buffers in one block's shared memory at ``rec_block_rows(B)`` rows;
+    the flagship's H=128), else ``"chain"``, ``bwd_rec_kernel``. A fixed
+    rule of the shape, not a fallback. ``design`` forces one (tests,
+    chip_smoke.py's comparison of the two); ``"smem"`` raises where the
+    rule does not hold."""
+    from helen_tpu_torch.ops.gru_window_bwd_smem import bwd_fits_smem
+
+    fits = bwd_fits_smem(H, B)
+    if design is None:
+        return "smem" if fits else "chain"
+    if design not in DESIGNS:
+        raise ValueError(f"design {design!r} is not one of {DESIGNS}")
+    if design == "smem" and not fits:
+        raise ValueError(f"design 'smem' does not take H={H}, B={B}: W_hh^T does not fit "
+                         "one block's shared memory")
+    return design
+
+
+class _Window:
+    """The checked arguments of one layer-window's backward launches."""
+
+    def __init__(self, name: str, src: Source, start: int, h0_f, h0_b, out_f, out_b,
+                 dout_f, dout_b, dh_f, dh_b, layer: Layer):
+        self.pair = isinstance(src, tuple)
+        lead = src[0] if self.pair else src
+        dev = self.dev = _cuda_device(lead, name)
+        T, B, H = self.T, self.B, self.H = out_f.shape
+        if not 0 < H <= MAX_H:
+            raise ValueError(f"H={H} exceeds the backward kernel's maximum {MAX_H}")
+        if self.pair:
+            xa, xb = src
+            _check("xa", xa, (T, B, H), torch.float32, dev)
+            _check("xb", xb, (T, B, H), torch.float32, dev)
+            D = 2 * H
+            self.img_args = [None, 0, 0, 0, xa.data_ptr(), xb.data_ptr(), D]
+        else:
+            if src.dtype != torch.uint8 or src.dim() != 3 or src.stride(2) != 1:
+                raise ValueError(f"{name} takes a (B, L, F) uint8 image with unit feature "
+                                 "stride, or an (xa, xb) pair")
+            Bi, L, D = src.shape
+            if Bi != B or not (0 <= start and start + T <= L):
+                raise ValueError(f"window [{start}, {start + T}) of a {tuple(src.shape)} "
+                                 f"image for outputs of {(T, B, H)}")
+            self.img_args = [src.data_ptr(), src.stride(0), src.stride(1), start, None,
+                             None, D]
+        self.D = D
+        for n, t, shape in (("h0_f", h0_f, (B, H)), ("h0_b", h0_b, (B, H)),
+                            ("out_f", out_f, (T, B, H)), ("out_b", out_b, (T, B, H)),
+                            ("dout_f", dout_f, (T, B, H)), ("dout_b", dout_b, (T, B, H)),
+                            ("dh_f", dh_f, (B, H)), ("dh_b", dh_b, (B, H))):
+            _check(n, t, shape, torch.float32, dev)
+        self.w = _layer_args(layer, D, H, dev)  # checks, and the forward's pointers
+
+
+def _empty(dev, *shape) -> torch.Tensor:
+    return torch.empty(shape, dtype=torch.float32, device=dev)
+
+
+def _rec_chain(a: _Window, h0_f, h0_b, out_f, out_b, dout_f, dout_b, dh_f, dh_b, layer,
+               want_dx):
+    """Pass 1 as one launch of bwd_rec_kernel (gru_window_bwd.cu)."""
+    T, B, H, D, dev = a.T, a.B, a.H, a.D, a.dev
     # the transposes the kernel reads coalesced (helen_tpu's wrapper makes
     # the same swapaxes copies, gru_pallas_train.py:655-656)
     wT = {d: (layer[d]["w_ih"].T.contiguous(), layer[d]["w_hh"].T.contiguous())
           for d in ("fwd", "bwd")}
     weights = []
     for i, d in enumerate(("fwd", "bwd")):
-        wi, wh, bi, bh = w[4 * i:4 * i + 4]
+        wi, wh, bi, bh = a.w[4 * i:4 * i + 4]
         weights += [wi, wh, wT[d][0].data_ptr(), wT[d][1].data_ptr(), bi, bh]
-    e = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)  # noqa: E731
-    dxp, dhpn = e(2, T, B, 3 * H), e(2, T, B, H)
-    want_dx = need_dx and pair
-    dx_f, dx_b = (e(T, B, D), e(T, B, D)) if want_dx else (None, None)
-    dh0_f, dh0_b = e(B, H), e(B, H)
-    grads = {d: {"w_ih": e(D, 3 * H), "w_hh": e(H, 3 * H), "b_ih": e(3 * H),
-                 "b_hh": e(3 * H)} for d in ("fwd", "bwd")}
+    dxp, dhpn = _empty(dev, 2, T, B, 3 * H), _empty(dev, 2, T, B, H)
+    dx_f, dx_b = (_empty(dev, T, B, D), _empty(dev, T, B, D)) if want_dx else (None, None)
+    dh0_f, dh0_b = _empty(dev, B, H), _empty(dev, B, H)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    lib = get_lib()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.bigru_window_bwd_rec(
-            *img_args, *(t.data_ptr() for t in (h0_f, h0_b, out_f, out_b, dout_f,
-                                                dout_b, dh_f, dh_b)),
+        err = get_lib().bigru_window_bwd_rec(
+            *a.img_args, *(t.data_ptr() for t in (h0_f, h0_b, out_f, out_b, dout_f,
+                                                  dout_b, dh_f, dh_b)),
             *weights, dxp.data_ptr(), dhpn.data_ptr(), ptr(dx_f), ptr(dx_b),
-            dh0_f.data_ptr(), dh0_b.data_ptr(), T, B, H, stream)
-        _raise_on(err, "bigru_window_bwd_rec")
-        launch_counts["bigru_window_bwd_rec"] += 1
-        err = lib.bigru_window_bwd_wgrad(
-            *img_args, *(t.data_ptr() for t in (h0_f, h0_b, out_f, out_b)),
+            dh0_f.data_ptr(), dh0_b.data_ptr(), T, B, H,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "bigru_window_bwd_rec")
+    launch_counts["bigru_window_bwd_rec_chain"] += 1
+    return dxp, dhpn, (dx_f + dx_b if want_dx else None), dh0_f, dh0_b
+
+
+def _rec_smem(a: _Window, src, start, h0_f, h0_b, out_f, out_b, dout_f, dout_b, dh_f,
+              dh_b, layer, want_dx):
+    """Pass 1 as the gate pass (K1/K2's projection and the hp product), the
+    recurrence with W_hh^T in shared memory, and the dx pass
+    (ops.gru_window_bwd_smem)."""
+    from helen_tpu_torch.ops import gru_window_bwd_smem as gbs
+    from helen_tpu_torch.ops import gru_window_smem as gs
+
+    dev = a.dev
+    if a.pair:
+        xp = gs.launch_proj_in2(src[0], src[1], a.w, dev)
+    else:
+        xp = gs.launch_proj_in1(src, start, a.T, a.D, a.H, a.w, dev)
+    hp = gbs.launch_hp(h0_f, h0_b, out_f, out_b, layer["fwd"]["w_hh"],
+                       layer["bwd"]["w_hh"], dev)
+    whT = [layer[d]["w_hh"].T.contiguous() for d in ("fwd", "bwd")]
+    dxp, dhpn, dh0_f, dh0_b = gbs.launch_rec(
+        xp, hp, h0_f, h0_b, out_f, out_b, dout_f, dout_b, dh_f, dh_b, *whT,
+        layer["fwd"]["b_hh"], layer["bwd"]["b_hh"], dev)
+    del xp, hp  # 2 x 78.6 MB at B=256 back to the allocator before the dx pass
+    dx = None
+    if want_dx:
+        dx2 = gbs.launch_dx(dxp, *(layer[d]["w_ih"].T.contiguous() for d in ("fwd", "bwd")),
+                            dev)
+        dx = dx2[0] + dx2[1]
+    return dxp, dhpn, dx, dh0_f, dh0_b
+
+
+def _rec(a: _Window, design, src, start, *rest, need_dx: bool):
+    """Pass 1 in the design :func:`bwd_design` picks, counted once."""
+    want_dx = need_dx and a.pair
+    if bwd_design(a.H, a.B, design) == "smem":
+        res = _rec_smem(a, src, start, *rest, want_dx)
+    else:
+        res = _rec_chain(a, *rest, want_dx)
+    launch_counts["bigru_window_bwd_rec"] += 1
+    return res
+
+
+def bigru_window_bwd_rec(src: Source, start: int, h0_f, h0_b, out_f, out_b,
+                         dout_f, dout_b, dh_f, dh_b, layer: Layer,
+                         need_dx: bool = True, design=None):
+    """Pass 1 alone, in the design :func:`bwd_design` picks (``design``
+    forces one): the outputs of :func:`bigru_window_bwd_rec_plain`, ``(dxp,
+    dhp_n, dx or None, dh0_f, dh0_b)``. ``need_dx`` is ignored for the
+    image (layer 0 has no dx)."""
+    args = (src, start, h0_f, h0_b, out_f, out_b, dout_f, dout_b, dh_f, dh_b, layer)
+    pair = isinstance(src, tuple)
+    if (src[0] if pair else src).device.type == "cpu":
+        return bigru_window_bwd_rec_plain(*args, need_dx and pair)
+    return _rec(_Window("bigru_window_bwd_rec", *args), design, *args, need_dx=need_dx)
+
+
+def bigru_window_bwd(src: Source, start: int, h0_f, h0_b, out_f, out_b,
+                     dout_f, dout_b, dh_f, dh_b, layer: Layer,
+                     need_dx: bool = True, design=None) -> Grads:
+    """The backward of one bi-GRU window layer (see the module docstring):
+    pass 1, in the design :func:`bwd_design` picks (``design`` forces one),
+    then pass 2, on the current stream. ``need_dx`` is ignored for the
+    image (layer 0 has no dx)."""
+    args = (src, start, h0_f, h0_b, out_f, out_b, dout_f, dout_b, dh_f, dh_b, layer)
+    pair = isinstance(src, tuple)
+    if (src[0] if pair else src).device.type == "cpu":
+        return bigru_window_bwd_plain(*args, need_dx and pair)
+    a = _Window("bigru_window_bwd", *args)
+    dxp, dhpn, dx, dh0_f, dh0_b = _rec(a, design, *args, need_dx=need_dx)
+    T, B, H, D, dev = a.T, a.B, a.H, a.D, a.dev
+    grads = {d: {"w_ih": _empty(dev, D, 3 * H), "w_hh": _empty(dev, H, 3 * H),
+                 "b_ih": _empty(dev, 3 * H), "b_hh": _empty(dev, 3 * H)}
+             for d in ("fwd", "bwd")}
+    with torch.cuda.device(dev):
+        err = get_lib().bigru_window_bwd_wgrad(
+            *a.img_args, *(t.data_ptr() for t in (h0_f, h0_b, out_f, out_b)),
             dxp.data_ptr(), dhpn.data_ptr(),
             *(grads[d][k].data_ptr() for d in ("fwd", "bwd") for k in KEYS),
-            T, B, H, stream)
-        _raise_on(err, "bigru_window_bwd_wgrad")
-        launch_counts["bigru_window_bwd_wgrad"] += 1
-    dx = dx_f + dx_b if want_dx else None
+            T, B, H, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "bigru_window_bwd_wgrad")
+    launch_counts["bigru_window_bwd_wgrad"] += 1
     return dx, dh0_f, dh0_b, grads

@@ -40,7 +40,11 @@ under multi-host runs (process 0 cannot see other hosts' predictions in
 memory) and under --resume (previously-stored chunks never re-run, so the
 in-memory view would be incomplete). A worker failure mid-stream degrades
 per group: the store — fully written by finish time — is re-read for just
-that group via the classic worker.
+that group via the classic worker. The whole stream breaks (every buffer
+dropped, the classic stitch of the complete store takes over) on a record
+the plan did not predict, including a second record for a region that has
+already sealed, and when the chunks buffered in regions not yet sealed pass
+``StreamingStitcher.UNSEALED_BYTES_LIMIT`` bytes.
 """
 from __future__ import annotations
 
@@ -108,13 +112,14 @@ def _stitch_mem_join(region_sequences, cfg: StitchConfig):
 
 
 class _Region:
-    __slots__ = ("start", "end", "expected", "chunks", "group")
+    __slots__ = ("start", "end", "expected", "received", "chunks", "group")
 
     def __init__(self, start: int, end: int, group: int):
         self.start = start
         self.end = end
         self.expected = 0
-        self.chunks: List[tuple] = []
+        self.received = 0  # chunks accepted; == expected once sealed
+        self.chunks: List[tuple] = []  # buffered until the region seals
         self.group = group
 
 
@@ -215,6 +220,11 @@ class StreamingStitcher:
     # of arrays per chunk = a few-MB pickle, milliseconds.
     SUB_BATCH_REGIONS = 32
     SUB_BATCH_BYTES = 8 << 20
+    # bound on the label bytes buffered in regions not yet sealed. Images
+    # arrive in region order, so a handful of regions is open at a time
+    # (~15 KB a chunk); past the bound the stream is out of order at a scale
+    # main-process memory should not absorb, and the store stitch takes over
+    UNSEALED_BYTES_LIMIT = 1 << 30
 
     def __init__(self, plan: StreamPlan, cfg: StitchConfig = STITCH,
                  with_quality: bool = False, executor=None,
@@ -227,6 +237,7 @@ class StreamingStitcher:
         self._executor = executor
         self.broken = executor is None
         self._unsealed = sum(r.expected for r in plan.regions.values())
+        self._unsealed_bytes = 0  # payload bytes in regions not yet sealed
         self._lock = threading.Lock()  # guards group merge/join bookkeeping
         if sub_batch_regions is not None:
             self.SUB_BATCH_REGIONS = sub_batch_regions
@@ -240,7 +251,7 @@ class StreamingStitcher:
             return
         region_key = f"{rec.contig}-{rec.contig_start}-{rec.contig_end}"
         region = self.plan.regions.get((rec.contig, region_key))
-        if region is None or len(region.chunks) >= region.expected:
+        if region is None or region.received >= region.expected:
             # a record the plan did not predict — the pre-scan and the
             # stream disagree, so the in-memory view cannot be trusted
             log.warning("stream plan mismatch at %s chunk %s; falling back "
@@ -264,19 +275,27 @@ class StreamingStitcher:
                 return
             payload = payload + (np.array(quals, dtype=np.uint8),)
         region.chunks.append(payload)
+        region.received += 1
         self._unsealed -= 1
-        if len(region.chunks) == region.expected:
-            group = self.plan.contig_groups[rec.contig][region.group]
-            group.pending.append((region.start, region.end, region.chunks))
-            group.pending_bytes += sum(
-                a.nbytes for c in region.chunks for a in c[1:]
-            )
-            region.chunks = []  # ownership moved to the pending sub-batch
-            group.remaining -= 1
-            if (group.remaining == 0
-                    or len(group.pending) >= self.SUB_BATCH_REGIONS
-                    or group.pending_bytes >= self.SUB_BATCH_BYTES):
-                self._submit_merge(group)
+        self._unsealed_bytes += sum(a.nbytes for a in payload[1:])
+        if region.received < region.expected:
+            if self._unsealed_bytes > self.UNSEALED_BYTES_LIMIT:
+                log.warning("stream stitch: %d bytes buffered in unsealed "
+                            "regions (limit %d); falling back to store stitch",
+                            self._unsealed_bytes, self.UNSEALED_BYTES_LIMIT)
+                self._mark_broken()
+            return
+        group = self.plan.contig_groups[rec.contig][region.group]
+        group.pending.append((region.start, region.end, region.chunks))
+        region_bytes = sum(a.nbytes for c in region.chunks for a in c[1:])
+        group.pending_bytes += region_bytes
+        self._unsealed_bytes -= region_bytes
+        region.chunks = []  # ownership moved to the pending sub-batch
+        group.remaining -= 1
+        if (group.remaining == 0
+                or len(group.pending) >= self.SUB_BATCH_REGIONS
+                or group.pending_bytes >= self.SUB_BATCH_BYTES):
+            self._submit_merge(group)
 
     def _submit_merge(self, group: _Group) -> None:
         """Ship the group's pending sub-batch to a level-1 merge worker.
@@ -360,6 +379,10 @@ class StreamingStitcher:
                     g.failed = True
                 g.regions = []
                 g.pending = []
+        # the buffers of unsealed regions too: nothing streamed is kept
+        for region in self.plan.regions.values():
+            region.chunks = []
+        self._unsealed_bytes = 0
 
     def ready(self) -> bool:
         """True when every region sealed and shipped — the precondition for

@@ -180,6 +180,18 @@ def assert_grads_close(got, want):
             _scaled_close(g[d][k], wg[d][k], f"{d}.{k}")
 
 
+def bwd_counts(before, design, dx):
+    """The backward's launch counts after one bigru_window_bwd from
+    ``before``: each pass once, and pass 1's kernels in ``design``."""
+    ran = ["bigru_window_bwd_rec", "bigru_window_bwd_wgrad"]
+    if design == "smem":
+        ran += ["bigru_window_bwd_hp", "bigru_window_bwd_rec_smem"]
+        ran += ["bigru_window_bwd_dx"] if dx else []
+    else:
+        ran += ["bigru_window_bwd_rec_chain"]
+    return {k: v + (k in ran) for k, v in before.items()}
+
+
 # ragged batches (1, 13, 257 rows against the 8-row block), H=160, both
 # layer kinds; layer 0 (the image) has no dx
 @pytest.mark.parametrize("kind,T,B,H", [("image", 7, 1, 128), ("image", 9, 13, 128),
@@ -192,7 +204,7 @@ def test_backward_kernel_matches_plain(dev, kind, T, B, H):
     before = dict(gb.launch_counts)
     got = gb.bigru_window_bwd(*args)
     torch.cuda.synchronize()
-    assert gb.launch_counts == {k: v + 1 for k, v in before.items()}
+    assert gb.launch_counts == bwd_counts(before, gb.bwd_design(H, B), kind == "pair")
     assert (got[0] is None) == (kind == "image")
     assert_grads_close(got, gb.bigru_window_bwd_plain(*args, need_dx=kind == "pair"))
 
@@ -847,6 +859,169 @@ def test_tbptt_batch_smem_design_equals_chain_design(dev, monkeypatch):
         torch.cuda.synchronize()
         assert (gw.launch_counts["bigru_window_rec_smem"] > 0) == (design == "smem")
         assert gw.launch_counts["bigru_window_in1"] == 19
+        runs[design] = ([t.detach().clone() for t in tot]
+                        + [t.detach() for t in param_leaves(p)]
+                        + [torch.as_tensor(v) for v in opt_leaves(state)[1:]])
+    for a, b in zip(runs["smem"], runs["chain"]):
+        assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the backward's pass 1 as the gate pass, the recurrence with W_hh^T in
+# shared memory and the dx pass (ops.gru_window_bwd_smem)
+# ---------------------------------------------------------------------------
+
+def flat_rec(res):
+    dxp, dhpn, dx, dh0f, dh0b = res
+    return [("dxp", dxp), ("dhp_n", dhpn), ("dh0_f", dh0f), ("dh0_b", dh0b)] + (
+        [("dx", dx)] if dx is not None else [])
+
+
+def flat_grads(res):
+    dx, dh0f, dh0b, g = res
+    return [("dh0_f", dh0f), ("dh0_b", dh0b)] + ([("dx", dx)] if dx is not None else []) + [
+        (f"{d}.{k}", g[d][k]) for d in ("fwd", "bwd") for k in ("w_ih", "w_hh", "b_ih", "b_hh")]
+
+
+# the training batch (4 rows per block), the main path's batch (8 rows), a
+# ragged one (8 rows, a part-filled last block); the flagship H and the
+# widest that fits at those rows
+@pytest.mark.parametrize("T,B,H", [(100, 256, 128), (100, 512, 128), (100, 300, 128),
+                                   (100, 256, 135), (100, 512, 131), (100, 300, 131)])
+@pytest.mark.parametrize("kind", ["image", "pair"])
+def test_bwd_smem_design_equals_chain_design(dev, kind, T, B, H):
+    """Pass 1 as the gate pass, the recurrence and the dx pass against
+    bwd_rec_kernel: dxp, dhp_n, dx, dh0 and (through pass 2) every dW/db
+    exactly equal; each design counted as launched; the default design is
+    the new one at these shapes; pass 1 against its plain version."""
+    from helen_tpu_torch.ops import gru_window as gw
+    from helen_tpu_torch.ops import gru_window_bwd as gb
+
+    args = bwd_case(np.random.default_rng(T * B + H + (kind == "pair")), kind, T, B, H, dev)
+    assert gb.bwd_design(H, B) == "smem"
+    proj = "bigru_window_proj_in1" if kind == "image" else "bigru_window_proj_in2"
+    before, before_gw = dict(gb.launch_counts), dict(gw.launch_counts)
+    new = gb.bigru_window_bwd_rec(*args, design="smem")
+    torch.cuda.synchronize()
+    ran = ["bigru_window_bwd_rec", "bigru_window_bwd_hp", "bigru_window_bwd_rec_smem"] + (
+        ["bigru_window_bwd_dx"] if kind == "pair" else [])
+    assert gb.launch_counts == {k: v + (k in ran) for k, v in before.items()}
+    assert gw.launch_counts == {k: v + (k == proj) for k, v in before_gw.items()}
+    before = dict(gb.launch_counts)
+    old = gb.bigru_window_bwd_rec(*args, design="chain")
+    torch.cuda.synchronize()
+    ran = ["bigru_window_bwd_rec", "bigru_window_bwd_rec_chain"]
+    assert gb.launch_counts == {k: v + (k in ran) for k, v in before.items()}
+    assert (new[2] is None) == (kind == "image")
+    for (what, n), (_, o) in zip(flat_rec(new), flat_rec(old)):
+        assert torch.equal(n, o), f"{what}: max |smem - chain| {float((n - o).abs().max())}"
+    full = [gb.bigru_window_bwd(*args, design=d) for d in ("smem", "chain")]
+    for (what, n), (_, o) in zip(flat_grads(full[0]), flat_grads(full[1])):
+        assert torch.equal(n, o), f"{what}: max |smem - chain| {float((n - o).abs().max())}"
+    want = gb.bigru_window_bwd_rec_plain(*args, need_dx=kind == "pair")
+    for (what, n), (_, w) in zip(flat_rec(new), flat_rec(want)):
+        _scaled_close(n, w, what)
+
+
+def test_bwd_smem_is_bit_identical_across_launches(dev):
+    from helen_tpu_torch.ops import gru_window_bwd as gb
+
+    args = bwd_case(np.random.default_rng(25), "pair", 100, 256, 128, dev)
+    assert gb.bwd_design(128, 256) == "smem"
+    a, b = gb.bigru_window_bwd(*args), gb.bigru_window_bwd(*args)
+    for (what, x), (_, y) in zip(flat_grads(a), flat_grads(b)):
+        assert torch.equal(x, y), what
+
+
+# 4 rows per block at B=256, ragged batches at 8, 2 and 1 rows; an H that
+# is no multiple of 4 (scalar tails of the carry chain and of the tile
+# product's stores)
+@pytest.mark.parametrize("T,B,H", [(100, 256, 128), (9, 300, 128), (5, 67, 40),
+                                   (6, 13, 37)])
+def test_bwd_smem_kernels_match_their_plain_versions(dev, T, B, H):
+    """Each new kernel against its plain version on the same inputs: hp
+    against h_prev @ W_hh, the recurrence against unwind_gates over the
+    kernel's own xp and hp, dx against dxp @ W_ih^T."""
+    from helen_tpu_torch.ops import gru_window_bwd_smem as gbs
+    from helen_tpu_torch.ops import gru_window_smem as gs
+
+    src, start, h0f, h0b, of, ob, dof, dob, dhf, dhb, layer = bwd_case(
+        np.random.default_rng(T + B + H), "pair", T, B, H, dev)
+    xp = gs.bigru_window_proj_in2(*src, layer)
+    hp = gbs.bigru_window_bwd_hp(h0f, h0b, of, ob, layer)
+    torch.cuda.synchronize()
+    _scaled_close(hp, gbs.bwd_hp_plain(h0f, h0b, of, ob, layer), "hp")
+    rest = (h0f, h0b, of, ob, dof, dob, dhf, dhb, layer)
+    got = gbs.bigru_window_bwd_rec_smem(xp, hp, *rest)
+    want = gbs.bwd_rec_smem_plain(xp, hp, *rest)
+    for g, w, what in zip(got, want, ("dxp", "dhp_n", "dh0_f", "dh0_b")):
+        _scaled_close(g, w, what)
+    dx = gbs.bigru_window_bwd_dx(got[0], layer)
+    assert dx.shape == (2, T, B, 2 * H)
+    _scaled_close(dx, gbs.bwd_dx_plain(got[0], layer), "dx")
+
+
+def test_bwd_smem_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    from helen_tpu_torch.ops import gru_window_bwd as gb
+    from helen_tpu_torch.ops import gru_window_bwd_smem as gbs
+
+    args = bwd_case(np.random.default_rng(26), "pair", 4, 8, 160, dev)
+    src, start, h0f, h0b, of, ob, dof, dob, dhf, dhb, layer = args
+    assert gb.bwd_design(160, 8) == "chain"
+    xp = torch.zeros(2, 4, 8, 3 * 160, device=dev)
+    before = dict(gb.launch_counts)
+    with pytest.raises(ValueError, match="bwd_rec_kernel takes it"):
+        gbs.bigru_window_bwd_rec_smem(xp, xp, h0f, h0b, of, ob, dof, dob, dhf, dhb, layer)
+    with pytest.raises(ValueError, match="does not take H=160"):
+        gb.bigru_window_bwd(*args, design="smem")
+    assert gb.launch_counts == before
+    src, start, h0f, h0b, of, ob, dof, dob, dhf, dhb, layer = bwd_case(
+        np.random.default_rng(27), "pair", 4, 8, 128, dev)
+    with pytest.raises(ValueError):  # hp of another batch
+        gbs.bigru_window_bwd_rec_smem(torch.zeros(2, 4, 8, 384, device=dev),
+                                      torch.zeros(2, 4, 9, 384, device=dev),
+                                      h0f, h0b, of, ob, dof, dob, dhf, dhb, layer)
+    with pytest.raises(ValueError):  # dxp of another width
+        gbs.bigru_window_bwd_dx(torch.zeros(2, 4, 8, 390, device=dev), layer)
+    lib = gbs.get_lib()
+    for h in (1, 37, 128, 131, 135, 136):
+        for rows in (1, 2, 4, 8):
+            assert lib.bigru_window_bwd_rec_smem_bytes(h, rows) == gbs.bwd_rec_smem_bytes(h, rows)
+
+
+def test_tbptt_batch_bwd_smem_design_equals_chain_design(dev, monkeypatch):
+    """One TBPTT batch (19 windows: forward, backward, Adam) with pass 1 in
+    the new design, then with every pass 1 forced to bwd_rec_kernel: the
+    same loss sums, params and Adam moments, bit for bit."""
+    from helen_tpu_torch.config import MODEL
+    from helen_tpu_torch.io.checkpoint import opt_leaves, params_to_torch
+    from helen_tpu_torch.models.transducer import init_params, param_leaves
+    from helen_tpu_torch.ops import gru_window_bwd as gb
+    from helen_tpu_torch.train.train_loop import Adam, tbptt_step
+
+    rng = np.random.default_rng(28)
+    B = 32
+    images = torch.from_numpy(rng.integers(0, 40, (B, 1000, 90), dtype=np.uint8)).to(dev)
+    yb = torch.from_numpy(rng.integers(0, 5, (B, 1000))).to(dev)
+    yr = torch.from_numpy(rng.integers(0, 11, (B, 1000))).to(dev)
+    params0 = init_params(torch.Generator().manual_seed(7), MODEL)
+    runs = {}
+    for design in ("smem", "chain"):
+        if design == "chain":
+            monkeypatch.setattr(gb, "bwd_design", lambda *a, **k: "chain")
+        p = params_to_torch(params0, dev)
+        for t in param_leaves(p):
+            t.requires_grad_(True)
+        adam = Adam(0.0)
+        state = adam.init(p)
+        gb.reset_launch_counts()
+        tot = tbptt_step(p, adam, state, 1e-4, images, yb, yr, B, "cuda")
+        torch.cuda.synchronize()
+        smem = design == "smem"
+        assert gb.launch_counts["bigru_window_bwd_rec"] == 2 * 19
+        assert gb.launch_counts["bigru_window_bwd_rec_smem"] == (2 * 19 if smem else 0)
+        assert gb.launch_counts["bigru_window_bwd_dx"] == (19 if smem else 0)
+        assert gb.launch_counts["bigru_window_bwd_rec_chain"] == (0 if smem else 2 * 19)
         runs[design] = ([t.detach().clone() for t in tot]
                         + [t.detach() for t in param_leaves(p)]
                         + [torch.as_tensor(v) for v in opt_leaves(state)[1:]])
