@@ -24,9 +24,14 @@ kernels against the plain route, and ``train`` then ``test`` through the
 CLI on the full-width images with the launches counted (0 of
 bwd_rec_kernel). Phase 9 drives the
 wide models (H=1024) through the xp-stream kernels: K3 and K4 against their
-plain versions, the golden fixtures and a cross-route check at H=512
-through the forced xp route, then ``train``, ``test`` and ``polish`` at
-H=1024 with the launches counted. Phase 10 drives the fast (bf16) tier,
+plain versions (phase 9b: K4's pass 1 in the main path's design, the gate
+pass and a grid-wide recurrence with W_hh spread over the SMs' shared
+memory, bit for bit against the one-launch xp_bwd_rec_kernel and timed in
+turns with it; each of its kernels alone), the golden fixtures and a
+cross-route check at H=512 through the forced xp route (with each
+fixture's encoder layer through K4's grid design), then ``train``,
+``test`` and ``polish`` at H=1024 with the launches counted (0 of
+xp_bwd_rec_kernel). Phase 10 drives the fast (bf16) tier,
 ``polish --fast``: K1f, K2f and K3f against their plain versions, a label
 flip audit against the fast plain route and the fp32 route, the trained
 checkpoint under ``--fast`` against the parity tier, and the flagship and
@@ -1091,22 +1096,36 @@ def check_xp_kernel(images_u8, results) -> None:
 
 
 def check_xp_backward(results) -> None:
-    """Phase 9b: K4 against its plain version at B=64, T=100, H=1024, the
-    decoder layer of a training window, bit-identity of two launches, and
-    each pass's time beside the plain version, the bound and the libraries
-    (cuDNN's GRU backward at D=2048 for pass 1, cuBLAS's products for pass
-    2; the port calls neither)."""
+    """Phase 9b: K4 at B=64, T=100, H=1024, the decoder layer of a training
+    window. In its main-path design (pass 1 as the gate pass
+    bigru_window_bwd_hp plus the grid recurrence with W_hh spread over the
+    SMs' shared memory) against its plain version (TOL) and against the
+    one-launch xp_bwd_rec_kernel (exactly 0.0 in dxp, dh0, dW_hh, db_hh and
+    pass 1's dhp_n), bit-identity of two launches; pass 1 in both designs
+    timed in turns (grid, chain, chain, grid), the gate pass and the
+    recurrence each beside its plain version and its bound, the whole of
+    pass 1 beside cuDNN's GRU backward at D=2048, pass 2 beside cuBLAS's
+    products (the port calls neither)."""
     import numpy as np
     import torch
 
+    from helen_tpu_torch.ops import gru_window_bwd_smem as gbs
     from helen_tpu_torch.ops import gru_window_xp as gx
     from helen_tpu_torch.ops import gru_window_xp_bwd as gxb
+    from helen_tpu_torch.ops import gru_window_xp_bwd_grid as gg
     from helen_tpu_torch.ops.gru_window_bwd import _h_prev
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(20261019)
     r = lambda *s: torch.from_numpy(rng.uniform(-1, 1, s).astype("float32")).to(dev)  # noqa: E731
     Bw, D, n = WB_TRAIN, 2 * WH, WB_TRAIN * T
+    design = gxb.xp_bwd_design(WH, Bw)
+    units = gg.grid_units(WH, *gg.card_limits())
+    log(f"K4 pass 1 at H={WH}, B={Bw}: design {design!r} ({units} units per block, "
+        f"{2 * -(-WH // (units or 1))} blocks, {gg.grid_smem_bytes(WH, units or 1)} bytes of "
+        f"shared memory each; card: (SMs, opt-in bytes) {gg.card_limits()})")
+    if design != "grid":
+        fail(f"K4 pass 1 at H={WH}, B={Bw} does not take the grid design")
     layer = random_layer(rng, D, WH, dev)
     x = r(T, Bw, D)
     h0f, h0b, dhf, dhb = (r(Bw, WH) for _ in range(4))
@@ -1117,6 +1136,9 @@ def check_xp_backward(results) -> None:
     args = (xp_f, xp_b, h0f, h0b, of, ob, dof, dob, dhf, dhb, layer)
     got = gxb.bigru_window_xp_bwd(*args)
     again = gxb.bigru_window_xp_bwd(*args)
+    chain = gxb.bigru_window_xp_bwd(*args, design="chain")
+    rec_new = gxb.bigru_window_xp_bwd_rec(*args, design="grid")
+    rec_old = gxb.bigru_window_xp_bwd_rec(*args, design="chain")
     want = gxb.bigru_window_xp_bwd_plain(*args)
     torch.cuda.synchronize()
     flat = lambda res: [("dxp_f", res[0]), ("dxp_b", res[1]), ("dh0_f", res[2]),  # noqa: E731
@@ -1124,19 +1146,46 @@ def check_xp_backward(results) -> None:
                                               for d in ("fwd", "bwd")
                                               for k in ("w_hh", "b_hh")]
     worst = worst_scaled = 0.0
-    for (what, g), (_, w), (_, a) in zip(flat(got), flat(want), flat(again)):
+    for (what, g), (_, w), (_, a), (_, c) in zip(flat(got), flat(want), flat(again),
+                                                 flat(chain)):
         err = float((g - w).abs().max())
         scale = max(1.0, float(w.abs().max()))
         worst, worst_scaled = max(worst, err), max(worst_scaled, err / scale)
-        log(f"K4 backward: {what}: max |kernel - plain| {err:.3g} (limit {TOL:g} x {scale:.4g})")
+        log(f"K4 backward: {what}: max |kernel - plain| {err:.3g} (limit {TOL:g} x "
+            f"{scale:.4g}); max |grid design - one-launch| {float((g - c).abs().max())!r} "
+            "(limit 0.0)")
         if err > TOL * scale:
             fail(f"K4: {what} disagrees with its plain version")
         if not torch.equal(g, a):
             fail(f"K4: {what} differs between two launches")
-    log("K4 backward: two launches bit-identical")
+        if not torch.equal(g, c):
+            fail(f"K4: {what} differs between pass 1's two designs")
+    for what, a, b in zip(("dxp", "dhp_n", "dh0_f", "dh0_b"), rec_new, rec_old):
+        if not torch.equal(a, b):
+            fail(f"K4: pass 1's {what} differs between the designs")
+    log("K4 backward: two launches bit-identical; pass 1's dxp, dhp_n, dh0 and dW_hh, db_hh "
+        "equal in both designs")
 
-    ms = timed_passes(lambda: gxb.bigru_window_xp_bwd(*args), iters=5, warmup=1,
-                      passes=XP_PASSES)
+    # pass 1 in turns: grid design (the gate pass and the recurrence), one-launch,
+    # one-launch, grid; pass 2 beside the grid design
+    grid_names = ("bigru_window_bwd_hp", "bigru_window_xp_bwd_rec_grid")
+    turns = []
+    for d in ("grid", "chain", "chain", "grid"):
+        if d == "grid":
+            turns.append(timed_passes(lambda: gxb.bigru_window_xp_bwd(*args), iters=5,
+                                      warmup=1, passes=(*grid_names, XP_PASSES[1])))
+        else:
+            turns.append(timed_passes(lambda: gxb.bigru_window_xp_bwd_rec(
+                *args, design="chain"), iters=3, warmup=1, passes=(XP_PASSES[0],)))
+    kern = {k: (turns[0][k] + turns[3][k]) / 2 for k in turns[0]}
+    rec_ms = sum(kern[k] for k in grid_names)
+    chain_ms = (turns[1][XP_PASSES[0]] + turns[2][XP_PASSES[0]]) / 2
+    log(f"K4 pass 1 at B={Bw}: grid design {rec_ms:.4f} ms (gate pass {kern[grid_names[0]]:.4f}, "
+        f"recurrence {kern[grid_names[1]]:.4f}), one-launch {chain_ms:.4f} ms (in turns: "
+        + ", ".join(f"{sum(t[k] for k in grid_names):.4f}" if i in (0, 3)
+                    else f"{t[XP_PASSES[0]]:.4f}" for i, t in enumerate(turns))
+        + f"): {chain_ms / rec_ms:.2f}x")
+    ms = {XP_PASSES[0]: rec_ms, XP_PASSES[1]: kern[XP_PASSES[1]]}
     dxp, dhpn, *_ = gxb.bigru_window_xp_bwd_rec_plain(*args)
     plain = {
         XP_PASSES[0]: cuda_ms(lambda: gxb.bigru_window_xp_bwd_rec_plain(*args),
@@ -1172,29 +1221,92 @@ def check_xp_backward(results) -> None:
         XP_PASSES[1]: (2 * 2.0 * n * (WH + 1) * 3 * WH,
                        2 * stream + 2 * vec + 2 * (stream3 + stream) + w_bytes),
     }
+    per = "one launch at B=64, T=100, H=1024"
     for name in XP_PASSES:
         flops, nbytes = cost[name]
         bound_ms, bound_by = bound(flops, nbytes)
-        log(f"{name} (B={Bw}, T={T}, H={WH}): kernel {ms[name]:.4f} ms, plain "
+        extra = f", one-launch {chain_ms:.4f} ms" if name == XP_PASSES[0] else ""
+        log(f"{name} (B={Bw}, T={T}, H={WH}): kernel {ms[name]:.4f} ms{extra}, plain "
             f"{plain[name]:.3f} ms, library {library[name]:.4f} ms, bound {bound_ms:.4f} ms "
             f"({bound_by}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
         results[name] = {
             "name": name, "route": "cuda",
-            "source": "helen_tpu_torch/ops/csrc/gru_window_xp_bwd.cu"
-                      + (" (pass 2's kernel: gru_window_common.cuh)"
-                         if name == XP_PASSES[1] else ""),
-            "replaces": "helen_tpu/ops/gru_pallas_train.py:166 (_bwd_kernel)",
+            "source": ("helen_tpu_torch/ops/csrc/gru_window_xp_bwd_grid.cu with the gate pass "
+                       "bigru_window_bwd_hp (gru_window_bwd_smem.cu), design 'grid' (ran here); "
+                       "helen_tpu_torch/ops/csrc/gru_window_xp_bwd.cu (xp_bwd_rec_kernel), "
+                       "design 'chain', where W_hh does not fit the SMs"
+                       if name == XP_PASSES[0] else
+                       "helen_tpu_torch/ops/csrc/gru_window_common.cuh (bwd_wgrad_kernel), "
+                       "launched from gru_window_xp_bwd.cu"),
+            "replaces": "helen_tpu/ops/gru_pallas_train.py:166 (_bwd_kernel"
+                        + (", pass 1)" if name == XP_PASSES[0] else ", pass 2)"),
             "max_abs_err": worst, "max_scaled_err": worst_scaled,
             "ms": ms[name], "kernel_ms": ms[name], "plain_ms": plain[name],
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library[name],
-            "per": "one launch at B=64, T=100, H=1024 (library: cuDNN's GRU backward "
-                   "at D=2048 for pass 1, cuBLAS's products for pass 2)",
+            "per": per + (" (library: cuDNN's GRU backward at D=2048)"
+                          if name == XP_PASSES[0] else " (library: cuBLAS's products)"),
+        }
+    results[XP_PASSES[0]].update(
+        design=design, chain_ms=chain_ms,
+        per=results[XP_PASSES[0]]["per"] + "; ms: the grid design's two kernels; chain_ms: "
+        "xp_bwd_rec_kernel in the same call")
+
+    # each kernel of the grid design alone, against its plain version
+    whh = torch.stack([layer[d]["w_hh"] for d in ("fwd", "bwd")])
+    hprev = torch.stack([_h_prev(of, h0f, False), _h_prev(ob, h0b, True)]).reshape(2, n, WH)
+    hp = gbs.bigru_window_bwd_hp(h0f, h0b, of, ob, layer)
+    rest = (h0f, h0b, of, ob, dof, dob, dhf, dhb, layer)
+    kernels = {
+        "bigru_window_xp_bwd_hp": (
+            "helen_tpu_torch/ops/csrc/gru_window_bwd_smem.cu (bigru_window_bwd_hp: the tile "
+            "product of gru_window_smem.cuh)", grid_names[0],
+            lambda: gbs.bigru_window_bwd_hp(h0f, h0b, of, ob, layer),
+            lambda: gbs.bwd_hp_plain(h0f, h0b, of, ob, layer),
+            lambda: torch.bmm(hprev, whh),
+            (2 * 2.0 * n * WH * 3 * WH, 2 * stream + 2 * vec + 2 * 4 * WH * 3 * WH + 2 * stream3),
+            "library: torch.bmm"),
+        "bigru_window_xp_bwd_rec_grid": (
+            "helen_tpu_torch/ops/csrc/gru_window_xp_bwd_grid.cu", grid_names[1],
+            lambda: gg.bigru_window_xp_bwd_rec_grid(xp_f, xp_b, hp, *rest),
+            lambda: gg.xp_bwd_rec_grid_plain(xp_f, xp_b, hp, *rest),
+            None,
+            (2 * 2.0 * n * 3 * WH * WH,
+             2 * 2 * stream3 + 4 * stream + 4 * vec + w_bytes      # xp, hp, out, dout, h0, dh, W
+             + 2 * stream3 + 2 * stream + 2 * vec),               # dxp, dhp_n, dh0
+            "library: none"),
+    }
+    for name, (source, timed, kfn, pfn, lfn, (flops, nbytes), lib_note) in kernels.items():
+        out, ref = kfn(), pfn()
+        torch.cuda.synchronize()
+        outs = out if isinstance(out, tuple) else (out,)
+        refs = ref if isinstance(ref, tuple) else (ref,)
+        err = max(float((o - w).abs().max()) for o, w in zip(outs, refs))
+        scale = max(max(1.0, float(w.abs().max())) for w in refs)
+        with torch.no_grad():
+            p_ms = cuda_ms(pfn, iters=2, warmup=1)
+            l_ms = cuda_ms(lfn, iters=5, warmup=1) if lfn is not None else None
+        bound_ms, bound_by = bound(flops, nbytes)
+        log(f"{name}: max |kernel - plain| {err:.3g} (limit {TOL:g} x {scale:.4g}); kernel "
+            f"{kern[timed]:.4f} ms (timed in pass 1's turns), plain {p_ms:.3f} ms, library "
+            f"{'none' if l_ms is None else f'{l_ms:.4f} ms'}, bound {bound_ms:.4f} ms "
+            f"({bound_by}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+        if err > TOL * scale:
+            fail(f"{name} disagrees with its plain version")
+        results[name] = {
+            "name": name, "route": "cuda", "source": source,
+            "replaces": "helen_tpu/ops/gru_pallas_train.py:166 (_bwd_kernel, pass 1)",
+            "max_abs_err": err, "max_scaled_err": err / scale, "ms": kern[timed],
+            "kernel_ms": kern[timed], "plain_ms": p_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": l_ms, "per": f"{per} ({lib_note})",
         }
 
 
 def check_golden_xp() -> None:
     """Phase 9c: the three golden fixtures through the xp route, forced on
-    the cuda backend, on the card: 0 + 0 label flips."""
+    the cuda backend, on the card: 0 + 0 label flips. Then each fixture's
+    encoder layer over the first window of the images through K4, as the
+    forced xp route trains it (H=128 and H=160): pass 1 takes the grid
+    design, equal bit for bit to the one-launch design."""
     import numpy as np
     import torch
 
@@ -1202,6 +1314,7 @@ def check_golden_xp() -> None:
     from helen_tpu_torch.io.images import MarginPolishDataset
     from helen_tpu_torch.models.transducer import consensus_labels
     from helen_tpu_torch.ops import gru_window_xp as gx
+    from helen_tpu_torch.ops import gru_window_xp_bwd as gxb
 
     with tempfile.TemporaryDirectory(prefix="golden_xp_") as d:
         path = os.path.join(d, "golden_images.h5")
@@ -1228,6 +1341,31 @@ def check_golden_xp() -> None:
             f"{base.size} per head ({launched} K3 launches)")
         if fb or fr or not launched:
             fail(f"golden {name}: the xp route flips labels")
+        p = params_to_torch(params, images.device)
+        layer = {d: p["encoder"][d] for d in ("fwd", "bwd")}
+        Bg, Hg = images.shape[0], layer["fwd"]["w_hh"].shape[0]
+        rng = np.random.default_rng(Hg)
+        r = lambda *s: torch.from_numpy(rng.uniform(-1, 1, s).astype("float32")).cuda()  # noqa: E731
+        x = images[:, :T].to(torch.float32).transpose(0, 1).contiguous()
+        with torch.no_grad():
+            xp_f, xp_b = project(x, layer)
+            of, ob, _, _ = gx.bigru_window_xp(xp_f, xp_b, r(Bg, Hg), r(Bg, Hg), layer)
+        args = (xp_f, xp_b, r(Bg, Hg), r(Bg, Hg), of, ob, r(T, Bg, Hg), r(T, Bg, Hg),
+                r(Bg, Hg), r(Bg, Hg), layer)
+        design = gxb.xp_bwd_design(Hg, Bg)
+        before = dict(gxb.launch_counts)
+        grid = gxb.bigru_window_xp_bwd(*args)
+        ran = {k: gxb.launch_counts[k] - before[k] for k in before}
+        chain = gxb.bigru_window_xp_bwd(*args, design="chain")
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(grid[:4], chain[:4])) and all(
+            torch.equal(grid[4][d][k], chain[4][d][k]) for d in ("fwd", "bwd")
+            for k in ("w_hh", "b_hh"))
+        log(f"golden {name}: encoder layer (H={Hg}, B={Bg}) through K4: design {design!r}, "
+            f"launches {ran}; equal bit for bit to the one-launch design: {same}")
+        if design != "grid" or ran["bigru_window_xp_bwd_rec_grid"] != 1 or not same:
+            fail(f"golden {name}: K4 at H={Hg} did not take the grid design or differs from "
+                 "the one-launch design")
 
 
 def check_routes_h512(images_u8) -> None:
@@ -1330,6 +1468,9 @@ def run_wide_cli(work: str, results) -> tuple:
         write_exact(os.path.join(d, f"{k}.h5"), f"wide_{k}", n, seed)
     n_win = WINDOW.num_windows(IMAGE.seq_length)
     zero_inproj = {k: 0 for m in (gw, gb) for k in m.launch_counts}
+    zero_xp = {k: 0 for m in (gx, gxb) for k in m.launch_counts}
+    if gxb.xp_bwd_design(WH, WB_TRAIN) != "grid":
+        fail(f"K4 pass 1 at H={WH}, B={WB_TRAIN} does not take the grid design")
 
     out = os.path.join(work, "wide_train_out")
     reset()
@@ -1344,9 +1485,10 @@ def run_wide_cli(work: str, results) -> tuple:
     with open(os.path.join(run, "stats", "epochs.jsonl")) as f:
         epoch = json.loads(f.readline())
     train_b, test_b = N_WIDE_TRAIN // WB_TRAIN, 1
-    want = {**zero_inproj, "bigru_window_xp": (train_b + test_b) * n_win * 2,
-            "bigru_window_xp_fast": 0,
-            XP_PASSES[0]: train_b * n_win * 2, XP_PASSES[1]: train_b * n_win * 2}
+    trained = train_b * n_win * 2
+    want = {**zero_inproj, **zero_xp, "bigru_window_xp": (train_b + test_b) * n_win * 2,
+            XP_PASSES[0]: trained, XP_PASSES[1]: trained, "bigru_window_xp_bwd_hp": trained,
+            "bigru_window_xp_bwd_rec_grid": trained}
     log(f"wide train (H={WH}, {N_WIDE_TRAIN} images, -b {WB_TRAIN}, 1 epoch): train loss "
         f"{epoch['train_loss']:.5f}, test loss {epoch['test_loss']:.5f}, base acc "
         f"{epoch['base_accuracy']:.3f}%, training {epoch['train_seconds']:.2f} s = "
@@ -1354,11 +1496,14 @@ def run_wide_cli(work: str, results) -> tuple:
         f"evaluation {epoch['eval_seconds']:.2f} s; wall {wall:.2f} s, peak device "
         f"memory {peak:.0f} MiB")
     log(f"wide train launches {launches}, expected {want} ({train_b} train + {test_b} "
-        f"test batches x {n_win} windows x 2 layers; K4 on the train batches only)")
+        f"test batches x {n_win} windows x 2 layers; K4 on the train batches only, pass 1 "
+        "in the grid design: the gate pass and the grid recurrence, 0 xp_bwd_rec_kernel)")
     if launches != want:
         fail("wide train launch counts differ from batches x windows x layers")
-    results[XP_PASSES[0]]["launches"] = launches[XP_PASSES[0]]
-    results[XP_PASSES[1]]["launches"] = launches[XP_PASSES[1]]
+    for name in (*XP_PASSES, "bigru_window_xp_bwd_hp", "bigru_window_xp_bwd_rec_grid"):
+        results[name]["launches"] = launches[name]
+    results[XP_PASSES[0]]["wide_train_windows_per_s"] = (epoch["train_windows"]
+                                                         / epoch["train_seconds"])
     results["bigru_window_xp"]["launches_train"] = launches["bigru_window_xp"]
 
     latest = os.path.join(run, "models", "HELEN_latest_checkpoint.npz")
@@ -1382,8 +1527,7 @@ def run_wide_cli(work: str, results) -> tuple:
         f"confusion matrices equal: {same}; launches {tl}")
     if not same:
         fail("wide test did not reproduce the epoch's loss and confusion matrices")
-    if tl != {**zero_inproj, "bigru_window_xp": test_b * n_win * 2,
-              "bigru_window_xp_fast": 0, XP_PASSES[0]: 0, XP_PASSES[1]: 0}:
+    if tl != {**zero_inproj, **zero_xp, "bigru_window_xp": test_b * n_win * 2}:
         fail("wide test launch counts differ from batches x windows x layers")
 
     pout = os.path.join(work, "wide_polish_out")
@@ -1398,8 +1542,7 @@ def run_wide_cli(work: str, results) -> tuple:
     log(f"wide polish ({WB_POLISH} images at -b {WB_POLISH}): wall {wall:.2f} s, consensus "
         f"{consensus_s:.2f} s = {WB_POLISH * n_win / consensus_s:,.1f} windows/s, peak "
         f"device memory {peak:.0f} MiB; launches {pl}")
-    if pl != {**zero_inproj, "bigru_window_xp": n_win * 2, "bigru_window_xp_fast": 0,
-              XP_PASSES[0]: 0, XP_PASSES[1]: 0}:
+    if pl != {**zero_inproj, **zero_xp, "bigru_window_xp": n_win * 2}:
         fail("wide polish launch counts differ from batches x windows x layers")
     results["bigru_window_xp"]["launches"] = pl["bigru_window_xp"]
 

@@ -1,0 +1,175 @@
+"""Where the time of K4's grid recurrence goes: variants of its source,
+timed on the card.
+
+    python -m helen_tpu_torch.obs.grid_variants [--batch 64] [--hidden 1024 640]
+
+Each variant is ``ops/csrc/gru_window_xp_bwd_grid.cu`` with some of its
+block-shape constants replaced, or one part of its step cut out, built with
+nvcc into a library of its own under the build directory, all builds
+started together. Every variant runs on the same inputs (a window of
+T=100 at the given batch and widths, random weights from a seed, the gate
+pass's ``hp`` from the shipped kernels) and is timed with CUDA events over
+5 launches; the line says whether its outputs equal the one-launch
+``xp_bwd_rec_kernel`` bit for bit (the cut variants cannot). It needs a
+CUDA device and ``nvcc``; it prints the card's name and power limit first.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import os
+import re
+import subprocess
+import sys
+
+SOURCE = "gru_window_xp_bwd_grid.cu"
+_FMA = "acc[p][q] = fmaf(lane(dv[p], e), lane(wv[q], e), acc[p][q]);"
+_CP = ("cp_async16(dst, k < 2 * H ? gx + (size_t)b * H3 + k\n"
+       "                                        : gn + (size_t)b * H + (k - 2 * H));")
+_NCH = "const int nch = (H3 + GRID_KC - 1) / GRID_KC;"
+_SYNC = """        // buffer the next fill overwrites
+        __syncthreads();"""
+_LANES = "const int ug = tid % UG, rg = tid / UG;"
+# a warp of 8 unit groups x 4 row groups, where the block divides so
+_LANES_8X4 = ("const bool tiled = UG % 8 == 0 && RG % 4 == 0;\n"
+              "  const int ug = tiled ? tid / 32 % (UG / 8) * 8 + tid % 8 : tid % UG;\n"
+              "  const int rg = tiled ? tid / 32 / (UG / 8) * 4 + tid % 32 / 8 : tid / UG;")
+
+#: name -> (constants to replace, (text, replacement) edits)
+VARIANTS = {
+    "shipped": ({}, ()),
+    "128 threads of 4 rows x 2 units, 32-k x 3 stages (the first version)": (
+        {"GRID_UPT": 2, "GRID_MAX_UNITS": 32, "GRID_KC": 32, "GRID_STAGES": 3}, ()),
+    "32-k x 3 stages": ({"GRID_KC": 32, "GRID_STAGES": 3}, ()),
+    "16-k x 6 stages": ({"GRID_KC": 16, "GRID_STAGES": 6}, ()),
+    "512 threads of 2 rows x 1 unit": ({"GRID_RPT": 2, "GRID_ROW_GROUPS": 32}, ()),
+    "256 threads of 2 rows x 2 units": (
+        {"GRID_RPT": 2, "GRID_UPT": 2, "GRID_ROW_GROUPS": 32}, ()),
+    "128 threads of 8 rows x 1 unit": ({"GRID_RPT": 8, "GRID_ROW_GROUPS": 8}, ()),
+    "warps of 8 units x 4 row groups": ({}, ((_LANES, _LANES_8X4),)),
+    "no __syncthreads per chunk (races: the syncs' cost)": ({}, ((_SYNC, "        // buffer"),)),
+    "no carry product (gates and barriers only)": ({}, ((_NCH, "const int nch = 0;"),)),
+    "no FMAs in the carry product": ({}, ((_FMA, ";"),)),
+    "no dhp loads in the carry product": ({}, ((_CP, "(void)dst;"),)),
+}
+
+
+def variant_source(src: str, consts: dict, edits) -> str:
+    for name, value in consts.items():
+        src, n = re.subn(rf"constexpr int {name} = [^;]*;", f"constexpr int {name} = {value};",
+                         src)
+        if n != 1:
+            raise ValueError(f"{SOURCE} has no constant {name}")
+    for text, repl in edits:
+        if text not in src:
+            raise ValueError(f"{SOURCE} no longer holds {text!r}")
+        src = src.replace(text, repl)
+    return src
+
+
+def build_all(out_dir: str) -> dict:
+    """{name: (library path or None, ptxas's register line or the error)}."""
+    from helen_tpu_torch.ops import gru_window as gw
+
+    src = open(os.path.join(gw._CSRC, SOURCE)).read()
+    procs = {}
+    for i, (name, (consts, edits)) in enumerate(VARIANTS.items()):
+        d = os.path.join(out_dir, f"v{i}")
+        os.makedirs(d, exist_ok=True)
+        for header in ("gru_window_common.cuh", "gru_window_smem.cuh"):
+            with open(os.path.join(gw._CSRC, header)) as f, \
+                    open(os.path.join(d, header), "w") as g:
+                g.write(f.read())
+        with open(os.path.join(d, SOURCE), "w") as f:
+            f.write(variant_source(src, consts, edits))
+        so = os.path.join(d, "lib.so")
+        cmd = [gw._nvcc(), *gw.NVCC_FLAGS, "-shared", "-o", so, os.path.join(d, SOURCE)]
+        procs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True))
+    built = {}
+    for name, (so, proc) in procs.items():
+        log, _ = proc.communicate()
+        regs = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+        built[name] = ((so if proc.returncode == 0 else None),
+                       " / ".join(regs[-2:]) if proc.returncode == 0 else log[-2000:])
+    return built
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--batch", type=int, default=64)
+    ap.add_argument("--hidden", type=int, nargs="+", default=[1024, 640])
+    ap.add_argument("--seed", type=int, default=20261019)
+    args = ap.parse_args(argv)
+
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("grid_variants: no CUDA device is visible", file=sys.stderr)
+        return 1
+    from helen_tpu_torch.models.transducer import set_fp32_precision
+    from helen_tpu_torch.ops import gru_window_bwd_smem as gbs
+    from helen_tpu_torch.ops import gru_window_xp as gx
+    from helen_tpu_torch.ops import gru_window_xp_bwd as gxb
+    from helen_tpu_torch.ops import gru_window_xp_bwd_grid as gg
+    from helen_tpu_torch.utils.build import build_dir
+
+    set_fp32_precision()
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip().splitlines()[0])
+    built = build_all(build_dir("grid_variants"))
+    libs = {}
+    for name, (so, note) in built.items():
+        print(f"{name}: {note}")
+        if so is not None:
+            lib = ctypes.CDLL(so)
+            lib.bigru_window_xp_bwd_rec_grid.restype = ctypes.c_int
+            lib.bigru_window_xp_bwd_rec_grid.argtypes = (
+                gg.get_lib().bigru_window_xp_bwd_rec_grid.argtypes)
+            libs[name] = lib
+    dev = torch.device("cuda")
+    T, B = 100, args.batch
+    for H in args.hidden:
+        rng = np.random.default_rng(args.seed)
+        r = lambda *s: torch.from_numpy(rng.uniform(-1, 1, s).astype("float32")).to(dev)  # noqa: E731
+        k = 1.0 / H ** 0.5
+        layer = {d: {"w_hh": r(H, 3 * H) * k, "b_hh": r(3 * H) * k} for d in ("fwd", "bwd")}
+        xp_f, xp_b = r(T, B, 3 * H), r(T, B, 3 * H)
+        h0f, h0b, dhf, dhb = (r(B, H) for _ in range(4))
+        dof, dob = r(T, B, H), r(T, B, H)
+        with torch.no_grad():
+            of, ob, _, _ = gx.bigru_window_xp(xp_f, xp_b, h0f, h0b, layer)
+        hp = gbs.bigru_window_bwd_hp(h0f, h0b, of, ob, layer)
+        rest = (h0f, h0b, of, ob, dof, dob, dhf, dhb)
+        want = gxb.bigru_window_xp_bwd_rec(xp_f, xp_b, *rest, layer, design="chain")
+        units = gg.grid_units(H, *gg.card_limits())
+        e = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)  # noqa: E731
+        w = [layer[d][k] for d in ("fwd", "bwd") for k in ("w_hh", "b_hh")]
+        for name, lib in libs.items():
+            outs = (e(2, T, B, 3 * H), e(2, T, B, H), e(B, H), e(B, H))
+
+            def launch():
+                arrive = torch.zeros(gg.GRID_COUNTERS, dtype=torch.int32, device=dev)
+                err = lib.bigru_window_xp_bwd_rec_grid(
+                    *(t.data_ptr() for t in (xp_f, xp_b, hp, *rest, *w, *outs, arrive)),
+                    T, B, H, units, torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"{name}: CUDA error {err}")
+
+            launch()
+            torch.cuda.synchronize()
+            t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t0.record()
+            for _ in range(5):
+                launch()
+            t1.record()
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(outs, want))
+            print(f"B={B} T={T} H={H} U={units}: {name}: {t0.elapsed_time(t1) / 5:.4f} ms, "
+                  f"equal to xp_bwd_rec_kernel: {same}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

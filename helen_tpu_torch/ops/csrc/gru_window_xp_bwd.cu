@@ -37,6 +37,12 @@
 //     reduction (bwd_wgrad_kernel, gru_window_common.cuh) over those
 //     streams. No float atomics: two launches are bit-identical.
 //
+// Shapes whose W_hh slices fit the card's SMs take the grid design instead
+// (gru_window_xp_bwd_grid.cu: the gate pass, then a grid-wide recurrence with
+// W_hh in the SMs' shared memory; ops/gru_window_xp_bwd.py xp_bwd_design):
+// it takes its cotangents from the same gru_cell_bwd and sums in the same
+// order, so the two give the same bits.
+//
 // What bounds it on this card. At the wide training shapes (B=64, T=100,
 // H=1024) pass 1 does 2 dirs x (2 T B H 3H for the gate recompute + the same
 // for the carry) = 161 GFLOP and pass 2 2 x 2 T B (H + 1) 3H = 81 GFLOP,
@@ -110,7 +116,7 @@ xp_bwd_rec_kernel(DirXpBwd pf, DirXpBwd pb, int T, int B, int H) {
           hq[r] = fmaf(hv, wn, hq[r]);
         }
       }
-      const float bhr = p.b_hh[j], bhz = p.b_hh[H + j], bhn = p.b_hh[2 * H + j];
+      const CellBias bias{0.0f, 0.0f, 0.0f, p.b_hh[j], p.b_hh[H + j], p.b_hh[2 * H + j]};
 #pragma unroll
       for (int r = 0; r < BT; ++r) {
         const int b = b0 + r;
@@ -123,27 +129,20 @@ xp_bwd_rec_kernel(DirXpBwd pf, DirXpBwd pb, int T, int B, int H) {
           xn = x[2 * H + j];
           dout = p.dout[row * H + j];
         }
-        const float rg = sigmoidf_(xr + (hr[r] + bhr));
-        const float zg = sigmoidf_(xz + (hz[r] + bhz));
-        const float hpn = hq[r] + bhn;
-        const float ng = tanhf(xn + rg * hpn);
-        const float dh = dout + dhc[r * H + j];
-        const float dz = dh * (hs[r * H + j] - ng);
-        const float da = dh * (1.0f - zg) * (1.0f - ng * ng);
-        const float dr = da * hpn;
-        const float drpre = dr * rg * (1.0f - rg);
-        const float dzpre = dz * zg * (1.0f - zg);
-        const float dn = da * rg;
-        gh[r * H3 + j] = drpre;
-        gh[r * H3 + H + j] = dzpre;
-        gh[r * H3 + 2 * H + j] = dn;
-        dhc[r * H + j] = dh * zg;
+        // the cotangent lines the grid design (gru_window_xp_bwd_grid.cu)
+        // shares, so that the two designs round alike
+        const CellGrad c = gru_cell_bwd(xr, xz, xn, hr[r], hz[r], hq[r], bias, hs[r * H + j],
+                                        dout + dhc[r * H + j]);
+        gh[r * H3 + j] = c.drpre;
+        gh[r * H3 + H + j] = c.dzpre;
+        gh[r * H3 + 2 * H + j] = c.dn;
+        dhc[r * H + j] = c.dhz;
         if (b < B) {
           float* g = p.dxp + row * H3;
-          g[j] = drpre;
-          g[H + j] = dzpre;
-          g[2 * H + j] = da;
-          p.dhpn[row * H + j] = dn;
+          g[j] = c.drpre;
+          g[H + j] = c.dzpre;
+          g[2 * H + j] = c.da;
+          p.dhpn[row * H + j] = c.dn;
         }
       }
     }
@@ -161,7 +160,7 @@ xp_bwd_rec_kernel(DirXpBwd pf, DirXpBwd pb, int T, int B, int H) {
         for (int r = 0; r < BT; ++r) acc[r] = fmaf(gh[r * H3 + k], w, acc[r]);
       }
 #pragma unroll
-      for (int r = 0; r < BT; ++r) dhc[r * H + j] += acc[r];
+      for (int r = 0; r < BT; ++r) dhc[r * H + j] = __fadd_rn(dhc[r * H + j], acc[r]);
     }
     // no barrier here: the next step writes only hs before its barrier, and
     // hs is not read after the one above

@@ -144,19 +144,23 @@ def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def _count(err: int, name: str) -> None:
+def _count(err: int, name: str, counts=None) -> None:
     gw._raise_on(err, name)
-    gb.launch_counts[name] += 1
+    (gb.launch_counts if counts is None else counts)[name] += 1
 
 
-def launch_hp(h0_f, h0_b, out_f, out_b, w_hh_f, w_hh_b, dev) -> torch.Tensor:
+def launch_hp(h0_f, h0_b, out_f, out_b, w_hh_f, w_hh_b, dev, counts=None,
+              name: str = "bigru_window_bwd_hp") -> torch.Tensor:
+    """The gate pass's hp product, counted as ``name`` in ``counts``: by
+    default in ``gru_window_bwd.launch_counts``, or in the xp route's own
+    (ops.gru_window_xp_bwd)."""
     T, B, H = out_f.shape
     hp = torch.empty((2, T, B, 3 * H), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = get_lib().bigru_window_bwd_hp(
             h0_f.data_ptr(), h0_b.data_ptr(), out_f.data_ptr(), out_b.data_ptr(),
             w_hh_f.data_ptr(), w_hh_b.data_ptr(), hp.data_ptr(), T, B, H, _stream(dev))
-    _count(err, "bigru_window_bwd_hp")
+    _count(err, name, counts)
     return hp
 
 

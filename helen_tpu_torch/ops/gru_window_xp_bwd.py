@@ -1,18 +1,33 @@
 """The backward of the xp-stream bi-GRU window (K4): the hand-written CUDA
-kernel, its plain version and its launch counters.
+kernels, their plain version and their launch counters.
 
 :func:`bigru_window_xp_bwd` is the port of helen_tpu's ``_bwd_kernel``
 (``helen_tpu/ops/gru_pallas_train.py:166``), the backward of the training
 window whose forward is K3 (``ops.gru_window_xp``). It returns the
 cotangents of the projected streams, ``dxp`` ``(T, B, 3H)`` per direction,
 of ``h0`` and of ``w_hh``/``b_hh``; the projection ``xp = x @ W_ih + b_ih``
-and its cotangents stay in torch autograd around it. Its source is
-``ops/csrc/gru_window_xp_bwd.cu``; it runs as two launches, each counted in
-:data:`launch_counts`:
+and its cotangents stay in torch autograd around it. It runs as two
+passes, each counted once per layer-window in :data:`launch_counts`:
 
-* ``bigru_window_xp_bwd_rec`` (pass 1): the recurrence, unwound in reverse
-  per direction; recomputes the gates from xp and h_prev, carries dh, and
-  writes ``dxp`` and the n block of ``dhp`` (scratch) and dh0;
+* ``bigru_window_xp_bwd_rec`` (pass 1, :func:`bigru_window_xp_bwd_rec`):
+  the recurrence, unwound in reverse per direction; recomputes the gates
+  from xp and h_prev, carries dh, and writes ``dxp`` and the n block of
+  ``dhp`` (scratch) and dh0. It has two designs, picked by a fixed rule of
+  the shape and the card (:func:`xp_bwd_design`):
+
+  - ``"grid"`` (ops.gru_window_xp_bwd_grid), where ``W_hh`` spread over the
+    card's SMs fits their shared memory (every width of the xp route on the
+    H100): the gate pass ``bigru_window_bwd_hp`` (``h_prev @ W_hh`` over the
+    whole window, ``csrc/gru_window_bwd_smem.cu``; counted here as
+    ``bigru_window_xp_bwd_hp``), then the grid-wide recurrence
+    ``bigru_window_xp_bwd_rec_grid`` (``csrc/gru_window_xp_bwd_grid.cu``);
+  - ``"chain"``, elsewhere: one launch of ``xp_bwd_rec_kernel``
+    (``csrc/gru_window_xp_bwd.cu``, counted as
+    ``bigru_window_xp_bwd_rec_chain``), the gate recompute inside the serial
+    loop.
+
+  Both take every sum in the same order and the same cotangent lines, so
+  they give the same bits;
 * ``bigru_window_xp_bwd_wgrad`` (pass 2): dW_hh and db_hh as a tiled
   reduction over the window's T*B rows in one fixed order (the kernel of
   the in-projection backward's pass 2, without its W_ih half; no atomics:
@@ -36,8 +51,11 @@ from helen_tpu_torch.ops.gru_window import (
     _raise_on,
     get_lib,
 )
+from helen_tpu_torch.ops import gru_window_bwd_smem as gbs
+from helen_tpu_torch.ops import gru_window_xp_bwd_grid as gg
 from helen_tpu_torch.ops.gru_window_bwd import _h_prev, hh_grads_plain, unwind_plain
 from helen_tpu_torch.ops.gru_window_xp import recurrent_args
+from helen_tpu_torch.ops.gru_window_xp_bwd_grid import RecOutputs
 
 #: (dxp_f (T, B, 3H), dxp_b (T, B, 3H), dh0_f, dh0_b,
 #:  {"fwd", "bwd"} of {"w_hh", "b_hh"} cotangents)
@@ -46,7 +64,14 @@ XpGrads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, Layer]
 #: launches of each pass since the last reset_launch_counts() — counted
 #: where the kernel is launched and nowhere else
 launch_counts: Dict[str, int] = {"bigru_window_xp_bwd_rec": 0,
-                                 "bigru_window_xp_bwd_wgrad": 0}
+                                 "bigru_window_xp_bwd_wgrad": 0,
+                                 # pass 1's kernels: the grid design's two
+                                 "bigru_window_xp_bwd_hp": 0,
+                                 "bigru_window_xp_bwd_rec_grid": 0,
+                                 # and the one-launch design
+                                 "bigru_window_xp_bwd_rec_chain": 0}
+#: pass 1's designs (see xp_bwd_design)
+DESIGNS = ("grid", "chain")
 
 
 def reset_launch_counts() -> None:
@@ -93,51 +118,126 @@ def bigru_window_xp_bwd_plain(xp_f, xp_b, h0_f, h0_b, out_f, out_b, dout_f, dout
 
 
 # ---------------------------------------------------------------------------
-# kernel wrapper
+# kernel wrappers
 # ---------------------------------------------------------------------------
 
-def bigru_window_xp_bwd(xp_f, xp_b, h0_f, h0_b, out_f, out_b, dout_f, dout_b,
-                        dh_f, dh_b, layer: Layer) -> XpGrads:
-    """The backward of one xp-stream bi-GRU window layer (see the module
-    docstring): pass 1 then pass 2 on the current stream."""
-    if xp_f.device.type == "cpu":
-        return bigru_window_xp_bwd_plain(xp_f, xp_b, h0_f, h0_b, out_f, out_b,
-                                         dout_f, dout_b, dh_f, dh_b, layer)
-    dev = _cuda_device(xp_f, "bigru_window_xp_bwd")
-    if out_f.dim() != 3:
-        raise ValueError(f"out_f must be (T, B, H), got {tuple(out_f.shape)}")
-    T, B, H = out_f.shape
-    if not 0 < H <= XP_MAX_H:
-        raise ValueError(f"H={H} exceeds the xp-stream backward's maximum {XP_MAX_H}")
-    for name, t, shape in (("xp_f", xp_f, (T, B, 3 * H)), ("xp_b", xp_b, (T, B, 3 * H)),
-                           ("h0_f", h0_f, (B, H)), ("h0_b", h0_b, (B, H)),
-                           ("out_f", out_f, (T, B, H)), ("out_b", out_b, (T, B, H)),
-                           ("dout_f", dout_f, (T, B, H)), ("dout_b", dout_b, (T, B, H)),
-                           ("dh_f", dh_f, (B, H)), ("dh_b", dh_b, (B, H))):
-        _check(name, t, shape, torch.float32, dev)
-    wh_f, bh_f, wh_b, bh_b = recurrent_args(layer, H, dev)
+def xp_bwd_design(H: int, B: int, design=None) -> str:
+    """Pass 1's design at hidden size ``H`` and batch ``B``: ``"grid"`` where
+    ``gru_window_xp_bwd_grid.grid_units`` finds a slice of ``W_hh`` per SM
+    that fits (co-residency of the ``2 ceil(H / U)`` blocks at the card's
+    SM count, the shared memory at its opt-in limit, both read once from
+    the device), else ``"chain"``, ``xp_bwd_rec_kernel``. The grid takes
+    any B (its blocks loop over rows). A fixed rule of the shape and the
+    card, not a fallback. ``design`` forces one (tests, chip_smoke.py's
+    comparison of the two); ``"grid"`` raises where the rule does not
+    hold."""
+    if design is not None and design not in DESIGNS:
+        raise ValueError(f"design {design!r} is not one of {DESIGNS}")
+    sms, budget = gg.card_limits()
+    fits = gg.grid_units(H, sms, budget) is not None
+    if design is None:
+        return "grid" if fits else "chain"
+    if design == "grid" and not fits:
+        raise ValueError(f"design 'grid' does not take H={H}, B={B}: W_hh spread over {sms} "
+                         f"SMs does not fit {budget} bytes of shared memory per block")
+    return design
+
+
+class _Window:
+    """The checked arguments of one layer-window's K4 launches."""
+
+    def __init__(self, name: str, xp_f, xp_b, h0_f, h0_b, out_f, out_b, dout_f, dout_b,
+                 dh_f, dh_b, layer: Layer):
+        dev = self.dev = _cuda_device(xp_f, name)
+        if out_f.dim() != 3:
+            raise ValueError(f"out_f must be (T, B, H), got {tuple(out_f.shape)}")
+        T, B, H = self.T, self.B, self.H = out_f.shape
+        if not 0 < H <= XP_MAX_H:
+            raise ValueError(f"H={H} exceeds the xp-stream backward's maximum {XP_MAX_H}")
+        for n, t, shape in (("xp_f", xp_f, (T, B, 3 * H)), ("xp_b", xp_b, (T, B, 3 * H)),
+                            ("h0_f", h0_f, (B, H)), ("h0_b", h0_b, (B, H)),
+                            ("out_f", out_f, (T, B, H)), ("out_b", out_b, (T, B, H)),
+                            ("dout_f", dout_f, (T, B, H)), ("dout_b", dout_b, (T, B, H)),
+                            ("dh_f", dh_f, (B, H)), ("dh_b", dh_b, (B, H))):
+            _check(n, t, shape, torch.float32, dev)
+        self.w = recurrent_args(layer, H, dev)  # checks, and [w_hh_f, b_hh_f, w_hh_b, b_hh_b]
+
+
+def _rec_chain(a: _Window, xp_f, xp_b, h0_f, h0_b, out_f, out_b, dout_f, dout_b, dh_f,
+               dh_b, layer: Layer) -> RecOutputs:
+    """Pass 1 as one launch of xp_bwd_rec_kernel (gru_window_xp_bwd.cu)."""
+    T, B, H, dev = a.T, a.B, a.H, a.dev
+    wh_f, bh_f, wh_b, bh_b = a.w
     # W_hh^T, read coalesced by the carry product (helen_tpu's wrapper makes
     # the same swapaxes copies, gru_pallas_train.py:542)
     whT = {d: layer[d]["w_hh"].T.contiguous() for d in ("fwd", "bwd")}
     e = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)  # noqa: E731
-    dxp, dhpn = e(2, T, B, 3 * H), e(2, T, B, H)
-    dh0_f, dh0_b = e(B, H), e(B, H)
-    grads = {d: {"w_hh": e(H, 3 * H), "b_hh": e(3 * H)} for d in ("fwd", "bwd")}
-    lib = get_lib()
+    dxp, dhpn, dh0_f, dh0_b = e(2, T, B, 3 * H), e(2, T, B, H), e(B, H), e(B, H)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.bigru_window_xp_bwd_rec(
+        err = get_lib().bigru_window_xp_bwd_rec(
             *(t.data_ptr() for t in (xp_f, xp_b, h0_f, h0_b, out_f, out_b, dout_f,
                                      dout_b, dh_f, dh_b)),
             wh_f, whT["fwd"].data_ptr(), bh_f, wh_b, whT["bwd"].data_ptr(), bh_b,
             dxp.data_ptr(), dhpn.data_ptr(), dh0_f.data_ptr(), dh0_b.data_ptr(),
-            T, B, H, stream)
-        _raise_on(err, "bigru_window_xp_bwd_rec")
-        launch_counts["bigru_window_xp_bwd_rec"] += 1
-        err = lib.bigru_window_xp_bwd_wgrad(
+            T, B, H, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "bigru_window_xp_bwd_rec")
+    launch_counts["bigru_window_xp_bwd_rec_chain"] += 1
+    return dxp, dhpn, dh0_f, dh0_b
+
+
+def _rec_grid(a: _Window, xp_f, xp_b, h0_f, h0_b, out_f, out_b, dout_f, dout_b, dh_f,
+              dh_b, layer: Layer) -> RecOutputs:
+    """Pass 1 as the gate pass (the hp product) and the grid-wide recurrence
+    (ops.gru_window_xp_bwd_grid)."""
+    hp = gbs.launch_hp(h0_f, h0_b, out_f, out_b, layer["fwd"]["w_hh"], layer["bwd"]["w_hh"],
+                       a.dev, launch_counts, "bigru_window_xp_bwd_hp")
+    res = gg.launch_rec_grid(xp_f, xp_b, hp, h0_f, h0_b, out_f, out_b, dout_f, dout_b, dh_f,
+                             dh_b, layer, gg.grid_units(a.H, *gg.card_limits()),
+                             launch_counts, a.dev)
+    del hp  # 2 x 78.6 MB at B=64, H=1024 back to the allocator
+    return res
+
+
+def _rec(a: _Window, design, *args) -> RecOutputs:
+    """Pass 1 in the design :func:`xp_bwd_design` picks, counted once."""
+    if xp_bwd_design(a.H, a.B, design) == "grid":
+        res = _rec_grid(a, *args)
+    else:
+        res = _rec_chain(a, *args)
+    launch_counts["bigru_window_xp_bwd_rec"] += 1
+    return res
+
+
+def bigru_window_xp_bwd_rec(xp_f, xp_b, h0_f, h0_b, out_f, out_b, dout_f, dout_b,
+                            dh_f, dh_b, layer: Layer, design=None) -> RecOutputs:
+    """Pass 1 alone, in the design :func:`xp_bwd_design` picks (``design``
+    forces one): the outputs of :func:`bigru_window_xp_bwd_rec_plain`,
+    ``(dxp, dhp_n, dh0_f, dh0_b)``."""
+    args = (xp_f, xp_b, h0_f, h0_b, out_f, out_b, dout_f, dout_b, dh_f, dh_b, layer)
+    if xp_f.device.type == "cpu":
+        return bigru_window_xp_bwd_rec_plain(*args)
+    return _rec(_Window("bigru_window_xp_bwd_rec", *args), design, *args)
+
+
+def bigru_window_xp_bwd(xp_f, xp_b, h0_f, h0_b, out_f, out_b, dout_f, dout_b,
+                        dh_f, dh_b, layer: Layer, design=None) -> XpGrads:
+    """The backward of one xp-stream bi-GRU window layer (see the module
+    docstring): pass 1, in the design :func:`xp_bwd_design` picks
+    (``design`` forces one), then pass 2, on the current stream."""
+    args = (xp_f, xp_b, h0_f, h0_b, out_f, out_b, dout_f, dout_b, dh_f, dh_b, layer)
+    if xp_f.device.type == "cpu":
+        return bigru_window_xp_bwd_plain(*args)
+    a = _Window("bigru_window_xp_bwd", *args)
+    dxp, dhpn, dh0_f, dh0_b = _rec(a, design, *args)
+    T, B, H, dev = a.T, a.B, a.H, a.dev
+    grads = {d: {"w_hh": torch.empty((H, 3 * H), dtype=torch.float32, device=dev),
+                 "b_hh": torch.empty(3 * H, dtype=torch.float32, device=dev)}
+             for d in ("fwd", "bwd")}
+    with torch.cuda.device(dev):
+        err = get_lib().bigru_window_xp_bwd_wgrad(
             *(t.data_ptr() for t in (h0_f, h0_b, out_f, out_b, dxp, dhpn)),
             *(grads[d][k].data_ptr() for d in ("fwd", "bwd") for k in ("w_hh", "b_hh")),
-            T, B, H, stream)
-        _raise_on(err, "bigru_window_xp_bwd_wgrad")
-        launch_counts["bigru_window_xp_bwd_wgrad"] += 1
+            T, B, H, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "bigru_window_xp_bwd_wgrad")
+    launch_counts["bigru_window_xp_bwd_wgrad"] += 1
     return dxp[0], dxp[1], dh0_f, dh0_b, grads

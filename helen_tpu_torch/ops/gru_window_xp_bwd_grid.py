@@ -1,0 +1,178 @@
+"""Pass 1 of the xp-stream backward (K4) as a grid-wide recurrence with
+``W_hh`` spread over the SMs' shared memory: the kernel's binding, its fit
+rule and its plain version.
+
+The hand-written CUDA kernel ``bigru_window_xp_bwd_rec_grid``
+(``ops/csrc/gru_window_xp_bwd_grid.cu``, in the library that ops.gru_window
+builds) carries pass 1 of :func:`ops.gru_window_xp_bwd.bigru_window_xp_bwd`
+in its ``"grid"`` design, after the gate pass ``bigru_window_bwd_hp``
+(ops.gru_window_bwd_smem: ``hp = h_prev @ W_hh`` without ``b_hh``, over the
+whole window). One persistent grid of ``2 C`` blocks, ``C = ceil(H / U)``
+per direction, all co-resident (a cooperative launch), block ``c`` holding
+the ``W_hh`` rows of its ``U`` hidden units in shared memory for all T
+steps, one grid barrier per direction and step. It writes pass 2's scratch
+``dxp (2, T, B, 3H)`` and ``dhp_n (2, T, B, H)``, and ``dh0`` per direction.
+
+:func:`grid_units` is the fit rule: the smallest ``U`` whose ``2 C`` blocks
+fit the card's SMs, one block each, if its shared memory
+(:func:`grid_smem_bytes`) fits the card's opt-in budget; else none, and
+the one-launch ``xp_bwd_rec_kernel`` takes the shape. It is a rule of the
+shape and the card, read once from the device (:func:`card_limits`).
+
+Every sum is taken in the order of ``xp_bwd_rec_kernel``
+(``csrc/gru_window_xp_bwd.cu``), whose cotangent lines it shares
+(``gru_cell_bwd``), so on the card the two designs give the same bits. On
+a CPU tensor the wrapper computes the plain version; on a CUDA tensor it
+launches the kernel or raises. Chained, ``bwd_hp_plain`` and
+:func:`xp_bwd_rec_grid_plain` are
+``gru_window_xp_bwd.bigru_window_xp_bwd_rec_plain`` to the bit.
+"""
+from __future__ import annotations
+
+import ctypes
+import threading
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from helen_tpu_torch.ops import gru_window as gw
+from helen_tpu_torch.ops import gru_window_bwd as gb
+from helen_tpu_torch.ops.gru_window import Layer
+from helen_tpu_torch.ops.gru_window_encdec import device_smem_budget
+
+#: pass 1's outputs: (dxp (2, T, B, 3H), dhp_n (2, T, B, H), dh0_f, dh0_b)
+RecOutputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+# csrc/gru_window_xp_bwd_grid.cu's constants: batch rows and hidden units
+# per thread, row groups per block, the k-chunks of the carry product
+# (chunk, row stride, stages), the most units per block
+GRID_RPT, GRID_UPT, GRID_ROW_GROUPS = 4, 1, 16
+GRID_KC, GRID_KS, GRID_STAGES = 64, 68, 2
+GRID_MAX_UNITS = 16
+#: the barrier counters, one per direction, 128 bytes apart (uint32)
+GRID_COUNTERS = 64
+
+
+def grid_smem_bytes(h: int, u: int) -> int:
+    """Dynamic shared memory of one block of the grid recurrence at hidden
+    size ``h`` and ``u`` units per block: its ``W_hh`` rows (``u`` rounded
+    up to whole unit groups, each ``3h`` rounded up to 32 floats plus 4)
+    and the stages of dhp chunks (2 x 64 rows x 68 floats), float32;
+    csrc/gru_window_xp_bwd_grid.cu ``grid_smem``."""
+    rows = -(-u // GRID_UPT) * GRID_UPT
+    stride = -(-3 * h // 32) * 32 + 4
+    return 4 * (rows * stride + GRID_STAGES * GRID_RPT * GRID_ROW_GROUPS * GRID_KS)
+
+
+def grid_units(h: int, sms: int, budget: int) -> Optional[int]:
+    """The grid recurrence's hidden units per block at hidden size ``h`` on a
+    card of ``sms`` SMs and ``budget`` bytes of opt-in shared memory per
+    block: the smallest ``U`` with ``2 ceil(h / U) <= sms`` (one block per
+    SM, both directions), if its shared memory fits ``budget`` and it is at
+    most :data:`GRID_MAX_UNITS`; else None. A larger ``U`` only takes more
+    shared memory, so no other ``U`` fits where this one does not. On the
+    H100 SXM: U=16 at H=1024, 12 at 768, 10 at 640, 2 at 128."""
+    if h < 1 or sms < 2:
+        return None
+    u = -(-h // (sms // 2))
+    if u > GRID_MAX_UNITS or grid_smem_bytes(h, u) > budget:
+        return None
+    return u
+
+
+_card_lock = threading.Lock()
+_card: Optional[Tuple[int, int]] = None
+
+
+def card_limits() -> Tuple[int, int]:
+    """(SMs, opt-in shared memory per block in bytes) of the current CUDA
+    device, read once."""
+    global _card
+    with _card_lock:
+        if _card is None:
+            _card = (get_lib().gru_window_sm_count(), device_smem_budget())
+        return _card
+
+
+# ---------------------------------------------------------------------------
+# plain version (CPU path, tests, and the on-card comparison)
+# ---------------------------------------------------------------------------
+
+def xp_bwd_rec_grid_plain(xp_f, xp_b, hp: torch.Tensor, h0_f, h0_b, out_f, out_b, dout_f,
+                          dout_b, dh_f, dh_b, layer: Layer) -> RecOutputs:
+    """The recurrence given ``xp`` per direction (``b_ih`` added) and ``hp``
+    ``(2, T, B, 3H)`` (without ``b_hh``): ``gru_window_bwd.unwind_gates``
+    per direction. Returns ``(dxp, dhp_n, dh0_f, dh0_b)``."""
+    res = [gb.unwind_gates(xp, hp[i] + layer[d]["b_hh"], gb._h_prev(out, h0, rev), dout, dh,
+                           layer[d]["w_hh"], rev)
+           for i, (d, xp, out, h0, dout, dh, rev) in enumerate(
+               (("fwd", xp_f, out_f, h0_f, dout_f, dh_f, False),
+                ("bwd", xp_b, out_b, h0_b, dout_b, dh_b, True)))]
+    return (torch.stack([r[0] for r in res]), torch.stack([r[1] for r in res]),
+            res[0][2], res[1][2])
+
+
+# ---------------------------------------------------------------------------
+# binding and launch (the arguments checked by the caller)
+# ---------------------------------------------------------------------------
+
+_bind_lock = threading.Lock()
+_bound = None
+
+
+def get_lib() -> ctypes.CDLL:
+    """The kernel library with this module's entry points declared."""
+    global _bound
+    lib = gw.get_lib()
+    with _bind_lock:
+        if _bound is not lib:
+            p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+            lib.bigru_window_xp_bwd_rec_grid.restype = i
+            lib.bigru_window_xp_bwd_rec_grid.argtypes = [p] * 20 + [i, i, i, i, p]
+            lib.bigru_window_xp_bwd_grid_smem_bytes.restype = ll
+            lib.bigru_window_xp_bwd_grid_smem_bytes.argtypes = [i, i]
+            lib.gru_window_sm_count.restype = i
+            if any(lib.bigru_window_xp_bwd_grid_smem_bytes(h, u) != grid_smem_bytes(h, u)
+                   for h in (1, 37, 128, 160, 640, 1000, 1024) for u in (1, 2, 3, 10, 16)):
+                raise RuntimeError("the grid recurrence's fit disagrees with "
+                                   "csrc/gru_window_xp_bwd_grid.cu")
+            _bound = lib
+    return lib
+
+
+def launch_rec_grid(xp_f, xp_b, hp, h0_f, h0_b, out_f, out_b, dout_f, dout_b, dh_f, dh_b,
+                    layer: Layer, units: int, counts: Dict[str, int], dev) -> RecOutputs:
+    """One launch of the grid recurrence at ``units`` hidden units per block,
+    counted in ``counts["bigru_window_xp_bwd_rec_grid"]``; raises on a
+    refused launch (a grid the card cannot hold at once among them)."""
+    T, B, H = out_f.shape
+    e = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)  # noqa: E731
+    dxp, dhpn, dh0_f, dh0_b = e(2, T, B, 3 * H), e(2, T, B, H), e(B, H), e(B, H)
+    arrive = torch.zeros(GRID_COUNTERS, dtype=torch.int32, device=dev)
+    w = [layer[d][k] for d in ("fwd", "bwd") for k in ("w_hh", "b_hh")]
+    with torch.cuda.device(dev):
+        err = get_lib().bigru_window_xp_bwd_rec_grid(
+            *(t.data_ptr() for t in (xp_f, xp_b, hp, h0_f, h0_b, out_f, out_b, dout_f, dout_b,
+                                     dh_f, dh_b, *w, dxp, dhpn, dh0_f, dh0_b, arrive)),
+            T, B, H, units, torch.cuda.current_stream(dev).cuda_stream)
+    gw._raise_on(err, "bigru_window_xp_bwd_rec_grid")
+    counts["bigru_window_xp_bwd_rec_grid"] += 1
+    return dxp, dhpn, dh0_f, dh0_b
+
+
+def bigru_window_xp_bwd_rec_grid(xp_f, xp_b, hp, h0_f, h0_b, out_f, out_b, dout_f, dout_b,
+                                 dh_f, dh_b, layer: Layer) -> RecOutputs:
+    """The grid recurrence alone, over ``xp`` per direction and the gate
+    pass's ``hp`` ``(2, T, B, 3H)``: ``(dxp, dhp_n, dh0_f, dh0_b)``, counted
+    in ``gru_window_xp_bwd.launch_counts``. Raises where
+    :func:`grid_units` finds no fit on the card."""
+    from helen_tpu_torch.ops import gru_window_xp_bwd as gxb
+
+    args = (h0_f, h0_b, out_f, out_b, dout_f, dout_b, dh_f, dh_b)
+    if xp_f.device.type == "cpu":
+        return xp_bwd_rec_grid_plain(xp_f, xp_b, hp, *args, layer)
+    a = gxb._Window("bigru_window_xp_bwd_rec_grid", xp_f, xp_b, *args, layer)
+    gw._check("hp", hp, (2, a.T, a.B, 3 * a.H), torch.float32, a.dev)
+    gxb.xp_bwd_design(a.H, a.B, "grid")  # raises where the rule does not hold
+    return launch_rec_grid(xp_f, xp_b, hp, *args, layer, grid_units(a.H, *card_limits()),
+                           gxb.launch_counts, a.dev)

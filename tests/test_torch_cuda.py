@@ -332,10 +332,13 @@ def test_xp_backward_kernel_matches_plain(dev, T, B, H):
     from helen_tpu_torch.ops import gru_window_xp_bwd as gxb
 
     args = xp_bwd_case(np.random.default_rng(T * B + H), T, B, H, dev)
+    assert gxb.xp_bwd_design(H, B) == "grid"
     before = dict(gxb.launch_counts)
     got = gxb.bigru_window_xp_bwd(*args)
     torch.cuda.synchronize()
-    assert gxb.launch_counts == {k: v + 1 for k, v in before.items()}
+    ran = ("bigru_window_xp_bwd_rec", "bigru_window_xp_bwd_wgrad", "bigru_window_xp_bwd_hp",
+           "bigru_window_xp_bwd_rec_grid")
+    assert gxb.launch_counts == {k: v + (k in ran) for k, v in before.items()}
     assert_xp_grads_close(got, gxb.bigru_window_xp_bwd_plain(*args))
 
 
@@ -1026,4 +1029,149 @@ def test_tbptt_batch_bwd_smem_design_equals_chain_design(dev, monkeypatch):
                         + [t.detach() for t in param_leaves(p)]
                         + [torch.as_tensor(v) for v in opt_leaves(state)[1:]])
     for a, b in zip(runs["smem"], runs["chain"]):
+        assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# K4's pass 1 as the gate pass and the grid-wide recurrence with W_hh spread
+# over the SMs' shared memory (ops.gru_window_xp_bwd_grid)
+# ---------------------------------------------------------------------------
+
+def flat_xp(res):
+    return [("dxp_f", res[0]), ("dxp_b", res[1]), ("dh0_f", res[2]), ("dh0_b", res[3])] + [
+        (f"{d}.{k}", res[4][d][k]) for d in ("fwd", "bwd") for k in ("w_hh", "b_hh")]
+
+
+# the wide training shape, a shorter window at a batch of 24, H=640 and 768
+# (10 and 12 units per block) at ragged batches, one of them past a block's
+# 64-row block, the forced route's H=128 (2 units per block), and an H that
+# is no multiple of 4 (dhp rows not 16-byte aligned: loaded a float at a time)
+@pytest.mark.parametrize("T,B,H", [(100, 64, 1024), (40, 24, 1024), (7, 13, 640),
+                                   (5, 300, 768), (6, 8, 128), (4, 7, 610)])
+def test_xp_bwd_grid_design_equals_chain_design(dev, T, B, H):
+    """Pass 1 as the gate pass and the grid recurrence against
+    xp_bwd_rec_kernel: dxp, dhp_n, dh0 and (through pass 2) dW_hh, db_hh
+    exactly equal; each design counted as launched; pass 1 against its
+    plain version."""
+    from helen_tpu_torch.ops import gru_window_xp_bwd as gxb
+
+    args = xp_bwd_case(np.random.default_rng(T * B + H + 9), T, B, H, dev)
+    assert gxb.xp_bwd_design(H, B) == "grid"
+    before = dict(gxb.launch_counts)
+    new = gxb.bigru_window_xp_bwd_rec(*args, design="grid")
+    torch.cuda.synchronize()
+    ran = ("bigru_window_xp_bwd_rec", "bigru_window_xp_bwd_hp", "bigru_window_xp_bwd_rec_grid")
+    assert gxb.launch_counts == {k: v + (k in ran) for k, v in before.items()}
+    before = dict(gxb.launch_counts)
+    old = gxb.bigru_window_xp_bwd_rec(*args, design="chain")
+    torch.cuda.synchronize()
+    ran = ("bigru_window_xp_bwd_rec", "bigru_window_xp_bwd_rec_chain")
+    assert gxb.launch_counts == {k: v + (k in ran) for k, v in before.items()}
+    for what, n, o in zip(("dxp", "dhp_n", "dh0_f", "dh0_b"), new, old):
+        assert torch.equal(n, o), f"{what}: max |grid - chain| {float((n - o).abs().max())}"
+    full = [gxb.bigru_window_xp_bwd(*args, design=d) for d in ("grid", "chain")]
+    for (what, n), (_, o) in zip(flat_xp(full[0]), flat_xp(full[1])):
+        assert torch.equal(n, o), f"{what}: max |grid - chain| {float((n - o).abs().max())}"
+    want = gxb.bigru_window_xp_bwd_rec_plain(*args)
+    for what, n, w in zip(("dxp", "dhp_n", "dh0_f", "dh0_b"), new, want):
+        _scaled_close(n, w, what)
+
+
+def test_xp_bwd_grid_is_bit_identical_across_launches(dev):
+    from helen_tpu_torch.ops import gru_window_xp_bwd as gxb
+
+    args = xp_bwd_case(np.random.default_rng(29), 100, 64, 1024, dev)
+    a, b = (gxb.bigru_window_xp_bwd(*args, design="grid") for _ in range(2))
+    for (what, x), (_, y) in zip(flat_xp(a), flat_xp(b)):
+        assert torch.equal(x, y), what
+
+
+def test_xp_bwd_grid_kernel_matches_its_plain_version(dev):
+    """The recurrence alone against unwind_gates over the gate pass's own hp."""
+    from helen_tpu_torch.ops import gru_window_bwd_smem as gbs
+    from helen_tpu_torch.ops import gru_window_xp_bwd_grid as gg
+
+    xp_f, xp_b, h0f, h0b, of, ob, dof, dob, dhf, dhb, layer = xp_bwd_case(
+        np.random.default_rng(30), 9, 70, 1024, dev)
+    hp = gbs.bigru_window_bwd_hp(h0f, h0b, of, ob, layer)
+    rest = (h0f, h0b, of, ob, dof, dob, dhf, dhb, layer)
+    got = gg.bigru_window_xp_bwd_rec_grid(xp_f, xp_b, hp, *rest)
+    want = gg.xp_bwd_rec_grid_plain(xp_f, xp_b, hp, *rest)
+    for g, w, what in zip(got, want, ("dxp", "dhp_n", "dh0_f", "dh0_b")):
+        _scaled_close(g, w, what)
+
+
+def test_xp_bwd_grid_refuses_what_the_card_does_not_hold(dev, monkeypatch):
+    """A forced "grid" on a card whose SMs do not hold W_hh raises before any
+    launch; a grid of more blocks than the card holds at once is refused by
+    the cooperative launch, and the wrapper raises: nothing falls back."""
+    from helen_tpu_torch.ops import gru_window_bwd_smem as gbs
+    from helen_tpu_torch.ops import gru_window_xp_bwd as gxb
+    from helen_tpu_torch.ops import gru_window_xp_bwd_grid as gg
+
+    args = xp_bwd_case(np.random.default_rng(31), 4, 8, 1024, dev)
+    xp_f, xp_b, h0f, h0b, of, ob, dof, dob, dhf, dhb, layer = args
+    sms, budget = gg.card_limits()
+    before = dict(gxb.launch_counts)
+    monkeypatch.setattr(gg, "_card", (114, budget))
+    assert gxb.xp_bwd_design(1024, 8) == "chain"
+    with pytest.raises(ValueError, match="does not take H=1024"):
+        gxb.bigru_window_xp_bwd(*args, design="grid")
+    with pytest.raises(ValueError, match="does not take H=1024"):
+        gg.bigru_window_xp_bwd_rec_grid(xp_f, xp_b, torch.zeros(2, 4, 8, 3072, device=dev),
+                                        h0f, h0b, of, ob, dof, dob, dhf, dhb, layer)
+    assert gxb.launch_counts == before
+    monkeypatch.setattr(gg, "_card", (sms, budget))
+    hp = gbs.bigru_window_bwd_hp(h0f, h0b, of, ob, layer)
+    with pytest.raises(RuntimeError, match="bigru_window_xp_bwd_rec_grid launch failed"):
+        gg.launch_rec_grid(xp_f, xp_b, hp, h0f, h0b, of, ob, dof, dob, dhf, dhb, layer,
+                           gg.grid_units(1024, sms, budget) - 1, gxb.launch_counts, dev)
+    assert gxb.launch_counts == before
+    lib = gg.get_lib()
+    for h in (128, 160, 640, 768, 1000, 1024):
+        for u in (2, 3, 10, 12, 16):
+            assert lib.bigru_window_xp_bwd_grid_smem_bytes(h, u) == gg.grid_smem_bytes(h, u)
+
+
+def test_tbptt_batch_xp_bwd_grid_design_equals_chain_design(dev, monkeypatch):
+    """One TBPTT batch at H=640 on the xp route (19 windows: forward,
+    backward, Adam) with pass 1 in the grid design, then with every pass 1
+    forced to xp_bwd_rec_kernel: the same loss sums, params and Adam
+    moments, bit for bit."""
+    import dataclasses
+
+    from helen_tpu_torch.config import MODEL
+    from helen_tpu_torch.io.checkpoint import opt_leaves, params_to_torch
+    from helen_tpu_torch.models.transducer import init_params, param_leaves
+    from helen_tpu_torch.ops import gru_window_xp_bwd as gxb
+    from helen_tpu_torch.train.train_loop import Adam, tbptt_step
+
+    rng = np.random.default_rng(32)
+    B = 8
+    images = torch.from_numpy(rng.integers(0, 40, (B, 1000, 90), dtype=np.uint8)).to(dev)
+    yb = torch.from_numpy(rng.integers(0, 5, (B, 1000))).to(dev)
+    yr = torch.from_numpy(rng.integers(0, 11, (B, 1000))).to(dev)
+    params0 = init_params(torch.Generator().manual_seed(8),
+                          dataclasses.replace(MODEL, hidden_size=640))
+    runs = {}
+    for design in ("grid", "chain"):
+        if design == "chain":
+            monkeypatch.setattr(gxb, "xp_bwd_design", lambda *a, **k: "chain")
+        p = params_to_torch(params0, dev)
+        for t in param_leaves(p):
+            t.requires_grad_(True)
+        adam = Adam(0.0)
+        state = adam.init(p)
+        gxb.reset_launch_counts()
+        tot = tbptt_step(p, adam, state, 1e-4, images, yb, yr, B, "cuda")
+        torch.cuda.synchronize()
+        grid = design == "grid"
+        assert gxb.launch_counts["bigru_window_xp_bwd_rec"] == 2 * 19
+        assert gxb.launch_counts["bigru_window_xp_bwd_hp"] == (2 * 19 if grid else 0)
+        assert gxb.launch_counts["bigru_window_xp_bwd_rec_grid"] == (2 * 19 if grid else 0)
+        assert gxb.launch_counts["bigru_window_xp_bwd_rec_chain"] == (0 if grid else 2 * 19)
+        runs[design] = ([t.detach().clone() for t in tot]
+                        + [t.detach() for t in param_leaves(p)]
+                        + [torch.as_tensor(v) for v in opt_leaves(state)[1:]])
+    for a, b in zip(runs["grid"], runs["chain"]):
         assert torch.equal(a, b)

@@ -271,7 +271,10 @@ def test_xp_wrappers_take_the_plain_version_on_cpu_and_count_no_launch():
         torch.testing.assert_close(g, p, rtol=0, atol=0)
     assert gx.launch_counts == {"bigru_window_xp": 0, "bigru_window_xp_fast": 0}
     assert gxb.launch_counts == {"bigru_window_xp_bwd_rec": 0,
-                                 "bigru_window_xp_bwd_wgrad": 0}
+                                 "bigru_window_xp_bwd_wgrad": 0,
+                                 "bigru_window_xp_bwd_hp": 0,
+                                 "bigru_window_xp_bwd_rec_grid": 0,
+                                 "bigru_window_xp_bwd_rec_chain": 0}
 
 
 def test_xp_wrappers_raise_off_cpu_and_cuda():
