@@ -24,16 +24,20 @@ kernels against the plain route, and ``train`` then ``test`` through the
 CLI on the full-width images with the launches counted (0 of
 bwd_rec_kernel). Phase 9 drives the
 wide models (H=1024) through the xp-stream kernels: K3 and K4 against their
-plain versions (phase 9b: K4's pass 1 in the main path's design, the gate
-pass and a grid-wide recurrence with W_hh spread over the SMs' shared
-memory, bit for bit against the one-launch xp_bwd_rec_kernel and timed in
-turns with it; each of its kernels alone), the golden fixtures and a
-cross-route check at H=512 through the forced xp route (with each
-fixture's encoder layer through K4's grid design), then ``train``,
-``test`` and ``polish`` at H=1024 with the launches counted (0 of
-xp_bwd_rec_kernel). Phase 10 drives the fast (bf16) tier,
-``polish --fast``: K1f, K2f and K3f against their plain versions, a label
-flip audit against the fast plain route and the fp32 route, the trained
+plain versions (phase 9a: K3 in the main path's design, a grid-wide
+recurrence with W_hh spread over the SMs' shared memory, bit for bit
+against the one-launch xp_window_kernel and timed in turns with it, at
+B=512 and B=64; phase 9b: K4's pass 1 in the main path's design, the gate
+pass and a grid-wide recurrence, bit for bit against the one-launch
+xp_bwd_rec_kernel and timed in turns with it; each of its kernels alone),
+the golden fixtures and a cross-route check at H=512 through the forced xp
+route (K3 in the grid design; each fixture's encoder layer through K4's
+grid design), then ``train``, ``test`` and ``polish`` at H=1024 with the
+launches counted (0 of xp_window_kernel and xp_bwd_rec_kernel). Phase 10
+drives the fast (bf16) tier, ``polish --fast``: K1f, K2f and K3f against
+their plain versions (phase 10b: K3f's grid design, its step product on
+bf16 tensor cores, timed in turns with the one-launch K3f), a label flip
+audit against the fast plain route and the fp32 route, the trained
 checkpoint under ``--fast`` against the parity tier, and the flagship and
 wide polishes through the fast kernels with the launches counted. Phase 11
 drives the fused encoder+decoder window (``route="encdec"``, library only):
@@ -1031,26 +1035,55 @@ def project(x, layer):
     return tuple(x @ layer[d]["w_ih"] + layer[d]["b_ih"] for d in ("fwd", "bwd"))
 
 
+def in_turns(run, iters: int = 5) -> tuple:
+    """``run(design)`` timed in turns, grid, chain, chain, grid: (the grid
+    design's ms, the chain design's ms, the four turns)."""
+    turns = [cuda_ms(lambda: run(d), iters=iters, warmup=1)
+             for d in ("grid", "chain", "chain", "grid")]
+    return (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2, turns
+
+
+def xp_cost(bsz: int, stream_bytes: int, w_bytes: int) -> tuple:
+    """(FLOP, bytes) of one K3/K3f launch at batch ``bsz``, T=100, H=1024:
+    the step products of both directions; xp in (``stream_bytes`` per
+    element), out written, W_hh and b_hh read, h0 in, hn out."""
+    return (2.0 * T * bsz * 3 * WH * WH * 2,
+            2 * stream_bytes * T * bsz * 3 * WH + 2 * 4 * T * bsz * WH
+            + 2 * (w_bytes * WH * 3 * WH + 4 * 3 * WH) + 4 * 4 * bsz * WH)
+
+
 def check_xp_kernel(images_u8, results) -> None:
-    """Phase 9a: K3 against its plain version at B=512, T=100, H=1024 for
-    both layer kinds (xp from the uint8 image window, D=90; from the pair
-    of K3's outputs, D=2048), timed beside its plain version, the
-    projection GEMMs and cuDNN's GRU forward at the same (D, H)."""
+    """Phase 9a: K3 at B=512, T=100, H=1024 for both layer kinds (xp from
+    the uint8 image window, D=90; from the pair of K3's outputs, D=2048). In
+    its main-path design (the grid recurrence with W_hh spread over the SMs'
+    shared memory) against its plain version (TOL) and against the
+    one-launch xp_window_kernel (exactly 0.0 in out and hn), bit-identity
+    of two launches; both designs timed in turns (grid, chain, chain, grid)
+    beside the plain version, the projection GEMMs and cuDNN's GRU forward
+    at the same (D, H); then both designs in turns at the wide train's
+    B=64 (the decoder layer)."""
     import numpy as np
     import torch
 
     from helen_tpu_torch.ops import gru_window_xp as gx
+    from helen_tpu_torch.ops import gru_window_xp_grid as xg
+    from helen_tpu_torch.ops.gru_window_xp_bwd_grid import card_limits
 
     dev = images_u8.device
+    design, units = gx.xp_fwd_design(WH, B), xg.grid_units(WH, *card_limits())
+    log(f"K3 at H={WH}, B={B}: design {design!r} ({units} units per block, "
+        f"{2 * -(-WH // (units or 1))} blocks, {xg.grid_smem_bytes(WH, units or 1)} bytes of "
+        f"shared memory each; card: (SMs, opt-in bytes) {card_limits()})")
+    if design != "grid":
+        fail(f"K3 at H={WH}, B={B} does not take the grid design")
     rng = np.random.default_rng(20261018)
     h0 = [torch.from_numpy(rng.uniform(-0.5, 0.5, (B, WH)).astype("float32")).to(dev)
           for _ in range(4)]
     start = 450
     x0 = images_u8[:, start:start + T].to(torch.float32).transpose(0, 1).contiguous()
-    acc = {k: 0.0 for k in ("ms", "plain_ms", "library_ms", "projection_ms", "err")}
-    flops = 2.0 * T * B * 3 * WH * WH * 2
-    nbytes = (2 * 4 * T * B * 3 * WH + 2 * 4 * T * B * WH
-              + 2 * 4 * (WH * 3 * WH + 3 * WH) + 4 * 4 * B * WH)
+    acc = {k: 0.0 for k in ("ms", "chain_ms", "plain_ms", "library_ms", "projection_ms",
+                            "err")}
+    flops, nbytes = xp_cost(B, 4, 4)
     bound_ms, bound_by = bound(flops, nbytes)
     x, hf, hb = x0, h0[0], h0[1]
     for label, D in (("layer 0, image D=90", F), ("decoder, pair D=2048", 2 * WH)):
@@ -1058,11 +1091,17 @@ def check_xp_kernel(images_u8, results) -> None:
         with torch.no_grad():
             xp_f, xp_b = project(x, layer)
             got = gx.bigru_window_xp(xp_f, xp_b, hf, hb, layer)
+            again = gx.bigru_window_xp(xp_f, xp_b, hf, hb, layer)
+            chain = gx.bigru_window_xp(xp_f, xp_b, hf, hb, layer, design="chain")
             want = gx.bigru_window_xp_plain(xp_f, xp_b, hf, hb, layer)
             torch.cuda.synchronize()
-            err = max_err(got, want)
-            ms = cuda_ms(lambda: gx.bigru_window_xp(xp_f, xp_b, hf, hb, layer),
-                         iters=5, warmup=1)
+            err, apart = max_err(got, want), max_err(got, chain)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                fail(f"K3 ({label}): two launches differ")
+            if not all(torch.equal(a, b) for a, b in zip(got, chain)):
+                fail(f"K3 ({label}): the grid design differs from xp_window_kernel by {apart!r}")
+            ms, chain_ms, turns = in_turns(
+                lambda d: gx.bigru_window_xp(xp_f, xp_b, hf, hb, layer, design=d))
             plain_ms = cuda_ms(lambda: gx.bigru_window_xp_plain(xp_f, xp_b, hf, hb, layer),
                                iters=2, warmup=1)
             proj_ms = cuda_ms(lambda: project(x, layer), iters=5, warmup=1)
@@ -1070,28 +1109,50 @@ def check_xp_kernel(images_u8, results) -> None:
             hx = torch.stack([hf, hb])
             lib_ms = cuda_ms(lambda: gru(x, hx), iters=5, warmup=1)
         log(f"K3 bigru_window_xp ({label}): max |kernel - plain| {err:.3g} (limit {TOL:g}); "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, projection GEMMs {proj_ms:.4f} ms, "
-            f"cuDNN GRU forward {lib_ms:.4f} ms (TF32 off), bound {bound_ms:.4f} ms "
-            f"({bound_by}: {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)")
+            f"max |grid - xp_window_kernel| {apart!r} (limit 0.0); grid {ms:.4f} ms, "
+            f"xp_window_kernel {chain_ms:.4f} ms (in turns: "
+            + ", ".join(f"{t:.4f}" for t in turns) + f"; {chain_ms / ms:.2f}x), plain "
+            f"{plain_ms:.3f} ms, projection GEMMs {proj_ms:.4f} ms, cuDNN GRU forward "
+            f"{lib_ms:.4f} ms (TF32 off), bound {bound_ms:.4f} ms ({bound_by}: "
+            f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)")
         if not err <= TOL:
             fail(f"K3 ({label}) disagrees with its plain version")
-        for k, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
-                     ("projection_ms", proj_ms)):
+        for k, v in (("ms", ms), ("chain_ms", chain_ms), ("plain_ms", plain_ms),
+                     ("library_ms", lib_ms), ("projection_ms", proj_ms)):
             acc[k] += v / 2
         acc["err"] = max(acc["err"], err)
         # the decoder reads layer 0's outputs, as on the main path
         x, hf, hb = torch.cat([got[0], got[1]], -1), h0[2], h0[3]
+    # the wide train's batch: the decoder layer at B=64
+    xs, hs = x[:, :WB_TRAIN].contiguous(), [h[:WB_TRAIN].contiguous() for h in (hf, hb)]
+    with torch.no_grad():
+        xp_f, xp_b = project(xs, layer)
+        small = [gx.bigru_window_xp(xp_f, xp_b, *hs, layer, design=d) for d in ("grid", "chain")]
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(*small)):
+            fail(f"K3 at B={WB_TRAIN}: the grid design differs from xp_window_kernel")
+        ms64, chain64, turns = in_turns(
+            lambda d: gx.bigru_window_xp(xp_f, xp_b, *hs, layer, design=d))
+    bound64, by64 = bound(*xp_cost(WB_TRAIN, 4, 4))
+    log(f"K3 at B={WB_TRAIN} (decoder layer): grid {ms64:.4f} ms, xp_window_kernel "
+        f"{chain64:.4f} ms (in turns: " + ", ".join(f"{t:.4f}" for t in turns)
+        + f"; {chain64 / ms64:.2f}x), 0.0 apart; bound {bound64:.4f} ms ({by64})")
     results["bigru_window_xp"] = {
         "name": "bigru_window_xp", "route": "cuda",
-        "source": "helen_tpu_torch/ops/csrc/gru_window_xp.cu",
+        "source": "helen_tpu_torch/ops/csrc/gru_window_xp_grid.cu (xp_grid_kernel), design "
+                  "'grid' (ran here); helen_tpu_torch/ops/csrc/gru_window_xp.cu "
+                  "(xp_window_kernel), design 'chain', where W_hh does not fit the SMs",
         "replaces": "helen_tpu/ops/gru_pallas.py:231 (_kernel); "
                     "helen_tpu/ops/gru_pallas_train.py:119 (_fwd_kernel)",
         "max_abs_err": acc["err"], "ms": acc["ms"], "kernel_ms": acc["ms"],
-        "plain_ms": acc["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": acc["library_ms"], "projection_ms": acc["projection_ms"],
+        "chain_ms": acc["chain_ms"], "plain_ms": acc["plain_ms"], "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": acc["library_ms"],
+        "projection_ms": acc["projection_ms"], "design": design, "units": units,
+        "ms_b64": ms64, "chain_ms_b64": chain64, "bound_ms_b64": bound64,
         "per": "one launch at B=512, T=100, H=1024 (mean of layer 0, D=90, and the "
-               "decoder, D=2048; library: cuDNN's GRU forward of the layer, "
-               "projection included)",
+               "decoder, D=2048; ms: the grid design; chain_ms: xp_window_kernel in the same "
+               "call; library: cuDNN's GRU forward of the layer, projection included; *_b64: "
+               "the decoder layer at B=64)",
     }
 
 
@@ -1328,19 +1389,23 @@ def check_golden_xp() -> None:
     for name in FIXTURES:
         stem = "golden" if name == "model" else f"golden_{name}"
         params, _ = load_model_any(os.path.join(GOLDEN, f"golden_{name}.pkl"))
-        before = gx.launch_counts["bigru_window_xp"]
+        before = dict(gx.launch_counts)
         with torch.no_grad():
             base, rle = consensus_labels(params_to_torch(params, images.device), images,
                                          backend="cuda", route="xp")
-        launched = gx.launch_counts["bigru_window_xp"] - before
+        ran = {k: gx.launch_counts[k] - before[k] for k in before}
+        launched = ran["bigru_window_xp"]
         want = np.load(os.path.join(GOLDEN, f"{stem}_labels.npz"))
         base, rle = base.cpu().numpy(), rle.cpu().numpy()
         fb = sum(int((base[j] != want[f"base/{k}"]).sum()) for j, k in enumerate(keys))
         fr = sum(int((rle[j] != want[f"rle/{k}"]).sum()) for j, k in enumerate(keys))
         log(f"golden {name} through the xp route: {fb}+{fr} base+rle label flips of "
-            f"{base.size} per head ({launched} K3 launches)")
+            f"{base.size} per head ({launched} K3 launches: {ran['bigru_window_xp_grid']} in "
+            f"the grid design, {ran['bigru_window_xp_chain']} in xp_window_kernel)")
         if fb or fr or not launched:
             fail(f"golden {name}: the xp route flips labels")
+        if ran["bigru_window_xp_grid"] != launched or ran["bigru_window_xp_chain"]:
+            fail(f"golden {name}: K3 did not take the grid design")
         p = params_to_torch(params, images.device)
         layer = {d: p["encoder"][d] for d in ("fwd", "bwd")}
         Bg, Hg = images.shape[0], layer["fwd"]["w_hh"].shape[0]
@@ -1381,6 +1446,7 @@ def check_routes_h512(images_u8) -> None:
     from helen_tpu_torch.io.checkpoint import params_to_torch
     from helen_tpu_torch.models.transducer import consensus_labels, init_params
     from helen_tpu_torch.ops import gru_window as gw
+    from helen_tpu_torch.ops import gru_window_xp as gx
 
     params = params_to_torch(init_params(torch.Generator().manual_seed(512),
                                          dataclasses.replace(MODEL, hidden_size=512)),
@@ -1389,6 +1455,7 @@ def check_routes_h512(images_u8) -> None:
     labels, secs = {}, {"inproj": [], "xp": []}
     for i, route in enumerate(("inproj", "xp", "xp", "inproj")):
         gw.reset_launch_counts()
+        gx.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with torch.no_grad():
@@ -1403,6 +1470,12 @@ def check_routes_h512(images_u8) -> None:
                 "bigru_window_kernel (W_hh does not fit a block's shared memory)")
             if counts != want:
                 fail("the in-projection route at H=512 did not run bigru_window_kernel")
+        if i == 1:
+            counts = {k: v for k, v in gx.launch_counts.items() if v}
+            want = {"bigru_window_xp": 2 * n_win, "bigru_window_xp_grid": 2 * n_win}
+            log(f"H=512 xp route launches {counts}, expected {want}: K3 in the grid design")
+            if counts != want:
+                fail("the xp route at H=512 did not run K3 in the grid design")
     (ib, ir), (xb, xr) = labels["inproj"], labels["xp"]
     fb, fr = int((ib != xb).sum()), int((ir != xr).sum())
     per = {k: 1e3 * min(v) / n_win for k, v in secs.items()}
@@ -1486,7 +1559,8 @@ def run_wide_cli(work: str, results) -> tuple:
         epoch = json.loads(f.readline())
     train_b, test_b = N_WIDE_TRAIN // WB_TRAIN, 1
     trained = train_b * n_win * 2
-    want = {**zero_inproj, **zero_xp, "bigru_window_xp": (train_b + test_b) * n_win * 2,
+    fwd = (train_b + test_b) * n_win * 2
+    want = {**zero_inproj, **zero_xp, "bigru_window_xp": fwd, "bigru_window_xp_grid": fwd,
             XP_PASSES[0]: trained, XP_PASSES[1]: trained, "bigru_window_xp_bwd_hp": trained,
             "bigru_window_xp_bwd_rec_grid": trained}
     log(f"wide train (H={WH}, {N_WIDE_TRAIN} images, -b {WB_TRAIN}, 1 epoch): train loss "
@@ -1496,14 +1570,16 @@ def run_wide_cli(work: str, results) -> tuple:
         f"evaluation {epoch['eval_seconds']:.2f} s; wall {wall:.2f} s, peak device "
         f"memory {peak:.0f} MiB")
     log(f"wide train launches {launches}, expected {want} ({train_b} train + {test_b} "
-        f"test batches x {n_win} windows x 2 layers; K4 on the train batches only, pass 1 "
-        "in the grid design: the gate pass and the grid recurrence, 0 xp_bwd_rec_kernel)")
+        f"test batches x {n_win} windows x 2 layers; K3 in the grid design, 0 "
+        "xp_window_kernel; K4 on the train batches only, pass 1 in the grid design: the gate "
+        "pass and the grid recurrence, 0 xp_bwd_rec_kernel)")
     if launches != want:
         fail("wide train launch counts differ from batches x windows x layers")
     for name in (*XP_PASSES, "bigru_window_xp_bwd_hp", "bigru_window_xp_bwd_rec_grid"):
         results[name]["launches"] = launches[name]
-    results[XP_PASSES[0]]["wide_train_windows_per_s"] = (epoch["train_windows"]
-                                                         / epoch["train_seconds"])
+    rate = epoch["train_windows"] / epoch["train_seconds"]
+    results[XP_PASSES[0]]["wide_train_windows_per_s"] = rate
+    results["bigru_window_xp"]["wide_train_windows_per_s"] = rate
     results["bigru_window_xp"]["launches_train"] = launches["bigru_window_xp"]
 
     latest = os.path.join(run, "models", "HELEN_latest_checkpoint.npz")
@@ -1527,7 +1603,8 @@ def run_wide_cli(work: str, results) -> tuple:
         f"confusion matrices equal: {same}; launches {tl}")
     if not same:
         fail("wide test did not reproduce the epoch's loss and confusion matrices")
-    if tl != {**zero_inproj, **zero_xp, "bigru_window_xp": test_b * n_win * 2}:
+    if tl != {**zero_inproj, **zero_xp, "bigru_window_xp": test_b * n_win * 2,
+              "bigru_window_xp_grid": test_b * n_win * 2}:
         fail("wide test launch counts differ from batches x windows x layers")
 
     pout = os.path.join(work, "wide_polish_out")
@@ -1542,9 +1619,11 @@ def run_wide_cli(work: str, results) -> tuple:
     log(f"wide polish ({WB_POLISH} images at -b {WB_POLISH}): wall {wall:.2f} s, consensus "
         f"{consensus_s:.2f} s = {WB_POLISH * n_win / consensus_s:,.1f} windows/s, peak "
         f"device memory {peak:.0f} MiB; launches {pl}")
-    if pl != {**zero_inproj, **zero_xp, "bigru_window_xp": n_win * 2}:
+    if pl != {**zero_inproj, **zero_xp, "bigru_window_xp": n_win * 2,
+              "bigru_window_xp_grid": n_win * 2}:
         fail("wide polish launch counts differ from batches x windows x layers")
     results["bigru_window_xp"]["launches"] = pl["bigru_window_xp"]
+    results["bigru_window_xp"]["wide_polish_windows_per_s"] = WB_POLISH * n_win / consensus_s
 
     ds = MarginPolishDataset(glob.glob(os.path.join(dirs["polish"], "*.h5")))
     recs = [ds.load(i) for i in range(len(ds))]
@@ -1646,27 +1725,39 @@ def check_fast_inproj(images_u8, results) -> None:
 
 
 def check_fast_xp(images_u8, results) -> None:
-    """Phase 10b: K3f against its plain version at B=512, T=100, H=1024 for
-    both layer kinds (layer 0 on the uint8 window, D=90; the decoder on
-    K3f's outputs rounded to bf16, D=2048), each over the streams of the
-    fast projection (a float32 GEMM of bf16 values, the bias, one rounding
-    to bf16), timed beside its plain version, that projection and cuDNN's
-    GRU in bf16 at the same (D, H)."""
+    """Phase 10b: K3f at B=512, T=100, H=1024 for both layer kinds (layer 0
+    on the uint8 window, D=90; the decoder on K3f's outputs rounded to bf16,
+    D=2048), each over the streams of the fast projection (a float32 GEMM of
+    bf16 values, the bias, one rounding to bf16). In its main-path design
+    (the grid recurrence, its step product on bf16 mma.sync) against its
+    plain version (FAST_TOL), its distance from the one-launch
+    xp_window_kernel<FAST> reported, bit-identity of two launches; both
+    designs timed in turns (grid, chain, chain, grid) beside the plain
+    version, that projection and cuDNN's GRU in bf16 at the same (D, H);
+    then both designs at the wide polish's B=256 (the decoder layer)."""
     import numpy as np
     import torch
 
     from helen_tpu_torch.io.checkpoint import fast_layer
     from helen_tpu_torch.models.gru import bf16_round
     from helen_tpu_torch.ops import gru_window_xp as gx
+    from helen_tpu_torch.ops import gru_window_xp_grid as xg
+    from helen_tpu_torch.ops.gru_window_xp_bwd_grid import card_limits
 
     dev = images_u8.device
+    design, units = gx.xp_fwd_design(WH, B, fast=True), xg.grid_units(WH, *card_limits(), True)
+    log(f"K3f at H={WH}, B={B}: design {design!r} ({units} units per block, "
+        f"{xg.grid_smem_bytes(WH, units or 1, True)} bytes of shared memory each)")
+    if design != "grid":
+        fail(f"K3f at H={WH}, B={B} does not take the grid design")
     rng = np.random.default_rng(20261021)
     h0 = [torch.from_numpy(rng.uniform(-0.5, 0.5, (B, WH)).astype("float32")).to(dev)
           for _ in range(4)]
     start = 450
     x = images_u8[:, start:start + T].to(torch.float32).transpose(0, 1).contiguous()
     hf, hb = h0[0], h0[1]
-    acc = {k: 0.0 for k in ("ms", "plain_ms", "library_ms", "projection_ms", "err")}
+    acc = {k: 0.0 for k in ("ms", "chain_ms", "plain_ms", "library_ms", "projection_ms",
+                            "err", "apart")}
     for label, D in (("layer 0, image D=90", F), ("decoder, pair D=2048", 2 * WH)):
         f32 = random_layer(rng, D, WH, dev)
         layer = fast_layer(f32)
@@ -1675,32 +1766,53 @@ def check_fast_xp(images_u8, results) -> None:
         with torch.no_grad():
             xp_f, xp_b = proj()
             got = gx.bigru_window_xp_fast(xp_f, xp_b, hf, hb, layer)
+            again = gx.bigru_window_xp_fast(xp_f, xp_b, hf, hb, layer)
+            chain = gx.bigru_window_xp_fast(xp_f, xp_b, hf, hb, layer, design="chain")
             want, plain_ms = timed_once(
                 lambda: gx.bigru_window_xp_fast_plain(xp_f, xp_b, hf, hb, layer))
-            err = max_err(got, want)
-            ms = cuda_ms(lambda: gx.bigru_window_xp_fast(xp_f, xp_b, hf, hb, layer),
-                         iters=5, warmup=1)
+            err, apart = max_err(got, want), max_err(got, chain)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                fail(f"K3f ({label}): two launches differ")
+            ms, chain_ms, turns = in_turns(
+                lambda d: gx.bigru_window_xp_fast(xp_f, xp_b, hf, hb, layer, design=d))
             proj_ms = cuda_ms(proj, iters=5, warmup=1)
             gru = cudnn_gru(f32, D, WH, dev, torch.bfloat16)
             xb16, hx = x.to(torch.bfloat16), torch.stack([hf, hb]).to(torch.bfloat16)
             lib_ms = cuda_ms(lambda: gru(xb16, hx), iters=5, warmup=1)
-        log(f"K3f ({label}): max |kernel - plain| {err:.3g}; kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.3f} ms, fast projection {proj_ms:.4f} ms, cuDNN bf16 GRU {lib_ms:.4f} ms")
-        for k, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
-                     ("projection_ms", proj_ms)):
+        log(f"K3f ({label}): max |kernel - plain| {err:.3g}, max |grid - "
+            f"xp_window_kernel<FAST>| {apart:.3g}; grid {ms:.4f} ms, xp_window_kernel<FAST> "
+            f"{chain_ms:.4f} ms (in turns: " + ", ".join(f"{t:.4f}" for t in turns)
+            + f"; {chain_ms / ms:.2f}x), plain {plain_ms:.3f} ms, fast projection "
+            f"{proj_ms:.4f} ms, cuDNN bf16 GRU {lib_ms:.4f} ms")
+        for k, v in (("ms", ms), ("chain_ms", chain_ms), ("plain_ms", plain_ms),
+                     ("library_ms", lib_ms), ("projection_ms", proj_ms)):
             acc[k] += v / 2
-        acc["err"] = max(acc["err"], err)
+        acc["err"], acc["apart"] = max(acc["err"], err), max(acc["apart"], apart)
         # the decoder reads layer 0's outputs rounded to bf16, as on the main path
         x, hf, hb = bf16_round(torch.cat([got[0], got[1]], -1)), h0[2], h0[3]
+    xs, hs = x[:, :WB_POLISH].contiguous(), [h[:WB_POLISH].contiguous() for h in (hf, hb)]
+    with torch.no_grad():
+        xp_f, xp_b = gx.project_fast(xs, layer["fwd"]), gx.project_fast(xs, layer["bwd"])
+        ms256, chain256, turns = in_turns(
+            lambda d: gx.bigru_window_xp_fast(xp_f, xp_b, *hs, layer, design=d))
+    log(f"K3f at B={WB_POLISH} (decoder layer): grid {ms256:.4f} ms, xp_window_kernel<FAST> "
+        f"{chain256:.4f} ms (in turns: " + ", ".join(f"{t:.4f}" for t in turns)
+        + f"; {chain256 / ms256:.2f}x)")
+    flops, nbytes = xp_cost(B, 2, 2)
     entry = fast_entry(
-        "bigru_window_xp_fast", "helen_tpu_torch/ops/csrc/gru_window_xp.cu",
+        "bigru_window_xp_fast",
+        "helen_tpu_torch/ops/csrc/gru_window_xp_grid.cu (xp_grid_fast_kernel, bf16 mma.sync), "
+        "design 'grid' (ran here); helen_tpu_torch/ops/csrc/gru_window_xp.cu "
+        "(xp_window_kernel<FAST>), design 'chain', where W_hh does not fit the SMs",
         "helen_tpu/ops/gru_pallas.py:231 (_kernel, fast=True)", acc["err"], acc["ms"],
-        acc["plain_ms"], acc["library_ms"], 2.0 * T * B * 3 * WH * WH * 2,
-        2 * 2 * T * B * 3 * WH + 2 * 4 * T * B * WH + 2 * (2 * WH * 3 * WH + 4 * 3 * WH)
-        + 4 * 4 * B * WH,
+        acc["plain_ms"], acc["library_ms"], flops, nbytes,
         f"one launch at B={B}, T={T}, H={WH} (mean of layer 0, D=90, and the decoder, "
-        "D=2048; library: cuDNN's bf16 GRU of the layer, projection included)")
-    entry["projection_ms"] = acc["projection_ms"]
+        "D=2048; ms: the grid design; chain_ms: xp_window_kernel<FAST> in the same call; "
+        "library: cuDNN's bf16 GRU of the layer, projection included; *_b256: the decoder "
+        "layer at B=256)")
+    entry.update(projection_ms=acc["projection_ms"], chain_ms=acc["chain_ms"],
+                 max_abs_from_chain=acc["apart"], design=design, units=units,
+                 ms_b256=ms256, chain_ms_b256=chain256)
     log(f"K3f projection (float32 GEMM of bf16 values + b_ih, one rounding): "
         f"{acc['projection_ms']:.4f} ms per layer")
     results["bigru_window_xp_fast"] = entry
@@ -1830,17 +1942,20 @@ def run_fast_polish(img_dir: str, truth, n_images: int, work: str, wide_ckpt: st
     out = os.path.join(work, "wide_polish_fast")
     _, wall, timer, counts = run(wide_dir, wide_ckpt, out, WB_POLISH)
     consensus_s = timer.stages["call_consensus"]
-    want = {**zero, "bigru_window_xp_fast": n_win * 2}
+    want = {**zero, "bigru_window_xp_fast": n_win * 2, "bigru_window_xp_fast_grid": n_win * 2}
     fb, fr, n = flips_against(out, wide_parity_out)
     log(f"polish --fast, wide (H={WH}): {WB_POLISH} images at -b {WB_POLISH}: wall "
         f"{wall:.2f} s, consensus {consensus_s:.2f} s = "
         f"{WB_POLISH * n_win / consensus_s:,.1f} windows/s; {fb}+{fr} base+rle flips of "
         f"{n} per head against phase 9e's parity labels")
     log("stage timings:\n" + timer.report())
-    log(f"launches {counts}, expected {want} (1 batch x {n_win} windows x 2 layers)")
+    log(f"launches {counts}, expected {want} (1 batch x {n_win} windows x 2 layers, K3f in "
+        "the grid design)")
     if counts != want:
         fail("wide polish --fast launch counts differ from windows x layers")
     results["bigru_window_xp_fast"]["launches"] = counts["bigru_window_xp_fast"]
+    results["bigru_window_xp_fast"]["wide_polish_windows_per_s"] = (WB_POLISH * n_win
+                                                                    / consensus_s)
 
 
 # ---------------------------------------------------------------------------

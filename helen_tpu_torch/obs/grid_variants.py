@@ -1,17 +1,22 @@
-"""Where the time of K4's grid recurrence goes: variants of its source,
+"""Where the time of the grid recurrences goes: variants of their sources,
 timed on the card.
 
     python -m helen_tpu_torch.obs.grid_variants [--batch 64] [--hidden 1024 640]
+    python -m helen_tpu_torch.obs.grid_variants --kernel fwd [--batch 512 64] [--hidden 1024]
 
-Each variant is ``ops/csrc/gru_window_xp_bwd_grid.cu`` with some of its
-block-shape constants replaced, or one part of its step cut out, built with
-nvcc into a library of its own under the build directory, all builds
-started together. Every variant runs on the same inputs (a window of
-T=100 at the given batch and widths, random weights from a seed, the gate
-pass's ``hp`` from the shipped kernels) and is timed with CUDA events over
-5 launches; the line says whether its outputs equal the one-launch
-``xp_bwd_rec_kernel`` bit for bit (the cut variants cannot). It needs a
-CUDA device and ``nvcc``; it prints the card's name and power limit first.
+Each variant is the shipped source with some of its block-shape constants
+replaced, or one part of its step cut out, built with nvcc into a library of
+its own under the build directory, all builds started together. ``bwd``
+(the default): ``ops/csrc/gru_window_xp_bwd_grid.cu``, K4's pass 1, on a
+window of T=100 at the given batch and widths, random weights from a seed,
+the gate pass's ``hp`` from the shipped kernels; each line says whether its
+outputs equal the one-launch ``xp_bwd_rec_kernel`` bit for bit (the cut
+variants cannot). ``fwd``: ``ops/csrc/gru_window_xp_grid.cu``, K3 and K3f
+in their grid design on the same kind of window; a K3 line says whether its
+outputs equal ``xp_window_kernel`` bit for bit, a K3f line gives its largest
+distance from the fast plain version's kernel, ``xp_window_kernel<FAST>``.
+Every variant is timed with CUDA events over 5 launches. It needs a CUDA
+device and ``nvcc``; it prints the card's name and power limit first.
 """
 from __future__ import annotations
 
@@ -54,53 +59,183 @@ VARIANTS = {
 }
 
 
-def variant_source(src: str, consts: dict, edits) -> str:
+FWD_SOURCE = "gru_window_xp_grid.cu"
+_FWD_FMA = """              ar[p] = fmaf(h, lane(wr, e), ar[p]);
+              az[p] = fmaf(h, lane(wz, e), az[p]);
+              an[p] = fmaf(h, lane(wn, e), an[p]);"""
+_FWD_CP = "cp_async16(dst, src);"
+_FWD_NCH = "const int nch = (H + XG_KC - 1) / XG_KC;"
+_FAST_MMA = "mma_bf16(acc[m][n], a[m], bf[n]);"
+_FAST_CP = "cp_async16_cg(dst, hsrc + at);"
+_FAST_NCH = "const int nch = (H + XF_KC - 1) / XF_KC;"
+
+#: the forward's variants: name -> (constants to replace, (text, replacement)
+#: edits); K3's constants are XG_*, K3f's XF_*, and a library holds both
+FWD_VARIANTS = {
+    "shipped": ({}, ()),
+    "K3: 32-k x 3 stages": ({"XG_KC": 32, "XG_STAGES": 3}, ()),
+    "K3: 16-k x 4 stages": ({"XG_KC": 16, "XG_STAGES": 4}, ()),
+    "K3: 128 threads of 8 rows x 1 unit": ({"XG_RPT": 8, "XG_ROW_GROUPS": 8}, ()),
+    "K3: 512 threads of 2 rows x 1 unit": ({"XG_RPT": 2, "XG_ROW_GROUPS": 32}, ()),
+    "K3: 256 threads of 8 rows x 1 unit, 32-k chunks": ({"XG_RPT": 8, "XG_KC": 32}, ()),
+    "K3: no FMAs in the step product": ({}, ((_FWD_FMA, ";"),)),
+    "K3: no h loads in the step product": ({}, ((_FWD_CP, "(void)dst;"),)),
+    "K3: no step product (gates and barriers only)": (
+        {}, ((_FWD_NCH, "const int nch = 0;"),)),
+    "K3f: 3 stages": ({"XF_STAGES": 3}, ()),
+    "K3f: 32-k x 4 stages": ({"XF_KC": 32, "XF_STAGES": 4}, ()),
+    "K3f: 1 m-tile per warp (128-row blocks)": ({"XF_MT": 1}, ()),
+    "K3f: 1 m-tile per warp, 128-k x 2 stages": ({"XF_MT": 1, "XF_KC": 128}, ()),
+    "K3f: no mma in the step product": ({}, ((_FAST_MMA, ";"),)),
+    "K3f: no h loads in the step product": ({}, ((_FAST_CP, "(void)dst;"),)),
+    "K3f: no step product (gates and barriers only)": (
+        {}, ((_FAST_NCH, "const int nch = 0;"),)),
+}
+
+
+def variant_source(src: str, consts: dict, edits, source: str = SOURCE) -> str:
     for name, value in consts.items():
         src, n = re.subn(rf"constexpr int {name} = [^;]*;", f"constexpr int {name} = {value};",
                          src)
         if n != 1:
-            raise ValueError(f"{SOURCE} has no constant {name}")
+            raise ValueError(f"{source} has no constant {name}")
     for text, repl in edits:
         if text not in src:
-            raise ValueError(f"{SOURCE} no longer holds {text!r}")
+            raise ValueError(f"{source} no longer holds {text!r}")
         src = src.replace(text, repl)
     return src
 
 
-def build_all(out_dir: str) -> dict:
-    """{name: (library path or None, ptxas's register line or the error)}."""
+def build_all(out_dir: str, source: str = SOURCE, variants=None) -> dict:
+    """{name: (library path or None, ptxas's register lines or the error)}."""
     from helen_tpu_torch.ops import gru_window as gw
 
-    src = open(os.path.join(gw._CSRC, SOURCE)).read()
+    variants = VARIANTS if variants is None else variants
+    src = open(os.path.join(gw._CSRC, source)).read()
     procs = {}
-    for i, (name, (consts, edits)) in enumerate(VARIANTS.items()):
+    for i, (name, (consts, edits)) in enumerate(variants.items()):
         d = os.path.join(out_dir, f"v{i}")
         os.makedirs(d, exist_ok=True)
-        for header in ("gru_window_common.cuh", "gru_window_smem.cuh"):
+        for header in ("gru_window_common.cuh", "gru_window_smem.cuh", "gru_window_grid.cuh"):
             with open(os.path.join(gw._CSRC, header)) as f, \
                     open(os.path.join(d, header), "w") as g:
                 g.write(f.read())
-        with open(os.path.join(d, SOURCE), "w") as f:
-            f.write(variant_source(src, consts, edits))
+        with open(os.path.join(d, source), "w") as f:
+            f.write(variant_source(src, consts, edits, source))
         so = os.path.join(d, "lib.so")
-        cmd = [gw._nvcc(), *gw.NVCC_FLAGS, "-shared", "-o", so, os.path.join(d, SOURCE)]
+        cmd = [gw._nvcc(), *gw.NVCC_FLAGS, "-shared", "-o", so, os.path.join(d, source)]
         procs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT, text=True))
     built = {}
     for name, (so, proc) in procs.items():
         log, _ = proc.communicate()
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+        keep = 2 if source == SOURCE else 8  # the forward's four kernels
         built[name] = ((so if proc.returncode == 0 else None),
-                       " / ".join(regs[-2:]) if proc.returncode == 0 else log[-2000:])
+                       " / ".join(regs[-keep:]) if proc.returncode == 0 else log[-2000:])
     return built
+
+
+def timed(launch, iters: int = 5) -> float:
+    import torch
+
+    launch()
+    torch.cuda.synchronize()
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    for _ in range(iters):
+        launch()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+def run_fwd(args) -> int:
+    """The forward's variants: K3 and K3f at each batch and width."""
+    import numpy as np
+    import torch
+
+    from helen_tpu_torch.ops import gru_window as gw
+    from helen_tpu_torch.ops import gru_window_xp as gx
+    from helen_tpu_torch.ops import gru_window_xp_grid as xg
+    from helen_tpu_torch.ops.gru_window_xp_bwd_grid import GRID_COUNTERS, card_limits
+    from helen_tpu_torch.utils.build import build_dir
+
+    built = build_all(build_dir("grid_variants_fwd"), FWD_SOURCE, FWD_VARIANTS)
+    libs = {}
+    for name, (so, note) in built.items():
+        print(f"{name}: {note}")
+        if so is not None:
+            lib = ctypes.CDLL(so)
+            for fn in xg.KERNELS.values():
+                getattr(lib, fn).restype = ctypes.c_int
+                getattr(lib, fn).argtypes = getattr(xg.get_lib(), fn).argtypes
+            libs[name] = lib
+    dev = torch.device("cuda")
+    T = 100
+    for H in args.hidden:
+        for B in args.batch:
+            rng = np.random.default_rng(args.seed)
+
+            def r(*shape):
+                return torch.from_numpy(rng.uniform(-1, 1, shape).astype("float32")).to(dev)
+            k = 1.0 / H ** 0.5
+            layer = {d: {"w_hh": r(H, 3 * H) * k, "b_hh": r(3 * H) * k} for d in ("fwd", "bwd")}
+            fast = {d: {"w_hh": layer[d]["w_hh"].to(torch.bfloat16), "b_hh": layer[d]["b_hh"]}
+                    for d in ("fwd", "bwd")}
+            xp_f, xp_b, h0f, h0b = r(T, B, 3 * H), r(T, B, 3 * H), r(B, H), r(B, H)
+            fx = (xp_f.to(torch.bfloat16), xp_b.to(torch.bfloat16))
+            want = gx.bigru_window_xp(xp_f, xp_b, h0f, h0b, layer, design="chain")
+            fwant = gx.bigru_window_xp_fast(*fx, h0f, h0b, fast, design="chain")
+            for tier, ins, lay, ref in ((False, (xp_f, xp_b), layer, want),
+                                        (True, fx, fast, fwant)):
+                units = xg.grid_units(H, *card_limits(), tier)
+                w = [lay[d][q] for d in ("fwd", "bwd") for q in ("w_hh", "b_hh")]
+                for name, lib in libs.items():
+                    if name != "shipped" and name.startswith("K3f" if not tier else "K3:"):
+                        continue
+                    outs = gw._outputs(T, B, H, dev)
+                    scratch = ([torch.empty((2, 2, B, H), dtype=torch.bfloat16, device=dev)]
+                               if tier else [])
+                    fn = getattr(lib, xg.KERNELS[tier])
+
+                    def launch():
+                        arrive = torch.zeros(GRID_COUNTERS, dtype=torch.int32, device=dev)
+                        err = fn(*(t.data_ptr() for t in (*ins, h0f, h0b, *w, *outs, *scratch,
+                                                          arrive)),
+                                 T, B, H, units, torch.cuda.current_stream().cuda_stream)
+                        if err:
+                            raise RuntimeError(f"{name}: CUDA error {err}")
+
+                    try:
+                        ms = timed(launch)
+                    except RuntimeError as e:
+                        print(f"B={B} T={T} H={H} U={units}: {name}: {e}", flush=True)
+                        continue
+                    if tier:
+                        cmp = ("max |grid - xp_window_kernel<FAST>| "
+                               f"{max(float((a - b).abs().max()) for a, b in zip(outs, ref)):.3g}")
+                    else:
+                        cmp = ("equal to xp_window_kernel: "
+                               f"{all(torch.equal(a, b) for a, b in zip(outs, ref))}")
+                    label = "K3f" if tier else "K3"
+                    print(f"B={B} T={T} H={H} U={units}: {label} {name}: {ms:.4f} ms, {cmp}",
+                          flush=True)
+    return 0
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--batch", type=int, default=64)
-    ap.add_argument("--hidden", type=int, nargs="+", default=[1024, 640])
+    ap.add_argument("--kernel", choices=("bwd", "fwd"), default="bwd")
+    ap.add_argument("--batch", type=int, nargs="+", default=None,
+                    help="bwd: one batch (64); fwd: one or more (512 64)")
+    ap.add_argument("--hidden", type=int, nargs="+", default=None,
+                    help="bwd: 1024 640; fwd: 1024")
     ap.add_argument("--seed", type=int, default=20261019)
     args = ap.parse_args(argv)
+    fwd = args.kernel == "fwd"
+    args.batch = args.batch or ([512, 64] if fwd else [64])
+    args.hidden = args.hidden or ([1024] if fwd else [1024, 640])
 
     import numpy as np
     import torch
@@ -118,6 +253,8 @@ def main(argv=None) -> int:
     set_fp32_precision()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip().splitlines()[0])
+    if fwd:
+        return run_fwd(args)
     built = build_all(build_dir("grid_variants"))
     libs = {}
     for name, (so, note) in built.items():
@@ -129,7 +266,7 @@ def main(argv=None) -> int:
                 gg.get_lib().bigru_window_xp_bwd_rec_grid.argtypes)
             libs[name] = lib
     dev = torch.device("cuda")
-    T, B = 100, args.batch
+    T, B = 100, args.batch[0]
     for H in args.hidden:
         rng = np.random.default_rng(args.seed)
         r = lambda *s: torch.from_numpy(rng.uniform(-1, 1, s).astype("float32")).to(dev)  # noqa: E731

@@ -140,9 +140,10 @@ __device__ __forceinline__ void fma_chain(const X* x, int ldx, int d, const W* w
 
 // The gates of one row and its h' = (1 - z) n + z h, from the input
 // projections with b_ih added (xr, xz, xn), the sums of h W_hh without b_hh
-// (hr, hz, hq) and the fp32 state hc. gru_step and the W_hh-in-shared-memory
-// recurrence (gru_window_smem.cu) both take their gates from here, so the
-// two designs round alike.
+// (hr, hz, hq) and the fp32 state hc. gru_step, the W_hh-in-shared-memory
+// recurrence (gru_window_smem.cu) and both designs of the xp-stream window
+// (gru_window_xp.cu, gru_window_xp_grid.cu) take their gates from here, so
+// each pair of designs rounds alike.
 template <bool FAST>
 __device__ __forceinline__ float gru_gates(float xr, float xz, float xn, float hr, float hz,
                                            float hq, const CellBias& bias, float hc) {

@@ -29,6 +29,12 @@
 // from L2 at every step, reusing each weight BT times: L2 traffic, not the
 // FMAs, sets its time (PERF.md has the measurement).
 //
+// This is the "chain" design. Where W_hh spread over the card's SMs fits
+// their shared memory (every width of the xp route on the H100), the grid
+// design of gru_window_xp_grid.cu runs instead (ops/gru_window_xp.py
+// xp_fwd_design): the same sums in the same order and the same gate lines
+// (gru_gates), so K3's two designs give the same bits.
+//
 // The design, simple and exact first:
 //   * grid (ceil(B / BT), 2): one block per BT batch rows and direction, the
 //     T loop inside the block; the ragged batch edge is masked.
@@ -118,7 +124,7 @@ xp_window_kernel(DirXp<typename std::conditional<FAST, __nv_bfloat16, float>::ty
           hq[r] = fmaf(hv, wn, hq[r]);
         }
       }
-      const float bhr = p.b_hh[j], bhz = p.b_hh[H + j], bhn = p.b_hh[2 * H + j];
+      const CellBias bias{0.0f, 0.0f, 0.0f, p.b_hh[j], p.b_hh[H + j], p.b_hh[2 * H + j]};
 #pragma unroll
       for (int r = 0; r < BT; ++r) {
         const int b = b0 + r;
@@ -129,10 +135,8 @@ xp_window_kernel(DirXp<typename std::conditional<FAST, __nv_bfloat16, float>::ty
           xz = to_f(x[H + j]);
           xn = to_f(x[2 * H + j]);
         }
-        const float rg = sigmoidf_(xr + (hr[r] + bhr));
-        const float zg = sigmoidf_(xz + (hz[r] + bhz));
-        const float ng = gate_n<FAST>(xn, rg, hq[r] + bhn);
-        const float hnew = blend<FAST>(zg, ng, hc[r * H + j]);
+        const float hnew =
+            gru_gates<FAST>(xr, xz, xn, hr[r], hz[r], hq[r], bias, hc[r * H + j]);
         hx[r * H + j] = hnew;
         if (FAST) hox[r * H + j] = bf16_rn(hnew);
         if (b < B) p.out[((size_t)tt * B + b) * H + j] = hnew;

@@ -59,7 +59,7 @@
 // scheduler nothing hid the shared-memory latency; each chunk costs a
 // __syncthreads.
 
-#include "gru_window_smem.cuh"
+#include "gru_window_grid.cuh"
 
 namespace {
 
@@ -72,8 +72,6 @@ constexpr int GRID_KS = GRID_KC + 4; // a stage's row stride: rows 4 banks apart
 constexpr int GRID_STAGES = 2;       // chunk ch + 1 lands while chunk ch is summed
 constexpr int GRID_MAX_UNITS = 16;   // units per block: at most 16 unit groups
 constexpr int GRID_MAX_THREADS = GRID_MAX_UNITS / GRID_UPT * GRID_ROW_GROUPS;
-constexpr long long GRID_SPIN_NS = 10000000000LL;  // a barrier wait past 10 s traps
-constexpr int GRID_CTR_STRIDE = 32;  // the directions' counters 128 bytes apart
 
 // W_hh row stride in shared memory: 3H rounded up to 32 floats, plus 4, so
 // the rows of neighbouring units start 4 banks apart
@@ -95,27 +93,6 @@ inline int grid_threads(int U, int B) {
   const int ug = (U + GRID_UPT - 1) / GRID_UPT;
   const int rg = (B + GRID_RPT - 1) / GRID_RPT;
   return ug * (rg < GRID_ROW_GROUPS ? rg : GRID_ROW_GROUPS);
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait_group() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ long long globaltimer() {
-  long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
 }
 
 // one direction's inputs and outputs of the recurrence
@@ -250,18 +227,7 @@ xp_bwd_rec_grid_kernel(GridDir pf, GridDir pb, const float* __restrict__ hp,
     }
 
     // b. every block of the direction has written its units of dhp[tt]
-    __syncthreads();
-    if (tid == 0) {
-      __threadfence();
-      atomicAdd(ctr, 1u);
-      const unsigned target = (unsigned)C * (unsigned)(s + 1);
-      const long long t0 = globaltimer();
-      while (ld_acquire(ctr) < target) {
-        if (globaltimer() - t0 > GRID_SPIN_NS) __trap();
-      }
-      __threadfence();
-    }
-    __syncthreads();
+    grid_barrier(ctr, (unsigned)C * (unsigned)(s + 1));
 
     // c. the carry product over dhp[tt] = [dxp_r | dxp_z | dhp_n]
     const float* gx = dxp + (size_t)tt * B * H3;
@@ -371,12 +337,7 @@ long long bigru_window_xp_bwd_grid_smem_bytes(int H, int U) {
 }
 
 // the current device's streaming multiprocessors
-int gru_window_sm_count() {
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  return sms;
-}
+int gru_window_sm_count() { return device_sm_count(); }
 
 // The recurrence: xp_f/xp_b (T, B, 3H) with b_ih added, hp (2, T, B, 3H) =
 // h_prev W_hh without b_hh (bigru_window_bwd_hp); per direction h0, the
@@ -394,22 +355,12 @@ int bigru_window_xp_bwd_rec_grid(const float* xp_f, const float* xp_b, const flo
                                  float* dh0_b, unsigned* arrive, int T, int B, int H, int U,
                                  void* stream) {
   if (int e = check_grid(T, B, H, U)) return e;
-  const size_t smem = grid_smem(H, U);
-  if (int e = allow_smem(xp_bwd_rec_grid_kernel, smem)) return e;
-  const int threads = grid_threads(U, B);
-  int C = (H + U - 1) / U, per_sm = 0;
-  if (cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, xp_bwd_rec_grid_kernel, threads, smem)) {
-    return (int)e;
-  }
-  if ((long long)per_sm * gru_window_sm_count() < 2LL * C) {
-    return (int)cudaErrorCooperativeLaunchTooLarge;
-  }
+  int C = (H + U - 1) / U;
   GridDir pf{xp_f, h0_f, out_f, dout_f, dhf, wh_f, bh_f, dh0_f};
   GridDir pb{xp_b, h0_b, out_b, dout_b, dhb, wh_b, bh_b, dh0_b};
   void* args[] = {&pf, &pb, &hp, &dxp, &dhpn, &arrive, &T, &B, &H, &U, &C};
-  return (int)cudaLaunchCooperativeKernel((const void*)xp_bwd_rec_grid_kernel, dim3(2 * C),
-                                          dim3(threads), args, smem, (cudaStream_t)stream);
+  return launch_cooperative(xp_bwd_rec_grid_kernel, 2 * C, grid_threads(U, B),
+                            grid_smem(H, U), args, stream);
 }
 
 }  // extern "C"

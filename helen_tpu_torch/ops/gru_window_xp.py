@@ -18,8 +18,25 @@ The wrapper takes ``xp_f``, ``xp_b`` ``(T, B, 3H)`` float32, ``h0_f``,
 keys are not read) and returns ``(out_f (T, B, H), out_b (T, B, H), h_f
 (B, H), h_b (B, H))``, outputs in original time order. On a CPU tensor it
 computes its plain version (the two ``gru_scan`` recurrences); on a CUDA
-tensor it launches the kernel or raises. Each launch adds one to
-:data:`launch_counts`.
+tensor it launches the kernel or raises.
+
+K3 and K3f each have two designs, picked by a fixed rule of the shape, the
+tier and the card (:func:`xp_fwd_design`):
+
+* ``"grid"`` (ops.gru_window_xp_grid, ``csrc/gru_window_xp_grid.cu``), where
+  ``W_hh`` spread over the card's SMs fits their shared memory (every width
+  of the xp route on the H100): one cooperative launch, one block per SM
+  holding its hidden units' ``W_hh`` columns for all T steps, one grid
+  barrier per step; K3f's step product on bf16 tensor cores;
+* ``"chain"``, elsewhere: ``xp_window_kernel`` (``csrc/gru_window_xp.cu``),
+  ``ceil(B / 8)`` blocks per direction, each reading ``W_hh`` from L2 at
+  every step.
+
+K3's two designs sum in the same order and share the gate lines, so they
+give the same bits; K3f's agree to the fast tier's tolerance. Each K3 or
+K3f adds one to :data:`launch_counts` under its own name whichever design
+ran, and one under the name of the kernel that ran (``*_grid``,
+``*_chain``).
 
 The fast tier: :func:`bigru_window_xp_fast` (K3f, the ``FAST``
 instantiation of the same source) replaces ``_kernel`` run with
@@ -36,6 +53,8 @@ from typing import Dict
 import torch
 
 from helen_tpu_torch.models.gru import bf16_round
+from helen_tpu_torch.ops import gru_window_xp_grid as xg
+from helen_tpu_torch.ops.gru_window_xp_bwd_grid import card_limits
 from helen_tpu_torch.ops.gru_window import (
     XP_MAX_H,
     Layer,
@@ -51,7 +70,13 @@ from helen_tpu_torch.ops.gru_window_bwd import Source, window_input
 
 #: launches since the last reset_launch_counts() — counted where the kernel
 #: is launched and nowhere else
-launch_counts: Dict[str, int] = {"bigru_window_xp": 0, "bigru_window_xp_fast": 0}
+launch_counts: Dict[str, int] = {"bigru_window_xp": 0, "bigru_window_xp_fast": 0,
+                                 # the kernels of each design (see xp_fwd_design)
+                                 "bigru_window_xp_grid": 0, "bigru_window_xp_chain": 0,
+                                 "bigru_window_xp_fast_grid": 0,
+                                 "bigru_window_xp_fast_chain": 0}
+#: K3's and K3f's designs (see xp_fwd_design)
+DESIGNS = ("grid", "chain")
 
 
 def reset_launch_counts() -> None:
@@ -87,7 +112,31 @@ def recurrent_args(layer: Layer, H: int, device, wdtype=torch.float32) -> list:
     return args
 
 
-def _launch_xp(name: str, dtype, xp_f, xp_b, h0_f, h0_b, layer) -> Outputs:
+def xp_fwd_design(H: int, B: int, design=None, fast: bool = False) -> str:
+    """K3's (``fast``: K3f's) design at hidden size ``H`` and batch ``B``:
+    ``"grid"`` where ``gru_window_xp_grid.grid_units`` finds a slice of
+    ``W_hh`` per SM that fits in the tier (co-residency of the ``2 ceil(H /
+    U)`` blocks at the card's SM count, the shared memory at its opt-in
+    limit, both read once from the device), else ``"chain"``,
+    ``xp_window_kernel``. The grid takes any B (its blocks loop over rows).
+    A fixed rule of the shape, the tier and the card, not a fallback.
+    ``design`` forces one (tests, chip_smoke.py's comparison of the two);
+    ``"grid"`` raises where the rule does not hold."""
+    if design is not None and design not in DESIGNS:
+        raise ValueError(f"design {design!r} is not one of {DESIGNS}")
+    sms, budget = card_limits()
+    fits = xg.grid_units(H, sms, budget, fast) is not None
+    if design is None:
+        return "grid" if fits else "chain"
+    if design == "grid" and not fits:
+        raise ValueError(f"design 'grid' does not take H={H}, B={B}"
+                         + (" in the fast tier" if fast else "")
+                         + f": W_hh spread over {sms} SMs does not fit {budget} bytes of "
+                         "shared memory per block")
+    return design
+
+
+def _launch_xp(name: str, dtype, xp_f, xp_b, h0_f, h0_b, layer, design=None) -> Outputs:
     dev = _cuda_device(xp_f, name)
     if xp_f.dim() != 3 or xp_f.shape[-1] % 3:
         raise ValueError(f"xp_f must be (T, B, 3H), got {tuple(xp_f.shape)}")
@@ -100,36 +149,46 @@ def _launch_xp(name: str, dtype, xp_f, xp_b, h0_f, h0_b, layer) -> Outputs:
     _check("h0_f", h0_f, (B, H), torch.float32, dev)
     _check("h0_b", h0_b, (B, H), torch.float32, dev)
     weights = recurrent_args(layer, H, dev, dtype)
-    outs = _outputs(T, B, H, dev)
-    with torch.cuda.device(dev):
-        err = getattr(get_lib(), name)(
-            xp_f.data_ptr(), xp_b.data_ptr(), h0_f.data_ptr(), h0_b.data_ptr(),
-            *weights, *[o.data_ptr() for o in outs], T, B, H,
-            torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, name)
+    fast = dtype != torch.float32
+    if xp_fwd_design(H, B, design, fast) == "grid":
+        outs = xg.launch_xp_grid(xp_f, xp_b, h0_f, h0_b, layer,
+                                 xg.grid_units(H, *card_limits(), fast), launch_counts, dev,
+                                 fast)
+    else:
+        outs = _outputs(T, B, H, dev)
+        with torch.cuda.device(dev):
+            err = getattr(get_lib(), name)(
+                xp_f.data_ptr(), xp_b.data_ptr(), h0_f.data_ptr(), h0_b.data_ptr(),
+                *weights, *[o.data_ptr() for o in outs], T, B, H,
+                torch.cuda.current_stream(dev).cuda_stream)
+        _raise_on(err, name)
+        launch_counts[f"{name}_chain"] += 1
     launch_counts[name] += 1
     return outs
 
 
 def bigru_window_xp(xp_f: torch.Tensor, xp_b: torch.Tensor,
                     h0_f: torch.Tensor, h0_b: torch.Tensor,
-                    layer: Layer) -> Outputs:
-    """K3: the bi-GRU recurrence over the projected streams. See the
-    module docstring."""
+                    layer: Layer, design=None) -> Outputs:
+    """K3: the bi-GRU recurrence over the projected streams, in the design
+    :func:`xp_fwd_design` picks (``design`` forces one). See the module
+    docstring."""
     if xp_f.device.type == "cpu":
         return bigru_window_xp_plain(xp_f, xp_b, h0_f, h0_b, layer)
-    return _launch_xp("bigru_window_xp", torch.float32, xp_f, xp_b, h0_f, h0_b, layer)
+    return _launch_xp("bigru_window_xp", torch.float32, xp_f, xp_b, h0_f, h0_b, layer,
+                      design)
 
 
 def bigru_window_xp_fast(xp_f: torch.Tensor, xp_b: torch.Tensor,
                          h0_f: torch.Tensor, h0_b: torch.Tensor,
-                         layer: Layer) -> Outputs:
+                         layer: Layer, design=None) -> Outputs:
     """K3f: K3 in the fast tier, over bf16 ``xp`` streams with the layer's
-    bf16 ``w_hh``. See the module docstring."""
+    bf16 ``w_hh``, in the design :func:`xp_fwd_design` picks (``design``
+    forces one). See the module docstring."""
     if xp_f.device.type == "cpu":
         return bigru_window_xp_fast_plain(xp_f, xp_b, h0_f, h0_b, layer)
     return _launch_xp("bigru_window_xp_fast", torch.bfloat16, xp_f, xp_b, h0_f, h0_b,
-                      layer)
+                      layer, design)
 
 
 def project_fast(x: torch.Tensor, p) -> torch.Tensor:

@@ -1,0 +1,134 @@
+"""The xp-stream window (K3, and K3f in the fast tier) as a grid-wide
+recurrence with ``W_hh`` spread over the SMs' shared memory: the kernels'
+binding and their fit rule.
+
+The hand-written CUDA kernels ``bigru_window_xp_grid`` and
+``bigru_window_xp_fast_grid`` (``ops/csrc/gru_window_xp_grid.cu``, in the
+library that ops.gru_window builds) carry :func:`ops.gru_window_xp.
+bigru_window_xp` and :func:`~ops.gru_window_xp.bigru_window_xp_fast` in
+their ``"grid"`` design: one persistent grid of ``2 C`` blocks, ``C =
+ceil(H / U)`` per direction, all co-resident (a cooperative launch), block
+``c`` holding the ``W_hh`` columns of its ``U`` hidden units in shared
+memory for all T steps, one grid barrier per direction and step. K3 sums
+in fp32 FMA chains in k order, so it gives the bits of the one-launch
+``xp_window_kernel``; K3f's step product runs on bf16 tensor cores
+(``mma.sync``) with fp32 sums, so it agrees with its plain version to the
+fast tier's tolerance.
+
+:func:`grid_units` is the fit rule: the smallest ``U`` whose ``2 C``
+blocks fit the card's SMs, one block each, if its shared memory
+(:func:`grid_smem_bytes`) fits the card's opt-in budget and ``U`` is at
+most the tier's :data:`MAX_UNITS`; else none, and ``xp_window_kernel``
+takes the shape. It is a rule of the shape, the tier and the card, whose
+limits ``gru_window_xp_bwd_grid.card_limits`` reads once from the device.
+
+The plain versions are ops.gru_window_xp's; the wrappers there pick the
+design (``xp_fwd_design``) and call :func:`launch_xp_grid`.
+"""
+from __future__ import annotations
+
+import ctypes
+import threading
+from typing import Dict, Optional
+
+import torch
+
+from helen_tpu_torch.ops import gru_window as gw
+from helen_tpu_torch.ops.gru_window import Layer, Outputs
+from helen_tpu_torch.ops.gru_window_xp_bwd_grid import GRID_COUNTERS
+
+# csrc/gru_window_xp_grid.cu's constants. K3: batch rows per thread, row
+# groups per block, the k-chunks of the ring (chunk, row stride, stages);
+# K3f: rows per row block (8 warps of 2 m16 tiles), its ring (bf16)
+XG_RPT, XG_ROW_GROUPS, XG_KC, XG_KS, XG_STAGES = 4, 16, 64, 68, 2
+XF_ROWS, XF_KC, XF_KS, XF_STAGES = 256, 64, 72, 2
+#: the most hidden units per block, per tier (parity: one per thread
+#: column; fast: three tiles of 8)
+MAX_UNITS = {False: 16, True: 24}
+
+
+def grid_smem_bytes(h: int, u: int, fast: bool = False) -> int:
+    """Dynamic shared memory of one block of the grid recurrence at hidden
+    size ``h`` and ``u`` units per block: its ``3u`` W_hh columns (fast:
+    ``u`` rounded up to 8, bf16), each ``h`` rounded up to 64 plus 4 floats
+    (fast: 8 bf16), then the ring of h_prev chunks (2 x 64 rows x 68 floats;
+    fast: 2 x 256 rows x 72 bf16); csrc/gru_window_xp_grid.cu ``xg_smem`` /
+    ``xf_smem``."""
+    k = -(-h // 64) * 64
+    if fast:
+        return 2 * (3 * (-(-u // 8) * 8) * (k + 8) + XF_STAGES * XF_ROWS * XF_KS)
+    return 4 * (3 * u * (k + 4) + XG_STAGES * XG_RPT * XG_ROW_GROUPS * XG_KS)
+
+
+def grid_units(h: int, sms: int, budget: int, fast: bool = False) -> Optional[int]:
+    """The grid recurrence's hidden units per block at hidden size ``h`` on a
+    card of ``sms`` SMs and ``budget`` bytes of opt-in shared memory per
+    block: the smallest ``U`` with ``2 ceil(h / U) <= sms`` (one block per
+    SM, both directions), if its shared memory fits ``budget`` and it is at
+    most the tier's :data:`MAX_UNITS`; else None. A larger ``U`` only takes
+    more shared memory, so no other ``U`` fits where this one does not. On
+    the H100 SXM (132 SMs, 232,448 bytes): U=16 at H=1024, 12 at 768, 10 at
+    640, 2 at 128, in both tiers."""
+    if h < 1 or sms < 2:
+        return None
+    u = -(-h // (sms // 2))
+    if u > MAX_UNITS[fast] or grid_smem_bytes(h, u, fast) > budget:
+        return None
+    return u
+
+
+# ---------------------------------------------------------------------------
+# binding and launch (the arguments checked by the caller)
+# ---------------------------------------------------------------------------
+
+_bind_lock = threading.Lock()
+_bound = None
+
+#: the kernels' names, by tier
+KERNELS = {False: "bigru_window_xp_grid", True: "bigru_window_xp_fast_grid"}
+
+
+def get_lib() -> ctypes.CDLL:
+    """The kernel library with this module's entry points declared."""
+    global _bound
+    lib = gw.get_lib()
+    with _bind_lock:
+        if _bound is not lib:
+            p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+            lib.bigru_window_xp_grid.restype = i
+            lib.bigru_window_xp_grid.argtypes = [p] * 13 + [i, i, i, i, p]
+            lib.bigru_window_xp_fast_grid.restype = i
+            lib.bigru_window_xp_fast_grid.argtypes = [p] * 14 + [i, i, i, i, p]
+            lib.bigru_window_xp_grid_smem_bytes.restype = ll
+            lib.bigru_window_xp_grid_smem_bytes.argtypes = [i, i, i]
+            if any(lib.bigru_window_xp_grid_smem_bytes(h, u, f) != grid_smem_bytes(h, u, f)
+                   for h in (1, 37, 128, 160, 610, 640, 1000, 1024)
+                   for u in (1, 2, 3, 10, 16, 24) for f in (0, 1)):
+                raise RuntimeError("the forward grid's fit disagrees with "
+                                   "csrc/gru_window_xp_grid.cu")
+            _bound = lib
+    return lib
+
+
+def launch_xp_grid(xp_f, xp_b, h0_f, h0_b, layer: Layer, units: int, counts: Dict[str, int],
+                   dev, fast: bool = False) -> Outputs:
+    """One launch of the grid recurrence in the tier ``fast`` picks, at
+    ``units`` hidden units per block, counted in ``counts`` under its
+    kernel's name (:data:`KERNELS`); raises on a refused launch (a grid the
+    card cannot hold at once among them). The fast tier's bf16 exchange
+    buffer ``(2 dirs, 2, B, H)`` and the barrier counters are allocated
+    here."""
+    T, B, H3 = xp_f.shape
+    H = H3 // 3
+    outs = gw._outputs(T, B, H, dev)
+    arrive = torch.zeros(GRID_COUNTERS, dtype=torch.int32, device=dev)
+    scratch = [torch.empty((2, 2, B, H), dtype=torch.bfloat16, device=dev)] if fast else []
+    w = [layer[d][k] for d in ("fwd", "bwd") for k in ("w_hh", "b_hh")]
+    name = KERNELS[fast]
+    with torch.cuda.device(dev):
+        err = getattr(get_lib(), name)(
+            *(t.data_ptr() for t in (xp_f, xp_b, h0_f, h0_b, *w, *outs, *scratch, arrive)),
+            T, B, H, units, torch.cuda.current_stream(dev).cuda_stream)
+    gw._raise_on(err, name)
+    counts[name] += 1
+    return outs

@@ -489,8 +489,9 @@ def test_k3f_kernel_matches_plain(dev, T, B, H):
     before = dict(gx.launch_counts)
     got = gx.bigru_window_xp_fast(*args)
     torch.cuda.synchronize()
-    assert gx.launch_counts == {**before, "bigru_window_xp_fast":
-                                before["bigru_window_xp_fast"] + 1}
+    ran = f"bigru_window_xp_fast_{gx.xp_fwd_design(H, B, fast=True)}"
+    assert gx.launch_counts == {k: v + (k in ("bigru_window_xp_fast", ran))
+                                for k, v in before.items()}
     assert_outputs_close(got, gx.bigru_window_xp_fast_plain(*args), FAST_TOL)
 
 
@@ -569,7 +570,7 @@ def test_fast_consensus_launch_counts(dev, H, want):
     if want == "cuda_fast_inproj":
         expect.update(bigru_window_in1_fast=n_win, bigru_window_in2_fast=n_win)
     else:
-        expect.update(bigru_window_xp_fast=2 * n_win)
+        expect.update(bigru_window_xp_fast=2 * n_win, bigru_window_xp_fast_grid=2 * n_win)
     assert counts == expect
     with torch.no_grad():
         pb, pr = consensus_labels(params, images, backend="torch_fast")
@@ -1173,5 +1174,161 @@ def test_tbptt_batch_xp_bwd_grid_design_equals_chain_design(dev, monkeypatch):
         runs[design] = ([t.detach().clone() for t in tot]
                         + [t.detach() for t in param_leaves(p)]
                         + [torch.as_tensor(v) for v in opt_leaves(state)[1:]])
+    for a, b in zip(runs["grid"], runs["chain"]):
+        assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# K3 and K3f in the grid design: the recurrence with W_hh spread over the
+# SMs' shared memory (ops.gru_window_xp_grid)
+# ---------------------------------------------------------------------------
+
+# the wide inference and training batches at H=1024, H=640 and 768 (10 and 12
+# units per block) at ragged batches, one of them past K3's 64-row and K3f's
+# 256-row block, the forced route's H=128 (2 units per block), and an H that
+# is no multiple of 8 (h rows loaded an element at a time)
+XP_GRID_SHAPES = [(100, 512, 1024), (100, 64, 1024), (7, 13, 640), (5, 300, 768), (6, 8, 128),
+                  (4, 7, 610)]
+
+
+def xp_grid_counts(before, name, design):
+    return {k: v + (k in (name, f"{name}_{design}")) for k, v in before.items()}
+
+
+@pytest.mark.parametrize("T,B,H", XP_GRID_SHAPES)
+def test_xp_grid_design_equals_chain_design(dev, T, B, H):
+    """K3 in the grid design against xp_window_kernel: out and hn exactly
+    equal, each design counted as launched; the grid against the plain
+    version."""
+    from helen_tpu_torch.ops import gru_window_xp as gx
+
+    args = xp_case(np.random.default_rng(T * B + H + 41), T, B, H, dev)
+    assert gx.xp_fwd_design(H, B) == "grid"
+    before = dict(gx.launch_counts)
+    new = gx.bigru_window_xp(*args)
+    torch.cuda.synchronize()
+    assert gx.launch_counts == xp_grid_counts(before, "bigru_window_xp", "grid")
+    before = dict(gx.launch_counts)
+    old = gx.bigru_window_xp(*args, design="chain")
+    torch.cuda.synchronize()
+    assert gx.launch_counts == xp_grid_counts(before, "bigru_window_xp", "chain")
+    for what, n, o in zip(("out_f", "out_b", "h_f", "h_b"), new, old):
+        assert torch.equal(n, o), f"{what}: max |grid - chain| {float((n - o).abs().max())}"
+    assert_outputs_close(new, gx.bigru_window_xp_plain(*args))
+
+
+@pytest.mark.parametrize("T,B,H", XP_GRID_SHAPES)
+def test_xp_fast_grid_matches_plain(dev, T, B, H):
+    """K3f in the grid design (bf16 mma.sync, fp32 sums) against its plain
+    version at FAST_TOL, each design counted as launched; its distance from
+    the one-launch K3f is printed."""
+    from helen_tpu_torch.ops import gru_window_xp as gx
+
+    xp_f, xp_b, h0f, h0b, layer = xp_case(np.random.default_rng(T * B + H + 43), T, B, H, dev)
+    args = (xp_f.to(torch.bfloat16), xp_b.to(torch.bfloat16), h0f, h0b, fast(layer))
+    assert gx.xp_fwd_design(H, B, fast=True) == "grid"
+    before = dict(gx.launch_counts)
+    new = gx.bigru_window_xp_fast(*args)
+    torch.cuda.synchronize()
+    assert gx.launch_counts == xp_grid_counts(before, "bigru_window_xp_fast", "grid")
+    before = dict(gx.launch_counts)
+    old = gx.bigru_window_xp_fast(*args, design="chain")
+    torch.cuda.synchronize()
+    assert gx.launch_counts == xp_grid_counts(before, "bigru_window_xp_fast", "chain")
+    assert_outputs_close(new, gx.bigru_window_xp_fast_plain(*args), FAST_TOL)
+    print(f"K3f T={T} B={B} H={H}: max |grid - one-launch| {max_diff(new, old):.3g}")
+
+
+def max_diff(a, b):
+    return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("tier", ["parity", "fast"])
+def test_xp_grid_is_bit_identical_across_launches(dev, tier):
+    from helen_tpu_torch.ops import gru_window_xp as gx
+
+    xp_f, xp_b, h0f, h0b, layer = xp_case(np.random.default_rng(44), 100, 64, 1024, dev)
+    if tier == "fast":
+        run = lambda: gx.bigru_window_xp_fast(  # noqa: E731
+            xp_f.to(torch.bfloat16), xp_b.to(torch.bfloat16), h0f, h0b, fast(layer),
+            design="grid")
+    else:
+        run = lambda: gx.bigru_window_xp(xp_f, xp_b, h0f, h0b, layer, design="grid")  # noqa: E731
+    a, b = run(), run()
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_xp_grid_refuses_what_the_card_does_not_hold(dev, monkeypatch):
+    """A forced "grid" on a card whose SMs do not hold W_hh raises before any
+    launch; a grid of more blocks than the card holds at once is refused by
+    the cooperative launch, and the wrapper raises: nothing falls back. The
+    library's shared-memory formula is the Python mirror's."""
+    from helen_tpu_torch.ops import gru_window_xp as gx
+    from helen_tpu_torch.ops import gru_window_xp_bwd_grid as gg
+    from helen_tpu_torch.ops import gru_window_xp_grid as xg
+
+    xp_f, xp_b, h0f, h0b, layer = xp_case(np.random.default_rng(45), 4, 8, 1024, dev)
+    sms, budget = gg.card_limits()
+    before = dict(gx.launch_counts)
+    monkeypatch.setattr(gg, "_card", (114, budget))
+    assert gx.xp_fwd_design(1024, 8) == "chain"
+    with pytest.raises(ValueError, match="does not take H=1024"):
+        gx.bigru_window_xp(xp_f, xp_b, h0f, h0b, layer, design="grid")
+    assert gx.launch_counts == before
+    monkeypatch.setattr(gg, "_card", (sms, budget))
+    fl = fast(layer)
+    for tier, ins, lay in ((False, (xp_f, xp_b), layer),
+                           (True, (xp_f.to(torch.bfloat16), xp_b.to(torch.bfloat16)), fl)):
+        units = xg.grid_units(1024, sms, budget, tier) - 1
+        with pytest.raises(RuntimeError, match=f"{xg.KERNELS[tier]} launch failed"):
+            xg.launch_xp_grid(*ins, h0f, h0b, lay, units, gx.launch_counts, dev, tier)
+    assert gx.launch_counts == before
+    lib = xg.get_lib()
+    for h in (128, 160, 610, 640, 768, 1000, 1024):
+        for u in (2, 3, 10, 12, 16, 24):
+            for f in (0, 1):
+                assert lib.bigru_window_xp_grid_smem_bytes(h, u, f) == xg.grid_smem_bytes(h, u, f)
+
+
+def test_tbptt_batch_xp_grid_design_equals_chain_design(dev, monkeypatch):
+    """One TBPTT batch at H=640 on the xp route (19 windows: forward,
+    backward, Adam) with K3 in the grid design, then with every K3 forced to
+    xp_window_kernel: the same loss sums, params and Adam moments, bit for
+    bit."""
+    import dataclasses
+
+    from helen_tpu_torch.config import MODEL
+    from helen_tpu_torch.io.checkpoint import opt_leaves, params_to_torch
+    from helen_tpu_torch.models.transducer import init_params, param_leaves
+    from helen_tpu_torch.ops import gru_window_xp as gx
+    from helen_tpu_torch.train.train_loop import Adam, tbptt_step
+
+    rng = np.random.default_rng(46)
+    B = 8
+    images = torch.from_numpy(rng.integers(0, 40, (B, 1000, 90), dtype=np.uint8)).to(dev)
+    yb = torch.from_numpy(rng.integers(0, 5, (B, 1000))).to(dev)
+    yr = torch.from_numpy(rng.integers(0, 11, (B, 1000))).to(dev)
+    params0 = init_params(torch.Generator().manual_seed(9),
+                          dataclasses.replace(MODEL, hidden_size=640))
+    rule = gx.xp_fwd_design
+    runs = {}
+    for d in ("grid", "chain"):
+        monkeypatch.setattr(gx, "xp_fwd_design",
+                            lambda H, B, design=None, fast=False, d=d: rule(H, B, d, fast))
+        p = params_to_torch(params0, dev)
+        for t in param_leaves(p):
+            t.requires_grad_(True)
+        adam = Adam(0.0)
+        state = adam.init(p)
+        gx.reset_launch_counts()
+        tot = tbptt_step(p, adam, state, 1e-4, images, yb, yr, B, "cuda")
+        torch.cuda.synchronize()
+        assert gx.launch_counts["bigru_window_xp"] == 2 * 19
+        assert gx.launch_counts[f"bigru_window_xp_{d}"] == 2 * 19
+        assert gx.launch_counts["bigru_window_xp_" + ("chain" if d == "grid" else "grid")] == 0
+        runs[d] = ([t.detach().clone() for t in tot]
+                   + [t.detach() for t in param_leaves(p)]
+                   + [torch.as_tensor(v) for v in opt_leaves(state)[1:]])
     for a, b in zip(runs["grid"], runs["chain"]):
         assert torch.equal(a, b)

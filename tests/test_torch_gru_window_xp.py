@@ -269,7 +269,10 @@ def test_xp_wrappers_take_the_plain_version_on_cpu_and_count_no_launch():
     want = gxb.bigru_window_xp_bwd_plain(*args[:4], outs[0], outs[1], *cts, args[4])
     for g, p in zip(got[:4], want[:4]):
         torch.testing.assert_close(g, p, rtol=0, atol=0)
-    assert gx.launch_counts == {"bigru_window_xp": 0, "bigru_window_xp_fast": 0}
+    assert gx.launch_counts == {"bigru_window_xp": 0, "bigru_window_xp_fast": 0,
+                                "bigru_window_xp_grid": 0, "bigru_window_xp_chain": 0,
+                                "bigru_window_xp_fast_grid": 0,
+                                "bigru_window_xp_fast_chain": 0}
     assert gxb.launch_counts == {"bigru_window_xp_bwd_rec": 0,
                                  "bigru_window_xp_bwd_wgrad": 0,
                                  "bigru_window_xp_bwd_hp": 0,

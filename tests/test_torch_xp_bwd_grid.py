@@ -233,7 +233,8 @@ def test_wrappers_raise_off_cpu_and_cuda():
 
 def test_source_is_built_with_the_others():
     """build_kernels compiles every ops/csrc/*.cu: gru_window_xp_bwd_grid.cu
-    with its entry points, and both designs share gru_cell_bwd."""
+    with its entry points and a cooperative launch, and both designs share
+    gru_cell_bwd."""
     import glob
     import os
 
@@ -246,7 +247,11 @@ def test_source_is_built_with_the_others():
     for fn in ("bigru_window_xp_bwd_rec_grid", "bigru_window_xp_bwd_grid_smem_bytes",
                "gru_window_sm_count"):
         assert f" {fn}(" in text, fn
-    assert "gru_cell_bwd(" in text and "cudaLaunchCooperativeKernel(" in text
+    # the cooperative launch and the barrier are the shared grid header's
+    assert "gru_cell_bwd(" in text and "launch_cooperative(" in text
+    assert '#include "gru_window_grid.cuh"' in text and "grid_barrier(" in text
+    with open(os.path.join(gw._CSRC, "gru_window_grid.cuh")) as f:
+        assert "cudaLaunchCooperativeKernel(" in f.read()
     with open(os.path.join(gw._CSRC, "gru_window_xp_bwd.cu")) as f:
         assert "gru_cell_bwd(" in f.read()
 

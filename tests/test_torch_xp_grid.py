@@ -1,0 +1,425 @@
+"""K3 and K3f in their "grid" design (ops.gru_window_xp_grid): their plain
+versions against helen_tpu's ``_kernel`` and ``_fwd_kernel`` (interpret
+mode) at the grid's ragged shapes, the rule that picks the design, the
+mirror of the kernels' shared-memory formula, the wrappers off the card,
+and a CPU emulation of the grid's block decomposition.
+
+helen_tpu's window kernels take hidden sizes on the 128-lane grid;
+``bigru_apply_fused`` zero-pads any other H per gate block (its
+``_pad_dir_params``: the real lanes compute the same values to the last
+ulp) and slices the outputs back. :func:`pallas_window` pads the same way
+around ``fused_bigru_window(interpret=True)``, so H=40, 48 and 160 reach
+the Pallas body. Tolerances: 1e-5 for the parity tier (the Pallas body's
+bf16x3 product against the plain version's fp32 ``h @ W_hh``), 1e-3 for
+the fast tier (an h rounded to bf16 one ulp, 2^-8 relative, apart where the
+sums run in another order). The kernels run only on a CUDA device
+(tests/test_torch_cuda.py, where K3's two designs are equal bit for bit,
+and chip_smoke.py phases 9a and 10b).
+"""
+import os
+import re
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(2)
+
+TOL = 1e-5
+FAST_TOL = 1e-3
+
+
+def make_layer(rng, d, h):
+    k = 1.0 / np.sqrt(h)
+    u = lambda *s: rng.uniform(-k, k, s).astype(np.float32)  # noqa: E731
+    return {dr: {"w_ih": u(d, 3 * h), "w_hh": u(h, 3 * h), "b_ih": u(3 * h),
+                 "b_hh": u(3 * h)} for dr in ("fwd", "bwd")}
+
+
+def case(T, B, H, seed):
+    """Projected streams of a unit-range input, an h0 pair and the numpy
+    layer."""
+    rng = np.random.default_rng(seed)
+    layer = make_layer(rng, 2 * H, H)
+    x = rng.uniform(-1, 1, (T, B, 2 * H)).astype(np.float32)
+    xp_f, xp_b = (x @ layer[d]["w_ih"] + layer[d]["b_ih"] for d in ("fwd", "bwd"))
+    h0f, h0b = (rng.uniform(-1, 1, (B, H)).astype(np.float32) for _ in range(2))
+    return xp_f, xp_b, h0f, h0b, layer
+
+
+def torch_layer(layer, fast=False):
+    from helen_tpu_torch.io.checkpoint import fast_layer, params_to_torch
+
+    t = params_to_torch(layer, "cpu")
+    return fast_layer(t) if fast else t
+
+
+def pad_gates(a, h, hp):
+    """(..., 3h) -> (..., 3hp): each gate block [r|z|n] gets its own zero
+    tail, as helen_tpu pads an H off the 128-lane grid."""
+    a3 = a.reshape(*a.shape[:-1], 3, h)
+    a3 = np.pad(a3, [(0, 0)] * (a3.ndim - 1) + [(0, hp - h)])
+    return a3.reshape(*a.shape[:-1], 3 * hp)
+
+
+def pallas_window(fn, xp_f, xp_b, h0f, h0b, layer, fast=False):
+    """helen_tpu's window (``fn``: ``fused_bigru_window`` or
+    ``fused_bigru_window_train_fwd``) in interpret mode on H zero-padded to
+    the next multiple of 128, the outputs sliced back; ``fast``: bf16
+    streams and ``w_hh`` (``_kernel`` with ``fast=True``)."""
+    H = h0f.shape[-1]
+    hp = -(-H // 128) * 128
+    bf = jnp.bfloat16
+
+    def w(d):
+        a = jnp.asarray(pad_gates(np.pad(layer[d]["w_hh"], ((0, hp - H), (0, 0))), H, hp))
+        return a.astype(bf) if fast else a
+
+    def xp(a):
+        a = jnp.asarray(pad_gates(a, H, hp))
+        return a.astype(bf) if fast else a
+
+    h0 = [jnp.asarray(np.pad(h, ((0, 0), (0, hp - H)))) for h in (h0f, h0b)]
+    bh = [jnp.asarray(pad_gates(layer[d]["b_hh"], H, hp)[None]) for d in ("fwd", "bwd")]
+    out = fn(xp(xp_f), xp(xp_b), *h0, w("fwd"), w("bwd"), *bh, interpret=True)
+    return [np.asarray(o)[..., :H] for o in out]
+
+
+def close(got, want, what, tol):
+    np.testing.assert_allclose(got.numpy(), want, atol=tol, rtol=0, err_msg=what)
+
+
+# the grid's ragged widths (U=1, 1, 3 units per block on the H100's 132 SMs;
+# 40 and 160 leave the last block short at 114 SMs) at ragged batches
+@pytest.mark.parametrize("H", [40, 48, 160])
+@pytest.mark.parametrize("B", [1, 7, 13])
+@pytest.mark.parametrize("tier", ["parity", "fast"])
+def test_plain_matches_pallas_kernel(H, B, tier):
+    """K3's plain version against ``fused_bigru_window(interpret=True)``
+    (``_kernel``, bf16x3 products) and K3f's against its ``fast=True``
+    form (bf16 streams and ``w_hh``, the same bf16 values on both sides)."""
+    from helen_tpu.ops.gru_pallas import fused_bigru_window
+
+    from helen_tpu_torch.ops import gru_window_xp as gx
+
+    T = 5
+    xp_f, xp_b, h0f, h0b, layer = case(T, B, H, seed=11 * H + B)
+    fast = tier == "fast"
+    want = pallas_window(fused_bigru_window, xp_f, xp_b, h0f, h0b, layer, fast)
+    streams = [torch.from_numpy(a) for a in (xp_f, xp_b)]
+    h0 = [torch.from_numpy(a) for a in (h0f, h0b)]
+    if fast:
+        got = gx.bigru_window_xp_fast_plain(*(s.to(torch.bfloat16) for s in streams), *h0,
+                                            torch_layer(layer, fast=True))
+    else:
+        got = gx.bigru_window_xp_plain(*streams, *h0, torch_layer(layer))
+    for g, w, what in zip(got, want, ("out_f", "out_b", "h_f", "h_b")):
+        close(g, w, what, FAST_TOL if fast else TOL)
+
+
+@pytest.mark.parametrize("H,B", [(40, 13), (48, 1), (160, 7)])
+def test_plain_matches_pallas_train_forward(H, B):
+    """K3's plain version against ``fused_bigru_window_train_fwd(
+    interpret=True)``, helen_tpu's ``_fwd_kernel``: the same function."""
+    from helen_tpu.ops.gru_pallas_train import fused_bigru_window_train_fwd
+
+    from helen_tpu_torch.ops.gru_window_xp import bigru_window_xp_plain
+
+    T = 4
+    xp_f, xp_b, h0f, h0b, layer = case(T, B, H, seed=13 * H + B)
+    want = pallas_window(fused_bigru_window_train_fwd, xp_f, xp_b, h0f, h0b, layer)
+    got = bigru_window_xp_plain(*(torch.from_numpy(a) for a in (xp_f, xp_b, h0f, h0b)),
+                                torch_layer(layer))
+    for g, w, what in zip(got, want, ("out_f", "out_b", "h_f", "h_b")):
+        close(g, w, what, TOL)
+
+
+# ---------------------------------------------------------------------------
+# a CPU emulation of the grid's block decomposition
+# ---------------------------------------------------------------------------
+
+def block_columns(w_hh: torch.Tensor, c: int, U: int) -> torch.Tensor:
+    """Block ``c``'s slice of ``W_hh`` as the kernel stages it: ``3 U``
+    columns, gate-major (column ``g U + u`` is ``W_hh[:, g H + c U + u]``),
+    zero columns for the units past H."""
+    H = w_hh.shape[0]
+    sl = torch.zeros(H, 3 * U, dtype=w_hh.dtype)
+    for g in range(3):
+        for u in range(U):
+            if c * U + u < H:
+                sl[:, g * U + u] = w_hh[:, g * H + c * U + u]
+    return sl
+
+
+def grid_emulation(xp_f, xp_b, h0_f, h0_b, layer, U):
+    """K3's grid design on the CPU: ``C = ceil(H / U)`` blocks per direction,
+    block ``c`` owning units ``[c U, (c + 1) U)`` and its slice of ``W_hh``
+    (:func:`block_columns`); at each step every block reads the whole h_prev
+    from ``out``'s row tt -/+ 1 (h0 at step 0), forms its units' gates and
+    writes only their columns of ``out[tt]``; hn is the last written row.
+
+    The block's product is its slice scattered back into a zero ``(H, 3H)``
+    matrix, ``h_prev @ that``: the CPU's matmul gives a column the same bits
+    whatever the other columns hold at one shape, not at another, and the
+    kernel's own order (one fmaf chain over k) is the card's to check
+    (tests/test_torch_cuda.py)."""
+    T, B, H3 = xp_f.shape
+    H = H3 // 3
+    C = -(-H // U)
+    outs = []
+    for d, xp, h0, rev in (("fwd", xp_f, h0_f, False), ("bwd", xp_b, h0_b, True)):
+        w, bh = layer[d]["w_hh"], layer[d]["b_hh"]
+        mats = []
+        for c in range(C):
+            sl = block_columns(w, c, U)
+            full = torch.zeros_like(w)
+            for g in range(3):
+                for u in range(min(U, H - c * U)):
+                    full[:, g * H + c * U + u] = sl[:, g * U + u]
+            mats.append(full)
+        out = torch.full((T, B, H), float("nan"), dtype=xp.dtype)
+        for s in range(T):
+            tt = T - 1 - s if rev else s
+            hprev = h0 if s == 0 else out[tt + 1 if rev else tt - 1]
+            for c in range(C):
+                hp = hprev @ mats[c] + bh
+                r = torch.sigmoid(xp[tt][:, :H] + hp[:, :H])
+                z = torch.sigmoid(xp[tt][:, H:2 * H] + hp[:, H:2 * H])
+                n = torch.tanh(xp[tt][:, 2 * H:] + r * hp[:, 2 * H:])
+                hnew = (1.0 - z) * n + z * hprev
+                units = slice(c * U, min((c + 1) * U, H))
+                out[tt][:, units] = hnew[:, units]
+        outs.append(out)
+    return outs[0], outs[1], outs[0][-1], outs[1][0]
+
+
+# a ragged last block (40 = 13 x 3 + 1; 37 = 7 x 5 + 2), one unit per block,
+# exact blocks (48 = 3 x 16), the H100's U at H=160 (3) and at 132 / 114 SMs'
+# U for H=128 (2, 3); one step, ragged batches
+@pytest.mark.parametrize("T,B,H,U", [(5, 13, 40, 3), (4, 7, 37, 5), (3, 1, 48, 16),
+                                     (6, 7, 48, 1), (4, 13, 160, 3), (1, 7, 128, 2),
+                                     (5, 1, 128, 3)])
+def test_grid_emulation_equals_plain_to_the_bit(T, B, H, U):
+    from helen_tpu_torch.ops.gru_window_xp import bigru_window_xp_plain
+
+    xp_f, xp_b, h0f, h0b, layer = case(T, B, H, seed=T * B + H + U)
+    args = (*(torch.from_numpy(a) for a in (xp_f, xp_b, h0f, h0b)), torch_layer(layer))
+    got = grid_emulation(*args, U)
+    want = bigru_window_xp_plain(*args)
+    for g, w, what in zip(got, want, ("out_f", "out_b", "h_f", "h_b")):
+        assert torch.equal(g, w), f"{what}: max diff {float((g - w).abs().max())}"
+
+
+def test_block_columns_are_gate_major_with_zero_units():
+    """Each block's slice holds the r, z, n columns of its units in order and
+    zeros past H; the slices cover every column of W_hh once."""
+    H, U = 10, 4
+    w = torch.arange(H * 3 * H, dtype=torch.float32).reshape(H, 3 * H)
+    seen = []
+    for c in range(-(-H // U)):
+        sl = block_columns(w, c, U)
+        for g in range(3):
+            for u in range(U):
+                col = sl[:, g * U + u]
+                if c * U + u < H:
+                    assert torch.equal(col, w[:, g * H + c * U + u])
+                    seen.append(g * H + c * U + u)
+                else:
+                    assert not col.any()
+    assert sorted(seen) == list(range(3 * H))
+
+
+# ---------------------------------------------------------------------------
+# the rule that picks the design, and the shared-memory mirror
+# ---------------------------------------------------------------------------
+
+# the H100 SXM: 132 SMs, 232,448 bytes of opt-in shared memory per block
+@pytest.mark.parametrize("H,units,smem,fast_smem", [
+    (1024, 16, 232_192, 172_800), (768, 12, 145_984, 148_224), (640, 10, 112_096, 135_936),
+    (512, 8, 84_352, 98_688), (160, 3, 41_872, 83_328), (128, 2, 37_984, 80_256),
+])
+def test_grid_units_on_the_h100(H, units, smem, fast_smem):
+    """The smallest U whose 2 ceil(H / U) blocks fit the 132 SMs, in both
+    tiers, and its shared memory: parity, 3U fp32 columns of H rounded up to
+    64 plus 4 and two stages of 64 x 68 floats; fast, 3 x U rounded up to 8
+    bf16 columns of H rounded up to 64 plus 8 and two stages of 256 x 72
+    bf16."""
+    from helen_tpu_torch.ops import gru_window_xp_grid as xg
+
+    for fast, want in ((False, smem), (True, fast_smem)):
+        assert xg.grid_units(H, 132, 232_448, fast) == units
+        assert xg.grid_smem_bytes(H, units, fast) == want <= 232_448
+    assert 2 * -(-H // units) <= 132 < 2 * -(-H // (units - 1))
+
+
+@pytest.fixture
+def card(monkeypatch):
+    """Set the card the rule reads (SMs, opt-in shared memory per block)."""
+    from helen_tpu_torch.ops import gru_window_xp_bwd_grid as gg
+
+    return lambda sms, budget: monkeypatch.setattr(gg, "_card", (sms, budget))
+
+
+@pytest.mark.parametrize("H", [128, 160, 512, 640, 768, 1024])
+@pytest.mark.parametrize("B", [64, 512, 1])
+@pytest.mark.parametrize("fast", [False, True])
+def test_xp_fwd_design_takes_every_xp_width_on_the_h100(card, H, B, fast):
+    from helen_tpu_torch.ops import gru_window_xp as gx
+
+    card(132, 232_448)
+    assert gx.xp_fwd_design(H, B, fast=fast) == "grid"
+    assert gx.xp_fwd_design(H, B, design="chain", fast=fast) == "chain"
+
+
+@pytest.mark.parametrize("H,sms,budget,parity,fast", [
+    # fewer SMs: a larger U, until the parity tier's 16 units per block
+    (1024, 114, 232_448, None, 18), (768, 114, 232_448, 14, 14), (640, 114, 232_448, 12, 12),
+    (128, 114, 232_448, 3, 3),
+    # a smaller budget: at H=1024 the fp32 slice is the first not to fit, at
+    # H=640 the fast tier's ring of 256 rows
+    (1024, 132, 200_000, None, 16), (1024, 132, 170_000, None, None),
+    (640, 132, 140_000, 10, 10), (640, 132, 120_000, 10, None), (640, 132, 110_000, None, None),
+    # a card too small for the most units per block
+    (1024, 60, 10**9, None, None),
+])
+def test_grid_units_follow_the_card(card, H, sms, budget, parity, fast):
+    from helen_tpu_torch.ops import gru_window_xp as gx
+    from helen_tpu_torch.ops import gru_window_xp_grid as xg
+
+    card(sms, budget)
+    for tier, want in ((False, parity), (True, fast)):
+        assert xg.grid_units(H, sms, budget, tier) == want
+        assert gx.xp_fwd_design(H, 64, fast=tier) == ("chain" if want is None else "grid")
+
+
+def test_forced_grid_design_is_checked(card):
+    from helen_tpu_torch.ops import gru_window_xp as gx
+
+    card(132, 232_448)
+    assert gx.xp_fwd_design(1024, 64, design="grid") == "grid"
+    with pytest.raises(ValueError, match="not one of"):
+        gx.xp_fwd_design(1024, 64, design="smem")
+    card(114, 232_448)
+    with pytest.raises(ValueError, match="does not take H=1024"):
+        gx.xp_fwd_design(1024, 64, design="grid")
+    assert gx.xp_fwd_design(1024, 64, design="grid", fast=True) == "grid"
+    card(132, 170_000)
+    with pytest.raises(ValueError, match="does not take H=1024, B=64 in the fast tier"):
+        gx.xp_fwd_design(1024, 64, design="grid", fast=True)
+
+
+def test_smem_mirror_matches_the_source():
+    """grid_smem_bytes mirrors csrc/gru_window_xp_grid.cu's xg_smem and
+    xf_smem (the library checks the two agree when it is bound, on the
+    card): the constants it reads are the source's, and its byte count is
+    the layout's, counted here element by element."""
+    from helen_tpu_torch.ops import gru_window as gw
+    from helen_tpu_torch.ops import gru_window_xp_grid as xg
+
+    with open(os.path.join(gw._CSRC, "gru_window_xp_grid.cu")) as f:
+        src = f.read()
+    const = {m.group(1): m.group(2) for m in
+             re.finditer(r"constexpr int (X[GF]_[A-Z_]+) = ([^;]+);", src)}
+    assert const["XG_RPT"] == str(xg.XG_RPT)
+    assert const["XG_ROW_GROUPS"] == str(xg.XG_ROW_GROUPS)
+    assert const["XG_KC"] == str(xg.XG_KC) and const["XG_KS"] == "XG_KC + 4"
+    assert const["XG_STAGES"] == str(xg.XG_STAGES)
+    assert const["XG_MAX_UNITS"] == str(xg.MAX_UNITS[False])
+    assert const["XF_KC"] == str(xg.XF_KC) and const["XF_KS"] == "XF_KC + 8"
+    assert const["XF_STAGES"] == str(xg.XF_STAGES)
+    assert const["XF_MAX_UNITS"] == str(xg.MAX_UNITS[True])
+    assert int(const["XF_WARPS"]) * int(const["XF_MT"]) * 16 == xg.XF_ROWS
+    for h in (1, 37, 40, 128, 160, 610, 640, 1000, 1024):
+        k = -(-h // 64) * 64
+        for u in (1, 2, 3, 10, 16, 24):
+            w32 = 3 * u * (k + 4)                         # [3][U][k + 4] floats
+            ring32 = 2 * (4 * 16) * (64 + 4)              # [2][64 rows][68]
+            assert xg.grid_smem_bytes(h, u) == 4 * (w32 + ring32)
+            w16 = 3 * (-(-u // 8) * 8) * (k + 8)          # [3 U8][k + 8] bf16
+            ring16 = 2 * 256 * (64 + 8)                   # [2][256 rows][72] bf16
+            assert xg.grid_smem_bytes(h, u, fast=True) == 2 * (w16 + ring16)
+
+
+# ---------------------------------------------------------------------------
+# the wrappers off the card
+# ---------------------------------------------------------------------------
+
+def test_wrappers_take_the_plain_version_on_cpu_and_count_no_launch():
+    """On CPU tensors K3 and K3f, in every forced design, run their plain
+    versions, and no counter moves; the counters name every kernel."""
+    from helen_tpu_torch.ops import gru_window_xp as gx
+
+    xp_f, xp_b, h0f, h0b, layer = case(4, 3, 40, seed=5)
+    args = [torch.from_numpy(a) for a in (xp_f, xp_b, h0f, h0b)]
+    fargs = [a.to(torch.bfloat16) for a in args[:2]] + args[2:]
+    tl, fl = torch_layer(layer), torch_layer(layer, fast=True)
+    gx.reset_launch_counts()
+    want = gx.bigru_window_xp_plain(*args, tl)
+    fwant = gx.bigru_window_xp_fast_plain(*fargs, fl)
+    for design in (None, *gx.DESIGNS):
+        for g, w in zip(gx.bigru_window_xp(*args, tl, design=design), want):
+            assert torch.equal(g, w)
+        for g, w in zip(gx.bigru_window_xp_fast(*fargs, fl, design=design), fwant):
+            assert torch.equal(g, w)
+    assert set(gx.launch_counts.values()) == {0}
+    assert set(gx.launch_counts) == {
+        "bigru_window_xp", "bigru_window_xp_fast", "bigru_window_xp_grid",
+        "bigru_window_xp_chain", "bigru_window_xp_fast_grid", "bigru_window_xp_fast_chain"}
+
+
+def test_wrappers_raise_off_cpu_and_cuda():
+    from helen_tpu_torch.ops import gru_window_xp as gx
+
+    T, B, H = 3, 2, 32
+    meta = lambda *s, dt=torch.float32: torch.empty(s, dtype=dt, device="meta")  # noqa: E731
+    layer = {d: {"w_hh": meta(H, 3 * H), "b_hh": meta(3 * H)} for d in ("fwd", "bwd")}
+    x, v = meta(T, B, 3 * H), meta(B, H)
+    for design in (None, "grid", "chain"):
+        with pytest.raises(ValueError, match="CUDA or CPU"):
+            gx.bigru_window_xp(x, x, v, v, layer, design=design)
+        with pytest.raises(ValueError, match="CUDA or CPU"):
+            gx.bigru_window_xp_fast(x.to(torch.bfloat16), x.to(torch.bfloat16), v, v, layer,
+                                    design=design)
+
+
+def test_source_is_built_with_the_others():
+    """build_kernels compiles every ops/csrc/*.cu: gru_window_xp_grid.cu with
+    its entry points, a cooperative launch and bf16 mma.sync tiles; both
+    designs take their gates from gru_gates, and both grid sources share
+    the barrier of gru_window_grid.cuh."""
+    import glob
+
+    from helen_tpu_torch.ops import gru_window as gw
+
+    names = {os.path.basename(p) for p in glob.glob(os.path.join(gw._CSRC, "*.cu"))}
+    assert "gru_window_xp_grid.cu" in names
+    read = lambda n: open(os.path.join(gw._CSRC, n)).read()  # noqa: E731
+    text = read("gru_window_xp_grid.cu")
+    for fn in ("bigru_window_xp_grid", "bigru_window_xp_fast_grid",
+               "bigru_window_xp_grid_smem_bytes"):
+        assert f" {fn}(" in text, fn
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in text
+    assert "launch_cooperative(" in text and "grid_barrier(" in text
+    assert text.count("gru_gates<") == 2
+    assert "gru_gates<FAST>(" in read("gru_window_xp.cu")
+    header = read("gru_window_grid.cuh")
+    assert "cudaLaunchCooperativeKernel(" in header and "__trap()" in header
+    for n in ("gru_window_xp_grid.cu", "gru_window_xp_bwd_grid.cu"):
+        assert '#include "gru_window_grid.cuh"' in read(n), n
+        assert "grid_barrier(" in read(n), n
+
+
+def test_forward_grid_variants_edit_the_shipped_source():
+    """helen_tpu_torch.obs.grid_variants --kernel fwd (the measurement of where
+    K3's and K3f's time goes) edits the shipped source: every constant and
+    every cut text it replaces is there, and off the card it refuses."""
+    from helen_tpu_torch.obs import grid_variants as gv
+    from helen_tpu_torch.ops import gru_window as gw
+
+    with open(os.path.join(gw._CSRC, gv.FWD_SOURCE)) as f:
+        src = f.read()
+    for name, (consts, edits) in gv.FWD_VARIANTS.items():
+        out = gv.variant_source(src, consts, edits, gv.FWD_SOURCE)
+        assert (out == src) == (name == "shipped"), name
+    assert gv.main(["--kernel", "fwd", "--batch", "8"]) == 1
