@@ -19,21 +19,25 @@ kernel launches, and then the training path: the backward against its
 plain version and cuDNN's GRU backward (phase 7a: pass 1 in the main
 path's design, a gate pass, a recurrence with W_hh^T in shared memory and
 a dx pass, bit for bit against the one-launch bwd_rec_kernel and timed in
-turns with it; each of its new kernels alone), one TBPTT batch through the
+turns with it; each of its new kernels alone; pass 2 in its split design,
+slices of rows on 3xTF32 tensor cores then a fixed-order slice sum, against
+its plain version at B=256 and 512 and timed in turns with the one-slice
+bwd_wgrad_kernel, design "tile32"), one TBPTT batch through the
 kernels against the plain route, and ``train`` then ``test`` through the
 CLI on the full-width images with the launches counted (0 of
-bwd_rec_kernel). Phase 9 drives the
+bwd_rec_kernel and of tile32). Phase 9 drives the
 wide models (H=1024) through the xp-stream kernels: K3 and K4 against their
 plain versions (phase 9a: K3 in the main path's design, a grid-wide
 recurrence with W_hh spread over the SMs' shared memory, bit for bit
 against the one-launch xp_window_kernel and timed in turns with it, at
 B=512 and B=64; phase 9b: K4's pass 1 in the main path's design, the gate
 pass and a grid-wide recurrence, bit for bit against the one-launch
-xp_bwd_rec_kernel and timed in turns with it; each of its kernels alone),
+xp_bwd_rec_kernel and timed in turns with it; each of its kernels alone;
+pass 2's split design against tile32, in turns),
 the golden fixtures and a cross-route check at H=512 through the forced xp
 route (K3 in the grid design; each fixture's encoder layer through K4's
 grid design), then ``train``, ``test`` and ``polish`` at H=1024 with the
-launches counted (0 of xp_window_kernel and xp_bwd_rec_kernel). Phase 10
+launches counted (0 of xp_window_kernel, xp_bwd_rec_kernel and tile32). Phase 10
 drives the fast (bf16) tier, ``polish --fast``: K1f, K2f and K3f against
 their plain versions (phase 10b: K3f's grid design, its step product on
 bf16 tensor cores, timed in turns with the one-launch K3f), a label flip
@@ -93,6 +97,14 @@ BWD_PASSES = ("bigru_window_bwd_rec", "bigru_window_bwd_wgrad")
 # pass 1's kernels in its main-path design (ops.gru_window_bwd_smem), beside
 # K1/K2's projection
 BWD_SMEM_KERNELS = ("bigru_window_bwd_hp", "bigru_window_bwd_rec_smem", "bigru_window_bwd_dx")
+# pass 2 of both backwards (ops.gru_window_wgrad): the split design's
+# library entries (in-projection form, xp form, the slice sum), its two
+# kernels' counters, and the dense TF32 tensor-core peak (NVIDIA data sheet)
+# that bounds its 3 x FLOP of 3xTF32 products
+WGRAD_IN = ("bigru_window_wgrad_split_in", "bigru_window_wgrad_sum")
+WGRAD_XP = ("bigru_window_wgrad_split_xp", "bigru_window_wgrad_sum")
+WGRAD_KERNELS = ("bigru_window_wgrad_split", "bigru_window_wgrad_sum")
+PEAK_TF32 = 495e12
 # the wide configuration (phase 9): the flagship transducer at H=1024,
 # trained at -b 64 on 128 images, polished at -b 256
 WH = 1024
@@ -127,7 +139,16 @@ def train_counts(fwd: int, trained: int) -> dict:
     counts["bigru_window_proj_in2"] += trained
     return {**counts, BWD_PASSES[0]: 2 * trained, BWD_PASSES[1]: 2 * trained,
             "bigru_window_bwd_rec_chain": 0, "bigru_window_bwd_hp": 2 * trained,
-            "bigru_window_bwd_rec_smem": 2 * trained, "bigru_window_bwd_dx": trained}
+            "bigru_window_bwd_rec_smem": 2 * trained, "bigru_window_bwd_dx": trained,
+            **wgrad_counts(2 * trained)}
+
+
+def wgrad_counts(passes: int) -> dict:
+    """The launches of ``passes`` passes 2 at a batch past one slice of
+    1,600 rows (B=256 and B=64 at T=100): the split kernel and the slice sum
+    each, never the tile32 design."""
+    return {WGRAD_KERNELS[0]: passes, WGRAD_KERNELS[1]: passes,
+            "bigru_window_wgrad_tile32": 0}
 
 
 def fail(msg: str) -> None:
@@ -696,7 +717,7 @@ def check_backward(images_u8, results) -> None:
         for d in ("smem", "chain", "chain", "smem"):
             if d == "smem":
                 turns.append(timed_passes(lambda: gb.bigru_window_bwd(*args),
-                                          passes=(*new_names, BWD_PASSES[1])))
+                                          passes=(*new_names, *WGRAD_IN)))
             else:
                 turns.append(timed_passes(lambda: gb.bigru_window_bwd_rec(
                     *args, design="chain"), passes=("bigru_window_bwd_rec",)))
@@ -709,7 +730,7 @@ def check_backward(images_u8, results) -> None:
             + ", ".join(f"{sum(t[k] for k in new_names):.4f}" if i in (0, 3)
                         else f"{t['bigru_window_bwd_rec']:.4f}" for i, t in enumerate(turns))
             + f"): {chain_ms / rec_ms:.2f}x")
-        ms = {BWD_PASSES[0]: rec_ms, BWD_PASSES[1]: kern[BWD_PASSES[1]]}
+        ms = {BWD_PASSES[0]: rec_ms, BWD_PASSES[1]: sum(kern[k] for k in WGRAD_IN)}
         dxp, dhpn, *_ = gb.bigru_window_bwd_rec_plain(*args, need_dx=need_dx)
         plain = {
             BWD_PASSES[0]: cuda_ms(lambda: gb.bigru_window_bwd_rec_plain(
@@ -848,8 +869,8 @@ def check_backward(images_u8, results) -> None:
                 "helen_tpu_torch/ops/csrc/gru_window_bwd_smem.cu with bigru_window_proj_in1/"
                 "_in2 (gru_window_smem.cu), W_hh^T fitting a block; "
                 "helen_tpu_torch/ops/csrc/gru_window_bwd.cu (bwd_rec_kernel), otherwise"
-                if name == BWD_PASSES[0] else "helen_tpu_torch/ops/csrc/gru_window_common.cuh "
-                "(bwd_wgrad_kernel), launched from gru_window_bwd.cu"),
+                if name == BWD_PASSES[0] else "helen_tpu_torch/ops/csrc/gru_window_wgrad.cu "
+                "(wgrad_split_kernel, then wgrad_sum_kernel past one slice)"),
             "replaces": "helen_tpu/ops/gru_pallas_train.py:321 (_bwd_kernel_ip"
                         + (", pass 1)" if name != BWD_PASSES[1] else ", pass 2)"),
             "max_abs_err": acc["max_abs_err"],
@@ -871,6 +892,172 @@ def check_backward(images_u8, results) -> None:
                if name == BWD_PASSES[0] else "")
             + f", bound {acc['bound_ms']:.4f} ms ({bound_by}), plain {acc['plain_ms']:.3f} ms, "
             f"library {'none' if lib is None else f'{lib:.4f} ms'}")
+
+
+def wgrad_designs(label: str, run, want, lib_new, lib_old, iters: int = 10) -> dict:
+    """Pass 2 in its split design against its plain version ``want``
+    (TOL x scale per output), two launches bit-identical, the tile32
+    design's error beside it; then both designs timed in turns (split,
+    tile32, tile32, split) by their library calls. ``run(design)`` launches
+    one pass 2."""
+    import torch
+
+    got, again, old = run("split"), run("split"), run("tile32")
+    torch.cuda.synchronize()
+    err = scaled = old_scaled = 0.0
+    for d in ("fwd", "bwd"):
+        for k, w in want[d].items():
+            scale = max(1.0, float(w.abs().max()))
+            e = float((got[d][k] - w).abs().max())
+            err, scaled = max(err, e), max(scaled, e / scale)
+            old_scaled = max(old_scaled, float((old[d][k] - w).abs().max()) / scale)
+            if e > TOL * scale:
+                fail(f"{label}: {d}.{k} disagrees with its plain version: {e!r} (limit "
+                     f"{TOL:g} x {scale:.4g})")
+            if not torch.equal(got[d][k], again[d][k]):
+                fail(f"{label}: {d}.{k} differs between two launches")
+    turns = [timed_passes(lambda: run(d), iters=iters, warmup=2,
+                          passes=lib_new if d == "split" else (lib_old,))
+             for d in ("split", "tile32", "tile32", "split")]
+    split_ms, sum_ms = ((turns[0][k] + turns[3][k]) / 2 for k in lib_new)
+    tile32_ms = (turns[1][lib_old] + turns[2][lib_old]) / 2
+    log(f"{label}: max |split - plain| {err:.3g}, scaled {scaled:.3g} (limit {TOL:g}); "
+        f"tile32 scaled {old_scaled:.3g}; two launches bit-identical; in turns (split, tile32, "
+        "tile32, split): " + ", ".join(f"{sum(t.values()):.4f}" for t in turns) + " ms")
+    return {"ms": split_ms + sum_ms, "split_ms": split_ms, "sum_ms": sum_ms,
+            "tile32_ms": tile32_ms, "err": err, "scaled": scaled, "tile32_scaled": old_scaled}
+
+
+def check_wgrad(results) -> None:
+    """Phase 7a, pass 2 alone at the flagship's training batch (B=256) and
+    at B=512, per training window: layer 0 on a full-range uint8 image
+    (D=90) and the decoder on two halves (D=256), pass 1's dxp and dhp_n
+    from its kernels. The split design against its plain version, two
+    launches bit-identical, both designs in turns (wgrad_designs) beside
+    the plain version, cuBLAS's products and the bounds: FLOP at the fp32
+    rate, and 3 x FLOP (3xTF32) at the dense TF32 rate. Adds the split and
+    sum kernels' entries."""
+    import numpy as np
+    import torch
+
+    from helen_tpu_torch.ops import gru_window as gw
+    from helen_tpu_torch.ops import gru_window_bwd as gb
+    from helen_tpu_torch.ops import gru_window_wgrad as gwg
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(20261020)
+    r = lambda *s: torch.from_numpy(rng.uniform(-1, 1, s).astype("float32")).to(dev)  # noqa: E731
+    per_b = {}
+    for bsz in (TB, B):
+        n = bsz * T
+        acc = dict.fromkeys(("ms", "split_ms", "sum_ms", "tile32_ms", "plain_ms", "library_ms",
+                             "sum_plain_ms", "sum_library_ms", "flops", "bytes", "sum_bytes",
+                             "err", "scaled", "tile32_scaled"), 0.0)
+        for label, D in (("layer 0, full-range image D=90", F), ("decoder, halves D=256", 2 * H)):
+            layer = random_layer(rng, D, H, dev)
+            h0f, h0b, dhf, dhb = (r(bsz, H) for _ in range(4))
+            dof, dob = r(T, bsz, H), r(T, bsz, H)
+            if D == F:
+                src, start = torch.from_numpy(rng.integers(0, 256, (bsz, T + 20, F),
+                                                           dtype=np.uint8)).to(dev), 11
+                of, ob, _, _ = gw.bigru_window_in1(src, start, T, h0f, h0b, layer)
+                x_bytes = n * F
+            else:
+                src, start = (r(T, bsz, H), r(T, bsz, H)), 0
+                of, ob, _, _ = gw.bigru_window_in2(*src, h0f, h0b, layer)
+                x_bytes = 4 * n * D
+            dxp, dhpn, *_ = gb.bigru_window_bwd_rec(src, start, h0f, h0b, of, ob, dof, dob,
+                                                     dhf, dhb, layer, need_dx=False)
+            args = (src, start, h0f, h0b, of, ob, dxp, dhpn)
+            w = wgrad_designs(f"pass 2 ({label}, B={bsz})",
+                              lambda d: gwg.bigru_window_wgrad(*args, design=d),
+                              gb.bigru_window_bwd_wgrad_plain(*args), WGRAD_IN,
+                              BWD_PASSES[1])
+            plain_ms = cuda_ms(lambda: gb.bigru_window_bwd_wgrad_plain(*args), iters=3,
+                               warmup=1)
+            ones = torch.ones(n, 1, device=dev)
+            x1 = torch.cat([gb.window_input(src, start, T, torch.float32).reshape(n, D),
+                            ones], 1)
+            prods = []
+            for i, (out, h0, rev) in enumerate(((of, h0f, False), (ob, h0b, True))):
+                g_x = dxp[i].reshape(n, 3 * H)
+                g_h = torch.cat([g_x[:, :2 * H], dhpn[i].reshape(n, H)], 1)
+                h1 = torch.cat([gb._h_prev(out, h0, rev).reshape(n, H), ones], 1)
+                prods += [(x1, g_x), (h1, g_h)]
+            cublas_ms = cuda_ms(lambda: [a.T @ b for a, b in prods])
+            # the slice sum alone: its plain version adds the partials in
+            # order, its library call is one torch.sum over the slices
+            plan = gwg.wgrad_design(D, H, T, bsz, True)
+            part = r(plan.slices, 2 * plan.rows * 3 * H)
+
+            def ordered():
+                total = part[0].clone()
+                for s_ in range(1, plan.slices):
+                    total += part[s_]
+                return total
+
+            sum_plain_ms = cuda_ms(ordered)
+            sum_library_ms = cuda_ms(lambda: part.sum(0))
+            stream = 4 * n * H
+            flops = 2 * 2.0 * n * 3 * H * (D + 1 + H + 1)
+            nbytes = (x_bytes + 2 * stream + 2 * 4 * bsz * H + 2 * (3 * stream + stream)
+                      + 4 * 2 * ((D + H) * 3 * H + 6 * H))
+            for k, v in (("ms", w["ms"]), ("split_ms", w["split_ms"]), ("sum_ms", w["sum_ms"]),
+                         ("tile32_ms", w["tile32_ms"]), ("plain_ms", plain_ms),
+                         ("library_ms", cublas_ms), ("sum_plain_ms", sum_plain_ms),
+                         ("sum_library_ms", sum_library_ms), ("flops", flops),
+                         ("bytes", nbytes), ("sum_bytes", plan.scratch_bytes
+                                             + 4 * 2 * plan.rows * 3 * H)):
+                acc[k] += v
+            for k in ("err", "scaled", "tile32_scaled"):
+                acc[k] = max(acc[k], w[k])
+        acc["bound_ms"], acc["bound_by"] = bound(acc["flops"], acc["bytes"])
+        acc["bound_tf32_ms"], acc["bound_tf32_by"] = bound(3 * acc["flops"], acc["bytes"],
+                                                           PEAK_TF32)
+        log(f"pass 2, one training window at B={bsz} (layer 0 + decoder): split {acc['ms']:.4f} "
+            f"ms (split kernel {acc['split_ms']:.4f}, slice sum {acc['sum_ms']:.4f}), tile32 "
+            f"{acc['tile32_ms']:.4f} ms ({acc['tile32_ms'] / acc['ms']:.2f}x), plain "
+            f"{acc['plain_ms']:.3f} ms, cuBLAS {acc['library_ms']:.4f} ms; bound "
+            f"{acc['bound_ms']:.4f} ms ({acc['bound_by']}) at the fp32 rate, "
+            f"{acc['bound_tf32_ms']:.4f} ms ({acc['bound_tf32_by']}) at 3 x FLOP on TF32 "
+            f"tensor cores; max scaled error {acc['scaled']:.3g} (tile32 "
+            f"{acc['tile32_scaled']:.3g})")
+        per_b[bsz] = acc
+    a, a512 = per_b[TB], per_b[B]
+    results[BWD_PASSES[1]].update(
+        ms=a["ms"], kernel_ms=a["ms"], plain_ms=a["plain_ms"], library_ms=a["library_ms"],
+        bound_ms=a["bound_ms"], bound_by=a["bound_by"], bound_tf32_ms=a["bound_tf32_ms"],
+        max_abs_err=a["err"], max_scaled_err=a["scaled"], tile32_ms=a["tile32_ms"],
+        tile32_max_scaled_err=a["tile32_scaled"], ms_b512=a512["ms"],
+        tile32_ms_b512=a512["tile32_ms"], library_ms_b512=a512["library_ms"],
+        bound_ms_b512=a512["bound_ms"], max_scaled_err_b512=a512["scaled"],
+        tile32_max_scaled_err_b512=a512["tile32_scaled"],
+        per="one training window: layer 0 (D=90, a full-range uint8 image) + decoder (D=256), "
+            "B=256 (*_b512: B=512); ms: the split design in turns with tile32_ms, "
+            "bwd_wgrad_kernel (design 'tile32'); bound_tf32_ms: 3 x FLOP at the dense TF32 "
+            "rate; library: cuBLAS's products")
+    src = "helen_tpu_torch/ops/csrc/gru_window_wgrad.cu"
+    replaces = ("helen_tpu/ops/gru_pallas_train.py:321 (_bwd_kernel_ip, pass 2); "
+                "helen_tpu/ops/gru_pallas_train.py:166 (_bwd_kernel, pass 2)")
+    sum_bound, sum_by = bound(0.0, a["sum_bytes"])
+    results[WGRAD_KERNELS[0]] = {
+        "name": WGRAD_KERNELS[0], "route": "cuda", "source": f"{src} (wgrad_split_kernel)",
+        "replaces": replaces, "max_abs_err": a["err"], "max_scaled_err": a["scaled"],
+        "ms": a["split_ms"], "kernel_ms": a["split_ms"], "plain_ms": a["plain_ms"],
+        "bound_ms": a["bound_ms"], "bound_by": a["bound_by"],
+        "bound_tf32_ms": a["bound_tf32_ms"], "library_ms": a["library_ms"],
+        "per": "one training window at B=256 (layer 0 + decoder); plain: the whole pass 2's "
+               "plain version; error: pass 2 (with the slice sum) against it",
+    }
+    results[WGRAD_KERNELS[1]] = {
+        "name": WGRAD_KERNELS[1], "route": "cuda", "source": f"{src} (wgrad_sum_kernel)",
+        "replaces": replaces, "max_abs_err": a["err"], "max_scaled_err": a["scaled"],
+        "ms": a["sum_ms"], "kernel_ms": a["sum_ms"], "plain_ms": a["sum_plain_ms"],
+        "bound_ms": sum_bound, "bound_by": sum_by, "library_ms": a["sum_library_ms"],
+        "per": "one training window at B=256 (layer 0 + decoder: 16 slices each); plain: the "
+               "partials added in slice order, library: torch.sum over the slices, both on "
+               "random partials of the same shape; error: pass 2 (with the split kernel)",
+    }
 
 
 def load_labeled(img_dir: str, n: int):
@@ -899,6 +1086,7 @@ def check_tbptt(img_dir: str) -> None:
     from helen_tpu_torch.models.transducer import init_params, param_leaves
     from helen_tpu_torch.ops import gru_window as gw
     from helen_tpu_torch.ops import gru_window_bwd as gb
+    from helen_tpu_torch.ops import gru_window_wgrad as gwg
     from helen_tpu_torch.train.train_loop import Adam, tbptt_step
 
     images, yb, yr = load_labeled(img_dir, TB)
@@ -911,14 +1099,14 @@ def check_tbptt(img_dir: str) -> None:
             t.requires_grad_(True)
         adam = Adam(0.0)
         state = adam.init(p)
-        gw.reset_launch_counts()
-        gb.reset_launch_counts()
+        for m in (gw, gb, gwg):
+            m.reset_launch_counts()
         t0 = time.perf_counter()
         tot = tbptt_step(p, adam, state, 1e-4, images, yb, yr, TB, backend)
         sums = [float(v) for v in tot]
         log(f"one TBPTT batch via {backend}: loss sums {sums} in "
             f"{time.perf_counter() - t0:.2f} s")
-        launches = {**gw.launch_counts, **gb.launch_counts}
+        launches = {**gw.launch_counts, **gb.launch_counts, **gwg.launch_counts}
         want = (train_counts(n_win, n_win) if backend == "cuda"
                 else dict.fromkeys(launches, 0))
         log(f"one TBPTT batch via {backend}: launches {launches}, expected {want}")
@@ -949,6 +1137,7 @@ def run_train(img_dir: str, n_images: int, work: str, results) -> None:
     from helen_tpu_torch.io.synthetic import random_sequence, write_image_file
     from helen_tpu_torch.ops import gru_window as gw
     from helen_tpu_torch.ops import gru_window_bwd as gb
+    from helen_tpu_torch.ops import gru_window_wgrad as gwg
 
     test_dir = os.path.join(work, "train_test")
     os.makedirs(test_dir)
@@ -956,10 +1145,11 @@ def run_train(img_dir: str, n_images: int, work: str, results) -> None:
                               {"held_out": random_sequence(TEST_CONTIG_BP, seed=777)},
                               region_cols=1000, overlap_cols=80, noise=0.1, seed=778)
     out = os.path.join(work, "train_out")
-    counts = lambda: {**gw.launch_counts, **gb.launch_counts}  # noqa: E731
+    mods = (gw, gb, gwg)
+    counts = lambda: {k: v for m in mods for k, v in m.launch_counts.items()}  # noqa: E731
     torch.cuda.reset_peak_memory_stats()
-    gw.reset_launch_counts()
-    gb.reset_launch_counts()
+    for m in mods:
+        m.reset_launch_counts()
     t0 = time.perf_counter()
     if cli(["train", "--train_image_dir", img_dir, "--test_image_dir", test_dir,
             "-b", str(TB), "-e", str(TRAIN_EPOCHS), "-w", "8", "-o", out,
@@ -996,16 +1186,16 @@ def run_train(img_dir: str, n_images: int, work: str, results) -> None:
         f"({train_batches} train + {test_batches} test batches) x {n_win} windows; "
         f"the backward: 2 layers per training window, each pass counted, pass 1 as the "
         f"projection, the hp product, the recurrence and (decoder) the dx pass, never "
-        f"bwd_rec_kernel)")
+        f"bwd_rec_kernel; pass 2 as the split kernel and the slice sum, never tile32)")
     if launches != want:
         fail("train launch counts differ from batches x windows x layers")
-    for name in (*BWD_PASSES, *BWD_SMEM_KERNELS):
+    for name in (*BWD_PASSES, *BWD_SMEM_KERNELS, *WGRAD_KERNELS):
         results[name]["launches"] = launches[name]
     for name in ("bigru_window_in1", "bigru_window_in2", *SMEM_KERNELS):
         results[name]["launches_train"] = launches[name]
 
-    gw.reset_launch_counts()
-    gb.reset_launch_counts()
+    for m in mods:
+        m.reset_launch_counts()
     tout = os.path.join(work, "test_out")
     latest = os.path.join(run, "models", "HELEN_latest_checkpoint.npz")
     if cli(["test", "--test_image_dir", test_dir, "-m", latest, "-b", str(TB),
@@ -1086,8 +1276,10 @@ def check_xp_kernel(images_u8, results) -> None:
     flops, nbytes = xp_cost(B, 4, 4)
     bound_ms, bound_by = bound(flops, nbytes)
     x, hf, hb = x0, h0[0], h0[1]
+    layers = []
     for label, D in (("layer 0, image D=90", F), ("decoder, pair D=2048", 2 * WH)):
         layer = random_layer(rng, D, WH, dev)
+        layers.append(layer)
         with torch.no_grad():
             xp_f, xp_b = project(x, layer)
             got = gx.bigru_window_xp(xp_f, xp_b, hf, hb, layer)
@@ -1133,10 +1325,20 @@ def check_xp_kernel(images_u8, results) -> None:
             fail(f"K3 at B={WB_TRAIN}: the grid design differs from xp_window_kernel")
         ms64, chain64, turns = in_turns(
             lambda d: gx.bigru_window_xp(xp_f, xp_b, *hs, layer, design=d))
+        plain64 = cuda_ms(lambda: gx.bigru_window_xp_plain(xp_f, xp_b, *hs, layer), iters=2,
+                          warmup=1)
+        # cuDNN's GRU forward of each layer at B=64, projection included
+        lib64 = {}
+        for lay, D, xin in ((layers[0], F, x0), (layer, 2 * WH, x)):
+            gru = cudnn_gru(lay, D, WH, dev)
+            xin64, hx = xin[:, :WB_TRAIN].contiguous(), torch.stack(hs)
+            lib64[D] = cuda_ms(lambda: gru(xin64, hx), iters=5, warmup=1)
     bound64, by64 = bound(*xp_cost(WB_TRAIN, 4, 4))
     log(f"K3 at B={WB_TRAIN} (decoder layer): grid {ms64:.4f} ms, xp_window_kernel "
         f"{chain64:.4f} ms (in turns: " + ", ".join(f"{t:.4f}" for t in turns)
-        + f"; {chain64 / ms64:.2f}x), 0.0 apart; bound {bound64:.4f} ms ({by64})")
+        + f"; {chain64 / ms64:.2f}x), 0.0 apart; plain {plain64:.3f} ms, cuDNN GRU forward "
+        f"{lib64[F]:.4f} ms (D=90) / {lib64[2 * WH]:.4f} ms (D=2048); bound {bound64:.4f} ms "
+        f"({by64})")
     results["bigru_window_xp"] = {
         "name": "bigru_window_xp", "route": "cuda",
         "source": "helen_tpu_torch/ops/csrc/gru_window_xp_grid.cu (xp_grid_kernel), design "
@@ -1149,10 +1351,12 @@ def check_xp_kernel(images_u8, results) -> None:
         "bound_by": bound_by, "library_ms": acc["library_ms"],
         "projection_ms": acc["projection_ms"], "design": design, "units": units,
         "ms_b64": ms64, "chain_ms_b64": chain64, "bound_ms_b64": bound64,
+        "plain_ms_b64": plain64, "library_ms_b64_d90": lib64[F],
+        "library_ms_b64_d2048": lib64[2 * WH],
         "per": "one launch at B=512, T=100, H=1024 (mean of layer 0, D=90, and the "
                "decoder, D=2048; ms: the grid design; chain_ms: xp_window_kernel in the same "
                "call; library: cuDNN's GRU forward of the layer, projection included; *_b64: "
-               "the decoder layer at B=64)",
+               "the decoder layer at B=64, library_ms_b64_d90: cuDNN at layer 0's D=90)",
     }
 
 
@@ -1173,6 +1377,7 @@ def check_xp_backward(results) -> None:
     from helen_tpu_torch.ops import gru_window_bwd_smem as gbs
     from helen_tpu_torch.ops import gru_window_xp as gx
     from helen_tpu_torch.ops import gru_window_xp_bwd as gxb
+    from helen_tpu_torch.ops import gru_window_wgrad as gwg
     from helen_tpu_torch.ops import gru_window_xp_bwd_grid as gg
     from helen_tpu_torch.ops.gru_window_bwd import _h_prev
 
@@ -1234,7 +1439,7 @@ def check_xp_backward(results) -> None:
     for d in ("grid", "chain", "chain", "grid"):
         if d == "grid":
             turns.append(timed_passes(lambda: gxb.bigru_window_xp_bwd(*args), iters=5,
-                                      warmup=1, passes=(*grid_names, XP_PASSES[1])))
+                                      warmup=1, passes=(*grid_names, *WGRAD_XP)))
         else:
             turns.append(timed_passes(lambda: gxb.bigru_window_xp_bwd_rec(
                 *args, design="chain"), iters=3, warmup=1, passes=(XP_PASSES[0],)))
@@ -1246,7 +1451,7 @@ def check_xp_backward(results) -> None:
         + ", ".join(f"{sum(t[k] for k in grid_names):.4f}" if i in (0, 3)
                     else f"{t[XP_PASSES[0]]:.4f}" for i, t in enumerate(turns))
         + f"): {chain_ms / rec_ms:.2f}x")
-    ms = {XP_PASSES[0]: rec_ms, XP_PASSES[1]: kern[XP_PASSES[1]]}
+    ms = {XP_PASSES[0]: rec_ms, XP_PASSES[1]: sum(kern[k] for k in WGRAD_XP)}
     dxp, dhpn, *_ = gxb.bigru_window_xp_bwd_rec_plain(*args)
     plain = {
         XP_PASSES[0]: cuda_ms(lambda: gxb.bigru_window_xp_bwd_rec_plain(*args),
@@ -1297,8 +1502,8 @@ def check_xp_backward(results) -> None:
                        "helen_tpu_torch/ops/csrc/gru_window_xp_bwd.cu (xp_bwd_rec_kernel), "
                        "design 'chain', where W_hh does not fit the SMs"
                        if name == XP_PASSES[0] else
-                       "helen_tpu_torch/ops/csrc/gru_window_common.cuh (bwd_wgrad_kernel), "
-                       "launched from gru_window_xp_bwd.cu"),
+                       "helen_tpu_torch/ops/csrc/gru_window_wgrad.cu (wgrad_split_kernel, then "
+                       "wgrad_sum_kernel past one slice)"),
             "replaces": "helen_tpu/ops/gru_pallas_train.py:166 (_bwd_kernel"
                         + (", pass 1)" if name == XP_PASSES[0] else ", pass 2)"),
             "max_abs_err": worst, "max_scaled_err": worst_scaled,
@@ -1311,6 +1516,23 @@ def check_xp_backward(results) -> None:
         design=design, chain_ms=chain_ms,
         per=results[XP_PASSES[0]]["per"] + "; ms: the grid design's two kernels; chain_ms: "
         "xp_bwd_rec_kernel in the same call")
+    w = wgrad_designs("K4 pass 2", lambda d: gwg.bigru_window_xp_wgrad(
+        h0f, h0b, of, ob, dxp, dhpn, design=d), gxb.bigru_window_xp_bwd_wgrad_plain(
+        h0f, h0b, of, ob, dxp, dhpn), WGRAD_XP, "bigru_window_xp_bwd_wgrad")
+    flops, nbytes = cost[XP_PASSES[1]]
+    bound_ms, _ = bound(flops, nbytes)
+    tf32_ms, tf32_by = bound(3 * flops, nbytes, PEAK_TF32)
+    log(f"K4 pass 2 (B={Bw}, H={WH}): split {w['ms']:.4f} ms (split kernel "
+        f"{w['split_ms']:.4f}, slice sum {w['sum_ms']:.4f}), tile32 {w['tile32_ms']:.4f} ms "
+        f"({w['tile32_ms'] / w['ms']:.2f}x), cuBLAS {cublas_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"at the fp32 rate, {tf32_ms:.4f} ms ({tf32_by}) at 3 x FLOP on TF32 tensor cores")
+    results[XP_PASSES[1]].update(
+        ms=w["ms"], kernel_ms=w["ms"], tile32_ms=w["tile32_ms"], bound_tf32_ms=tf32_ms,
+        max_scaled_err=w["scaled"], max_abs_err=w["err"],
+        tile32_max_scaled_err=w["tile32_scaled"],
+        per=results[XP_PASSES[1]]["per"] + "; ms: the split design (split kernel + slice sum) "
+        "in turns with tile32_ms, bwd_wgrad_kernel (design 'tile32'); bound_tf32_ms: 3 x FLOP "
+        "at the dense TF32 rate")
 
     # each kernel of the grid design alone, against its plain version
     whh = torch.stack([layer[d]["w_hh"] for d in ("fwd", "bwd")])
@@ -1524,9 +1746,10 @@ def run_wide_cli(work: str, results) -> tuple:
     from helen_tpu_torch.ops import gru_window as gw
     from helen_tpu_torch.ops import gru_window_bwd as gb
     from helen_tpu_torch.ops import gru_window_xp as gx
+    from helen_tpu_torch.ops import gru_window_wgrad as gwg
     from helen_tpu_torch.ops import gru_window_xp_bwd as gxb
 
-    mods = (gw, gb, gx, gxb)
+    mods = (gw, gb, gx, gxb, gwg)
     counts = lambda: {k: v for m in mods for k, v in m.launch_counts.items()}  # noqa: E731
 
     def reset():
@@ -1541,7 +1764,7 @@ def run_wide_cli(work: str, results) -> tuple:
         write_exact(os.path.join(d, f"{k}.h5"), f"wide_{k}", n, seed)
     n_win = WINDOW.num_windows(IMAGE.seq_length)
     zero_inproj = {k: 0 for m in (gw, gb) for k in m.launch_counts}
-    zero_xp = {k: 0 for m in (gx, gxb) for k in m.launch_counts}
+    zero_xp = {k: 0 for m in (gx, gxb, gwg) for k in m.launch_counts}
     if gxb.xp_bwd_design(WH, WB_TRAIN) != "grid":
         fail(f"K4 pass 1 at H={WH}, B={WB_TRAIN} does not take the grid design")
 
@@ -1562,7 +1785,7 @@ def run_wide_cli(work: str, results) -> tuple:
     fwd = (train_b + test_b) * n_win * 2
     want = {**zero_inproj, **zero_xp, "bigru_window_xp": fwd, "bigru_window_xp_grid": fwd,
             XP_PASSES[0]: trained, XP_PASSES[1]: trained, "bigru_window_xp_bwd_hp": trained,
-            "bigru_window_xp_bwd_rec_grid": trained}
+            "bigru_window_xp_bwd_rec_grid": trained, **wgrad_counts(trained)}
     log(f"wide train (H={WH}, {N_WIDE_TRAIN} images, -b {WB_TRAIN}, 1 epoch): train loss "
         f"{epoch['train_loss']:.5f}, test loss {epoch['test_loss']:.5f}, base acc "
         f"{epoch['base_accuracy']:.3f}%, training {epoch['train_seconds']:.2f} s = "
@@ -1572,11 +1795,14 @@ def run_wide_cli(work: str, results) -> tuple:
     log(f"wide train launches {launches}, expected {want} ({train_b} train + {test_b} "
         f"test batches x {n_win} windows x 2 layers; K3 in the grid design, 0 "
         "xp_window_kernel; K4 on the train batches only, pass 1 in the grid design: the gate "
-        "pass and the grid recurrence, 0 xp_bwd_rec_kernel)")
+        "pass and the grid recurrence, 0 xp_bwd_rec_kernel; pass 2 as the split kernel and "
+        "the slice sum, 0 tile32)")
     if launches != want:
         fail("wide train launch counts differ from batches x windows x layers")
     for name in (*XP_PASSES, "bigru_window_xp_bwd_hp", "bigru_window_xp_bwd_rec_grid"):
         results[name]["launches"] = launches[name]
+    for name in WGRAD_KERNELS:
+        results[name]["launches_wide_train"] = launches[name]
     rate = epoch["train_windows"] / epoch["train_seconds"]
     results[XP_PASSES[0]]["wide_train_windows_per_s"] = rate
     results["bigru_window_xp"]["wide_train_windows_per_s"] = rate
@@ -1890,9 +2116,10 @@ def run_fast_polish(img_dir: str, truth, n_images: int, work: str, wide_ckpt: st
     from helen_tpu_torch.ops import gru_window as gw
     from helen_tpu_torch.ops import gru_window_bwd as gb
     from helen_tpu_torch.ops import gru_window_xp as gx
+    from helen_tpu_torch.ops import gru_window_wgrad as gwg
     from helen_tpu_torch.ops import gru_window_xp_bwd as gxb
 
-    mods = (gw, gb, gx, gxb)
+    mods = (gw, gb, gx, gxb, gwg)
     n_win = WINDOW.num_windows(IMAGE.seq_length)
 
     def run(images, model, out, batch):
@@ -2071,6 +2298,7 @@ def run_encdec_route(img_dir: str, results) -> None:
     from helen_tpu_torch.ops import gru_window as gw
     from helen_tpu_torch.ops import gru_window_bwd as gb
     from helen_tpu_torch.ops import gru_window_xp as gx
+    from helen_tpu_torch.ops import gru_window_wgrad as gwg
     from helen_tpu_torch.ops import gru_window_xp_bwd as gxb
 
     t0 = time.perf_counter()
@@ -2078,7 +2306,7 @@ def run_encdec_route(img_dir: str, results) -> None:
     n = images.shape[0]
     log(f"{n} full-width images on the card in {time.perf_counter() - t0:.1f} s")
     params, _ = load_model_any(os.path.join(GOLDEN, "trained_synth30mb.npz"))
-    mods = (gw, gb, gx, gxb)
+    mods = (gw, gb, gx, gxb, gwg)
     n_win = WINDOW.num_windows(IMAGE.seq_length)
     batches = -(-n // B)
 
@@ -2235,8 +2463,10 @@ def main() -> int:
         phase("6. full-width polish")
         run_full_width(img_dir, truth, n_images, work, results)
 
-        phase("7a. backward kernel against its plain version (B=256, T=100, H=128)")
+        phase("7a. backward kernels against their plain versions (B=256, T=100, H=128; "
+              "pass 2 also at B=512)")
         check_backward(images_u8, results)
+        check_wgrad(results)
 
         phase("7b. one TBPTT batch: kernels against the plain route")
         check_tbptt(img_dir)

@@ -37,13 +37,15 @@
 //     and, for K2-kind layers, dx per direction (the wrapper adds the two,
 //     as helen_tpu's wrapper does at gru_pallas_train.py:658). Layer 0 reads
 //     the uint8 image in place at column `start`, as K1 does; it has no dx.
-//   pass 2 (bwd_wgrad_kernel, gru_window_common.cuh, shared with the
-//     xp-stream backward): the weight cotangents as a tiled reduction
-//     over the N = T * B rows. One block per 32 x 32 tile of [dW_ih; db_ih]
-//     ((D + 1) x 3H, the bias as a row of ones) and of [dW_hh; db_hh]
-//     ((H + 1) x 3H), per direction; each block sums all N rows itself in
-//     one fixed order. No float atomics: the same inputs give bit-identical
-//     gradients.
+//   pass 2: the weight cotangents over the N = T * B rows, by default the
+//     split design of gru_window_wgrad.cu (slices of N on 3xTF32 tensor
+//     cores, the slices added in a fixed order); bigru_window_bwd_wgrad
+//     below launches the earlier design, forced only (design "tile32",
+//     bwd_wgrad_kernel, gru_window_common.cuh, shared with the xp-stream
+//     backward): one block per 32 x 32 tile of [dW_ih; db_ih] ((D + 1) x
+//     3H, the bias as a row of ones) and of [dW_hh; db_hh] ((H + 1) x 3H),
+//     per direction, each summing all N rows itself in one fixed order. No
+//     float atomics in either: the same inputs give bit-identical gradients.
 //
 // FLOPs per launch and direction: pass 1 2*B*T*3H*(2D + 2H) (the gate
 // recompute x W_ih and h W_hh, the carry dhp W_hh^T, and dx; without dx
@@ -59,7 +61,7 @@
 // (weights read through L2/L1, 6 x BT gate sums in registers, each weight
 // reused BT times per read); pass 2 reuses each loaded element 32 times from
 // shared memory. Both are simple and exact first: true fp32 FMAs, no
-// fast-math, no tensor cores. wgmma, TMA and a split-N pass 2 are later work.
+// fast-math, no tensor cores.
 //
 // H is a runtime value up to MAX_H = 512 (threads of a pass-1 block; the
 // launch bound holds a thread to 128 registers).

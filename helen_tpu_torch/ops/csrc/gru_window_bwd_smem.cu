@@ -10,7 +10,7 @@
 //   bigru_window_bwd_rec_smem: the recurrence, one block per (ROWS batch
 //     rows, direction), the direction's W_hh^T (3H x H) in shared memory for
 //     all T steps; writes dxp (2, T, B, 3H), dhp_n (2, T, B, H) for pass 2
-//     (bwd_wgrad, unchanged) and dh0;
+//     (gru_window_wgrad.cu) and dh0;
 //   bigru_window_bwd_dx (K2-kind layers): dx_dir = dxp_dir W_ih^T over all
 //     T * B rows per direction, into (2, T, B, D); the wrapper adds the two.
 // Together they replace pass 1 of _bwd_kernel_ip

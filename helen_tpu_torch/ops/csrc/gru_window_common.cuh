@@ -1,7 +1,7 @@
 // What the bi-GRU window kernels (gru_window*.cu) share: their limits, the
 // gate nonlinearity, the forward cell step of the in-projection kernels and
 // of the fused encoder+decoder kernel, the readers of a layer's input and of
-// h_prev, and the fixed-order weight-cotangent reduction of both backwards.
+// h_prev, and the earlier weight-cotangent reduction of both backwards.
 //
 // Every kernel computes, per direction, the torch nn.GRU cell with gates
 // [r, z, n] and b_hh INSIDE the reset product:
@@ -280,7 +280,9 @@ int allow_smem(Kernel kernel, size_t smem) {
 
 // ---------------------------------------------------------------------------
 // The weight cotangents of one window, a tiled reduction over its N = T * B
-// rows in one fixed order (no float atomics: bit-identical across launches).
+// rows in one fixed order (no float atomics: bit-identical across launches):
+// pass 2's earlier design, launched only where design "tile32" forces it
+// (ops/gru_window_wgrad.py); every default path takes gru_window_wgrad.cu.
 // One block per 32 x 32 tile of [dW_ih; db_ih] ((D + 1) x 3H, the bias as a
 // row of ones; only when with_ih) and of [dW_hh; db_hh] ((H + 1) x 3H), per
 // direction; blockIdx.x walks the ih tiles first, blockIdx.y is the

@@ -33,9 +33,11 @@
 //     H=1024; each thread reads and writes only its own units' carry). It
 //     writes dxp (an output) and the n block of dhp (scratch) per direction,
 //     and dh0.
-//   pass 2: the [dW_hh; db_hh] half of the fixed-order weight-cotangent
-//     reduction (bwd_wgrad_kernel, gru_window_common.cuh) over those
-//     streams. No float atomics: two launches are bit-identical.
+//   pass 2: the [dW_hh; db_hh] half of the weight-cotangent reduction over
+//     those streams, by default the split design of gru_window_wgrad.cu;
+//     bigru_window_xp_bwd_wgrad below launches the earlier one, forced only
+//     (design "tile32", bwd_wgrad_kernel, gru_window_common.cuh). No float
+//     atomics in either: two launches are bit-identical.
 //
 // Shapes whose W_hh slices fit the card's SMs take the grid design instead
 // (gru_window_xp_bwd_grid.cu: the gate pass, then a grid-wide recurrence with

@@ -9,8 +9,8 @@
 //     grid of 2 C blocks, C per direction, one per SM, all co-resident
 //     (a cooperative launch); block c of a direction holds the W_hh rows of
 //     its U hidden units [c U, (c + 1) U) in shared memory for all T steps;
-//     writes dxp (2, T, B, 3H), dhp_n (2, T, B, H) for pass 2 (bwd_wgrad,
-//     unchanged) and dh0.
+//     writes dxp (2, T, B, 3H), dhp_n (2, T, B, H) for pass 2
+//     (gru_window_wgrad.cu) and dh0.
 // Together they replace pass 1 of _bwd_kernel
 // (helen_tpu/ops/gru_pallas_train.py:166, pallas_call :507) and compute it
 // bit for bit as xp_bwd_rec_kernel (gru_window_xp_bwd.cu), which keeps the

@@ -199,6 +199,20 @@ def get_lib() -> ctypes.CDLL:
             lib.bigru_window_xp_bwd_wgrad.restype = i
             lib.bigru_window_xp_bwd_wgrad.argtypes = [p] * 10 + [i, i, i, p]
             lib.gru_window_xp_max_h.restype = i
+            # pass 2's split design (csrc/gru_window_wgrad.cu; wrappers in
+            # gru_window_wgrad.py): the in-projection form takes pass 2's
+            # arguments above, the xp form the xp pass 2's, each plus the
+            # partials' scratch; the slice sum the scratch and all outputs
+            lib.bigru_window_wgrad_split_in.restype = i
+            lib.bigru_window_wgrad_split_in.argtypes = (
+                [p, ll, ll, i, p, p, i] + [p] * 6 + [p] * 8 + [p] + [i, i, i, p])
+            lib.bigru_window_wgrad_split_xp.restype = i
+            lib.bigru_window_wgrad_split_xp.argtypes = [p] * 10 + [p] + [i, i, i, p]
+            lib.bigru_window_wgrad_sum.restype = i
+            lib.bigru_window_wgrad_sum.argtypes = [p] + [i] * 5 + [p] * 8 + [p]
+            lib.bigru_window_wgrad_slice_rows.restype = i
+            lib.bigru_window_wgrad_scratch_bytes.restype = ll
+            lib.bigru_window_wgrad_scratch_bytes.argtypes = [i] * 5
             # the fused encoder+decoder window (csrc/gru_window_encdec.cu;
             # wrapper in gru_window_encdec.py): K1's arguments, both layers'
             # weights, the outputs, T, B, H and the block's batch rows
@@ -231,6 +245,10 @@ def get_lib() -> ctypes.CDLL:
             if lib.gru_window_xp_max_h() != XP_MAX_H:
                 raise RuntimeError("XP_MAX_H disagrees with csrc/gru_window_xp*.cu")
             from helen_tpu_torch.ops import gru_window_smem as gs
+            from helen_tpu_torch.ops.gru_window_wgrad import SLICE_ROWS
+
+            if lib.bigru_window_wgrad_slice_rows() != SLICE_ROWS:
+                raise RuntimeError("SLICE_ROWS disagrees with csrc/gru_window_wgrad.cu")
 
             if (lib.bigru_window_rec_max_threads() != gs.REC_MAX_THREADS
                     or any(lib.bigru_window_rec_smem_bytes(h, r) != gs.rec_smem_bytes(h, r)

@@ -24,9 +24,10 @@ counted once per layer-window in :data:`launch_counts`:
 
   Both take every sum in the same order and the same cotangent lines, so
   they give the same bits;
-* ``bigru_window_bwd_wgrad`` (pass 2, ``csrc/gru_window_common.cuh``):
-  dW_ih, db_ih, dW_hh, db_hh as a tiled reduction over the window's T*B
-  rows in one fixed order (no atomics: bit-identical across launches).
+* ``bigru_window_bwd_wgrad`` (pass 2, ops.gru_window_wgrad,
+  ``csrc/gru_window_wgrad.cu``): dW_ih, db_ih, dW_hh, db_hh as a split-N
+  reduction on 3xTF32 tensor cores, then the slices added in a fixed order
+  (no atomics: bit-identical across launches).
 
 Every kernel also counts its own launches under its name.
 
@@ -241,6 +242,25 @@ def bwd_design(H: int, B: int, design=None) -> str:
     return design
 
 
+def source_args(name: str, src: Source, start: int, T: int, B: int, H: int, dev) -> list:
+    """The checked layer input as the kernel library takes it: ``[img, sb,
+    sl, start, xa, xb, D]`` (the image's pointer and element strides, or the
+    pair's pointers, and the input width)."""
+    if isinstance(src, tuple):
+        xa, xb = src
+        _check("xa", xa, (T, B, H), torch.float32, dev)
+        _check("xb", xb, (T, B, H), torch.float32, dev)
+        return [None, 0, 0, 0, xa.data_ptr(), xb.data_ptr(), 2 * H]
+    if src.dtype != torch.uint8 or src.dim() != 3 or src.stride(2) != 1:
+        raise ValueError(f"{name} takes a (B, L, F) uint8 image with unit feature "
+                         "stride, or an (xa, xb) pair")
+    Bi, L, D = src.shape
+    if Bi != B or not (0 <= start and start + T <= L):
+        raise ValueError(f"window [{start}, {start + T}) of a {tuple(src.shape)} "
+                         f"image for outputs of {(T, B, H)}")
+    return [src.data_ptr(), src.stride(0), src.stride(1), start, None, None, D]
+
+
 class _Window:
     """The checked arguments of one layer-window's backward launches."""
 
@@ -252,23 +272,8 @@ class _Window:
         T, B, H = self.T, self.B, self.H = out_f.shape
         if not 0 < H <= MAX_H:
             raise ValueError(f"H={H} exceeds the backward kernel's maximum {MAX_H}")
-        if self.pair:
-            xa, xb = src
-            _check("xa", xa, (T, B, H), torch.float32, dev)
-            _check("xb", xb, (T, B, H), torch.float32, dev)
-            D = 2 * H
-            self.img_args = [None, 0, 0, 0, xa.data_ptr(), xb.data_ptr(), D]
-        else:
-            if src.dtype != torch.uint8 or src.dim() != 3 or src.stride(2) != 1:
-                raise ValueError(f"{name} takes a (B, L, F) uint8 image with unit feature "
-                                 "stride, or an (xa, xb) pair")
-            Bi, L, D = src.shape
-            if Bi != B or not (0 <= start and start + T <= L):
-                raise ValueError(f"window [{start}, {start + T}) of a {tuple(src.shape)} "
-                                 f"image for outputs of {(T, B, H)}")
-            self.img_args = [src.data_ptr(), src.stride(0), src.stride(1), start, None,
-                             None, D]
-        self.D = D
+        self.img_args = source_args(name, src, start, T, B, H, dev)
+        D = self.D = self.img_args[-1]
         for n, t, shape in (("h0_f", h0_f, (B, H)), ("h0_b", h0_b, (B, H)),
                             ("out_f", out_f, (T, B, H)), ("out_b", out_b, (T, B, H)),
                             ("dout_f", dout_f, (T, B, H)), ("dout_b", dout_b, (T, B, H)),
@@ -367,24 +372,16 @@ def bigru_window_bwd(src: Source, start: int, h0_f, h0_b, out_f, out_b,
                      need_dx: bool = True, design=None) -> Grads:
     """The backward of one bi-GRU window layer (see the module docstring):
     pass 1, in the design :func:`bwd_design` picks (``design`` forces one),
-    then pass 2, on the current stream. ``need_dx`` is ignored for the
-    image (layer 0 has no dx)."""
+    then pass 2, ``gru_window_wgrad.bigru_window_wgrad``, on the current
+    stream. ``need_dx`` is ignored for the image (layer 0 has no dx)."""
     args = (src, start, h0_f, h0_b, out_f, out_b, dout_f, dout_b, dh_f, dh_b, layer)
     pair = isinstance(src, tuple)
     if (src[0] if pair else src).device.type == "cpu":
         return bigru_window_bwd_plain(*args, need_dx and pair)
+    from helen_tpu_torch.ops.gru_window_wgrad import bigru_window_wgrad
+
     a = _Window("bigru_window_bwd", *args)
     dxp, dhpn, dx, dh0_f, dh0_b = _rec(a, design, *args, need_dx=need_dx)
-    T, B, H, D, dev = a.T, a.B, a.H, a.D, a.dev
-    grads = {d: {"w_ih": _empty(dev, D, 3 * H), "w_hh": _empty(dev, H, 3 * H),
-                 "b_ih": _empty(dev, 3 * H), "b_hh": _empty(dev, 3 * H)}
-             for d in ("fwd", "bwd")}
-    with torch.cuda.device(dev):
-        err = get_lib().bigru_window_bwd_wgrad(
-            *a.img_args, *(t.data_ptr() for t in (h0_f, h0_b, out_f, out_b)),
-            dxp.data_ptr(), dhpn.data_ptr(),
-            *(grads[d][k].data_ptr() for d in ("fwd", "bwd") for k in KEYS),
-            T, B, H, torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "bigru_window_bwd_wgrad")
+    grads = bigru_window_wgrad(src, start, h0_f, h0_b, out_f, out_b, dxp, dhpn)
     launch_counts["bigru_window_bwd_wgrad"] += 1
     return dx, dh0_f, dh0_b, grads

@@ -28,10 +28,10 @@ passes, each counted once per layer-window in :data:`launch_counts`:
 
   Both take every sum in the same order and the same cotangent lines, so
   they give the same bits;
-* ``bigru_window_xp_bwd_wgrad`` (pass 2): dW_hh and db_hh as a tiled
-  reduction over the window's T*B rows in one fixed order (the kernel of
-  the in-projection backward's pass 2, without its W_ih half; no atomics:
-  bit-identical across launches).
+* ``bigru_window_xp_bwd_wgrad`` (pass 2, ops.gru_window_wgrad): dW_hh and
+  db_hh as a split-N reduction on 3xTF32 tensor cores, then the slices
+  added in a fixed order (the in-projection backward's pass 2 without its
+  W_ih half; no atomics: bit-identical across launches).
 
 On a CPU tensor the wrapper computes the plain version (helen_tpu's
 backward equations in torch ops); on a CUDA tensor it launches the kernels
@@ -56,6 +56,7 @@ from helen_tpu_torch.ops import gru_window_xp_bwd_grid as gg
 from helen_tpu_torch.ops.gru_window_bwd import _h_prev, hh_grads_plain, unwind_plain
 from helen_tpu_torch.ops.gru_window_xp import recurrent_args
 from helen_tpu_torch.ops.gru_window_xp_bwd_grid import RecOutputs
+from helen_tpu_torch.ops.gru_window_wgrad import bigru_window_xp_wgrad
 
 #: (dxp_f (T, B, 3H), dxp_b (T, B, 3H), dh0_f, dh0_b,
 #:  {"fwd", "bwd"} of {"w_hh", "b_hh"} cotangents)
@@ -223,21 +224,13 @@ def bigru_window_xp_bwd(xp_f, xp_b, h0_f, h0_b, out_f, out_b, dout_f, dout_b,
                         dh_f, dh_b, layer: Layer, design=None) -> XpGrads:
     """The backward of one xp-stream bi-GRU window layer (see the module
     docstring): pass 1, in the design :func:`xp_bwd_design` picks
-    (``design`` forces one), then pass 2, on the current stream."""
+    (``design`` forces one), then pass 2,
+    ``gru_window_wgrad.bigru_window_xp_wgrad``, on the current stream."""
     args = (xp_f, xp_b, h0_f, h0_b, out_f, out_b, dout_f, dout_b, dh_f, dh_b, layer)
     if xp_f.device.type == "cpu":
         return bigru_window_xp_bwd_plain(*args)
     a = _Window("bigru_window_xp_bwd", *args)
     dxp, dhpn, dh0_f, dh0_b = _rec(a, design, *args)
-    T, B, H, dev = a.T, a.B, a.H, a.dev
-    grads = {d: {"w_hh": torch.empty((H, 3 * H), dtype=torch.float32, device=dev),
-                 "b_hh": torch.empty(3 * H, dtype=torch.float32, device=dev)}
-             for d in ("fwd", "bwd")}
-    with torch.cuda.device(dev):
-        err = get_lib().bigru_window_xp_bwd_wgrad(
-            *(t.data_ptr() for t in (h0_f, h0_b, out_f, out_b, dxp, dhpn)),
-            *(grads[d][k].data_ptr() for d in ("fwd", "bwd") for k in ("w_hh", "b_hh")),
-            T, B, H, torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "bigru_window_xp_bwd_wgrad")
+    grads = bigru_window_xp_wgrad(h0_f, h0_b, out_f, out_b, dxp, dhpn)
     launch_counts["bigru_window_xp_bwd_wgrad"] += 1
     return dxp[0], dxp[1], dh0_f, dh0_b, grads

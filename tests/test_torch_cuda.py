@@ -1332,3 +1332,162 @@ def test_tbptt_batch_xp_grid_design_equals_chain_design(dev, monkeypatch):
                    + [torch.as_tensor(v) for v in opt_leaves(state)[1:]])
     for a, b in zip(runs["grid"], runs["chain"]):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# pass 2 of both backwards in the split design (ops.gru_window_wgrad):
+# slices of 1,600 rows on 3xTF32 tensor cores, the slices added in order
+# ---------------------------------------------------------------------------
+
+def wgrad_case(kind, T, B, H, dev):
+    """Pass 2's inputs: bwd_case's window (the seed of the pass-1 design
+    tests, so that (image, 100, 512, 128) is their full-range uint8 case)
+    and pass 1's dxp, dhp_n from its plain version."""
+    from helen_tpu_torch.ops import gru_window_bwd as gb
+
+    args = bwd_case(np.random.default_rng(T * B + H + (kind == "pair")), kind, T, B, H, dev)
+    dxp, dhpn, *_ = gb.bigru_window_bwd_rec_plain(*args, need_dx=False)
+    return (*args[:6], dxp.contiguous(), dhpn.contiguous())
+
+
+def xp_wgrad_case(T, B, H, dev):
+    """K4 pass 2's inputs: h0 and the forward's outputs of xp_bwd_case, and
+    pass 1's dxp, dhp_n from its plain version."""
+    from helen_tpu_torch.ops import gru_window_xp_bwd as gxb
+
+    args = xp_bwd_case(np.random.default_rng(T * B + H), T, B, H, dev)
+    dxp, dhpn, *_ = gxb.bigru_window_xp_bwd_rec_plain(*args)
+    return (*args[2:6], dxp.contiguous(), dhpn.contiguous())
+
+
+def wgrad_counts(before, T, B, design="split"):
+    """gru_window_wgrad.launch_counts after one pass 2 from ``before``: the
+    split kernel and, past one slice of 1,600 rows, the slice sum."""
+    ran = {"bigru_window_wgrad_tile32": int(design == "tile32"),
+           "bigru_window_wgrad_split": int(design == "split"),
+           "bigru_window_wgrad_sum": int(design == "split" and T * B > 1600)}
+    return {k: v + ran[k] for k, v in before.items()}
+
+
+def assert_wgrad_close(got, want):
+    assert set(got) == set(want) == {"fwd", "bwd"}
+    for d in ("fwd", "bwd"):
+        assert set(got[d]) == set(want[d]), d
+        for k, w in want[d].items():
+            assert got[d][k].shape == w.shape, (d, k)
+            _scaled_close(got[d][k], w, f"{d}.{k}")
+
+
+# test_backward_kernel_matches_plain's shapes (ragged batches, H=160, both
+# layer kinds), the flagship's training window (16 slices) and B=512 on
+# full-range uint8 images (32 slices), where the one-slice design's dW_ih
+# landed 1.03e-5 of its scale away
+@pytest.mark.parametrize("kind,T,B,H", [("image", 7, 1, 128), ("image", 9, 13, 128),
+                                        ("pair", 6, 257, 128), ("image", 5, 13, 160),
+                                        ("pair", 5, 13, 160), ("pair", 100, 64, 128),
+                                        ("image", 100, 256, 128), ("pair", 100, 256, 128),
+                                        ("image", 100, 512, 128), ("pair", 100, 512, 128)])
+def test_wgrad_split_matches_plain(dev, kind, T, B, H):
+    from helen_tpu_torch.ops import gru_window_bwd as gb
+    from helen_tpu_torch.ops import gru_window_wgrad as gwg
+
+    args = wgrad_case(kind, T, B, H, dev)
+    before = dict(gwg.launch_counts)
+    got = gwg.bigru_window_wgrad(*args)
+    torch.cuda.synchronize()
+    assert gwg.launch_counts == wgrad_counts(before, T, B)
+    assert_wgrad_close(got, gb.bigru_window_bwd_wgrad_plain(*args))
+
+
+# K4's pass 2 at the wide widths, ragged batches and the wide train's B=64
+@pytest.mark.parametrize("T,B,H", [(7, 1, 1024), (6, 13, 640), (5, 9, 160), (4, 7, 37),
+                                   (100, 64, 640), (100, 64, 1024)])
+def test_xp_wgrad_split_matches_plain(dev, T, B, H):
+    from helen_tpu_torch.ops import gru_window_wgrad as gwg
+    from helen_tpu_torch.ops import gru_window_xp_bwd as gxb
+
+    args = xp_wgrad_case(T, B, H, dev)
+    before = dict(gwg.launch_counts)
+    got = gwg.bigru_window_xp_wgrad(*args)
+    torch.cuda.synchronize()
+    assert gwg.launch_counts == wgrad_counts(before, T, B)
+    assert_wgrad_close(got, gxb.bigru_window_xp_bwd_wgrad_plain(*args))
+
+
+@pytest.mark.parametrize("form", ["image", "pair", "xp"])
+def test_wgrad_split_is_bit_identical_across_launches(dev, form):
+    from helen_tpu_torch.ops import gru_window_wgrad as gwg
+
+    if form == "xp":
+        args = xp_wgrad_case(100, 64, 1024, dev)
+        a, b = gwg.bigru_window_xp_wgrad(*args), gwg.bigru_window_xp_wgrad(*args)
+    else:
+        args = wgrad_case(form, 100, 256, 128, dev)
+        a, b = gwg.bigru_window_wgrad(*args), gwg.bigru_window_wgrad(*args)
+    for d in ("fwd", "bwd"):
+        for k in a[d]:
+            assert torch.equal(a[d][k], b[d][k]), (d, k)
+
+
+@pytest.mark.parametrize("form", ["image", "pair", "xp"])
+def test_wgrad_tile32_design_matches_plain(dev, form):
+    """The earlier design, forced: still its plain version, counted as
+    tile32 only."""
+    from helen_tpu_torch.ops import gru_window_bwd as gb
+    from helen_tpu_torch.ops import gru_window_wgrad as gwg
+    from helen_tpu_torch.ops import gru_window_xp_bwd as gxb
+
+    before = dict(gwg.launch_counts)
+    if form == "xp":
+        args = xp_wgrad_case(6, 13, 640, dev)
+        got = gwg.bigru_window_xp_wgrad(*args, design="tile32")
+        want = gxb.bigru_window_xp_bwd_wgrad_plain(*args)
+    else:
+        args = wgrad_case(form, 9, 13, 128, dev)
+        got = gwg.bigru_window_wgrad(*args, design="tile32")
+        want = gb.bigru_window_bwd_wgrad_plain(*args)
+    torch.cuda.synchronize()
+    assert gwg.launch_counts == wgrad_counts(before, 9, 13, design="tile32")
+    assert_wgrad_close(got, want)
+
+
+def test_default_backwards_launch_the_split_design_only(dev):
+    """bigru_window_bwd (both layer kinds) and bigru_window_xp_bwd take pass
+    2's split design: each pass 2 counted once, 0 launches of tile32."""
+    from helen_tpu_torch.ops import gru_window_bwd as gb
+    from helen_tpu_torch.ops import gru_window_wgrad as gwg
+    from helen_tpu_torch.ops import gru_window_xp_bwd as gxb
+
+    gwg.reset_launch_counts()
+    before = gb.launch_counts["bigru_window_bwd_wgrad"], gxb.launch_counts[
+        "bigru_window_xp_bwd_wgrad"]
+    for kind in ("image", "pair"):
+        gb.bigru_window_bwd(*bwd_case(np.random.default_rng(61), kind, 100, 64, 128, dev))
+    gxb.bigru_window_xp_bwd(*xp_bwd_case(np.random.default_rng(62), 5, 9, 160, dev))
+    torch.cuda.synchronize()
+    assert gwg.launch_counts == {"bigru_window_wgrad_split": 3, "bigru_window_wgrad_sum": 2,
+                                 "bigru_window_wgrad_tile32": 0}
+    assert (gb.launch_counts["bigru_window_bwd_wgrad"], gxb.launch_counts[
+        "bigru_window_xp_bwd_wgrad"]) == (before[0] + 2, before[1] + 1)
+
+
+def test_wgrad_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    from helen_tpu_torch.ops import gru_window as gw
+    from helen_tpu_torch.ops import gru_window_wgrad as gwg
+
+    src, start, h0f, h0b, of, ob, dxp, dhpn = wgrad_case("pair", 4, 8, 128, dev)
+    before = dict(gwg.launch_counts)
+    with pytest.raises(ValueError, match="not one of"):
+        gwg.bigru_window_wgrad(src, start, h0f, h0b, of, ob, dxp, dhpn, design="tile64")
+    with pytest.raises(ValueError):  # dxp of one direction
+        gwg.bigru_window_wgrad(src, start, h0f, h0b, of, ob, dxp[0], dhpn)
+    with pytest.raises(ValueError):  # dhp_n on the CPU
+        gwg.bigru_window_xp_wgrad(h0f, h0b, of, ob, dxp, dhpn.cpu())
+    with pytest.raises(TypeError):  # a float64 output stream
+        gwg.bigru_window_xp_wgrad(h0f, h0b, of.double(), ob, dxp, dhpn)
+    assert gwg.launch_counts == before
+    lib = gw.get_lib()
+    for D, with_ih, T, B, H in ((90, 1, 100, 256, 128), (256, 1, 100, 512, 128),
+                                (0, 0, 100, 64, 1024), (320, 1, 7, 13, 160), (0, 0, 64, 50, 37)):
+        assert (lib.bigru_window_wgrad_scratch_bytes(D, with_ih, T, B, H)
+                == gwg.wgrad_design(D, H, T, B, bool(with_ih)).scratch_bytes)
