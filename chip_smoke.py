@@ -39,14 +39,19 @@ route (K3 in the grid design; each fixture's encoder layer through K4's
 grid design), then ``train``, ``test`` and ``polish`` at H=1024 with the
 launches counted (0 of xp_window_kernel, xp_bwd_rec_kernel and tile32). Phase 10
 drives the fast (bf16) tier, ``polish --fast``: K1f, K2f and K3f against
-their plain versions (phase 10b: K3f's grid design, its step product on
-bf16 tensor cores, timed in turns with the one-launch K3f), a label flip
+their plain versions (phase 10a: K1f and K2f in the main path's design, a
+projection pass and a recurrence on bf16 tensor cores, at B=512 and B=256,
+within FAST_TOL of the one-launch bigru_window_kernel<FAST> and timed in
+turns with it; each of its kernels alone; phase 10b: K3f's grid design, its
+step product on bf16 tensor cores, timed in turns with the one-launch
+K3f), a label flip
 audit against the fast plain route and the fp32 route, the trained
 checkpoint under ``--fast`` against the parity tier, and the flagship and
 wide polishes through the fast kernels with the launches counted. Phase 11
 drives the fused encoder+decoder window (``route="encdec"``, library only):
-K5 and K5f against the chained kernels (bit for bit) and their plain
-versions, timed beside K1+K2 and cuDNN, the full-width images with the
+K5 and K5f against the chained kernels (bit for bit; K5f against the
+one-launch K1f -> K2f whose cell step it shares) and their plain versions,
+timed beside K1+K2, K1f+K2f in both designs and cuDNN, the full-width images with the
 trained checkpoint through the route in both tiers with the launches
 counted, and the golden fixtures through it. Every phase fails the script
 on error; nothing falls back.
@@ -114,7 +119,13 @@ XP_PASSES = ("bigru_window_xp_bwd_rec", "bigru_window_xp_bwd_wgrad")
 # the default route launches: the fast tier's (phase 10) and the fused
 # encoder+decoder window's (phase 11, route="encdec" only)
 OFF_PATH_ZERO = {"bigru_window_in1_fast": 0, "bigru_window_in2_fast": 0,
+                 "bigru_window_proj_in1_fast": 0, "bigru_window_proj_in2_fast": 0,
+                 "bigru_window_rec_fast": 0,
                  "transducer_window_encdec": 0, "transducer_window_encdec_fast": 0}
+# the kernels of K1f/K2f's two-launch design (ops.gru_window_smem,
+# gru_window_fast.cu), which the flagship's fast path runs
+FAST_SMEM_KERNELS = ("bigru_window_proj_in1_fast", "bigru_window_proj_in2_fast",
+                     "bigru_window_rec_fast")
 # the kernels of K1/K2's two-launch design (ops.gru_window_smem), which the
 # flagship's parity path runs
 SMEM_KERNELS = ("bigru_window_proj_in1", "bigru_window_proj_in2", "bigru_window_rec_smem")
@@ -126,6 +137,14 @@ def parity_counts(in1: int, in2: int) -> dict:
     return {"bigru_window_in1": in1, "bigru_window_in2": in2,
             "bigru_window_proj_in1": in1, "bigru_window_proj_in2": in2,
             "bigru_window_rec_smem": in1 + in2}
+
+
+def fast_counts(in1: int, in2: int) -> dict:
+    """The launches of ``in1`` K1fs and ``in2`` K2fs on the two-launch design:
+    each a projection and a recurrence, never bigru_window_kernel<FAST>."""
+    return {"bigru_window_in1_fast": in1, "bigru_window_in2_fast": in2,
+            "bigru_window_proj_in1_fast": in1, "bigru_window_proj_in2_fast": in2,
+            "bigru_window_rec_fast": in1 + in2}
 
 
 def train_counts(fwd: int, trained: int) -> dict:
@@ -243,15 +262,18 @@ def polish_cli(image_dir: str, model: str, out: str, extra=()) -> tuple:
     return os.path.join(out, "HELEN_prediction.fa"), os.path.join(out, preds[0])
 
 
-def window_cost(bsz: int, d: int, h: int = H, in_bytes: float = None) -> tuple:
-    """(FLOP, bytes) of one K1/K2 launch at batch ``bsz``, input width ``d``:
-    each input read once (``in_bytes``: the uint8 window, or two float32
-    halves), each output written once."""
+def window_cost(bsz: int, d: int, h: int = H, in_bytes: float = None,
+                w_bytes: int = 4) -> tuple:
+    """(FLOP, bytes) of one K1/K2 (K1f/K2f: ``w_bytes`` 2, bf16 weights)
+    launch at batch ``bsz``, input width ``d``: each input read once
+    (``in_bytes``: the uint8 window, or two float32 halves), each output
+    written once."""
     bt = bsz * T
     if in_bytes is None:
         in_bytes = bt * d if d == F else 4 * bt * d
     return (2.0 * bt * 2 * (d * 3 * h + h * 3 * h),
-            in_bytes + 2 * 4 * ((d + h) * 3 * h + 6 * h) + 4 * 4 * bsz * h + 2 * 4 * bt * h)
+            in_bytes + 2 * (w_bytes * (d + h) * 3 * h + 4 * 6 * h) + 4 * 4 * bsz * h
+            + 2 * 4 * bt * h)
 
 
 def scratch_bytes(bsz: int, h: int = H) -> int:
@@ -1901,14 +1923,23 @@ def fast_entry(name: str, source: str, replaces: str, err: float, ms: float,
 
 
 def check_fast_inproj(images_u8, results) -> None:
-    """Phase 10a: K1f on the uint8 image window and K2f on K1f's outputs
-    against their plain versions at the flagship shapes, timed beside the
-    plain versions and cuDNN's GRU in bf16."""
+    """Phase 10a: K1f on the uint8 image window and K2f on K1f's outputs at
+    the flagship shapes, at B=512 (polish) and B=256. Each in the main
+    path's design (the projection pass and the recurrence on bf16 tensor
+    cores, gru_window_fast.cu) against its plain version (FAST_TOL) and
+    against the one-launch bigru_window_kernel<FAST> (design "chain",
+    FAST_TOL); both designs timed in turns (two-launch, one-launch,
+    one-launch, two-launch) beside the plain version (B=512) and cuDNN's
+    GRU in bf16. Then each kernel of the design alone against its plain
+    version at B=512, timed beside its bound at the bf16 rate and, for the
+    projections, torch.baddbmm in bf16; and each timed again at B=256."""
     import numpy as np
     import torch
 
     from helen_tpu_torch.io.checkpoint import fast_layer
+    from helen_tpu_torch.models.gru import bf16_round
     from helen_tpu_torch.ops import gru_window as gw
+    from helen_tpu_torch.ops import gru_window_smem as gs
 
     dev = images_u8.device
     rng = np.random.default_rng(20261020)
@@ -1917,37 +1948,171 @@ def check_fast_inproj(images_u8, results) -> None:
     h0 = [torch.from_numpy(rng.uniform(-0.5, 0.5, (B, H)).astype("float32")).to(dev)
           for _ in range(4)]
     start = 450
+    bf = torch.bfloat16
+    # the library yardstick, timed and never compared: cuDNN's GRU in bf16
+    # keeps a bf16 state, so it is not the same function
+    g1, g2 = cudnn_gru(f1, F, H, dev, bf), cudnn_gru(f2, 2 * H, H, dev, bf)
+    replaces = {"bigru_window_in1_fast": "helen_tpu/ops/gru_pallas.py:426 (_kernel_inproj1, "
+                                         "fast=True)",
+                "bigru_window_in2_fast": "helen_tpu/ops/gru_pallas.py:474 (_kernel_inproj2, "
+                                         "fast=True)"}
+    for bsz in (B, TB):
+        img, hs = images_u8[:bsz], [h[:bsz] for h in h0]
+        with torch.no_grad():
+            k1 = gw.bigru_window_in1_fast(img, start, T, hs[0], hs[1], l1)
+        xa, xb = k1[0], k1[1]  # K2f reads K1f's outputs, as on the main path
+        x0 = img[:, start:start + T].to(bf).transpose(0, 1).contiguous()
+        x1 = torch.cat([xa, xb], -1).to(bf)
+        hx1, hx2 = torch.stack(hs[:2]).to(bf), torch.stack(hs[2:]).to(bf)
+        kinds = {
+            "bigru_window_in1_fast": (
+                lambda d: gw.bigru_window_in1_fast(img, start, T, hs[0], hs[1], l1, design=d),
+                lambda: gw.bigru_window_in1_fast_plain(img, start, T, hs[0], hs[1], l1),
+                lambda: g1(x0, hx1), window_cost(bsz, F, w_bytes=2)),
+            "bigru_window_in2_fast": (
+                lambda d: gw.bigru_window_in2_fast(xa, xb, hs[2], hs[3], l2, design=d),
+                lambda: gw.bigru_window_in2_fast_plain(xa, xb, hs[2], hs[3], l2),
+                lambda: g2(x1, hx2), window_cost(bsz, 2 * H, w_bytes=2)),
+        }
+        for name, (run, pfn, lfn, (flops, nbytes)) in kinds.items():
+            if gw.window_design(H, bsz, fast=True) != "smem":
+                fail(f"{name} at B={bsz} does not take the two-launch design")
+            with torch.no_grad():
+                new, old = run("smem"), run("chain")
+                plain, plain_ms = timed_once(pfn) if bsz == B else (None, None)
+                torch.cuda.synchronize()
+                apart = max_err(new, old)
+                turns = [cuda_ms(lambda: run(d)) for d in ("smem", "chain", "chain", "smem")]
+                lib_ms = cuda_ms(lfn)
+            ms, chain_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+            bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16)
+            scratch = 2 * scratch_bytes(bsz)
+            scratch_bound_ms, _ = bound(flops, nbytes + scratch, PEAK_BF16)
+            log(f"{name} at B={bsz}: max |two-launch - one-launch| {apart:.3g} (limit "
+                f"{FAST_TOL:g}); two-launch {ms:.4f} ms, one-launch {chain_ms:.4f} ms (in "
+                f"turns: {', '.join(f'{t:.4f}' for t in turns)}; {chain_ms / ms:.2f}x), cuDNN "
+                f"GRU in bf16 {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+                f"{flops / 1e9:.1f} GFLOP at the bf16 peak, {nbytes / 1e6:.1f} MB; with the "
+                f"scratch written and read {scratch_bound_ms:.4f} ms)")
+            if not apart <= FAST_TOL:
+                fail(f"{name} at B={bsz}: the two designs differ past FAST_TOL")
+            entry = {"ms": ms, "chain_ms": chain_ms, "library_ms": lib_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "scratch_bound_ms": scratch_bound_ms, "max_abs_from_chain": apart}
+            if bsz == B:
+                results[name] = fast_entry(
+                    name, "helen_tpu_torch/ops/csrc/gru_window_fast.cu (the projection pass + "
+                    "bigru_window_rec_fast, H <= 160); helen_tpu_torch/ops/csrc/gru_window.cu "
+                    "(bigru_window_kernel<FAST>, otherwise)", replaces[name],
+                    max_err(new, plain), ms, plain_ms, lib_ms, flops, nbytes,
+                    f"one K1f/K2f at B={B}, T={T}, H={H} (ms: the two-launch design; "
+                    "chain_ms: bigru_window_kernel<FAST> in the same call; library: cuDNN's "
+                    "bf16 GRU of the layer; launches: layer-windows)")
+                results[name].update(entry, kernel_ms=ms)
+            else:
+                results[name][f"b{bsz}"] = entry
+
+    # the two-launch design's kernels alone at B=512, each against its plain version
     with torch.no_grad():
         k1 = gw.bigru_window_in1_fast(images_u8, start, T, h0[0], h0[1], l1)
-        p1, plain1 = timed_once(
-            lambda: gw.bigru_window_in1_fast_plain(images_u8, start, T, h0[0], h0[1], l1))
-        xa, xb = k1[0], k1[1]  # K2f reads K1f's outputs, as on the main path
-        k2 = gw.bigru_window_in2_fast(xa, xb, h0[2], h0[3], l2)
-        p2, plain2 = timed_once(lambda: gw.bigru_window_in2_fast_plain(xa, xb, h0[2], h0[3], l2))
-        ms1 = cuda_ms(lambda: gw.bigru_window_in1_fast(images_u8, start, T, h0[0], h0[1], l1))
-        ms2 = cuda_ms(lambda: gw.bigru_window_in2_fast(xa, xb, h0[2], h0[3], l2))
-        bf = torch.bfloat16
-        x0 = images_u8[:, start:start + T].to(bf).transpose(0, 1).contiguous()
-        x1 = torch.cat([xa, xb], -1).to(bf)
-        hx1, hx2 = torch.stack(h0[:2]).to(bf), torch.stack(h0[2:]).to(bf)
-        # the library yardstick, timed and never compared: cuDNN's GRU in
-        # bf16 keeps a bf16 state, so it is not the same function
-        g1, g2 = cudnn_gru(f1, F, H, dev, bf), cudnn_gru(f2, 2 * H, H, dev, bf)
-        lib1, lib2 = cuda_ms(lambda: g1(x0, hx1)), cuda_ms(lambda: g2(x1, hx2))
-    bt = B * T
-    per = f"one launch at B={B}, T={T}, H={H} (library: cuDNN's bf16 GRU of the layer)"
-    results["bigru_window_in1_fast"] = fast_entry(
-        "bigru_window_in1_fast", "helen_tpu_torch/ops/csrc/gru_window.cu",
-        "helen_tpu/ops/gru_pallas.py:426 (_kernel_inproj1, fast=True)", max_err(k1, p1),
-        ms1, plain1, lib1, 2.0 * bt * 2 * (F * 3 * H + H * 3 * H),
-        bt * F + 2 * 2 * (F + H) * 3 * H + 2 * 4 * 6 * H + 4 * 4 * B * H + 2 * 4 * bt * H,
-        per)
-    results["bigru_window_in2_fast"] = fast_entry(
-        "bigru_window_in2_fast", "helen_tpu_torch/ops/csrc/gru_window.cu",
-        "helen_tpu/ops/gru_pallas.py:474 (_kernel_inproj2, fast=True)", max_err(k2, p2),
-        ms2, plain2, lib2, 2.0 * bt * 2 * (2 * H * 3 * H + H * 3 * H),
-        2 * 4 * bt * H + 2 * 2 * 3 * H * 3 * H + 2 * 4 * 6 * H + 4 * 4 * B * H
-        + 2 * 4 * bt * H, per)
+    x0 = bf16_round(gs.image_window(images_u8, start, T))
+    x1 = bf16_round(torch.cat([k1[0], k1[1]], dim=-1))
+    stacked = lambda layer, k: torch.stack([layer[d][k] for d in ("fwd", "bwd")])  # noqa: E731
+    bt, n3 = B * T, 3 * H
+    projs = {
+        "bigru_window_proj_in1_fast": (
+            "helen_tpu/ops/gru_pallas.py:426 (_kernel_inproj1, fast=True: its input "
+            "projection)", lambda: gs.bigru_window_proj_in1_fast(images_u8, start, T, l1),
+            x0, l1, F, bt * F),
+        "bigru_window_proj_in2_fast": (
+            "helen_tpu/ops/gru_pallas.py:474 (_kernel_inproj2, fast=True: its input "
+            "projection)", lambda: gs.bigru_window_proj_in2_fast(k1[0], k1[1], l2),
+            x1, l2, 2 * H, 4 * bt * 2 * H),
+    }
+    xp2 = None
+    for name, (repl, kfn, x, layer, d, x_bytes) in projs.items():
+        with torch.no_grad():
+            got = kfn()
+            want, plain_ms = timed_once(lambda: gs.window_proj_plain(x, layer))
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            scale = max(1.0, float(want.abs().max()))
+            b_ih, w_ih = stacked(layer, "b_ih").unsqueeze(1).to(bf), stacked(layer, "w_ih")
+            x2 = x.to(bf).reshape(1, bt, d).expand(2, bt, d)
+            ms = cuda_ms(kfn)
+            lib_ms = cuda_ms(lambda: torch.baddbmm(b_ih, x2, w_ih))
+        flops = 2.0 * bt * 2 * d * n3
+        nbytes = x_bytes + 2 * (2 * d * n3 + 4 * n3) + scratch_bytes(B)
+        bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16)
+        log(f"{name}: max |kernel - plain (k in order)| {err:.3g} (limit {FAST_TOL:g} x "
+            f"{scale:.4g}); kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, torch.baddbmm in bf16 "
+            f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.2f} GFLOP "
+            f"at the bf16 peak, {nbytes / 1e6:.1f} MB)")
+        if not err <= FAST_TOL * scale:
+            fail(f"{name} disagrees with its plain version")
+        results[name] = {
+            "name": name, "route": "cuda", "source": "helen_tpu_torch/ops/csrc/gru_window_fast.cu",
+            "replaces": repl, "max_abs_err": err, "ms": ms, "kernel_ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms,
+            "library": "torch.baddbmm of the bf16 rows in bf16 (cuBLAS; a bf16 result), "
+                       "timed only",
+            "per": f"one launch at B={B}, T={T}, H={H}, D={d}"}
+        xp2 = got
+    name = "bigru_window_rec_fast"
+    rec = lambda: gs.bigru_window_rec_fast(xp2, h0[2], h0[3], l2)  # noqa: E731
+    with torch.no_grad():
+        got = rec()
+        want, plain_ms = timed_once(lambda: gs.window_rec_plain(xp2, h0[2], h0[3], l2))
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        ms = cuda_ms(rec)
+    flops = 2.0 * bt * 2 * H * n3
+    nbytes = (scratch_bytes(B) + 2 * (2 * H * n3 + 4 * n3) + 2 * 4 * B * H + 2 * 4 * bt * H
+              + 2 * 4 * B * H)
+    bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16)
+    rows = gs.rec_block_rows(B)
+    log(f"{name}: {rows} rows per block, {2 * -(-B // rows)} blocks of {-(-H // 16) * 32} "
+        f"threads, {gs.fast_rec_smem_bytes(H)} bytes of shared memory each; max |kernel - "
+        f"plain| {err:.3g} (limit {FAST_TOL:g}); kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+        f"bound {bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.2f} GFLOP at the bf16 peak, "
+        f"{nbytes / 1e6:.1f} MB)")
+    if not err <= FAST_TOL:
+        fail(f"{name} disagrees with its plain version")
+    results[name] = {
+        "name": name, "route": "cuda", "source": "helen_tpu_torch/ops/csrc/gru_window_fast.cu",
+        "replaces": "helen_tpu/ops/gru_pallas.py:426 and :474 (_kernel_inproj1/2, fast=True: "
+                    "the recurrence)",
+        "max_abs_err": err, "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "library": "none: no one PyTorch call runs a GRU recurrence without its projection",
+        "block_rows": rows, "smem_bytes": gs.fast_rec_smem_bytes(H),
+        "per": f"one launch at B={B}, T={T}, H={H}"}
+
+    # each kernel of the design again at the training batch, B=256
+    bsz, bt = TB, TB * T
+    img, hs = images_u8[:bsz], [h[:bsz].contiguous() for h in h0]
+    with torch.no_grad():
+        k1 = gw.bigru_window_in1_fast(img, start, T, hs[0], hs[1], l1)
+        xp = gs.bigru_window_proj_in2_fast(k1[0], k1[1], l2)
+    wb = lambda d: 2 * (2 * d * n3 + 4 * n3)  # noqa: E731  both directions' weights and bias
+    parts = {
+        "bigru_window_proj_in1_fast": (
+            lambda: gs.bigru_window_proj_in1_fast(img, start, T, l1),
+            2.0 * bt * 2 * F * n3, bt * F + wb(F) + scratch_bytes(bsz)),
+        "bigru_window_proj_in2_fast": (
+            lambda: gs.bigru_window_proj_in2_fast(k1[0], k1[1], l2),
+            2.0 * bt * 2 * 2 * H * n3, 4 * bt * 2 * H + wb(2 * H) + scratch_bytes(bsz)),
+        "bigru_window_rec_fast": (
+            lambda: gs.bigru_window_rec_fast(xp, hs[2], hs[3], l2), 2.0 * bt * 2 * H * n3,
+            scratch_bytes(bsz) + wb(H) + 4 * 4 * bsz * H + 2 * 4 * bt * H),
+    }
+    for name, (kfn, flops, nbytes) in parts.items():
+        with torch.no_grad():
+            ms = cuda_ms(kfn)
+        bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16)
+        log(f"{name} at B={bsz}: kernel {ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        results[name]["b256"] = {"ms": ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def check_fast_xp(images_u8, results) -> None:
@@ -2102,8 +2267,9 @@ def run_fast_polish(img_dir: str, truth, n_images: int, work: str, wide_ckpt: st
     --fast`` calls; a stage timer of its own) of phase 6's images at -b 512
     with the trained checkpoint, and of phase 9e's 256 images at -b 256 with
     its H=1024 checkpoint, every kernel's launches counted from 0: K1f/K2f
-    batches x windows each on the flagship, K3f windows x 2 layers on the
-    wide model, no parity kernel. Labels against the parity runs of phases
+    batches x windows each on the flagship, in the two-launch design (a
+    projection and a recurrence each, no bigru_window_kernel<FAST>), K3f
+    windows x 2 layers on the wide model, no parity kernel. Labels against the parity runs of phases
     6 and 9e."""
     import glob
 
@@ -2148,8 +2314,7 @@ def run_fast_polish(img_dir: str, truth, n_images: int, work: str, wide_ckpt: st
     fasta, wall, timer, counts = run(img_dir, os.path.join(GOLDEN, "trained_synth30mb.npz"),
                                      out, B)
     consensus_s = timer.stages["call_consensus"]
-    want = {**zero, "bigru_window_in1_fast": batches * n_win,
-            "bigru_window_in2_fast": batches * n_win}
+    want = {**zero, **fast_counts(batches * n_win, batches * n_win)}
     polished = dict(read_fasta(fasta))
     exact = sum(polished.get(c) == s for c, s in truth.items())
     fb, fr, n = flips_against(out, os.path.join(work, "out_full"))
@@ -2158,12 +2323,13 @@ def run_fast_polish(img_dir: str, truth, n_images: int, work: str, wide_ckpt: st
         f"{exact}/{len(truth)} contigs == truth; {fb}+{fr} base+rle flips of {n} per head "
         f"against phase 6's parity labels")
     log("stage timings:\n" + timer.report())
-    log(f"launches {counts}, expected {want} ({batches} batches x {n_win} windows)")
+    log(f"launches {counts}, expected {want} ({batches} batches x {n_win} windows, "
+        "K1f/K2f in the two-launch design)")
     if counts != want:
         fail("polish --fast launch counts differ from batches x windows x layers")
     if max(fb, fr) > FLIPS_PER_LABEL * n:
         fail("polish --fast labels disagree with the parity tier's")
-    for name in ("bigru_window_in1_fast", "bigru_window_in2_fast"):
+    for name in ("bigru_window_in1_fast", "bigru_window_in2_fast", *FAST_SMEM_KERNELS):
         results[name]["launches"] = counts[name]
 
     out = os.path.join(work, "wide_polish_fast")
@@ -2192,10 +2358,13 @@ def run_fast_polish(img_dir: str, truth, n_images: int, work: str, wide_ckpt: st
 def check_encdec(images_u8, results) -> None:
     """Phase 11a: K5 and K5f at the flagship shapes against K1 -> K2 and
     K1f -> K2f launched one after the other (max abs diff 0.0, outputs and
-    final states) and against their plain versions (TOL, FAST_TOL); timed
-    beside the chained kernels, the plain versions and two cuDNN GRU calls
-    (the encoder at D=90, the decoder on its output at D=256). Their ptxas
-    report (registers, spills) is in phase 2's build log."""
+    final states: K1 -> K2 in the main path's design, K1f -> K2f in the
+    one-launch design whose cell step K5f shares) and against their plain
+    versions (TOL, FAST_TOL); timed beside the chained kernels (K5f also
+    beside K1f -> K2f in the main path's two-launch design, FAST_TOL
+    apart), the plain versions and two cuDNN GRU calls (the encoder at D=90,
+    the decoder on its output at D=256). Their ptxas report (registers,
+    spills) is in phase 2's build log."""
     import numpy as np
     import torch
 
@@ -2227,16 +2396,23 @@ def check_encdec(images_u8, results) -> None:
         hx = torch.stack([h0f, h0b]).to(wdt)
         g1, g2 = cudnn_gru(f1, F, H, dev, wdt), cudnn_gru(f2, 2 * H, H, dev, wdt)
         run = lambda: kernel(images_u8, start, T, h0f, h0b, enc, dec)  # noqa: E731
-        chained = lambda: in2(*in1(images_u8, start, T, h0f, h0b, enc), dec)  # noqa: E731
+        design = "chain" if fast else None
+        chained = lambda d=design: in2(  # noqa: E731
+            *in1(images_u8, start, T, h0f, h0b, enc, design=d), dec, design=d)
+        new_kernels = FAST_SMEM_KERNELS if fast else SMEM_KERNELS
         with torch.no_grad():
             got = run()
-            before = {k: gw.launch_counts[k] for k in SMEM_KERNELS}
+            before = {k: gw.launch_counts[k] for k in new_kernels}
             want_chain = chained()
-            chain_design = {k: gw.launch_counts[k] - before[k] for k in SMEM_KERNELS}
+            chain_design = {k: gw.launch_counts[k] - before[k] for k in new_kernels}
             want, plain_ms = timed_once(
                 lambda: plain(images_u8, start, T, h0f, h0b, enc, dec))
             chain_err, err = max_err(got, want_chain), max_err(got, want)
             ms, chain_ms = cuda_ms(run), cuda_ms(chained)
+            if fast:
+                # the main path's chain: K1f -> K2f in the two-launch design
+                main_err = max_err(got, chained("smem"))
+                main_ms = cuda_ms(lambda: chained("smem"))
             lib_ms = cuda_ms(lambda: g2(*g1(x0, hx)))
         w_bytes = (2 if fast else 4) * 2 * (F + H + 2 * H + H) * 3 * H + 4 * 2 * 2 * 6 * H
         nbytes = bt * F + w_bytes + 2 * 4 * B * H + 2 * 4 * bt * H + 2 * 4 * B * H
@@ -2246,14 +2422,20 @@ def check_encdec(images_u8, results) -> None:
             f"{smem} bytes of shared memory each")
         log(f"{name}: max |K5 - chained kernels| {chain_err:.3g} (limit 0.0; the chain's "
             f"two-launch kernels {chain_design}); max |kernel - plain| {err:.3g} (limit {tol:g})")
-        if chain_design != (dict.fromkeys(SMEM_KERNELS, 0) if fast else {
+        if chain_design != (dict.fromkeys(FAST_SMEM_KERNELS, 0) if fast else {
                 "bigru_window_proj_in1": 1, "bigru_window_proj_in2": 1,
                 "bigru_window_rec_smem": 2}):
-            fail(f"{name}: the chain did not run K1/K2's design for its tier")
-        log(f"{name}: kernel {ms:.4f} ms, chained {'K1f+K2f' if fast else 'K1+K2'} "
+            fail(f"{name}: the chain did not run the design K5 shares its cell step with")
+        log(f"{name}: kernel {ms:.4f} ms, chained {'K1f+K2f one-launch' if fast else 'K1+K2'} "
             f"{chain_ms:.4f} ms, plain {plain_ms:.3f} ms, two cuDNN GRU calls"
             f"{' in bf16' if fast else ''} {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
             f"({bound_by}: {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)")
+        if fast:
+            log(f"{name}: chained K1f+K2f in the main path's two-launch design "
+                f"{main_ms:.4f} ms ({main_ms / ms:.2f}x K5f's time), max |K5f - that chain| "
+                f"{main_err:.3g} (limit {FAST_TOL:g})")
+            if not main_err <= FAST_TOL:
+                fail(f"{name} disagrees with the main path's K1f -> K2f")
         if chain_err != 0.0:
             fail(f"{name} differs from the chained kernels")
         if not err <= tol:
@@ -2269,8 +2451,12 @@ def check_encdec(images_u8, results) -> None:
             "library": "two torch.nn.GRU calls (cuDNN), encoder then decoder"
                        + (", in bf16" if fast else ""),
             "block_rows": rows, "smem_bytes": smem,
-            "per": f"one launch at B={B}, T={T}, H={H}, F={F}",
+            "per": f"one launch at B={B}, T={T}, H={H}, F={F}"
+                   + (" (chained_ms: K1f -> K2f one-launch; main_chain_ms: the two-launch "
+                      "design)" if fast else ""),
         }
+        if fast:
+            results[name].update(main_chain_ms=main_ms, max_abs_from_main_chain=main_err)
 
 
 def load_images(img_dir: str):
@@ -2288,8 +2474,11 @@ def run_encdec_route(img_dir: str, results) -> None:
     """Phase 11b: the full-width images with the trained checkpoint through
     ``consensus_labels`` at B=512 in both tiers, on the default route and on
     ``route="encdec"`` (in turns: default, encdec, encdec, default). The
-    first encdec run is counted from 0: exactly batches x 19 K5 (K5f)
-    launches and no other kernel; its labels equal the default route's."""
+    first default run is counted from 0 (K1/K2 and K1f/K2f in their
+    two-launch designs), the first encdec run too: exactly batches x 19 K5
+    (K5f) launches and no other kernel. K5's labels equal the default
+    route's; K5f's differ in at most FLIPS_PER_LABEL per head (the fast
+    default route sums on the tensor cores in another order)."""
     import torch
 
     from helen_tpu_torch.config import IMAGE, WINDOW
@@ -2331,8 +2520,7 @@ def run_encdec_route(img_dir: str, results) -> None:
         counts = {k: v for m in mods for k, v in m.launch_counts.items()}
         per = batches * n_win
         want = {**{k: 0 for k in counts}, **(
-            {"bigru_window_in1_fast": per, "bigru_window_in2_fast": per}
-            if backend == "cuda_fast" else parity_counts(per, per))}
+            fast_counts(per, per) if backend == "cuda_fast" else parity_counts(per, per))}
         log(f"{backend} default route launches {counts}, expected {want}")
         if counts != want:
             fail(f"the {backend} default route's launch counts differ from batches x windows")
@@ -2354,8 +2542,12 @@ def run_encdec_route(img_dir: str, results) -> None:
             f"batches x {n_win} windows)")
         if counts != want:
             fail(f"{name} launch counts differ from batches x windows")
-        if fb or fr:
-            fail(f"route 'encdec' flips labels against the default route ({backend})")
+        # parity: K5 is the chain bit for bit; fast: K5f keeps the one-launch
+        # kernel's sums, the default route sums on the tensor cores
+        limit = FLIPS_PER_LABEL * kb.numel() if backend == "cuda_fast" else 0
+        if max(fb, fr) > limit:
+            fail(f"route 'encdec' flips labels against the default route ({backend}; "
+                 f"limit {limit:g} per head)")
         results[name]["launches"] = counts[name]
         results[name]["windows_per_s"] = rate["encdec"]
         results[name]["chained_windows_per_s"] = rate["default"]

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import glob
 import os
 import re
 import subprocess
@@ -116,9 +117,8 @@ def build_all(out_dir: str, source: str = SOURCE, variants=None) -> dict:
     for i, (name, (consts, edits)) in enumerate(variants.items()):
         d = os.path.join(out_dir, f"v{i}")
         os.makedirs(d, exist_ok=True)
-        for header in ("gru_window_common.cuh", "gru_window_smem.cuh", "gru_window_grid.cuh"):
-            with open(os.path.join(gw._CSRC, header)) as f, \
-                    open(os.path.join(d, header), "w") as g:
+        for header in glob.glob(os.path.join(gw._CSRC, "*.cuh")):
+            with open(header) as f, open(os.path.join(d, os.path.basename(header)), "w") as g:
                 g.write(f.read())
         with open(os.path.join(d, source), "w") as f:
             f.write(variant_source(src, consts, edits, source))

@@ -61,8 +61,10 @@
 // with bf16 weights: K1f 17.1 GFLOP and 59 MB, K2f 30.2 GFLOP and 107 MB at
 // B=512, T=100, H=128, both about 0.02-0.03 ms and bound by bytes. As
 // written they are bound by the same L2 weight re-reads as K1/K2, at half
-// the bytes per weight, and by the CUDA cores' fp32 rate; bf16 mma.sync or
-// wgmma tiles (tensor cores) are later work.
+// the bytes per weight, and by the CUDA cores' fp32 rate. Up to H=160 the
+// fast tier's main path runs instead as a projection pass and a recurrence
+// on bf16 tensor cores (gru_window_fast.cu); this kernel keeps the wider
+// shapes and design "chain", and its gru_step is the one K5f shares.
 
 #include <type_traits>
 

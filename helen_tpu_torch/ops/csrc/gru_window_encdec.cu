@@ -36,7 +36,8 @@
 //     direction as in K1; the encoder's input rows as well.
 //   * the per-step cell is gru_step (gru_window_common.cuh), the one K1/K2
 //     run, so K5 does their FMAs in their order and equals K1 -> K2 bit for
-//     bit (K5f equals K1f -> K2f).
+//     bit (K5f equals K1f -> K2f in their one-launch design, design "chain";
+//     their two-launch design sums on the tensor cores, within 1e-3).
 //   * BT is chosen per launch by the caller (encdec_block_rows in the Python
 //     module): the most rows of 4, 2, 1 whose block fits the card's opt-in
 //     shared memory (cudaDevAttrMaxSharedMemoryPerBlockOptin: 232,448 bytes

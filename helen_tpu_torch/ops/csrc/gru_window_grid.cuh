@@ -20,15 +20,6 @@ namespace {
 constexpr long long GRID_SPIN_NS = 10000000000LL;  // a barrier wait past 10 s traps
 constexpr int GRID_CTR_STRIDE = 32;  // the directions' counters 128 bytes apart
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait_group() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // 16 bytes of any type from device memory (through L2 only) to shared memory
 __device__ __forceinline__ void cp_async16_cg(void* dst, const void* src) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);

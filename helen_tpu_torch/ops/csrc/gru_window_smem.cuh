@@ -46,6 +46,15 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // Start copying n floats of src into the 16-byte-aligned dst, spread over the
 // block's threads: 16 bytes at a time where src is 16-byte aligned, else 4.
 // The caller waits with cp_async_wait_all() and a __syncthreads().

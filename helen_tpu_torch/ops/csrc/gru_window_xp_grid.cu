@@ -62,6 +62,7 @@
 // measurement.
 
 #include "gru_window_grid.cuh"
+#include "gru_window_mma.cuh"
 
 namespace {
 
@@ -285,30 +286,6 @@ __host__ __device__ inline int xf_units8(int U) { return (U + 7) / 8 * 8; }
 inline size_t xf_smem(int H, int U) {
   return sizeof(__nv_bfloat16) * ((size_t)3 * xf_units8(U) * xf_wstride(H) +
                                   (size_t)XF_STAGES * XF_ROWS * XF_KS);
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-__device__ __forceinline__ void ldmatrix_x2(unsigned (&r)[2], const void* p) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(s));
-}
-
-// c += a b: one m16n8k16 tile, bf16 operands, fp32 sums
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
-                                         const unsigned (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 __device__ __forceinline__ __nv_bfloat16 ldcg_bf16(const __nv_bfloat16* p) {

@@ -20,14 +20,17 @@ one launch of ``bigru_window_kernel``, the projection inside the
 recurrence's FMA chains. Both take every sum in the same order, so they
 give the same bits.
 
-Their fast-tier instantiations (the same source, ``FAST = true``) carry the
-fast tier (``polish --fast``): :func:`bigru_window_in1_fast` (K1f) and
-:func:`bigru_window_in2_fast` (K2f) replace the same two Pallas bodies run
-with ``fast=True``. They take the layer's bf16 ``w_ih``/``w_hh`` (float32
-biases; io.checkpoint.fast_weights makes the copies once per run), round
-K2f's float32 input halves and the operand copy of h to bf16, and keep the
-gates, the carried state and every output in float32. They are inference
-only: no autograd Function wraps them.
+The fast tier (``polish --fast``) has its own pair: :func:`bigru_window_in1_fast`
+(K1f) and :func:`bigru_window_in2_fast` (K2f) replace the same two Pallas
+bodies run with ``fast=True``. They take the layer's bf16 ``w_ih``/``w_hh``
+(float32 biases; io.checkpoint.fast_weights makes the copies once per run),
+round K2f's float32 input halves and the operand copy of h to bf16, and keep
+the gates, the carried state and every output in float32. They run in the
+same two designs: up to H=160, any batch, the projection pass and a
+recurrence on bf16 tensor cores (ops.gru_window_smem, ``gru_window_fast.cu``;
+within 1e-3 of the one-launch kernel, another order of sums); elsewhere
+``bigru_window_kernel`` with ``FAST = true``. They are inference only: no
+autograd Function wraps them.
 
 Each wrapper takes the layer's ``{"fwd", "bwd"}`` params (``w_ih (D, 3H)``,
 ``w_hh (H, 3H)``, ``b_ih``/``b_hh (3H,)`` float32) and returns
@@ -73,6 +76,9 @@ launch_counts: Dict[str, int] = {"bigru_window_in1": 0, "bigru_window_in2": 0,
                                  "bigru_window_proj_in1": 0, "bigru_window_proj_in2": 0,
                                  "bigru_window_rec_smem": 0,
                                  "bigru_window_in1_fast": 0, "bigru_window_in2_fast": 0,
+                                 # the two-launch design of K1f/K2f (ops.gru_window_smem)
+                                 "bigru_window_proj_in1_fast": 0,
+                                 "bigru_window_proj_in2_fast": 0, "bigru_window_rec_fast": 0,
                                  # the fused encoder+decoder window (ops.gru_window_encdec)
                                  "transducer_window_encdec": 0,
                                  "transducer_window_encdec_fast": 0}
@@ -236,6 +242,17 @@ def get_lib() -> ctypes.CDLL:
             lib.bigru_window_rec_smem_bytes.restype = ll
             lib.bigru_window_rec_smem_bytes.argtypes = [i, i]
             lib.bigru_window_rec_max_threads.restype = i
+            # the two-launch design of K1f/K2f (csrc/gru_window_fast.cu): the
+            # same arguments, bf16 weights
+            for name in ("proj_in1", "proj_in2"):
+                getattr(lib, f"bigru_window_{name}_fast").restype = i
+                getattr(lib, f"bigru_window_{name}_fast").argtypes = getattr(
+                    lib, f"bigru_window_{name}").argtypes
+            lib.bigru_window_rec_fast.restype = i
+            lib.bigru_window_rec_fast.argtypes = lib.bigru_window_rec_smem.argtypes
+            lib.bigru_window_rec_fast_smem_bytes.restype = ll
+            lib.bigru_window_rec_fast_smem_bytes.argtypes = [i]
+            lib.bigru_window_rec_fast_max_h.restype = i
             lib.gru_window_smem_optin.restype = i
             lib.gru_window_error_string.restype = ctypes.c_char_p
             lib.gru_window_error_string.argtypes = [i]
@@ -255,6 +272,11 @@ def get_lib() -> ctypes.CDLL:
                            for h in (1, 127, 128, 136, 137) for r in gs.BLOCK_ROWS)):
                 raise RuntimeError("the recurrence's fit disagrees with "
                                    "csrc/gru_window_smem.cu")
+            if (lib.bigru_window_rec_fast_max_h() != gs.FAST_REC_MAX_H
+                    or any(lib.bigru_window_rec_fast_smem_bytes(h) != gs.fast_rec_smem_bytes(h)
+                           for h in (1, 16, 37, 128, 136, 160))):
+                raise RuntimeError("the fast recurrence's fit disagrees with "
+                                   "csrc/gru_window_fast.cu")
             _lib = lib
     return _lib
 
@@ -405,11 +427,12 @@ def _launch_in1(name: str, wdtype, image, start, T, h0_f, h0_b, layer,
     _check("h0_f", h0_f, (B, H), torch.float32, dev)
     _check("h0_b", h0_b, (B, H), torch.float32, dev)
     weights = _layer_args(layer, F, H, dev, wdtype)
-    if window_design(H, B, wdtype != torch.float32, design) == "smem":
+    fast = wdtype != torch.float32
+    if window_design(H, B, fast, design) == "smem":
         from helen_tpu_torch.ops import gru_window_smem as gs
 
-        outs = gs.launch_rec(gs.launch_proj_in1(image, start, T, F, H, weights, dev),
-                             h0_f, h0_b, weights, dev)
+        outs = gs.launch_rec(gs.launch_proj_in1(image, start, T, F, H, weights, dev, fast),
+                             h0_f, h0_b, weights, dev, fast)
         launch_counts[name] += 1
         return outs
     outs = _outputs(T, B, H, dev)
@@ -434,11 +457,12 @@ def _launch_in2(name: str, wdtype, xa, xb, h0_f, h0_b, layer, design=None) -> Ou
     _check("h0_f", h0_f, (B, H), torch.float32, dev)
     _check("h0_b", h0_b, (B, H), torch.float32, dev)
     weights = _layer_args(layer, 2 * H, H, dev, wdtype)
-    if window_design(H, B, wdtype != torch.float32, design) == "smem":
+    fast = wdtype != torch.float32
+    if window_design(H, B, fast, design) == "smem":
         from helen_tpu_torch.ops import gru_window_smem as gs
 
-        outs = gs.launch_rec(gs.launch_proj_in2(xa, xb, weights, dev), h0_f, h0_b,
-                             weights, dev)
+        outs = gs.launch_rec(gs.launch_proj_in2(xa, xb, weights, dev, fast), h0_f, h0_b,
+                             weights, dev, fast)
         launch_counts[name] += 1
         return outs
     outs = _outputs(T, B, H, dev)
@@ -477,21 +501,23 @@ def bigru_window_in2(xa: torch.Tensor, xb: torch.Tensor,
 
 def bigru_window_in1_fast(image: torch.Tensor, start: int, T: int,
                           h0_f: torch.Tensor, h0_b: torch.Tensor,
-                          layer: Layer) -> Outputs:
-    """K1f: K1 in the fast tier, with the layer's bf16 ``w_ih``/``w_hh``.
-    See the module docstring."""
+                          layer: Layer, design=None) -> Outputs:
+    """K1f: K1 in the fast tier, with the layer's bf16 ``w_ih``/``w_hh``, in
+    the design :func:`window_design` picks (``design`` forces one). See the
+    module docstring."""
     if image.device.type == "cpu":
         return bigru_window_in1_fast_plain(image, start, T, h0_f, h0_b, layer)
     return _launch_in1("bigru_window_in1_fast", torch.bfloat16, image, start, T, h0_f,
-                       h0_b, layer)
+                       h0_b, layer, design)
 
 
 def bigru_window_in2_fast(xa: torch.Tensor, xb: torch.Tensor,
                           h0_f: torch.Tensor, h0_b: torch.Tensor,
-                          layer: Layer) -> Outputs:
+                          layer: Layer, design=None) -> Outputs:
     """K2f: K2 in the fast tier, with the layer's bf16 ``w_ih``/``w_hh``;
-    the float32 halves are rounded to bf16 in the kernel."""
+    the float32 halves are rounded to bf16 in the kernel. ``design`` as
+    :func:`bigru_window_in1_fast`."""
     if xa.device.type == "cpu":
         return bigru_window_in2_fast_plain(xa, xb, h0_f, h0_b, layer)
     return _launch_in2("bigru_window_in2_fast", torch.bfloat16, xa, xb, h0_f, h0_b,
-                       layer)
+                       layer, design)

@@ -177,6 +177,8 @@ def test_wrappers_take_the_plain_version_on_cpu_and_count_no_launch():
                                 "bigru_window_proj_in1": 0, "bigru_window_proj_in2": 0,
                                 "bigru_window_rec_smem": 0,
                                 "bigru_window_in1_fast": 0, "bigru_window_in2_fast": 0,
+                                "bigru_window_proj_in1_fast": 0,
+                                "bigru_window_proj_in2_fast": 0, "bigru_window_rec_fast": 0,
                                 "transducer_window_encdec": 0,
                                 "transducer_window_encdec_fast": 0}
 

@@ -110,7 +110,10 @@ def test_projection_plain_sums_in_k_order():
     (128, 512, False, True), (136, 512, False, True), (137, 512, False, False),
     (160, 512, False, False), (512, 512, False, False), (128, 256, False, True),
     (137, 256, False, True), (16, 4, False, True),
-    (128, 512, True, False), (136, 256, True, False), (16, 4, True, False),
+    # the fast tier: the projection pass plus the bf16 tensor-core
+    # recurrence up to H=160 at any batch (gru_window_smem.fast_rec_fits)
+    (128, 512, True, True), (136, 256, True, True), (16, 4, True, True),
+    (160, 512, True, True), (161, 512, True, False), (512, 512, True, False),
 ])
 def test_smem_design_rule(H, B, fast, want):
     from helen_tpu_torch.ops import gru_window as gw
@@ -148,17 +151,20 @@ def test_recurrence_block_rows(B, rows):
     assert rows == 1 or 2 * -(-B // (rows // 2)) > 132
 
 
-def test_forced_design_is_checked():
+@pytest.mark.parametrize("fast", [False, True])
+def test_forced_design_is_checked(fast):
     from helen_tpu_torch.ops import gru_window as gw
 
-    assert gw.window_design(128, 512, design="chain") == "chain"
-    assert gw.window_design(128, 512, design="smem") == "smem"
-    with pytest.raises(ValueError, match="does not take H=160"):
-        gw.window_design(160, 512, design="smem")
-    with pytest.raises(ValueError, match="fast tier"):
-        gw.window_design(128, 512, fast=True, design="smem")
+    assert gw.window_design(128, 512, fast=fast, design="chain") == "chain"
+    assert gw.window_design(128, 512, fast=fast, design="smem") == "smem"
+    too_wide = 161 if fast else 160
+    with pytest.raises(ValueError, match=f"does not take H={too_wide}"):
+        gw.window_design(too_wide, 512, fast=fast, design="smem")
+    if fast:
+        with pytest.raises(ValueError, match="fast tier"):
+            gw.window_design(512, 512, fast=True, design="smem")
     with pytest.raises(ValueError, match="not one of"):
-        gw.window_design(128, 512, design="fused")
+        gw.window_design(128, 512, fast=fast, design="fused")
 
 
 def test_wrappers_take_the_plain_version_on_cpu_and_count_no_launch():

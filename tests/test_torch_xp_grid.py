@@ -399,7 +399,9 @@ def test_source_is_built_with_the_others():
     for fn in ("bigru_window_xp_grid", "bigru_window_xp_fast_grid",
                "bigru_window_xp_grid_smem_bytes"):
         assert f" {fn}(" in text, fn
-    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in text
+    # the bf16 mma.sync tiles, through the helpers it shares with K1f/K2f
+    assert '#include "gru_window_mma.cuh"' in text and "mma_bf16(" in text
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in read("gru_window_mma.cuh")
     assert "launch_cooperative(" in text and "grid_barrier(" in text
     assert text.count("gru_gates<") == 2
     assert "gru_gates<FAST>(" in read("gru_window_xp.cu")
