@@ -49,11 +49,15 @@ audit against the fast plain route and the fp32 route, the trained
 checkpoint under ``--fast`` against the parity tier, and the flagship and
 wide polishes through the fast kernels with the launches counted. Phase 11
 drives the fused encoder+decoder window (``route="encdec"``, library only):
-K5 and K5f against the chained kernels (bit for bit; K5f against the
-one-launch K1f -> K2f whose cell step it shares) and their plain versions,
-timed beside K1+K2, K1f+K2f in both designs and cuDNN, the full-width images with the
-trained checkpoint through the route in both tiers with the launches
-counted, and the golden fixtures through it. Every phase fails the script
+K5 and K5f in both designs (phase 11a: the two-CTA cluster, producer warps
+projecting while consumer warps run the recurrence, and the one-pass
+kernel; at B=512 and B=256) against the chained kernels (bit for bit: the
+cluster design against K1 -> K2 and the two-launch K1f -> K2f, the one-pass
+kernel against K1 -> K2 and the one-launch K1f -> K2f) and their plain
+versions, timed in turns beside the chains and cuDNN, the full-width images
+with the trained checkpoint through the route in both tiers with the
+launches counted (all of the cluster kernel), and the golden fixtures
+through it (h160 on the one-pass kernel, in both tiers). Every phase fails the script
 on error; nothing falls back.
 The second-to-last line is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
@@ -121,7 +125,11 @@ XP_PASSES = ("bigru_window_xp_bwd_rec", "bigru_window_xp_bwd_wgrad")
 OFF_PATH_ZERO = {"bigru_window_in1_fast": 0, "bigru_window_in2_fast": 0,
                  "bigru_window_proj_in1_fast": 0, "bigru_window_proj_in2_fast": 0,
                  "bigru_window_rec_fast": 0,
-                 "transducer_window_encdec": 0, "transducer_window_encdec_fast": 0}
+                 "transducer_window_encdec": 0, "transducer_window_encdec_fast": 0,
+                 "transducer_window_encdec_cluster": 0,
+                 "transducer_window_encdec_cluster_fast": 0,
+                 "transducer_window_encdec_onepass": 0,
+                 "transducer_window_encdec_onepass_fast": 0}
 # the kernels of K1f/K2f's two-launch design (ops.gru_window_smem,
 # gru_window_fast.cu), which the flagship's fast path runs
 FAST_SMEM_KERNELS = ("bigru_window_proj_in1_fast", "bigru_window_proj_in2_fast",
@@ -2356,21 +2364,24 @@ def run_fast_polish(img_dir: str, truth, n_images: int, work: str, wide_ckpt: st
 # ---------------------------------------------------------------------------
 
 def check_encdec(images_u8, results) -> None:
-    """Phase 11a: K5 and K5f at the flagship shapes against K1 -> K2 and
-    K1f -> K2f launched one after the other (max abs diff 0.0, outputs and
-    final states: K1 -> K2 in the main path's design, K1f -> K2f in the
-    one-launch design whose cell step K5f shares) and against their plain
-    versions (TOL, FAST_TOL); timed beside the chained kernels (K5f also
-    beside K1f -> K2f in the main path's two-launch design, FAST_TOL
-    apart), the plain versions and two cuDNN GRU calls (the encoder at D=90,
-    the decoder on its output at D=256). Their ptxas report (registers,
-    spills) is in phase 2's build log."""
+    """Phase 11a: K5 and K5f at the flagship shapes, B=512 and B=256, in both
+    designs: the cluster design (two CTAs per group of rows, producer warps
+    projecting while consumer warps run the recurrence; the default) and the
+    one-pass kernel. In parity both equal K1 -> K2 in the main path's design
+    (max abs diff 0.0); in the fast tier the cluster design equals K1f ->
+    K2f in the two-launch design (0.0: the same sums in the same order) and
+    the one-pass kernel the one-launch K1f -> K2f (0.0); each within TOL
+    (FAST_TOL) of its plain version. Timed in turns (cluster, one-pass, the
+    chains, two cuDNN GRU calls, then back) with each one's bound; the
+    clusters the card holds at once are logged. The ptxas report
+    (registers, spills) is in phase 2's build log."""
     import numpy as np
     import torch
 
     from helen_tpu_torch.io.checkpoint import fast_layer
     from helen_tpu_torch.ops import gru_window as gw
     from helen_tpu_torch.ops import gru_window_encdec as ge
+    from helen_tpu_torch.ops import gru_window_smem as gs
 
     dev = images_u8.device
     rng = np.random.default_rng(20261022)
@@ -2380,83 +2391,121 @@ def check_encdec(images_u8, results) -> None:
     start = 450
     budget = ge.device_smem_budget()
     log(f"the card's opt-in shared memory per block: {budget} bytes")
-    bt = B * T
-    flops = 2.0 * bt * 2 * 3 * H * (F + H + 2 * H + H)
     for fast in (False, True):
-        name = "transducer_window_encdec" + ("_fast" if fast else "")
+        sfx = "_fast" if fast else ""
+        name, cname = "transducer_window_encdec" + sfx, "transducer_window_encdec_cluster" + sfx
         enc, dec = (fast_layer(f1), fast_layer(f2)) if fast else (f1, f2)
         kernel = getattr(ge, name)
-        plain = getattr(ge, name + "_plain")
         in1, in2 = ((gw.bigru_window_in1_fast, gw.bigru_window_in2_fast) if fast
                     else (gw.bigru_window_in1, gw.bigru_window_in2))
-        rows = ge.encdec_block_rows(H, F, T, fast, budget)
-        smem = ge.encdec_smem_bytes(H, rows, F, T, fast)
         wdt = torch.bfloat16 if fast else torch.float32
-        x0 = images_u8[:, start:start + T].to(wdt).transpose(0, 1).contiguous()
-        hx = torch.stack([h0f, h0b]).to(wdt)
         g1, g2 = cudnn_gru(f1, F, H, dev, wdt), cudnn_gru(f2, 2 * H, H, dev, wdt)
-        run = lambda: kernel(images_u8, start, T, h0f, h0b, enc, dec)  # noqa: E731
-        design = "chain" if fast else None
-        chained = lambda d=design: in2(  # noqa: E731
-            *in1(images_u8, start, T, h0f, h0b, enc, design=d), dec, design=d)
-        new_kernels = FAST_SMEM_KERNELS if fast else SMEM_KERNELS
-        with torch.no_grad():
-            got = run()
-            before = {k: gw.launch_counts[k] for k in new_kernels}
-            want_chain = chained()
-            chain_design = {k: gw.launch_counts[k] - before[k] for k in new_kernels}
-            want, plain_ms = timed_once(
-                lambda: plain(images_u8, start, T, h0f, h0b, enc, dec))
-            chain_err, err = max_err(got, want_chain), max_err(got, want)
-            ms, chain_ms = cuda_ms(run), cuda_ms(chained)
-            if fast:
-                # the main path's chain: K1f -> K2f in the two-launch design
-                main_err = max_err(got, chained("smem"))
-                main_ms = cuda_ms(lambda: chained("smem"))
-            lib_ms = cuda_ms(lambda: g2(*g1(x0, hx)))
-        w_bytes = (2 if fast else 4) * 2 * (F + H + 2 * H + H) * 3 * H + 4 * 2 * 2 * 6 * H
-        nbytes = bt * F + w_bytes + 2 * 4 * B * H + 2 * 4 * bt * H + 2 * 4 * B * H
-        bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16 if fast else PEAK_FP32)
         tol = FAST_TOL if fast else TOL
-        log(f"{name}: BT={rows} rows per block, {-(-B // rows)} blocks of {2 * H} threads, "
-            f"{smem} bytes of shared memory each")
-        log(f"{name}: max |K5 - chained kernels| {chain_err:.3g} (limit 0.0; the chain's "
-            f"two-launch kernels {chain_design}); max |kernel - plain| {err:.3g} (limit {tol:g})")
-        if chain_design != (dict.fromkeys(FAST_SMEM_KERNELS, 0) if fast else {
-                "bigru_window_proj_in1": 1, "bigru_window_proj_in2": 1,
-                "bigru_window_rec_smem": 2}):
-            fail(f"{name}: the chain did not run the design K5 shares its cell step with")
-        log(f"{name}: kernel {ms:.4f} ms, chained {'K1f+K2f one-launch' if fast else 'K1+K2'} "
-            f"{chain_ms:.4f} ms, plain {plain_ms:.3f} ms, two cuDNN GRU calls"
-            f"{' in bf16' if fast else ''} {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
-            f"({bound_by}: {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)")
-        if fast:
-            log(f"{name}: chained K1f+K2f in the main path's two-launch design "
-                f"{main_ms:.4f} ms ({main_ms / ms:.2f}x K5f's time), max |K5f - that chain| "
-                f"{main_err:.3g} (limit {FAST_TOL:g})")
-            if not main_err <= FAST_TOL:
-                fail(f"{name} disagrees with the main path's K1f -> K2f")
-        if chain_err != 0.0:
-            fail(f"{name} differs from the chained kernels")
-        if not err <= tol:
-            fail(f"{name} disagrees with its plain version")
-        results[name] = {
-            "name": name, "route": "cuda",
-            "source": "helen_tpu_torch/ops/csrc/gru_window_encdec.cu",
-            "replaces": "helen_tpu/ops/gru_pallas.py:756 (_kernel_fused_encdec"
-                        + (", fast=True)" if fast else ")"),
-            "max_abs_err": err, "max_abs_diff_chained": chain_err,
-            "ms": ms, "kernel_ms": ms, "chained_ms": chain_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
-            "library": "two torch.nn.GRU calls (cuDNN), encoder then decoder"
-                       + (", in bf16" if fast else ""),
-            "block_rows": rows, "smem_bytes": smem,
-            "per": f"one launch at B={B}, T={T}, H={H}, F={F}"
-                   + (" (chained_ms: K1f -> K2f one-launch; main_chain_ms: the two-launch "
-                      "design)" if fast else ""),
-        }
-        if fast:
-            results[name].update(main_chain_ms=main_ms, max_abs_from_main_chain=main_err)
+        w_bytes = (2 if fast else 4) * 2 * (F + H + 2 * H + H) * 3 * H + 4 * 2 * 2 * 6 * H
+        onepass_rows = ge.encdec_block_rows(H, F, T, fast, budget)
+        for bsz in (B, TB):
+            imgs, hf, hb = images_u8[:bsz], h0f[:bsz], h0b[:bsz]
+            x0 = imgs[:, start:start + T].to(wdt).transpose(0, 1).contiguous()
+            hx = torch.stack([hf, hb]).to(wdt)
+            rows = gs.rec_block_rows(bsz)
+            clusters = -(-bsz // rows)
+            active = ge.cluster_active(H, bsz, fast)
+            log(f"{cname}: B={bsz}: {clusters} clusters of 2 CTAs x "
+                f"{ge.cluster_threads(H, rows, fast)} threads ({rows} rows each), "
+                f"{ge.cluster_smem_bytes(H, rows, fast)} bytes of shared memory per CTA; the "
+                f"card holds {active} clusters at once: "
+                f"{'one wave' if active >= clusters else 'more than one wave'}")
+            if ge.encdec_design(H, bsz, fast) != "cluster":
+                fail(f"{name}: the design rule does not pick the cluster at B={bsz}")
+            runs = {
+                "cluster": lambda: kernel(imgs, start, T, hf, hb, enc, dec, design="cluster"),
+                "onepass": lambda: kernel(imgs, start, T, hf, hb, enc, dec, design="onepass"),
+                # the chain in the main path's design (two launches per layer)
+                "chain": lambda: in2(*in1(imgs, start, T, hf, hb, enc, design="smem"), dec,
+                                     design="smem"),
+            }
+            if fast:
+                runs["chain one-launch"] = lambda: in2(
+                    *in1(imgs, start, T, hf, hb, enc, design="chain"), dec, design="chain")
+            runs["cudnn"] = lambda: g2(*g1(x0, hx))
+            with torch.no_grad():
+                got = {k: f() for k, f in runs.items() if k != "cudnn"}
+                diff_cluster = max_err(got["cluster"], got["chain"])
+                diff_onepass = max_err(got["onepass"],
+                                       got["chain one-launch" if fast else "chain"])
+                if bsz == B:
+                    cwant, cplain_ms = timed_once(lambda: getattr(ge, cname + "_plain")(
+                        imgs, start, T, hf, hb, enc, dec))
+                    want, plain_ms = timed_once(lambda: getattr(ge, name + "_plain")(
+                        imgs, start, T, hf, hb, enc, dec))
+                    cerr, err = max_err(got["cluster"], cwant), max_err(got["onepass"], want)
+                order = list(runs) + list(reversed(runs))
+                turns = {k: [] for k in runs}
+                for k in order:
+                    turns[k].append(cuda_ms(runs[k], iters=10, warmup=2))
+            ms = {k: sum(v) / len(v) for k, v in turns.items()}
+            bt = bsz * T
+            flops = 2.0 * bt * 2 * 3 * H * (F + H + 2 * H + H)
+            nbytes = bt * F + w_bytes + 2 * 4 * bsz * H + 2 * 4 * bt * H + 2 * 4 * bsz * H
+            bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16 if fast else PEAK_FP32)
+            chain = "K1f+K2f two-launch" if fast else "K1+K2"
+            log(f"{name}: B={bsz}: max |cluster - {chain}| {diff_cluster:.3g} (limit 0.0), "
+                f"max |one-pass - {'K1f+K2f one-launch' if fast else 'K1+K2'}| "
+                f"{diff_onepass:.3g} (limit 0.0)")
+            log(f"{name}: B={bsz}, in turns {order}: cluster {ms['cluster']:.4f} ms, one-pass "
+                f"{ms['onepass']:.4f} ms ({onepass_rows} rows per block), chained {chain} "
+                f"{ms['chain']:.4f} ms"
+                + (f", chained K1f+K2f one-launch {ms['chain one-launch']:.4f} ms" if fast
+                   else "")
+                + f", two cuDNN GRU calls{' in bf16' if fast else ''} {ms['cudnn']:.4f} ms, "
+                f"bound {bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.1f} GFLOP, "
+                f"{nbytes / 1e6:.1f} MB); turns {turns}")
+            if diff_cluster != 0.0:
+                fail(f"{cname} differs from the chained kernels at B={bsz}")
+            if diff_onepass != 0.0:
+                fail(f"{name}'s one-pass kernel differs from the chained kernels at B={bsz}")
+            if bsz == B:
+                log(f"{cname}: max |kernel - plain| {cerr:.3g}; the one-pass kernel "
+                    f"{err:.3g} (limit {tol:g}); plain {cplain_ms:.3f} / {plain_ms:.3f} ms")
+                if not (cerr <= tol and err <= tol):
+                    fail(f"{name} disagrees with its plain version")
+                per = f"one launch at B={B}, T={T}, H={H}, F={F}"
+                lib = ("two torch.nn.GRU calls (cuDNN), encoder then decoder"
+                       + (", in bf16" if fast else ""))
+                results[cname] = {
+                    "name": cname, "route": "cuda",
+                    "source": "helen_tpu_torch/ops/csrc/"
+                              + ("gru_window_fast.cu" if fast else "gru_window_smem.cu"),
+                    "replaces": "helen_tpu/ops/gru_pallas.py:756 (_kernel_fused_encdec"
+                                + (", fast=True)" if fast else ")"),
+                    "max_abs_err": cerr, "max_abs_diff_chained": diff_cluster,
+                    "ms": ms["cluster"], "kernel_ms": ms["cluster"],
+                    "onepass_ms": ms["onepass"], "chained_ms": ms["chain"],
+                    "plain_ms": cplain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                    "library_ms": ms["cudnn"], "library": lib,
+                    "active_clusters": active, "smem_bytes": ge.cluster_smem_bytes(H, rows, fast),
+                    "per": per + f" (chained_ms: {chain} in the main path's design)",
+                }
+                results[name] = {
+                    "name": name, "route": "cuda",
+                    "source": "helen_tpu_torch/ops/csrc/gru_window_encdec.cu",
+                    "replaces": "helen_tpu/ops/gru_pallas.py:756 (_kernel_fused_encdec"
+                                + (", fast=True)" if fast else ")"),
+                    "max_abs_err": err, "max_abs_diff_chained": diff_onepass,
+                    "ms": ms["onepass"], "kernel_ms": ms["onepass"], "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": ms["cudnn"],
+                    "library": lib, "block_rows": onepass_rows,
+                    "smem_bytes": ge.encdec_smem_bytes(H, onepass_rows, F, T, fast),
+                    "per": per + " in the one-pass design (launches: phase 11c, golden h160)",
+                }
+                if fast:
+                    results[name]["chained_one_launch_ms"] = ms["chain one-launch"]
+            else:
+                results[cname].update({f"ms_b{bsz}": ms["cluster"],
+                                       f"onepass_ms_b{bsz}": ms["onepass"],
+                                       f"chained_ms_b{bsz}": ms["chain"],
+                                       f"library_ms_b{bsz}": ms["cudnn"],
+                                       f"bound_ms_b{bsz}": bound_ms})
 
 
 def load_images(img_dir: str):
@@ -2476,9 +2525,9 @@ def run_encdec_route(img_dir: str, results) -> None:
     ``route="encdec"`` (in turns: default, encdec, encdec, default). The
     first default run is counted from 0 (K1/K2 and K1f/K2f in their
     two-launch designs), the first encdec run too: exactly batches x 19 K5
-    (K5f) launches and no other kernel. K5's labels equal the default
-    route's; K5f's differ in at most FLIPS_PER_LABEL per head (the fast
-    default route sums on the tensor cores in another order)."""
+    (K5f) launches, each one launch of the cluster kernel, and no other
+    kernel. K5's labels equal the default route's; K5f's differ in at most
+    FLIPS_PER_LABEL per head."""
     import torch
 
     from helen_tpu_torch.config import IMAGE, WINDOW
@@ -2533,7 +2582,8 @@ def run_encdec_route(img_dir: str, results) -> None:
         secs["default"].append(consensus(p, backend, None)[1])
         fb, fr = int((kb != db).sum()), int((kr != dr).sum())
         rate = {k: n * n_win / min(v) for k, v in secs.items()}
-        want = {**{k: 0 for k in counts}, name: batches * n_win}
+        cname = name.replace("encdec", "encdec_cluster")
+        want = {**{k: 0 for k in counts}, name: batches * n_win, cname: batches * n_win}
         log(f"{backend}: {n} images at B={B}, route='encdec' vs the default route: {fb}+{fr} "
             f"base+rle label flips of {kb.numel()} per head; {rate['encdec']:,.0f} vs "
             f"{rate['default']:,.0f} windows/s (consensus on the card, the faster of two "
@@ -2542,21 +2592,25 @@ def run_encdec_route(img_dir: str, results) -> None:
             f"batches x {n_win} windows)")
         if counts != want:
             fail(f"{name} launch counts differ from batches x windows")
-        # parity: K5 is the chain bit for bit; fast: K5f keeps the one-launch
-        # kernel's sums, the default route sums on the tensor cores
+        # parity: K5 is the chain bit for bit; fast: K5f's cluster design sums
+        # as the default route's two-launch K1f -> K2f (held to the flip limit)
         limit = FLIPS_PER_LABEL * kb.numel() if backend == "cuda_fast" else 0
         if max(fb, fr) > limit:
             fail(f"route 'encdec' flips labels against the default route ({backend}; "
                  f"limit {limit:g} per head)")
-        results[name]["launches"] = counts[name]
-        results[name]["windows_per_s"] = rate["encdec"]
-        results[name]["chained_windows_per_s"] = rate["default"]
+        results[cname]["launches"] = counts[cname]
+        results[cname]["windows_per_s"] = rate["encdec"]
+        results[cname]["chained_windows_per_s"] = rate["default"]
 
 
-def check_golden_encdec() -> None:
-    """Phase 11c: the one-layer golden fixtures (the flagship and H=160)
-    through ``route="encdec"`` on the card: 0 + 0 label flips against the
-    recorded labels, through K5."""
+def check_golden_encdec(results) -> None:
+    """Phase 11c: the one-layer golden fixtures through ``route="encdec"`` on
+    the card: the flagship (the cluster design) and H=160 (the one-pass
+    kernel) at 0 + 0 label flips against the recorded labels; H=160 in the
+    fast tier (K5f's one-pass kernel) at 0 + 0 against the fast route with
+    K1f/K2f in their one-launch design, whose sums the one-pass kernel
+    shares (the default fast route at H=160 sums on the tensor cores). The
+    launches of each design are counted."""
     import numpy as np
     import torch
 
@@ -2574,22 +2628,48 @@ def check_golden_encdec() -> None:
         recs = [ds.load(i) for i in range(len(ds))]
     images = torch.from_numpy(np.stack([r.image for r in recs])).cuda()
     keys = [f"{r.contig}-{r.contig_start}-{r.contig_end}-{r.chunk_id}" for r in recs]
-    for name in ("model", "h160"):
+    for name, design in (("model", "cluster"), ("h160", "onepass")):
         stem = "golden" if name == "model" else f"golden_{name}"
         params, _ = load_model_any(os.path.join(GOLDEN, f"golden_{name}.pkl"))
-        before = gw.launch_counts["transducer_window_encdec"]
+        kernel = f"transducer_window_encdec_{design}"
+        before = dict(gw.launch_counts)
         with torch.no_grad():
             base, rle = consensus_labels(params_to_torch(params, images.device), images,
                                          backend="cuda", route="encdec")
-        launched = gw.launch_counts["transducer_window_encdec"] - before
+        launched = {k: gw.launch_counts[k] - before[k] for k in
+                    ("transducer_window_encdec", kernel)}
         want = np.load(os.path.join(GOLDEN, f"{stem}_labels.npz"))
         base, rle = base.cpu().numpy(), rle.cpu().numpy()
         fb = sum(int((base[j] != want[f"base/{k}"]).sum()) for j, k in enumerate(keys))
         fr = sum(int((rle[j] != want[f"rle/{k}"]).sum()) for j, k in enumerate(keys))
         log(f"golden {name} through route 'encdec': {fb}+{fr} base+rle label flips of "
-            f"{base.size} per head ({launched} K5 launches)")
-        if fb or fr or not launched:
-            fail(f"golden {name}: route 'encdec' flips labels")
+            f"{base.size} per head (launches {launched})")
+        if fb or fr or not launched[kernel] or launched[kernel] != launched[
+                "transducer_window_encdec"]:
+            fail(f"golden {name}: route 'encdec' flips labels or skips its {design} design")
+        if name == "h160":
+            results["transducer_window_encdec"]["launches"] = launched[kernel]
+            pf = params_to_torch(params, images.device, fast=True)
+            before = dict(gw.launch_counts)
+            rule = gw.window_design
+            with torch.no_grad():
+                kb, kr = consensus_labels(pf, images, backend="cuda_fast", route="encdec")
+                launched = gw.launch_counts["transducer_window_encdec_onepass_fast"] - before[
+                    "transducer_window_encdec_onepass_fast"]
+                # the fast route with K1f/K2f held to their one-launch design
+                gw.window_design = lambda h, b, fast=False, design=None: rule(
+                    h, b, fast, design or ("chain" if fast else None))
+                try:
+                    db, dr = consensus_labels(pf, images, backend="cuda_fast")
+                finally:
+                    gw.window_design = rule
+            fb, fr = int((kb != db).sum()), int((kr != dr).sum())
+            log(f"golden h160 in the fast tier through route 'encdec' (K5f's one-pass "
+                f"kernel, {launched} launches) vs the fast route in the one-launch design: "
+                f"{fb}+{fr} flips of {kb.numel()} per head")
+            if fb or fr or not launched:
+                fail("golden h160: route 'encdec' in the fast tier flips labels")
+            results["transducer_window_encdec_fast"]["launches"] = launched
 
 
 def main() -> int:
@@ -2701,14 +2781,15 @@ def main() -> int:
         log(f"phase 10: {time.perf_counter() - t10:.1f} s")
 
         t11 = time.perf_counter()
-        phase(f"11a. K5 and K5f against the chained kernels (B={B}, T={T}, H={H}, F={F})")
+        phase(f"11a. K5 and K5f, both designs, against the chained kernels (B={B} and {TB}, "
+              f"T={T}, H={H}, F={F})")
         check_encdec(images_u8, results)
 
         phase("11b. the full-width images through route 'encdec', both tiers")
         run_encdec_route(img_dir, results)
 
         phase("11c. golden fixtures through route 'encdec'")
-        check_golden_encdec()
+        check_golden_encdec(results)
         log(f"phase 11: {time.perf_counter() - t11:.1f} s")
 
     phase("8. result")

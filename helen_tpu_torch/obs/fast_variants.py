@@ -23,9 +23,8 @@ import subprocess
 
 SOURCE = "gru_window_fast.cu"
 _MMA = "for (int g = 0; g < 3; ++g) mma_bf16(kt % 2 ? acc2[g] : acc[g], a[g][kt], b);"
-_GATES = """      hreg[e] = gru_gates<true>(xs[e * nthreads], xs[(4 + e) * nthreads],
-                                xs[(8 + e) * nthreads], acc[0][e], acc[1][e], acc[2][e],
-                                bias[e / 2], hreg[e]);"""
+_GATES = """    hreg[e] = gru_gates<true>(x[0][e], x[1][e], x[2][e], acc[0][e], acc[1][e], acc[2][e],
+                              bias[e / 2], hreg[e]);"""
 _COPY = "cp_async4(st + (g * 4 + e) * nthreads, xt + xoff[e] + g * H);"
 _STORE = "ot[(b0 + brow[e]) * H + unit[e]] = hreg[e];"
 #: name -> (constants to replace, (text, replacement) edits); the cut
@@ -37,8 +36,8 @@ VARIANTS = {
     "one sum per gate (the first version)": ({}, (
         (_MMA, "for (int g = 0; g < 3; ++g) mma_bf16(acc[g], a[g][kt], b);"),)),
     "no mma (cut)": ({}, ((_MMA, "acc[0][0] += __uint_as_float(b[0] ^ b[1]);"),)),
-    "no gates (cut)": ({}, ((_GATES, "      hreg[e] = acc[0][e] + acc[1][e] + acc[2][e] + "
-                                     "xs[e * nthreads] + xs[(8 + e) * nthreads];"),)),
+    "no gates (cut)": ({}, ((_GATES, "    hreg[e] = acc[0][e] + acc[1][e] + acc[2][e] + "
+                                     "x[0][e] + x[2][e];"),)),
     "no xp copies (cut)": ({}, ((_COPY, "(void)st;"),)),
     "no output stores (cut)": ({}, ((_STORE, ";"),)),
 }

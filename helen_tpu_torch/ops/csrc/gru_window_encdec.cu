@@ -50,8 +50,12 @@
 //     rounds its input halves (gru_window.cu's load_rows): the rounding is
 //     deterministic, so this is exact and halves the boundary; BT=4 fits at
 //     T=100, H=128 (226,944 bytes, 128 blocks).
-// A cluster of two blocks (one per direction) sharing the boundary through
-// distributed shared memory, tensor cores and TMA are later work.
+// This is K5's "onepass" design. Where the chain's own recurrence takes the
+// shape (H <= 128 in both tiers: the flagship), K5 runs as a cluster of two
+// CTAs per group of batch rows instead (encdec_cluster_kernel in
+// gru_window_smem.cu, encdec_cluster_fast_kernel in gru_window_fast.cu;
+// ops/gru_window_encdec.py encdec_design); this kernel keeps the other
+// shapes that fit one block (the golden h160 fixture among them).
 
 #include <type_traits>
 

@@ -3,6 +3,10 @@
 // weight matrix in shared memory once per launch, and the tiled fp32 product
 // of their parallel passes.
 //
+// The tile product's arithmetic (tile_fma_stage, tile_store) is shared with
+// the producer warps of K5's cluster design (gru_window_smem.cu), so that
+// they project in the same order and K5 keeps the chain's bits.
+//
 // The tile product: out[dir] = A[dir] W[dir] (+ bias[dir]) over M rows, depth
 // K, N columns, for both directions of a window (grid z). 128 x 128 outputs
 // per block of 256 threads, 8 x 8 per thread, k in stages of 8 staged in
@@ -136,6 +140,73 @@ struct HprevRows {
   __device__ float at(const float* r, int k) const { return k < H ? __ldg(r + k) : 0.0f; }
 };
 
+// The tile product's arithmetic, shared with the producer warps of the
+// fused encoder+decoder window (gru_window_smem.cu): a thread's 8 x 4 NB
+// register tile over one staged k slice of BK, rows a[0..3] at as[k][0..3]
+// and a[4..7] at as[k][hm + 0..3] (as: the A stage transposed, row stride
+// lda), columns c hn + 0..3 of bs for c < NB (row stride ldb); each output
+// one fmaf chain over kk = 0 .. BK-1 in order.
+template <int BK, int NB>
+__device__ __forceinline__ void tile_fma_stage(float (&acc)[8][4 * NB], const float* as, int lda,
+                                               int hm, const float* bs, int ldb, int hn) {
+#pragma unroll
+  for (int kk = 0; kk < BK; ++kk) {
+    const float4 a0 = *reinterpret_cast<const float4*>(as + kk * lda);
+    const float4 a1 = *reinterpret_cast<const float4*>(as + kk * lda + hm);
+    const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    float v[4 * NB];
+#pragma unroll
+    for (int c = 0; c < NB; ++c) {
+      const float4 b = *reinterpret_cast<const float4*>(bs + kk * ldb + c * hn);
+      v[4 * c] = b.x;
+      v[4 * c + 1] = b.y;
+      v[4 * c + 2] = b.z;
+      v[4 * c + 3] = b.w;
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4 * NB; ++j) acc[i][j] = fmaf(a[i], v[j], acc[i][j]);
+    }
+  }
+}
+
+// The tile's epilogue: out[m][n] = acc (+ bias[n]), one rounding, as
+// gru_step's `xr + bias.ir`, at rows mr + 0..3 and mr + hm + 0..3 (those
+// below M), columns nc + c hn + 0..3 for c < NB (those below N); row m at
+// out + m * ldo, float4 stores where N and ldo are multiples of 4.
+template <bool BIAS, int NB>
+__device__ __forceinline__ void tile_store(const float (&acc)[8][4 * NB], float* out, int ldo,
+                                           int M, int N, int mr, int hm, int nc, int hn,
+                                           const float* __restrict__ bias) {
+  auto value = [&](int i, int c, int n) {
+    return BIAS ? acc[i][c] + __ldg(bias + n) : acc[i][c];
+  };
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = mr + (i < 4 ? i : hm + (i - 4));
+    if (m >= M) continue;
+    float* row = out + (size_t)m * ldo;
+#pragma unroll
+    for (int half = 0; half < NB; ++half) {
+      const int n = nc + half * hn;
+      const int c = half * 4;
+      if (((N | ldo) & 3) == 0) {
+        if (n < N) {
+          *reinterpret_cast<float4*>(row + n) = make_float4(
+              value(i, c, n), value(i, c + 1, n + 1), value(i, c + 2, n + 2),
+              value(i, c + 3, n + 3));
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          if (n + q < N) row[n + q] = value(i, c + q, n + q);
+        }
+      }
+    }
+  }
+}
+
 template <bool BIAS, typename Src>
 __global__ void __launch_bounds__(PJ_THREADS, 2)
 tile_product_kernel(Src src, int M, int K, int N, const float* __restrict__ w_f,
@@ -196,51 +267,13 @@ tile_product_kernel(Src src, int M, int K, int N, const float* __restrict__ w_f,
   for (int ks = 0; ks < stages; ++ks) {
     const int s = ks & 1;
     if (ks + 1 < stages) load((ks + 1) * PJ_BK);
-#pragma unroll
-    for (int kk = 0; kk < PJ_BK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[s][kk][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[s][kk][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[s][kk][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[s][kk][64 + tx * 4]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float v[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], v[j], acc[i][j]);
-      }
-    }
+    tile_fma_stage<PJ_BK, 2>(acc, &As[s][0][ty * 4], PJ_APAD, 64, &Bs[s][0][tx * 4], PJ_BN, 64);
     if (ks + 1 < stages) store(s ^ 1);
     __syncthreads();
   }
 
-  // out = acc (+ bias), one rounding, as gru_step's `xr + bias.ir`
-  auto value = [&](int i, int c, int n) {
-    return BIAS ? acc[i][c] + __ldg(bias + n) : acc[i][c];
-  };
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + (i - 4));
-    if (m >= M) continue;
-    float* row = out + ((size_t)dir * M + m) * N;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int n = n0 + half * 64 + tx * 4;
-      const int c = half * 4;
-      if ((N & 3) == 0) {
-        if (n < N) {
-          *reinterpret_cast<float4*>(row + n) = make_float4(
-              value(i, c, n), value(i, c + 1, n + 1), value(i, c + 2, n + 2),
-              value(i, c + 3, n + 3));
-        }
-      } else {
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          if (n + q < N) row[n + q] = value(i, c + q, n + q);
-        }
-      }
-    }
-  }
+  tile_store<BIAS, 2>(acc, out + (size_t)dir * M * N, N, M, N, m0 + ty * 4, 64, n0 + tx * 4, 64,
+                      bias);
 }
 
 // out (2, M, N) = A W (+ bias, where BIAS) per direction; W (K, N)

@@ -79,9 +79,14 @@ launch_counts: Dict[str, int] = {"bigru_window_in1": 0, "bigru_window_in2": 0,
                                  # the two-launch design of K1f/K2f (ops.gru_window_smem)
                                  "bigru_window_proj_in1_fast": 0,
                                  "bigru_window_proj_in2_fast": 0, "bigru_window_rec_fast": 0,
-                                 # the fused encoder+decoder window (ops.gru_window_encdec)
+                                 # the fused encoder+decoder window (ops.gru_window_encdec):
+                                 # K5/K5f per call, then the kernel of its design
                                  "transducer_window_encdec": 0,
-                                 "transducer_window_encdec_fast": 0}
+                                 "transducer_window_encdec_fast": 0,
+                                 "transducer_window_encdec_cluster": 0,
+                                 "transducer_window_encdec_cluster_fast": 0,
+                                 "transducer_window_encdec_onepass": 0,
+                                 "transducer_window_encdec_onepass_fast": 0}
 
 #: the largest hidden size the in-projection kernels take (K1/K2 and their
 #: backward: one thread per hidden unit, csrc/gru_window_common.cuh MAX_H)
@@ -231,6 +236,30 @@ def get_lib() -> ctypes.CDLL:
             lib.transducer_window_encdec_smem.argtypes = [i] * 5
             lib.transducer_window_encdec_max_threads.restype = i
             lib.transducer_window_encdec_max_threads.argtypes = [i]
+            # K5/K5f's cluster design (csrc/gru_window_smem.cu, gru_window_fast.cu):
+            # K5's arguments, then the scratch, before the stream
+            for name in ("transducer_window_encdec_cluster",
+                         "transducer_window_encdec_cluster_fast"):
+                getattr(lib, name).restype = i
+                getattr(lib, name).argtypes = (
+                    [p, ll, ll, i, i, p, p] + [p] * 16 + [p] * 4 + [i, i, i, i, p, p])
+            lib.transducer_window_encdec_cluster_smem.restype = ll
+            lib.transducer_window_encdec_cluster_smem.argtypes = [i, i]
+            lib.transducer_window_encdec_cluster_threads.restype = i
+            lib.transducer_window_encdec_cluster_threads.argtypes = [i, i]
+            lib.transducer_window_encdec_cluster_active.restype = i
+            lib.transducer_window_encdec_cluster_active.argtypes = [i, i]
+            lib.transducer_window_encdec_cluster_fast_smem.restype = ll
+            lib.transducer_window_encdec_cluster_fast_smem.argtypes = [i]
+            lib.transducer_window_encdec_cluster_fast_threads.restype = i
+            lib.transducer_window_encdec_cluster_fast_threads.argtypes = [i]
+            lib.transducer_window_encdec_cluster_fast_active.restype = i
+            lib.transducer_window_encdec_cluster_fast_active.argtypes = [i]
+            lib.transducer_window_encdec_cluster_fast_max_h.restype = i
+            for name in ("transducer_window_encdec_cluster_scratch",
+                         "transducer_window_encdec_cluster_fast_scratch"):
+                getattr(lib, name).restype = ll
+                getattr(lib, name).argtypes = [i] * 4
             # the two-launch design of K1/K2 (csrc/gru_window_smem.cu;
             # wrappers in gru_window_smem.py)
             lib.bigru_window_proj_in1.restype = i
@@ -277,6 +306,24 @@ def get_lib() -> ctypes.CDLL:
                            for h in (1, 16, 37, 128, 136, 160))):
                 raise RuntimeError("the fast recurrence's fit disagrees with "
                                    "csrc/gru_window_fast.cu")
+            from helen_tpu_torch.ops import gru_window_encdec as ge
+
+            if (lib.transducer_window_encdec_cluster_fast_max_h() != ge.CLUSTER_FAST_MAX_H
+                    or any(lib.transducer_window_encdec_cluster_smem(h, r)
+                           != ge.cluster_smem_bytes(h, r, False)
+                           or lib.transducer_window_encdec_cluster_threads(h, r)
+                           != ge.cluster_threads(h, r, False)
+                           or lib.transducer_window_encdec_cluster_fast_smem(h)
+                           != ge.cluster_smem_bytes(h, r, True)
+                           or lib.transducer_window_encdec_cluster_fast_threads(h)
+                           != ge.cluster_threads(h, r, True)
+                           or lib.transducer_window_encdec_cluster_scratch(h, 300, 100, r)
+                           != ge.cluster_scratch_bytes(h, 300, 100, r, False)
+                           or lib.transducer_window_encdec_cluster_fast_scratch(h, 300, 100, r)
+                           != ge.cluster_scratch_bytes(h, 300, 100, r, True)
+                           for h in (1, 37, 64, 100, 128) for r in gs.BLOCK_ROWS)):
+                raise RuntimeError("K5's cluster fit disagrees with csrc/gru_window_smem.cu "
+                                   "or gru_window_fast.cu")
             _lib = lib
     return _lib
 

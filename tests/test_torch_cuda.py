@@ -598,19 +598,22 @@ def test_fast_consensus_launch_counts(dev, H, want):
 # the fused encoder+decoder window: K5 and K5f
 # ---------------------------------------------------------------------------
 
-# the flagship window (2 rows per block in parity, 4 in the fast tier), an
-# off-grid H at 1 row (parity), a short window at 4 rows with a ragged edge,
-# an H whose two directions share a warp, and the widest H a T=100 parity
-# block holds (1 row; 566 threads)
+# the flagship window (the cluster design, 8 rows per cluster), an off-grid
+# H (the one-pass kernel: 1 row in parity, 4 in the fast tier), a short
+# window at 1 row per cluster with a ragged edge, an H whose two directions
+# share a warp in the one-pass kernel, and the widest H a T=100 parity
+# one-pass block holds (1 row; 566 threads)
 @pytest.mark.parametrize("T,B,H", [(100, 512, 128), (7, 13, 160), (5, 3, 128), (9, 7, 40),
                                    (100, 5, 283)])
 @pytest.mark.parametrize("tier", ["parity", "fast"])
 def test_k5_kernel_equals_chained_kernels(dev, T, B, H, tier):
-    """K5 (K5f) against K1 -> K2 (K1f -> K2f in the one-launch design,
-    whose cell step K5f shares) launched one after the other:
-    bit-identical outputs and final states (the same FMAs in the same
-    order; only the stack boundary moves to shared memory); and against its
-    plain version within the tier's tolerance."""
+    """K5 (K5f), in the design ``encdec_design`` picks, against K1 -> K2
+    (K1f -> K2f in the design whose arithmetic K5f's design shares: the
+    two-launch one for the cluster design, the one-launch one for the
+    one-pass kernel) launched one after the other: bit-identical outputs and
+    final states (the same sums in the same order; only the stack boundary
+    moves); and against its plain version within the tier's tolerance. One
+    call counts K5 (K5f) and its design's kernel once each."""
     from helen_tpu_torch.ops import gru_window as gw
     from helen_tpu_torch.ops import gru_window_encdec as ge
 
@@ -624,16 +627,20 @@ def test_k5_kernel_equals_chained_kernels(dev, T, B, H, tier):
     name = "transducer_window_encdec"
     in1, in2 = gw.bigru_window_in1, gw.bigru_window_in2
     plain, tol = ge.transducer_window_encdec_plain, TOL
-    if tier == "fast":
+    fast_tier = tier == "fast"
+    design = ge.encdec_design(H, B, fast_tier)
+    if fast_tier:
         enc, dec, name = fast(enc), fast(dec), name + "_fast"
         in1, in2 = gw.bigru_window_in1_fast, gw.bigru_window_in2_fast
         plain, tol = ge.transducer_window_encdec_fast_plain, FAST_TOL
+    kernel = name.replace("encdec", f"encdec_{design}")
     before = dict(gw.launch_counts)
     got = getattr(ge, name)(image, start, T, h0f, h0b, enc, dec)
     torch.cuda.synchronize()
-    assert gw.launch_counts == {**before, name: before[name] + 1}
-    design = "chain" if tier == "fast" else None
-    chained = in2(*in1(image, start, T, h0f, h0b, enc, design=design), dec, design=design)
+    assert gw.launch_counts == {**before, name: before[name] + 1, kernel: before[kernel] + 1}
+    chain_design = ("smem" if design == "cluster" else "chain") if fast_tier else None
+    chained = in2(*in1(image, start, T, h0f, h0b, enc, design=chain_design), dec,
+                  design=chain_design)
     for g, c, what in zip(got, chained, ("out_f", "out_b", "h_f", "h_b")):
         assert torch.equal(g, c), f"{what}: max |K5 - chained| {float((g - c).abs().max())}"
     assert_outputs_close(got, plain(image, start, T, h0f, h0b, enc, dec), tol)
@@ -654,6 +661,15 @@ def test_k5_fit_follows_the_card(dev):
     for bt in ge.BLOCK_ROWS:
         assert lib.transducer_window_encdec_max_threads(bt) == ge.encdec_max_threads(bt)
     assert ge.device_smem_budget() == ge.HOPPER_SMEM_OPTIN
+    # the cluster design: its sizes (get_lib holds them to the source) and
+    # the card holds at least one cluster of each kind
+    assert lib.transducer_window_encdec_cluster_smem(128, 8) == \
+        ge.cluster_smem_bytes(128, 8, False)
+    assert lib.transducer_window_encdec_cluster_fast_smem(128) == \
+        ge.cluster_smem_bytes(128, 8, True)
+    for fst in (False, True):
+        for b in (256, 512):
+            assert ge.cluster_active(128, b, fst) >= 1
     rng = np.random.default_rng(11)
     H = 320
     image = torch.zeros((4, 100, 90), dtype=torch.uint8, device=dev)
@@ -712,7 +728,9 @@ def test_encdec_route_consensus_launch_counts(dev, backend):
     torch.cuda.synchronize()
     counts = {k: v for m in mods for k, v in m.launch_counts.items()}
     name = "transducer_window_encdec" + ("_fast" if backend == "cuda_fast" else "")
-    assert counts == {**{k: 0 for k in counts}, name: WINDOW.num_windows(1000)}
+    n = WINDOW.num_windows(1000)
+    assert counts == {**{k: 0 for k in counts}, name: n,
+                      name.replace("encdec", "encdec_cluster"): n}
     with torch.no_grad():
         db, dr = consensus_labels(params, images, backend=backend)
     if backend == "cuda":
@@ -855,6 +873,118 @@ def test_k5_equals_either_design_of_the_chain(dev, design):
         *gw.bigru_window_in1(image, start, T, h0f, h0b, enc, design=design), dec, design=design)
     for g, c in zip(got, chained):
         assert torch.equal(g, c), float((g - c).abs().max())
+
+
+# ---------------------------------------------------------------------------
+# K5/K5f's cluster design (ops.gru_window_encdec, encdec_design "cluster")
+# ---------------------------------------------------------------------------
+
+def encdec_case(rng, T, B, H, dev):
+    image, start, T, h0f, h0b, enc = k1_case(rng, T, B, H, dev)
+    return image, start, T, h0f, h0b, enc, make_layer(rng, 2 * H, H, dev)
+
+
+# the main path's batch (8 rows per cluster), the training batch (4 rows), a
+# ragged one (8 rows, a part-filled last cluster), and small shapes at 1 and
+# 2 rows, H off the warp grid
+@pytest.mark.parametrize("T,B,H", [(100, 512, 128), (100, 256, 128), (100, 300, 128),
+                                   (9, 70, 64), (7, 3, 40), (5, 9, 37)])
+def test_k5_cluster_equals_onepass_and_chain(dev, T, B, H):
+    """Parity: K5 in the cluster design against the one-pass kernel and
+    against K1 -> K2 in the main path's design: 0.0 (one fmaf chain per
+    projection output in k order, the chain's own recurrence step); the
+    cluster kernel's wrapper alone gives the same and counts only itself;
+    within TOL of the cluster's plain version."""
+    from helen_tpu_torch.ops import gru_window as gw
+    from helen_tpu_torch.ops import gru_window_encdec as ge
+
+    rng = np.random.default_rng(T + B + H)
+    case = encdec_case(rng, T, B, H, dev)
+    assert ge.encdec_design(H, B) == "cluster"
+    got = ge.transducer_window_encdec(*case)
+    onepass = ge.transducer_window_encdec(*case, design="onepass")
+    image, start, T, h0f, h0b, enc, dec = case
+    chained = gw.bigru_window_in2(*gw.bigru_window_in1(image, start, T, h0f, h0b, enc), dec)
+    before = dict(gw.launch_counts)
+    alone = ge.transducer_window_encdec_cluster(*case)
+    assert gw.launch_counts == {**before, "transducer_window_encdec_cluster":
+                                before["transducer_window_encdec_cluster"] + 1}
+    for g, o, c, a in zip(got, onepass, chained, alone):
+        assert torch.equal(g, o), float((g - o).abs().max())
+        assert torch.equal(g, c), float((g - c).abs().max())
+        assert torch.equal(g, a)
+    assert_outputs_close(got, ge.transducer_window_encdec_cluster_plain(*case))
+
+
+@pytest.mark.parametrize("T,B,H", [(100, 512, 128), (100, 256, 128), (100, 300, 128),
+                                   (9, 70, 64), (7, 3, 40), (5, 9, 37)])
+def test_k5f_cluster_equals_the_two_launch_chain(dev, T, B, H):
+    """Fast: K5f in the cluster design against K1f -> K2f in the main
+    path's two-launch design: 0.0 (its producer sums each output over the
+    k16 tiles in order in one accumulator, + b_ih after, as the projection
+    pass; its consumer steps through the recurrence's own pieces); within
+    FAST_TOL of its plain version and of the one-pass kernel (the one-launch
+    chain's order of sums)."""
+    from helen_tpu_torch.ops import gru_window as gw
+    from helen_tpu_torch.ops import gru_window_encdec as ge
+
+    rng = np.random.default_rng(T + B + H + 1)
+    image, start, T, h0f, h0b, enc, dec = encdec_case(rng, T, B, H, dev)
+    enc, dec = fast(enc), fast(dec)
+    case = (image, start, T, h0f, h0b, enc, dec)
+    assert ge.encdec_design(H, B, fast=True) == "cluster"
+    got = ge.transducer_window_encdec_fast(*case)
+    chained = gw.bigru_window_in2_fast(
+        *gw.bigru_window_in1_fast(image, start, T, h0f, h0b, enc, design="smem"), dec,
+        design="smem")
+    for g, c, what in zip(got, chained, ("out_f", "out_b", "h_f", "h_b")):
+        assert torch.equal(g, c), f"{what}: max |K5f - chain| {float((g - c).abs().max())}"
+    assert_outputs_close(got, ge.transducer_window_encdec_cluster_fast_plain(*case), FAST_TOL)
+    assert_outputs_close(got, ge.transducer_window_encdec_fast(*case, design="onepass"),
+                         FAST_TOL)
+
+
+def test_k5_cluster_is_bit_identical_across_launches(dev):
+    from helen_tpu_torch.ops import gru_window_encdec as ge
+
+    rng = np.random.default_rng(31)
+    image, start, T, h0f, h0b, enc, dec = encdec_case(rng, 100, 300, 128, dev)
+    for kernel, layers in ((ge.transducer_window_encdec_cluster, (enc, dec)),
+                           (ge.transducer_window_encdec_cluster_fast, (fast(enc), fast(dec)))):
+        a = kernel(image, start, T, h0f, h0b, *layers)
+        b = kernel(image, start, T, h0f, h0b, *layers)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_k5_cluster_refuses_what_it_does_not_take(dev):
+    """A forced cluster design where the rule does not hold (parity H=160,
+    the golden h160 fixture's width; fast H=144) raises before any launch;
+    the cluster wrapper checks its arguments as K5's does."""
+    from helen_tpu_torch.ops import gru_window as gw
+    from helen_tpu_torch.ops import gru_window_encdec as ge
+
+    rng = np.random.default_rng(32)
+    before = dict(gw.launch_counts)
+    for H, tier in ((160, False), (144, True)):
+        image, start, T, h0f, h0b, enc, dec = encdec_case(rng, 5, 16, H, dev)
+        if tier:
+            enc, dec = fast(enc), fast(dec)
+        kernel = ge.transducer_window_encdec_fast if tier else ge.transducer_window_encdec
+        alone = (ge.transducer_window_encdec_cluster_fast if tier
+                 else ge.transducer_window_encdec_cluster)
+        with pytest.raises(ValueError, match="does not take"):
+            kernel(image, start, T, h0f, h0b, enc, dec, design="cluster")
+        with pytest.raises(ValueError, match="does not take"):
+            alone(image, start, T, h0f, h0b, enc, dec)
+    assert gw.launch_counts == before
+    image, start, T, h0f, h0b, enc, dec = encdec_case(rng, 5, 16, 128, dev)
+    with pytest.raises(ValueError):  # float image
+        ge.transducer_window_encdec_cluster(image.float(), start, T, h0f, h0b, enc, dec)
+    with pytest.raises(ValueError):  # the layers swapped
+        ge.transducer_window_encdec_cluster(image, start, T, h0f, h0b, dec, enc)
+    with pytest.raises(TypeError):  # float32 weights to K5f's cluster kernel
+        ge.transducer_window_encdec_cluster_fast(image, start, T, h0f, h0b, enc, dec)
+    assert gw.launch_counts == before
 
 
 def test_tbptt_batch_smem_design_equals_chain_design(dev, monkeypatch):

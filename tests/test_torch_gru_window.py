@@ -180,7 +180,11 @@ def test_wrappers_take_the_plain_version_on_cpu_and_count_no_launch():
                                 "bigru_window_proj_in1_fast": 0,
                                 "bigru_window_proj_in2_fast": 0, "bigru_window_rec_fast": 0,
                                 "transducer_window_encdec": 0,
-                                "transducer_window_encdec_fast": 0}
+                                "transducer_window_encdec_fast": 0,
+                                "transducer_window_encdec_cluster": 0,
+                                "transducer_window_encdec_cluster_fast": 0,
+                                "transducer_window_encdec_onepass": 0,
+                                "transducer_window_encdec_onepass_fast": 0}
 
 
 def test_wrappers_raise_off_cpu_and_cuda():
