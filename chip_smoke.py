@@ -57,8 +57,17 @@ kernel against K1 -> K2 and the one-launch K1f -> K2f) and their plain
 versions, timed in turns beside the chains and cuDNN, the full-width images
 with the trained checkpoint through the route in both tiers with the
 launches counted (all of the cluster kernel), and the golden fixtures
-through it (h160 on the one-pass kernel, in both tiers). Every phase fails the script
-on error; nothing falls back.
+through it (h160 on the one-pass kernel, in both tiers). Phase 12 drives the
+single-host I/O flags on phase 6's images at -b 512: ``polish --pack --writers 4
+--fastq`` fresh (the image cache built write-through) and again (the cache
+reused), with their labels against phase 6's (0 flips), the FASTQ's sequences
+against its FASTA, the launches counted and the host stages tabled beside phase
+6's; ``call_consensus`` on half the image files then ``--resume`` over all
+(launches = the remaining batches x 19 x layers; the first run's file left as
+it was, the new records in the store's next file; the stores stitch to phase
+6's FASTA byte for byte); ``polish --fast --pack`` against phase 10e (0
+flips); ``train --pack`` against phase 7c's first epoch (bit for bit).
+Every phase fails the script on error; nothing falls back.
 The second-to-last line is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
 checkout, it exits non-zero and prints no result. It imports nothing of JAX.
@@ -547,11 +556,12 @@ def make_full_width(img_dir: str):
     return truth, n
 
 
-def run_full_width(img_dir: str, truth, n_images: int, work: str, results) -> None:
+def run_full_width(img_dir: str, truth, n_images: int, work: str, results):
     """Phase 6: a full-width polish at -b 512 with the kernel launches
     counted, and the first 64 images' labels against the plain path. It
     calls ``polish``, the function behind ``python -m helen_tpu_torch polish
-    -b 512 -t 4``, with a stage timer of its own."""
+    -b 512 -t 4``, with a stage timer of its own, which it returns (phase
+    12 sets its stages beside its own)."""
     import numpy as np
     import torch
 
@@ -618,6 +628,7 @@ def run_full_width(img_dir: str, truth, n_images: int, work: str, results) -> No
         f"flips of {base.size} per head")
     if max(fb, fr) > FLIPS_PER_LABEL * base.size:
         fail("the kernel path's labels disagree with the plain path")
+    return timer
 
 
 def timed_passes(fn, iters: int = 10, warmup: int = 2, passes=BWD_PASSES) -> dict:
@@ -2672,6 +2683,240 @@ def check_golden_encdec(results) -> None:
             results["transducer_window_encdec_fast"]["launches"] = launched
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the single-host I/O flags (--pack, --writers, --resume, --fastq)
+# ---------------------------------------------------------------------------
+
+# the host stages the I/O flags exist for, in the order of the table
+IO_STAGES = ("call_consensus", "image_read", "device_transfer", "device_submit",
+             "device_read", "write", "flush", "pack_tee", "stream_stitch", "stitch")
+
+
+def io_polish(img_dir: str, out: str, **flags):
+    """``polish`` as ``python -m helen_tpu_torch polish -b 512 -t 4`` with
+    ``flags`` calls it, with a stage timer and every kernel's launches
+    counted from 0; returns (output path, wall s, timer, launches)."""
+    from helen_tpu_torch.infer.polish import polish
+    from helen_tpu_torch.obs import StageTimer
+    from helen_tpu_torch.ops import gru_window as gw
+
+    timer = StageTimer()
+    gw.reset_launch_counts()
+    t0 = time.perf_counter()
+    path = polish(img_dir, os.path.join(GOLDEN, "trained_synth30mb.npz"), out,
+                  batch_size=B, threads=4, stage_timer=timer, **flags)
+    return path, time.perf_counter() - t0, timer, dict(gw.launch_counts)
+
+
+def label_flips(got, want, what: str) -> None:
+    """Fail unless two {image: (bases, rles)} maps hold the same images and
+    the same labels (0 flips)."""
+    if sorted(got) != sorted(want):
+        fail(f"{what}: other images stored ({len(got)} against {len(want)})")
+    fb = sum(int((got[k][0] != want[k][0]).sum()) for k in want)
+    fr = sum(int((got[k][1] != want[k][1]).sum()) for k in want)
+    n = sum(v[0].size for v in want.values())
+    log(f"{what}: {fb}+{fr} base+rle label flips of {n} per head")
+    if fb or fr:
+        fail(f"{what}: labels differ")
+
+
+def run_io_flags(img_dir: str, truth, n_images: int, work: str, timer6) -> None:
+    """Phase 12, on phase 6's images with the trained checkpoint at -b 512:
+    12a ``polish --pack --writers 4 --fastq`` fresh (the cache built
+    write-through; the FASTQ's sequences == phase 6's FASTA == truth; the
+    four shards' labels == phase 6's store, 0 flips; launches = batches x 19
+    x layers; mean q and the share of columns at q=60), 12b the same again
+    (the cache reused: its mtime unchanged, no pack_tee stage; the stage
+    table beside 12a's and phase 6's), 12c ``call_consensus`` on the first
+    half of the image files then ``--resume`` over all of them (launches =
+    the remaining batches x 19 x layers; the union of the stores stitches to
+    phase 6's FASTA byte for byte, and ``stitch --fastq`` to its sequences),
+    12d ``polish --fast --pack`` (0 flips against phase 10e's fast labels,
+    the same FASTA), 12e ``train --pack``, phase 7c's command for one epoch
+    (its parameters equal to phase 7c's first epoch, bit for bit). 12c and
+    12e go through the CLI's main, the others through ``polish`` with a
+    stage timer."""
+    import glob
+
+    import numpy as np
+
+    from helen_tpu_torch.cli import main as cli
+    from helen_tpu_torch.config import IMAGE, WINDOW
+    from helen_tpu_torch.io import hdf5
+    from helen_tpu_torch.io.fasta import read_fasta, read_fastq
+    from helen_tpu_torch.io.images import MarginPolishDataset
+    from helen_tpu_torch.ops import gru_window as gw
+
+    n_win = WINDOW.num_windows(IMAGE.seq_length)
+    batches = -(-n_images // B)
+    fasta6 = os.path.join(work, "out_full", "HELEN_prediction.fa")
+    labels6 = store_labels(glob.glob(os.path.join(work, "out_full", "predictions_*"))[0])
+    polished6 = list(read_fasta(fasta6))
+    if dict(polished6) != truth:
+        fail("phase 6's FASTA is not the truth")
+    out = os.path.join(work, "out_io")
+    cache = os.path.join(out, "images_cache.h5")
+
+    def check_polish(what, path, wall, timer, launches, want_launches):
+        preds = sorted(glob.glob(os.path.join(out, "predictions_*")))[-1]
+        shards = sorted(os.path.basename(p) for p in glob.glob(os.path.join(preds, "*.hdf")))
+        want_shards = [f"helen_predictions_0_w{k}.hdf" for k in range(4)]
+        if shards != want_shards:
+            fail(f"{what}: shards {shards}, expected {want_shards}")
+        got = [r[:2] for r in read_fastq(path)]
+        log(f"{what}: {n_images} images, wall {wall:.2f} s, consensus "
+            f"{timer.stages['call_consensus']:.2f} s = "
+            f"{n_images * n_win / timer.stages['call_consensus']:,.0f} windows/s; "
+            f"FASTQ sequences == phase 6's FASTA: {got == polished6}")
+        if got != polished6:
+            fail(f"{what}: the FASTQ's sequences differ from phase 6's FASTA")
+        label_flips(store_labels(preds), labels6, f"{what} against phase 6's store")
+        log(f"{what}: launches {launches}, expected {want_launches}")
+        if launches != want_launches:
+            fail(f"{what}: launch counts differ from batches x windows x layers")
+        return preds
+
+    want = {**OFF_PATH_ZERO, **parity_counts(batches * n_win, batches * n_win)}
+    flags = dict(pack=True, num_writers=4, fastq=True)
+    path, wall, timer_a, launches = io_polish(img_dir, out, **flags)
+    if "pack_tee" not in timer_a.stages or not os.path.exists(cache):
+        fail("12a: the packed cache was not built write-through")
+    preds = check_polish("12a polish --pack --writers 4 --fastq", path, wall, timer_a,
+                         launches, want)
+    quals = []
+    for shard in glob.glob(os.path.join(preds, "*.hdf")):
+        with hdf5.File(shard) as f:
+            for _, cg in f["predictions"].items():
+                for _, rg in cg.items():
+                    quals += [ch["quals"][()] for _, ch in rg.items()
+                              if isinstance(ch, hdf5.Group)]
+    q = np.concatenate(quals)
+    log(f"12a qualities: {q.size} columns, mean q {q.mean():.2f}, at q=60 "
+        f"{100 * (q == 60).mean():.2f}%, median {np.median(q):.0f}, min {q.min()}")
+
+    stamp = os.stat(cache).st_mtime_ns
+    path, wall, timer_b, launches = io_polish(img_dir, out, **flags)
+    check_polish("12b the same again", path, wall, timer_b, launches, want)
+    if os.stat(cache).st_mtime_ns != stamp or "pack_tee" in timer_b.stages:
+        fail("12b: the packed cache was rebuilt, not reused")
+    log("12b: the cache was reused (mtime unchanged, no pack_tee stage)")
+    log("stage seconds (calls): phase 6 (no flags) | 12a (--pack, tee) | 12b (--pack, cached)")
+    for st in IO_STAGES:
+        cells = [f"{t.stages[st]:9.3f} ({t.counts[st]:3d})" if st in t.stages else " " * 15
+                 for t in (timer6, timer_a, timer_b)]
+        log(f"  {st:<16} " + " | ".join(cells))
+
+    # 12c: call_consensus --resume --qualities through the CLI, after a run
+    # over the first half of the image files; then stitch and stitch --fastq
+    files = sorted(glob.glob(os.path.join(img_dir, "*.h5")))
+    first = files[:len(files) // 2]
+    half_dir = os.path.join(work, "io_half")
+    os.makedirs(half_dir)
+    for f in first:
+        os.symlink(f, os.path.join(half_dir, os.path.basename(f)))
+    m = len(MarginPolishDataset(first))
+    pred_dir = os.path.join(work, "io_resume")
+    args = ["-m", os.path.join(GOLDEN, "trained_synth30mb.npz"), "-o", pred_dir,
+            "-b", str(B), "--qualities"]
+    if cli(["call_consensus", "-i", half_dir, *args]) != 0:
+        fail("12c: call_consensus on half the files returned non-zero")
+    first_store = os.path.join(pred_dir, "helen_predictions_0.hdf")
+    first_bytes = open(first_store, "rb").read()
+    gw.reset_launch_counts()
+    if cli(["call_consensus", "-i", img_dir, *args, "--resume"]) != 0:
+        fail("12c: call_consensus --resume returned non-zero")
+    launches = dict(gw.launch_counts)
+    # the complete store is not written again: the new records go to its
+    # next file
+    stores = sorted(os.listdir(pred_dir))
+    log(f"12c: the stores after the resume: {stores}; the first run's file unchanged: "
+        f"{open(first_store, 'rb').read() == first_bytes}")
+    if (stores != ["helen_predictions_0.hdf", "helen_predictions_0.r1.hdf"]
+            or open(first_store, "rb").read() != first_bytes):
+        fail("12c: the resume rewrote the complete store, or wrote no next file")
+    remaining = batches - m // B  # batches holding an image the first run lacks
+    want_c = {**OFF_PATH_ZERO, **parity_counts(remaining * n_win, remaining * n_win)}
+    log(f"12c call_consensus --resume --qualities: the first run stored {m} images "
+        f"({len(first)} of {len(files)} files); the resumed run's launches {launches}, "
+        f"expected {want_c} ({remaining} of {batches} batches)")
+    if launches != want_c:
+        fail("12c: the resumed run's launches differ from the remaining batches x 19 x layers")
+    out_c = os.path.join(work, "io_resume_out")
+    for extra in ([], ["--fastq"]):
+        if cli(["stitch", "-i", pred_dir, "-o", out_c, "-t", "4", *extra]) != 0:
+            fail(f"12c: stitch {' '.join(extra)} returned non-zero")
+    same = open(os.path.join(out_c, "HELEN_prediction.fa"), "rb").read() == open(
+        fasta6, "rb").read()
+    fq = [r[:2] for r in read_fastq(os.path.join(out_c, "HELEN_prediction.fq"))]
+    log(f"12c: the union of the stores stitches to phase 6's FASTA byte for byte: {same}; "
+        f"stitch --fastq's sequences are its: {fq == polished6}")
+    if not same or fq != polished6:
+        fail("12c: the resumed stores stitch to another FASTA or FASTQ")
+
+    # 12d: polish --fast --pack, on 12a's cache
+    stamp = os.stat(cache).st_mtime_ns
+    path, wall, timer_d, launches = io_polish(img_dir, out, pack=True, backend="pallas_fast")
+    want_d = {**OFF_PATH_ZERO, **fast_counts(batches * n_win, batches * n_win),
+              **{k: 0 for k in parity_counts(0, 0)}}
+    preds = sorted(glob.glob(os.path.join(out, "predictions_*")))[-1]
+    label_flips(store_labels(preds),
+                store_labels(glob.glob(os.path.join(work, "out_full_fast", "predictions_*"))[0]),
+                "12d polish --fast --pack against phase 10e's fast labels")
+    log(f"12d: wall {wall:.2f} s, consensus {timer_d.stages['call_consensus']:.2f} s = "
+        f"{n_images * n_win / timer_d.stages['call_consensus']:,.0f} windows/s; "
+        f"launches {launches}, expected {want_d}")
+    if launches != want_d:
+        fail("12d: launch counts differ from batches x windows x layers")
+    fast_fasta = os.path.join(work, "out_full_fast", "HELEN_prediction.fa")
+    if (os.stat(cache).st_mtime_ns != stamp
+            or open(path, "rb").read() != open(fast_fasta, "rb").read()):
+        fail("12d: the cache was rebuilt, or the FASTA is not phase 10e's")
+
+    # 12e: train --pack through the CLI, phase 7c's command for one epoch
+    from helen_tpu_torch.io.checkpoint import load_checkpoint
+    from helen_tpu_torch.ops import gru_window_bwd as gb
+    from helen_tpu_torch.ops import gru_window_wgrad as gwg
+
+    mods = (gw, gb, gwg)
+    for mod in mods:
+        mod.reset_launch_counts()
+    tout = os.path.join(work, "io_train")
+    t0 = time.perf_counter()
+    if cli(["train", "--train_image_dir", img_dir, "--test_image_dir",
+            os.path.join(work, "train_test"), "-b", str(TB), "-e", "1", "-w", "8", "-o", tout,
+            "--lr", "3e-3", "--seed", "11", "--pack"]) != 0:
+        fail("12e: train --pack returned non-zero")
+    wall = time.perf_counter() - t0
+    launches = {k: v for mod in mods for k, v in mod.launch_counts.items()}
+    n_test = len(MarginPolishDataset([os.path.join(work, "train_test", "held_out.h5")]))
+    train_batches = -(-n_images // TB)
+    want_e = train_counts((train_batches + -(-n_test // TB)) * n_win, train_batches * n_win)
+    ckpt = "HELEN_epoch_1_checkpoint.npz"
+    got = load_checkpoint(glob.glob(os.path.join(tout, "trained_models_*", "models", ckpt))[0])[0]
+    ref = load_checkpoint(glob.glob(os.path.join(work, "train_out", "trained_models_*",
+                                                 "models", ckpt))[0])[0]
+
+    def leaves(tree, prefix=""):
+        for k, v in sorted(tree.items()):
+            yield from (leaves(v, f"{prefix}{k}/") if isinstance(v, dict)
+                        else [(prefix + k, np.asarray(v))])
+
+    diff = max(float(np.abs(a[1] - b[1]).max()) for a, b in zip(leaves(got), leaves(ref)))
+    with open(glob.glob(os.path.join(tout, "trained_models_*", "stats", "epochs.jsonl"))[0]) as f:
+        epoch = json.loads(f.readline())
+    log(f"12e train --pack: 1 epoch of {n_images} images at -b {TB} from "
+        f"{os.path.join('io_train', 'train_images_cache.h5')}: wall {wall:.2f} s, training "
+        f"{epoch['train_seconds']:.2f} s = {epoch['train_windows'] / epoch['train_seconds']:,.0f} "
+        f"train windows/s, base acc {epoch['base_accuracy']:.3f}%; the epoch's parameters "
+        f"against phase 7c's first epoch (unpacked): max abs diff {diff!r}; launches "
+        f"{'as expected' if launches == want_e else launches}")
+    if launches != want_e:
+        fail("12e: train --pack launch counts differ from batches x windows x layers")
+    if not os.path.exists(os.path.join(tout, "train_images_cache.h5")) or diff != 0.0:
+        fail("12e: no training cache, or its epoch differs from the unpacked one")
+
+
 def main() -> int:
     import torch
 
@@ -2733,7 +2978,7 @@ def main() -> int:
         unseen = check_trained(work)
 
         phase("6. full-width polish")
-        run_full_width(img_dir, truth, n_images, work, results)
+        timer6 = run_full_width(img_dir, truth, n_images, work, results)
 
         phase("7a. backward kernels against their plain versions (B=256, T=100, H=128; "
               "pass 2 also at B=512)")
@@ -2791,6 +3036,12 @@ def main() -> int:
         phase("11c. golden fixtures through route 'encdec'")
         check_golden_encdec(results)
         log(f"phase 11: {time.perf_counter() - t11:.1f} s")
+
+        t12 = time.perf_counter()
+        phase("12. the I/O flags at full width: --pack, --writers, --fastq, --resume, "
+              "train --pack")
+        run_io_flags(img_dir, truth, n_images, work, timer6)
+        log(f"phase 12: {time.perf_counter() - t12:.1f} s")
 
     phase("8. result")
     log(smi)

@@ -5,9 +5,12 @@ either package: ``polish``, ``call_consensus``, ``stitch``, ``train``,
 ``test``, ``devices`` and ``version``. The model subcommands run on the GPU
 by default (``--device cuda``, an error when there is none) and take
 ``--device cpu``, or helen_tpu's top-level ``--platform cpu``.
-Flags and subcommands of helen_tpu paths that are not ported yet
-(``download_models``, ``convert``, ``hyperband``, ``assess``) are accepted
-and raise a "not yet ported" error instead of doing something else.
+The single-host I/O flags run as in helen_tpu (``--pack``, ``--writers``,
+``--resume``, ``--fastq``/``--qualities``). Flags and subcommands of
+helen_tpu paths that are not ported yet (multi-process jobs,
+``--model_parallel > 1``, ``--debug_mismatches``, ``download_models``,
+``convert``, ``hyperband``, ``assess``) are accepted and raise a "not yet
+ported" error instead of doing something else.
 
 Run as ``python -m helen_tpu_torch`` or via the ``helen_tpu_torch`` console
 script.
@@ -48,11 +51,16 @@ def _add_common_consensus_args(p: argparse.ArgumentParser) -> None:
                    help="the fast tier (--backend pallas_fast): bf16 operands, "
                         "float32 sums, gates and state; labels can flip on "
                         "near-tie votes")
-    # helen_tpu paths not ported yet: accepted, and they raise
-    p.add_argument("--resume", action="store_true", help="(not yet ported)")
-    p.add_argument("--pack", action="store_true", help="(not yet ported)")
+    p.add_argument("--resume", action="store_true",
+                   help="continue an interrupted run: skip every record already "
+                        "in the prediction stores (polish: the newest "
+                        "predictions_* directory of the output dir)")
+    p.add_argument("--pack", action="store_true",
+                   help="build/reuse a packed contiguous image cache for "
+                        "slab-read streaming (images_cache.h5 in the output dir)")
     p.add_argument("--writers", type=int, default=1,
-                   help="prediction-writer processes (> 1 not yet ported)")
+                   help="prediction-writer processes, each writing one shard "
+                        "file (stitch merges them)")
     p.add_argument("--host_shard", default="image", choices=["image", "file"],
                    help="multi-host work partition; one host takes every image "
                         "(multi-host jobs: not yet ported)")
@@ -81,7 +89,9 @@ def build_parser() -> argparse.ArgumentParser:
     _add_common_consensus_args(p)
     p.add_argument("-t", "--threads", type=int, default=4, help="stitch process count")
     p.add_argument("-p", "--output_prefix", default="HELEN_prediction")
-    p.add_argument("--fastq", action="store_true", help="(not yet ported)")
+    p.add_argument("--fastq", action="store_true",
+                   help="emit <prefix>.fq with per-base phred qualities from the "
+                        "consensus vote")
     p.add_argument("--barrier_timeout", type=float, default=86400.0,
                    help="multi-host barrier timeout in seconds; unused on one host "
                         "(multi-host jobs: not yet ported)")
@@ -92,7 +102,9 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("call_consensus", help="run model inference, write prediction HDF5")
     _add_common_consensus_args(p)
     p.add_argument("-p", "--output_prefix", default="helen_predictions")
-    p.add_argument("--qualities", action="store_true", help="(not yet ported)")
+    p.add_argument("--qualities", action="store_true",
+                   help="store a per-column phred quality beside the labels (for "
+                        "stitch --fastq)")
 
     p = sub.add_parser("stitch", help="stitch prediction HDF5 files into FASTA")
     p.add_argument("-i", "--input_dir", required=True,
@@ -100,7 +112,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-o", "--output_dir", default="./output/")
     p.add_argument("-p", "--output_prefix", default="HELEN_prediction")
     p.add_argument("-t", "--threads", type=int, default=4)
-    p.add_argument("--fastq", action="store_true", help="(not yet ported)")
+    p.add_argument("--fastq", action="store_true",
+                   help="emit FASTQ (requires a --qualities prediction store)")
 
     p = sub.add_parser("train", help="train the transducer model")
     p.add_argument("--train_image_dir", required=True)
@@ -127,7 +140,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "follows the checkpoint's geometry)")
     p.add_argument("--gru_layers", type=int, default=1,
                    help="stacked GRU layers per encoder/decoder for a FRESH model")
-    p.add_argument("--pack", action="store_true", help="(not yet ported)")
+    p.add_argument("--pack", action="store_true",
+                   help="build/reuse a packed cache of the labeled training images "
+                        "(train_images_cache.h5 in the output dir)")
     p.add_argument("--model_parallel", type=int, default=1,
                    help="tensor-parallel width (> 1 not yet ported)")
 
@@ -197,11 +212,6 @@ def _unported(args):
          "--num_processes/--process_id)",
          args.distributed or args.coordinator_address is not None
          or args.num_processes is not None or args.process_id is not None),
-        ("--resume", getattr(args, "resume", False)),
-        ("--pack", getattr(args, "pack", False)),
-        ("--writers > 1", getattr(args, "writers", 1) > 1),
-        ("--fastq/--qualities", getattr(args, "fastq", False)
-         or getattr(args, "qualities", False)),
         ("--model_parallel > 1", getattr(args, "model_parallel", 1) > 1),
         ("--debug_mismatches", getattr(args, "debug_mismatches", False)),
     ]
@@ -254,9 +264,13 @@ def main(argv=None) -> int:
             num_workers=args.num_workers,
             threads=args.threads,
             output_prefix=args.output_prefix,
+            resume=args.resume,
             profile_dir=args.profile_dir,
             backend=args.backend,
+            pack=args.pack,
+            num_writers=args.writers,
             pipeline_depth=args.pipeline_depth,
+            fastq=args.fastq,
             stream_stitch=not args.no_stream_stitch,
             device=args.device,
         )
@@ -273,8 +287,12 @@ def main(argv=None) -> int:
             batch_size=args.batch_size,
             num_workers=args.num_workers,
             output_prefix=args.output_prefix,
+            resume=args.resume,
             profile_dir=args.profile_dir,
             backend=args.backend,
+            pack=args.pack,
+            num_writers=args.writers,
+            qualities=args.qualities,
             pipeline_depth=args.pipeline_depth,
             device=args.device,
         )
@@ -300,6 +318,7 @@ def main(argv=None) -> int:
             hidden_size=args.hidden_size,
             gru_layers=args.gru_layers,
             device=args.device,
+            pack=args.pack,
         )
         return 0
 
@@ -324,6 +343,7 @@ def main(argv=None) -> int:
             output_dir=args.output_dir,
             output_prefix=args.output_prefix,
             threads=args.threads,
+            fastq=args.fastq,
         ))
         return 0
 

@@ -3,7 +3,8 @@
 Port of helen_tpu/infer/polish.py on one process (the reference's
 PolishInterface.polish_genome, PolishInterface.py:49-105): runs
 call_consensus into a timestamped predictions directory inside the output
-dir, then stitches the predictions into a polished FASTA, reporting
+dir (``resume``: the newest one), then stitches the predictions into a
+polished FASTA (``fastq``: a FASTQ with per-base qualities), reporting
 per-stage elapsed time. By default the stitch streams: region merges run on
 the stitch pool while consensus is still running (stitch.streaming,
 byte-identical to the classic store-reading stitch).
@@ -103,15 +104,23 @@ def polish(
 ) -> str:
     """Full polish: images -> consensus -> stitch -> polished FASTA path.
 
+    ``fastq=True`` stores per-column qualities at consensus and writes
+    <prefix>.fq with per-base phred qualities. ``resume`` continues the
+    newest ``predictions_*`` directory of ``output_dir``. ``pack`` keeps its
+    image cache in ``output_dir`` itself, so later runs reuse it;
+    ``num_writers`` as in call_consensus.
+
     ``stream_stitch`` (default on) overlaps stitching with consensus; it
-    falls back to the classic store-reading stitch when ``threads <= 1``,
-    when the metadata pre-scan fails, or on any mid-stream failure.
-    ``stage_timer`` receives the polish stages (call_consensus, stitch) and
-    the consensus stages inside them (device transfer, submit, read, store
-    write). ``backend`` goes to call_consensus as it is (``"pallas_fast"``,
-    what ``--fast`` sets, is the fast tier). ``resume``, ``pack``,
-    ``num_writers > 1`` and ``fastq`` raise in call_consensus (not yet
-    ported).
+    falls back to the classic store-reading stitch under ``resume`` (the
+    stores hold records this run never sees), when ``threads <= 1``, past
+    PRESCAN_IMAGE_LIMIT images unless the dataset's metadata is in memory
+    (``--pack``), when the metadata pre-scan fails, or on any mid-stream
+    failure. ``stage_timer`` receives the polish stages (call_consensus,
+    stitch) and the consensus stages inside them (image read, device
+    transfer, submit, read, store write, the streaming stitch's feed).
+    ``backend`` goes to
+    call_consensus as it is (``"pallas_fast"``, what ``--fast`` sets, is the
+    fast tier).
     """
     from helen_tpu_torch.infer.consensus import call_consensus, resolve_device
     from helen_tpu_torch.stitch.engine import prewarm_stitch_pool
@@ -119,14 +128,24 @@ def polish(
     resolve_device(device)  # fail before the stitch pool spawns
     timer = stage_timer if stage_timer is not None else StageTimer()
     output_dir = ensure_output_dir(output_dir)
-    pred_dir = timestamped_dir(output_dir, "predictions")
+    pred_dir = None
+    if resume:
+        # the newest predictions dir holds the interrupted run's stores
+        existing = sorted(d for d in os.listdir(output_dir)
+                          if d.startswith("predictions_")
+                          and os.path.isdir(os.path.join(output_dir, d)))
+        if existing:
+            pred_dir = os.path.join(output_dir, existing[-1])
+            log.info("resuming into %s", pred_dir)
+    if pred_dir is None:
+        pred_dir = timestamped_dir(output_dir, "predictions")
     # pre-warm the stitch pool BEFORE consensus: the worker spawn + imports
     # overlap the device-bound consensus stage
     stitch_pool = prewarm_stitch_pool(threads)
 
     sink = None
     sink_factory = None
-    if stream_stitch and stitch_pool is not None:
+    if stream_stitch and not resume and stitch_pool is not None:
         def sink_factory(dataset, indices, _pool=stitch_pool):
             nonlocal sink
             from helen_tpu_torch.config import STITCH
@@ -137,11 +156,13 @@ def polish(
             )
 
             n = len(dataset) if indices is None else len(indices)
-            if n > PRESCAN_IMAGE_LIMIT:
-                # the pre-scan is ~4 serial HDF5 reads per image — at this
-                # scale it would stall startup for minutes
-                log.info("streaming stitch off: %d images (metadata pre-scan "
-                         "would stall startup)", n)
+            if n > PRESCAN_IMAGE_LIMIT and not getattr(dataset, "CHEAP_META", False):
+                # the unpacked pre-scan is ~4 serial HDF5 reads per image —
+                # at this scale it would stall startup for minutes; the
+                # packed cache's metadata is in memory
+                log.info("streaming stitch off: %d images without --pack "
+                         "(metadata pre-scan would stall startup; add --pack "
+                         "to stream at this scale)", n)
                 return None
             try:
                 plan = build_stream_plan(dataset, indices, threads, STITCH)
@@ -170,6 +191,9 @@ def polish(
                 stream_sink_factory=sink_factory,
                 device=device,
                 stage_timer=timer,
+                # the cache in the stable parent, not the per-run timestamped
+                # predictions dir, so every later polish reuses it
+                cache_dir=output_dir,
             )
         with timer.stage("stitch"):
             if sink is not None and sink.ready():

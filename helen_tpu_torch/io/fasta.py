@@ -40,6 +40,19 @@ def write_fastq(path: str, records: Iterable[Tuple[str, str, str]]) -> int:
     return n
 
 
+def read_fastq(path: str):
+    """Minimal 4-line-record FASTQ reader (tests and eval tooling)."""
+    with open(path) as f:
+        while True:
+            header = f.readline()
+            if not header:
+                return
+            seq = f.readline().rstrip("\r\n")
+            f.readline()  # '+'
+            qual = f.readline().rstrip("\r\n")
+            yield header[1:].strip().split()[0], seq, qual
+
+
 def read_fasta(path: str):
     """Minimal FASTA reader (for tests and eval tooling)."""
     name = None

@@ -17,14 +17,21 @@ types, version-2 object headers) raises :class:`UnsupportedHDF5`.
 
 :class:`File` reads through a memory map and mirrors the small part of the
 h5py API the port calls (``f["a/b"]``, ``in``, ``keys()``, ``items()``,
-``dset[()]``). :class:`Writer` builds a file that libhdf5 (h5py, helen_tpu)
-reads back: dataset payloads go to disk as they are created; the metadata —
-object headers, local heaps, B-trees, symbol-table nodes and the superblock —
-is written at :meth:`Writer.close`, so a file is readable once closed.
+``dset[()]``, and on the first axis ``dset[a:b]`` and ``dset[index_array]``,
+which read only those rows). :class:`Writer` builds a file that libhdf5
+(h5py, helen_tpu) reads back: dataset payloads go to disk as they are
+created, or are reserved at their full shape and written by rows later
+(:meth:`WGroup.create_dataset`); the metadata — object headers, local heaps,
+B-trees, symbol-table nodes and the superblock — is written at
+:meth:`Writer.close`, the superblock last, so a file is readable once closed.
+:meth:`Writer.reopen` continues a file that was never closed: the bytes past
+a given end are cut, new payloads go after it, and :meth:`WGroup.link` adds
+the datasets whose payloads are already there.
 """
 from __future__ import annotations
 
 import mmap
+import os
 import struct
 from typing import Dict, Iterator, List, Tuple, Union
 
@@ -78,16 +85,29 @@ class Dataset:
         self._layout = _read_layout(mm, layout, name)
 
     def __getitem__(self, key) -> np.ndarray:
-        if key != () and key != Ellipsis:
-            raise UnsupportedHDF5("only whole-dataset reads (dset[()]) are supported")
+        """``dset[()]`` (the whole dataset), or rows of the first axis:
+        ``dset[a:b]`` or ``dset[index_array]`` (any order, repeats allowed),
+        which copy only those rows out of the map."""
+        whole = isinstance(key, tuple) and key == () or key is Ellipsis
+        if not whole:
+            if not self.shape:
+                raise UnsupportedHDF5(f"{self.name}: row reads of a scalar dataset")
+            if isinstance(key, slice):
+                if key.step not in (None, 1):
+                    raise UnsupportedHDF5("only unit-step row slices are supported")
+            else:
+                key = np.asarray(key)
+                if key.ndim != 1 or key.dtype.kind not in "iu":
+                    raise UnsupportedHDF5("row reads take a slice or a 1-D integer array")
         count = int(np.prod(self.shape, dtype=np.int64))
         kind, where, nbytes = self._layout
         if count == 0 or (kind == "contiguous" and where == UNDEF):
-            return np.zeros(self.shape, dtype=self.dtype)
+            return np.zeros(self.shape, dtype=self.dtype)[() if whole else key]
         if nbytes < count * self.dtype.itemsize:
             raise UnsupportedHDF5(f"{self.name}: storage smaller than its shape")
-        view = np.frombuffer(self._f._mm, dtype=self.dtype, count=count, offset=where)
-        out = view.reshape(self.shape).copy()
+        view = np.frombuffer(self._f._mm, dtype=self.dtype, count=count,
+                             offset=where).reshape(self.shape)
+        out = np.array(view if whole else view[key], copy=True)
         del view  # release the buffer export so the map can close
         return out
 
@@ -278,12 +298,33 @@ def _read_layout(mm, p: int, name: str) -> Tuple[str, int, int]:
 # ---------------------------------------------------------------------------
 
 class _WDataset:
-    def __init__(self, shape, dtype: np.dtype, addr: int, nbytes: int):
+    """A dataset being written. One made by :meth:`WGroup.create_dataset`
+    has its storage reserved and takes rows: ``dset[a:b] = rows``."""
+
+    def __init__(self, shape, dtype: np.dtype, addr: int, nbytes: int,
+                 writer: "Writer" = None):
         self.shape, self.dtype, self.addr, self.nbytes = shape, dtype, addr, nbytes
+        self._w = writer
+
+    def __setitem__(self, key, value) -> None:
+        if self._w is None or not isinstance(key, slice) or key.step not in (None, 1):
+            raise UnsupportedHDF5("row writes (dset[a:b] = rows) need a reserved dataset")
+        lo, hi, _ = key.indices(self.shape[0])
+        rows = np.ascontiguousarray(value, dtype=self.dtype)
+        if rows.shape != (hi - lo,) + tuple(self.shape[1:]):
+            raise ValueError(f"rows of shape {rows.shape} for [{lo}:{hi}] of {self.shape}")
+        row_bytes = self.nbytes // max(1, self.shape[0])
+        self._w._pwrite(self.addr + lo * row_bytes, rows.tobytes())
+
+
+def _check_dtype(dtype: np.dtype) -> None:
+    if dtype.kind not in "iufS" or dtype.kind == "f" and dtype.itemsize not in (4, 8):
+        raise UnsupportedHDF5(f"dataset dtype {dtype}")
 
 
 class WGroup:
-    """A group being written: ``create_group(path)``, ``g[name] = array``."""
+    """A group being written: ``create_group(path)``, ``g[name] = array``,
+    ``create_dataset(name, shape, dtype)``."""
 
     def __init__(self, writer: "Writer"):
         self._w = writer
@@ -301,6 +342,9 @@ class WGroup:
             node = child
         return node
 
+    def __contains__(self, name: str) -> bool:
+        return name in self.children
+
     def create_group(self, path: str) -> "WGroup":
         parent, _, name = path.strip("/").rpartition("/")
         node = self._walk(parent)
@@ -308,23 +352,66 @@ class WGroup:
             raise ValueError(f"{path!r} already exists")
         return node._walk(name)
 
-    def __setitem__(self, name: str, value) -> None:
+    def _add(self, name: str, d: _WDataset) -> _WDataset:
         if "/" in name or name in self.children:
             raise ValueError(f"cannot create dataset {name!r} here")
+        self.children[name] = d
+        return d
+
+    def __setitem__(self, name: str, value) -> None:
         arr = np.asarray(value)
-        if arr.dtype.kind not in "iufS" or arr.dtype.kind == "f" and arr.itemsize not in (4, 8):
-            raise UnsupportedHDF5(f"dataset dtype {arr.dtype}")
-        self.children[name] = _WDataset(arr.shape, arr.dtype, *self._w._append(arr))
+        _check_dtype(arr.dtype)
+        self._add(name, _WDataset(arr.shape, arr.dtype, *self._w._append(arr)))
+
+    def __getitem__(self, name: str) -> _WDataset:
+        d = self.children[name]
+        if not isinstance(d, _WDataset):
+            raise KeyError(f"{name!r} is not a dataset written in this session")
+        return d
+
+    def link(self, name: str, shape, dtype, addr: int) -> _WDataset:
+        """A dataset whose payload is already in the file at ``addr`` (a
+        writer recovering its records from a journal)."""
+        dtype = np.dtype(dtype)
+        _check_dtype(dtype)
+        nbytes = int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
+        return self._add(name, _WDataset(tuple(shape), dtype,
+                                         addr if nbytes else UNDEF, nbytes))
+
+    def create_dataset(self, name: str, shape, dtype) -> _WDataset:
+        """Reserve a contiguous dataset at its full shape; write its rows
+        later with ``dset[a:b] = rows`` (rows never written read as zeros)."""
+        dtype = np.dtype(dtype)
+        _check_dtype(dtype)
+        shape = tuple(int(s) for s in shape)
+        nbytes = int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
+        addr = self._w._reserve(nbytes) if nbytes else UNDEF
+        return self._add(name, _WDataset(shape, dtype, addr, nbytes, self._w))
 
 
 class Writer(WGroup):
-    """Write a new HDF5 file (see the module docstring)."""
+    """Write a new HDF5 file, or continue one never closed (:meth:`reopen`);
+    see the module docstring."""
 
-    def __init__(self, path: str):
+    def __init__(self, path: str, _end: int = None):
         super().__init__(self)
-        self._fh = open(path, "wb")
-        self._fh.write(b"\0" * _SB_SIZE)  # superblock, written at close
-        self._end = _SB_SIZE
+        if _end is None:
+            self._fh = open(path, "wb")
+            self._fh.write(b"\0" * _SB_SIZE)  # superblock, written at close
+            self._end = _SB_SIZE
+        else:
+            self._fh = open(path, "r+b")
+            self._fh.truncate(_end)
+            self._fh.seek(0)
+            self._fh.write(b"\0" * _SB_SIZE)  # never mistaken for a closed file
+            self._fh.seek(_end)
+            self._end = _end
+
+    @classmethod
+    def reopen(cls, path: str, end: int) -> "Writer":
+        """Continue writing ``path`` past byte ``end`` (the file is cut
+        there) with an empty root: the caller links what it keeps."""
+        return cls(path, _end=max(end, _SB_SIZE))
 
     def _append(self, arr: np.ndarray) -> Tuple[int, int]:
         if arr.nbytes == 0:
@@ -340,25 +427,51 @@ class Writer(WGroup):
         self._end += len(blob)
         return addr
 
+    def _reserve(self, nbytes: int) -> int:
+        addr = self._end
+        self._end += nbytes
+        self._fh.seek(self._end)  # the hole reads as zeros until written
+        return addr
+
+    def _pwrite(self, addr: int, data: bytes) -> None:
+        self._fh.flush()
+        os.pwrite(self._fh.fileno(), data, addr)
+
     def flush(self) -> None:
         """Push dataset payloads to the OS (the file is readable only after
         :meth:`close` writes the metadata)."""
         self._fh.flush()
 
-    def close(self) -> None:
+    def fileno(self) -> int:
+        return self._fh.fileno()
+
+    def sync(self) -> None:
+        """:meth:`flush`, then wait until the OS has them on disk."""
+        self._fh.flush()
+        os.fsync(self._fh.fileno())
+
+    def close(self, sync: bool = False) -> None:
+        """Write the metadata, then the superblock (``sync``: then wait until
+        the OS has the file on disk)."""
         if self._fh is None:
             return
         root, btree, heap = self._write_group(self)
-        eof = self._end
         sb = (SIGNATURE + bytes([0, 0, 0, 0, 0, 8, 8, 0])
               + struct.pack("<HHI", LEAF_K, INTERNAL_K, 0)
-              + struct.pack("<QQQQ", 0, UNDEF, eof, UNDEF)
+              + struct.pack("<QQQQ", 0, UNDEF, self._end, UNDEF)
               # root symbol-table entry, with the root's B-tree and heap cached
               + struct.pack("<QQII", 0, root, 1, 0) + struct.pack("<QQ", btree, heap))
-        self._fh.seek(0)
-        self._fh.write(sb)
+        self._pwrite(0, sb)
+        if sync:
+            os.fsync(self._fh.fileno())
         self._fh.close()
         self._fh = None
+
+    def abandon(self) -> None:
+        """Close the file without writing any metadata."""
+        if self._fh is not None:
+            self._fh.close()
+            self._fh = None
 
     def __enter__(self) -> "Writer":
         return self

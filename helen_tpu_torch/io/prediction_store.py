@@ -11,11 +11,14 @@ Writes/reads the same on-disk schema as the reference DataStore
 
 The ``<contig>-<start>-<end>`` prefix groups all image chunks of one
 MarginPolish region.  Unlike the reference (in-memory dedupe sets that die
-with the process), this store is resumable: ``has_chunk`` checks the file so
-an interrupted consensus run can skip already-written groups.
+with the process), this store is resumable: ``has_chunk`` answers from the
+keys already stored, so an interrupted consensus run skips them
+(``PredictionStore`` mode "a"; its files and journal are described there).
 """
 from __future__ import annotations
 
+import itertools
+import json
 import os
 import threading
 from typing import Dict, Iterator, List, Optional, Sequence, Set, Tuple
@@ -25,6 +28,10 @@ import numpy as np
 from helen_tpu_torch.io import hdf5
 
 PRED_ROOT = "predictions"
+# records between two syncs of the write-behind thread: it puts the payloads
+# on disk while the run goes on, so that a flush (one per ten batches of 512
+# in call_consensus) finds little left to sync
+WRITE_BEHIND_RECORDS = 512
 
 # Per-thread read-handle cache. Stitch reads each prediction file once per
 # REGION (thousands of times per contig), so files stay open. Handles are
@@ -75,42 +82,268 @@ def _contig_group(path: str, contig: str) -> Optional[hdf5.Group]:
     return groups[key]
 
 
+def close_read_handles(path: str) -> None:
+    """Drop this thread's cached read handle of ``path`` (a writer is about
+    to change the file)."""
+    cache = getattr(_read_handles, "files", None)
+    entry = cache.pop(path, None) if cache else None
+    if entry is not None:
+        entry[1].close()
+    groups = getattr(_read_handles, "groups", None)
+    if groups:
+        for key in [k for k in groups if k[0] == path]:
+            del groups[key]
+
+
+def _store_keys(f: hdf5.File) -> Set[Tuple[str, str]]:
+    keys: Set[Tuple[str, str]] = set()
+    if PRED_ROOT in f:
+        root = f[PRED_ROOT]
+        for contig in root.keys():
+            cgrp = root[contig]
+            for region in cgrp.keys():
+                keys.update((region, k) for k in cgrp[region].keys()
+                            if k not in ("contig_start", "contig_end"))
+    return keys
+
+
+def _chunk_keys(path: str) -> Set[Tuple[str, str]]:
+    """(region, chunk) keys present in an existing prediction file (none if
+    there is no file at ``path``)."""
+    if not os.path.exists(path):
+        return set()
+    with hdf5.File(path) as f:
+        return _store_keys(f)
+
+
+def _journal(path: str) -> Iterator[Tuple[dict, int]]:
+    """(entry, offset past it) of each whole line of a store's journal; a
+    torn last line (a kill mid-write) ends it. Read as a stream: a genome's
+    journal holds millions of records."""
+    valid = 0
+    with open(path, "rb") as f:
+        for line in f:
+            if not line.endswith(b"\n"):
+                return
+            try:
+                entry = json.loads(line)
+            except ValueError:
+                return
+            valid += len(line)
+            yield entry, valid
+
+
+def _entry_end(entry: dict) -> int:
+    """The first byte past an entry's payloads."""
+    if "r" in entry:
+        return entry["r"][3] + 16
+    _, _, _, rows, addrs = entry["c"]
+    sizes = (12 * rows, rows, rows, rows)
+    return max((a + n for a, n in zip(addrs, sizes) if a is not None and n), default=0)
+
+
+def generation(path: str, k: int) -> str:
+    """The ``k``-th file of the store named ``path``: ``path`` itself, then
+    ``<root>.r<k><ext>``, the file each resumed run after it writes."""
+    if k == 0:
+        return path
+    root, ext = os.path.splitext(path)
+    return f"{root}.r{k}{ext}"
+
+
+def store_files(path: str) -> List[str]:
+    """The files of the store named ``path`` that exist, complete or left
+    partial by a killed run, in the order they were written."""
+    out = []
+    for k in itertools.count():
+        p = generation(path, k)
+        if not (os.path.exists(p) or os.path.exists(p + ".partial")):
+            return out
+        out.append(p)
+
+
 class PredictionStore:
     """Writer for one prediction file (one file per inference shard).
 
-    Writes go through the port's own HDF5 writer (io.hdf5): payloads reach
-    the file as they are written, the group metadata when the store closes,
-    and the file appears at its name only then (atomic replace). The on-disk
+    Writes go through the port's own HDF5 writer (io.hdf5); the on-disk
     schema is the reference's (module docstring), readable by h5py and by
-    helen_tpu's stitch. Only mode "w" (a fresh store) is supported: resuming
-    into an existing store is not ported yet.
+    helen_tpu's stitch. A file is written as ``<name>.partial`` and appears
+    at its name, complete, only when it closes; a complete file is never
+    written again. Mode "w" starts the store afresh. Mode "a" continues
+    it: ``has_chunk`` answers for every record in its files
+    (:func:`store_files`); a file a killed run left partial is recovered and
+    written on; else new records go to the next file of the store
+    (:func:`generation`), made at the first of them, so a resumed run that
+    adds nothing leaves the store as it was. Stitch reads every ``*.hdf``
+    of a directory, so it merges them all.
+
+    Crash behaviour: beside the payloads, ``<name>.journal`` gets one line
+    per region and per record since the last :meth:`flush`, which syncs the
+    payloads, then the journal. A run killed after a flush resumes (mode
+    "a") from the journal: the group tree is rebuilt from it and the bytes
+    past its last record are cut, so every record that flush covered is
+    kept. A flush costs the records written since the last one, whatever
+    the store's size, and less than that: a write-behind thread syncs the
+    payloads every ``WRITE_BEHIND_RECORDS`` records while the run goes on,
+    so the flush's own sync finds little left. Closing after an exception only flushes: the file
+    stays resumable and is not published.
     """
 
     def __init__(self, filename: str, mode: str = "w"):
-        if mode != "w":
-            raise NotImplementedError(
-                "appending to a prediction store (--resume) is not yet ported")
-        self.filename = filename
-        self._tmp = f"{filename}.tmp{os.getpid()}"
-        self.file: Optional[hdf5.Writer] = hdf5.Writer(self._tmp)
+        if mode not in ("w", "a"):
+            raise ValueError(f"mode must be 'w' or 'a', got {mode!r}")
+        self.file: Optional[hdf5.Writer] = None
+        self._journal = None
+        self._pending: List[bytes] = []
+        self._chunks: Set[Tuple[str, str]] = set()
+        self._region_groups: Dict[str, hdf5.WGroup] = {}
+        if mode == "w":
+            for k in itertools.count():
+                p = generation(filename, k)
+                gone = [x for x in (p, p + ".partial", p + ".journal") if os.path.exists(x)]
+                for x in gone:
+                    os.unlink(x)
+                if not gone and k:
+                    break
+            self._target(filename)
+            self._create()
+            return
+        for k in itertools.count():
+            path = generation(filename, k)
+            partial = os.path.exists(path + ".partial")
+            if partial and os.path.exists(path + ".journal"):
+                self._target(path)
+                self._recover()
+                return
+            if not os.path.exists(path):
+                self._target(path)
+                if partial:
+                    os.unlink(self.partial)  # a kill before its journal began
+                if k == 0:
+                    # a store with no file yet: made now, as in mode "w", so
+                    # even one that receives nothing exists for stitch
+                    self._create()
+                return
+            if os.path.exists(path + ".journal"):
+                os.unlink(path + ".journal")  # outlived its run's close
+            self._chunks |= _chunk_keys(path)
+
+    def _target(self, path: str) -> None:
+        """The file this store writes."""
+        self.filename = path
+        self.partial = path + ".partial"
+        self.journal_path = path + ".journal"
+        close_read_handles(path)
+
+    def _create(self) -> None:
+        self.file = hdf5.Writer(self.partial)
         # always present, even in a store that ends up receiving zero chunks:
         # stitch treats an empty predictions group as an empty shard, while a
         # file with NO predictions group stays a hard error
         self.file.create_group(PRED_ROOT)
-        self._chunks: Set[Tuple[str, str]] = set()
-        self._region_groups: Dict[str, hdf5.WGroup] = {}
+        self._journal = open(self.journal_path, "wb")
+        self._start_write_behind()
+
+    def _recover(self) -> None:
+        """Rebuild the tree of a killed run's file from its journal and cut
+        the bytes past the last journaled record."""
+        end = valid = 0
+        for e, valid in _journal(self.journal_path):
+            end = max(end, _entry_end(e))
+        self.file = hdf5.Writer.reopen(self.partial, end)
+        self.file.create_group(PRED_ROOT)
+        for e, _ in _journal(self.journal_path):
+            if "r" in e:
+                contig, cs, ce, addr = e["r"]
+                region = f"{contig}-{cs}-{ce}"
+                rgrp = self.file.create_group(f"{PRED_ROOT}/{contig}/{region}")
+                rgrp.link("contig_start", (), np.int64, addr)
+                rgrp.link("contig_end", (), np.int64, addr + 8)
+                self._region_groups[region] = rgrp
+                continue
+            contig, region, chunk, rows, addrs = e["c"]
+            self._chunks.add((region, chunk))
+            cg = self._region_groups[region].create_group(chunk)
+            cg.link("position", (rows, 3), np.uint32, addrs[0])
+            cg.link("bases", (rows,), np.uint8, addrs[1])
+            cg.link("rles", (rows,), np.uint8, addrs[2])
+            if addrs[3] is not None:
+                cg.link("quals", (rows,), np.uint8, addrs[3])
+        self._journal = open(self.journal_path, "r+b")  # the torn tail goes
+        self._journal.truncate(valid)
+        self._journal.seek(valid)
+        self._start_write_behind()
+
+    def _start_write_behind(self) -> None:
+        self._since_kick = 0
+        self._kick = threading.Event()
+        self._stopping = False
+        self._behind_error: Optional[OSError] = None
+        self._behind = threading.Thread(target=self._write_behind, args=(self.file.fileno(),),
+                                        daemon=True)
+        self._behind.start()
+
+    def _write_behind(self, fd: int) -> None:
+        """Sync the payload file each time it is kicked, until stopped."""
+        while True:
+            self._kick.wait()
+            self._kick.clear()
+            if self._stopping:
+                return
+            try:
+                os.fsync(fd)
+            except OSError as exc:  # raised by the next flush
+                self._behind_error = exc
+                return
+
+    def _stop_write_behind(self) -> None:
+        self._stopping = True
+        self._kick.set()
+        self._behind.join()
 
     def __enter__(self) -> "PredictionStore":
         return self
 
     def __exit__(self, *exc) -> None:
-        self.close()
+        if exc[0] is None:
+            self.close()
+        else:
+            self.abort()
 
     def close(self) -> None:
+        """Publish the file: its metadata, then the superblock, then its
+        name. A store that made no file is left as it was."""
         if self.file is not None:
-            self.file.close()
+            self.flush()
+            self._stop_write_behind()
+            self.file.close(sync=True)
             self.file = None
-            os.replace(self._tmp, self.filename)
+            os.replace(self.partial, self.filename)
+            self._journal.close()
+            os.unlink(self.journal_path)
+
+    def abort(self) -> None:
+        """Flush (unless a sync has failed) and stop, leaving the file to a
+        resumed run (mode "a")."""
+        if self.file is not None:
+            try:
+                if self._behind_error is None:
+                    self.flush()
+            finally:
+                self._stop_write_behind()
+                self.file.abandon()
+                self.file = None
+                self._journal.close()
+
+    def preload_chunk_keys(self, keys) -> None:
+        """Union extra (region, chunk) keys into the dedupe set — used by a
+        resumed run to skip chunks that live in OTHER shard files (e.g. a
+        previous --writers pool's shards)."""
+        self._chunks.update(tuple(k) for k in keys)
+
+    def has_chunk(self, contig: str, contig_start: int, contig_end: int,
+                  chunk_id: int) -> bool:
+        return (f"{contig}-{contig_start}-{contig_end}", str(chunk_id)) in self._chunks
 
     def write_prediction(
         self,
@@ -143,17 +376,22 @@ class PredictionStore:
                 "representable in the prediction-store HDF5 layout"
             )
         region = f"{contig}-{contig_start}-{contig_end}"
+        key = (region, str(chunk_id))
+        if key in self._chunks:
+            return False
+        self._chunks.add(key)
+        if self.file is None:
+            self._create()  # the first new record of a resumed run
         rgrp = self._region_groups.get(region)
         if rgrp is None:
             rgrp = self.file.create_group(f"{PRED_ROOT}/{contig}/{region}")
             rgrp["contig_start"] = np.int64(contig_start)
             rgrp["contig_end"] = np.int64(contig_end)
             self._region_groups[region] = rgrp
-        key = (region, str(chunk_id))
-        if key in self._chunks:
-            return False
-        self._chunks.add(key)
-        cg = rgrp.create_group(str(chunk_id))
+            self._pending.append(json.dumps(
+                {"r": [contig, int(contig_start), int(contig_end),
+                       rgrp["contig_start"].addr]}).encode())
+        cg = rgrp.create_group(key[1])
         cg["position"] = np.asarray(position).astype(np.uint32)
         cg["bases"] = np.asarray(bases, dtype=np.uint8)
         cg["rles"] = np.asarray(rles, dtype=np.uint8)
@@ -162,10 +400,31 @@ class PredictionStore:
             # dataset inside the chunk group, invisible to schema-compatible
             # readers that only fetch position/bases/rles
             cg["quals"] = np.asarray(quals, dtype=np.uint8)
+        addrs = [cg[n].addr if n in cg else None
+                 for n in ("position", "bases", "rles", "quals")]
+        self._pending.append(json.dumps(
+            {"c": [contig, region, key[1], int(cg["bases"].shape[0]),
+                   [None if a == hdf5.UNDEF else a for a in addrs]]}).encode())
+        self._since_kick += 1
+        if self._since_kick == WRITE_BEHIND_RECORDS:
+            self._since_kick = 0
+            self.file.flush()  # to the OS, where the write-behind thread syncs it
+            self._kick.set()
         return True
 
     def flush(self) -> None:
-        self.file.flush()
+        """Sync the payloads written since the last flush, then journal
+        them: after this a killed run resumes with every record so far."""
+        if self.file is None:
+            return
+        if self._behind_error is not None:
+            raise self._behind_error
+        self.file.sync()
+        if self._pending:
+            self._journal.write(b"\n".join(self._pending) + b"\n")
+            self._pending = []
+        self._journal.flush()
+        os.fsync(self._journal.fileno())
 
 
 def list_contigs(prediction_files: List[str]) -> List[str]:

@@ -439,3 +439,26 @@ def consensus_labels(
     base_probs, rle_probs = consensus_probs(params, images, window_cfg, backend, route)
     return (torch.argmax(base_probs, dim=-1).to(torch.uint8),
             torch.argmax(rle_probs, dim=-1).to(torch.uint8))
+
+
+def consensus_labels_and_quality(
+    params: Params,
+    images: torch.Tensor,
+    window_cfg: WindowConfig = WINDOW,
+    backend: str = "torch",
+    route: Optional[str] = None,
+    max_q: int = 60,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Labels plus a per-column phred-scaled confidence (uint8, capped),
+    helen_tpu's ``consensus_labels_and_quality``: the normalised winning
+    vote of both heads becomes q = -10 log10(1 - p_base * p_rle), clipped to
+    [0, max_q] and rounded half to even. The labels are
+    :func:`consensus_labels`' (the same vote, the same argmax)."""
+    base_probs, rle_probs = consensus_probs(params, images, window_cfg, backend, route)
+    p_base = base_probs.amax(dim=-1) / torch.clamp(base_probs.sum(dim=-1), min=1e-12)
+    p_rle = rle_probs.amax(dim=-1) / torch.clamp(rle_probs.sum(dim=-1), min=1e-12)
+    err = torch.clamp(1.0 - p_base * p_rle, 10.0 ** (-(max_q / 10.0)), 1.0)
+    q = torch.clamp(-10.0 * torch.log10(err), 0.0, float(max_q))
+    return (torch.argmax(base_probs, dim=-1).to(torch.uint8),
+            torch.argmax(rle_probs, dim=-1).to(torch.uint8),
+            torch.round(q).to(torch.uint8))

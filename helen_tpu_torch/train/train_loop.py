@@ -204,8 +204,10 @@ class EpochStats:
 
 class Trainer:
     """Single-process trainer on one device (helen_tpu's ``Trainer`` with
-    ``data_parallel=False``). Data-parallel, multi-process and
-    model-parallel training, and the packed training cache, are not yet
+    ``data_parallel=False``). ``pack`` reads the training images from a
+    packed cache (io.packed), ``<cache_dir or model_dir>/train_images_cache.h5``,
+    built once with labels and reused while the image files are unchanged.
+    Data-parallel, multi-process and model-parallel training are not yet
     ported (ROADMAP queue A)."""
 
     def __init__(
@@ -221,6 +223,8 @@ class Trainer:
         backend: str = "auto",
         model_cfg: ModelConfig = MODEL,
         device: str = "cuda",
+        pack: bool = False,
+        cache_dir: Optional[str] = None,
     ):
         self.device = resolve_device(device)
         set_fp32_precision()
@@ -266,6 +270,24 @@ class Trainer:
         self.dataset = MarginPolishDataset(self.train_files, IMAGE, with_labels=True)
         if len(self.dataset) == 0:
             raise ValueError("no labeled training images found")
+        # packed training cache: group-per-image HDF5 reads repeat EVERY
+        # epoch; one slab-readable cache (reused across runs via cache_dir)
+        # removes that. Packed indices equal dataset indices (pack_images
+        # writes in index order), so the epoch permutation — and a
+        # mid-epoch resume — replay the same batches on either path
+        self.packed_train = None
+        if pack:
+            from helen_tpu_torch.io.packed import PackedDataset, cache_is_fresh, pack_images
+
+            cache_path = os.path.join(cache_dir or model_dir, "train_images_cache.h5")
+            if not cache_is_fresh(cache_path, self.train_files, with_labels=True):
+                log.info("building packed training cache %s", cache_path)
+                pack_images(self.train_files, cache_path, IMAGE, with_labels=True,
+                            dataset=self.dataset)
+            self.packed_train = PackedDataset(cache_path, with_labels=True)
+            if len(self.packed_train) != len(self.dataset):
+                raise RuntimeError(f"{cache_path} holds {len(self.packed_train)} images, "
+                                   f"the training files {len(self.dataset)}")
         self.test_dataset = MarginPolishDataset(self.test_files, IMAGE, with_labels=True)
         log.info("training on %d images, evaluating on %d files",
                  len(self.dataset), len(self.test_files))
@@ -299,8 +321,14 @@ class Trainer:
             indices = indices[skip_batches * bs:]
             log.info("mid-epoch resume: skipping %d already-trained batches",
                      skip_batches)
-        batches = batched_image_iterator(self.dataset, bs, self.num_workers,
-                                         indices=indices, pad_final=True)
+        if self.packed_train is not None:
+            from helen_tpu_torch.io.packed import packed_batch_iterator, prefetch_iterator
+
+            batches = prefetch_iterator(packed_batch_iterator(
+                self.packed_train, bs, indices=indices, pad_final=True))
+        else:
+            batches = batched_image_iterator(self.dataset, bs, self.num_workers,
+                                             indices=indices, pad_final=True)
         with open(os.path.join(self.stats_dir, "train_loss.csv"), "a", newline="") as f:
             writer = csv.writer(f)
             for bi, batch in enumerate(batches, start=skip_batches):
@@ -383,10 +411,13 @@ def train_interface(
     hidden_size: int = MODEL.hidden_size,
     gru_layers: int = MODEL.gru_layers,
     device: str = "cuda",
+    pack: bool = False,
 ) -> List[EpochStats]:
     """CLI entry: timestamped model/stats dirs like the reference
     (TrainInterface.py + FileManager.py:25-48). hidden_size/gru_layers pick
-    the geometry of a fresh model; retraining follows the checkpoint's."""
+    the geometry of a fresh model; retraining follows the checkpoint's.
+    ``pack``: the packed training cache, kept in ``output_dir`` itself (not
+    the run's timestamped dir) so later runs reuse it."""
     import dataclasses as _dc
 
     cfg = _dc.replace(TRAIN, batch_size=batch_size, learning_rate=learning_rate,
@@ -405,5 +436,7 @@ def train_interface(
         backend=backend,
         model_cfg=model_cfg,
         device=device,
+        pack=pack,
+        cache_dir=ensure_output_dir(output_dir),
     )
     return trainer.run(epochs)

@@ -1,9 +1,11 @@
-"""helen_tpu_torch stands alone: it imports neither JAX nor helen_tpu.
+"""helen_tpu_torch stands alone: it imports neither JAX, nor h5py, nor
+helen_tpu.
 
 An AST scan of every module of the port (and of chip_smoke.py, which drives
-it on the GPU) fails on any import of ``jax`` or ``helen_tpu``; subprocesses
-with ``jax`` and ``h5py`` blocked import the package and polish the golden
-images, and train and test a small model, on the CPU.
+it on the GPU) fails on any import of ``jax``, ``h5py`` or ``helen_tpu``;
+subprocesses with ``jax`` and ``h5py`` blocked import the package and polish
+the golden images (also with ``--pack --writers 2 --fastq``), and train and
+test a small model (also with ``--pack``), on the CPU.
 """
 import ast
 import glob
@@ -20,7 +22,7 @@ PORT_FILES = sorted(
     os.path.relpath(p, ROOT)
     for p in glob.glob(os.path.join(ROOT, "helen_tpu_torch", "**", "*.py"), recursive=True)
 ) + ["chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "helen_tpu")
+FORBIDDEN = ("jax", "jaxlib", "h5py", "helen_tpu")
 
 
 def _forbidden(name: str) -> bool:
@@ -50,6 +52,8 @@ def test_port_has_modules():
     for mod in ("gru_window", "gru_window_bwd", "gru_window_autograd", "gru_window_xp",
                 "gru_window_xp_bwd", "gru_window_encdec", "gru_window_smem"):
         assert f"helen_tpu_torch/ops/{mod}.py" in PORT_FILES
+    for mod in ("hdf5", "prediction_store", "writer_pool", "packed", "images"):
+        assert f"helen_tpu_torch/io/{mod}.py" in PORT_FILES
 
 
 @pytest.mark.parametrize("rel", PORT_FILES)
@@ -65,6 +69,8 @@ def test_scan_catches_forbidden_imports(tmp_path):
                    "    importlib.import_module('helen_tpu.io')\n")
     assert sorted(n for n in imported_names(str(src)) if _forbidden(n)) == [
         "helen_tpu.config", "helen_tpu.io", "jax.numpy"]
+    src.write_text("import h5py\nfrom helen_tpu_torch.io import hdf5\n")
+    assert [n for n in imported_names(str(src)) if _forbidden(n)] == ["h5py"]
 
 
 def _run(code: str, timeout: int = 120):
@@ -106,6 +112,47 @@ def test_polishes_on_cpu_with_jax_and_h5py_blocked(tmp_path):
     with open(out / "HELEN_prediction.fa", "rb") as a, \
             open(os.path.join(GOLDEN_DIR, "golden.fa"), "rb") as b:
         assert a.read() == b.read()
+
+
+def test_io_flags_run_on_cpu_with_jax_and_h5py_blocked(tmp_path):
+    """``polish --pack --writers 2 --fastq`` twice (the second run reads the
+    cache the first wrote through) then ``--resume``, and ``train --pack``,
+    with ``import jax`` and ``import h5py`` made to fail: the FASTQ's
+    sequences are the golden FASTA's."""
+    images = stage_golden_images(tmp_path / "images")
+    out = tmp_path / "out"
+    code = (
+        "import glob, os, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['h5py'] = None\n"
+        "import torch\n"
+        "torch.set_num_threads(2)\n"
+        "from helen_tpu_torch.cli import main\n"
+        "from helen_tpu_torch.io.fasta import read_fasta, read_fastq\n"
+        "from helen_tpu_torch.io.synthetic import random_sequence, write_image_file\n"
+        "if __name__ == '__main__':\n"
+        "    for extra in ([], [], ['--resume']):\n"
+        f"        assert main(['polish', '-i', {images!r}, '-m', {golden('golden_model.pkl')!r},"
+        f" '-o', {str(out)!r}, '--device', 'cpu', '-t', '2', '--pack', '--writers', '2',"
+        " '--fastq'] + extra) == 0\n"
+        f"        fq = [r[:2] for r in read_fastq(os.path.join({str(out)!r}, 'HELEN_prediction.fq'))]\n"
+        f"        assert fq == list(read_fasta({os.path.join(GOLDEN_DIR, 'golden.fa')!r}))\n"
+        f"    root = {str(tmp_path)!r}\n"
+        "    for name, bp in (('tr', 6000), ('te', 2500)):\n"
+        "        os.makedirs(os.path.join(root, name))\n"
+        "        write_image_file(os.path.join(root, name, 'i.h5'),\n"
+        "                         {name: random_sequence(bp, seed=bp)}, region_cols=1000,\n"
+        "                         overlap_cols=0, noise=0.05)\n"
+        "    assert main(['train', '--train_image_dir', os.path.join(root, 'tr'),\n"
+        "                 '--test_image_dir', os.path.join(root, 'te'), '-b', '4', '-e', '1',\n"
+        "                 '-w', '2', '-o', os.path.join(root, 'tout'), '--device', 'cpu',\n"
+        "                 '--hidden_size', '16', '--pack']) == 0\n"
+        "    assert not any(m in ('jax', 'h5py', 'helen_tpu') or m.startswith(('jax.', 'helen_tpu.'))"
+        " for m in sys.modules if sys.modules[m] is not None)\n"
+    )
+    proc = _run(code, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert os.path.exists(out / "images_cache.h5")
 
 
 def test_trains_and_tests_on_cpu_with_jax_and_h5py_blocked(tmp_path):

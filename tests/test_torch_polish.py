@@ -5,7 +5,7 @@ the reference torch code, with the streaming stitch and with the classic
 one; the trained checkpoint polishes an unseen sequence to the truth; the
 port's prediction store stitches to the same FASTA in helen_tpu. The CLI
 (polish, call_consensus, train, test) refuses to fall back to the CPU, and
-refuses flags of paths not yet ported.
+refuses flags of paths not yet ported; the I/O flags ported since run.
 """
 import hashlib
 import os
@@ -177,41 +177,80 @@ def test_fast_and_backend_together_are_refused(capsys):
     assert "mutually exclusive" in capsys.readouterr().err
 
 
+# helen_tpu's flags whose paths the port lacked: the multi-process ones
+# are still refused; the single-host I/O flags (True) are ported and run
 UNPORTED = [
-    ("--pack", ["polish", "--pack"]),
-    ("--resume", ["call_consensus", "--resume"]),
-    ("--writers", ["polish", "--writers", "2"]),
-    ("--fastq", ["polish", "--fastq"]),
-    ("--qualities", ["call_consensus", "--qualities"]),
+    ("--pack", ["polish", "--pack"], True),
+    ("--resume", ["call_consensus", "--resume"], True),
+    ("--writers", ["polish", "--writers", "2"], True),
+    ("--fastq", ["polish", "--fastq"], True),
+    ("--qualities", ["call_consensus", "--qualities"], True),
     # --host_shard is helen_tpu's default on one host; a multi-host job raises
-    ("--host_shard", ["--distributed", "polish", "--host_shard", "file"]),
-    ("--num_processes", ["--num_processes", "2", "polish"]),
+    ("--host_shard", ["--distributed", "polish", "--host_shard", "file"], False),
+    ("--num_processes", ["--num_processes", "2", "polish"], False),
 ]
 TRAIN_ARGS = ["--train_image_dir", "tr", "--test_image_dir", "te", "--device", "cpu"]
 TEST_ARGS = ["--test_image_dir", "te", "-m", "model.npz", "--device", "cpu"]
 UNPORTED_TRAIN = [
-    ("train--pack", ["train", "--pack", *TRAIN_ARGS]),
-    ("train--model_parallel", ["train", "--model_parallel", "2", *TRAIN_ARGS]),
-    ("train--distributed", ["--distributed", "train", *TRAIN_ARGS]),
-    ("test--debug_mismatches", ["test", "--debug_mismatches", *TEST_ARGS]),
+    ("train--pack", ["train", "--pack", *TRAIN_ARGS], True),
+    ("train--model_parallel", ["train", "--model_parallel", "2", *TRAIN_ARGS], False),
+    ("train--distributed", ["--distributed", "train", *TRAIN_ARGS], False),
+    ("test--debug_mismatches", ["test", "--debug_mismatches", *TEST_ARGS], False),
 ]
 
 
-@pytest.mark.parametrize("argv", [a for _, a in UNPORTED], ids=[i for i, _ in UNPORTED])
-def test_unported_flags_are_refused(argv, capsys):
-    with pytest.raises(SystemExit) as exc:
-        cli(*argv, "-i", "imgs", "-m", "model.pkl", "--device", "cpu")
-    assert exc.value.code == 2
-    assert "not yet ported" in capsys.readouterr().err
+@pytest.mark.parametrize("argv,ported", [a[1:] for a in UNPORTED],
+                         ids=[a[0] for a in UNPORTED])
+def test_unported_flags_are_refused(argv, ported, tmp_path, capsys):
+    """A multi-process flag exits 2 with "not yet ported". An I/O flag,
+    ported since it was listed here, runs on the golden images: its FASTA
+    (or the FASTQ's sequences, or the store stitched) is the golden one."""
+    from helen_tpu_torch.infer.polish import perform_stitch
+    from helen_tpu_torch.io.fasta import read_fasta, read_fastq
+
+    if not ported:
+        with pytest.raises(SystemExit) as exc:
+            cli(*argv, "-i", "imgs", "-m", "model.pkl", "--device", "cpu")
+        assert exc.value.code == 2
+        assert "not yet ported" in capsys.readouterr().err
+        return
+    images = stage_golden_images(tmp_path / "images")
+    out = tmp_path / "out"
+    extra = ["-t", 2] if argv[0] == "polish" else []
+    assert cli(*argv, "-i", images, "-m", golden("golden_model.pkl"), "-o", out,
+               "--device", "cpu", *extra) == 0
+    assert "not yet ported" not in capsys.readouterr().err
+    fastq = "--fastq" in argv or "--qualities" in argv
+    if argv[0] == "call_consensus":
+        out = perform_stitch(str(out), str(tmp_path / "st"), threads=1, fastq=fastq)
+    else:
+        out = str(out / ("HELEN_prediction.fq" if fastq else "HELEN_prediction.fa"))
+    got = [r[:2] for r in read_fastq(out)] if fastq else list(read_fasta(out))
+    assert got == list(read_fasta(golden("golden.fa")))
 
 
-@pytest.mark.parametrize("argv", [a for _, a in UNPORTED_TRAIN],
-                         ids=[i for i, _ in UNPORTED_TRAIN])
-def test_unported_train_flags_are_refused(argv, capsys):
-    with pytest.raises(SystemExit) as exc:
-        cli(*argv)
-    assert exc.value.code == 2
-    assert "not yet ported" in capsys.readouterr().err
+@pytest.mark.parametrize("argv,ported", [a[1:] for a in UNPORTED_TRAIN],
+                         ids=[a[0] for a in UNPORTED_TRAIN])
+def test_unported_train_flags_are_refused(argv, ported, tmp_path, capsys):
+    """As above for train and test: ``train --pack``, ported, trains one
+    epoch of a fresh H=16 model from its packed cache."""
+    if not ported:
+        with pytest.raises(SystemExit) as exc:
+            cli(*argv)
+        assert exc.value.code == 2
+        assert "not yet ported" in capsys.readouterr().err
+        return
+    from helen_tpu_torch.io.synthetic import random_sequence, write_image_file
+
+    for name, bp in (("tr", 6000), ("te", 2500)):
+        os.makedirs(tmp_path / name)
+        write_image_file(str(tmp_path / name / "i.h5"), {name: random_sequence(bp, seed=bp)},
+                         region_cols=1000, overlap_cols=0, noise=0.05)
+    argv = [str(tmp_path / a) if a in ("tr", "te") else a for a in argv]
+    assert cli(*argv, "-b", 4, "-e", 1, "-w", 2, "--hidden_size", 16, "-o",
+               tmp_path / "out") == 0
+    assert "not yet ported" not in capsys.readouterr().err
+    assert os.path.exists(tmp_path / "out" / "train_images_cache.h5")
 
 
 def test_version_and_devices(capsys):
