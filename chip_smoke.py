@@ -67,6 +67,12 @@ against its FASTA, the launches counted and the host stages tabled beside phase
 it was, the new records in the store's next file; the stores stitch to phase
 6's FASTA byte for byte); ``polish --fast --pack`` against phase 10e (0
 flips); ``train --pack`` against phase 7c's first epoch (bit for bit).
+Phase 13 polishes the golden images as h5py writes them chunked and
+compressed, in the earliest format and in the newest (committed under
+tests/torch_hdf5_variants/; the port reads them with its own HDF5 reader),
+and runs ``call_consensus --pack`` over the chunked one: each to the golden
+FASTA byte for byte with 0+0 label flips, its image reads timed beside the
+contiguous file's.
 Every phase fails the script on error; nothing falls back.
 The second-to-last line is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
@@ -491,10 +497,29 @@ def check_kernels(images_u8, results) -> None:
             fail(f"H={hx}: the kernels disagree with their plain versions or each other")
 
 
-def check_golden(work: str) -> None:
-    """Phase 4: the golden fixtures through the CLI on the card."""
+def golden_label_flips(preds: str, stem: str = "golden") -> tuple:
+    """(base flips, rle flips, labels per head) of a prediction store
+    against the recorded ``<stem>_labels.npz``; fails unless it holds the
+    recorded images."""
     import numpy as np
 
+    want = np.load(os.path.join(GOLDEN, f"{stem}_labels.npz"))
+    got = store_labels(preds)
+    keys = sorted(k[len("base/"):] for k in want.files if k.startswith("base/"))
+    if sorted(got) != keys:
+        fail(f"{stem}: stored images differ from the recorded ones")
+    return (sum(int((got[k][0] != want[f"base/{k}"]).sum()) for k in keys),
+            sum(int((got[k][1] != want[f"rle/{k}"]).sum()) for k in keys),
+            sum(want[f"base/{k}"].size for k in keys))
+
+
+def same_bytes(a: str, b: str) -> bool:
+    with open(a, "rb") as x, open(b, "rb") as y:
+        return x.read() == y.read()
+
+
+def check_golden(work: str) -> None:
+    """Phase 4: the golden fixtures through the CLI on the card."""
     img_dir = os.path.join(work, "golden_images")
     os.makedirs(img_dir)
     with gzip.open(os.path.join(GOLDEN, "golden_images.h5.gz"), "rb") as src, \
@@ -504,16 +529,8 @@ def check_golden(work: str) -> None:
         stem = "golden" if name == "model" else f"golden_{name}"
         pkl = os.path.join(GOLDEN, f"golden_{name}.pkl")
         fasta, preds = polish_cli(img_dir, pkl, os.path.join(work, f"out_{name}"))
-        want = np.load(os.path.join(GOLDEN, f"{stem}_labels.npz"))
-        got = store_labels(preds)
-        keys = sorted(k[len("base/"):] for k in want.files if k.startswith("base/"))
-        if sorted(got) != keys:
-            fail(f"{name}: stored images differ from the recorded ones")
-        n = sum(want[f"base/{k}"].size for k in keys)
-        flips_b = sum(int((got[k][0] != want[f"base/{k}"]).sum()) for k in keys)
-        flips_r = sum(int((got[k][1] != want[f"rle/{k}"]).sum()) for k in keys)
-        with open(fasta, "rb") as a, open(os.path.join(GOLDEN, f"{stem}.fa"), "rb") as b:
-            same = a.read() == b.read()
+        flips_b, flips_r, n = golden_label_flips(preds, stem)
+        same = same_bytes(fasta, os.path.join(GOLDEN, f"{stem}.fa"))
         log(f"golden {name}: {flips_b}+{flips_r} base+rle label flips of {n} "
             f"per head, FASTA byte-identical: {same}")
         if max(flips_b, flips_r) > FLIPS_PER_LABEL * n:
@@ -2917,6 +2934,117 @@ def run_io_flags(img_dir: str, truth, n_images: int, work: str, timer6) -> None:
         fail("12e: no training cache, or its epoch differs from the unpacked one")
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the HDF5 inputs helen_tpu reads through h5py
+# ---------------------------------------------------------------------------
+
+# the golden images written again by h5py (tests/torch_hdf5_variants/
+# make_variants.py): the earliest format chunked under shuffle+gzip
+# (fletcher32 on position, contig a variable-length string), and
+# libver="latest" (a dense images/ group, the same datasets)
+VARIANT_DIR = os.path.join(ROOT, "tests", "torch_hdf5_variants")
+VARIANTS = ("images_v1_chunked.h5", "images_latest.h5")
+
+
+def cli_timed(argv, module: str):
+    """Run ``python -m helen_tpu_torch <argv>`` (its main, in this process);
+    returns the stage timer the command made in ``module`` (the name of its
+    polish or call_consensus module), which reports the stages it logs."""
+    import importlib
+
+    from helen_tpu_torch.cli import main
+
+    module = importlib.import_module(module)
+    made = []
+    real = module.StageTimer
+
+    class Recorded(real):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+
+    module.StageTimer = Recorded
+    try:
+        if main(list(argv)) != 0:
+            fail(f"{' '.join(argv[:1])} of {argv[2]} returned non-zero")
+    finally:
+        module.StageTimer = real
+    if not made:
+        fail(f"{argv[0]} made no stage timer")
+    return made[0]
+
+
+def check_hdf5_variants(work: str) -> None:
+    """Phase 13: ``polish`` of phase 4's contiguous golden file and of each
+    variant through the CLI with the flagship golden checkpoint (H=128) on
+    the default parity route, then ``call_consensus --pack`` over the
+    chunked variant and ``stitch`` of its store: each FASTA byte for byte
+    the golden one, 0+0 label flips against golden_labels.npz, launches one
+    batch x 19 windows of K1 and K2. Each run's ``image_read`` seconds per
+    image is a smoke reading (11 images), not a rate."""
+    from helen_tpu_torch.config import IMAGE, WINDOW
+    from helen_tpu_torch.ops import gru_window as gw
+
+    model = os.path.join(GOLDEN, "golden_model.pkl")
+    fasta_want = os.path.join(GOLDEN, "golden.fa")
+    n_win = WINDOW.num_windows(IMAGE.seq_length)
+    want = {**OFF_PATH_ZERO, **parity_counts(n_win, n_win)}  # 11 images: one batch
+    n_images = 11
+
+    def verify(what, fasta, preds, timer, launches):
+        flips_b, flips_r, n = golden_label_flips(preds)
+        same = same_bytes(fasta, fasta_want)
+        read = timer.stages.get("image_read", 0.0)
+        log(f"{what}: {flips_b}+{flips_r} base+rle label flips of {n} per head, FASTA "
+            f"byte-identical: {same}; image_read {read:.4f} s = "
+            f"{1e3 * read / n_images:.3f} ms per image; launches "
+            f"{ {k: v for k, v in launches.items() if v} }")
+        if flips_b or flips_r or not same:
+            fail(f"{what}: not the golden labels and FASTA")
+        if launches != want:
+            fail(f"{what}: launches differ from {want}")
+        return read
+
+    reads = {}
+    for name in ("golden_images.h5",) + VARIANTS:
+        src = (os.path.join(work, "golden_images", name) if name == "golden_images.h5"
+               else os.path.join(VARIANT_DIR, name))
+        img_dir = os.path.join(work, "h5_" + name[:-3])
+        os.makedirs(img_dir)
+        shutil.copy(src, img_dir)
+        out = os.path.join(work, "out_h5_" + name[:-3])
+        gw.reset_launch_counts()
+        timer = cli_timed(["polish", "-i", img_dir, "-m", model, "-o", out, "-t", "2"],
+                          "helen_tpu_torch.infer.polish")
+        preds = [d for d in os.listdir(out) if d.startswith("predictions_")][0]
+        what = "13 polish of " + ("phase 4's contiguous file" if name == "golden_images.h5"
+                                  else name)
+        reads[name] = verify(what, os.path.join(out, "HELEN_prediction.fa"),
+                             os.path.join(out, preds), timer, dict(gw.launch_counts))
+
+    # call_consensus --pack over the chunked variant, then stitch its store
+    img_dir = os.path.join(work, "h5_images_v1_chunked")
+    out = os.path.join(work, "out_h5_pack")
+    gw.reset_launch_counts()
+    timer = cli_timed(["call_consensus", "-i", img_dir, "-m", model, "-o", out, "--pack"],
+                      "helen_tpu_torch.infer.consensus")
+    launches = dict(gw.launch_counts)
+    if "pack_tee" not in timer.stages or not os.path.exists(
+            os.path.join(out, "images_cache.h5")):
+        fail("13 call_consensus --pack: the cache was not built write-through")
+    from helen_tpu_torch.cli import main as cli
+
+    if cli(["stitch", "-i", out, "-o", os.path.join(out, "fasta"), "-t", "2"]) != 0:
+        fail("13 stitch of the --pack store returned non-zero")
+    reads["--pack"] = verify("13 call_consensus --pack of images_v1_chunked.h5, then stitch",
+                             os.path.join(out, "fasta", "HELEN_prediction.fa"), out,
+                             timer, launches)
+    base = reads["golden_images.h5"]
+    log("13 image_read per image (ms), 11 images: " + "; ".join(
+        f"{k} {1e3 * v / n_images:.3f} ({v / base:.2f}x contiguous)" if base else
+        f"{k} {1e3 * v / n_images:.3f}" for k, v in reads.items()))
+
+
 def main() -> int:
     import torch
 
@@ -3042,6 +3170,12 @@ def main() -> int:
               "train --pack")
         run_io_flags(img_dir, truth, n_images, work, timer6)
         log(f"phase 12: {time.perf_counter() - t12:.1f} s")
+
+        t13 = time.perf_counter()
+        phase("13. HDF5 inputs helen_tpu reads through h5py: chunked, compressed, "
+              "variable-length strings, the newest file format")
+        check_hdf5_variants(work)
+        log(f"phase 13: {time.perf_counter() - t13:.1f} s")
 
     phase("8. result")
     log(smi)

@@ -1,24 +1,37 @@
-"""A pure-Python reader and writer for the subset of HDF5 the port uses.
+"""A pure-Python reader and writer for the HDF5 files the port reads and writes.
 
 The machine the port runs on need not have h5py (the H100 hosts it targets
-do not), so the image files, the prediction store and the synthetic-data
-writer go through this module instead. It covers what those files use, in
-HDF5's original ("earliest") format, the one h5py writes by default:
+do not), so the image files, the packed image cache, the prediction store
+and the synthetic-data writer go through this module instead. It reads what
+libhdf5 (h5py, helen_tpu, MarginPolish) writes for those files, in the
+earliest format and in the newest (``libver="latest"``):
 
-* superblock version 0 or 1, 8-byte offsets and lengths;
-* version-1 object headers, with continuation blocks;
-* groups as symbol tables (a version-1 B-tree over symbol-table nodes, with
-  names in a local heap);
-* datasets of little- or big-endian integers, IEEE floats and fixed-length
-  byte strings, scalar or n-dimensional, in contiguous or compact layout.
+* superblock versions 0-3, 8-byte offsets and lengths; the checksums of the
+  newer metadata (Jenkins lookup3) verified, a mismatch an ``OSError``;
+* object headers of version 1 and 2, with continuation blocks;
+* groups as symbol tables (a version-1 B-tree over symbol-table nodes, names
+  in a local heap), or new-style: link messages in the header (compact) or
+  in a fractal heap indexed by a version-2 B-tree of names (dense, which
+  h5py uses past 8 links); hard links only, a soft or external link raises
+  on access;
+* datasets of little- or big-endian integers, IEEE floats, fixed-length byte
+  strings and variable-length strings (from the global heap, as ``bytes``),
+  scalar or n-dimensional, with dataspace versions 1-2, datatype versions
+  1-3 and layout versions 3-4: compact, contiguous or chunked, a chunk
+  found through any of HDF5's indexes (io._hdf5_chunks) and filtered by
+  deflate, shuffle or fletcher32 (io._hdf5_filters); a chunk never written
+  reads as the fill value.
 
-Anything else (chunked or filtered datasets, new-style groups, variable-length
-types, version-2 object headers) raises :class:`UnsupportedHDF5`.
+Anything else raises :class:`UnsupportedHDF5` naming it: other filters (lzf,
+szip, n-bit, scale-offset, ...), variable-length sequences, compound, enum
+and array types, virtual datasets, shared (committed) datatypes, and heap
+objects other than managed ones (io._hdf5_v2).
 
 :class:`File` reads through a memory map and mirrors the small part of the
 h5py API the port calls (``f["a/b"]``, ``in``, ``keys()``, ``items()``,
 ``dset[()]``, and on the first axis ``dset[a:b]`` and ``dset[index_array]``,
-which read only those rows). :class:`Writer` builds a file that libhdf5
+which read only those rows, and of a chunked dataset only the chunks they
+lie in). :class:`Writer` builds a file in the earliest format that libhdf5
 (h5py, helen_tpu) reads back: dataset payloads go to disk as they are
 created, or are reserved at their full shape and written by rows later
 (:meth:`WGroup.create_dataset`); the metadata — object headers, local heaps,
@@ -33,11 +46,15 @@ from __future__ import annotations
 import mmap
 import os
 import struct
-from typing import Dict, Iterator, List, Tuple, Union
+from typing import Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 
-UNDEF = 0xFFFFFFFFFFFFFFFF
+from helen_tpu_torch.io import _hdf5_v2
+from helen_tpu_torch.io._hdf5_chunks import Chunked
+from helen_tpu_torch.io._hdf5_filters import parse_pipeline
+from helen_tpu_torch.io._hdf5_v2 import UNDEF, UnsupportedHDF5
+
 SIGNATURE = b"\x89HDF\r\n\x1a\n"
 # B-tree / symbol-table node widths (HDF5 defaults): a symbol-table node
 # holds up to 2 * LEAF_K entries, a B-tree node up to 2 * INTERNAL_K children
@@ -47,16 +64,19 @@ _SB_SIZE = 96  # superblock v0 with 8-byte offsets, root entry included
 
 # object header message types
 _MSG_DATASPACE = 0x0001
+_MSG_LINK_INFO = 0x0002
 _MSG_DATATYPE = 0x0003
 _MSG_FILL = 0x0005
+_MSG_LINK = 0x0006
 _MSG_LAYOUT = 0x0008
 _MSG_FILTERS = 0x000B
 _MSG_CONTINUATION = 0x0010
 _MSG_SYMBOL_TABLE = 0x0011
-
-
-class UnsupportedHDF5(ValueError):
-    """The file uses an HDF5 feature outside this module's subset."""
+_GROUP_MSGS = {_MSG_SYMBOL_TABLE, _MSG_LINK_INFO, _MSG_LINK}
+# a shared (committed) copy of these would be elsewhere in the file
+_UNSHARED = {_MSG_DATASPACE, _MSG_DATATYPE, _MSG_FILL, _MSG_FILTERS, _MSG_LAYOUT}
+# a variable-length string's record: length, global heap collection, index
+_VLEN = np.dtype([("len", "<u4"), ("addr", "<u8"), ("idx", "<u4")])
 
 
 # ---------------------------------------------------------------------------
@@ -64,30 +84,49 @@ class UnsupportedHDF5(ValueError):
 # ---------------------------------------------------------------------------
 
 class Dataset:
-    def __init__(self, f: "File", addr: int, name: str):
+    def __init__(self, f: "File", name: str, messages):
         self.name = name
         mm = f._mm
-        space = dtype = layout = None
-        for mtype, p, size in f._messages(addr):
+        space = dtype = layout = fill = None
+        pipeline = []
+        for mtype, p, size in messages:
             if mtype == _MSG_DATASPACE:
                 space = p
             elif mtype == _MSG_DATATYPE:
                 dtype = p
             elif mtype == _MSG_LAYOUT:
                 layout = p
+            elif mtype == _MSG_FILL:
+                fill = p
             elif mtype == _MSG_FILTERS:
-                raise UnsupportedHDF5(f"{name}: filtered (compressed) dataset")
+                pipeline = parse_pipeline(mm, p, f"{f.filename}: {name}")
         if space is None or dtype is None or layout is None:
             raise UnsupportedHDF5(f"{name}: not a dataset this reader knows")
-        self.shape = _read_dataspace(mm, space, name)
-        self.dtype = _read_datatype(mm, dtype, name)
+        self.shape, maxshape = _read_dataspace(mm, space, name)
+        self._raw = _read_datatype(mm, dtype, name)  # the stored element
+        self._vlen = self._raw is _VLEN
+        self.dtype = np.dtype(object) if self._vlen else self._raw
         self._f = f
-        self._layout = _read_layout(mm, layout, name)
+        self._fill_at = fill  # the fill value message, read where needed
+        version, cls = mm[layout], mm[layout + 1]
+        if version not in (3, 4):
+            raise UnsupportedHDF5(f"{name}: layout message version {version}")
+        if cls == 0:
+            size, = struct.unpack_from("<H", mm, layout + 2)
+            self._layout = ("compact", layout + 4, size)
+        elif cls == 1:
+            self._layout = ("contiguous",) + struct.unpack_from("<QQ", mm, layout + 2)
+        elif cls == 2:
+            self._layout = ("chunked", Chunked(f, name, layout, self.shape, maxshape,
+                                               self._raw, pipeline, self._fill()), 0)
+        else:
+            raise UnsupportedHDF5(f"{name}: virtual dataset layout")
 
     def __getitem__(self, key) -> np.ndarray:
         """``dset[()]`` (the whole dataset), or rows of the first axis:
         ``dset[a:b]`` or ``dset[index_array]`` (any order, repeats allowed),
-        which copy only those rows out of the map."""
+        which copy only those rows out of the map. Variable-length strings
+        come back as ``bytes`` (a scalar) or an object array of them."""
         whole = isinstance(key, tuple) and key == () or key is Ellipsis
         if not whole:
             if not self.shape:
@@ -102,26 +141,38 @@ class Dataset:
         count = int(np.prod(self.shape, dtype=np.int64))
         kind, where, nbytes = self._layout
         if count == 0 or (kind == "contiguous" and where == UNDEF):
-            return np.zeros(self.shape, dtype=self.dtype)[() if whole else key]
-        if nbytes < count * self.dtype.itemsize:
-            raise UnsupportedHDF5(f"{self.name}: storage smaller than its shape")
-        view = np.frombuffer(self._f._mm, dtype=self.dtype, count=count,
-                             offset=where).reshape(self.shape)
-        out = np.array(view if whole else view[key], copy=True)
-        del view  # release the buffer export so the map can close
-        return out
+            fill = self._fill()
+            value = np.frombuffer(fill, self._raw, 1)[0] if fill else np.zeros((), self._raw)
+            out = np.full(self.shape, value, dtype=self._raw)[() if whole else key]
+        elif kind == "chunked":
+            out = where.read(None if whole else key)
+        else:
+            if nbytes < count * self._raw.itemsize:
+                raise UnsupportedHDF5(f"{self.name}: storage smaller than its shape")
+            view = np.frombuffer(self._f._mm, dtype=self._raw, count=count,
+                                 offset=where).reshape(self.shape)
+            out = np.array(view if whole else view[key], copy=True)
+            del view  # release the buffer export so the map can close
+        return self._f._strings(out) if self._vlen else out
+
+    def _fill(self) -> Optional[bytes]:
+        if self._fill_at is None:
+            return None
+        return _read_fill(self._f._mm, self._fill_at, self._raw.itemsize)
 
 
 class Group:
-    def __init__(self, f: "File", addr: int, name: str):
+    def __init__(self, f: "File", addr: int, name: str, messages=None):
         self._f = f
         self.name = name
-        self._links: Union[Dict[str, int], None] = None
+        self._links: Union[Dict[str, _hdf5_v2.Link], None] = None
         self._addr = addr
+        self._msgs = messages  # the header's messages, until the table is read
 
-    def _table(self) -> Dict[str, int]:
+    def _table(self) -> Dict[str, _hdf5_v2.Link]:
         if self._links is None:
-            self._links = self._f._symbol_table(self._addr, self.name)
+            self._links = self._f._group_links(self._addr, self.name, self._msgs)
+            self._msgs = None
         return self._links
 
     def keys(self) -> List[str]:
@@ -145,7 +196,10 @@ class Group:
             addr = node._table().get(part)
             if addr is None:
                 raise KeyError(f"{part!r} not in {node.name!r}")
-            node = node._f._node(addr, f"{node.name.rstrip('/')}/{part}")
+            full = f"{node.name.rstrip('/')}/{part}"
+            if isinstance(addr, str):
+                raise UnsupportedHDF5(f"{full} is {addr}: only hard links are read")
+            node = node._f._node(addr, full)
         return node
 
 
@@ -161,7 +215,13 @@ class File(Group):
             self._fh.close()
             raise OSError(f"{path}: not an HDF5 file ({exc})") from exc
         self._nodes: Dict[int, Union[Group, Dataset]] = {}
-        super().__init__(self, self._root_address(), "/")
+        self._heaps: Dict[int, Dict[int, Tuple[int, int]]] = {}
+        try:
+            root = self._root_address()
+        except BaseException:
+            self.close()
+            raise
+        super().__init__(self, root, "/")
 
     def _root_address(self) -> int:
         mm = self._mm
@@ -173,13 +233,23 @@ class File(Group):
                 raise UnsupportedHDF5("offset/length sizes other than 8 bytes")
             entry = 56 if version == 0 else 60
             return struct.unpack_from("<Q", mm, entry + 8)[0]
+        if version in (2, 3):
+            return _hdf5_v2.superblock_root(self)
         raise UnsupportedHDF5(f"superblock version {version}")
 
     def _messages(self, addr: int) -> List[Tuple[int, int, int]]:
-        """(type, data offset, size) of each message of a v1 object header."""
+        """(type, data offset, size) of each message of an object header
+        (version 1, or version 2 with its checksums verified)."""
         mm = self._mm
         if mm[addr] != 1:
-            raise UnsupportedHDF5(f"object header version {mm[addr]} at {addr}")
+            if mm[addr:addr + 4] != b"OHDR":
+                raise UnsupportedHDF5(f"object header version {mm[addr]} at {addr}")
+            out = []
+            for mtype, p, size, flags in _hdf5_v2.ohdr_messages(self, addr, _MSG_CONTINUATION):
+                if flags & 0x02 and mtype in _UNSHARED:
+                    raise UnsupportedHDF5(f"shared (committed) message {mtype:#06x} at {addr}")
+                out.append((mtype, p, size))
+            return out
         nmsgs, = struct.unpack_from("<H", mm, addr + 2)
         hsize, = struct.unpack_from("<I", mm, addr + 8)
         blocks = [(addr + 16, hsize)]
@@ -194,6 +264,9 @@ class File(Group):
                 if mtype == _MSG_CONTINUATION:
                     blocks.append(struct.unpack_from("<QQ", mm, p + 8))
                 else:
+                    if mm[p + 4] & 0x02 and mtype in _UNSHARED:
+                        raise UnsupportedHDF5(f"shared (committed) message {mtype:#06x} "
+                                              f"at {addr}")
                     out.append((mtype, p + 8, msize))
                 p += 8 + msize
         return out
@@ -201,18 +274,33 @@ class File(Group):
     def _node(self, addr: int, name: str):
         node = self._nodes.get(addr)
         if node is None:
-            types = {m[0] for m in self._messages(addr)}
-            node = (Group(self, addr, name) if _MSG_SYMBOL_TABLE in types
-                    else Dataset(self, addr, name))
+            msgs = self._messages(addr)
+            node = (Group(self, addr, name, msgs) if _GROUP_MSGS & {m[0] for m in msgs}
+                    else Dataset(self, name, msgs))
             self._nodes[addr] = node
         return node
 
-    def _symbol_table(self, addr: int, name: str) -> Dict[str, int]:
+    def _group_links(self, addr: int, name: str, msgs=None) -> Dict[str, _hdf5_v2.Link]:
+        """A group's links: its symbol table (the earliest format), or its
+        link messages and its link-info message's dense storage."""
+        msgs = self._messages(addr) if msgs is None else msgs
+        stab = [p for t, p, _ in msgs if t == _MSG_SYMBOL_TABLE]
+        if stab:
+            return self._symbol_table(stab[0], name)
+        links: Dict[str, _hdf5_v2.Link] = {}
+        for t, p, _ in msgs:
+            if t == _MSG_LINK:
+                link, target = _hdf5_v2.parse_link(self._mm, p)
+                links[link] = target
+            elif t == _MSG_LINK_INFO:
+                links.update(_hdf5_v2.dense_links(self, p))
+        if not links and _MSG_LINK_INFO not in {t for t, _, _ in msgs}:
+            raise UnsupportedHDF5(f"{name}: not a group this reader knows")
+        return links
+
+    def _symbol_table(self, stab: int, name: str) -> Dict[str, int]:
         mm = self._mm
-        stab = [p for t, p, _ in self._messages(addr) if t == _MSG_SYMBOL_TABLE]
-        if not stab:
-            raise UnsupportedHDF5(f"{name}: group without a symbol table")
-        btree, heap = struct.unpack_from("<QQ", mm, stab[0])
+        btree, heap = struct.unpack_from("<QQ", mm, stab)
         if mm[heap:heap + 4] != b"HEAP":
             raise OSError(f"{name}: bad local heap at {heap}")
         heap_data, = struct.unpack_from("<Q", mm, heap + 24)
@@ -241,6 +329,43 @@ class File(Group):
             else:
                 yield child
 
+    def _strings(self, records: np.ndarray):
+        """The variable-length strings ``records`` point at in the global
+        heap: ``bytes`` for a scalar, else an object array of ``bytes``."""
+        out = np.empty(records.shape, dtype=object)
+        flat = out.reshape(-1)
+        for i, (length, addr, idx) in enumerate(records.reshape(-1).tolist()):
+            if length == 0:
+                flat[i] = b""
+                continue
+            at, size = self._heap_object(addr, idx)
+            flat[i] = self._mm[at:at + min(length, size)]
+        return out[()] if out.ndim == 0 else out
+
+    def _heap_object(self, addr: int, idx: int) -> Tuple[int, int]:
+        """(offset, size) of object ``idx`` of the global heap collection at
+        ``addr``."""
+        objects = self._heaps.get(addr)
+        if objects is None:
+            mm = self._mm
+            if mm[addr:addr + 4] != b"GCOL":
+                raise OSError(f"{self.filename}: bad global heap collection at {addr}")
+            size, = struct.unpack_from("<Q", mm, addr + 8)
+            objects, p, end = {}, addr + 16, addr + size
+            while p + 16 <= end:
+                index, = struct.unpack_from("<H", mm, p)
+                osize, = struct.unpack_from("<Q", mm, p + 8)
+                if index == 0:  # the free space that ends the collection
+                    break
+                objects[index] = (p + 16, osize)
+                p += 16 + osize + (-osize % 8)
+            self._heaps[addr] = objects
+        try:
+            return objects[idx]
+        except KeyError:
+            raise OSError(f"{self.filename}: no object {idx} in the global heap "
+                          f"collection at {addr}") from None
+
     def close(self) -> None:
         if self._mm is not None:
             self._mm.close()
@@ -254,22 +379,33 @@ class File(Group):
         self.close()
 
 
-def _read_dataspace(mm, p: int, name: str) -> Tuple[int, ...]:
-    version, rank = mm[p], mm[p + 1]
+def _read_dataspace(mm, p: int, name: str):
+    """(shape, largest shape: None on an unlimited axis)."""
+    version, rank, flags = mm[p], mm[p + 1], mm[p + 2]
     if version == 1:
         dims = p + 8
     elif version == 2:
         if mm[p + 3] == 2:  # null dataspace
-            return (0,)
+            return (0,), (0,)
         dims = p + 4
     else:
         raise UnsupportedHDF5(f"{name}: dataspace version {version}")
-    return tuple(struct.unpack_from(f"<{rank}Q", mm, dims)) if rank else ()
+    if not rank:
+        return (), ()
+    shape = struct.unpack_from(f"<{rank}Q", mm, dims)
+    if not flags & 0x01:
+        return shape, shape
+    top = struct.unpack_from(f"<{rank}Q", mm, dims + 8 * rank)
+    return shape, tuple(None if m == UNDEF else m for m in top)
 
 
 def _read_datatype(mm, p: int, name: str) -> np.dtype:
-    cls, bits = mm[p] & 0x0F, mm[p + 1]
+    """The stored element's dtype (:data:`_VLEN` for a variable-length
+    string's record)."""
+    version, cls, bits = mm[p] >> 4, mm[p] & 0x0F, mm[p + 1]
     size, = struct.unpack_from("<I", mm, p + 4)
+    if version not in (1, 2, 3):
+        raise UnsupportedHDF5(f"{name}: datatype version {version}")
     order = ">" if bits & 1 else "<"
     if cls == 0:
         return np.dtype(f"{order}{'i' if bits & 0x08 else 'u'}{size}")
@@ -277,20 +413,33 @@ def _read_datatype(mm, p: int, name: str) -> np.dtype:
         return np.dtype(f"{order}f{size}")
     if cls == 3:
         return np.dtype(f"S{size}")
+    if cls == 9:
+        if bits & 0x0F != 1:
+            raise UnsupportedHDF5(f"{name}: variable-length sequence datatype")
+        if size != _VLEN.itemsize:
+            raise UnsupportedHDF5(f"{name}: variable-length string of size {size}")
+        return _VLEN
     raise UnsupportedHDF5(f"{name}: datatype class {cls} (size {size})")
 
 
-def _read_layout(mm, p: int, name: str) -> Tuple[str, int, int]:
-    version, cls = mm[p], mm[p + 1]
-    if version != 3:
-        raise UnsupportedHDF5(f"{name}: layout message version {version}")
-    if cls == 0:
-        size, = struct.unpack_from("<H", mm, p + 2)
-        return "compact", p + 4, size
-    if cls == 1:
-        addr, size = struct.unpack_from("<QQ", mm, p + 2)
-        return "contiguous", addr, size
-    raise UnsupportedHDF5(f"{name}: chunked or virtual dataset layout")
+def _read_fill(mm, p: int, itemsize: int) -> Optional[bytes]:
+    """The fill value's bytes (message 0x0005, versions 1-3); None where it
+    is undefined or the default (zeros)."""
+    version = mm[p]
+    if version in (1, 2):
+        if version == 2 and not mm[p + 3]:
+            return None
+        q = p + 4
+    elif version == 3:
+        if not mm[p + 1] & 0x20:
+            return None
+        q = p + 2
+    else:
+        raise UnsupportedHDF5(f"fill value message version {version}")
+    size, = struct.unpack_from("<I", mm, q)
+    if size != itemsize:
+        return None
+    return mm[q + 4:q + 4 + size]
 
 
 # ---------------------------------------------------------------------------

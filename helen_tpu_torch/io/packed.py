@@ -21,8 +21,8 @@ A whole batch is then two slab reads (`images[a:b]`, `positions[a:b]`)
 through the file's memory map instead of thousands of group opens. The
 layout is helen_tpu's, in contiguous datasets and fixed-length strings (the
 port's writer has no variable-length type), so helen_tpu reads the port's
-caches; a cache helen_tpu wrote (chunked, variable-length strings) is one
-the port cannot read, and counts as stale: it is rebuilt. The cache is
+caches, and the port reads helen_tpu's (chunked, variable-length strings):
+a fresh cache either wrote is reused. The cache is
 internal — pipeline inputs remain standard MarginPolish files;
 `call_consensus(pack=True)` builds the cache next to the output dir and
 validates it against source mtimes.
@@ -296,8 +296,7 @@ def cache_is_fresh(
     """True when the cache exists, matches the source files' mtimes, was
     packed over the same image subset (``indices``; None = all images),
     carries labels if the consumer needs them, and was packed at the same
-    image geometry. A cache this module cannot read (e.g. one helen_tpu
-    wrote with h5py's chunked layout) is stale: it is rebuilt."""
+    image geometry. A cache this module cannot read is rebuilt."""
     if not os.path.exists(cache_path):
         return False
     try:

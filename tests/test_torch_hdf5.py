@@ -125,18 +125,24 @@ def test_reads_helen_tpu_prediction_store(tmp_path):
 
 
 def test_refuses_what_it_does_not_read(tmp_path):
+    """Chunked+gzip and ``libver="latest"`` files read as h5py reads them
+    (tests/test_torch_hdf5_formats.py holds the whole matrix); an lzf
+    filter and a file that is not HDF5 are refused, naming what they are."""
     from helen_tpu_torch.io import hdf5
 
     chunked = str(tmp_path / "c.h5")
     with h5py.File(chunked, "w") as f:
         f.create_dataset("x", data=np.arange(100), chunks=(10,), compression="gzip")
-    with pytest.raises(hdf5.UnsupportedHDF5, match="filtered|chunked"):
-        hdf5.File(chunked)["x"][()]
+    assert_same_tree(port_tree(chunked), h5py_tree(chunked))
     latest = str(tmp_path / "l.h5")
     with h5py.File(latest, "w", libver="latest") as f:
         f["x"] = np.arange(3)
-    with pytest.raises(hdf5.UnsupportedHDF5, match="superblock"):
-        hdf5.File(latest)
+    assert_same_tree(port_tree(latest), h5py_tree(latest))
+    lzf = str(tmp_path / "lzf.h5")
+    with h5py.File(lzf, "w") as f:
+        f.create_dataset("x", data=np.arange(100), chunks=(10,), compression="lzf")
+    with pytest.raises(hdf5.UnsupportedHDF5, match="filter 32000 .lzf"):
+        hdf5.File(lzf)["x"][()]
     junk = tmp_path / "junk.h5"
     junk.write_bytes(b"not an hdf5 file at all")
     with pytest.raises(OSError, match="not an HDF5 file"):

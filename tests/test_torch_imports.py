@@ -4,12 +4,14 @@ helen_tpu.
 An AST scan of every module of the port (and of chip_smoke.py, which drives
 it on the GPU) fails on any import of ``jax``, ``h5py`` or ``helen_tpu``;
 subprocesses with ``jax`` and ``h5py`` blocked import the package and polish
-the golden images (also with ``--pack --writers 2 --fastq``), and train and
-test a small model (also with ``--pack``), on the CPU.
+the golden images (also in HDF5's newest format, and with ``--pack
+--writers 2 --fastq``), and train and test a small model (also with
+``--pack``), on the CPU.
 """
 import ast
 import glob
 import os
+import shutil
 import subprocess
 import sys
 
@@ -104,6 +106,37 @@ def test_polishes_on_cpu_with_jax_and_h5py_blocked(tmp_path):
         f"rc = main(['polish', '-i', {images!r}, '-m', {golden('golden_model.pkl')!r},"
         f" '-o', {str(out)!r}, '--device', 'cpu', '-t', '2'])\n"
         "assert not any(m in ('jax', 'helen_tpu') or m.startswith(('jax.', 'helen_tpu.'))"
+        " for m in sys.modules if sys.modules[m] is not None)\n"
+        "sys.exit(rc)\n"
+    )
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    with open(out / "HELEN_prediction.fa", "rb") as a, \
+            open(os.path.join(GOLDEN_DIR, "golden.fa"), "rb") as b:
+        assert a.read() == b.read()
+
+
+def test_polishes_the_newest_format_with_jax_and_h5py_blocked(tmp_path):
+    """The golden images in HDF5's newest format (``libver="latest"``: a
+    dense group, chunked shuffle+gzip datasets, fletcher32, variable-length
+    strings; tests/torch_hdf5_variants/) polish to the golden FASTA through
+    the port's own reader, with ``import jax`` and ``import h5py`` made to
+    fail."""
+    images = tmp_path / "images"
+    images.mkdir()
+    shutil.copy(os.path.join(ROOT, "tests", "torch_hdf5_variants", "images_latest.h5"),
+                images / "images_latest.h5")
+    out = tmp_path / "out"
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['h5py'] = None\n"
+        "import torch\n"
+        "torch.set_num_threads(2)\n"
+        "from helen_tpu_torch.cli import main\n"
+        f"rc = main(['polish', '-i', {str(images)!r}, '-m', {golden('golden_model.pkl')!r},"
+        f" '-o', {str(out)!r}, '--device', 'cpu', '-t', '2'])\n"
+        "assert not any(m in ('jax', 'h5py', 'helen_tpu') or m.startswith(('jax.', 'helen_tpu.'))"
         " for m in sys.modules if sys.modules[m] is not None)\n"
         "sys.exit(rc)\n"
     )

@@ -3,8 +3,8 @@
 The cache holds the images MarginPolishDataset reads; a packed consensus
 gives the unpacked labels; the write-through cache equals the upfront one
 array for array; the tee's incomplete, abandon, subset and failure cases;
-helen_tpu reads the port's cache to the same arrays, and a cache helen_tpu
-wrote (h5py, chunked) is rebuilt by the port, not an error; ``train
+helen_tpu reads the port's cache to the same arrays, and the port reuses a
+cache helen_tpu wrote (h5py, chunked) without rebuilding it; ``train
 --pack`` trains to the same parameters as without it.
 """
 import glob
@@ -262,7 +262,10 @@ def test_helen_tpu_reads_the_port_cache(image_files, tmp_path):
         np.testing.assert_array_equal(x.position, y.position)
 
 
-def test_a_cache_helen_tpu_wrote_is_rebuilt(image_files, tmp_path):
+def test_a_cache_helen_tpu_wrote_is_reused(image_files, tmp_path):
+    """helen_tpu's cache (h5py: chunked images and positions, variable-length
+    strings) is fresh to the port, which slab-reads it without rebuilding:
+    the same labels as the unpacked run."""
     from helen_tpu.io.packed import pack_images as jax_pack
 
     from helen_tpu_torch.io.packed import cache_is_fresh
@@ -272,15 +275,17 @@ def test_a_cache_helen_tpu_wrote_is_rebuilt(image_files, tmp_path):
     cache_dir.mkdir()
     cache = str(cache_dir / "images_cache.h5")
     jax_pack(image_files, cache)
-    assert not cache_is_fresh(cache, image_files)
+    assert cache_is_fresh(cache, image_files)
+    stamp = os.stat(cache).st_mtime_ns
     (f,), timer = run_consensus(image_files, tmp_path / "out", pack=True,
                                 cache_dir=str(cache_dir))
-    assert "pack_tee" in timer.stages
-    assert cache_is_fresh(cache, image_files)
+    assert "pack_tee" not in timer.stages
+    assert os.stat(cache).st_mtime_ns == stamp
     got, want = store_labels(f), store_labels(plain)
     assert sorted(got) == sorted(want)
     for k in want:
         np.testing.assert_array_equal(got[k][0], want[k][0])
+        np.testing.assert_array_equal(got[k][1], want[k][1])
 
 
 def test_polish_pack_reuses_its_cache_and_polishes_golden(tmp_path):
