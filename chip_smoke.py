@@ -43,9 +43,11 @@ their plain versions (phase 10a: K1f and K2f in the main path's design, a
 projection pass and a recurrence on bf16 tensor cores, at B=512 and B=256,
 within FAST_TOL of the one-launch bigru_window_kernel<FAST> and timed in
 turns with it; each of its kernels alone; phase 10b: K3f's grid design, its
-step product on bf16 tensor cores, timed in turns with the one-launch
-K3f), a label flip
-audit against the fast plain route and the fp32 route, the trained
+step product on bf16 tensor cores, against its plain version in the
+tensor cores' order of sums, timed in turns with the one-launch K3f), a
+label flip
+audit against the fast plain route and the fp32 route (the flagship and
+the wide model, random weights), the trained
 checkpoint under ``--fast`` against the parity tier, and the flagship and
 wide polishes through the fast kernels with the launches counted. Phase 11
 drives the fused encoder+decoder window (``route="encdec"``, library only):
@@ -72,7 +74,16 @@ compressed, in the earliest format and in the newest (committed under
 tests/torch_hdf5_variants/; the port reads them with its own HDF5 reader),
 and runs ``call_consensus --pack`` over the chunked one: each to the golden
 FASTA byte for byte with 0+0 label flips, its image reads timed beside the
-contiguous file's.
+contiguous file's. Phase 14 runs multi-process jobs on the one card: two
+processes of this script (``--coordinator_address ... <command>``), gloo
+over a loopback port, each with its own CUDA context: ``polish`` of phase
+6's images under ``--host_shard image`` and ``file`` (phase 6's FASTA byte
+for byte, 0+0 flips, each process's K1/K2 launches its own images'
+batches x 19 x layers), ``test`` against one process (the confusion
+matrices exactly, the loss within 1e-5), one ``train`` epoch against one
+process (rtol 2e-4 / atol 2e-5, the processes bit for bit after every
+batch), a barrier whose peer never comes (it raises within its timeout),
+and the polish again through the local launcher on ["cuda:0", "cuda:0"].
 Every phase fails the script on error; nothing falls back.
 The second-to-last line is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
@@ -2157,8 +2168,10 @@ def check_fast_xp(images_u8, results) -> None:
     D=2048), each over the streams of the fast projection (a float32 GEMM of
     bf16 values, the bias, one rounding to bf16). In its main-path design
     (the grid recurrence, its step product on bf16 mma.sync) against its
-    plain version (FAST_TOL), its distance from the one-launch
-    xp_window_kernel<FAST> reported, bit-identity of two launches; both
+    plain version in the grid's order (FAST_TOL), and the one-launch
+    xp_window_kernel<FAST> against the plain version in its k order
+    (FAST_TOL), their distance from each other reported, bit-identity of
+    two launches; both
     designs timed in turns (grid, chain, chain, grid) beside the plain
     version, that projection and cuDNN's GRU in bf16 at the same (D, H);
     then both designs at the wide polish's B=256 (the decoder layer)."""
@@ -2184,7 +2197,7 @@ def check_fast_xp(images_u8, results) -> None:
     x = images_u8[:, start:start + T].to(torch.float32).transpose(0, 1).contiguous()
     hf, hb = h0[0], h0[1]
     acc = {k: 0.0 for k in ("ms", "chain_ms", "plain_ms", "library_ms", "projection_ms",
-                            "err", "apart")}
+                            "err", "apart", "err_chain")}
     for label, D in (("layer 0, image D=90", F), ("decoder, pair D=2048", 2 * WH)):
         f32 = random_layer(rng, D, WH, dev)
         layer = fast_layer(f32)
@@ -2197,7 +2210,13 @@ def check_fast_xp(images_u8, results) -> None:
             chain = gx.bigru_window_xp_fast(xp_f, xp_b, hf, hb, layer, design="chain")
             want, plain_ms = timed_once(
                 lambda: gx.bigru_window_xp_fast_plain(xp_f, xp_b, hf, hb, layer))
+            want_chain = gx.bigru_window_xp_fast_plain(xp_f, xp_b, hf, hb, layer,
+                                                       design="chain")
             err, apart = max_err(got, want), max_err(got, chain)
+            err_chain = max_err(chain, want_chain)
+            if max(err, err_chain) > FAST_TOL:
+                fail(f"K3f ({label}): a design differs from its plain version by "
+                     f"{max(err, err_chain):.3g} (FAST_TOL {FAST_TOL:g})")
             if not all(torch.equal(a, b) for a, b in zip(got, again)):
                 fail(f"K3f ({label}): two launches differ")
             ms, chain_ms, turns = in_turns(
@@ -2206,7 +2225,8 @@ def check_fast_xp(images_u8, results) -> None:
             gru = cudnn_gru(f32, D, WH, dev, torch.bfloat16)
             xb16, hx = x.to(torch.bfloat16), torch.stack([hf, hb]).to(torch.bfloat16)
             lib_ms = cuda_ms(lambda: gru(xb16, hx), iters=5, warmup=1)
-        log(f"K3f ({label}): max |kernel - plain| {err:.3g}, max |grid - "
+        log(f"K3f ({label}): max |grid - plain in its order| {err:.3g}, max "
+            f"|xp_window_kernel<FAST> - plain in k order| {err_chain:.3g}, max |grid - "
             f"xp_window_kernel<FAST>| {apart:.3g}; grid {ms:.4f} ms, xp_window_kernel<FAST> "
             f"{chain_ms:.4f} ms (in turns: " + ", ".join(f"{t:.4f}" for t in turns)
             + f"; {chain_ms / ms:.2f}x), plain {plain_ms:.3f} ms, fast projection "
@@ -2215,6 +2235,7 @@ def check_fast_xp(images_u8, results) -> None:
                      ("library_ms", lib_ms), ("projection_ms", proj_ms)):
             acc[k] += v / 2
         acc["err"], acc["apart"] = max(acc["err"], err), max(acc["apart"], apart)
+        acc["err_chain"] = max(acc["err_chain"], err_chain)
         # the decoder reads layer 0's outputs rounded to bf16, as on the main path
         x, hf, hb = bf16_round(torch.cat([got[0], got[1]], -1)), h0[2], h0[3]
     xs, hs = x[:, :WB_POLISH].contiguous(), [h[:WB_POLISH].contiguous() for h in (hf, hb)]
@@ -2238,44 +2259,54 @@ def check_fast_xp(images_u8, results) -> None:
         "library: cuDNN's bf16 GRU of the layer, projection included; *_b256: the decoder "
         "layer at B=256)")
     entry.update(projection_ms=acc["projection_ms"], chain_ms=acc["chain_ms"],
-                 max_abs_from_chain=acc["apart"], design=design, units=units,
-                 ms_b256=ms256, chain_ms_b256=chain256)
+                 max_abs_from_chain=acc["apart"], chain_max_abs_err=acc["err_chain"],
+                 design=design, units=units, ms_b256=ms256, chain_ms_b256=chain256)
     log(f"K3f projection (float32 GEMM of bf16 values + b_ih, one rounding): "
         f"{acc['projection_ms']:.4f} ms per layer")
     results["bigru_window_xp_fast"] = entry
 
 
 def audit_fast_flips(images_u8) -> None:
-    """Phase 10c: a random-weight flagship model on full-width images
-    through the fast kernels, the fast plain versions (on the card) and the
-    fp32 kernels. The fast kernels may flip at most FLIPS_PER_LABEL of the
-    labels per head against the fast plain route; their flips against the
-    fp32 route are reported beside the plain fast route's own."""
+    """Phase 10c: random-weight models on full-width images through the
+    fast kernels, the fast plain versions (on the card) and the fp32
+    kernels: the flagship (K1f/K2f) and the wide model at H=WH (the fast xp
+    route, K3f). The fast kernels may flip at most FLIPS_PER_LABEL of the
+    labels per head against the fast plain route. At H=WH K3f runs in its
+    grid design, whose step product sums on bf16 tensor cores; its plain
+    version takes that order (models.gru.mma_product; phase 10b holds each
+    K3f design to its plain version's order)."""
+    import dataclasses
+
     import torch
 
     from helen_tpu_torch.config import MODEL
     from helen_tpu_torch.io.checkpoint import fast_weights, params_to_torch
-    from helen_tpu_torch.models.transducer import consensus_labels, init_params
+    from helen_tpu_torch.models.transducer import consensus_labels, engaged_kernel, init_params
 
-    params = params_to_torch(init_params(torch.Generator().manual_seed(10), MODEL),
-                             images_u8.device)
-    fast = fast_weights(params)
-    with torch.no_grad():
-        (kb, kr), fast_ms = timed_once(lambda: consensus_labels(fast, images_u8,
-                                                                backend="cuda_fast"))
-        pb, pr = consensus_labels(fast, images_u8, backend="torch_fast")
-        (rb, rr), fp32_ms = timed_once(lambda: consensus_labels(params, images_u8,
-                                                                backend="cuda"))
-    n = kb.numel()
     flips = lambda a, b: int((a != b).sum())  # noqa: E731
-    kp = (flips(kb, pb), flips(kr, pr))
-    log(f"{images_u8.shape[0]} images, random weights: fast kernels vs fast plain route "
-        f"{kp[0]}+{kp[1]} base+rle flips of {n} per head (limit "
-        f"{FLIPS_PER_LABEL * n:g}); vs the fp32 route: fast kernels "
-        f"{flips(kb, rb)}+{flips(kr, rr)}, fast plain route {flips(pb, rb)}+{flips(pr, rr)}; "
-        f"consensus: fast kernels {fast_ms:.1f} ms, fp32 kernels {fp32_ms:.1f} ms")
-    if max(kp) > FLIPS_PER_LABEL * n:
-        fail("the fast kernels flip labels against the fast plain route")
+    for h, seed in ((H, 10), (WH, 12)):
+        cfg = dataclasses.replace(MODEL, hidden_size=h)
+        params = params_to_torch(init_params(torch.Generator().manual_seed(seed), cfg),
+                                 images_u8.device)
+        fast = fast_weights(params)
+        with torch.no_grad():
+            (kb, kr), fast_ms = timed_once(lambda: consensus_labels(fast, images_u8,
+                                                                    backend="cuda_fast"))
+            (pb, pr), plain_ms = timed_once(lambda: consensus_labels(fast, images_u8,
+                                                                    backend="torch_fast"))
+            (rb, rr), fp32_ms = timed_once(lambda: consensus_labels(params, images_u8,
+                                                                    backend="cuda"))
+        n = kb.numel()
+        kp = (flips(kb, pb), flips(kr, pr))
+        kr32, pr32 = (flips(kb, rb), flips(kr, rr)), (flips(pb, rb), flips(pr, rr))
+        log(f"H={h} ({engaged_kernel(params, 'cuda_fast')}), {images_u8.shape[0]} images, "
+            f"random weights: fast kernels vs fast plain route {kp[0]}+{kp[1]} base+rle "
+            f"flips of {n} per head (limit FLIPS_PER_LABEL: {FLIPS_PER_LABEL * n:g}); vs the "
+            f"fp32 route: fast kernels {kr32[0]}+{kr32[1]}, fast plain route "
+            f"{pr32[0]}+{pr32[1]}; consensus: fast kernels {fast_ms:.1f} ms, fast plain route "
+            f"{plain_ms / 1e3:.1f} s, fp32 kernels {fp32_ms:.1f} ms")
+        if max(kp) > FLIPS_PER_LABEL * n:
+            fail(f"the fast kernels flip labels against the fast plain route at H={h}")
 
 
 def check_trained_fast(work: str, img_dir: str, fasta: str, preds: str) -> None:
@@ -2935,6 +2966,355 @@ def run_io_flags(img_dir: str, truth, n_images: int, work: str, timer6) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 14: multi-process jobs on the one card
+# ---------------------------------------------------------------------------
+
+# the job's process count, 14b's batch (the held-out images split into the
+# same batches in one process and in two), 14c's global batch (it divides
+# phase 6's image count: no wrap padding in the job, no masked tail in one
+# process), and 14d's barrier timeout
+JOB_PROCS = 2
+JOB_TEST_B = 32
+JOB_TRAIN_B = 258
+JOB_BARRIER_S = 3.0
+
+
+def job_worker(argv) -> int:
+    """One process of a phase-14 job, run as ``chip_smoke.py`` with the
+    port's job flags and a command line:
+    ``python -m helen_tpu_torch`` with it, every kernel's launches counted
+    from 0. Prints ``JOB {json}``: the process's rank, exit code, seconds,
+    launches and the sha256 of its parameters after every training batch
+    (``train``). ``--barrier <rank> <port>``: process 0 waits at a barrier
+    of JOB_BARRIER_S its peer never reaches and prints the seconds until it
+    raised."""
+    import hashlib
+
+    sys.path.insert(0, ROOT)
+    import numpy as np
+
+    from helen_tpu_torch.parallel import multihost
+
+    if argv[0] == "--barrier":
+        rank, port = int(argv[1]), argv[2]
+        multihost.initialize(f"127.0.0.1:{port}", JOB_PROCS, rank)
+        if rank:
+            time.sleep(600)  # killed once process 0 has reported
+            return 1
+        t0 = time.perf_counter()
+        try:
+            multihost.barrier("never-met", timeout_s=JOB_BARRIER_S)
+        except TimeoutError as exc:
+            multihost.shutdown()
+            print("JOB " + json.dumps({"rank": 0, "raised_after": time.perf_counter() - t0,
+                                       "error": str(exc)[:200]}), flush=True)
+            return 0
+        return 1
+
+    from helen_tpu_torch.cli import main as cli
+    from helen_tpu_torch.ops import gru_window as gw
+    from helen_tpu_torch.ops import gru_window_bwd as gb
+    from helen_tpu_torch.ops import gru_window_wgrad as gwg
+    from helen_tpu_torch.train import train_loop
+
+    digests = []
+    step = train_loop.tbptt_step
+
+    def step_and_digest(params, *a, **k):
+        out = step(params, *a, **k)
+        h = hashlib.sha256()
+        for leaf in train_loop.param_leaves(params):
+            h.update(np.ascontiguousarray(leaf.detach().cpu().numpy()).tobytes())
+        digests.append(h.hexdigest())
+        return out
+
+    train_loop.tbptt_step = step_and_digest
+    mods = (gw, gb, gwg)
+    for m in mods:
+        m.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = cli(argv)
+    print("JOB " + json.dumps({
+        "rank": int(argv[argv.index("--process_id") + 1]), "rc": rc,
+        "seconds": time.perf_counter() - t0,
+        "launches": {k: v for m in mods for k, v in m.launch_counts.items()},
+        "digests": digests}), flush=True)
+    return rc
+
+
+def run_job(argv, what: str, timeout: float = 300) -> list:
+    """Run ``argv`` as JOB_PROCS processes of ``chip_smoke.py`` on the one
+    card, gloo over a loopback port; returns each rank's JOB record (with
+    the wall seconds this process saw). A process that fails fails the
+    phase."""
+    from helen_tpu_torch.parallel.multihost import free_port
+
+    addr = f"127.0.0.1:{free_port()}"
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--coordinator_address", addr,
+         "--num_processes", str(JOB_PROCS), "--process_id", str(r), *argv],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for r in range(JOB_PROCS)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout))
+    except subprocess.TimeoutExpired:
+        fail(f"{what}: the job did not finish in {timeout:.0f} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall = time.perf_counter() - t0
+    records = []
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        jobs = [json.loads(line[4:]) for line in out.splitlines() if line.startswith("JOB ")]
+        if p.returncode or not jobs or jobs[0]["rc"]:
+            fail(f"{what}: process {r} failed (exit code {p.returncode}):\n{err[-3000:]}")
+        records.append({**jobs[0], "wall": wall})
+    return records
+
+
+def job_records(text: str) -> list:
+    return sorted((json.loads(line[4:]) for line in text.splitlines()
+                   if line.startswith("JOB ")), key=lambda j: j["rank"])
+
+
+def check_job_polish(records, img_dir: str, out: str, n_images: int, shards, what: str,
+                     wall6: float, smi: str) -> None:
+    """14a/14e: phase 6's FASTA byte for byte, 0+0 flips against its labels,
+    and each rank's K1/K2 launches those of its own images' batches."""
+    from helen_tpu_torch.config import IMAGE, WINDOW
+
+    n_win = WINDOW.num_windows(IMAGE.seq_length)
+    preds = [d for d in os.listdir(out) if d.startswith("predictions_")]
+    if len(preds) != 1:
+        fail(f"{what}: {len(preds)} predictions directories")
+    files = sorted(f for f in os.listdir(os.path.join(out, preds[0])) if f.endswith(".hdf"))
+    if files != [f"helen_predictions_{r}.hdf" for r in range(JOB_PROCS)]:
+        fail(f"{what}: shard files {files}")
+    label_flips(store_labels(os.path.join(out, preds[0])),
+                store_labels(glob_one(os.path.join(os.path.dirname(out), "out_full",
+                                                   "predictions_*"))),
+                f"{what} against phase 6's labels")
+    if not same_bytes(os.path.join(out, "HELEN_prediction.fa"),
+                      os.path.join(os.path.dirname(out), "out_full", "HELEN_prediction.fa")):
+        fail(f"{what}: the FASTA is not phase 6's")
+    total = {}
+    for rec, n in zip(records, shards):
+        batches = -(-n // B)
+        want = parity_counts(batches * n_win, batches * n_win)
+        got = {k: v for k, v in rec["launches"].items() if v}  # every other kernel: 0
+        log(f"{what}: process {rec['rank']}: {n} images, {batches} batches; launches "
+            f"{'as expected' if got == want else got} (bigru_window_in1 "
+            f"{got.get('bigru_window_in1')}, bigru_window_in2 {got.get('bigru_window_in2')}); "
+            f"its polish {rec['seconds']:.2f} s")
+        if got != want:
+            fail(f"{what}: process {rec['rank']}'s launches differ from its batches x "
+                 "windows x layers")
+        for k, v in rec["launches"].items():
+            total[k] = total.get(k, 0) + v
+    if sum(shards) != n_images:
+        fail(f"{what}: the shards hold {sum(shards)} of {n_images} images")
+    log(f"{what}: K1/K2 launches summed over the processes {total['bigru_window_in1']} / "
+        f"{total['bigru_window_in2']}; job wall {records[0]['wall']:.2f} s (startup "
+        f"included) beside phase 6's polish {wall6:.2f} s ({smi})")
+
+
+def glob_one(pattern: str) -> str:
+    import glob
+
+    found = glob.glob(pattern)
+    if len(found) != 1:
+        fail(f"{len(found)} matches of {pattern}")
+    return found[0]
+
+
+def run_jobs(img_dir: str, n_images: int, work: str, timer6, smi: str) -> None:
+    """Phase 14, two processes on the one card (gloo over a loopback port;
+    NCCL refuses two ranks on one device), each running the flagship's
+    kernels in its own CUDA context:
+    14a ``polish`` with default flags on phase 6's images under
+    ``--host_shard image`` and ``file``: phase 6's FASTA byte for byte, 0+0
+    flips against its labels, each rank's K1/K2 launches its images'
+    batches x 19 x layers;
+    14b ``test`` of phase 7c's latest checkpoint on its held-out images at
+    -b JOB_TEST_B against one process at the same batch (each process's
+    block is whole batches of the one-process run): the confusion matrices
+    exactly (and phase 7c's), the loss within 1e-5;
+    14c ``train`` one epoch, phase 7c's command at -b JOB_TRAIN_B (2064 /
+    258 = 8 batches: the job's wrap padding and one process's masked tail
+    train other rows than each other where the batch does not divide the
+    images, in helen_tpu too) against one process: within rtol 2e-4 / atol
+    2e-5, the two processes bit for bit after every batch;
+    14d a barrier its peer never reaches raises within its timeout;
+    14e 14a's image shards through the local launcher, devices
+    ["cuda:0", "cuda:0"].
+    Each job's wall is printed beside phase 6's; readings, not a metric."""
+    import numpy as np
+
+    from helen_tpu_torch.cli import main as cli
+    from helen_tpu_torch.io.checkpoint import load_checkpoint
+    from helen_tpu_torch.io.images import MarginPolishDataset
+    from helen_tpu_torch.parallel import multihost
+
+    model = os.path.join(GOLDEN, "trained_synth30mb.npz")
+    wall6 = timer6.stages["call_consensus"] + timer6.stages.get("stitch", 0.0)
+    files = sorted(os.path.join(img_dir, f) for f in os.listdir(img_dir))
+    counts = {f: len(MarginPolishDataset([f])) for f in files}
+    image_shards = [len(multihost.host_image_shard(n_images, r, JOB_PROCS))
+                    for r in range(JOB_PROCS)]
+    file_shards = [sum(counts[f] for f in multihost.host_file_shard(files, r, JOB_PROCS))
+                   for r in range(JOB_PROCS)]
+    for mode, shards in (("image", image_shards), ("file", file_shards)):
+        out = os.path.join(work, f"job_polish_{mode}")
+        records = run_job(["polish", "-i", img_dir, "-m", model, "-o", out,
+                           "--host_shard", mode], f"14a --host_shard {mode}")
+        check_job_polish(records, img_dir, out, n_images, shards,
+                         f"14a --host_shard {mode}", wall6, smi)
+
+    # 14b
+    run7 = glob_one(os.path.join(work, "train_out", "trained_models_*"))
+    latest = os.path.join(run7, "models", "HELEN_latest_checkpoint.npz")
+    held_out = os.path.join(work, "train_test")
+    with open(os.path.join(run7, "stats", "epochs.jsonl")) as f:
+        last7 = [json.loads(line) for line in f][-1]
+    one_out, two_out = os.path.join(work, "job_test_one"), os.path.join(work, "job_test_two")
+    if cli(["test", "--test_image_dir", held_out, "-m", latest, "-b", str(JOB_TEST_B),
+            "-o", one_out]) != 0:
+        fail("14b: the one-process test returned non-zero")
+    records = run_job(["test", "--test_image_dir", held_out, "-m", latest, "-b",
+                       str(JOB_TEST_B), "-o", two_out], "14b test")
+    one, two = (json.load(open(os.path.join(d, "test_stats.json"))) for d in (one_out, two_out))
+    same = all(two[k] == one[k] == last7[k]
+               for k in ("base_confusion_matrix", "rle_confusion_matrix"))
+    rel = abs(two["loss"] - one["loss"]) / abs(one["loss"])
+    log(f"14b test on {JOB_PROCS} processes at -b {JOB_TEST_B}: loss {two['loss']!r}, one "
+        f"process {one['loss']!r} (relative difference {rel:.3g}); both confusion matrices "
+        f"equal to one process's and phase 7c's last epoch's: {same}; job wall "
+        f"{records[0]['wall']:.2f} s")
+    if not same or rel > 1e-5:
+        fail("14b: the job's confusion matrices or loss differ from one process's")
+
+    # 14c
+    args = ["train", "--train_image_dir", img_dir, "--test_image_dir", held_out, "-b",
+            str(JOB_TRAIN_B), "-e", "1", "-w", "8", "--lr", "3e-3", "--seed", "11"]
+    one_out, two_out = os.path.join(work, "job_train_one"), os.path.join(work, "job_train_two")
+    t0 = time.perf_counter()
+    if cli([*args, "-o", one_out]) != 0:
+        fail("14c: the one-process train returned non-zero")
+    wall_one = time.perf_counter() - t0
+    records = run_job([*args, "-o", two_out], "14c train")
+    ckpt = os.path.join("models", "HELEN_epoch_1_checkpoint.npz")
+    got, want = (load_checkpoint(os.path.join(glob_one(os.path.join(d, "trained_models_*")),
+                                              ckpt))[0] for d in (two_out, one_out))
+
+    def leaves(tree, prefix=""):
+        for k, v in sorted(tree.items()):
+            yield from (leaves(v, f"{prefix}{k}/") if isinstance(v, dict)
+                        else [(prefix + k, np.asarray(v))])
+
+    diff, close = 0.0, True
+    for (k, a), (_, b) in zip(leaves(got), leaves(want)):
+        diff = max(diff, float(np.abs(a - b).max()))
+        close &= bool(np.allclose(a, b, rtol=2e-4, atol=2e-5))
+    batches = -(-n_images // JOB_TRAIN_B)
+    alike = (records[0]["digests"] == records[1]["digests"]
+             and len(records[0]["digests"]) == batches)
+    log(f"14c train 1 epoch on {JOB_PROCS} processes at -b {JOB_TRAIN_B} ({batches} batches): "
+        f"parameters against one process: max abs diff {diff!r}, within rtol 2e-4 / atol "
+        f"2e-5: {close}; the processes' parameters equal bit for bit after each of "
+        f"{len(records[0]['digests'])} batches: {alike}; job wall {records[0]['wall']:.2f} s "
+        f"(its train {records[0]['seconds']:.2f} s), one process {wall_one:.2f} s")
+    if not (close and alike):
+        fail("14c: the job's parameters are not within tolerance of one process's, or the "
+             "processes differ")
+
+    # 14d
+    port = str(multihost.free_port())
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--barrier", str(r),
+                               port], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for r in range(JOB_PROCS)]
+    try:
+        out, err = procs[0].communicate(timeout=120)
+    except subprocess.TimeoutExpired:
+        fail("14d: process 0 hung at a barrier its peer never reaches")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.communicate()
+    rec = job_records(out)
+    if procs[0].returncode or not rec:
+        fail(f"14d: the barrier did not raise:\n{err[-2000:]}")
+    log(f"14d barrier {JOB_BARRIER_S:g} s, peer absent: raised after "
+        f"{rec[0]['raised_after']:.2f} s ({rec[0]['error']})")
+    if not JOB_BARRIER_S <= rec[0]["raised_after"] < 10 * JOB_BARRIER_S:
+        fail("14d: the barrier did not raise within its timeout")
+
+    # 14e
+    out = os.path.join(work, "job_polish_launcher")
+    hook = os.path.join(work, "job_hook")
+    os.makedirs(hook, exist_ok=True)
+    with open(os.path.join(hook, "sitecustomize.py"), "w") as f:
+        f.write(JOB_HOOK)
+    env_path = os.environ.get("PYTHONPATH")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([hook, ROOT] + ([env_path] if env_path
+                                                                       else [])))
+    launcher = ("import sys\nfrom helen_tpu_torch.parallel.multihost import launch_local\n"
+                f"sys.exit(launch_local(sys.argv[1:], ['cuda:0'] * {JOB_PROCS}, "
+                "timeout_s=300))")
+    t0 = time.perf_counter()
+    try:
+        done = subprocess.run([sys.executable, "-c", launcher, "polish", "-i", img_dir, "-m",
+                               model, "-o", out], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True, timeout=360)
+    except subprocess.TimeoutExpired:
+        fail("14e: the local launcher's job did not finish in 360 s")
+    wall = time.perf_counter() - t0
+    records = job_records(done.stdout)
+    if done.returncode or len(records) != JOB_PROCS:
+        fail(f"14e: the local launcher's job failed (exit code {done.returncode}):\n"
+             f"{done.stderr[-3000:]}")
+    check_job_polish([{**r, "wall": wall} for r in records], img_dir, out, n_images,
+                     image_shards, "14e the local launcher", wall6, smi)
+
+
+# 14e's workers are the launcher's own (python -m helen_tpu_torch); this
+# sitecustomize, on their PYTHONPATH only, makes each print its JOB record
+# (rank, seconds from its start, launches) at exit, in one write to the
+# shared pipe. A sitecustomize it shadows still runs.
+JOB_HOOK = """import atexit, importlib.machinery, importlib.util, json, os, sys, time
+
+_here, _t0 = os.path.dirname(os.path.abspath(__file__)), time.perf_counter()
+_spec = importlib.machinery.PathFinder.find_spec(
+    "sitecustomize", [p for p in sys.path if os.path.abspath(p or ".") != _here])
+if _spec is not None:
+    _spec.loader.exec_module(importlib.util.module_from_spec(_spec))
+
+
+def _report():
+    import multiprocessing
+
+    # the worker itself, not the launcher or a pool process it started
+    if "--process_id" not in sys.argv or multiprocessing.parent_process() is not None:
+        return
+    counts = {}
+    for name in ("gru_window", "gru_window_bwd", "gru_window_wgrad"):
+        mod = sys.modules.get("helen_tpu_torch.ops." + name)
+        counts.update(mod.launch_counts if mod else {})
+    rank = int(sys.argv[sys.argv.index("--process_id") + 1])
+    line = json.dumps({"rank": rank, "rc": 0, "seconds": time.perf_counter() - _t0,
+                       "launches": counts})
+    os.write(1, ("JOB " + line + "\\n").encode())
+
+
+atexit.register(_report)
+"""
+
+
+# ---------------------------------------------------------------------------
 # phase 13: the HDF5 inputs helen_tpu reads through h5py
 # ---------------------------------------------------------------------------
 
@@ -3143,7 +3523,8 @@ def main() -> int:
         phase(f"10b. K3f against its plain version (B={B}, T={T}, H={WH})")
         check_fast_xp(images_u8, results)
 
-        phase(f"10c. label flip audit of the fast tier ({N_AUDIT} images, random weights)")
+        phase(f"10c. label flip audit of the fast tier ({N_AUDIT} images, random weights, "
+              f"H={H} and H={WH})")
         audit_fast_flips(images_u8[:N_AUDIT])
 
         phase("10d. the trained checkpoint under polish --fast")
@@ -3177,6 +3558,11 @@ def main() -> int:
         check_hdf5_variants(work)
         log(f"phase 13: {time.perf_counter() - t13:.1f} s")
 
+        t14 = time.perf_counter()
+        phase(f"14. multi-process jobs on the one card: {JOB_PROCS} processes, gloo")
+        run_jobs(img_dir, n_images, work, timer6, smi)
+        log(f"phase 14: {time.perf_counter() - t14:.1f} s")
+
     phase("8. result")
     log(smi)
     print(json.dumps({"kernels": list(results.values())}))
@@ -3187,4 +3573,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] in (["--coordinator_address"], ["--barrier"]):
+        sys.exit(job_worker(sys.argv[1:]))  # a process of a phase-14 job
     sys.exit(main())

@@ -6,11 +6,16 @@ either package: ``polish``, ``call_consensus``, ``stitch``, ``train``,
 by default (``--device cuda``, an error when there is none) and take
 ``--device cpu``, or helen_tpu's top-level ``--platform cpu``.
 The single-host I/O flags run as in helen_tpu (``--pack``, ``--writers``,
-``--resume``, ``--fastq``/``--qualities``). Flags and subcommands of
-helen_tpu paths that are not ported yet (multi-process jobs,
-``--model_parallel > 1``, ``--debug_mismatches``, ``download_models``,
-``convert``, ``hyperband``, ``assess``) are accepted and raise a "not yet
-ported" error instead of doing something else.
+``--resume``, ``--fastq``/``--qualities``), and so do multi-process jobs
+(``--coordinator_address``/``--num_processes``/``--process_id``, or
+``--distributed`` under torchrun; parallel.multihost, gloo). With none of
+those flags, ``polish``, ``call_consensus``, ``train`` and ``test`` on a
+host with several visible GPUs run one worker process per GPU
+(``--no_data_parallel``: one process on one GPU). Flags and subcommands of
+helen_tpu paths that are not ported yet (``--model_parallel > 1``,
+``--debug_mismatches``, ``download_models``, ``convert``, ``hyperband``,
+``assess``) are accepted and raise a "not yet ported" error instead of
+doing something else.
 
 Run as ``python -m helen_tpu_torch`` or via the ``helen_tpu_torch`` console
 script.
@@ -45,8 +50,8 @@ def _add_common_consensus_args(p: argparse.ArgumentParser) -> None:
                         "batch k+1 overlaps compute of batch k and readback "
                         "of batch k-1")
     p.add_argument("--no_data_parallel", action="store_true",
-                   help="accepted for helen_tpu compatibility; the port runs "
-                        "on one device")
+                   help="one process on one GPU, where several are visible "
+                        "(default: one worker process per visible GPU)")
     p.add_argument("--fast", action="store_true",
                    help="the fast tier (--backend pallas_fast): bf16 operands, "
                         "float32 sums, gates and state; labels can flip on "
@@ -62,8 +67,8 @@ def _add_common_consensus_args(p: argparse.ArgumentParser) -> None:
                    help="prediction-writer processes, each writing one shard "
                         "file (stitch merges them)")
     p.add_argument("--host_shard", default="image", choices=["image", "file"],
-                   help="multi-host work partition; one host takes every image "
-                        "(multi-host jobs: not yet ported)")
+                   help="multi-process work partition: image = contiguous "
+                        "equal-count image blocks, file = round-robin whole files")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -74,15 +79,15 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--platform", choices=["auto", "cpu"], default="auto",
                         help="cpu = --device cpu for the model subcommands; auto "
                              "keeps --device (default cuda)")
-    # multi-process jobs are not ported yet: these raise when given
+    # multi-process jobs on torch.distributed with gloo (parallel.multihost)
     parser.add_argument("--distributed", action="store_true",
-                        help="(multi-process jobs: not yet ported)")
+                        help="join a multi-process job from torchrun's environment "
+                             "(RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT)")
     parser.add_argument("--coordinator_address", default=None,
-                        help="(not yet ported)")
-    parser.add_argument("--num_processes", type=int, default=None,
-                        help="(not yet ported)")
-    parser.add_argument("--process_id", type=int, default=None,
-                        help="(not yet ported)")
+                        help="process 0's host:port (with --num_processes and "
+                             "--process_id; alternative to --distributed)")
+    parser.add_argument("--num_processes", type=int, default=None)
+    parser.add_argument("--process_id", type=int, default=None)
     sub = parser.add_subparsers(dest="command")
 
     p = sub.add_parser("polish", help="images -> consensus -> stitch -> polished FASTA")
@@ -93,8 +98,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="emit <prefix>.fq with per-base phred qualities from the "
                         "consensus vote")
     p.add_argument("--barrier_timeout", type=float, default=86400.0,
-                   help="multi-host barrier timeout in seconds; unused on one host "
-                        "(multi-host jobs: not yet ported)")
+                   help="multi-process barrier timeout in seconds (processes "
+                        "park behind process 0's stitch; default 24 h)")
     p.add_argument("--no_stream_stitch", action="store_true",
                    help="stitch after consensus from the prediction store "
                         "instead of overlapping the two (byte-identical)")
@@ -202,24 +207,37 @@ def cmd_devices() -> None:
 UNPORTED_COMMANDS = ("download_models", "convert", "hyperband", "assess")
 
 
+#: the subcommands that run as a multi-process job
+JOB_COMMANDS = ("polish", "call_consensus", "train", "test")
+
+
 def _unported(args):
     """The first subcommand or flag given whose helen_tpu path is not
-    ported, or None. ``--host_shard`` and ``--barrier_timeout`` matter only
-    to a multi-process job, which the first check refuses."""
+    ported, or None."""
     checks = [
         (f"the {args.command} subcommand", args.command in UNPORTED_COMMANDS),
-        ("multi-process jobs (--distributed/--coordinator_address/"
-         "--num_processes/--process_id)",
-         args.distributed or args.coordinator_address is not None
-         or args.num_processes is not None or args.process_id is not None),
         ("--model_parallel > 1", getattr(args, "model_parallel", 1) > 1),
         ("--debug_mismatches", getattr(args, "debug_mismatches", False)),
     ]
     return next((what for what, given in checks if given), None)
 
 
+def _local_devices(args):
+    """The devices of one worker process each, when this command runs as a
+    job of local workers: ``--device cuda``, no job flags, no
+    ``--no_data_parallel`` and more than one visible GPU; else None."""
+    if (args.command not in JOB_COMMANDS or args.device != "cuda"
+            or getattr(args, "no_data_parallel", False)):
+        return None
+    import torch
+
+    n = torch.cuda.device_count()
+    return [f"cuda:{i}" for i in range(n)] if n > 1 else None
+
+
 def main(argv=None) -> int:
     parser = build_parser()
+    argv = sys.argv[1:] if argv is None else [str(a) for a in argv]
     args = parser.parse_args(argv)
     if args.command is None:
         parser.print_help()
@@ -235,14 +253,39 @@ def main(argv=None) -> int:
             parser.error("--fast and --backend are mutually exclusive "
                          "(--fast means --backend pallas_fast)")
         args.backend = "pallas_fast"
-    if args.command in ("polish", "call_consensus", "train", "test"):
+    if args.command in JOB_COMMANDS:
         from helen_tpu_torch.infer.consensus import resolve_device
+        from helen_tpu_torch.parallel import multihost
 
+        missing = multihost.missing_flags(args.distributed, args.coordinator_address,
+                                          args.num_processes, args.process_id)
+        if missing:
+            parser.error(missing)
         try:
             resolve_device(args.device)
         except RuntimeError as exc:  # --device cuda without a GPU
             parser.error(str(exc))
+        if args.distributed or args.coordinator_address is not None:
+            multihost.initialize(
+                coordinator_address=args.coordinator_address,
+                num_processes=args.num_processes,
+                process_id=args.process_id,
+                auto=args.distributed,
+                timeout_s=getattr(args, "barrier_timeout",
+                                  multihost.DEFAULT_BARRIER_TIMEOUT_S),
+            )
+            try:
+                return _run(args, parser)
+            finally:
+                multihost.shutdown()
+        devices = _local_devices(args)
+        if devices:
+            return multihost.launch_local(argv, devices)
+    return _run(args, parser)
 
+
+def _run(args, parser) -> int:
+    """Run the parsed command in this process."""
     if args.command == "version":
         from helen_tpu_torch.version import __version__
 
@@ -273,6 +316,8 @@ def main(argv=None) -> int:
             fastq=args.fastq,
             stream_stitch=not args.no_stream_stitch,
             device=args.device,
+            host_shard=args.host_shard,
+            barrier_timeout_s=args.barrier_timeout,
         )
         print(fasta)
         return 0
@@ -295,6 +340,7 @@ def main(argv=None) -> int:
             qualities=args.qualities,
             pipeline_depth=args.pipeline_depth,
             device=args.device,
+            host_shard=args.host_shard,
         )
         for f in files:
             print(f)

@@ -1,6 +1,6 @@
 """Consensus calling: batched GPU inference over MarginPolish images.
 
-Port of helen_tpu/infer/consensus.py on one process and one device: each
+Port of helen_tpu/infer/consensus.py, one device per process: each
 batch of uint8 images runs the whole 19-window vote + argmax
 (models.transducer.consensus_labels) on the device, images stream in through
 a thread-pool prefetcher, and per-image labels are written to the resumable
@@ -8,7 +8,9 @@ HDF5 prediction store (and, under polish, fed to the streaming stitch).
 
 Single-host I/O paths as in helen_tpu: the packed image cache (``pack``),
 the writer pool (``num_writers``), resume into existing stores (``resume``)
-and per-column qualities (``qualities``).
+and per-column qualities (``qualities``). In a multi-process job
+(parallel.multihost) each process takes its shard of the images
+(``host_shard``) and writes its own ``<prefix>_<rank>.hdf``.
 
 The main loop keeps ``pipeline_depth`` batches in flight: a background
 thread copies batch k+1 to the device on a side stream (from pinned memory)
@@ -85,10 +87,6 @@ class ConsensusStep:
         self.qualities = qualities
         log.info("consensus device: %s, backend: %s (kernels: %s)", self.device,
                  self.backend, self.kernels)
-        if self.device.type == "cuda" and torch.cuda.device_count() > 1:
-            log.warning("%d GPUs visible: consensus runs on %s only (multi-GPU "
-                        "data parallelism is not yet ported)",
-                        torch.cuda.device_count(), self.device)
         # Packed label readback: when both heads' label alphabets fit one
         # byte (flagship: base 5 x rle 11 = 55 codes), the device returns a
         # single (B, L) uint8 array ``base * num_rle + rle`` and ``read``
@@ -204,18 +202,20 @@ def call_consensus(
     pipeline_depth: int = 2,
     stream_sink_factory=None,
     device: str = "cuda",
+    host_shard: str = "image",
 ) -> List[str]:
     """Run consensus calling over a directory of MarginPolish images.
 
-    Writes ``<output_dir>/<output_prefix>_0.hdf`` (rank 0 of a one-process
-    job) and returns the store's files (a resumed run's new records go to
-    another file of the store: io.prediction_store.PredictionStore).
+    Writes ``<output_dir>/<output_prefix>_<rank>.hdf`` (``_0`` in a
+    single-process run) and returns the store's files (a resumed run's new
+    records go to another file of the store:
+    io.prediction_store.PredictionStore).
     ``device`` is ``"cuda"`` (default; raises without a GPU) or ``"cpu"``;
     ``backend`` is resolved by models.transducer.resolve_backend
     (``"pallas_fast"``: the fast tier).
 
     ``num_writers > 1`` fans writes out to that many writer PROCESSES, each
-    owning ``<prefix>_0_w<k>.hdf`` (io.writer_pool); stitch merges the
+    owning ``<prefix>_<rank>_w<k>.hdf`` (io.writer_pool); stitch merges the
     shards. ``resume`` continues the stores in ``output_dir``: every record
     already stored, in any shard layout an earlier run used, is skipped,
     and a batch whose records are all stored is not computed. ``qualities``
@@ -228,22 +228,51 @@ def call_consensus(
     writer raises.
 
     ``stream_sink_factory`` (polish's streaming-stitch hook) is called once
-    with the resolved ``(dataset, indices)`` and may return a sink whose
-    ``add(rec, bases, rles, quals)`` then receives every record the
-    prediction store accepts, in stream order, as batches drain.
+    with the resolved ``(dataset, indices)`` (indices None when the whole
+    dataset runs) and may return a sink whose ``add(rec, bases, rles,
+    quals)`` then receives every record the prediction store accepts, in
+    stream order, as batches drain.
+
+    In a multi-process job (parallel.multihost) the work is sharded per
+    process, unless the caller passes its own ``image_files``:
+    ``host_shard="image"`` (default) gives each process a contiguous
+    equal-count block of the image index, ``"file"`` round-robins whole
+    files; a process with nothing to do returns ``[]``. The ``--pack``
+    cache is then per process, ``images_cache_<rank>.h5``.
     """
+    from helen_tpu_torch.parallel import multihost
+
+    if host_shard not in ("image", "file"):
+        raise ValueError(f"host_shard must be 'image' or 'file', got {host_shard!r}")
     dev = resolve_device(device)
     files = list(image_files) if image_files is not None else list_image_files(image_dir)
     if not files:
         raise FileNotFoundError(f"no image files found in {image_dir!r}")
     ensure_output_dir(output_dir)
-    shard_id = 0  # rank 0 of a one-process job
+    # one prediction shard per process; each image's (region, chunk) store
+    # key is intrinsic, so placement stays deterministic
+    shard_id = multihost.process_index()
+    n_procs = multihost.process_count()
+    shard_indices: Optional[List[int]] = None
+    dataset = None
+    if n_procs > 1 and image_files is None:
+        if host_shard == "file":
+            files = multihost.host_file_shard(files)
+            log.info("process %d/%d takes %d input files", shard_id, n_procs, len(files))
+            if not files:
+                return []
+        else:
+            dataset = MarginPolishDataset(files, IMAGE)
+            shard_indices = multihost.host_image_shard(len(dataset))
+            log.info("process %d/%d takes %d/%d images", shard_id, n_procs,
+                     len(shard_indices), len(dataset))
+            if not shard_indices:
+                return []
     out_path = os.path.join(output_dir, f"{output_prefix}_{shard_id}.hdf")
 
     params, meta = load_model_any(model_path)
     log.info("model loaded from %s (epochs=%s)", model_path, meta.get("epochs"))
 
-    dataset = None
     packed_ds = None
     pack_tee = None
     if pack:
@@ -255,24 +284,29 @@ def call_consensus(
         )
 
         # cache_dir lets polish() keep the cache OUTSIDE its per-run
-        # timestamped predictions dir so later runs reuse it
-        cache_path = os.path.join(ensure_output_dir(cache_dir or output_dir),
-                                  "images_cache.h5")
-        if cache_is_fresh(cache_path, files):
+        # timestamped predictions dir so later runs reuse it; one cache per
+        # process (processes may share the dir), each of its own images
+        cache_name = "images_cache.h5" if n_procs == 1 else f"images_cache_{shard_id}.h5"
+        cache_path = os.path.join(ensure_output_dir(cache_dir or output_dir), cache_name)
+        if cache_is_fresh(cache_path, files, indices=shard_indices):
             packed_ds = dataset = PackedDataset(cache_path)
+            shard_indices = None  # the cache holds exactly this shard's images
         elif resume:
             # resume skips already-stored batches, which would leave holes
             # in a write-through cache: build it upfront
             log.info("building packed image cache %s", cache_path)
-            pack_images(files, cache_path, IMAGE)
+            pack_images(files, cache_path, IMAGE, indices=shard_indices, dataset=dataset)
             packed_ds = dataset = PackedDataset(cache_path)
+            shard_indices = None
         else:
-            dataset = MarginPolishDataset(files, IMAGE)
-            if len(dataset) > 0:  # 0 falls through to the no-images error
+            if dataset is None:
+                dataset = MarginPolishDataset(files, IMAGE)
+            n_run = len(shard_indices) if shard_indices is not None else len(dataset)
+            if n_run > 0:  # 0 falls through to the no-images error
                 log.info("building packed image cache %s during this run "
                          "(write-through)", cache_path)
-                pack_tee = PackTee(cache_path, len(dataset), IMAGE, files)
-    else:
+                pack_tee = PackTee(cache_path, n_run, IMAGE, files, indices=shard_indices)
+    elif dataset is None:
         dataset = MarginPolishDataset(files, IMAGE)
     if len(dataset) == 0:
         raise ValueError(f"no images found in {len(files)} input files")
@@ -280,7 +314,7 @@ def call_consensus(
 
     stream_sink = None
     if stream_sink_factory is not None:
-        stream_sink = stream_sink_factory(dataset, None)
+        stream_sink = stream_sink_factory(dataset, shard_indices)
         if stream_sink is not None:
             log.info("streaming stitch: overlapping region merges with "
                      "consensus")
@@ -324,7 +358,8 @@ def call_consensus(
 
     try:
         with store_cm as store, profile_trace(profile_dir):
-            indices = list(range(len(dataset)))
+            indices = (shard_indices if shard_indices is not None
+                       else list(range(len(dataset))))
             windows.start()
             total_batches = (len(indices) + batch_size - 1) // batch_size
 

@@ -1,13 +1,16 @@
 """The polish pipeline: consensus calling then stitching.
 
-Port of helen_tpu/infer/polish.py on one process (the reference's
+Port of helen_tpu/infer/polish.py (the reference's
 PolishInterface.polish_genome, PolishInterface.py:49-105): runs
 call_consensus into a timestamped predictions directory inside the output
 dir (``resume``: the newest one), then stitches the predictions into a
 polished FASTA (``fastq``: a FASTQ with per-base qualities), reporting
 per-stage elapsed time. By default the stitch streams: region merges run on
 the stitch pool while consensus is still running (stitch.streaming,
-byte-identical to the classic store-reading stitch).
+byte-identical to the classic store-reading stitch). In a multi-process
+job (parallel.multihost) process 0 picks the predictions directory, every
+process writes its shard there, and process 0 alone stitches them after a
+barrier.
 """
 from __future__ import annotations
 
@@ -101,6 +104,8 @@ def polish(
     stream_stitch: bool = True,
     device: str = "cuda",
     stage_timer: Optional[StageTimer] = None,
+    host_shard: str = "image",
+    barrier_timeout_s: float = 86400.0,
 ) -> str:
     """Full polish: images -> consensus -> stitch -> polished FASTA path.
 
@@ -121,31 +126,50 @@ def polish(
     ``backend`` goes to
     call_consensus as it is (``"pallas_fast"``, what ``--fast`` sets, is the
     fast tier).
+
+    A multi-process job is coordinated as helen_tpu's: process 0 picks the
+    predictions directory and broadcasts it, every process writes its
+    shard (``host_shard`` as in call_consensus) into it, a barrier
+    (``consensus-shards-complete``) waits for all of them, process 0 alone
+    stitches, and a second barrier (``stitch-complete``) holds the others
+    until it has; each barrier raises past ``barrier_timeout_s``. The
+    stitch does not stream there, and every process returns the FASTA
+    path.
     """
     from helen_tpu_torch.infer.consensus import call_consensus, resolve_device
+    from helen_tpu_torch.parallel import multihost
     from helen_tpu_torch.stitch.engine import prewarm_stitch_pool
 
     resolve_device(device)  # fail before the stitch pool spawns
     timer = stage_timer if stage_timer is not None else StageTimer()
     output_dir = ensure_output_dir(output_dir)
+    multi = multihost.process_count() > 1
+    stitcher = multihost.process_index() == 0
     pred_dir = None
-    if resume:
-        # the newest predictions dir holds the interrupted run's stores
-        existing = sorted(d for d in os.listdir(output_dir)
-                          if d.startswith("predictions_")
-                          and os.path.isdir(os.path.join(output_dir, d)))
-        if existing:
-            pred_dir = os.path.join(output_dir, existing[-1])
-            log.info("resuming into %s", pred_dir)
-    if pred_dir is None:
-        pred_dir = timestamped_dir(output_dir, "predictions")
+    if stitcher:
+        if resume:
+            # the newest predictions dir holds the interrupted run's stores
+            existing = sorted(d for d in os.listdir(output_dir)
+                              if d.startswith("predictions_")
+                              and os.path.isdir(os.path.join(output_dir, d)))
+            if existing:
+                pred_dir = os.path.join(output_dir, existing[-1])
+                log.info("resuming into %s", pred_dir)
+        if pred_dir is None:
+            pred_dir = timestamped_dir(output_dir, "predictions")
+    if multi:
+        # timestamps can differ across processes: process 0's name holds
+        name = multihost.broadcast_name(os.path.basename(pred_dir) if pred_dir else "")
+        pred_dir = ensure_output_dir(os.path.join(output_dir, name))
     # pre-warm the stitch pool BEFORE consensus: the worker spawn + imports
     # overlap the device-bound consensus stage
-    stitch_pool = prewarm_stitch_pool(threads)
+    stitch_pool = prewarm_stitch_pool(threads) if stitcher else None
 
     sink = None
     sink_factory = None
-    if stream_stitch and not resume and stitch_pool is not None:
+    # streaming needs the in-memory view of every record: one process, a
+    # fresh run
+    if stream_stitch and not multi and not resume and stitch_pool is not None:
         def sink_factory(dataset, indices, _pool=stitch_pool):
             nonlocal sink
             from helen_tpu_torch.config import STITCH
@@ -194,23 +218,30 @@ def polish(
                 # the cache in the stable parent, not the per-run timestamped
                 # predictions dir, so every later polish reuses it
                 cache_dir=output_dir,
+                host_shard=host_shard,
             )
-        with timer.stage("stitch"):
-            if sink is not None and sink.ready():
-                fasta = _finish_streamed(sink, pred_dir, output_dir,
-                                         output_prefix, fastq)
-                stitch_pool = None  # consumed by finish_iter
-            else:
-                if sink is not None:
-                    # mid-stream failure: reclaim the pool and re-read the
-                    # (complete) store classically
-                    stitch_pool = sink.abort()
-                fasta = perform_stitch(pred_dir, output_dir, output_prefix,
-                                       threads, fastq=fastq,
-                                       executor=stitch_pool)
-                stitch_pool = None  # ownership passed and consumed
+        fasta = os.path.join(output_dir, output_prefix + (".fq" if fastq else ".fa"))
+        if multi:
+            multihost.barrier("consensus-shards-complete", timeout_s=barrier_timeout_s)
+        if stitcher:
+            with timer.stage("stitch"):
+                if sink is not None and sink.ready():
+                    fasta = _finish_streamed(sink, pred_dir, output_dir,
+                                             output_prefix, fastq)
+                    stitch_pool = None  # consumed by finish_iter
+                else:
+                    if sink is not None:
+                        # mid-stream failure: reclaim the pool and re-read
+                        # the (complete) store classically
+                        stitch_pool = sink.abort()
+                    fasta = perform_stitch(pred_dir, output_dir, output_prefix,
+                                           threads, fastq=fastq,
+                                           executor=stitch_pool)
+                    stitch_pool = None  # ownership passed and consumed
     finally:
         if stitch_pool is not None:  # consensus failed before stitch ran
             stitch_pool.shutdown(wait=False, cancel_futures=True)
+    if multi:
+        multihost.barrier("stitch-complete", timeout_s=barrier_timeout_s)
     log.info("polish complete:\n%s", timer.report())
     return fasta

@@ -152,8 +152,14 @@ def ohdr_messages(f, addr: int, continuation: int) -> List[Tuple[int, int, int, 
 # links
 # ---------------------------------------------------------------------------
 
-Link = Union[int, str]  # a hard link's object header address, or what
-                        # another kind of link points at (refused on access)
+class SoftLink(str):
+    """A soft link's target path (absolute, or relative to the group that
+    holds the link), followed on access as libhdf5 follows it."""
+
+
+Link = Union[int, SoftLink, str]  # a hard link's object header address, a
+                                  # soft link, or what another kind of link
+                                  # points at (refused on access)
 
 
 def parse_link(mm, p: int) -> Tuple[str, Link]:
@@ -179,8 +185,7 @@ def parse_link(mm, p: int) -> Tuple[str, Link]:
         return name, struct.unpack_from("<Q", mm, q)[0]
     if ltype == 1:
         size, = struct.unpack_from("<H", mm, q)
-        target = bytes(mm[q + 2:q + 2 + size]).decode("utf-8", "replace")
-        return name, f"a soft link to {target!r}"
+        return name, SoftLink(bytes(mm[q + 2:q + 2 + size]).decode("utf-8"))
     if ltype == 64:
         size, = struct.unpack_from("<H", mm, q)
         parts = bytes(mm[q + 3:q + 2 + size]).split(b"\0")

@@ -12,8 +12,8 @@ earliest format and in the newest (``libver="latest"``):
 * groups as symbol tables (a version-1 B-tree over symbol-table nodes, names
   in a local heap), or new-style: link messages in the header (compact) or
   in a fractal heap indexed by a version-2 B-tree of names (dense, which
-  h5py uses past 8 links); hard links only, a soft or external link raises
-  on access;
+  h5py uses past 8 links); hard and soft links (followed as libhdf5 follows
+  them), an external link raises on access;
 * datasets of little- or big-endian integers, IEEE floats, fixed-length byte
   strings and variable-length strings (from the global heap, as ``bytes``),
   scalar or n-dimensional, with dataspace versions 1-2, datatype versions
@@ -77,6 +77,8 @@ _GROUP_MSGS = {_MSG_SYMBOL_TABLE, _MSG_LINK_INFO, _MSG_LINK}
 _UNSHARED = {_MSG_DATASPACE, _MSG_DATATYPE, _MSG_FILL, _MSG_FILTERS, _MSG_LAYOUT}
 # a variable-length string's record: length, global heap collection, index
 _VLEN = np.dtype([("len", "<u4"), ("addr", "<u8"), ("idx", "<u4")])
+# nested soft links followed before a lookup fails (libhdf5's H5L_NUM_LINKS)
+MAX_SOFT_LINKS = 16
 
 
 # ---------------------------------------------------------------------------
@@ -105,6 +107,9 @@ class Dataset:
         self.shape, maxshape = _read_dataspace(mm, space, name)
         self._raw = _read_datatype(mm, dtype, name)  # the stored element
         self._vlen = self._raw is _VLEN
+        # a space-padded string (class 3, pad type 2) reads with its padding
+        # stripped, as libhdf5 converts it to numpy's null-padded strings
+        self._spacepad = mm[dtype] & 0x0F == 3 and mm[dtype + 1] & 0x0F == 2
         self.dtype = np.dtype(object) if self._vlen else self._raw
         self._f = f
         self._fill_at = fill  # the fill value message, read where needed
@@ -153,6 +158,8 @@ class Dataset:
                                  offset=where).reshape(self.shape)
             out = np.array(view if whole else view[key], copy=True)
             del view  # release the buffer export so the map can close
+        if self._spacepad:
+            return np.char.rstrip(out, b" ").astype(self._raw)
         return self._f._strings(out) if self._vlen else out
 
     def _fill(self) -> Optional[bytes]:
@@ -189,7 +196,13 @@ class Group:
         return True
 
     def __getitem__(self, path: str):
-        node = self
+        return self._walk(path, 0)
+
+    def _walk(self, path: str, depth: int):
+        """The object at ``path`` (absolute, or relative to this group),
+        following soft links as libhdf5 does, at most
+        :data:`MAX_SOFT_LINKS` deep; a dangling one is a ``KeyError``."""
+        node = self._f if path.startswith("/") else self
         for part in (p for p in path.split("/") if p):
             if not isinstance(node, Group):
                 raise KeyError(path)
@@ -197,9 +210,14 @@ class Group:
             if addr is None:
                 raise KeyError(f"{part!r} not in {node.name!r}")
             full = f"{node.name.rstrip('/')}/{part}"
-            if isinstance(addr, str):
-                raise UnsupportedHDF5(f"{full} is {addr}: only hard links are read")
-            node = node._f._node(addr, full)
+            if isinstance(addr, _hdf5_v2.SoftLink):
+                if depth >= MAX_SOFT_LINKS:
+                    raise KeyError(f"{full}: more than {MAX_SOFT_LINKS} nested soft links")
+                node = node._walk(addr, depth + 1)
+            elif isinstance(addr, str):
+                raise UnsupportedHDF5(f"{full} is {addr}: only hard and soft links are read")
+            else:
+                node = node._f._node(addr, full)
         return node
 
 
@@ -310,11 +328,17 @@ class File(Group):
                 raise OSError(f"{name}: bad symbol-table node at {snod}")
             nsyms, = struct.unpack_from("<H", mm, snod + 6)
             for i in range(nsyms):
-                off, obj = struct.unpack_from("<QQ", mm, snod + 8 + 40 * i)
-                start = heap_data + off
-                link = mm[start:mm.find(b"\0", start)].decode()
+                entry = snod + 8 + 40 * i
+                off, obj, cache = struct.unpack_from("<QQI", mm, entry)
+                link = self._heap_string(heap_data + off)
+                if cache == 2:  # a soft link: its target's offset in the heap
+                    target, = struct.unpack_from("<I", mm, entry + 24)
+                    obj = _hdf5_v2.SoftLink(self._heap_string(heap_data + target))
                 links[link] = obj
         return links
+
+    def _heap_string(self, start: int) -> str:
+        return self._mm[start:self._mm.find(b"\0", start)].decode()
 
     def _btree_leaves(self, addr: int) -> Iterator[int]:
         mm = self._mm

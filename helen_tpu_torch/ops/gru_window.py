@@ -332,10 +332,10 @@ def get_lib() -> ctypes.CDLL:
 # plain versions (CPU path, tests, and the on-card comparison)
 # ---------------------------------------------------------------------------
 
-def _bidir(xp_f, xp_b, h0_f, h0_b, layer) -> Outputs:
+def _bidir(xp_f, xp_b, h0_f, h0_b, layer, product=None) -> Outputs:
     f, b = layer["fwd"], layer["bwd"]
-    out_f, hf = gru_scan(xp_f, h0_f, f["w_hh"], f["b_hh"])
-    out_b, hb = gru_scan(xp_b, h0_b, b["w_hh"], b["b_hh"], reverse=True)
+    out_f, hf = gru_scan(xp_f, h0_f, f["w_hh"], f["b_hh"], product=product)
+    out_b, hb = gru_scan(xp_b, h0_b, b["w_hh"], b["b_hh"], reverse=True, product=product)
     return out_f, out_b, hf, hb
 
 

@@ -33,7 +33,10 @@ tier and the card (:func:`xp_fwd_design`):
   every step.
 
 K3's two designs sum in the same order and share the gate lines, so they
-give the same bits; K3f's agree to the fast tier's tolerance. Each K3 or
+give the same bits. K3f's designs sum in two orders: the chain's FMA chains
+in k order, the grid's tensor-core instructions (``models.gru.mma_product``);
+K3f's plain version takes the order of the design the card runs, so that
+each design has a plain version of its own bits. Each K3 or
 K3f adds one to :data:`launch_counts` under its own name whichever design
 ran, and one under the name of the kernel that ran (``*_grid``,
 ``*_chain``).
@@ -52,7 +55,7 @@ from typing import Dict
 
 import torch
 
-from helen_tpu_torch.models.gru import bf16_round
+from helen_tpu_torch.models.gru import bf16_round, mma_product
 from helen_tpu_torch.ops import gru_window_xp_grid as xg
 from helen_tpu_torch.ops.gru_window_xp_bwd_grid import card_limits
 from helen_tpu_torch.ops.gru_window import (
@@ -94,10 +97,21 @@ def bigru_window_xp_plain(xp_f: torch.Tensor, xp_b: torch.Tensor,
 
 def bigru_window_xp_fast_plain(xp_f: torch.Tensor, xp_b: torch.Tensor,
                                h0_f: torch.Tensor, h0_b: torch.Tensor,
-                               layer: Layer) -> Outputs:
+                               layer: Layer, design=None) -> Outputs:
     """K3f's plain version: the bf16 streams widened to float32 (exact),
-    then the fast ``gru_scan`` recurrences (bf16 ``w_hh``)."""
-    return _bidir(xp_f.to(h0_f.dtype), xp_b.to(h0_f.dtype), h0_f, h0_b, layer)
+    then the fast ``gru_scan`` recurrences (bf16 ``w_hh``), their step
+    product in the order of K3f's ``design``: ``"chain"`` in k order,
+    ``"grid"`` that of the tensor cores (``models.gru.mma_product``). By
+    default the design :func:`xp_fwd_design` picks on a CUDA device, and
+    ``"chain"`` on the CPU."""
+    if design is not None and design not in DESIGNS:
+        raise ValueError(f"design {design!r} is not one of {DESIGNS}")
+    if design is None:
+        dev = xp_f.device
+        design = (xp_fwd_design(xp_f.shape[-1] // 3, xp_f.shape[1], fast=True, device=dev)
+                  if dev.type == "cuda" else "chain")
+    return _bidir(xp_f.to(h0_f.dtype), xp_b.to(h0_f.dtype), h0_f, h0_b, layer,
+                  product=mma_product if design == "grid" else None)
 
 
 def recurrent_args(layer: Layer, H: int, device, wdtype=torch.float32) -> list:
@@ -112,19 +126,20 @@ def recurrent_args(layer: Layer, H: int, device, wdtype=torch.float32) -> list:
     return args
 
 
-def xp_fwd_design(H: int, B: int, design=None, fast: bool = False) -> str:
+def xp_fwd_design(H: int, B: int, design=None, fast: bool = False, device=None) -> str:
     """K3's (``fast``: K3f's) design at hidden size ``H`` and batch ``B``:
     ``"grid"`` where ``gru_window_xp_grid.grid_units`` finds a slice of
     ``W_hh`` per SM that fits in the tier (co-residency of the ``2 ceil(H /
     U)`` blocks at the card's SM count, the shared memory at its opt-in
-    limit, both read once from the device), else ``"chain"``,
+    limit, both read once per device: ``device``, default the current
+    one), else ``"chain"``,
     ``xp_window_kernel``. The grid takes any B (its blocks loop over rows).
     A fixed rule of the shape, the tier and the card, not a fallback.
     ``design`` forces one (tests, chip_smoke.py's comparison of the two);
     ``"grid"`` raises where the rule does not hold."""
     if design is not None and design not in DESIGNS:
         raise ValueError(f"design {design!r} is not one of {DESIGNS}")
-    sms, budget = card_limits()
+    sms, budget = card_limits(device)
     fits = xg.grid_units(H, sms, budget, fast) is not None
     if design is None:
         return "grid" if fits else "chain"
@@ -150,9 +165,9 @@ def _launch_xp(name: str, dtype, xp_f, xp_b, h0_f, h0_b, layer, design=None) -> 
     _check("h0_b", h0_b, (B, H), torch.float32, dev)
     weights = recurrent_args(layer, H, dev, dtype)
     fast = dtype != torch.float32
-    if xp_fwd_design(H, B, design, fast) == "grid":
+    if xp_fwd_design(H, B, design, fast, dev) == "grid":
         outs = xg.launch_xp_grid(xp_f, xp_b, h0_f, h0_b, layer,
-                                 xg.grid_units(H, *card_limits(), fast), launch_counts, dev,
+                                 xg.grid_units(H, *card_limits(dev), fast), launch_counts, dev,
                                  fast)
     else:
         outs = _outputs(T, B, H, dev)
@@ -221,7 +236,8 @@ def window_xp_fast(src: Source, start: int, T: int, h0_f: torch.Tensor,
 
 
 def window_xp_fast_plain(src: Source, start: int, T: int, h0_f: torch.Tensor,
-                         h0_b: torch.Tensor, layer: Layer) -> Outputs:
-    """:func:`window_xp_fast` with K3f's plain version, on any device."""
+                         h0_b: torch.Tensor, layer: Layer, design=None) -> Outputs:
+    """:func:`window_xp_fast` with K3f's plain version, on any device, its
+    sums in the order of ``design`` (:func:`bigru_window_xp_fast_plain`)."""
     return bigru_window_xp_fast_plain(*_fast_streams(src, start, T, h0_f.dtype, layer),
-                                      h0_f, h0_b, layer)
+                                      h0_f, h0_b, layer, design)

@@ -122,19 +122,20 @@ def bigru_window_xp_bwd_plain(xp_f, xp_b, h0_f, h0_b, out_f, out_b, dout_f, dout
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def xp_bwd_design(H: int, B: int, design=None) -> str:
+def xp_bwd_design(H: int, B: int, design=None, device=None) -> str:
     """Pass 1's design at hidden size ``H`` and batch ``B``: ``"grid"`` where
     ``gru_window_xp_bwd_grid.grid_units`` finds a slice of ``W_hh`` per SM
     that fits (co-residency of the ``2 ceil(H / U)`` blocks at the card's
-    SM count, the shared memory at its opt-in limit, both read once from
-    the device), else ``"chain"``, ``xp_bwd_rec_kernel``. The grid takes
+    SM count, the shared memory at its opt-in limit, both read once per
+    device: ``device``, default the current one), else ``"chain"``,
+    ``xp_bwd_rec_kernel``. The grid takes
     any B (its blocks loop over rows). A fixed rule of the shape and the
     card, not a fallback. ``design`` forces one (tests, chip_smoke.py's
     comparison of the two); ``"grid"`` raises where the rule does not
     hold."""
     if design is not None and design not in DESIGNS:
         raise ValueError(f"design {design!r} is not one of {DESIGNS}")
-    sms, budget = gg.card_limits()
+    sms, budget = gg.card_limits(device)
     fits = gg.grid_units(H, sms, budget) is not None
     if design is None:
         return "grid" if fits else "chain"
@@ -193,7 +194,7 @@ def _rec_grid(a: _Window, xp_f, xp_b, h0_f, h0_b, out_f, out_b, dout_f, dout_b, 
     hp = gbs.launch_hp(h0_f, h0_b, out_f, out_b, layer["fwd"]["w_hh"], layer["bwd"]["w_hh"],
                        a.dev, launch_counts, "bigru_window_xp_bwd_hp")
     res = gg.launch_rec_grid(xp_f, xp_b, hp, h0_f, h0_b, out_f, out_b, dout_f, dout_b, dh_f,
-                             dh_b, layer, gg.grid_units(a.H, *gg.card_limits()),
+                             dh_b, layer, gg.grid_units(a.H, *gg.card_limits(a.dev)),
                              launch_counts, a.dev)
     del hp  # 2 x 78.6 MB at B=64, H=1024 back to the allocator
     return res
@@ -201,7 +202,7 @@ def _rec_grid(a: _Window, xp_f, xp_b, h0_f, h0_b, out_f, out_b, dout_f, dout_b, 
 
 def _rec(a: _Window, design, *args) -> RecOutputs:
     """Pass 1 in the design :func:`xp_bwd_design` picks, counted once."""
-    if xp_bwd_design(a.H, a.B, design) == "grid":
+    if xp_bwd_design(a.H, a.B, design, a.dev) == "grid":
         res = _rec_grid(a, *args)
     else:
         res = _rec_chain(a, *args)

@@ -81,17 +81,23 @@ def grid_units(h: int, sms: int, budget: int) -> Optional[int]:
 
 
 _card_lock = threading.Lock()
-_card: Optional[Tuple[int, int]] = None
+#: (SMs, opt-in shared memory per block) of each CUDA device, by index
+_card: Dict[int, Tuple[int, int]] = {}
 
 
-def card_limits() -> Tuple[int, int]:
-    """(SMs, opt-in shared memory per block in bytes) of the current CUDA
-    device, read once."""
-    global _card
+def card_limits(device=None) -> Tuple[int, int]:
+    """(SMs, opt-in shared memory per block in bytes) of ``device`` (a CUDA
+    device or its index; default the current one, index 0 where no CUDA
+    device is visible), read once per device."""
+    index = torch.device("cuda", device) if isinstance(device, int) else device
+    index = torch.device(index).index if index is not None else None
+    if index is None:
+        index = torch.cuda.current_device() if torch.cuda.is_available() else 0
     with _card_lock:
-        if _card is None:
-            _card = (get_lib().gru_window_sm_count(), device_smem_budget())
-        return _card
+        if index not in _card:
+            with torch.cuda.device(index):
+                _card[index] = (get_lib().gru_window_sm_count(), device_smem_budget())
+        return _card[index]
 
 
 # ---------------------------------------------------------------------------
@@ -173,6 +179,6 @@ def bigru_window_xp_bwd_rec_grid(xp_f, xp_b, hp, h0_f, h0_b, out_f, out_b, dout_
         return xp_bwd_rec_grid_plain(xp_f, xp_b, hp, *args, layer)
     a = gxb._Window("bigru_window_xp_bwd_rec_grid", xp_f, xp_b, *args, layer)
     gw._check("hp", hp, (2, a.T, a.B, 3 * a.H), torch.float32, a.dev)
-    gxb.xp_bwd_design(a.H, a.B, "grid")  # raises where the rule does not hold
-    return launch_rec_grid(xp_f, xp_b, hp, *args, layer, grid_units(a.H, *card_limits()),
+    gxb.xp_bwd_design(a.H, a.B, "grid", a.dev)  # raises where the rule does not hold
+    return launch_rec_grid(xp_f, xp_b, hp, *args, layer, grid_units(a.H, *card_limits(a.dev)),
                            gxb.launch_counts, a.dev)

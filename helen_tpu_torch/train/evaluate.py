@@ -1,5 +1,5 @@
 """Model evaluation: windowed loss and confusion matrices (port of
-helen_tpu/train/evaluate.py on one device).
+helen_tpu/train/evaluate.py, one device per process).
 
 The reference test module (models/test.py:39-167, TestInterface.py:90-139):
 the 19-window sweep with the hidden state carried, 5x5 base and 11x11 RLE
@@ -8,7 +8,9 @@ per window and normalised by images-per-window. Padded rows are masked out
 of the loss and the matrices, padded columns of short images out of the
 matrices (as helen_tpu does). The forward is the inference one (on the
 ``"cuda"`` backend K1/K2, or K3 for the wide models) under
-``torch.no_grad()``.
+``torch.no_grad()``. In a multi-process job (parallel.multihost) each
+process scores its block of the images and the sums are taken over the
+processes, the same on every one.
 """
 from __future__ import annotations
 
@@ -84,20 +86,31 @@ def evaluate(params, test_files, batch_size: int = 100, num_workers: int = 8,
     """Evaluate ``params`` (tensors on the device to run on) over labeled
     images; returns loss, accuracies and confusion matrices. Pass a prebuilt
     ``dataset`` to skip re-indexing the files (the Trainer evaluates every
-    epoch)."""
+    epoch).
+
+    In a multi-process job each process scores its contiguous block of the
+    images (parallel.multihost.host_image_shard); the image count and the
+    confusion matrices are summed exactly over the processes, the loss in
+    float32 in rank order, so every process returns the same loss, bit for
+    bit (helen_tpu's ``shard_across_hosts``, ``evaluate.py:145-195``)."""
+    from helen_tpu_torch.parallel import multihost
+
     leaf = params["base_head"]["w"]
     backend = resolve_backend(backend, leaf.device, params)
     if dataset is None:
         dataset = MarginPolishDataset(test_files, IMAGE, with_labels=True)
     if len(dataset) == 0:
         raise ValueError("no labeled images found for evaluation")
+    multi = multihost.process_count() > 1
+    indices = multihost.host_image_shard(len(dataset)) if multi else None
     n_windows = WINDOW.num_windows(IMAGE.seq_length)
     geom = model_geometry(params)
     total_loss = 0.0
     total_images = 0
     cm_base = np.zeros((geom.num_base_classes,) * 2)
     cm_rle = np.zeros((geom.num_rle_classes,) * 2)
-    for batch in batched_image_iterator(dataset, batch_size, num_workers, pad_final=True):
+    for batch in batched_image_iterator(dataset, batch_size, num_workers, pad_final=True,
+                                        indices=indices):
         B, L = batch.images.shape[:2]
         col_mask = np.zeros((B, L), dtype=np.float32)
         for i, rec in enumerate(batch.records):  # records cover real rows only
@@ -112,6 +125,17 @@ def evaluate(params, test_files, batch_size: int = 100, num_workers: int = 8,
         total_images += batch.valid * n_windows
         cm_base += cb
         cm_rle += cr
+    if multi:
+        # the loss in float32, rounded the same way on every process (what
+        # the scheduler's lockstep needs); the counts exactly
+        total_loss = float(multihost.allsum_hosts(
+            np.asarray([total_loss], dtype=np.float64))[0])
+        counts = multihost.allsum_hosts_exact(np.concatenate([
+            np.asarray([total_images], dtype=np.float64), cm_base.ravel(), cm_rle.ravel()]))
+        total_images = int(counts[0])
+        nb2 = cm_base.size
+        cm_base = counts[1:1 + nb2].reshape(cm_base.shape).astype(np.float64)
+        cm_rle = counts[1 + nb2:].reshape(cm_rle.shape).astype(np.float64)
     avg_loss = total_loss / total_images if total_images else 0.0
     return {
         "loss": float(avg_loss),
@@ -157,7 +181,11 @@ def test_interface(test_dir: str, model_path: str, batch_size: int = 100,
                    ) -> Dict[str, object]:
     """CLI entry: evaluate a model, write the confusion artifacts
     (``confusion_matrix.txt``, the PNGs, and ``test_stats.json`` with the
-    loss and both matrices)."""
+    loss and both matrices). In a multi-process job the images are sharded
+    over the processes (:func:`evaluate`), every process returns the
+    summed stats, and process 0 writes the artifacts."""
+    from helen_tpu_torch.parallel import multihost
+
     dev = resolve_device(device)
     set_fp32_precision()
     params_np, _ = load_model_any(model_path)
@@ -165,6 +193,8 @@ def test_interface(test_dir: str, model_path: str, batch_size: int = 100,
     backend = resolve_backend(backend, dev, params)
     stats = evaluate(params, list_image_files(test_dir), batch_size, num_workers,
                      backend=backend)
+    if multihost.process_index() != 0:
+        return stats
     ensure_output_dir(output_dir)
     log.info("test loss %.6f | base acc %.3f%% | rle acc %.3f%% (backend %s, "
              "kernels: %s)", stats["loss"], stats["base_accuracy"],

@@ -6,7 +6,8 @@ the RLE head the class-weighted one, whose mean is normalised by the sum of
 the selected class weights (torch's weighted-mean convention), with the 11
 RLE class weights of Options.py:29. The masked forms drop the padding rows
 of a batch; their ``*_parts`` return (numerator, denominator) so a caller
-can sum both parts before dividing.
+can sum both parts before dividing, and ``masked_*denominator`` give the
+denominators alone.
 """
 from __future__ import annotations
 
@@ -33,25 +34,37 @@ def weighted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return -(w * ll).sum() / w.sum()
 
 
+def masked_denominator(labels: torch.Tensor, row_mask: torch.Tensor) -> torch.Tensor:
+    """The denominator of :func:`masked_cross_entropy_parts`: the labels of
+    the rows where ``row_mask`` (B,) is 1; labels (B, W)."""
+    return row_mask.sum() * labels.shape[1]
+
+
+def masked_weighted_denominator(labels: torch.Tensor, class_weights: torch.Tensor,
+                                row_mask: torch.Tensor) -> torch.Tensor:
+    """The denominator of :func:`masked_weighted_cross_entropy_parts`: the
+    sum of the selected class weights over the unmasked rows."""
+    return (class_weights[labels.long()] * row_mask[:, None]).sum()
+
+
 def masked_cross_entropy_parts(logits: torch.Tensor, labels: torch.Tensor,
                                row_mask: torch.Tensor
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(numerator, denominator) of the mean CE over rows where ``row_mask``
     (B,) is 1; logits (B, W, C), labels (B, W)."""
     ll = _log_likelihood(logits, labels)
-    m = row_mask[:, None]
-    return -(ll * m).sum(), m.sum() * ll.shape[1]
+    return -(ll * row_mask[:, None]).sum(), masked_denominator(labels, row_mask)
 
 
 def masked_weighted_cross_entropy_parts(logits: torch.Tensor, labels: torch.Tensor,
                                         class_weights: torch.Tensor,
                                         row_mask: torch.Tensor
                                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(numerator, denominator) of the masked weighted CE: the denominator
-    is the sum of the selected class weights over the unmasked rows."""
+    """(numerator, denominator) of the masked weighted CE
+    (:func:`masked_weighted_denominator`)."""
     ll = _log_likelihood(logits, labels)
     w = class_weights[labels.long()] * row_mask[:, None]
-    return -(w * ll).sum(), w.sum()
+    return -(w * ll).sum(), masked_weighted_denominator(labels, class_weights, row_mask)
 
 
 def masked_cross_entropy(logits, labels, row_mask) -> torch.Tensor:

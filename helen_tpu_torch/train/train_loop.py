@@ -1,6 +1,6 @@
 """Training loop: truncated-BPTT multi-task training of the transducer.
 
-Port of helen_tpu/train/train_loop.py on one process and one device. The
+Port of helen_tpu/train/train_loop.py, one device per process. The
 reference semantics are kept (train.py:144-250):
 
 * each 1000-column labeled image is processed as 19 overlapping 100-column
@@ -23,6 +23,12 @@ for the wide models; on ``"torch"`` torch's autograd differentiates the
 plain ops. The data order (the per-epoch permutation),
 the checkpoints and the CSVs are byte-compatible with helen_tpu's, so a run
 of either package resumes in the other.
+
+In a multi-process job (parallel.multihost) the training is data-parallel,
+as helen_tpu's ``Trainer(data_parallel=True)`` across hosts: each process
+takes its rows of every global batch, the loss denominators and then the
+gradients are summed over the processes in each window, and every process
+applies the same Adam step; process 0 writes the checkpoints and stats.
 """
 from __future__ import annotations
 
@@ -59,10 +65,13 @@ from helen_tpu_torch.models.transducer import (
     set_fp32_precision,
 )
 from helen_tpu_torch.obs import Throughput, get_logger
+from helen_tpu_torch.parallel import multihost
 from helen_tpu_torch.train.evaluate import evaluate
 from helen_tpu_torch.train.loss import (
     masked_cross_entropy_parts,
+    masked_denominator,
     masked_weighted_cross_entropy_parts,
+    masked_weighted_denominator,
 )
 from helen_tpu_torch.utils.filesystem import ensure_output_dir, list_image_files, timestamped_dir
 
@@ -146,7 +155,7 @@ class Adam:
 def tbptt_step(params: Params, adam: Adam, opt_state: Dict, lr: float,
                images: torch.Tensor, label_base: torch.Tensor,
                label_rle: torch.Tensor, valid: int, backend: str,
-               route: Optional[str] = None):
+               route: Optional[str] = None, allsum=None):
     """One batch of truncated BPTT (helen_tpu ``build_tbptt_fn``,
     ``train_loop.py:89-177``): 19 windows, each a forward, a backward and an
     Adam update of ``params`` (leaf tensors with ``requires_grad``) in place.
@@ -157,8 +166,17 @@ def tbptt_step(params: Params, adam: Adam, opt_state: Dict, lr: float,
     :param route: the ``"cuda"`` backend's kernel family (library only;
         ``models.transducer.forward``); ``"encdec"`` has no backward and
         is refused
+    :param allsum: data parallelism over processes
+        (``parallel.multihost.allreduce_sum``; this batch is one process's
+        rows of the global one): each window's two loss denominators are
+        summed over the processes before the division (they depend on the
+        labels alone, so one sum serves the batch's 19 windows), then its
+        gradients and losses, flattened into one buffer: one sum per
+        window, after which every process's Adam step is the same
+        (helen_tpu ``train_loop.py:135-139,163-167``)
     :returns: device scalars (loss sum, base loss sum, rle loss sum) over
-        the windows, each window's loss a mean over its real rows
+        the windows, each window's loss a mean over its real rows (of the
+        global batch, with ``allsum``)
     """
     if route == "encdec":
         raise ValueError("route 'encdec' is inference only (helen_tpu's fused kernel has "
@@ -174,17 +192,33 @@ def tbptt_step(params: Params, adam: Adam, opt_state: Dict, lr: float,
     tot = torch.zeros((), device=dev)
     tot_b = torch.zeros((), device=dev)
     tot_r = torch.zeros((), device=dev)
-    for start in WINDOW.starts(L):
+    starts = WINDOW.starts(L)
+    if allsum is not None:
+        # each window's global denominators
+        dens = allsum(torch.stack([torch.stack([
+            masked_denominator(label_base[:, s:s + W], row_mask),
+            masked_weighted_denominator(label_rle[:, s:s + W], rle_w, row_mask)])
+            for s in starts]))
+    for k, start in enumerate(starts):
         base, rle, hidden_new = forward(params, images, hidden, backend,
                                         start=start, window=W, route=route)
         nb, db = masked_cross_entropy_parts(base, label_base[:, start:start + W],
                                             row_mask)
         nr, dr = masked_weighted_cross_entropy_parts(
             rle, label_rle[:, start:start + W], rle_w, row_mask)
+        if allsum is not None:
+            db, dr = dens[k]
         lb = nb / torch.clamp(db, min=1.0)
         lr_ = nr / torch.clamp(dr, min=1e-12)
         loss = lb + lr_
         grads = torch.autograd.grad(loss, leaves)
+        if allsum is not None:
+            # this process's share of the global mean: the sum completes it
+            flat = allsum(torch.cat([g.reshape(-1) for g in grads]
+                                    + [torch.stack([loss, lb, lr_]).detach()]))
+            grads = [g.view_as(p) for g, p in
+                     zip(flat[:-3].split([p.numel() for p in leaves]), leaves)]
+            loss, lb, lr_ = flat[-3], flat[-2], flat[-1]
         adam.update(leaves, grads, opt_state, lr)
         hidden = hidden_new.detach()
         tot = tot + loss.detach()
@@ -203,12 +237,20 @@ class EpochStats:
 
 
 class Trainer:
-    """Single-process trainer on one device (helen_tpu's ``Trainer`` with
-    ``data_parallel=False``). ``pack`` reads the training images from a
-    packed cache (io.packed), ``<cache_dir or model_dir>/train_images_cache.h5``,
-    built once with labels and reused while the image files are unchanged.
-    Data-parallel, multi-process and model-parallel training are not yet
-    ported (ROADMAP queue A)."""
+    """Trainer over the processes of the job, one device each (helen_tpu's
+    ``Trainer``; one process is its ``data_parallel=False``). In a
+    multi-process job (parallel.multihost) ``cfg.batch_size`` is the global
+    batch, rounded up to a multiple of the process count; each process
+    feeds its rows of every global batch from a wrap-padded permutation
+    (:meth:`_host_indices`), the step sums denominators and gradients over
+    the processes (:func:`tbptt_step`), evaluation is sharded and summed
+    the same on every process, so the LR scheduler moves in lockstep, and
+    process 0 writes the checkpoints and stats. ``pack`` reads the training
+    images from a packed cache (io.packed), ``<cache_dir or
+    model_dir>/train_images_cache.h5``, built once with labels and reused
+    while the image files are unchanged (in a job, built by process 0 while
+    the others wait). Model-parallel training is not yet ported (ROADMAP
+    queue A)."""
 
     def __init__(
         self,
@@ -263,6 +305,11 @@ class Trainer:
                           else self.adam.init(self.params))
         self.model_cfg = model_geometry(self.params)
         self.backend = resolve_backend(backend, self.device, self.params, kind="train")
+        self.n_procs = multihost.process_count()
+        self.pid = multihost.process_index()
+        # eff_batch is the GLOBAL batch; each process feeds eff_local rows
+        self.eff_batch = -(-cfg.batch_size // self.n_procs) * self.n_procs
+        self.eff_local = self.eff_batch // self.n_procs
         log.info("model parameters: %d (hidden %d, %d gru layer(s)), backend %s "
                  "(kernels: %s) on %s", num_params(self.params),
                  self.model_cfg.hidden_size, self.model_cfg.gru_layers, self.backend,
@@ -277,26 +324,89 @@ class Trainer:
         # mid-epoch resume — replay the same batches on either path
         self.packed_train = None
         if pack:
-            from helen_tpu_torch.io.packed import PackedDataset, cache_is_fresh, pack_images
+            from helen_tpu_torch.io.packed import PackedDataset
 
-            cache_path = os.path.join(cache_dir or model_dir, "train_images_cache.h5")
-            if not cache_is_fresh(cache_path, self.train_files, with_labels=True):
-                log.info("building packed training cache %s", cache_path)
-                pack_images(self.train_files, cache_path, IMAGE, with_labels=True,
-                            dataset=self.dataset)
+            cache_path = self._pack_training_cache(
+                os.path.join(cache_dir or model_dir, "train_images_cache.h5"))
             self.packed_train = PackedDataset(cache_path, with_labels=True)
             if len(self.packed_train) != len(self.dataset):
                 raise RuntimeError(f"{cache_path} holds {len(self.packed_train)} images, "
                                    f"the training files {len(self.dataset)}")
         self.test_dataset = MarginPolishDataset(self.test_files, IMAGE, with_labels=True)
-        log.info("training on %d images, evaluating on %d files",
-                 len(self.dataset), len(self.test_files))
+        if self.pid == 0:
+            log.info("training on %d images, evaluating on %d files%s",
+                     len(self.dataset), len(self.test_files),
+                     f" across {self.n_procs} processes" if self.n_procs > 1 else "")
+
+    def _pack_training_cache(self, cache_path: str) -> str:
+        """Build (or reuse) the packed training cache; returns its path.
+        Every process needs all of it (its rows are scattered through the
+        permutation), so in a job process 0 packs one shared cache while
+        the others wait at a barrier; a failed pack still reaches the
+        barrier and its error goes out to every process, which raises. If
+        the cache dir is not shared, each other process packs its own
+        ``train_images_cache_<rank>.h5`` (helen_tpu ``train_loop.py:445-500``)."""
+        from helen_tpu_torch.io.packed import cache_is_fresh, pack_images
+
+        def fresh(path):
+            return cache_is_fresh(path, self.train_files, with_labels=True)
+
+        def build(path):
+            log.info("building packed training cache %s", path)
+            pack_images(self.train_files, path, IMAGE, with_labels=True,
+                        dataset=self.dataset)
+
+        if self.n_procs == 1:
+            if not fresh(cache_path):
+                build(cache_path)
+            return cache_path
+        pack_exc = None
+        if self.pid == 0 and not fresh(cache_path):
+            try:
+                build(cache_path)
+            except Exception as exc:  # re-raised after the barrier
+                pack_exc = exc
+        multihost.barrier("train-pack-complete")
+        status = multihost.broadcast_name(
+            "ok" if pack_exc is None else f"pack failed: {pack_exc}"[:256])
+        if pack_exc is not None:
+            raise pack_exc
+        if status != "ok":
+            raise RuntimeError(f"process 0's packed-cache build failed ({status}); "
+                               "aborting on every process")
+        if not fresh(cache_path):
+            # the cache dir is not shared across the processes: pack locally
+            cache_path = cache_path[:-len(".h5")] + f"_{self.pid}.h5"
+            log.info("shared cache not visible on process %d", self.pid)
+            build(cache_path)
+        return cache_path
 
     def _epoch_indices(self, epoch: int) -> list:
         """Deterministic per-epoch shuffle (seed + epoch), helen_tpu's exact
         data order, so a mid-epoch resume re-derives it."""
         return np.random.default_rng(self.cfg.seed + epoch).permutation(
             len(self.dataset)).tolist()
+
+    def _host_indices(self, indices: list) -> tuple:
+        """This process's slice of the epoch: in a job the permutation is
+        wrap-padded to a multiple of the global batch (torch
+        DistributedSampler's duplication, which the reference relies on,
+        train_distributed.py:74-86) and process p takes rows
+        [p*eff_local, (p+1)*eff_local) of every global batch, so every
+        process runs the same count of FULL batches and the sums stay in
+        lockstep. Returns (this process's indices, its batch size)."""
+        if self.n_procs == 1:
+            return indices, self.eff_batch
+        pad = (-len(indices)) % self.eff_batch
+        # repeat the whole permutation as often as needed: with a dataset
+        # smaller than the global batch, indices[:pad] alone under-pads
+        reps = -(-pad // max(1, len(indices)))
+        indices = (indices + indices * reps)[: len(indices) + pad]
+        local = []
+        for b in range(0, len(indices), self.eff_batch):
+            s = b + self.pid * self.eff_local
+            local.extend(indices[s:s + self.eff_local])
+        return local, self.eff_local
 
     def _meta(self, epochs: int, **extra) -> Dict:
         return {"epochs": epochs, **extra,
@@ -310,8 +420,9 @@ class Trainer:
                         opt_state=self.opt_state)
 
     def train_one_epoch(self, epoch: int, skip_batches: int = 0) -> float:
-        indices = self._epoch_indices(epoch)
-        bs = self.cfg.batch_size
+        indices, bs = self._host_indices(self._epoch_indices(epoch))
+        rank0 = self.pid == 0
+        allsum = multihost.allreduce_sum if self.n_procs > 1 else None
         total_loss = 0.0
         total_images = 0
         n_windows = WINDOW.num_windows(IMAGE.seq_length)
@@ -329,22 +440,28 @@ class Trainer:
         else:
             batches = batched_image_iterator(self.dataset, bs, self.num_workers,
                                              indices=indices, pad_final=True)
-        with open(os.path.join(self.stats_dir, "train_loss.csv"), "a", newline="") as f:
+        csv_path = os.path.join(self.stats_dir, "train_loss.csv")
+        with open(csv_path if rank0 else os.devnull, "a", newline="") as f:
             writer = csv.writer(f)
             for bi, batch in enumerate(batches, start=skip_batches):
                 to_dev = lambda a: torch.from_numpy(a).to(self.device)  # noqa: E731
                 tot, _, _ = tbptt_step(
                     self.params, self.adam, self.opt_state, self.scheduler.lr,
                     to_dev(batch.images), to_dev(batch.labels_base).long(),
-                    to_dev(batch.labels_rle).long(), batch.valid, self.backend)
+                    to_dev(batch.labels_rle).long(), batch.valid, self.backend,
+                    allsum=allsum)
+                # a job's batches are always full (wrap padding), so the
+                # global row count is exact; one process keeps the masked tail
+                valid = batch.valid * self.n_procs
                 total_loss += float(tot)
-                total_images += batch.valid * n_windows
-                tp.add(batch.valid * n_windows)
+                total_images += valid * n_windows
+                tp.add(valid * n_windows)
                 avg = total_loss / max(1, total_images)
-                writer.writerow([epoch + 1, bi + 1, avg])
-                if (bi + 1) % self.checkpoint_every_batches == 0:
+                if rank0:
+                    writer.writerow([epoch + 1, bi + 1, avg])
+                if (bi + 1) % self.checkpoint_every_batches == 0 and rank0:
                     self._save_latest(epoch, bi + 1)
-                if bi % 20 == 0:
+                if bi % 20 == 0 and rank0:
                     log.info("epoch %d batch %d: avg loss %.6f | %s",
                              epoch + 1, bi + 1, avg, tp)
         tp.stop()
@@ -361,12 +478,18 @@ class Trainer:
             train_loss = self.train_one_epoch(epoch, skip_batches=skip)
             tp = self.epoch_throughput
             t_eval = time.time()
+            # sharded in a job: each process scores its slice and the sums
+            # are the same on every process, so the scheduler stays in step
             stats = evaluate(self.params, self.test_files, self.cfg.batch_size,
                              self.num_workers, backend=self.backend,
                              dataset=self.test_dataset)
             eval_seconds = time.time() - t_eval
             self.scheduler.step(stats["loss"])
             ckpt = os.path.join(self.model_dir, f"HELEN_epoch_{epoch + 1}_checkpoint.npz")
+            history.append(EpochStats(epoch + 1, train_loss, stats["loss"],
+                                      stats["base_accuracy"], stats["rle_accuracy"]))
+            if self.pid != 0:
+                continue
             save_checkpoint(ckpt, self.params, meta=self._meta(epoch + 1),
                             opt_state=self.opt_state)
             self._save_latest(epoch + 1, 0)
@@ -391,8 +514,6 @@ class Trainer:
                      "base acc %.2f%% | rle acc %.2f%% | saved %s",
                      epoch + 1, time.time() - t0, train_loss, stats["loss"],
                      stats["base_accuracy"], stats["rle_accuracy"], ckpt)
-            history.append(EpochStats(epoch + 1, train_loss, stats["loss"],
-                                      stats["base_accuracy"], stats["rle_accuracy"]))
         return history
 
 
@@ -424,7 +545,12 @@ def train_interface(
                       weight_decay=weight_decay, seed=seed)
     model_cfg = _dc.replace(MODEL, hidden_size=hidden_size, gru_layers=gru_layers)
     resolve_device(device)  # refuse before making the run directory
-    run_dir = timestamped_dir(output_dir, "trained_models")
+    name = ""
+    if multihost.process_index() == 0:
+        name = os.path.basename(timestamped_dir(output_dir, "trained_models"))
+    # process 0 picks the name, so a shared output dir gets ONE run
+    # directory even across a second boundary
+    run_dir = ensure_output_dir(os.path.join(output_dir, multihost.broadcast_name(name)))
     trainer = Trainer(
         train_files=list_image_files(train_dir),
         test_files=list_image_files(test_dir),

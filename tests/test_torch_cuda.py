@@ -1268,7 +1268,7 @@ def test_xp_bwd_grid_refuses_what_the_card_does_not_hold(dev, monkeypatch):
     xp_f, xp_b, h0f, h0b, of, ob, dof, dob, dhf, dhb, layer = args
     sms, budget = gg.card_limits()
     before = dict(gxb.launch_counts)
-    monkeypatch.setattr(gg, "_card", (114, budget))
+    monkeypatch.setattr(gg, "_card", {torch.cuda.current_device(): (114, budget)})
     assert gxb.xp_bwd_design(1024, 8) == "chain"
     with pytest.raises(ValueError, match="does not take H=1024"):
         gxb.bigru_window_xp_bwd(*args, design="grid")
@@ -1276,7 +1276,7 @@ def test_xp_bwd_grid_refuses_what_the_card_does_not_hold(dev, monkeypatch):
         gg.bigru_window_xp_bwd_rec_grid(xp_f, xp_b, torch.zeros(2, 4, 8, 3072, device=dev),
                                         h0f, h0b, of, ob, dof, dob, dhf, dhb, layer)
     assert gxb.launch_counts == before
-    monkeypatch.setattr(gg, "_card", (sms, budget))
+    monkeypatch.setattr(gg, "_card", {torch.cuda.current_device(): (sms, budget)})
     hp = gbs.bigru_window_bwd_hp(h0f, h0b, of, ob, layer)
     with pytest.raises(RuntimeError, match="bigru_window_xp_bwd_rec_grid launch failed"):
         gg.launch_rec_grid(xp_f, xp_b, hp, h0f, h0b, of, ob, dof, dob, dhf, dhb, layer,
@@ -1393,6 +1393,21 @@ def test_xp_fast_grid_matches_plain(dev, T, B, H):
     print(f"K3f T={T} B={B} H={H}: max |grid - one-launch| {max_diff(new, old):.3g}")
 
 
+@pytest.mark.parametrize("T,B,H", XP_GRID_SHAPES)
+def test_xp_fast_designs_equal_their_plain_orders(dev, T, B, H):
+    """Each K3f design equals, bit for bit, its plain version summed in its
+    own order: the grid the tensor cores' (models.gru.mma_product), the
+    chain k order's."""
+    from helen_tpu_torch.ops import gru_window_xp as gx
+
+    xp_f, xp_b, h0f, h0b, layer = xp_case(np.random.default_rng(T * B + H + 44), T, B, H, dev)
+    args = (xp_f.to(torch.bfloat16), xp_b.to(torch.bfloat16), h0f, h0b, fast(layer))
+    for design in gx.DESIGNS:
+        got = gx.bigru_window_xp_fast(*args, design=design)
+        want = gx.bigru_window_xp_fast_plain(*args, design=design)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), design
+
+
 def max_diff(a, b):
     return max(float((x - y).abs().max()) for x, y in zip(a, b))
 
@@ -1425,12 +1440,12 @@ def test_xp_grid_refuses_what_the_card_does_not_hold(dev, monkeypatch):
     xp_f, xp_b, h0f, h0b, layer = xp_case(np.random.default_rng(45), 4, 8, 1024, dev)
     sms, budget = gg.card_limits()
     before = dict(gx.launch_counts)
-    monkeypatch.setattr(gg, "_card", (114, budget))
+    monkeypatch.setattr(gg, "_card", {torch.cuda.current_device(): (114, budget)})
     assert gx.xp_fwd_design(1024, 8) == "chain"
     with pytest.raises(ValueError, match="does not take H=1024"):
         gx.bigru_window_xp(xp_f, xp_b, h0f, h0b, layer, design="grid")
     assert gx.launch_counts == before
-    monkeypatch.setattr(gg, "_card", (sms, budget))
+    monkeypatch.setattr(gg, "_card", {torch.cuda.current_device(): (sms, budget)})
     fl = fast(layer)
     for tier, ins, lay in ((False, (xp_f, xp_b), layer),
                            (True, (xp_f.to(torch.bfloat16), xp_b.to(torch.bfloat16)), fl)):

@@ -294,11 +294,76 @@ def test_refuses_other_filters_and_links_naming_them(tmp_path, libver):
         with pytest.raises(hdf5.UnsupportedHDF5, match="variable-length sequence"):
             g["seq"]
         assert {"soft", "ext", "x"} <= set(g.keys())
-        with pytest.raises(hdf5.UnsupportedHDF5, match=r"/soft is a soft link to '/x'"):
-            g["soft"]
+        # a soft link is followed (test_soft_links_read_like_h5py); an
+        # external one still raises by name
+        np.testing.assert_array_equal(g["soft"][()], np.arange(3))
         with pytest.raises(hdf5.UnsupportedHDF5, match=r"/ext is an external link.*other\.h5"):
             g["ext"]
         np.testing.assert_array_equal(g["x"][()], np.arange(3))
+
+
+@pytest.mark.parametrize("libver", LIBVERS)
+def test_a_lone_soft_link_reads_like_h5py(tmp_path, libver):
+    """With no other kind of link in the group, the earliest format keeps
+    the soft link in its symbol table (cache type 2, the target in the
+    local heap), the newest in a link message."""
+    path = str(tmp_path / "s.h5")
+    with h5py.File(path, "w", libver=libver) as f:
+        f["x"] = np.arange(3)
+        f["soft"] = h5py.SoftLink("/x")
+    with h5py.File(path, "r") as f, hdf5.File(path) as g:
+        assert g.keys() == sorted(f.keys())
+        np.testing.assert_array_equal(g["soft"][()], f["soft"][()])
+
+
+@pytest.mark.parametrize("libver", LIBVERS)
+def test_soft_links_read_like_h5py(tmp_path, libver):
+    """Soft links to a group, relative ones, chains of them and through
+    them to a dataset read as h5py reads them; a dangling one is a
+    ``KeyError``, as in h5py."""
+    path = str(tmp_path / "s.h5")
+    with h5py.File(path, "w", libver=libver) as f:
+        f.create_group("g/h")["y"] = np.arange(4.0)
+        f["g/rel"] = h5py.SoftLink("h/y")
+        f["to_group"] = h5py.SoftLink("/g")
+        f["chain"] = h5py.SoftLink("/to_group/h")
+        f["dangling"] = h5py.SoftLink("/nowhere")
+    with h5py.File(path, "r") as f, hdf5.File(path) as g:
+        assert isinstance(g["to_group"], hdf5.Group)
+        assert g["to_group"].keys() == sorted(f["to_group"].keys())
+        for key in ("g/rel", "to_group/rel", "to_group/h/y", "chain/y"):
+            np.testing.assert_array_equal(g[key][()], f[key][()])
+        for h in (f, g):
+            with pytest.raises(KeyError):
+                h["dangling"]
+
+
+@pytest.mark.parametrize("libver", LIBVERS)
+def test_fixed_length_strings_of_each_pad_type_read_like_h5py(tmp_path, libver):
+    """Null-terminated, null-padded and space-padded strings (pad types 0,
+    1 and 2); a space-padded one reads with its trailing spaces stripped,
+    as libhdf5 converts it."""
+    path = str(tmp_path / "p.h5")
+    values = np.array([b"chr1", b"a b ", b"xyzw  q", b""], dtype="S12")
+    pads = {"nullterm": h5py.h5t.STR_NULLTERM, "nullpad": h5py.h5t.STR_NULLPAD,
+            "spacepad": h5py.h5t.STR_SPACEPAD}
+    with h5py.File(path, "w", libver=libver) as f:
+        for name, pad in pads.items():
+            t = h5py.h5t.C_S1.copy()
+            t.set_size(12)
+            t.set_strpad(pad)
+            space = h5py.h5s.create_simple(values.shape)
+            d = h5py.h5d.create(f.id, name.encode(), t, space)
+            d.write(h5py.h5s.ALL, h5py.h5s.ALL, values)
+    with h5py.File(path, "r") as f, hdf5.File(path) as g:
+        for name in pads:
+            want = f[name][()]
+            for got in (g[name][()], g[name][1:3], g[name][np.array([2, 0])]):
+                assert got.dtype == want.dtype
+            assert g[name][()].tolist() == want.tolist()
+            assert g[name][1:3].tolist() == want[1:3].tolist()
+            assert g[name][np.array([2, 0])].tolist() == want[[2, 0]].tolist()
+        assert g["spacepad"][()].tolist() == [b"chr1", b"a b", b"xyzw  q", b""]
 
 
 def test_rows_decode_each_chunk_once_and_reuse_it_across_calls(tmp_path, monkeypatch):

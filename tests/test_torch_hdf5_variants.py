@@ -112,6 +112,50 @@ def rewrite(src: str, dst: str, libver: str) -> None:
         f.visititems(copy)
 
 
+def test_polish_of_space_padded_contig_names_writes_helen_tpus_headers(tmp_path):
+    """The golden images with every ``contig`` written as a space-padded
+    string (pad type 2): the port reads the names helen_tpu reads through
+    h5py, and ``polish --device cpu`` writes tests/golden/golden.fa byte
+    for byte, its headers included."""
+    from helen_tpu.io.images import MarginPolishDataset as JaxDataset
+
+    from helen_tpu_torch.io.images import MarginPolishDataset
+    from torch_port_fixtures import stage_golden_images
+
+    src = os.path.join(stage_golden_images(tmp_path / "golden"), "golden_images.h5")
+    images = tmp_path / "images"
+    images.mkdir()
+    dst = str(images / "spacepad.h5")
+    with h5py.File(src, "r") as f, h5py.File(dst, "w") as g:
+        def copy(name, obj):
+            if isinstance(obj, h5py.Group):
+                g.require_group(name)
+            elif name.endswith("/contig"):
+                t = h5py.h5t.C_S1.copy()
+                t.set_size(obj.dtype.itemsize)
+                t.set_strpad(h5py.h5t.STR_SPACEPAD)
+                d = h5py.h5d.create(g.id, name.encode(), t,
+                                    h5py.h5s.create_simple(obj.shape))
+                d.write(h5py.h5s.ALL, h5py.h5s.ALL, obj[()])
+            else:
+                g.create_dataset(name, data=obj[()])
+        f.visititems(copy)
+    with h5py.File(dst, "r") as g:
+        first = g["images"][sorted(g["images"])[0]]["contig"]
+        assert first.id.get_type().get_strpad() == h5py.h5t.STR_SPACEPAD
+    ours, theirs = MarginPolishDataset([dst]), JaxDataset([dst])
+    assert [ours.image_meta(i) for i in range(len(ours))] == [
+        theirs.image_meta(i) for i in range(len(theirs))]
+    from helen_tpu_torch.cli import main
+
+    out = tmp_path / "out"
+    assert main(["polish", "-i", str(images), "-m", golden("golden_model.pkl"), "-o",
+                 str(out), "--device", "cpu", "-t", "2"]) == 0
+    with open(out / "HELEN_prediction.fa", "rb") as a, \
+            open(os.path.join(GOLDEN_DIR, "golden.fa"), "rb") as b:
+        assert a.read() == b.read()
+
+
 @pytest.mark.parametrize("libver", ["earliest", "latest"])
 def test_port_stitches_a_store_h5py_wrote(tmp_path, libver):
     from helen_tpu.io import prediction_store as jax_store

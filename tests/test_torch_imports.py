@@ -56,6 +56,7 @@ def test_port_has_modules():
         assert f"helen_tpu_torch/ops/{mod}.py" in PORT_FILES
     for mod in ("hdf5", "prediction_store", "writer_pool", "packed", "images"):
         assert f"helen_tpu_torch/io/{mod}.py" in PORT_FILES
+    assert "helen_tpu_torch/parallel/multihost.py" in PORT_FILES
 
 
 @pytest.mark.parametrize("rel", PORT_FILES)

@@ -144,3 +144,47 @@ def test_resolve_backend():
     assert resolve_backend("pallas_fast", cpu) == "torch_fast"
     with pytest.raises(ValueError, match="not one of"):
         resolve_backend("pallas_train", cpu)
+
+
+def _meta_params(h):
+    """A param tree of hidden size ``h`` with shapes only (no storage)."""
+    def stack(d_in):
+        return {d: {"w_ih": torch.empty(d_in, 3 * h, device="meta"),
+                    "w_hh": torch.empty(h, 3 * h, device="meta")} for d in ("fwd", "bwd")}
+
+    return {"encoder": stack(90), "decoder": stack(2 * h),
+            "base_head": {"w": torch.empty(2 * h, 5, device="meta")},
+            "rle_head": {"w": torch.empty(2 * h, 11, device="meta")}}
+
+
+def test_resolve_backend_refuses_past_the_kernels_maximum():
+    """Past XP_MAX_H every backend that would pick a kernel on a CUDA
+    device (``auto``, ``fast`` and helen_tpu's ``pallas`` / ``pallas_fast``
+    as well as ``cuda``), in both kinds, raises naming ``--backend torch``:
+    the port does not take helen_tpu's quiet fallback to its plain route on
+    the card. The plain versions run there only when asked for, and
+    resolving a backend leaves the process's TF32 setting alone. The
+    device is only named: nothing runs on it."""
+    from helen_tpu_torch.models.transducer import XP_MAX_H, engaged_kernel, resolve_backend
+
+    cuda = torch.device("cuda")
+    wide = _meta_params(1056)
+    assert 1056 > XP_MAX_H
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    for requested, kind in [(None, "infer"), ("auto", "infer"), ("pallas", "infer"),
+                            ("fast", "infer"), ("pallas_fast", "infer"), ("cuda", "infer"),
+                            ("cuda_fast", "infer"), (None, "train"), ("auto", "train"),
+                            ("cuda", "train"), ("pallas_train", "train")]:
+        with pytest.raises(ValueError, match="maximum 1024 .*use --backend torch"):
+            resolve_backend(requested, cuda, wide, kind=kind)
+    for requested, kind, want in [("torch", "infer", "torch"), ("xla", "infer", "torch"),
+                                  ("torch_fast", "infer", "torch_fast"),
+                                  ("torch", "train", "torch"), ("xla", "train", "torch")]:
+        assert resolve_backend(requested, cuda, wide, kind=kind) == want
+        assert engaged_kernel(wide, want) == want
+    assert torch.backends.cuda.matmul.allow_tf32 == tf32
+    # at the kernels' maximum the kernels are picked
+    assert resolve_backend("auto", cuda, _meta_params(XP_MAX_H)) == "cuda"
+    assert resolve_backend("fast", cuda, _meta_params(XP_MAX_H)) == "cuda_fast"
+    # the CPU keeps its plain versions whatever the width
+    assert resolve_backend("auto", torch.device("cpu"), wide) == "torch"

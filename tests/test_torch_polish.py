@@ -177,37 +177,58 @@ def test_fast_and_backend_together_are_refused(capsys):
     assert "mutually exclusive" in capsys.readouterr().err
 
 
-# helen_tpu's flags whose paths the port lacked: the multi-process ones
-# are still refused; the single-host I/O flags (True) are ported and run
+# helen_tpu's flags whose paths the port lacked: the single-host I/O flags
+# (True) are ported and run; the multi-process ones are ported too, and an
+# incomplete job given here (a pattern) is an argparse error naming what it
+# lacks (tests/test_torch_multihost.py runs the jobs); False is still refused
 UNPORTED = [
     ("--pack", ["polish", "--pack"], True),
     ("--resume", ["call_consensus", "--resume"], True),
     ("--writers", ["polish", "--writers", "2"], True),
     ("--fastq", ["polish", "--fastq"], True),
     ("--qualities", ["call_consensus", "--qualities"], True),
-    # --host_shard is helen_tpu's default on one host; a multi-host job raises
-    ("--host_shard", ["--distributed", "polish", "--host_shard", "file"], False),
-    ("--num_processes", ["--num_processes", "2", "polish"], False),
+    # --host_shard is helen_tpu's default on one host; --distributed reads
+    # torchrun's environment, unset here
+    ("--host_shard", ["--distributed", "polish", "--host_shard", "file"],
+     "--distributed reads torchrun's environment, and RANK, WORLD_SIZE"),
+    ("--num_processes", ["--num_processes", "2", "polish"],
+     "--num_processes also needs --coordinator_address and --process_id"),
 ]
 TRAIN_ARGS = ["--train_image_dir", "tr", "--test_image_dir", "te", "--device", "cpu"]
 TEST_ARGS = ["--test_image_dir", "te", "-m", "model.npz", "--device", "cpu"]
 UNPORTED_TRAIN = [
     ("train--pack", ["train", "--pack", *TRAIN_ARGS], True),
     ("train--model_parallel", ["train", "--model_parallel", "2", *TRAIN_ARGS], False),
-    ("train--distributed", ["--distributed", "train", *TRAIN_ARGS], False),
+    ("train--distributed", ["--distributed", "train", *TRAIN_ARGS],
+     "--distributed reads torchrun's environment"),
     ("test--debug_mismatches", ["test", "--debug_mismatches", *TEST_ARGS], False),
 ]
 
 
+def _assert_incomplete_job(cli, argv, missing, capsys, monkeypatch):
+    for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(SystemExit) as exc:
+        cli(*argv)
+    assert exc.value.code == 2
+    err = capsys.readouterr().err
+    assert missing in err and "not yet ported" not in err, err
+
+
 @pytest.mark.parametrize("argv,ported", [a[1:] for a in UNPORTED],
                          ids=[a[0] for a in UNPORTED])
-def test_unported_flags_are_refused(argv, ported, tmp_path, capsys):
-    """A multi-process flag exits 2 with "not yet ported". An I/O flag,
-    ported since it was listed here, runs on the golden images: its FASTA
-    (or the FASTQ's sequences, or the store stitched) is the golden one."""
+def test_unported_flags_are_refused(argv, ported, tmp_path, capsys, monkeypatch):
+    """An I/O flag, ported since it was listed here, runs on the golden
+    images: its FASTA (or the FASTQ's sequences, or the store stitched) is
+    the golden one. A multi-process flag, ported since, exits 2 when the
+    job it starts is incomplete, naming what it lacks."""
     from helen_tpu_torch.infer.polish import perform_stitch
     from helen_tpu_torch.io.fasta import read_fasta, read_fastq
 
+    if isinstance(ported, str):
+        _assert_incomplete_job(cli, [*argv, "-i", "imgs", "-m", "model.pkl", "--device", "cpu"],
+                               ported, capsys, monkeypatch)
+        return
     if not ported:
         with pytest.raises(SystemExit) as exc:
             cli(*argv, "-i", "imgs", "-m", "model.pkl", "--device", "cpu")
@@ -231,9 +252,13 @@ def test_unported_flags_are_refused(argv, ported, tmp_path, capsys):
 
 @pytest.mark.parametrize("argv,ported", [a[1:] for a in UNPORTED_TRAIN],
                          ids=[a[0] for a in UNPORTED_TRAIN])
-def test_unported_train_flags_are_refused(argv, ported, tmp_path, capsys):
+def test_unported_train_flags_are_refused(argv, ported, tmp_path, capsys, monkeypatch):
     """As above for train and test: ``train --pack``, ported, trains one
-    epoch of a fresh H=16 model from its packed cache."""
+    epoch of a fresh H=16 model from its packed cache; ``--distributed``
+    without torchrun's environment exits 2 naming it."""
+    if isinstance(ported, str):
+        _assert_incomplete_job(cli, argv, ported, capsys, monkeypatch)
+        return
     if not ported:
         with pytest.raises(SystemExit) as exc:
             cli(*argv)

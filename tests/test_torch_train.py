@@ -104,6 +104,31 @@ def test_losses_match_helen_tpu(which):
         np.testing.assert_allclose(float(g), float(v), rtol=1e-6)
 
 
+def test_loss_denominators_are_the_parts():
+    """The denominators alone (what a data-parallel step sums over the
+    processes before dividing) are the ``*_parts`` ones bit for bit, and
+    the two halves of a batch add up to the whole batch's."""
+    from helen_tpu_torch.train import loss as tl
+
+    rng = np.random.default_rng(8)
+    B, W = 6, 9
+    base = torch.from_numpy(rng.standard_normal((B, W, 5)).astype(np.float32))
+    rle = torch.from_numpy(rng.standard_normal((B, W, 11)).astype(np.float32))
+    yb = torch.from_numpy(rng.integers(0, 5, (B, W)))
+    yr = torch.from_numpy(rng.integers(0, 11, (B, W)))
+    mask = (torch.arange(B) < 5).to(torch.float32)
+    w = torch.tensor(RLE_W, dtype=torch.float32)
+    assert torch.equal(tl.masked_denominator(yb, mask),
+                       tl.masked_cross_entropy_parts(base, yb, mask)[1])
+    assert torch.equal(tl.masked_weighted_denominator(yr, w, mask),
+                       tl.masked_weighted_cross_entropy_parts(rle, yr, w, mask)[1])
+    halves = [slice(0, 3), slice(3, B)]
+    assert float(sum(tl.masked_denominator(yb[h], mask[h]) for h in halves)) == 45.0
+    np.testing.assert_allclose(
+        float(sum(tl.masked_weighted_denominator(yr[h], w, mask[h]) for h in halves)),
+        float(tl.masked_weighted_denominator(yr, w, mask)), rtol=1e-6)
+
+
 # ---------------------------------------------------------------------------
 # the backward: plain version, autograd Functions
 # ---------------------------------------------------------------------------

@@ -136,7 +136,7 @@ def card(monkeypatch):
     """Set the card the rule reads (SMs, opt-in shared memory per block)."""
     from helen_tpu_torch.ops import gru_window_xp_bwd_grid as gg
 
-    return lambda sms, budget: monkeypatch.setattr(gg, "_card", (sms, budget))
+    return lambda sms, budget: monkeypatch.setattr(gg, "_card", {0: (sms, budget)})
 
 
 @pytest.mark.parametrize("H", [128, 160, 640, 768, 1024])

@@ -258,7 +258,7 @@ def card(monkeypatch):
     """Set the card the rule reads (SMs, opt-in shared memory per block)."""
     from helen_tpu_torch.ops import gru_window_xp_bwd_grid as gg
 
-    return lambda sms, budget: monkeypatch.setattr(gg, "_card", (sms, budget))
+    return lambda sms, budget: monkeypatch.setattr(gg, "_card", {0: (sms, budget)})
 
 
 @pytest.mark.parametrize("H", [128, 160, 512, 640, 768, 1024])
@@ -425,3 +425,95 @@ def test_forward_grid_variants_edit_the_shipped_source():
         out = gv.variant_source(src, consts, edits, gv.FWD_SOURCE)
         assert (out == src) == (name == "shipped"), name
     assert gv.main(["--kernel", "fwd", "--batch", "8"]) == 1
+
+
+def fused_sums_reference(x, w, acc0):
+    """``models.gru.mma_product``'s rule, one output at a time in exact
+    rationals: per chunk of 16 k the accumulator and the nonzero products,
+    each at its scale (a product ``2^(ea + eb)``, the accumulator
+    ``2^(ec + 1)``, from ``frexp``), truncated toward zero to multiples of
+    2^-27 of the largest scale, summed exactly, the sum truncated toward
+    zero to float32."""
+    import math
+    from fractions import Fraction
+
+    def to_f32_toward_zero(v):
+        f = np.float32(float(v))  # float(v) is exact: v has under 53 bits
+        if abs(Fraction(float(f))) > abs(v):
+            f = np.nextafter(f, np.float32(0))
+        return f
+
+    M, K = x.shape
+    out = np.zeros((M, w.shape[1]), np.float32)
+    for i in range(M):
+        for j in range(w.shape[1]):
+            acc = np.float32(acc0[i, j])
+            for k0 in range(0, K, 16):
+                terms = []
+                if acc != 0:
+                    terms.append((Fraction(float(acc)), math.frexp(float(acc))[1] + 1))
+                for k in range(k0, min(k0 + 16, K)):
+                    a, b = float(x[i, k]), float(w[k, j])
+                    if a != 0 and b != 0:
+                        terms.append((Fraction(a) * Fraction(b),
+                                      math.frexp(a)[1] + math.frexp(b)[1]))
+                if not terms:
+                    continue
+                q = Fraction(2) ** (max(e for _, e in terms) - 27)
+                acc = to_f32_toward_zero(sum(int(t / q) * q for t, _ in terms))
+            out[i, j] = acc
+    return out
+
+
+@pytest.mark.parametrize("K,spread,zeros,cscale", [(16, 8, 0.0, 4.0), (40, 3, 0.2, 0.0),
+                                                    (64, 0, 0.0, 64.0), (96, 2, 0.1, 1 / 64)])
+def test_mma_product_is_the_tensor_cores_fused_sums(K, spread, zeros, cscale):
+    """K3f's grid-order step product against an exact-rational statement of
+    the same rule, on bf16 operands over 2^-spread .. 2^spread with some
+    exact zeros, from accumulators of several sizes, K off the chunk of 16
+    included; and it is not the k-order chain."""
+    from helen_tpu_torch.models.gru import mma_product, ordered_product
+
+    rng = np.random.default_rng(K + spread)
+    x = rng.standard_normal((6, K)) * 2.0 ** rng.integers(-spread, spread + 1, (6, K))
+    x[rng.random((6, K)) < zeros] = 0.0
+    w = rng.standard_normal((K, 5)) / 8
+    c = (rng.standard_normal((6, 5)) * cscale).astype(np.float32)
+    xt, wt = (torch.from_numpy(a).float().to(torch.bfloat16).float() for a in (x, w))
+    got = mma_product(xt, wt, torch.from_numpy(c))
+    want = fused_sums_reference(xt.numpy(), wt.numpy(), c)
+    assert np.array_equal(got.numpy(), want)
+    # the same sums from 0.0, batched over a leading axis
+    both = mma_product(torch.stack([xt, xt.flip(0)]), torch.stack([wt, wt]))
+    assert torch.equal(both[0], mma_product(xt, wt))
+    assert torch.equal(both[1], mma_product(xt.flip(0), wt))
+    assert (mma_product(xt, wt) - xt.double().matmul(wt.double()).float()).abs().max() < 1e-4
+    assert not torch.equal(mma_product(xt, wt), ordered_product(xt, wt)) or K == 16
+
+
+@pytest.mark.parametrize("H,B", [(40, 7), (160, 3)])
+def test_fast_plain_takes_the_order_of_the_design(H, B):
+    """K3f's plain version sums in the order of the design it is asked for:
+    k order for ``"chain"`` (the default on the CPU, bit for bit), the
+    tensor cores' for ``"grid"``; both within the fast tier's tolerance of
+    helen_tpu's fast ``_kernel`` (interpret mode), and apart from each other
+    (an h rounded to bf16 one ulp apart)."""
+    from helen_tpu.ops.gru_pallas import fused_bigru_window
+
+    from helen_tpu_torch.ops import gru_window_xp as gx
+
+    T = 5
+    xp_f, xp_b, h0f, h0b, layer = case(T, B, H, seed=3 * H + B)
+    want = pallas_window(fused_bigru_window, xp_f, xp_b, h0f, h0b, layer, True)
+    args = ([torch.from_numpy(a).to(torch.bfloat16) for a in (xp_f, xp_b)]
+            + [torch.from_numpy(a) for a in (h0f, h0b)] + [torch_layer(layer, fast=True)])
+    default = gx.bigru_window_xp_fast_plain(*args)
+    chain = gx.bigru_window_xp_fast_plain(*args, design="chain")
+    grid = gx.bigru_window_xp_fast_plain(*args, design="grid")
+    assert all(torch.equal(a, b) for a, b in zip(default, chain))
+    assert not all(torch.equal(a, b) for a, b in zip(grid, chain))
+    for got in (chain, grid):
+        for g, w, what in zip(got, want, ("out_f", "out_b", "h_f", "h_b")):
+            close(g, w, what, FAST_TOL)
+    with pytest.raises(ValueError, match="not one of"):
+        gx.bigru_window_xp_fast_plain(*args, design="mma")
