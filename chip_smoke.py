@@ -84,6 +84,18 @@ matrices exactly, the loss within 1e-5), one ``train`` epoch against one
 process (rtol 2e-4 / atol 2e-5, the processes bit for bit after every
 batch), a barrier whose peer never comes (it raises within its timeout),
 and the polish again through the local launcher on ["cuda:0", "cuda:0"].
+Phase 15 drives what the port took last: K3, K3f and K4 past H=1024 (1056,
+1152, 2048 at B=64) in the designs the rule picks, the chain designs at 8
+or 4 rows per block, against their plain versions; ``polish`` with default
+flags of an H=1056 checkpoint (launches counted, labels against
+``--backend torch``), ``polish --fast`` at H=1152 and 2048 and TBPTT
+batches at H=1056 and 2048, so that a path launches each chain kernel;
+``hyperband`` (its schedule replayed, each trial's launches counted, its
+best checkpoint re-tested), ``test --debug_mismatches``, ``train
+--model_parallel 2`` through the CLI and the library's two-shard trainer on
+["cuda:0", "cuda:0"] against the data-parallel trainer, ``convert`` to
+.pkl, .npz and .onnx (self-checked on the card), ``download_models`` over
+file:// then ``polish`` of the golden images, and ``assess`` with a BED.
 Every phase fails the script on error; nothing falls back.
 The second-to-last line is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
@@ -1302,13 +1314,14 @@ def in_turns(run, iters: int = 5) -> tuple:
     return (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2, turns
 
 
-def xp_cost(bsz: int, stream_bytes: int, w_bytes: int) -> tuple:
-    """(FLOP, bytes) of one K3/K3f launch at batch ``bsz``, T=100, H=1024:
-    the step products of both directions; xp in (``stream_bytes`` per
-    element), out written, W_hh and b_hh read, h0 in, hn out."""
-    return (2.0 * T * bsz * 3 * WH * WH * 2,
-            2 * stream_bytes * T * bsz * 3 * WH + 2 * 4 * T * bsz * WH
-            + 2 * (w_bytes * WH * 3 * WH + 4 * 3 * WH) + 4 * 4 * bsz * WH)
+def xp_cost(bsz: int, stream_bytes: int, w_bytes: int, h: int = WH) -> tuple:
+    """(FLOP, bytes) of one K3/K3f launch at batch ``bsz``, T=100, hidden
+    size ``h``: the step products of both directions; xp in
+    (``stream_bytes`` per element), out written, W_hh and b_hh read, h0 in,
+    hn out."""
+    return (2.0 * T * bsz * 3 * h * h * 2,
+            2 * stream_bytes * T * bsz * 3 * h + 2 * 4 * T * bsz * h
+            + 2 * (w_bytes * h * 3 * h + 4 * 3 * h) + 4 * 4 * bsz * h)
 
 
 def check_xp_kernel(images_u8, results) -> None:
@@ -3425,6 +3438,725 @@ def check_hdf5_variants(work: str) -> None:
         f"{k} {1e3 * v / n_images:.3f}" for k, v in reads.items()))
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the xp route past H=1024 (the chain designs at 8, 4, 2 or 1 rows
+# per block), hyperband, test --debug_mismatches, train --model_parallel,
+# convert, download_models and assess
+# ---------------------------------------------------------------------------
+
+# 15a: the widths past 1024, the batch and window of the kernel checks, the
+# H=1056 polish's images and the other paths' images
+C3_WIDTHS = (1056, 1152, 2048)
+C3_B, C3_POLISH, C3_FEW = 64, 64, 16
+# 15b/15d: labeled full-width images made as phase 6's, hyperband's batch,
+# the model-parallel epoch's batch
+HB_IMAGES, HB_BATCH, MP_BATCH = 256, 256, 128
+# the chain designs' kernels: (wrapper's counter, source's kernel, replaces)
+K3_REPLACES = ("helen_tpu/ops/gru_pallas.py:231 (_kernel); "
+               "helen_tpu/ops/gru_pallas_train.py:119 (_fwd_kernel)")
+CHAIN_KERNELS = {
+    "bigru_window_xp": ("xp_window_kernel<false, R>", K3_REPLACES),
+    "bigru_window_xp_fast": ("xp_window_kernel<true, R>",
+                             "helen_tpu/ops/gru_pallas.py:231 (_kernel, fast=True)"),
+    "bigru_window_xp_bwd_rec": ("xp_bwd_rec_kernel<R>",
+                                "helen_tpu/ops/gru_pallas_train.py:166 (_bwd_kernel)"),
+}
+
+
+def xp_bwd_cost(bsz: int, h: int) -> tuple:
+    """(FLOP, bytes) of one K4 pass 1 at batch ``bsz``, T=100, hidden size
+    ``h`` (phase 9b's count): the gate recompute and the carry product of
+    both directions; xp, out, dout, h0, dh and the weights in, dxp, dhp_n
+    and dh0 out."""
+    n = bsz * T
+    stream, stream3, vec = 4 * n * h, 4 * n * 3 * h, 4 * bsz * h
+    w_bytes = 2 * 4 * (h * 3 * h + 3 * h)
+    return (2 * 2 * 2.0 * n * 3 * h * h,
+            2 * (stream3 + 2 * stream) + 4 * vec + w_bytes + 2 * (stream3 + stream) + 2 * vec)
+
+
+def chain_record(entries: dict, kernel: str, rows: int, h: int, err: float, ms: float,
+                 plain_ms: float, lib_ms: float, cost: tuple, peak: float, per: str) -> None:
+    """Enter one width's numbers under the chain kernel at ``rows`` rows per
+    block; the first width it ran at gives the entry's headline numbers."""
+    name = f"{kernel}_chain_r{rows}"
+    bound_ms, bound_by = bound(*cost, peak)
+    width = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+             "bound_by": bound_by, "library_ms": lib_ms}
+    if name not in entries:
+        src, replaces = CHAIN_KERNELS[kernel]
+        file = "gru_window_xp_bwd.cu" if kernel.endswith("bwd_rec") else "gru_window_xp.cu"
+        entries[name] = {
+            "name": name, "route": "cuda",
+            "source": f"helen_tpu_torch/ops/csrc/{file} ({src.replace('R', str(rows))})",
+            "replaces": replaces, "launches": 0, **width, "rows_per_block": rows,
+            "per": f"one launch at B={C3_B}, T={T}, H={h}; {per}", "widths": {}}
+    e = entries[name]
+    e["widths"][str(h)] = width
+    e["max_abs_err"] = max(e["max_abs_err"], err)
+
+
+def check_wide_kernels(results) -> dict:
+    """Phase 15a, the kernels: K3, K3f and K4 (pass 1, then pass 2) at H =
+    1056, 1152 and 2048, B=64, T=100, each in the design the rule picks
+    (ops.gru_window_xp.xp_fwd_design, gru_window_xp_bwd.xp_bwd_design;
+    the chain at gx.chain_rows / gxb.bwd_chain_rows rows per block) against
+    its plain version: K3 within TOL, K3f bit for bit against its plain
+    version in the order of the design that ran, K4 within TOL x the largest
+    output magnitude; each timed beside its plain version, its bound and
+    cuDNN's GRU at the same shape (forward in fp32, in bf16, backward).
+    Returns the chain designs' entries by rows per block, their launches
+    still 0 (the paths of 15a set them)."""
+    import numpy as np
+    import torch
+
+    from helen_tpu_torch.ops import gru_window_xp as gx
+    from helen_tpu_torch.ops import gru_window_xp_bwd as gxb
+    from helen_tpu_torch.ops import gru_window_xp_grid as xg
+    from helen_tpu_torch.ops.gru_window_xp_bwd_grid import card_limits
+
+    dev = torch.device("cuda")
+    sms, budget = card_limits()
+    entries = {}
+    flat = lambda res: list(res[:4]) + [res[4][d][k] for d in ("fwd", "bwd")  # noqa: E731
+                                        for k in ("w_hh", "b_hh")]
+    for h in C3_WIDTHS:
+        rng = np.random.default_rng(h)
+        r = lambda *s: torch.from_numpy(rng.uniform(-1, 1, s).astype("float32")).to(dev)  # noqa: E731
+        layer = random_layer(rng, 2 * h, h, dev)
+        x, h0f, h0b = r(T, C3_B, 2 * h), r(C3_B, h), r(C3_B, h)
+        hx = torch.stack([h0f, h0b])
+        d3, d3f, d4 = (gx.xp_fwd_design(h, C3_B), gx.xp_fwd_design(h, C3_B, fast=True),
+                       gxb.xp_bwd_design(h, C3_B))
+        rows3, rows3f, rows4 = (gx.chain_rows(h, budget), gx.chain_rows(h, budget, True),
+                                gxb.bwd_chain_rows(h, budget))
+        log(f"H={h}, B={C3_B}: K3 {d3!r}" + (f" at {rows3} rows per block" if d3 == "chain"
+                                             else "")
+            + f", K3f {d3f!r}" + (f" at {rows3f} rows" if d3f == "chain" else
+                                  f" ({xg.grid_units(h, sms, budget, True)} units per block, "
+                                  f"{xg.grid_smem_bytes(h, xg.grid_units(h, sms, budget, True), True)} "
+                                  "bytes)")
+            + f", K4 pass 1 {d4!r}" + (f" at {rows4} rows" if d4 == "chain" else "")
+            + f" (card: {sms} SMs, {budget} bytes of opt-in shared memory per block)")
+        with torch.no_grad():
+            xp_f, xp_b = project(x, layer)
+            got = gx.bigru_window_xp(xp_f, xp_b, h0f, h0b, layer)
+            want, plain3 = timed_once(lambda: gx.bigru_window_xp_plain(xp_f, xp_b, h0f, h0b,
+                                                                       layer))
+            e3 = max_err(got, want)
+            ms3 = cuda_ms(lambda: gx.bigru_window_xp(xp_f, xp_b, h0f, h0b, layer), iters=3,
+                          warmup=1)
+            gru = cudnn_gru(layer, 2 * h, h, dev)
+            lib3 = cuda_ms(lambda: gru(x, hx), iters=3, warmup=1)
+            fl = {d: {"w_hh": layer[d]["w_hh"].to(torch.bfloat16), "b_hh": layer[d]["b_hh"]}
+                  for d in layer}
+            bf, bb = xp_f.to(torch.bfloat16), xp_b.to(torch.bfloat16)
+            fgot = gx.bigru_window_xp_fast(bf, bb, h0f, h0b, fl)
+            fwant, plain3f = timed_once(lambda: gx.bigru_window_xp_fast_plain(bf, bb, h0f, h0b,
+                                                                              fl))
+            e3f = max_err(fgot, fwant)
+            ms3f = cuda_ms(lambda: gx.bigru_window_xp_fast(bf, bb, h0f, h0b, fl), iters=3,
+                           warmup=1)
+            gru16 = cudnn_gru(layer, 2 * h, h, dev, dtype=torch.bfloat16)
+            x16, hx16 = x.to(torch.bfloat16), hx.to(torch.bfloat16)
+            lib3f = cuda_ms(lambda: gru16(x16, hx16), iters=3, warmup=1)
+        of, ob = got[0].contiguous(), got[1].contiguous()
+        dof, dob, dhf, dhb = r(T, C3_B, h), r(T, C3_B, h), r(C3_B, h), r(C3_B, h)
+        args = (xp_f, xp_b, h0f, h0b, of, ob, dof, dob, dhf, dhb, layer)
+        g4 = gxb.bigru_window_xp_bwd(*args)
+        w4, plain4 = timed_once(lambda: gxb.bigru_window_xp_bwd_plain(*args))
+        e4 = max(float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+                 for a, b in zip(flat(g4), flat(w4)))
+        ms4 = cuda_ms(lambda: gxb.bigru_window_xp_bwd_rec(*args), iters=3, warmup=1)
+        plain4_rec = timed_once(lambda: gxb.bigru_window_xp_bwd_rec_plain(*args))[1]
+        xq = x.clone().requires_grad_(True)
+        hq = hx.clone().requires_grad_(True)
+        dcat, dh = torch.cat([dof, dob], -1), torch.stack([dhf, dhb])
+
+        def fwd_bwd():
+            out, hn = gru(xq, hq)
+            torch.autograd.backward([out, hn], [dcat, dh])
+
+        lib4 = cuda_ms(fwd_bwd, iters=3, warmup=1) - cuda_ms(lambda: gru(xq, hq), iters=3,
+                                                               warmup=1)
+        log(f"H={h}: K3 max |kernel - plain| {e3:.3g} (limit {TOL:g}), {ms3:.3f} ms (plain "
+            f"{plain3:.1f}, cuDNN GRU forward {lib3:.3f}); K3f {e3f!r} against its plain "
+            f"version in the {d3f} design's order (limit 0.0), {ms3f:.3f} ms (plain "
+            f"{plain3f:.1f}, cuDNN bf16 {lib3f:.3f}); K4 pass 1 + pass 2 max scaled "
+            f"|kernel - plain| {e4:.3g} (limit {TOL:g}), pass 1 {ms4:.3f} ms (plain "
+            f"{plain4_rec:.1f}; pass 1 + 2 plain {plain4:.1f}), cuDNN GRU backward "
+            f"{lib4:.3f} ms")
+        if not e3 <= TOL:
+            fail(f"K3 at H={h} disagrees with its plain version")
+        if e3f != 0.0:
+            fail(f"K3f at H={h} differs from its plain version in its design's order")
+        if not e4 <= TOL:
+            fail(f"K4 at H={h} disagrees with its plain version")
+        per3 = "library: cuDNN's GRU forward at D=2H, projection included"
+        if d3 == "chain":
+            chain_record(entries, "bigru_window_xp", rows3, h, e3, ms3, plain3, lib3,
+                         xp_cost(C3_B, 4, 4, h), PEAK_FP32, per3)
+        if d3f == "chain":
+            chain_record(entries, "bigru_window_xp_fast", rows3f, h, e3f, ms3f, plain3f, lib3f,
+                         xp_cost(C3_B, 2, 2, h), PEAK_BF16,
+                         "bound at the bf16 peak; library: cuDNN's GRU in bf16")
+        else:
+            bms, bby = bound(*xp_cost(C3_B, 2, 2, h), PEAK_BF16)
+            if "bigru_window_xp_fast" in results:
+                results["bigru_window_xp_fast"][f"h{h}"] = {
+                    "design": "grid", "ms": ms3f, "plain_ms": plain3f, "max_abs_err": e3f,
+                    "bound_ms": bms, "bound_by": bby, "library_ms": lib3f, "batch": C3_B}
+            log(f"K3f's grid design at H={h}, B={C3_B}: {ms3f:.4f} ms, bound {bms:.4f} ms "
+                f"({bby})")
+        if d4 == "chain":
+            chain_record(entries, "bigru_window_xp_bwd_rec", rows4, h, e4, ms4, plain4_rec,
+                         lib4, xp_bwd_cost(C3_B, h), PEAK_FP32,
+                         "pass 1 alone; max_abs_err: pass 1 + pass 2, scaled; library: "
+                         "cuDNN's GRU backward (both passes' work) at D=2H")
+        del layer, x, xp_f, xp_b, got, want, fgot, fwant, g4, w4, gru, gru16
+        torch.cuda.empty_cache()
+    return entries
+
+
+def wide_checkpoint(work: str, h: int) -> str:
+    """A random flagship-geometry checkpoint at hidden size ``h`` (one
+    bi-GRU layer each in encoder and decoder), from a seed."""
+    import dataclasses
+
+    import torch
+
+    from helen_tpu_torch.config import MODEL
+    from helen_tpu_torch.io.checkpoint import save_checkpoint
+    from helen_tpu_torch.models.transducer import init_params
+
+    path = os.path.join(work, f"h{h}.npz")
+    if not os.path.exists(path):
+        save_checkpoint(path, init_params(torch.Generator().manual_seed(h),
+                                          dataclasses.replace(MODEL, hidden_size=h)),
+                        meta={"epochs": 0})
+    return path
+
+
+def tbptt_pair(params0, images, yb, yr, label: str, mods, want_cuda: dict) -> None:
+    """One TBPTT batch through the kernels and through the plain route on
+    the card from the same params (phase 7b's bars), the kernels' launches
+    counted from 0 against ``want_cuda``."""
+    import torch
+
+    from helen_tpu_torch.io.checkpoint import params_to_torch
+    from helen_tpu_torch.models.transducer import param_leaves
+    from helen_tpu_torch.train.train_loop import Adam, tbptt_step
+
+    runs = {}
+    for backend in ("cuda", "torch"):
+        p = params_to_torch(params0, images.device)
+        for t in param_leaves(p):
+            t.requires_grad_(True)
+        adam = Adam(0.0)
+        state = adam.init(p)
+        for m in mods:
+            m.reset_launch_counts()
+        t0 = time.perf_counter()
+        sums = [float(v) for v in tbptt_step(p, adam, state, 1e-4, images, yb, yr,
+                                             images.shape[0], backend)]
+        torch.cuda.synchronize()
+        launches = {k: v for m in mods for k, v in m.launch_counts.items()}
+        log(f"{label} via {backend}: loss sums {sums} in {time.perf_counter() - t0:.2f} s; "
+            f"launches { {k: v for k, v in launches.items() if v} }")
+        want = ({**dict.fromkeys(launches, 0), **want_cuda} if backend == "cuda"
+                else dict.fromkeys(launches, 0))
+        if launches != want:
+            fail(f"{label} via {backend} launched other kernels than {want}")
+        runs[backend] = (sums, [t.detach() for t in param_leaves(p)])
+    (ks, kp), (ps, pp) = runs["cuda"], runs["torch"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(ks, ps))
+    perr = max(float((a - b).abs().max()) for a, b in zip(kp, pp))
+    log(f"{label}, kernels vs plain: loss sums rel diff {rel:.3g} (limit 1e-5), params max "
+        f"abs diff {perr:.3g} (limit 2e-5)")
+    if rel > 1e-5 or perr > 2e-5:
+        fail(f"{label}: the kernel path disagrees with the plain path")
+
+
+def run_wide_paths(work: str, entries: dict, results) -> None:
+    """Phase 15a, the paths, each with the launches counted from 0 just
+    before it: ``polish`` with default flags of 64 images with an H=1056
+    checkpoint (engaged kernel ``cuda_xp``, K3 in the chain design at 8
+    rows; exactly batches x 19 x layers launches; at most 1 flip per
+    10,000 labels per head against ``--backend torch`` on the card); one
+    TBPTT batch at H=1056, B=64 (K3 and K4 pass 1 chains at 8 rows) against
+    the plain route; ``polish --fast`` of 16 images at H=1152 (K3f's chain
+    at 8 rows) and H=2048 (at 4 rows); one TBPTT batch of one window at
+    H=2048, B=32 (K4 pass 1 at 4 rows) against the plain route."""
+    import torch
+
+    from helen_tpu_torch.config import IMAGE, WINDOW
+    from helen_tpu_torch.io.checkpoint import load_model_any
+    from helen_tpu_torch.models.transducer import engaged_kernel, resolve_backend
+    from helen_tpu_torch.ops import gru_window as gw
+    from helen_tpu_torch.ops import gru_window_bwd as gb
+    from helen_tpu_torch.ops import gru_window_wgrad as gwg
+    from helen_tpu_torch.ops import gru_window_xp as gx
+    from helen_tpu_torch.ops import gru_window_xp_bwd as gxb
+
+    mods = (gw, gb, gwg, gx, gxb)
+    n_win = WINDOW.num_windows(IMAGE.seq_length)
+    img_dir = os.path.join(work, "c3_images")
+    os.makedirs(img_dir)
+    write_exact(os.path.join(img_dir, "c3.h5"), "c3", C3_POLISH, 1501)
+
+    def add(name, n):
+        if name in entries:
+            entries[name]["launches"] += n
+
+    # polish with default flags at H=1056
+    model = wide_checkpoint(work, 1056)
+    params, _ = load_model_any(model)
+    engaged = engaged_kernel(params, resolve_backend(None, torch.device("cuda"), params))
+    for m in mods:
+        m.reset_launch_counts()
+    t0 = time.perf_counter()
+    fasta, preds = polish_cli(img_dir, model, os.path.join(work, "c3_out"))
+    wall = time.perf_counter() - t0
+    launches = {k: v for m in mods for k, v in m.launch_counts.items()}
+    k3 = n_win * 2  # one batch at the default -b 512, two layers
+    want = {**dict.fromkeys(launches, 0), "bigru_window_xp": k3, "bigru_window_xp_chain": k3,
+            "bigru_window_xp_chain_r8": k3}
+    log(f"15a polish (default flags) of {C3_POLISH} images at H=1056: engaged kernel "
+        f"{engaged!r}, wall {wall:.2f} s, launches { {k: v for k, v in launches.items() if v} }")
+    if engaged != "cuda_xp":
+        fail(f"polish at H=1056 engages {engaged!r}, not the xp kernels")
+    if launches != want:
+        fail(f"polish at H=1056 launched other kernels than {want}")
+    add("bigru_window_xp_chain_r8", k3)
+    _, plain_preds = polish_cli(img_dir, model, os.path.join(work, "c3_out_torch"),
+                                ["--backend", "torch"])
+    got, ref = store_labels(preds), store_labels(plain_preds)
+    if sorted(got) != sorted(ref):
+        fail("15a: the two polishes stored other images")
+    n = sum(v[0].size for v in ref.values())
+    fb = sum(int((got[k][0] != ref[k][0]).sum()) for k in ref)
+    fr = sum(int((got[k][1] != ref[k][1]).sum()) for k in ref)
+    log(f"15a polish at H=1056, kernels vs --backend torch on the card: {fb}+{fr} base+rle "
+        f"flips of {n} per head (limit {FLIPS_PER_LABEL * n:g})")
+    if max(fb, fr) > FLIPS_PER_LABEL * n:
+        fail("15a: the H=1056 kernels' labels disagree with the plain route")
+
+    # one TBPTT batch at H=1056, B=64
+    images, yb, yr = load_labeled(img_dir, C3_B)
+    tbptt_pair(params, images, yb, yr, f"15a one TBPTT batch at H=1056, B={C3_B}", mods,
+               {"bigru_window_xp": k3, "bigru_window_xp_chain": k3,
+                "bigru_window_xp_chain_r8": k3, XP_PASSES[0]: k3, XP_PASSES[1]: k3,
+                "bigru_window_xp_bwd_rec_chain": k3, "bigru_window_xp_bwd_rec_chain_r8": k3,
+                **wgrad_counts(k3)})
+    add("bigru_window_xp_chain_r8", k3)
+    add("bigru_window_xp_bwd_rec_chain_r8", k3)
+
+    # polish --fast at H=1152 (K3f's chain at 8 rows) and H=2048 (at 4)
+    few = os.path.join(work, "c3_few")
+    os.makedirs(few)
+    write_exact(os.path.join(few, "few.h5"), "few", C3_FEW, 1503)
+    for h, rows in ((1152, 8), (2048, 4)):
+        model = wide_checkpoint(work, h)
+        for m in mods:
+            m.reset_launch_counts()
+        t0 = time.perf_counter()
+        polish_cli(few, model, os.path.join(work, f"c3_fast_{h}"), ["--fast"])
+        launches = {k: v for m in mods for k, v in m.launch_counts.items()}
+        name = f"bigru_window_xp_fast_chain_r{rows}"
+        want = {**dict.fromkeys(launches, 0), "bigru_window_xp_fast": k3,
+                "bigru_window_xp_fast_chain": k3, name: k3}
+        log(f"15a polish --fast of {C3_FEW} images at H={h}: "
+            f"{time.perf_counter() - t0:.2f} s, launches "
+            f"{ {k: v for k, v in launches.items() if v} }")
+        if launches != want:
+            fail(f"polish --fast at H={h} launched other kernels than {want}")
+        add(name, k3)
+
+    # one TBPTT batch of one window at H=2048, B=32 (two slices of pass 2's
+    # rows, as every training shape here): K4 pass 1 at 4 rows
+    p2048, _ = load_model_any(wide_checkpoint(work, 2048))
+    tbptt_pair(p2048, images[:32, :T].contiguous(), yb[:32, :T].contiguous(),
+               yr[:32, :T].contiguous(), "15a one TBPTT batch of one window at H=2048, B=32",
+               mods, {"bigru_window_xp": 2, "bigru_window_xp_chain": 2,
+                      "bigru_window_xp_chain_r8": 2, XP_PASSES[0]: 2, XP_PASSES[1]: 2,
+                      "bigru_window_xp_bwd_rec_chain": 2,
+                      "bigru_window_xp_bwd_rec_chain_r4": 2, **wgrad_counts(2)})
+    add("bigru_window_xp_chain_r8", 2)
+    add("bigru_window_xp_bwd_rec_chain_r4", 2)
+    for name, e in entries.items():
+        if not e["launches"]:
+            fail(f"15a: no path launched {name}")
+        results[name] = e
+
+
+def run_hyperband(work: str, test_dir: str, results) -> str:
+    """Phase 15b: ``hyperband --max_epochs 2 --eta 2 -b 256 --seed 0`` on
+    256 labeled full-width images, held out on phase 7c's test images, at
+    the flagship's width. Its trials (hyperband_results.json) replay through
+    ``Hyperband`` for seed 0 to the same configs, rung epochs, survivors and
+    best; each trial's training kernel launches (counted around its
+    ``Trainer.run``) equal its epochs' batches x 19 x layers; ``test`` of the
+    best trial's checkpoint gives its recorded loss within 1e-5. Returns
+    the training images' directory."""
+    import glob
+
+    from helen_tpu_torch.cli import main as cli
+    from helen_tpu_torch.config import IMAGE, WINDOW
+    from helen_tpu_torch.io.images import MarginPolishDataset
+    from helen_tpu_torch.ops import gru_window as gw
+    from helen_tpu_torch.ops import gru_window_bwd as gb
+    from helen_tpu_torch.ops import gru_window_wgrad as gwg
+    from helen_tpu_torch.train import train_loop
+    from helen_tpu_torch.train.hyperband import Hyperband
+
+    train_dir = os.path.join(work, "hb_train")
+    os.makedirs(train_dir)
+    write_exact(os.path.join(train_dir, "hb.h5"), "hb", HB_IMAGES, 1601)
+    n_test = len(MarginPolishDataset(glob.glob(os.path.join(test_dir, "*.h5"))))
+    mods = (gw, gb, gwg)
+    per_trial = []
+    real_run = train_loop.Trainer.run
+
+    def counted_run(self, epochs):
+        for m in mods:
+            m.reset_launch_counts()
+        out = real_run(self, epochs)
+        per_trial.append((epochs, {k: v for m in mods for k, v in m.launch_counts.items()}))
+        return out
+
+    out = os.path.join(work, "hb_out")
+    train_loop.Trainer.run = counted_run
+    t0 = time.perf_counter()
+    try:
+        rc = cli(["hyperband", "--train_image_dir", train_dir, "--test_image_dir", test_dir,
+                  "--max_epochs", "2", "--eta", "2", "-b", str(HB_BATCH), "--seed", "0",
+                  "-o", out])
+    finally:
+        train_loop.Trainer.run = real_run
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        fail("hyperband returned non-zero")
+    with open(os.path.join(out, "hyperband_results.json")) as f:
+        rec = json.load(f)
+    trials = rec["trials"]
+    losses = iter([t["loss"] for t in trials])
+    replay = []
+
+    def run_trial(cfg, epochs, state):
+        replay.append((cfg, epochs, state))
+        return next(losses), trials[len(replay) - 1]["checkpoint"]
+
+    best = Hyperband(run_trial, max_epochs=2, eta=2, seed=0).run()
+    same = ([(c, e, s) for c, e, s in replay]
+            == [(t["params"], t["added_epochs"], t["resumed_from"]) for t in trials]
+            and (best.params, best.loss) == (rec["best"]["params"], rec["best"]["loss"]))
+    log(f"15b hyperband: {len(trials)} trials in {wall:.1f} s: "
+        + "; ".join(f"{t['trial']} lr {t['params']['learning_rate']:.3g} decay "
+                    f"{t['params']['weight_decay']:.3g} +{t['added_epochs']} -> epoch "
+                    f"{t['epochs']} loss {t['loss']:.6f}" for t in trials)
+        + f"; best {rec['best']['trial']}; the schedule for seed 0 replays: {same}")
+    if not same:
+        fail("hyperband's trials differ from the schedule Hyperband gives for seed 0")
+    n_win = WINDOW.num_windows(IMAGE.seq_length)
+    train_b, test_b = -(-HB_IMAGES // HB_BATCH), -(-n_test // HB_BATCH)
+    if len(per_trial) != len(trials):
+        fail("hyperband ran another number of trials than it recorded")
+    for t, (epochs, launches) in zip(trials, per_trial):
+        want = train_counts(epochs * (train_b + test_b) * n_win, epochs * train_b * n_win)
+        if epochs != t["added_epochs"] or launches != want:
+            fail(f"hyperband {t['trial']}: launches {launches}, expected {want}")
+    log(f"15b every trial's launches = its epochs x ({train_b} train + {test_b} test "
+        f"batches) x {n_win} windows x layers, the backward on the train batches only")
+    if "bigru_window_in1" in results:
+        results["bigru_window_in1"]["launches_hyperband"] = sum(
+            launches["bigru_window_in1"] for _, launches in per_trial)
+    best_ckpt = rec["best"]["checkpoint"]
+    tout = os.path.join(work, "hb_test")
+    if cli(["test", "--test_image_dir", test_dir, "-m", best_ckpt, "-b", str(HB_BATCH),
+            "-o", tout]) != 0:
+        fail("test of hyperband's best checkpoint returned non-zero")
+    with open(os.path.join(tout, "test_stats.json")) as f:
+        loss = json.load(f)["loss"]
+    log(f"15b test of the best trial's checkpoint: loss {loss!r}, recorded "
+        f"{rec['best']['loss']!r}")
+    if abs(loss - rec["best"]["loss"]) > 1e-5:
+        fail("test of hyperband's best checkpoint does not give its recorded loss")
+    return train_dir
+
+
+def dump_and_recount(ckpt: str, test_dir: str, out: str, batch: int) -> tuple:
+    """``test --debug_mismatches`` of ``ckpt`` on ``test_dir`` at ``-b
+    batch``, and the mismatches of the consensus labels counted apart on
+    the card (models.transducer.consensus_labels, the vote over the
+    windows, on batches padded as the test's are). Returns (test_stats,
+    dump lines, (records, base, rle) of the dump, (either, base, rle) of
+    the recount)."""
+    import glob
+
+    import numpy as np
+    import torch
+
+    from helen_tpu_torch.cli import main as cli
+    from helen_tpu_torch.io.checkpoint import load_model_any, params_to_torch
+    from helen_tpu_torch.io.images import MarginPolishDataset
+    from helen_tpu_torch.models.transducer import consensus_labels
+
+    if cli(["test", "--test_image_dir", test_dir, "-m", ckpt, "-b", str(batch),
+            "--debug_mismatches", "-o", out]) != 0:
+        fail("test --debug_mismatches returned non-zero")
+    with open(os.path.join(out, "test_stats.json")) as f:
+        stats = json.load(f)
+    with open(os.path.join(out, "mismatches.txt")) as f:
+        lines = f.read().splitlines()
+    # "<contig>:<pos> true=<base>x<rle> pred=<base>x<rle> | <features>"
+    pairs = [[tok.split("=")[1].rsplit("x", 1) for tok in ln.split(" | ")[0].split()[1:3]]
+             for ln in lines]
+    dump = (len(lines), sum(t[0] != p[0] for t, p in pairs),
+            sum(t[1] != p[1] for t, p in pairs))
+    params, _ = load_model_any(ckpt)
+    tp = params_to_torch(params, torch.device("cuda"))
+    ds = MarginPolishDataset(sorted(glob.glob(os.path.join(test_dir, "*.h5"))),
+                             with_labels=True)
+    either = base_n = rle_n = 0
+    for s in range(0, len(ds), batch):
+        recs = [ds.load(i) for i in range(s, min(s + batch, len(ds)))]
+        images = np.zeros((batch,) + recs[0].image.shape, dtype=np.uint8)
+        images[:len(recs)] = np.stack([r.image for r in recs])
+        with torch.no_grad():
+            pb, pr = consensus_labels(tp, torch.from_numpy(images).cuda(), backend="cuda")
+        pb, pr = pb.cpu().numpy(), pr.cpu().numpy()
+        for j, r in enumerate(recs):
+            real = r.position[:, 0] >= 0
+            mb, mr = (pb[j] != r.label_base) & real, (pr[j] != r.label_rle) & real
+            either += int((mb | mr).sum())
+            base_n += int(mb.sum())
+            rle_n += int(mr.sum())
+    return stats, lines, dump, (either, base_n, rle_n)
+
+
+def run_debug_mismatches(work: str, test_dir: str) -> None:
+    """Phase 15c: ``test --debug_mismatches`` with phase 7c's checkpoint on
+    its test images: the loss and both confusion matrices equal phase 7c's
+    ``test``, and the dump's records (and its base and rle mismatches each)
+    equal the columns whose consensus labels differ from the truth, counted
+    apart (:func:`dump_and_recount`); then on 8 noisier labeled images
+    (noise 0.45), where the checkpoint gets columns wrong, the same count
+    on a dump that is not empty. The matrices count each window's argmax, a
+    column once per window that covers it, so their off-diagonal sums are
+    logged, not compared."""
+    import glob
+
+    import numpy as np
+
+    ckpt = glob.glob(os.path.join(work, "train_out", "trained_models_*", "models",
+                                  "HELEN_latest_checkpoint.npz"))[0]
+    t0 = time.perf_counter()
+    stats, lines, dump, recount = dump_and_recount(ckpt, test_dir,
+                                                   os.path.join(work, "debug_out"), TB)
+    with open(os.path.join(work, "test_out", "test_stats.json")) as f:
+        ref = json.load(f)
+    same = all(stats[k] == ref[k] for k in ("loss", "base_confusion_matrix",
+                                            "rle_confusion_matrix"))
+    off = [float(np.sum(m) - np.trace(m)) for m in
+           (np.asarray(stats["base_confusion_matrix"]), np.asarray(stats["rle_confusion_matrix"]))]
+    log(f"15c test --debug_mismatches on phase 7c's test images: loss and both confusion "
+        f"matrices equal phase 7c's test: {same}; (records, base, rle) of the dump {dump}, "
+        f"of the consensus labels counted apart {recount}; the matrices' off-diagonal sums "
+        f"(per window) {off[0]:.0f} + {off[1]:.0f}")
+    if not same:
+        fail("test --debug_mismatches changed the test's loss or matrices")
+    if dump != recount:
+        fail("the mismatch dump differs from the consensus labels' mismatches")
+    noisy = os.path.join(work, "debug_noisy")
+    os.makedirs(noisy)
+    from helen_tpu_torch.io.synthetic import random_sequence, rle_encode, write_image_file
+
+    # 8 images: fewer columns than the dump's 10,000-record cap
+    seq = random_sequence(4000 * 8, seed=1801)
+    seq = seq[:int(rle_encode(seq)[1][:1000 + 7 * 920].sum())]
+    write_image_file(os.path.join(noisy, "noisy.h5"), {"noisy": seq}, region_cols=1000,
+                     overlap_cols=80, noise=0.45, seed=1802)
+    _, lines, dump, recount = dump_and_recount(ckpt, noisy, os.path.join(work, "debug_noisy_out"),
+                                               TB)
+    log(f"15c on 8 images at noise 0.45: (records, base, rle) of the dump {dump}, of the "
+        f"consensus labels counted apart {recount}; first record: "
+        f"{lines[0] if lines else '(none)'}; {time.perf_counter() - t0:.1f} s")
+    if dump != recount or not dump[0]:
+        fail("the mismatch dump of the noisy images is empty or differs from the consensus "
+             "labels' mismatches")
+
+
+def run_model_parallel(work: str, train_dir: str, test_dir: str) -> None:
+    """Phase 15d: ``train --model_parallel 2`` through the CLI on the one
+    card (helen_tpu's clamp warning; the data x tensor step on a 1 x 1
+    mesh, the plain recurrence), one epoch at -b 128, against the
+    data-parallel trainer (``train`` without the flag: the kernels) within
+    rtol/atol 1e-4; then the library's Trainer on ``["cuda:0", "cuda:0"]``
+    (a 1 x 2 mesh: each GRU layer's units and the heads' inputs split over
+    two shards on the one card, h gathered every step), one epoch within
+    the same bars."""
+    import dataclasses
+    import glob
+    import logging
+
+    import numpy as np
+
+    from helen_tpu_torch.cli import main as cli
+    from helen_tpu_torch.config import TRAIN
+    from helen_tpu_torch.io.checkpoint import flatten_tree, load_checkpoint
+    from helen_tpu_torch.train.train_loop import Trainer
+    from helen_tpu_torch.utils.filesystem import list_image_files
+
+    warnings = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            warnings.append(record.getMessage())
+
+    logger = logging.getLogger("helen_tpu_torch.train")
+    handler = Keep(logging.WARNING)
+    logger.addHandler(handler)
+    common = ["--train_image_dir", train_dir, "--test_image_dir", test_dir, "-b",
+              str(MP_BATCH), "-e", "1", "--seed", "5"]
+    t0 = time.perf_counter()
+    try:
+        rc = cli(["train", *common, "--model_parallel", "2", "-o",
+                  os.path.join(work, "mp_out")])
+    finally:
+        logger.removeHandler(handler)
+    t_mp = time.perf_counter() - t0
+    if rc != 0:
+        fail("train --model_parallel 2 returned non-zero")
+    t0 = time.perf_counter()
+    if cli(["train", *common, "-o", os.path.join(work, "dp_out")]) != 0:
+        fail("train returned non-zero")
+    t_dp = time.perf_counter() - t0
+
+    def epoch1(out):
+        path = glob.glob(os.path.join(out, "trained_models_*", "models",
+                                      "HELEN_epoch_1_checkpoint.npz"))[0]
+        return {k: np.asarray(v) for k, v in flatten_tree(load_checkpoint(path)[0]).items()}
+
+    def worst(a, b):
+        return max(float(np.max(np.abs(a[k] - b[k]) - 1e-4 * np.abs(b[k]))) for k in b)
+
+    dp = epoch1(os.path.join(work, "dp_out"))
+    clamp = [w for w in warnings if "does not divide" in w]
+    err = worst(epoch1(os.path.join(work, "mp_out")), dp)
+    log(f"15d train --model_parallel 2 on one card: {t_mp:.1f} s (data-parallel trainer "
+        f"{t_dp:.1f} s); warnings {warnings}; params: max(|mp - dp| - 1e-4 |dp|) {err:.3g} "
+        "(limit 1e-4)")
+    if clamp != ["model_parallel=2 does not divide 1 devices; using 1"]:
+        fail("train --model_parallel 2 did not warn of the clamp to one device")
+    if err > 1e-4:
+        fail("train --model_parallel 2 disagrees with the data-parallel trainer")
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(TRAIN, batch_size=MP_BATCH, learning_rate=1e-4, seed=5)
+    lib = Trainer(list_image_files(train_dir), list_image_files(test_dir), cfg,
+                  model_dir=os.path.join(work, "mp_lib", "models"),
+                  stats_dir=os.path.join(work, "mp_lib", "stats"), device="cuda",
+                  model_parallel=2, devices=["cuda:0", "cuda:0"])
+    mesh = lib.mesh.shape
+    lib.run(1)
+    got = {k: np.asarray(v) for k, v in flatten_tree(load_checkpoint(os.path.join(
+        work, "mp_lib", "models", "HELEN_epoch_1_checkpoint.npz"))[0]).items()}
+    err = worst(got, dp)
+    log(f"15d the library's Trainer on ['cuda:0', 'cuda:0']: mesh {mesh}, "
+        f"{len(lib.sharded)} shards, one epoch in {time.perf_counter() - t0:.1f} s; params: "
+        f"max(|mp - dp| - 1e-4 |dp|) {err:.3g} (limit 1e-4)")
+    if mesh != {"data": 1, "model": 2} or err > 1e-4:
+        fail("the two-shard trainer on one card disagrees with the data-parallel trainer")
+
+
+def run_convert(work: str) -> None:
+    """Phase 15e: ``convert`` of phase 5's trained checkpoint .npz -> .pkl
+    -> .npz (bit for bit) and -> .onnx (its self-check against the port's
+    forward, on the card through the kernels, passes); ``download_models``
+    from a ``file://`` manifest listing the golden model, then ``polish`` of
+    the golden images with the downloaded file: the golden FASTA byte for
+    byte."""
+    import numpy as np
+
+    from helen_tpu_torch.cli import main as cli
+    from helen_tpu_torch.io.checkpoint import flatten_tree, load_model_any
+    from helen_tpu_torch.io.onnx_export import parse_onnx
+
+    src = os.path.join(GOLDEN, "trained_synth30mb.npz")
+    pkl, npz, onnx = (os.path.join(work, f"converted.{x}") for x in ("pkl", "npz", "onnx"))
+    t0 = time.perf_counter()
+    for a, b in ((src, pkl), (pkl, npz)):
+        if cli(["convert", "-i", a, "-o", b]) != 0:
+            fail(f"convert {a} -> {b} returned non-zero")
+    want, got = (flatten_tree(load_model_any(p)[0]) for p in (src, npz))
+    exact = sorted(want) == sorted(got) and all(
+        np.array_equal(np.asarray(want[k]), np.asarray(got[k])) for k in want)
+    if cli(["convert", "-i", src, "-o", onnx]) != 0:
+        fail("convert to .onnx (its self-check on the card) returned non-zero")
+    model = parse_onnx(open(onnx, "rb").read())
+    log(f"15e convert .npz -> .pkl -> .npz bit for bit: {exact}; .onnx ({os.path.getsize(onnx)} "
+        f"bytes, {[n['op'] for n in model['nodes']].count('GRU')} GRU nodes) self-checked "
+        f"against the kernels on the card within 1e-4; {time.perf_counter() - t0:.1f} s")
+    if not exact:
+        fail("convert .npz -> .pkl -> .npz changed the params")
+    manifest = os.path.join(work, "manifest.csv")
+    with open(manifest, "w") as f:
+        f.write(f"golden_model.pkl,file://{os.path.join(GOLDEN, 'golden_model.pkl')}\n")
+    dl = os.path.join(work, "downloaded")
+    if cli(["download_models", "-o", dl, "--manifest_url", f"file://{manifest}"]) != 0:
+        fail("download_models returned non-zero")
+    img_dir = os.path.join(work, "golden_images")
+    if not os.path.isdir(img_dir):
+        os.makedirs(img_dir)
+        with gzip.open(os.path.join(GOLDEN, "golden_images.h5.gz"), "rb") as s, \
+                open(os.path.join(img_dir, "golden_images.h5"), "wb") as d:
+            shutil.copyfileobj(s, d)
+    fasta, _ = polish_cli(img_dir, os.path.join(dl, "golden_model.pkl"),
+                          os.path.join(work, "out_downloaded"))
+    same = same_bytes(fasta, os.path.join(GOLDEN, "golden.fa"))
+    log(f"15e download_models over file://, then polish of the golden images with the "
+        f"downloaded model: FASTA byte-identical to golden.fa: {same}")
+    if not same:
+        fail("the downloaded model did not polish the golden images to golden.fa")
+
+
+def run_assess(work: str, truth: dict) -> None:
+    """Phase 15f: ``assess --json`` of phase 6's FASTA against its truth: 0
+    edits; with ``--bed`` over two intervals of one contig, the masked truth
+    and polished counts each equal the intervals' length (the polished
+    contigs are the truth)."""
+    import contextlib
+    import io
+
+    from helen_tpu_torch.cli import main as cli
+    from helen_tpu_torch.io.fasta import write_fasta
+
+    truth_fa = os.path.join(work, "truth_full.fa")
+    write_fasta(truth_fa, sorted(truth.items()))
+    fasta = os.path.join(work, "out_full", "HELEN_prediction.fa")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli(["assess", "-t", truth_fa, "-p", fasta, "--json"])
+    report = json.loads(buf.getvalue().strip().splitlines()[-1])
+    contig = sorted(truth)[0]
+    bed = os.path.join(work, "two.bed")
+    with open(bed, "w") as f:
+        f.write(f"{contig}\t10000\t10500\n{contig}\t200000\t201000\n")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc_bed = cli(["assess", "-t", truth_fa, "-p", fasta, "--json", "-b", bed])
+    bed_report = json.loads(buf.getvalue().strip().splitlines()[-1])
+    masked = bed_report.get("masking", {})
+    log(f"15f assess of phase 6's FASTA: rc {rc}, {report['total_edits']} edits over "
+        f"{report['total_truth_bases']} truth bases; with a BED of two intervals (1,500 "
+        f"bases of {contig}): rc {rc_bed}, masking {masked}, {bed_report['total_edits']} "
+        f"edits; {time.perf_counter() - t0:.1f} s")
+    if rc or report["total_edits"] != 0 or rc_bed or bed_report["total_edits"] != 0:
+        fail("assess of phase 6's FASTA found edits")
+    if (masked.get("masked_truth"), masked.get("masked_polished")) != (1500, 1500):
+        fail("assess --bed masked other counts than the BED's 1,500 bases")
+
+
 def main() -> int:
     import torch
 
@@ -3562,6 +4294,25 @@ def main() -> int:
         phase(f"14. multi-process jobs on the one card: {JOB_PROCS} processes, gloo")
         run_jobs(img_dir, n_images, work, timer6, smi)
         log(f"phase 14: {time.perf_counter() - t14:.1f} s")
+
+        t15 = time.perf_counter()
+        test_dir = os.path.join(work, "train_test")
+        phase(f"15a. the xp route past H=1024: K3, K3f and K4 at H={C3_WIDTHS}, "
+              f"B={C3_B}, T={T}, against their plain versions")
+        wide_entries = check_wide_kernels(results)
+        phase("15a. the paths past H=1024: polish at H=1056, TBPTT batches, polish --fast")
+        run_wide_paths(work, wide_entries, results)
+        phase("15b. hyperband --max_epochs 2 --eta 2 -b 256 --seed 0")
+        hb_train = run_hyperband(work, test_dir, results)
+        phase("15c. test --debug_mismatches")
+        run_debug_mismatches(work, test_dir)
+        phase("15d. train --model_parallel 2")
+        run_model_parallel(work, hb_train, test_dir)
+        phase("15e. convert (.npz, .pkl, .onnx) and download_models")
+        run_convert(work)
+        phase("15f. assess")
+        run_assess(work, truth)
+        log(f"phase 15: {time.perf_counter() - t15:.1f} s")
 
     phase("8. result")
     log(smi)

@@ -1,21 +1,22 @@
 """Command-line interface for helen_tpu_torch.
 
 Subcommands and flags mirror helen_tpu/cli.py, so one command line runs
-either package: ``polish``, ``call_consensus``, ``stitch``, ``train``,
-``test``, ``devices`` and ``version``. The model subcommands run on the GPU
-by default (``--device cuda``, an error when there is none) and take
-``--device cpu``, or helen_tpu's top-level ``--platform cpu``.
+either package: ``polish``, ``call_consensus``, ``stitch``, ``train``
+(``--model_parallel N``: data x tensor parallel over this process's
+devices), ``test`` (``--debug_mismatches``), ``hyperband``, ``convert``
+(``.npz``, ``.pkl``, ``.onnx``), ``download_models``, ``assess`` (``--bed``),
+``devices`` and ``version``. The model subcommands run on the GPU by
+default (``--device cuda``, an error when there is none) and take
+``--device cpu``, or helen_tpu's top-level ``--platform cpu``; ``convert``
+uses the device only for an ``.onnx`` file's self-check.
 The single-host I/O flags run as in helen_tpu (``--pack``, ``--writers``,
 ``--resume``, ``--fastq``/``--qualities``), and so do multi-process jobs
 (``--coordinator_address``/``--num_processes``/``--process_id``, or
 ``--distributed`` under torchrun; parallel.multihost, gloo). With none of
 those flags, ``polish``, ``call_consensus``, ``train`` and ``test`` on a
 host with several visible GPUs run one worker process per GPU
-(``--no_data_parallel``: one process on one GPU). Flags and subcommands of
-helen_tpu paths that are not ported yet (``--model_parallel > 1``,
-``--debug_mismatches``, ``download_models``, ``convert``, ``hyperband``,
-``assess``) are accepted and raise a "not yet ported" error instead of
-doing something else.
+(``--no_data_parallel``: one process on one GPU; ``--model_parallel`` > 1
+also keeps one process).
 
 Run as ``python -m helen_tpu_torch`` or via the ``helen_tpu_torch`` console
 script.
@@ -149,7 +150,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="build/reuse a packed cache of the labeled training images "
                         "(train_images_cache.h5 in the output dir)")
     p.add_argument("--model_parallel", type=int, default=1,
-                   help="tensor-parallel width (> 1 not yet ported)")
+                   help="tensor-parallel width: > 1 trains data x tensor parallel "
+                        "over this process's devices (GRU units and head inputs "
+                        "split over the model axis; the plain recurrence)")
 
     p = sub.add_parser("test", help="evaluate a model on labeled images")
     p.add_argument("--test_image_dir", required=True)
@@ -159,18 +162,27 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-o", "--output_dir", default="./test_out/")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="compute device (default cuda: an error without a GPU)")
-    p.add_argument("--debug_mismatches", action="store_true", help="(not yet ported)")
+    p.add_argument("--debug_mismatches", action="store_true",
+                   help="also write every mismatching position with its "
+                        "features (mismatches.txt)")
 
-    # helen_tpu's other subcommands, with its arguments: not ported yet
-    p = sub.add_parser("download_models", help="(not yet ported)")
+    p = sub.add_parser("download_models", help="download released HELEN models")
     p.add_argument("-o", "--output_dir", required=True)
     p.add_argument("--manifest_url", default=None)
 
-    p = sub.add_parser("convert", help="(not yet ported)")
+    p = sub.add_parser(
+        "convert",
+        help="convert checkpoints between reference .pkl and native .npz, or "
+             "export .onnx",
+    )
     p.add_argument("-i", "--input", required=True)
-    p.add_argument("-o", "--output", required=True)
+    p.add_argument("-o", "--output", required=True,
+                   help="output path; .npz, .pkl or .onnx decides the format")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="where an .onnx export checks itself against the port's "
+                        "forward (default cuda: an error without a GPU)")
 
-    p = sub.add_parser("hyperband", help="(not yet ported)")
+    p = sub.add_parser("hyperband", help="successive-halving (lr, decay) search")
     p.add_argument("--train_image_dir", required=True)
     p.add_argument("--test_image_dir", required=True)
     p.add_argument("-o", "--output_dir", default="./hyperband_out/")
@@ -178,13 +190,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max_epochs", type=int, default=9)
     p.add_argument("--eta", type=int, default=3)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="compute device (default cuda: an error without a GPU)")
 
-    p = sub.add_parser("assess", help="(not yet ported)")
+    p = sub.add_parser("assess", help="polished-vs-truth error rate / Q "
+                       "(native banded edit distance; helen_tpu extension)")
     p.add_argument("-t", "--truth", required=True)
     p.add_argument("-p", "--polished", required=True)
     p.add_argument("--max_band", type=int, default=1 << 20)
     p.add_argument("--json", action="store_true")
-    p.add_argument("-b", "--bed", default=None)
+    p.add_argument("-b", "--bed", default=None,
+                   help="masked-regions BED (truth-space): SSW-anchored "
+                        "masking of both fastas before assessing")
 
     sub.add_parser("devices", help="show the CUDA devices torch sees")
     sub.add_parser("version", help="print version")
@@ -203,31 +220,18 @@ def cmd_devices() -> None:
     print(f"cuda devices: {n}")
 
 
-#: helen_tpu subcommands that parse and then raise "not yet ported"
-UNPORTED_COMMANDS = ("download_models", "convert", "hyperband", "assess")
-
-
 #: the subcommands that run as a multi-process job
 JOB_COMMANDS = ("polish", "call_consensus", "train", "test")
-
-
-def _unported(args):
-    """The first subcommand or flag given whose helen_tpu path is not
-    ported, or None."""
-    checks = [
-        (f"the {args.command} subcommand", args.command in UNPORTED_COMMANDS),
-        ("--model_parallel > 1", getattr(args, "model_parallel", 1) > 1),
-        ("--debug_mismatches", getattr(args, "debug_mismatches", False)),
-    ]
-    return next((what for what, given in checks if given), None)
 
 
 def _local_devices(args):
     """The devices of one worker process each, when this command runs as a
     job of local workers: ``--device cuda``, no job flags, no
-    ``--no_data_parallel`` and more than one visible GPU; else None."""
+    ``--no_data_parallel``, no ``--model_parallel`` > 1 (one process drives
+    its devices' mesh) and more than one visible GPU; else None."""
     if (args.command not in JOB_COMMANDS or args.device != "cuda"
-            or getattr(args, "no_data_parallel", False)):
+            or getattr(args, "no_data_parallel", False)
+            or getattr(args, "model_parallel", 1) > 1):
         return None
     import torch
 
@@ -242,10 +246,6 @@ def main(argv=None) -> int:
     if args.command is None:
         parser.print_help()
         return 1
-    unported = _unported(args)
-    if unported:
-        parser.error(f"{unported} is not yet ported to helen_tpu_torch "
-                     "(ROADMAP.md, queue A); use helen_tpu")
     if args.platform == "cpu" and hasattr(args, "device"):
         args.device = "cpu"
     if getattr(args, "fast", False):
@@ -365,6 +365,7 @@ def _run(args, parser) -> int:
             gru_layers=args.gru_layers,
             device=args.device,
             pack=args.pack,
+            model_parallel=args.model_parallel,
         )
         return 0
 
@@ -378,6 +379,7 @@ def _run(args, parser) -> int:
             num_workers=args.num_workers,
             output_dir=args.output_dir,
             device=args.device,
+            debug_mismatches=args.debug_mismatches,
         )
         return 0
 
@@ -392,6 +394,66 @@ def _run(args, parser) -> int:
             fastq=args.fastq,
         ))
         return 0
+
+    if args.command == "hyperband":
+        from helen_tpu_torch.infer.consensus import resolve_device
+        from helen_tpu_torch.train.hyperband import hyperband_interface
+
+        try:
+            resolve_device(args.device)
+        except RuntimeError as exc:  # --device cuda without a GPU
+            parser.error(str(exc))
+        best = hyperband_interface(
+            args.train_image_dir, args.test_image_dir, args.output_dir,
+            args.batch_size, args.max_epochs, args.eta, seed=args.seed,
+            device=args.device,
+        )
+        print(f"best lr={best.params['learning_rate']:.3e} "
+              f"decay={best.params['weight_decay']:.3e} loss={best.loss:.6f}")
+        return 0
+
+    if args.command == "download_models":
+        from helen_tpu_torch.io.download import download_models
+
+        download_models(args.output_dir, args.manifest_url)
+        return 0
+
+    if args.command == "convert":
+        from helen_tpu_torch.io.checkpoint import (
+            export_torch_checkpoint,
+            load_model_any,
+            save_checkpoint,
+        )
+
+        params, meta = load_model_any(args.input)
+        if args.output.endswith(".pkl"):
+            export_torch_checkpoint(args.output, params, meta)
+        elif args.output.endswith(".onnx"):
+            # the reference's CPU path exports ONNX (predict_cpu.py:224-239);
+            # export verifies itself by parsing the bytes back and running a
+            # batch through the numpy evaluator against the port's forward
+            from helen_tpu_torch.infer.consensus import resolve_device
+            from helen_tpu_torch.io.onnx_export import export_onnx
+
+            try:
+                resolve_device(args.device)
+            except RuntimeError as exc:  # --device cuda without a GPU
+                parser.error(str(exc))
+            export_onnx(params, args.output, device=args.device)
+        else:
+            save_checkpoint(args.output, params, meta=meta)
+        print(args.output)
+        return 0
+
+    if args.command == "assess":
+        from helen_tpu_torch.tools.assess_polish import main as assess_main
+
+        argv = ["-t", args.truth, "-p", args.polished, "--max_band", str(args.max_band)]
+        if args.json:
+            argv.append("--json")
+        if args.bed:
+            argv += ["-b", args.bed]
+        return assess_main(argv)
 
     parser.error(f"unknown command {args.command}")
     return 2

@@ -182,6 +182,52 @@ def import_torch_checkpoint(pkl_path: str) -> Tuple[Dict[str, Any], Dict[str, An
     return params, meta
 
 
+def export_torch_state_dict(params: Any) -> Dict[str, np.ndarray]:
+    """Inverse of :func:`params_from_torch_state_dict` (numpy arrays, torch
+    layout); ``params`` may hold numpy arrays or tensors."""
+    sd: Dict[str, np.ndarray] = {}
+    for torch_name, ours in _GRU_MAP.items():
+        stack = params[ours]
+        layers = [{"fwd": stack["fwd"], "bwd": stack["bwd"]}]
+        while f"l{len(layers)}" in stack:
+            layers.append(stack[f"l{len(layers)}"])
+        for k, layer in enumerate(layers):
+            for direction, suffix in (("fwd", ""), ("bwd", "_reverse")):
+                d = layer[direction]
+                sd[f"{torch_name}.weight_ih_l{k}{suffix}"] = _to_numpy(d["w_ih"]).T.copy()
+                sd[f"{torch_name}.weight_hh_l{k}{suffix}"] = _to_numpy(d["w_hh"]).T.copy()
+                sd[f"{torch_name}.bias_ih_l{k}{suffix}"] = _to_numpy(d["b_ih"]).copy()
+                sd[f"{torch_name}.bias_hh_l{k}{suffix}"] = _to_numpy(d["b_hh"]).copy()
+    for torch_name, ours in _HEAD_MAP.items():
+        sd[f"{torch_name}.weight"] = _to_numpy(params[ours]["w"]).T.copy()
+        sd[f"{torch_name}.bias"] = _to_numpy(params[ours]["b"]).copy()
+    return sd
+
+
+def export_torch_checkpoint(path: str, params: Any, meta: Optional[Dict[str, Any]] = None) -> None:
+    """Write a reference-format ``.pkl`` checkpoint (ModelHander.py:127-133
+    layout) so models trained here remain usable with the reference tooling
+    (helen_tpu's ``export_torch_checkpoint``)."""
+    import torch
+
+    from helen_tpu_torch.models.transducer import model_geometry
+
+    meta = dict(meta or {})
+    geom = model_geometry(params)  # authoritative: shapes, not metadata
+    sd = {k: torch.from_numpy(np.ascontiguousarray(v))
+          for k, v in export_torch_state_dict(params).items()}
+    torch.save(
+        {
+            "model_state_dict": sd,
+            "model_optimizer": {},
+            "hidden_size": geom.hidden_size,
+            "gru_layers": geom.gru_layers,
+            "epochs": int(meta.get("epochs", 0)),
+        },
+        path,
+    )
+
+
 def load_model_any(path: str) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     """Load either a native .npz checkpoint or a reference torch .pkl."""
     if path.endswith(".npz"):

@@ -14,7 +14,8 @@ two routes, chosen by :func:`kernel_route` from the hidden size:
   uint8 image (K1), every later layer — deeper encoder layers and the whole
   decoder — reads the previous layer's two output halves (K2), so no concat
   or projection array is built between layers;
-* ``"xp"`` (MAX_H < H <= XP_MAX_H = 1024, the wide models): each layer's
+* ``"xp"`` (H > MAX_H, the wide models, at every width the card's shared
+  memory holds at one batch row per block): each layer's
   input projection is one float32 matrix product per direction in torch,
   and only the recurrence runs in a kernel (K3, ops.gru_window_xp), as
   helen_tpu's xp-stream kernels do.
@@ -33,8 +34,8 @@ kernel of the route (ops.gru_window_bwd, ops.gru_window_xp_bwd). On
 
 The fast tier (helen_tpu's ``pallas_fast``; inference only) is backend
 ``"cuda_fast"``, with the same two routes: K1f/K2f (ops.gru_window) up to
-H=512, the fast xp layer (projection GEMMs, K3f; ops.gru_window_xp) up to
-1024; ``"torch_fast"`` runs their plain versions. Both take the bf16 weight
+H=512, the fast xp layer (projection GEMMs, K3f; ops.gru_window_xp)
+above; ``"torch_fast"`` runs their plain versions. Both take the bf16 weight
 copies of io.checkpoint.fast_weights, made once per consensus call; the
 heads and the softmax vote stay float32 on every backend.
 
@@ -55,7 +56,6 @@ from helen_tpu_torch.config import MODEL, WINDOW, ModelConfig, WindowConfig
 from helen_tpu_torch.io.checkpoint import fast_weights
 from helen_tpu_torch.ops.gru_window import (
     MAX_H,
-    XP_MAX_H,
     bigru_window_in1_fast,
     bigru_window_in1_fast_plain,
     bigru_window_in1_plain,
@@ -68,7 +68,8 @@ from helen_tpu_torch.ops.gru_window_encdec import (
     transducer_window_encdec,
     transducer_window_encdec_fast,
 )
-from helen_tpu_torch.ops.gru_window_xp import window_xp_fast, window_xp_fast_plain
+from helen_tpu_torch.ops.gru_window_xp import window_xp_fast, window_xp_fast_plain, xp_fwd_design
+from helen_tpu_torch.ops.gru_window_xp_bwd import xp_bwd_design
 
 Params = Dict[str, Any]
 
@@ -84,8 +85,13 @@ INFER_ALIASES = {"xla": "torch", "pallas": "auto", "pallas_fast": "fast"}
 TRAIN_ALIASES = {"xla": "torch", "pallas_train": "cuda"}
 #: the kernel families of the "cuda" backend and the largest hidden size
 #: each takes ("encdec": 2H threads per block; its shared memory bounds H
-#: further, by the window, ops.gru_window_encdec.encdec_fits_smem)
-ROUTES = {"inproj": MAX_H, "xp": XP_MAX_H, "encdec": MAX_H}
+#: further, by the window, ops.gru_window_encdec.encdec_fits_smem). The xp
+#: route has no fixed cap: its chain design takes fewer batch rows per block
+#: as H grows, and its design rules (ops.gru_window_xp.xp_fwd_design,
+#: ops.gru_window_xp_bwd.xp_bwd_design), which resolve_backend applies on
+#: the device, raise past what the card's shared memory holds at one row
+#: (on the H100: H=29,056 for K3, 14,528 for K3f, 11,622 for K4's pass 1)
+ROUTES = {"inproj": MAX_H, "xp": None, "encdec": MAX_H}
 
 
 def set_fp32_precision() -> None:
@@ -111,21 +117,21 @@ def kernel_route(hidden_size: int, route: Optional[str] = None) -> str:
     """THE dispatch predicate of the ``"cuda"`` backend, shared by
     :func:`forward` (which acts on it), :func:`engaged_kernel` (which
     records it) and :func:`resolve_backend` (which refuses what it
-    refuses): ``"inproj"`` for H <= MAX_H, ``"xp"`` for MAX_H < H <=
-    XP_MAX_H. ``route`` forces one family (library only, for testing;
-    ``"encdec"`` only ever by this argument); a hidden size the family
-    does not take raises, past XP_MAX_H naming ``--backend torch``.
-    Nothing falls back."""
+    refuses): ``"inproj"`` for H <= MAX_H, ``"xp"`` for H > MAX_H.
+    ``route`` forces one family (library only, for testing; ``"encdec"``
+    only ever by this argument); a hidden size the family does not take
+    raises. Nothing falls back."""
     if route is not None and route not in ROUTES:
         raise ValueError(f"route {route!r} is not one of {tuple(ROUTES)}")
     chosen = route or ("inproj" if hidden_size <= MAX_H else "xp")
-    if not 0 < hidden_size <= ROUTES[chosen]:
+    cap = ROUTES[chosen]
+    if hidden_size < 1 or (cap is not None and hidden_size > cap):
         if chosen == "encdec":
             raise ValueError(f"hidden_size {hidden_size} exceeds the encdec kernel's maximum "
                              f"{MAX_H} (2H threads per block)")
         family = "window kernels'" if route is None else f"{route} window kernels'"
         raise ValueError(f"hidden_size {hidden_size} exceeds the {family} maximum "
-                         f"{ROUTES[chosen]} (forward and backward); use --backend torch")
+                         f"{cap} (forward and backward)")
     return chosen
 
 
@@ -262,8 +268,11 @@ def resolve_backend(requested: Optional[str], device: torch.device,
     CUDA device, or on a geometry its kernels do not take, raises: nothing
     falls back, to another tier or to another device.
 
-    With ``params``, a kernel backend also needs a hidden size the kernels
-    take (:func:`kernel_route`: up to ``XP_MAX_H``, forward and backward)."""
+    With ``params``, a kernel backend also needs a hidden size that the
+    kernels of its route take on ``device`` (:func:`kernel_route`; on the
+    xp route the design rules of the tier's forward and, for ``"train"``,
+    of the backward, read from the card), so that a width with no kernel
+    raises, naming ``--backend torch``, before any work."""
     if kind not in ("infer", "train"):
         raise ValueError(f"kind must be 'infer' or 'train', got {kind!r}")
     fast = INFER_ALIASES.get(requested, requested) in ("fast",) + FAST_BACKENDS
@@ -283,7 +292,11 @@ def resolve_backend(requested: Optional[str], device: torch.device,
         if not on_cuda:
             raise ValueError(f"backend {requested!r} needs a CUDA device, got {device}")
         if params is not None:
-            kernel_route(model_geometry(params).hidden_size)
+            h = model_geometry(params).hidden_size
+            if kernel_route(h) == "xp":
+                xp_fwd_design(h, 1, fast=fast, device=device)
+                if kind == "train":
+                    xp_bwd_design(h, 1, device=device)
     return requested
 
 

@@ -30,7 +30,6 @@ constexpr int BT = 8;            // batch rows per recurrence block
 // ptxas stopped issuing K1f's next weight loads before its FMAs (PERF.md, PR 5)
 constexpr int CHAIN_UNROLL = 4;
 constexpr int MAX_H = 512;       // in-projection kernels: one thread per hidden unit
-constexpr int XP_MAX_H = 1024;   // xp-stream kernels (gru_window_xp*.cu)
 constexpr int XP_THREADS = 512;  // xp-stream kernels: threads per block
 
 struct WindowIn {

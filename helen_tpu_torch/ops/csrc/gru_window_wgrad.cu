@@ -483,7 +483,7 @@ int bigru_window_wgrad_split_xp(const float* h0_f, const float* h0_b, const floa
                                 const float* out_b, const float* dxp, const float* dhpn,
                                 float* dwh_f, float* dbh_f, float* dwh_b, float* dbh_b,
                                 float* part, int T, int B, int H, void* stream) {
-  if (H < 1 || H > XP_MAX_H || T < 1 || B < 1) return (int)cudaErrorInvalidValue;
+  if (H < 1 || T < 1 || B < 1) return (int)cudaErrorInvalidValue;
   WgArgs a{WindowIn{nullptr, 0, 0, 0, nullptr, nullptr}, 0, 0, 0, {h0_f, h0_b},
            {out_f, out_b}, dxp, dhpn, nullptr,
            {DirG{nullptr, dwh_f, nullptr, dbh_f}, DirG{nullptr, dwh_b, nullptr, dbh_b}},
@@ -498,7 +498,7 @@ int bigru_window_wgrad_sum(const float* part, int D, int with_ih, int T, int B, 
                            float* dwi_b, float* dwh_b, float* dbi_b, float* dbh_b,
                            void* stream) {
   const int S = ws_slices(T, B);
-  if (H < 1 || H > XP_MAX_H || T < 1 || B < 1 || S < 2 || part == nullptr ||
+  if (H < 1 || T < 1 || B < 1 || S < 2 || part == nullptr ||
       (with_ih && D < 1)) {
     return (int)cudaErrorInvalidValue;
   }

@@ -26,11 +26,15 @@
 // Two passes, as in the in-projection backward (gru_window_bwd.cu), since
 // Hopper's blocks run in no order and the TPU kernel's accumulation of dW/db
 // across its sequential grid does not carry over:
-//   pass 1 (xp_bwd_rec_kernel): the recurrence. Grid (ceil(B / BT), 2), one
-//     block per BT batch rows and direction, XP_THREADS threads each looping
+//   pass 1 (xp_bwd_rec_kernel): the recurrence. Grid (ceil(B / R), 2), one
+//     block per R batch rows and direction, XP_THREADS threads each looping
 //     over its hidden units, the T loop inside the block. The step's h_prev
-//     rows, its dhp rows and the dh carry live in shared memory (160 KB at
-//     H=1024; each thread reads and writes only its own units' carry). It
+//     rows, its dhp rows and the dh carry live in shared memory (5 R H
+//     floats: 160 KB at H=1024, R=8; each thread reads and writes only its
+//     own units' carry). R is 8, 4, 2 or 1, the largest that fits the card's
+//     opt-in shared memory (ops/gru_window_xp_bwd.py bwd_chain_rows; 8 up
+//     to H=1,452 on the H100); each row's sums run in the same order at
+//     every R, so R does not change a bit. It
 //     writes dxp (an output) and the n block of dhp (scratch) per direction,
 //     and dh0.
 //   pass 2: the [dW_hh; db_hh] half of the weight-cotangent reduction over
@@ -72,21 +76,22 @@ struct DirXpBwd {
   float* dh0;             // (B, H)
 };
 
+template <int R>
 __global__ void __launch_bounds__(XP_THREADS)
 xp_bwd_rec_kernel(DirXpBwd pf, DirXpBwd pb, int T, int B, int H) {
   const int dir = blockIdx.y;
   const DirXpBwd p = dir ? pb : pf;
-  const int b0 = blockIdx.x * BT;
+  const int b0 = blockIdx.x * R;
   const int H3 = 3 * H;
 
   extern __shared__ float smem[];
-  float* hs = smem;             // [BT][H]  h_prev rows of the step
-  float* gh = hs + BT * H;      // [BT][3H] dhp rows of the step
-  float* dhc = gh + BT * H3;    // [BT][H]  dh carry
+  float* hs = smem;             // [R][H]  h_prev rows of the step
+  float* gh = hs + R * H;      // [R][3H] dhp rows of the step
+  float* dhc = gh + R * H3;    // [R][H]  dh carry
 
   for (int j = threadIdx.x; j < H; j += blockDim.x) {
 #pragma unroll
-    for (int r = 0; r < BT; ++r) {
+    for (int r = 0; r < R; ++r) {
       const int b = b0 + r;
       dhc[r * H + j] = (b < B) ? p.dh_final[(size_t)b * H + j] : 0.0f;
     }
@@ -94,7 +99,7 @@ xp_bwd_rec_kernel(DirXpBwd pf, DirXpBwd pb, int T, int B, int H) {
 
   for (int s = 0; s < T; ++s) {
     const int tt = dir ? s : T - 1 - s;
-    for (int idx = threadIdx.x; idx < BT * H; idx += blockDim.x) {
+    for (int idx = threadIdx.x; idx < R * H; idx += blockDim.x) {
       const int r = idx / H, k = idx - r * H, b = b0 + r;
       hs[idx] = (b < B) ? hprev_at(p.out, p.h0, dir, tt, b, k, T, B, H) : 0.0f;
     }
@@ -103,15 +108,15 @@ xp_bwd_rec_kernel(DirXpBwd pf, DirXpBwd pb, int T, int B, int H) {
 
     for (int j = threadIdx.x; j < H; j += blockDim.x) {
       // recompute the gates: the forward kernel's arithmetic
-      float hr[BT], hz[BT], hq[BT];
+      float hr[R], hz[R], hq[R];
 #pragma unroll
-      for (int r = 0; r < BT; ++r) hr[r] = hz[r] = hq[r] = 0.0f;
+      for (int r = 0; r < R; ++r) hr[r] = hz[r] = hq[r] = 0.0f;
 #pragma unroll 8
       for (int k = 0; k < H; ++k) {
         const float* w = p.w_hh + (size_t)k * H3;
         const float wr = __ldg(w + j), wz = __ldg(w + H + j), wn = __ldg(w + 2 * H + j);
 #pragma unroll
-        for (int r = 0; r < BT; ++r) {
+        for (int r = 0; r < R; ++r) {
           const float hv = hs[r * H + k];
           hr[r] = fmaf(hv, wr, hr[r]);
           hz[r] = fmaf(hv, wz, hz[r]);
@@ -120,7 +125,7 @@ xp_bwd_rec_kernel(DirXpBwd pf, DirXpBwd pb, int T, int B, int H) {
       }
       const CellBias bias{0.0f, 0.0f, 0.0f, p.b_hh[j], p.b_hh[H + j], p.b_hh[2 * H + j]};
 #pragma unroll
-      for (int r = 0; r < BT; ++r) {
+      for (int r = 0; r < R; ++r) {
         const int b = b0 + r;
         const size_t row = (size_t)tt * B + b;
         float xr = 0.0f, xz = 0.0f, xn = 0.0f, dout = 0.0f;
@@ -152,24 +157,24 @@ xp_bwd_rec_kernel(DirXpBwd pf, DirXpBwd pb, int T, int B, int H) {
 
     // dh_carry' = dh z + dhp W_hh^T
     for (int j = threadIdx.x; j < H; j += blockDim.x) {
-      float acc[BT];
+      float acc[R];
 #pragma unroll
-      for (int r = 0; r < BT; ++r) acc[r] = 0.0f;
+      for (int r = 0; r < R; ++r) acc[r] = 0.0f;
 #pragma unroll 8
       for (int k = 0; k < H3; ++k) {
         const float w = __ldg(p.w_hhT + (size_t)k * H + j);
 #pragma unroll
-        for (int r = 0; r < BT; ++r) acc[r] = fmaf(gh[r * H3 + k], w, acc[r]);
+        for (int r = 0; r < R; ++r) acc[r] = fmaf(gh[r * H3 + k], w, acc[r]);
       }
 #pragma unroll
-      for (int r = 0; r < BT; ++r) dhc[r * H + j] = __fadd_rn(dhc[r * H + j], acc[r]);
+      for (int r = 0; r < R; ++r) dhc[r * H + j] = __fadd_rn(dhc[r * H + j], acc[r]);
     }
     // no barrier here: the next step writes only hs before its barrier, and
     // hs is not read after the one above
   }
   for (int j = threadIdx.x; j < H; j += blockDim.x) {
 #pragma unroll
-    for (int r = 0; r < BT; ++r) {
+    for (int r = 0; r < R; ++r) {
       const int b = b0 + r;
       if (b < B) p.dh0[(size_t)b * H + j] = dhc[r * H + j];
     }
@@ -177,38 +182,59 @@ xp_bwd_rec_kernel(DirXpBwd pf, DirXpBwd pb, int T, int B, int H) {
 }
 
 int check_xp_geometry(int T, int B, int H) {
-  if (H < 1 || H > XP_MAX_H || T < 1 || B < 1) return (int)cudaErrorInvalidValue;
+  if (H < 1 || T < 1 || B < 1) return (int)cudaErrorInvalidValue;
   return 0;
+}
+
+// pass 1's dynamic shared memory at hidden size H and R rows per block
+size_t xp_bwd_chain_smem(int H, int R) { return sizeof(float) * 5 * (size_t)R * H; }
+
+template <int R>
+int launch_bwd_rows(const DirXpBwd& pf, const DirXpBwd& pb, int T, int B, int H,
+                    void* stream) {
+  const size_t smem = xp_bwd_chain_smem(H, R);
+  if (int e = allow_smem(xp_bwd_rec_kernel<R>, smem)) return e;
+  dim3 grid((B + R - 1) / R, 2);
+  xp_bwd_rec_kernel<R><<<grid, xp_threads(H), smem, (cudaStream_t)stream>>>(pf, pb, T, B,
+                                                                           H);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
+// pass 1's dynamic shared memory at hidden size H and `rows` rows per block
+// (ops/gru_window_xp_bwd.py bwd_chain_smem_bytes mirrors it)
+long long bigru_window_xp_bwd_chain_smem_bytes(int H, int rows) {
+  return (long long)xp_bwd_chain_smem(H, rows);
+}
+
 // Pass 1: xp_f/xp_b (T, B, 3H), the forward's out_f/out_b (T, B, H), h0,
 // the cotangents dout (T, B, H) and dh (B, H) of the final state, W_hh,
 // W_hh^T and b_hh per direction. Writes dxp (2, T, B, 3H) (an output:
 // [0] forward, [1] backward direction), dhpn (2, T, B, H) (scratch for
-// pass 2) and dh0_f/dh0_b (B, H).
+// pass 2) and dh0_f/dh0_b (B, H). `rows`: batch rows per block, 8, 4, 2 or 1.
 int bigru_window_xp_bwd_rec(const float* xp_f, const float* xp_b, const float* h0_f,
                             const float* h0_b, const float* out_f, const float* out_b,
                             const float* dout_f, const float* dout_b, const float* dhf,
                             const float* dhb, const float* wh_f, const float* whT_f,
                             const float* bh_f, const float* wh_b, const float* whT_b,
                             const float* bh_b, float* dxp, float* dhpn, float* dh0_f,
-                            float* dh0_b, int T, int B, int H, void* stream) {
+                            float* dh0_b, int T, int B, int H, int rows, void* stream) {
   if (int e = check_xp_geometry(T, B, H)) return e;
-  const size_t smem = sizeof(float) * BT * 5 * (size_t)H;
-  if (int e = allow_smem(xp_bwd_rec_kernel, smem)) return e;
   const size_t n3 = (size_t)T * B * 3 * H, n1 = (size_t)T * B * H;
   const DirXpBwd pf{xp_f, h0_f, out_f, dout_f, dhf, wh_f, whT_f, bh_f,
                     dxp, dhpn, dh0_f};
   const DirXpBwd pb{xp_b, h0_b, out_b, dout_b, dhb, wh_b, whT_b, bh_b,
                     dxp + n3, dhpn + n1, dh0_b};
-  dim3 grid((B + BT - 1) / BT, 2);
-  xp_bwd_rec_kernel<<<grid, xp_threads(H), smem, (cudaStream_t)stream>>>(pf, pb, T, B,
-                                                                        H);
-  return (int)cudaGetLastError();
+  switch (rows) {
+    case 8: return launch_bwd_rows<8>(pf, pb, T, B, H, stream);
+    case 4: return launch_bwd_rows<4>(pf, pb, T, B, H, stream);
+    case 2: return launch_bwd_rows<2>(pf, pb, T, B, H, stream);
+    case 1: return launch_bwd_rows<1>(pf, pb, T, B, H, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // Pass 2: h0 and the forward's out_f/out_b, pass 1's dxp and dhpn; writes

@@ -479,7 +479,7 @@ xp_grid_fast_kernel(GridXp<__nv_bfloat16> pf, GridXp<__nv_bfloat16> pb, unsigned
 }
 
 int check_grid(int T, int B, int H, int U, int max_units) {
-  if (H < 1 || H > XP_MAX_H || T < 1 || B < 1 || (long long)T * B > (1LL << 30) || U < 1 ||
+  if (H < 1 || T < 1 || B < 1 || (long long)T * B > (1LL << 30) || U < 1 ||
       U > max_units) {
     return (int)cudaErrorInvalidValue;
   }

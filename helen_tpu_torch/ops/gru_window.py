@@ -94,10 +94,6 @@ MAX_H = 512
 #: K1/K2's designs: "smem", the projection pass plus the recurrence with
 #: W_hh in shared memory (ops.gru_window_smem); "chain", bigru_window_kernel
 DESIGNS = ("smem", "chain")
-#: the largest hidden size the xp-stream kernels take (K3/K4: a block's
-#: threads loop over the hidden units; the backward's shared memory holds
-#: 5 x 8 x H floats, csrc/gru_window_common.cuh XP_MAX_H)
-XP_MAX_H = 1024
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -202,14 +198,17 @@ def get_lib() -> ctypes.CDLL:
             # the xp-stream kernels (csrc/gru_window_xp*.cu; wrappers in
             # gru_window_xp.py and gru_window_xp_bwd.py)
             lib.bigru_window_xp.restype = i
-            lib.bigru_window_xp.argtypes = [p] * 12 + [i, i, i, p]
+            lib.bigru_window_xp.argtypes = [p] * 12 + [i, i, i, i, p]
             lib.bigru_window_xp_fast.restype = i
             lib.bigru_window_xp_fast.argtypes = lib.bigru_window_xp.argtypes
             lib.bigru_window_xp_bwd_rec.restype = i
-            lib.bigru_window_xp_bwd_rec.argtypes = [p] * 20 + [i, i, i, p]
+            lib.bigru_window_xp_bwd_rec.argtypes = [p] * 20 + [i, i, i, i, p]
             lib.bigru_window_xp_bwd_wgrad.restype = i
             lib.bigru_window_xp_bwd_wgrad.argtypes = [p] * 10 + [i, i, i, p]
-            lib.gru_window_xp_max_h.restype = i
+            lib.bigru_window_xp_chain_smem_bytes.restype = ll
+            lib.bigru_window_xp_chain_smem_bytes.argtypes = [i, i, i]
+            lib.bigru_window_xp_bwd_chain_smem_bytes.restype = ll
+            lib.bigru_window_xp_bwd_chain_smem_bytes.argtypes = [i, i]
             # pass 2's split design (csrc/gru_window_wgrad.cu; wrappers in
             # gru_window_wgrad.py): the in-projection form takes pass 2's
             # arguments above, the xp form the xp pass 2's, each plus the
@@ -288,8 +287,15 @@ def get_lib() -> ctypes.CDLL:
             lib.gru_window_max_h.restype = i
             if lib.gru_window_max_h() != MAX_H or lib.gru_window_bwd_max_h() != MAX_H:
                 raise RuntimeError("MAX_H disagrees with csrc/gru_window*.cu")
-            if lib.gru_window_xp_max_h() != XP_MAX_H:
-                raise RuntimeError("XP_MAX_H disagrees with csrc/gru_window_xp*.cu")
+            from helen_tpu_torch.ops import gru_window_xp as gx
+            from helen_tpu_torch.ops import gru_window_xp_bwd as gxb
+
+            if any(lib.bigru_window_xp_chain_smem_bytes(h, r, f)
+                   != gx.chain_smem_bytes(h, r, bool(f))
+                   or lib.bigru_window_xp_bwd_chain_smem_bytes(h, r)
+                   != gxb.bwd_chain_smem_bytes(h, r)
+                   for h in (640, 1056, 2048) for r in gx.CHAIN_ROWS for f in (0, 1)):
+                raise RuntimeError("chain_smem_bytes disagrees with csrc/gru_window_xp*.cu")
             from helen_tpu_torch.ops import gru_window_smem as gs
             from helen_tpu_torch.ops.gru_window_wgrad import SLICE_ROWS
 

@@ -13,7 +13,7 @@ layer kind:
 * :func:`window_in2` — every later layer: forward K2 on the previous
   layer's ``(out_f, out_b)`` halves; the backward returns their cotangents.
 
-The xp route (the wide models, H <= XP_MAX_H), :func:`window_xp` for both
+The xp route (the wide models, H > MAX_H), :func:`window_xp` for both
 layer kinds: the projection ``xp = x @ W_ih + b_ih`` per direction in torch
 ops (autograd gives its dx, dW_ih and db_ih), then ``_XpWindow``: forward
 K3 (``gru_window_xp.bigru_window_xp``), backward K4

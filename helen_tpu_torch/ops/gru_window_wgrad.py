@@ -43,7 +43,6 @@ import torch
 
 from helen_tpu_torch.ops.gru_window import (
     MAX_H,
-    XP_MAX_H,
     Layer,
     _check,
     _cuda_device,
@@ -228,8 +227,6 @@ def bigru_window_xp_wgrad(h0_f, h0_b, out_f, out_b, dxp: torch.Tensor, dhpn: tor
     if out_f.dim() != 3:
         raise ValueError(f"out_f must be (T, B, H), got {tuple(out_f.shape)}")
     T, B, H = out_f.shape
-    if not 0 < H <= XP_MAX_H:
-        raise ValueError(f"H={H} exceeds the xp-stream backward's maximum {XP_MAX_H}")
     streams = _stream_args(h0_f, h0_b, out_f, out_b, dxp, dhpn, T, B, H, dev)
     grads = {d: {"w_hh": _empty(dev, H, 3 * H), "b_hh": _empty(dev, 3 * H)}
              for d in ("fwd", "bwd")}

@@ -9,8 +9,9 @@ window whose input projection ``xp = x @ W_ih + b_ih`` was computed outside
 forward), which compute the same function; its source is
 ``ops/csrc/gru_window_xp.cu``, built into the one kernel library with the
 other window kernels (``gru_window.build_kernels``). It serves the wide
-models, ``MAX_H < H <= XP_MAX_H``, whose weights the in-projection kernels
-K1/K2 do not take.
+models, ``H > MAX_H``, whose weights the in-projection kernels K1/K2 do not
+take, at every width whose state fits one block's shared memory at one row
+(:func:`chain_rows`).
 
 The wrapper takes ``xp_f``, ``xp_b`` ``(T, B, 3H)`` float32, ``h0_f``,
 ``h0_b`` ``(B, H)`` and the layer's ``{"fwd", "bwd"}`` params (``w_hh
@@ -29,8 +30,10 @@ tier and the card (:func:`xp_fwd_design`):
   holding its hidden units' ``W_hh`` columns for all T steps, one grid
   barrier per step; K3f's step product on bf16 tensor cores;
 * ``"chain"``, elsewhere: ``xp_window_kernel`` (``csrc/gru_window_xp.cu``),
-  ``ceil(B / 8)`` blocks per direction, each reading ``W_hh`` from L2 at
-  every step.
+  ``ceil(B / R)`` blocks per direction, each reading ``W_hh`` from L2 at
+  every step; ``R``, the batch rows per block, is the largest of 8, 4, 2
+  and 1 whose state fits the card's opt-in shared memory
+  (:func:`chain_rows`). A row's sums run in the same order at every ``R``.
 
 K3's two designs sum in the same order and share the gate lines, so they
 give the same bits. K3f's designs sum in two orders: the chain's FMA chains
@@ -39,7 +42,8 @@ K3f's plain version takes the order of the design the card runs, so that
 each design has a plain version of its own bits. Each K3 or
 K3f adds one to :data:`launch_counts` under its own name whichever design
 ran, and one under the name of the kernel that ran (``*_grid``,
-``*_chain``).
+``*_chain``); a chain launch adds one more under its rows per block
+(``*_chain_r8``, ``_r4``, ``_r2``, ``_r1``).
 
 The fast tier: :func:`bigru_window_xp_fast` (K3f, the ``FAST``
 instantiation of the same source) replaces ``_kernel`` run with
@@ -51,7 +55,7 @@ layer input, rounded once to bf16 after the bias, then K3f. Inference only.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -59,7 +63,6 @@ from helen_tpu_torch.models.gru import bf16_round, mma_product
 from helen_tpu_torch.ops import gru_window_xp_grid as xg
 from helen_tpu_torch.ops.gru_window_xp_bwd_grid import card_limits
 from helen_tpu_torch.ops.gru_window import (
-    XP_MAX_H,
     Layer,
     Outputs,
     _bidir,
@@ -71,15 +74,38 @@ from helen_tpu_torch.ops.gru_window import (
 )
 from helen_tpu_torch.ops.gru_window_bwd import Source, window_input
 
+#: the chain design's batch rows per block, largest first (csrc/gru_window_xp.cu
+#: and csrc/gru_window_xp_bwd.cu instantiate each)
+CHAIN_ROWS = (8, 4, 2, 1)
 #: launches since the last reset_launch_counts() — counted where the kernel
 #: is launched and nowhere else
 launch_counts: Dict[str, int] = {"bigru_window_xp": 0, "bigru_window_xp_fast": 0,
                                  # the kernels of each design (see xp_fwd_design)
                                  "bigru_window_xp_grid": 0, "bigru_window_xp_chain": 0,
                                  "bigru_window_xp_fast_grid": 0,
-                                 "bigru_window_xp_fast_chain": 0}
+                                 "bigru_window_xp_fast_chain": 0,
+                                 # the chain design's launches by rows per block
+                                 **{f"bigru_window_xp{t}_chain_r{r}": 0
+                                    for t in ("", "_fast") for r in CHAIN_ROWS}}
 #: K3's and K3f's designs (see xp_fwd_design)
 DESIGNS = ("grid", "chain")
+
+
+def chain_smem_bytes(h: int, rows: int, fast: bool = False) -> int:
+    """Dynamic shared memory of one block of ``xp_window_kernel`` at hidden
+    size ``h`` and ``rows`` batch rows per block: the float32 state's two
+    buffers, and in the fast tier the operand copy's two more;
+    csrc/gru_window_xp.cu ``xp_chain_smem``."""
+    return 4 * 2 * rows * h * (2 if fast else 1)
+
+
+def chain_rows(h: int, budget: int, fast: bool = False) -> Optional[int]:
+    """The chain design's batch rows per block at hidden size ``h`` under
+    ``budget`` bytes of opt-in shared memory per block: the largest of
+    :data:`CHAIN_ROWS` whose :func:`chain_smem_bytes` fits, else None. On
+    the H100 (232,448 bytes): 8 up to H=3,632 in parity and 1,816 in the
+    fast tier (4 at H=2048 there)."""
+    return next((r for r in CHAIN_ROWS if chain_smem_bytes(h, r, fast) <= budget), None)
 
 
 def reset_launch_counts() -> None:
@@ -132,22 +158,27 @@ def xp_fwd_design(H: int, B: int, design=None, fast: bool = False, device=None) 
     ``W_hh`` per SM that fits in the tier (co-residency of the ``2 ceil(H /
     U)`` blocks at the card's SM count, the shared memory at its opt-in
     limit, both read once per device: ``device``, default the current
-    one), else ``"chain"``,
-    ``xp_window_kernel``. The grid takes any B (its blocks loop over rows).
-    A fixed rule of the shape, the tier and the card, not a fallback.
-    ``design`` forces one (tests, chip_smoke.py's comparison of the two);
-    ``"grid"`` raises where the rule does not hold."""
+    one), else ``"chain"``, ``xp_window_kernel`` at :func:`chain_rows` rows
+    per block. The grid takes any B (its blocks loop over rows). A fixed
+    rule of the shape, the tier and the card, not a fallback. ``design``
+    forces one (tests, chip_smoke.py's comparison of the two); a design the
+    card cannot hold raises, and so does a width whose chain state does not
+    fit the card at one row (only ``--backend torch`` runs it there)."""
     if design is not None and design not in DESIGNS:
         raise ValueError(f"design {design!r} is not one of {DESIGNS}")
     sms, budget = card_limits(device)
     fits = xg.grid_units(H, sms, budget, fast) is not None
     if design is None:
-        return "grid" if fits else "chain"
+        design = "grid" if fits else "chain"
     if design == "grid" and not fits:
         raise ValueError(f"design 'grid' does not take H={H}, B={B}"
                          + (" in the fast tier" if fast else "")
                          + f": W_hh spread over {sms} SMs does not fit {budget} bytes of "
                          "shared memory per block")
+    if design == "chain" and chain_rows(H, budget, fast) is None:
+        raise ValueError(f"hidden_size {H} exceeds the xp window kernel's maximum on this "
+                         f"card: one row of its state does not fit {budget} bytes of shared "
+                         "memory per block; use --backend torch")
     return design
 
 
@@ -157,8 +188,6 @@ def _launch_xp(name: str, dtype, xp_f, xp_b, h0_f, h0_b, layer, design=None) -> 
         raise ValueError(f"xp_f must be (T, B, 3H), got {tuple(xp_f.shape)}")
     T, B, H3 = xp_f.shape
     H = H3 // 3
-    if not 0 < H <= XP_MAX_H:
-        raise ValueError(f"H={H} exceeds the xp-stream kernel's maximum {XP_MAX_H}")
     _check("xp_f", xp_f, (T, B, H3), dtype, dev)
     _check("xp_b", xp_b, (T, B, H3), dtype, dev)
     _check("h0_f", h0_f, (B, H), torch.float32, dev)
@@ -170,14 +199,16 @@ def _launch_xp(name: str, dtype, xp_f, xp_b, h0_f, h0_b, layer, design=None) -> 
                                  xg.grid_units(H, *card_limits(dev), fast), launch_counts, dev,
                                  fast)
     else:
+        rows = chain_rows(H, card_limits(dev)[1], fast)
         outs = _outputs(T, B, H, dev)
         with torch.cuda.device(dev):
             err = getattr(get_lib(), name)(
                 xp_f.data_ptr(), xp_b.data_ptr(), h0_f.data_ptr(), h0_b.data_ptr(),
-                *weights, *[o.data_ptr() for o in outs], T, B, H,
+                *weights, *[o.data_ptr() for o in outs], T, B, H, rows,
                 torch.cuda.current_stream(dev).cuda_stream)
         _raise_on(err, name)
         launch_counts[f"{name}_chain"] += 1
+        launch_counts[f"{name}_chain_r{rows}"] += 1
     launch_counts[name] += 1
     return outs
 

@@ -23,8 +23,11 @@ passes, each counted once per layer-window in :data:`launch_counts`:
     ``bigru_window_xp_bwd_rec_grid`` (``csrc/gru_window_xp_bwd_grid.cu``);
   - ``"chain"``, elsewhere: one launch of ``xp_bwd_rec_kernel``
     (``csrc/gru_window_xp_bwd.cu``, counted as
-    ``bigru_window_xp_bwd_rec_chain``), the gate recompute inside the serial
-    loop.
+    ``bigru_window_xp_bwd_rec_chain``, and under its rows per block,
+    ``_chain_r8`` ... ``_r1``), the gate recompute inside
+    the serial loop,
+    at the largest of 8, 4, 2 and 1 batch rows per block whose state fits
+    the card's opt-in shared memory (:func:`bwd_chain_rows`).
 
   Both take every sum in the same order and the same cotangent lines, so
   they give the same bits;
@@ -39,12 +42,11 @@ or raises.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from helen_tpu_torch.ops.gru_window import (
-    XP_MAX_H,
     Layer,
     _check,
     _cuda_device,
@@ -54,7 +56,7 @@ from helen_tpu_torch.ops.gru_window import (
 from helen_tpu_torch.ops import gru_window_bwd_smem as gbs
 from helen_tpu_torch.ops import gru_window_xp_bwd_grid as gg
 from helen_tpu_torch.ops.gru_window_bwd import _h_prev, hh_grads_plain, unwind_plain
-from helen_tpu_torch.ops.gru_window_xp import recurrent_args
+from helen_tpu_torch.ops.gru_window_xp import CHAIN_ROWS, recurrent_args
 from helen_tpu_torch.ops.gru_window_xp_bwd_grid import RecOutputs
 from helen_tpu_torch.ops.gru_window_wgrad import bigru_window_xp_wgrad
 
@@ -70,9 +72,28 @@ launch_counts: Dict[str, int] = {"bigru_window_xp_bwd_rec": 0,
                                  "bigru_window_xp_bwd_hp": 0,
                                  "bigru_window_xp_bwd_rec_grid": 0,
                                  # and the one-launch design
-                                 "bigru_window_xp_bwd_rec_chain": 0}
+                                 "bigru_window_xp_bwd_rec_chain": 0,
+                                 # its launches by rows per block
+                                 **{f"bigru_window_xp_bwd_rec_chain_r{r}": 0
+                                    for r in CHAIN_ROWS}}
 #: pass 1's designs (see xp_bwd_design)
 DESIGNS = ("grid", "chain")
+
+
+def bwd_chain_smem_bytes(h: int, rows: int) -> int:
+    """Dynamic shared memory of one block of ``xp_bwd_rec_kernel`` at hidden
+    size ``h`` and ``rows`` batch rows per block: the step's h_prev rows,
+    its dhp rows (3h) and the dh carry, float32;
+    csrc/gru_window_xp_bwd.cu ``xp_bwd_chain_smem``."""
+    return 4 * 5 * rows * h
+
+
+def bwd_chain_rows(h: int, budget: int) -> Optional[int]:
+    """Pass 1's chain rows per block at hidden size ``h`` under ``budget``
+    bytes of opt-in shared memory per block: the largest of ``CHAIN_ROWS``
+    whose :func:`bwd_chain_smem_bytes` fits, else None. On the H100
+    (232,448 bytes): 8 up to H=1,452, 4 at H=2048."""
+    return next((r for r in CHAIN_ROWS if bwd_chain_smem_bytes(h, r) <= budget), None)
 
 
 def reset_launch_counts() -> None:
@@ -129,19 +150,24 @@ def xp_bwd_design(H: int, B: int, design=None, device=None) -> str:
     SM count, the shared memory at its opt-in limit, both read once per
     device: ``device``, default the current one), else ``"chain"``,
     ``xp_bwd_rec_kernel``. The grid takes
-    any B (its blocks loop over rows). A fixed rule of the shape and the
-    card, not a fallback. ``design`` forces one (tests, chip_smoke.py's
-    comparison of the two); ``"grid"`` raises where the rule does not
-    hold."""
+    any B (its blocks loop over rows); the chain runs :func:`bwd_chain_rows`
+    rows per block. A fixed rule of the shape and the card, not a fallback.
+    ``design`` forces one (tests, chip_smoke.py's comparison of the two); a
+    design the card cannot hold raises, and so does a width whose chain
+    state does not fit the card at one row."""
     if design is not None and design not in DESIGNS:
         raise ValueError(f"design {design!r} is not one of {DESIGNS}")
     sms, budget = gg.card_limits(device)
     fits = gg.grid_units(H, sms, budget) is not None
     if design is None:
-        return "grid" if fits else "chain"
+        design = "grid" if fits else "chain"
     if design == "grid" and not fits:
         raise ValueError(f"design 'grid' does not take H={H}, B={B}: W_hh spread over {sms} "
                          f"SMs does not fit {budget} bytes of shared memory per block")
+    if design == "chain" and bwd_chain_rows(H, budget) is None:
+        raise ValueError(f"hidden_size {H} exceeds the xp backward kernel's maximum on this "
+                         f"card: one row of its state does not fit {budget} bytes of shared "
+                         "memory per block; use --backend torch")
     return design
 
 
@@ -154,8 +180,6 @@ class _Window:
         if out_f.dim() != 3:
             raise ValueError(f"out_f must be (T, B, H), got {tuple(out_f.shape)}")
         T, B, H = self.T, self.B, self.H = out_f.shape
-        if not 0 < H <= XP_MAX_H:
-            raise ValueError(f"H={H} exceeds the xp-stream backward's maximum {XP_MAX_H}")
         for n, t, shape in (("xp_f", xp_f, (T, B, 3 * H)), ("xp_b", xp_b, (T, B, 3 * H)),
                             ("h0_f", h0_f, (B, H)), ("h0_b", h0_b, (B, H)),
                             ("out_f", out_f, (T, B, H)), ("out_b", out_b, (T, B, H)),
@@ -175,15 +199,17 @@ def _rec_chain(a: _Window, xp_f, xp_b, h0_f, h0_b, out_f, out_b, dout_f, dout_b,
     whT = {d: layer[d]["w_hh"].T.contiguous() for d in ("fwd", "bwd")}
     e = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)  # noqa: E731
     dxp, dhpn, dh0_f, dh0_b = e(2, T, B, 3 * H), e(2, T, B, H), e(B, H), e(B, H)
+    rows = bwd_chain_rows(H, gg.card_limits(dev)[1])
     with torch.cuda.device(dev):
         err = get_lib().bigru_window_xp_bwd_rec(
             *(t.data_ptr() for t in (xp_f, xp_b, h0_f, h0_b, out_f, out_b, dout_f,
                                      dout_b, dh_f, dh_b)),
             wh_f, whT["fwd"].data_ptr(), bh_f, wh_b, whT["bwd"].data_ptr(), bh_b,
             dxp.data_ptr(), dhpn.data_ptr(), dh0_f.data_ptr(), dh0_b.data_ptr(),
-            T, B, H, torch.cuda.current_stream(dev).cuda_stream)
+            T, B, H, rows, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "bigru_window_xp_bwd_rec")
     launch_counts["bigru_window_xp_bwd_rec_chain"] += 1
+    launch_counts[f"bigru_window_xp_bwd_rec_chain_r{rows}"] += 1
     return dxp, dhpn, dh0_f, dh0_b
 
 

@@ -67,7 +67,8 @@ def grid_units(h: int, sms: int, budget: int, fast: bool = False) -> Optional[in
     SM, both directions), if its shared memory fits ``budget`` and it is at
     most the tier's :data:`MAX_UNITS`; else None. A larger ``U`` only takes
     more shared memory, so no other ``U`` fits where this one does not. On
-    the H100 SXM (132 SMs, 232,448 bytes): U=16 at H=1024, 12 at 768, 10 at
+    the H100 SXM (132 SMs, 232,448 bytes): K3f U=17 at H=1088 (its widest),
+    K3 and K3f U=16 at H=1024 (K3's widest), 12 at 768, 10 at
     640, 2 at 128, in both tiers."""
     if h < 1 or sms < 2:
         return None
@@ -102,7 +103,7 @@ def get_lib() -> ctypes.CDLL:
             lib.bigru_window_xp_grid_smem_bytes.restype = ll
             lib.bigru_window_xp_grid_smem_bytes.argtypes = [i, i, i]
             if any(lib.bigru_window_xp_grid_smem_bytes(h, u, f) != grid_smem_bytes(h, u, f)
-                   for h in (1, 37, 128, 160, 610, 640, 1000, 1024)
+                   for h in (1, 37, 128, 160, 610, 640, 1000, 1024, 1056, 1088)
                    for u in (1, 2, 3, 10, 16, 24) for f in (0, 1)):
                 raise RuntimeError("the forward grid's fit disagrees with "
                                    "csrc/gru_window_xp_grid.cu")

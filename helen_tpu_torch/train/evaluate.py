@@ -177,13 +177,15 @@ def save_confusion_png(cm: np.ndarray, title: str, path: str) -> Optional[str]:
 
 def test_interface(test_dir: str, model_path: str, batch_size: int = 100,
                    num_workers: int = 8, output_dir: str = "./test_out/",
-                   device: str = "cuda", backend: Optional[str] = None
-                   ) -> Dict[str, object]:
+                   device: str = "cuda", backend: Optional[str] = None,
+                   debug_mismatches: bool = False) -> Dict[str, object]:
     """CLI entry: evaluate a model, write the confusion artifacts
     (``confusion_matrix.txt``, the PNGs, and ``test_stats.json`` with the
     loss and both matrices). In a multi-process job the images are sharded
     over the processes (:func:`evaluate`), every process returns the
-    summed stats, and process 0 writes the artifacts."""
+    summed stats, and process 0 writes the artifacts. ``debug_mismatches``
+    also writes ``mismatches.txt`` (eval.debug.dump_mismatches over all
+    the images, by process 0)."""
     from helen_tpu_torch.parallel import multihost
 
     dev = resolve_device(device)
@@ -191,8 +193,8 @@ def test_interface(test_dir: str, model_path: str, batch_size: int = 100,
     params_np, _ = load_model_any(model_path)
     params = params_to_torch(params_np, dev)
     backend = resolve_backend(backend, dev, params)
-    stats = evaluate(params, list_image_files(test_dir), batch_size, num_workers,
-                     backend=backend)
+    files = list_image_files(test_dir)
+    stats = evaluate(params, files, batch_size, num_workers, backend=backend)
     if multihost.process_index() != 0:
         return stats
     ensure_output_dir(output_dir)
@@ -212,4 +214,9 @@ def test_interface(test_dir: str, model_path: str, batch_size: int = 100,
                        os.path.join(output_dir, "base_confusion.png"))
     save_confusion_png(stats["rle_confusion_matrix"], "RLE classes",
                        os.path.join(output_dir, "rle_confusion.png"))
+    if debug_mismatches:
+        from helen_tpu_torch.eval.debug import dump_mismatches
+
+        dump_mismatches(params, files, os.path.join(output_dir, "mismatches.txt"),
+                        batch_size=batch_size, num_workers=num_workers, backend=backend)
     return stats

@@ -29,6 +29,9 @@ as helen_tpu's ``Trainer(data_parallel=True)`` across hosts: each process
 takes its rows of every global batch, the loss denominators and then the
 gradients are summed over the processes in each window, and every process
 applies the same Adam step; process 0 writes the checkpoints and stats.
+With ``model_parallel > 1`` one process trains data x tensor parallel over
+a ("data", "model") mesh of its devices (parallel.sharding), as helen_tpu's
+GSPMD step does.
 """
 from __future__ import annotations
 
@@ -249,8 +252,12 @@ class Trainer:
     images from a packed cache (io.packed), ``<cache_dir or
     model_dir>/train_images_cache.h5``, built once with labels and reused
     while the image files are unchanged (in a job, built by process 0 while
-    the others wait). Model-parallel training is not yet ported (ROADMAP
-    queue A)."""
+    the others wait). ``model_parallel > 1`` trains data x tensor parallel
+    over a mesh of this process's ``devices`` (default: every visible GPU,
+    or the CPU; a list may repeat a device), in the plain recurrence
+    (parallel.sharding), as helen_tpu's GSPMD step: clamped, with a
+    warning, to a width that divides the device count; refused in a
+    multi-process job."""
 
     def __init__(
         self,
@@ -267,6 +274,8 @@ class Trainer:
         device: str = "cuda",
         pack: bool = False,
         cache_dir: Optional[str] = None,
+        model_parallel: int = 1,
+        devices: Optional[Sequence] = None,
     ):
         self.device = resolve_device(device)
         set_fp32_precision()
@@ -307,8 +316,12 @@ class Trainer:
         self.backend = resolve_backend(backend, self.device, self.params, kind="train")
         self.n_procs = multihost.process_count()
         self.pid = multihost.process_index()
+        self.mesh = None
+        self.shard_multiple = self.n_procs
+        if model_parallel > 1:
+            self._make_mesh(model_parallel, devices, backend)
         # eff_batch is the GLOBAL batch; each process feeds eff_local rows
-        self.eff_batch = -(-cfg.batch_size // self.n_procs) * self.n_procs
+        self.eff_batch = -(-cfg.batch_size // self.shard_multiple) * self.shard_multiple
         self.eff_local = self.eff_batch // self.n_procs
         log.info("model parameters: %d (hidden %d, %d gru layer(s)), backend %s "
                  "(kernels: %s) on %s", num_params(self.params),
@@ -337,6 +350,54 @@ class Trainer:
             log.info("training on %d images, evaluating on %d files%s",
                      len(self.dataset), len(self.test_files),
                      f" across {self.n_procs} processes" if self.n_procs > 1 else "")
+
+    def _make_mesh(self, model_parallel: int, devices, backend: str) -> None:
+        """The data x tensor layout (helen_tpu ``train_loop.py:356-410``):
+        the params and their Adam moments split over the mesh's model
+        shards; the whole tree is gathered back for checkpoints and
+        evaluation (:meth:`_gather`)."""
+        from helen_tpu_torch.parallel.mesh import local_devices, make_mesh
+        from helen_tpu_torch.parallel.sharding import shard_params
+
+        if self.n_procs > 1:
+            raise ValueError(
+                "model_parallel > 1 drives the data x tensor step over one "
+                "process's devices; multi-process jobs use the data-parallel "
+                "trainer (drop --model_parallel)")
+        if backend not in ("auto", "xla", "torch"):
+            log.warning(
+                "model_parallel > 1 splits w_hh's units over the shards through the "
+                "plain recurrence (a whole-window kernel cannot exchange h between "
+                "shards in mid-window); backend %r ignored", backend)
+        devices = list(devices) if devices is not None else local_devices(self.device)
+        mesh = make_mesh(devices, model_parallel=model_parallel)
+        if mesh.shape["model"] != model_parallel:
+            log.warning("model_parallel=%d does not divide %d devices; using %d",
+                        model_parallel, len(devices), mesh.shape["model"])
+        self.mesh = mesh
+        self.device = mesh.devices[0][0]
+        self.sharded = shard_params(mesh, self.params)
+        for p in param_leaves(self.sharded):
+            p.requires_grad_(True)
+        self.sharded_opt = {"count": self.opt_state["count"],
+                            "mu": shard_params(mesh, self.opt_state["mu"]),
+                            "nu": shard_params(mesh, self.opt_state["nu"])}
+        self.shard_multiple = mesh.shape["data"]
+        log.info("data x tensor training mesh: data=%d x model=%d on %s",
+                 mesh.shape["data"], mesh.shape["model"],
+                 [str(d) for d in mesh.devices.flat])
+
+    def _gather(self) -> None:
+        """Gather the mesh's shards into the whole ``params`` and
+        ``opt_state`` (checkpoints, evaluation)."""
+        from helen_tpu_torch.parallel.sharding import unshard_params
+
+        if self.mesh is None:
+            return
+        self.params = unshard_params(self.mesh, self.sharded, self.device)
+        self.opt_state = {"count": self.sharded_opt["count"],
+                          "mu": unshard_params(self.mesh, self.sharded_opt["mu"], self.device),
+                          "nu": unshard_params(self.mesh, self.sharded_opt["nu"], self.device)}
 
     def _pack_training_cache(self, cache_path: str) -> str:
         """Build (or reuse) the packed training cache; returns its path.
@@ -415,6 +476,7 @@ class Trainer:
                 "scheduler": self.scheduler.state_dict()}
 
     def _save_latest(self, epoch: int, batch_in_epoch: int) -> None:
+        self._gather()
         save_checkpoint(os.path.join(self.model_dir, "HELEN_latest_checkpoint.npz"),
                         self.params, meta=self._meta(epoch, batch_in_epoch=batch_in_epoch),
                         opt_state=self.opt_state)
@@ -445,11 +507,20 @@ class Trainer:
             writer = csv.writer(f)
             for bi, batch in enumerate(batches, start=skip_batches):
                 to_dev = lambda a: torch.from_numpy(a).to(self.device)  # noqa: E731
-                tot, _, _ = tbptt_step(
-                    self.params, self.adam, self.opt_state, self.scheduler.lr,
-                    to_dev(batch.images), to_dev(batch.labels_base).long(),
-                    to_dev(batch.labels_rle).long(), batch.valid, self.backend,
-                    allsum=allsum)
+                if self.mesh is not None:
+                    from helen_tpu_torch.parallel.sharding import sharded_tbptt_step
+
+                    tot, _, _ = sharded_tbptt_step(
+                        self.mesh, self.sharded, self.adam, self.sharded_opt,
+                        self.scheduler.lr, to_dev(batch.images),
+                        to_dev(batch.labels_base).long(), to_dev(batch.labels_rle).long(),
+                        batch.valid)
+                else:
+                    tot, _, _ = tbptt_step(
+                        self.params, self.adam, self.opt_state, self.scheduler.lr,
+                        to_dev(batch.images), to_dev(batch.labels_base).long(),
+                        to_dev(batch.labels_rle).long(), batch.valid, self.backend,
+                        allsum=allsum)
                 # a job's batches are always full (wrap padding), so the
                 # global row count is exact; one process keeps the masked tail
                 valid = batch.valid * self.n_procs
@@ -466,6 +537,7 @@ class Trainer:
                              epoch + 1, bi + 1, avg, tp)
         tp.stop()
         self.epoch_throughput = tp
+        self._gather()
         return total_loss / max(1, total_images)
 
     def run(self, epochs: int) -> List[EpochStats]:
@@ -533,12 +605,14 @@ def train_interface(
     gru_layers: int = MODEL.gru_layers,
     device: str = "cuda",
     pack: bool = False,
+    model_parallel: int = 1,
 ) -> List[EpochStats]:
     """CLI entry: timestamped model/stats dirs like the reference
     (TrainInterface.py + FileManager.py:25-48). hidden_size/gru_layers pick
     the geometry of a fresh model; retraining follows the checkpoint's.
     ``pack``: the packed training cache, kept in ``output_dir`` itself (not
-    the run's timestamped dir) so later runs reuse it."""
+    the run's timestamped dir) so later runs reuse it. ``model_parallel``:
+    the data x tensor trainer over this process's devices."""
     import dataclasses as _dc
 
     cfg = _dc.replace(TRAIN, batch_size=batch_size, learning_rate=learning_rate,
@@ -564,5 +638,6 @@ def train_interface(
         device=device,
         pack=pack,
         cache_dir=ensure_output_dir(output_dir),
+        model_parallel=model_parallel,
     )
     return trainer.run(epochs)

@@ -3,9 +3,9 @@
 ``--platform cpu`` (helen_tpu's top-level flag) selects ``--device cpu``;
 helen_tpu's single-host defaults ``--host_shard image`` and
 ``--barrier_timeout 86400`` run when given; an incomplete multi-process job
-is an argparse error naming what it lacks; helen_tpu's subcommands that the
-port lacks parse with helen_tpu's arguments and exit with "not yet ported",
-not with argparse's "invalid choice".
+is an argparse error naming what it lacks; helen_tpu's other subcommands
+(``download_models``, ``convert``, ``hyperband``, ``assess``) run with
+helen_tpu's arguments.
 """
 import hashlib
 
@@ -89,13 +89,42 @@ def test_call_consensus_takes_host_shard_image(tmp_path):
     ["hyperband", "--train_image_dir", "tr", "--test_image_dir", "te"],
     ["assess", "-t", "truth.fa", "-p", "polished.fa", "--json"],
 ], ids=["download_models", "convert", "hyperband", "assess"])
-def test_unported_subcommands_say_not_yet_ported(argv, capsys):
-    with pytest.raises(SystemExit) as exc:
-        cli(*argv)
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert "not yet ported" in err and f"the {argv[0]} subcommand" in err
-    assert "invalid choice" not in err
+def test_unported_subcommands_say_not_yet_ported(argv, tmp_path, capsys, monkeypatch):
+    """helen_tpu's subcommands that the port once refused with "not yet
+    ported" now run with helen_tpu's arguments: ``download_models`` over a
+    ``file://`` manifest, ``convert`` of the golden ``.pkl``, ``hyperband``
+    (``--max_epochs 1``: one trial, one epoch) on the CPU, ``assess`` of
+    the golden FASTA against itself."""
+    from helen_tpu_torch.io.synthetic import random_sequence, write_image_file
+
+    monkeypatch.chdir(tmp_path)
+    extra = []
+    if argv[0] == "download_models":
+        (tmp_path / "m.csv").write_text(f"golden_model.pkl,file://{golden('golden_model.pkl')}\n")
+        monkeypatch.setenv("HELEN_TPU_MODEL_MANIFEST", f"file://{tmp_path / 'm.csv'}")
+    elif argv[0] == "convert":
+        argv = ["convert", "-i", golden("golden_model.pkl"), "-o", "model.npz"]
+    elif argv[0] == "hyperband":
+        for name, bp in (("tr", 1200), ("te", 900)):
+            (tmp_path / name).mkdir()
+            write_image_file(str(tmp_path / name / "i.h5"),
+                             {name: random_sequence(bp, seed=bp)}, region_cols=1000,
+                             overlap_cols=0, noise=0.05)
+        extra = ["--max_epochs", "1", "-b", "4", "--device", "cpu"]
+    else:
+        argv = ["assess", "-t", golden("golden.fa"), "-p", golden("golden.fa"), "--json"]
+    assert cli(*argv, *extra) == 0
+    captured = capsys.readouterr()
+    assert "not yet ported" not in captured.err + captured.out
+    if argv[0] == "download_models":
+        assert (tmp_path / "models" / "golden_model.pkl").read_bytes() == open(
+            golden("golden_model.pkl"), "rb").read()
+    elif argv[0] == "convert":
+        assert (tmp_path / "model.npz").exists()
+    elif argv[0] == "hyperband":
+        assert (tmp_path / "hyperband_out" / "hyperband_results.json").exists()
+    else:
+        assert '"total_edits": 0' in captured.out
 
 
 @pytest.mark.parametrize("argv,missing", [

@@ -289,11 +289,31 @@ def xp_case(rng, T, B, H, dev):
     return r(T, B, 3 * H), r(T, B, 3 * H), r(B, H), r(B, H), make_layer(rng, 2 * H, H, dev)
 
 
+def smem_budget():
+    """The card's opt-in shared memory per block, as the design rules read it."""
+    from helen_tpu_torch.ops.gru_window_xp_bwd_grid import card_limits
+
+    return card_limits()[1]
+
+
+def xp_ran(name, H, design, fast=False):
+    """The launch counters that one K3 (``fast``: K3f) launch in ``design``
+    moves: its own, its design's kernel's and, for the chain, the one of
+    its rows per block."""
+    from helen_tpu_torch.ops import gru_window_xp as gx
+
+    ran = (name, f"{name}_{design}")
+    if design == "chain":
+        ran += (f"{name}_chain_r{gx.chain_rows(H, smem_budget(), fast)}",)
+    return ran
+
+
 # the wide training and inference widths, an off-grid one and one that is
 # not a multiple of the block's threads, ragged batches (1, 13, 17 rows
 # against the 8-row block)
 @pytest.mark.parametrize("T,B,H", [(100, 64, 1024), (7, 13, 640), (5, 3, 160),
-                                   (9, 17, 1000), (4, 1, 1024)])
+                                   (9, 17, 1000), (4, 1, 1024), (5, 13, 1056),
+                                   (3, 9, 2048)])
 def test_k3_kernel_matches_plain(dev, T, B, H):
     from helen_tpu_torch.ops import gru_window_xp as gx
 
@@ -410,9 +430,13 @@ def test_xp_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):  # non-contiguous stream
         gx.bigru_window_xp(xp_f.transpose(0, 1).contiguous().transpose(0, 1), xp_b,
                            h0f, h0b, layer)
+    # past 1024 the chain takes the width (8 rows per block at H=1056) ...
     wide = xp_case(np.random.default_rng(3), 2, 8, 1056, dev)
-    with pytest.raises(ValueError, match="maximum 1024"):  # H > XP_MAX_H
-        gx.bigru_window_xp(*wide)
+    for g, w in zip(gx.bigru_window_xp(*wide), gx.bigru_window_xp_plain(*wide)):
+        assert (g - w).abs().max().item() <= 1e-5
+    # ... and only a width whose state does not fit one row is refused
+    with pytest.raises(ValueError, match="use --backend torch"):
+        gx.xp_fwd_design(29_100, 8)
 
     args = xp_bwd_case(np.random.default_rng(4), 4, 8, 640, dev)
     xp_f, xp_b, h0f, h0b, of, ob, dof, dob, dhf, dhb, layer = args
@@ -426,8 +450,10 @@ def test_xp_wrappers_refuse_what_the_kernels_do_not_take(dev):
         gxb.bigru_window_xp_bwd(xp_f[:, :-1], xp_b, h0f, h0b, of, ob, dof, dob, dhf, dhb,
                                 layer)
     wide = xp_bwd_case(np.random.default_rng(5), 2, 8, 1056, dev)
-    with pytest.raises(ValueError, match="maximum 1024"):  # H > XP_MAX_H
-        gxb.bigru_window_xp_bwd(*wide)
+    assert gxb.xp_bwd_design(1056, 8) == "chain"
+    gxb.bigru_window_xp_bwd(*wide)  # pass 1 at 8 rows per block
+    with pytest.raises(ValueError, match="use --backend torch"):
+        gxb.xp_bwd_design(11_700, 8)
 
 
 # ---------------------------------------------------------------------------
@@ -502,9 +528,8 @@ def test_k3f_kernel_matches_plain(dev, T, B, H):
     before = dict(gx.launch_counts)
     got = gx.bigru_window_xp_fast(*args)
     torch.cuda.synchronize()
-    ran = f"bigru_window_xp_fast_{gx.xp_fwd_design(H, B, fast=True)}"
-    assert gx.launch_counts == {k: v + (k in ("bigru_window_xp_fast", ran))
-                                for k, v in before.items()}
+    ran = xp_ran("bigru_window_xp_fast", H, gx.xp_fwd_design(H, B, fast=True), fast=True)
+    assert gx.launch_counts == {k: v + (k in ran) for k, v in before.items()}
     assert_outputs_close(got, gx.bigru_window_xp_fast_plain(*args), FAST_TOL)
 
 
@@ -544,10 +569,11 @@ def test_fast_wrappers_refuse_what_the_kernels_do_not_take(dev):
         gx.bigru_window_xp_fast(xb_f, xb_b[:-1], h0f, h0b, fl)
     with pytest.raises(ValueError):  # h0 on the CPU
         gx.bigru_window_xp_fast(xb_f, xb_b, h0f.cpu(), h0b, fl)
-    wide = xp_case(rng, 2, 8, 1056, dev)
-    with pytest.raises(ValueError, match="maximum 1024"):  # H > XP_MAX_H
-        gx.bigru_window_xp_fast(wide[0].to(torch.bfloat16), wide[1].to(torch.bfloat16),
-                                wide[2], wide[3], fast(wide[4]))
+    wide = xp_case(rng, 2, 8, 1152, dev)  # past the fast grid: the chain at 8 rows
+    gx.bigru_window_xp_fast(wide[0].to(torch.bfloat16), wide[1].to(torch.bfloat16),
+                            wide[2], wide[3], fast(wide[4]))
+    with pytest.raises(ValueError, match="use --backend torch"):
+        gx.xp_fwd_design(14_600, 8, fast=True)
 
 
 @pytest.mark.parametrize("H,want", [(128, "cuda_fast_inproj"), (640, "cuda_fast_xp")])
@@ -1220,7 +1246,8 @@ def test_xp_bwd_grid_design_equals_chain_design(dev, T, B, H):
     before = dict(gxb.launch_counts)
     old = gxb.bigru_window_xp_bwd_rec(*args, design="chain")
     torch.cuda.synchronize()
-    ran = ("bigru_window_xp_bwd_rec", "bigru_window_xp_bwd_rec_chain")
+    ran = ("bigru_window_xp_bwd_rec", "bigru_window_xp_bwd_rec_chain",
+           f"bigru_window_xp_bwd_rec_chain_r{gxb.bwd_chain_rows(H, smem_budget())}")
     assert gxb.launch_counts == {k: v + (k in ran) for k, v in before.items()}
     for what, n, o in zip(("dxp", "dhp_n", "dh0_f", "dh0_b"), new, old):
         assert torch.equal(n, o), f"{what}: max |grid - chain| {float((n - o).abs().max())}"
@@ -1345,8 +1372,9 @@ XP_GRID_SHAPES = [(100, 512, 1024), (100, 64, 1024), (7, 13, 640), (5, 300, 768)
                   (4, 7, 610)]
 
 
-def xp_grid_counts(before, name, design):
-    return {k: v + (k in (name, f"{name}_{design}")) for k, v in before.items()}
+def xp_grid_counts(before, name, design, H):
+    ran = xp_ran(name, H, design, fast=name.endswith("_fast"))
+    return {k: v + (k in ran) for k, v in before.items()}
 
 
 @pytest.mark.parametrize("T,B,H", XP_GRID_SHAPES)
@@ -1361,11 +1389,11 @@ def test_xp_grid_design_equals_chain_design(dev, T, B, H):
     before = dict(gx.launch_counts)
     new = gx.bigru_window_xp(*args)
     torch.cuda.synchronize()
-    assert gx.launch_counts == xp_grid_counts(before, "bigru_window_xp", "grid")
+    assert gx.launch_counts == xp_grid_counts(before, "bigru_window_xp", "grid", H)
     before = dict(gx.launch_counts)
     old = gx.bigru_window_xp(*args, design="chain")
     torch.cuda.synchronize()
-    assert gx.launch_counts == xp_grid_counts(before, "bigru_window_xp", "chain")
+    assert gx.launch_counts == xp_grid_counts(before, "bigru_window_xp", "chain", H)
     for what, n, o in zip(("out_f", "out_b", "h_f", "h_b"), new, old):
         assert torch.equal(n, o), f"{what}: max |grid - chain| {float((n - o).abs().max())}"
     assert_outputs_close(new, gx.bigru_window_xp_plain(*args))
@@ -1384,11 +1412,11 @@ def test_xp_fast_grid_matches_plain(dev, T, B, H):
     before = dict(gx.launch_counts)
     new = gx.bigru_window_xp_fast(*args)
     torch.cuda.synchronize()
-    assert gx.launch_counts == xp_grid_counts(before, "bigru_window_xp_fast", "grid")
+    assert gx.launch_counts == xp_grid_counts(before, "bigru_window_xp_fast", "grid", H)
     before = dict(gx.launch_counts)
     old = gx.bigru_window_xp_fast(*args, design="chain")
     torch.cuda.synchronize()
-    assert gx.launch_counts == xp_grid_counts(before, "bigru_window_xp_fast", "chain")
+    assert gx.launch_counts == xp_grid_counts(before, "bigru_window_xp_fast", "chain", H)
     assert_outputs_close(new, gx.bigru_window_xp_fast_plain(*args), FAST_TOL)
     print(f"K3f T={T} B={B} H={H}: max |grid - one-launch| {max_diff(new, old):.3g}")
 
@@ -1460,6 +1488,83 @@ def test_xp_grid_refuses_what_the_card_does_not_hold(dev, monkeypatch):
                 assert lib.bigru_window_xp_grid_smem_bytes(h, u, f) == xg.grid_smem_bytes(h, u, f)
 
 
+# ---------------------------------------------------------------------------
+# the xp route's kernels at every rows-per-block count the design rules pick
+# past the widths chip_smoke.py's phase 15a runs, and K3f's grid at U=17
+# ---------------------------------------------------------------------------
+
+def wide_xp_case(T, B, H, dev, seed):
+    """Projected streams, h0 pair and a layer's recurrent weights
+    (``{"fwd", "bwd"}`` of ``w_hh``, ``b_hh``; the wrappers read no other
+    key), drawn on the card: at H=14,600 a direction's W_hh is 2.6 GB."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    u = lambda k, *s: (torch.rand(s, generator=g, device=dev) * 2 - 1) * k  # noqa: E731
+    k = 1.0 / H ** 0.5
+    layer = {d: {"w_hh": u(k, H, 3 * H), "b_hh": u(k, 3 * H)} for d in ("fwd", "bwd")}
+    return u(1, T, B, 3 * H), u(1, T, B, 3 * H), u(1, B, H), u(1, B, H), layer
+
+
+# (kernel, T, B, H, design, rows per block or grid units on the H100): K3 at
+# 4, 2 and 1 rows, K3f's grid at 17 units and its chain at 2 and 1 rows,
+# K4's pass 1 at 2 and 1 rows; ragged batches where rows > 1. Short windows:
+# each block reads all of W_hh at every step.
+WIDE_CASES = [("k3", 2, 5, 4000, "chain", 4), ("k3", 2, 3, 8000, "chain", 2),
+              ("k3", 1, 2, 14_600, "chain", 1), ("k3f", 3, 13, 1088, "grid", 17),
+              ("k3f", 2, 3, 4000, "chain", 2), ("k3f", 2, 2, 8000, "chain", 1),
+              ("k4", 2, 5, 3000, "chain", 2), ("k4", 2, 2, 6000, "chain", 1)]
+
+
+@pytest.mark.parametrize("kernel,T,B,H,design,n", WIDE_CASES)
+def test_xp_kernels_at_each_rows_per_block_match_plain(dev, kernel, T, B, H, design, n):
+    """Each design the rules pick past the widths phase 15a runs, against
+    its plain version at phase 15a's bars: K3 within TOL, K3f bit for bit
+    against its plain version in its design's order, K4 (pass 1, then
+    pass 2) within TOL times the largest output magnitude; each launch
+    counted under its design and its rows per block."""
+    from helen_tpu_torch.ops import gru_window_xp as gx
+    from helen_tpu_torch.ops import gru_window_xp_bwd as gxb
+    from helen_tpu_torch.ops import gru_window_xp_bwd_grid as gg
+    from helen_tpu_torch.ops import gru_window_xp_grid as xg
+
+    sms, budget = gg.card_limits()
+    xp_f, xp_b, h0f, h0b, layer = wide_xp_case(T, B, H, dev, seed=H + T * B)
+    if kernel == "k4":
+        assert gxb.xp_bwd_design(H, B) == design and gxb.bwd_chain_rows(H, budget) == n
+        of, ob, _, _ = gx.bigru_window_xp_plain(xp_f, xp_b, h0f, h0b, layer)
+        g = torch.Generator(device=dev).manual_seed(H)
+        r = lambda *s: torch.rand(s, generator=g, device=dev) * 2 - 1  # noqa: E731
+        args = (xp_f, xp_b, h0f, h0b, of.contiguous(), ob.contiguous(), r(T, B, H),
+                r(T, B, H), r(B, H), r(B, H), layer)
+        before = dict(gxb.launch_counts)
+        got = gxb.bigru_window_xp_bwd(*args)
+        torch.cuda.synchronize()
+        ran = ("bigru_window_xp_bwd_rec", "bigru_window_xp_bwd_wgrad",
+               "bigru_window_xp_bwd_rec_chain", f"bigru_window_xp_bwd_rec_chain_r{n}")
+        assert gxb.launch_counts == {k: v + (k in ran) for k, v in before.items()}
+        assert_xp_grads_close(got, gxb.bigru_window_xp_bwd_plain(*args))
+        return
+    tier = kernel == "k3f"
+    assert gx.xp_fwd_design(H, B, fast=tier) == design
+    assert (xg.grid_units(H, sms, budget, tier) if design == "grid"
+            else gx.chain_rows(H, budget, tier)) == n
+    name = "bigru_window_xp" + ("_fast" if tier else "")
+    if tier:
+        xp_f, xp_b = xp_f.to(torch.bfloat16), xp_b.to(torch.bfloat16)
+        layer = {d: {"w_hh": p["w_hh"].to(torch.bfloat16), "b_hh": p["b_hh"]}
+                 for d, p in layer.items()}
+    args = (xp_f, xp_b, h0f, h0b, layer)
+    before = dict(gx.launch_counts)
+    got = getattr(gx, name)(*args)
+    torch.cuda.synchronize()
+    ran = xp_ran(name, H, design, tier)
+    assert gx.launch_counts == {k: v + (k in ran) for k, v in before.items()}
+    if tier:
+        want = gx.bigru_window_xp_fast_plain(*args)
+        assert max_diff(got, want) == 0.0, f"{design} against its plain order"
+    else:
+        assert_outputs_close(got, gx.bigru_window_xp_plain(*args))
+
+
 def test_tbptt_batch_xp_grid_design_equals_chain_design(dev, monkeypatch):
     """One TBPTT batch at H=640 on the xp route (19 windows: forward,
     backward, Adam) with K3 in the grid design, then with every K3 forced to
@@ -1484,7 +1589,8 @@ def test_tbptt_batch_xp_grid_design_equals_chain_design(dev, monkeypatch):
     runs = {}
     for d in ("grid", "chain"):
         monkeypatch.setattr(gx, "xp_fwd_design",
-                            lambda H, B, design=None, fast=False, d=d: rule(H, B, d, fast))
+                            lambda H, B, design=None, fast=False, device=None, *, d=d:
+                            rule(H, B, d, fast, device))
         p = params_to_torch(params0, dev)
         for t in param_leaves(p):
             t.requires_grad_(True)

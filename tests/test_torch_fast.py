@@ -379,8 +379,12 @@ def tiny_params(h):
             "rle_head": {"w": w(2 * h, 11), "b": w(11)}}
 
 
-def test_fast_backends_resolve_and_never_fall_back():
+def test_fast_backends_resolve_and_never_fall_back(monkeypatch):
     from helen_tpu_torch.models.transducer import resolve_backend
+    from helen_tpu_torch.ops import gru_window_xp_bwd_grid as gg
+
+    # the H100's SMs and opt-in shared memory per block, set by hand
+    monkeypatch.setattr(gg, "_card", {0: (132, 232_448)})
 
     cpu, cuda = torch.device("cpu"), torch.device("cuda")
     for name in ("pallas_fast", "fast"):
@@ -389,10 +393,24 @@ def test_fast_backends_resolve_and_never_fall_back():
     assert resolve_backend("torch_fast", cuda) == "torch_fast"
     with pytest.raises(ValueError, match="needs a CUDA device"):
         resolve_backend("cuda_fast", cpu)
+    # past 1024 the fast xp kernels take the width (K3f's grid to H=1088,
+    # its chain design past it); only the card's shared memory at one row
+    # per block stops them (H=14,528 on the H100), and then resolving
+    # refuses, naming --backend torch, rather than fall back
     big = tiny_params(1040)
-    with pytest.raises(ValueError, match="--backend torch"):
-        resolve_backend("pallas_fast", cuda, big)
+    assert resolve_backend("pallas_fast", cuda, big) == "cuda_fast"
     assert resolve_backend("pallas_fast", cpu, big) == "torch_fast"
+    from helen_tpu_torch.ops import gru_window_xp as gx
+
+    assert gx.chain_rows(14_528, 232_448, fast=True) == 1
+    assert gx.chain_rows(14_529, 232_448, fast=True) is None
+    h, meta = 14_529, lambda *s: torch.empty(s, device="meta")  # noqa: E731
+    widest = {"encoder": {d: {"w_ih": meta(F, 3 * h), "w_hh": meta(h, 3 * h)}
+                          for d in ("fwd", "bwd")},
+              "base_head": {"w": meta(2 * h, 5)}, "rle_head": {"w": meta(2 * h, 11)}}
+    with pytest.raises(ValueError, match="--backend torch"):
+        resolve_backend("pallas_fast", cuda, widest)
+    assert resolve_backend("pallas_fast", cpu, widest) == "torch_fast"
 
 
 @pytest.mark.parametrize("name", ["pallas_fast", "fast", "cuda_fast", "torch_fast"])
@@ -413,8 +431,7 @@ def test_engaged_kernel_names_the_fast_families():
     assert engaged_kernel(wide, "cuda_fast") == "cuda_fast_xp"
     assert engaged_kernel(small, "torch_fast") == "torch_fast"
     assert engaged_kernel(big, "torch_fast") == "torch_fast"
-    with pytest.raises(ValueError, match="--backend torch"):
-        engaged_kernel(big, "cuda_fast")
+    assert engaged_kernel(big, "cuda_fast") == "cuda_fast_xp"  # no fixed cap past 1024
     with pytest.raises(ValueError, match="route selects"):
         engaged_kernel(small, "torch_fast", route="xp")
     with pytest.raises(ValueError, match="unresolved"):

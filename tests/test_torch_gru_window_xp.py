@@ -272,12 +272,16 @@ def test_xp_wrappers_take_the_plain_version_on_cpu_and_count_no_launch():
     assert gx.launch_counts == {"bigru_window_xp": 0, "bigru_window_xp_fast": 0,
                                 "bigru_window_xp_grid": 0, "bigru_window_xp_chain": 0,
                                 "bigru_window_xp_fast_grid": 0,
-                                "bigru_window_xp_fast_chain": 0}
+                                "bigru_window_xp_fast_chain": 0,
+                                **{f"bigru_window_xp{t}_chain_r{r}": 0
+                                   for t in ("", "_fast") for r in (8, 4, 2, 1)}}
     assert gxb.launch_counts == {"bigru_window_xp_bwd_rec": 0,
                                  "bigru_window_xp_bwd_wgrad": 0,
                                  "bigru_window_xp_bwd_hp": 0,
                                  "bigru_window_xp_bwd_rec_grid": 0,
-                                 "bigru_window_xp_bwd_rec_chain": 0}
+                                 "bigru_window_xp_bwd_rec_chain": 0,
+                                 **{f"bigru_window_xp_bwd_rec_chain_r{r}": 0
+                                    for r in (8, 4, 2, 1)}}
 
 
 def test_xp_wrappers_raise_off_cpu_and_cuda():
@@ -310,38 +314,35 @@ def tiny_params(h):
 
 
 @pytest.mark.parametrize("h,want", [(128, "inproj"), (512, "inproj"), (640, "xp"),
-                                    (1024, "xp"), (1025, None)])
-def test_dispatch_rule_by_hidden_size(h, want):
-    """The cuda backend's route at H = 128, 512, 640, 1024 and past
-    XP_MAX_H, on both surfaces, with a CUDA device passed as a value (no
-    card needed): ``kernel_route``, ``engaged_kernel`` and
-    ``resolve_backend`` agree, and past XP_MAX_H all raise naming
-    ``--backend torch``."""
+                                    (1024, "xp"), (1025, "xp"), (2048, "xp")])
+def test_dispatch_rule_by_hidden_size(monkeypatch, h, want):
+    """The cuda backend's route at H = 128, 512, 640, 1024 and past 1024,
+    on both surfaces, with a CUDA device passed as a value (no card
+    needed): ``kernel_route``, ``engaged_kernel`` and ``resolve_backend``
+    agree. The xp route has no fixed cap (``ROUTES["xp"]`` is None): its
+    design rules refuse only a width the card's shared memory cannot hold
+    at one row."""
     from helen_tpu_torch.models.transducer import (
-        XP_MAX_H,
+        ROUTES,
         engaged_kernel,
         kernel_route,
         resolve_backend,
     )
 
-    assert XP_MAX_H == 1024
+    from helen_tpu_torch.ops import gru_window_xp_bwd_grid as gg
+
+    # the H100's SMs and opt-in shared memory per block, set by hand
+    monkeypatch.setattr(gg, "_card", {0: (132, 232_448)})
+    assert ROUTES["xp"] is None
     p = tiny_params(h)
     cuda = torch.device("cuda")
-    if want is None:
-        for call in (lambda: kernel_route(h), lambda: engaged_kernel(p, "cuda"),
-                     lambda: resolve_backend(None, cuda, p),
-                     lambda: resolve_backend("pallas_train", cuda, p, kind="train")):
-            with pytest.raises(ValueError, match="--backend torch"):
-                call()
-        assert resolve_backend("torch", cuda, p) == "torch"
-        return
     assert kernel_route(h) == want
     assert engaged_kernel(p, "cuda") == f"cuda_{want}"
     assert engaged_kernel(p, "torch") == "torch"
     assert resolve_backend(None, cuda, p) == "cuda"
     assert resolve_backend("auto", cuda, p, kind="train") == "cuda"
-    # the xp route takes every hidden size up to XP_MAX_H; the in-projection
-    # kernels none past MAX_H
+    # the xp route takes every hidden size; the in-projection kernels none
+    # past MAX_H
     assert engaged_kernel(p, "cuda", route="xp") == "cuda_xp"
     if h > 512:
         with pytest.raises(ValueError, match="inproj window kernels' maximum 512"):

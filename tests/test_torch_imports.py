@@ -57,6 +57,13 @@ def test_port_has_modules():
     for mod in ("hdf5", "prediction_store", "writer_pool", "packed", "images"):
         assert f"helen_tpu_torch/io/{mod}.py" in PORT_FILES
     assert "helen_tpu_torch/parallel/multihost.py" in PORT_FILES
+    for rel in ("parallel/mesh.py", "parallel/sharding.py", "eval/debug.py",
+                "train/hyperband.py", "io/onnx_export.py", "io/download.py",
+                "marginpolish.py", "tools/assess_polish.py", "tools/assess_summary.py",
+                "tools/bed_mask.py", "tools/quast_sv_extractor.py", "tools/loss_curves.py",
+                "tools/image_viewer.py", "tools/compare_images.py",
+                "tools/vcf_remove_phase.py", "tools/pairwise_alignment.py"):
+        assert f"helen_tpu_torch/{rel}" in PORT_FILES
 
 
 @pytest.mark.parametrize("rel", PORT_FILES)
@@ -224,3 +231,47 @@ def test_trains_and_tests_on_cpu_with_jax_and_h5py_blocked(tmp_path):
     )
     proc = _run(code, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
+
+
+def test_new_subcommands_run_with_jax_and_h5py_blocked(tmp_path):
+    """``convert`` (to ``.pkl`` and ``.onnx``, its self-check on the CPU),
+    ``download_models`` over ``file://``, ``assess --bed``, ``test
+    --debug_mismatches`` and ``train --model_parallel 2`` with ``import
+    jax`` and ``import h5py`` made to fail."""
+    from helen_tpu_torch.io.synthetic import random_sequence, write_image_file
+
+    for name, bp in (("tr", 2000), ("te", 1200)):
+        (tmp_path / name).mkdir()
+        write_image_file(str(tmp_path / name / "i.h5"), {name: random_sequence(bp, seed=bp)},
+                         region_cols=1000, overlap_cols=0, noise=0.05)
+    (tmp_path / "m.csv").write_text(f"g.pkl,file://{golden('golden_model.pkl')}\n")
+    (tmp_path / "m.bed").write_text("gA\t100\t200\n")
+    fa = os.path.join(GOLDEN_DIR, "golden.fa")
+    t = str(tmp_path)
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['h5py'] = None\n"
+        "import glob, torch\n"
+        "torch.set_num_threads(2)\n"
+        "from helen_tpu_torch.cli import main\n"
+        f"t = {t!r}\n"
+        f"assert main(['convert', '-i', {golden('golden_model.pkl')!r}, '-o', t + '/m.npz']) == 0\n"
+        "assert main(['convert', '-i', t + '/m.npz', '-o', t + '/m.pkl']) == 0\n"
+        "assert main(['convert', '--device', 'cpu', '-i', t + '/m.pkl', '-o', t + '/m.onnx']) == 0\n"
+        "assert main(['download_models', '-o', t + '/dl', '--manifest_url', "
+        "'file://' + t + '/m.csv']) == 0\n"
+        f"assert main(['assess', '-t', {fa!r}, '-p', {fa!r}, '-b', t + '/m.bed']) == 0\n"
+        "assert main(['train', '--device', 'cpu', '--train_image_dir', t + '/tr', "
+        "'--test_image_dir', t + '/te', '-b', '4', '-e', '1', '-w', '2', "
+        "'--hidden_size', '8', '--model_parallel', '2', '-o', t + '/out']) == 0\n"
+        "ck = glob.glob(t + '/out/trained_models_*/models/HELEN_epoch_1_checkpoint.npz')[0]\n"
+        "assert main(['test', '--device', 'cpu', '--test_image_dir', t + '/te', '-m', ck, "
+        "'-b', '4', '-w', '2', '--debug_mismatches', '-o', t + '/tout']) == 0\n"
+        "assert not any(m in ('jax', 'h5py', 'helen_tpu') or m.startswith(('jax.', 'helen_tpu.'))"
+        " for m in sys.modules if sys.modules[m] is not None)\n"
+    )
+    proc = _run(code, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert (tmp_path / "tout" / "mismatches.txt").exists()
+    assert (tmp_path / "dl" / "g.pkl").exists() and (tmp_path / "m.onnx").exists()

@@ -157,34 +157,56 @@ def _meta_params(h):
             "rle_head": {"w": torch.empty(2 * h, 11, device="meta")}}
 
 
-def test_resolve_backend_refuses_past_the_kernels_maximum():
-    """Past XP_MAX_H every backend that would pick a kernel on a CUDA
-    device (``auto``, ``fast`` and helen_tpu's ``pallas`` / ``pallas_fast``
-    as well as ``cuda``), in both kinds, raises naming ``--backend torch``:
-    the port does not take helen_tpu's quiet fallback to its plain route on
-    the card. The plain versions run there only when asked for, and
-    resolving a backend leaves the process's TF32 setting alone. The
-    device is only named: nothing runs on it."""
-    from helen_tpu_torch.models.transducer import XP_MAX_H, engaged_kernel, resolve_backend
+@pytest.mark.parametrize("h", [1056, 1152, 2048])
+def test_resolve_backend_refuses_past_the_kernels_maximum(monkeypatch, h):
+    """Past H=1024 every backend that picks a kernel on a CUDA device
+    (``auto``, ``fast`` and helen_tpu's ``pallas`` / ``pallas_fast`` as well
+    as ``cuda``), in both kinds, resolves to the xp route's kernels: the
+    route has no fixed cap (its chain design takes fewer rows per block as
+    H grows). ``resolve_backend`` refuses, naming ``--backend torch``,
+    only past what the card's shared memory holds at one row (the H100's
+    limits set by hand: 29,056 for K3, 14,528 for K3f, 11,622 for K4's
+    pass 1, which only training runs), before any work. The plain
+    versions run on the card only when asked for, and resolving a backend
+    leaves the process's TF32 setting alone. The device is only named:
+    nothing runs on it."""
+    from helen_tpu_torch.models.transducer import engaged_kernel, resolve_backend
+    from helen_tpu_torch.ops import gru_window_xp_bwd_grid as gg
 
+    monkeypatch.setattr(gg, "_card", {0: (132, 232_448)})
     cuda = torch.device("cuda")
-    wide = _meta_params(1056)
-    assert 1056 > XP_MAX_H
+    wide = _meta_params(h)
     tf32 = torch.backends.cuda.matmul.allow_tf32
-    for requested, kind in [(None, "infer"), ("auto", "infer"), ("pallas", "infer"),
-                            ("fast", "infer"), ("pallas_fast", "infer"), ("cuda", "infer"),
-                            ("cuda_fast", "infer"), (None, "train"), ("auto", "train"),
-                            ("cuda", "train"), ("pallas_train", "train")]:
-        with pytest.raises(ValueError, match="maximum 1024 .*use --backend torch"):
-            resolve_backend(requested, cuda, wide, kind=kind)
+    for requested, kind, want in [(None, "infer", "cuda"), ("auto", "infer", "cuda"),
+                                  ("pallas", "infer", "cuda"), ("fast", "infer", "cuda_fast"),
+                                  ("pallas_fast", "infer", "cuda_fast"),
+                                  ("cuda", "infer", "cuda"), ("cuda_fast", "infer", "cuda_fast"),
+                                  (None, "train", "cuda"), ("auto", "train", "cuda"),
+                                  ("cuda", "train", "cuda"), ("pallas_train", "train", "cuda")]:
+        got = resolve_backend(requested, cuda, wide, kind=kind)
+        assert got == want
+        assert engaged_kernel(wide, got) == want + "_xp"
     for requested, kind, want in [("torch", "infer", "torch"), ("xla", "infer", "torch"),
                                   ("torch_fast", "infer", "torch_fast"),
                                   ("torch", "train", "torch"), ("xla", "train", "torch")]:
         assert resolve_backend(requested, cuda, wide, kind=kind) == want
         assert engaged_kernel(wide, want) == want
     assert torch.backends.cuda.matmul.allow_tf32 == tf32
-    # at the kernels' maximum the kernels are picked
-    assert resolve_backend("auto", cuda, _meta_params(XP_MAX_H)) == "cuda"
-    assert resolve_backend("fast", cuda, _meta_params(XP_MAX_H)) == "cuda_fast"
     # the CPU keeps its plain versions whatever the width
     assert resolve_backend("auto", torch.device("cpu"), wide) == "torch"
+    # the kernels' maximum on the card: at its widest kernel width each
+    # surface resolves to the kernels, one unit wider it refuses, and the
+    # plain versions take any width
+    for widest, requested, kind, plain in ((29_056, "pallas", "infer", "torch"),
+                                           (14_528, "pallas_fast", "infer", "torch_fast"),
+                                           (11_622, "pallas_train", "train", "torch")):
+        assert resolve_backend(requested, cuda, _meta_params(widest), kind=kind).startswith(
+            "cuda")
+        with pytest.raises(ValueError, match="use --backend torch"):
+            resolve_backend(requested, cuda, _meta_params(widest + 1), kind=kind)
+        assert resolve_backend(plain, cuda, _meta_params(widest + 1), kind=kind) == plain
+    # a width the parity forward takes and the backward does not: inference
+    # runs it on the kernels, training is refused
+    assert resolve_backend("auto", cuda, _meta_params(11_623)) == "cuda"
+    with pytest.raises(ValueError, match="use --backend torch"):
+        resolve_backend("auto", cuda, _meta_params(11_623), kind="train")

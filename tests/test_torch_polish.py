@@ -4,9 +4,10 @@ The golden images polish to a FASTA whose sha256 equals the one recorded by
 the reference torch code, with the streaming stitch and with the classic
 one; the trained checkpoint polishes an unseen sequence to the truth; the
 port's prediction store stitches to the same FASTA in helen_tpu. The CLI
-(polish, call_consensus, train, test) refuses to fall back to the CPU, and
-refuses flags of paths not yet ported; the I/O flags ported since run.
+(polish, call_consensus, train, test) refuses to fall back to the CPU; the
+flags of paths ported since the port began run.
 """
+import glob
 import hashlib
 import os
 
@@ -198,10 +199,10 @@ TRAIN_ARGS = ["--train_image_dir", "tr", "--test_image_dir", "te", "--device", "
 TEST_ARGS = ["--test_image_dir", "te", "-m", "model.npz", "--device", "cpu"]
 UNPORTED_TRAIN = [
     ("train--pack", ["train", "--pack", *TRAIN_ARGS], True),
-    ("train--model_parallel", ["train", "--model_parallel", "2", *TRAIN_ARGS], False),
+    ("train--model_parallel", ["train", "--model_parallel", "2", *TRAIN_ARGS], True),
     ("train--distributed", ["--distributed", "train", *TRAIN_ARGS],
      "--distributed reads torchrun's environment"),
-    ("test--debug_mismatches", ["test", "--debug_mismatches", *TEST_ARGS], False),
+    ("test--debug_mismatches", ["test", "--debug_mismatches", *TEST_ARGS], True),
 ]
 
 
@@ -254,8 +255,11 @@ def test_unported_flags_are_refused(argv, ported, tmp_path, capsys, monkeypatch)
                          ids=[a[0] for a in UNPORTED_TRAIN])
 def test_unported_train_flags_are_refused(argv, ported, tmp_path, capsys, monkeypatch):
     """As above for train and test: ``train --pack``, ported, trains one
-    epoch of a fresh H=16 model from its packed cache; ``--distributed``
-    without torchrun's environment exits 2 naming it."""
+    epoch of a fresh H=16 model from its packed cache; ``train
+    --model_parallel 2``, ported, one epoch on the data x tensor mesh of
+    the CPU (clamped to one device); ``test --debug_mismatches``, ported,
+    writes mismatches.txt; ``--distributed`` without torchrun's
+    environment exits 2 naming it."""
     if isinstance(ported, str):
         _assert_incomplete_job(cli, argv, ported, capsys, monkeypatch)
         return
@@ -272,10 +276,29 @@ def test_unported_train_flags_are_refused(argv, ported, tmp_path, capsys, monkey
         write_image_file(str(tmp_path / name / "i.h5"), {name: random_sequence(bp, seed=bp)},
                          region_cols=1000, overlap_cols=0, noise=0.05)
     argv = [str(tmp_path / a) if a in ("tr", "te") else a for a in argv]
+    if argv[0] == "test":
+        import dataclasses
+
+        from helen_tpu_torch.config import MODEL
+        from helen_tpu_torch.io.checkpoint import save_checkpoint
+        from helen_tpu_torch.models.transducer import init_params
+
+        model = str(tmp_path / "model.npz")
+        save_checkpoint(model, init_params(torch.Generator().manual_seed(16),
+                                           dataclasses.replace(MODEL, hidden_size=16)))
+        argv = [model if a == "model.npz" else a for a in argv]
+        assert cli(*argv, "-b", 4, "-w", 2, "-o", tmp_path / "out") == 0
+        assert "not yet ported" not in capsys.readouterr().err
+        assert os.path.getsize(tmp_path / "out" / "mismatches.txt") > 0
+        return
     assert cli(*argv, "-b", 4, "-e", 1, "-w", 2, "--hidden_size", 16, "-o",
                tmp_path / "out") == 0
     assert "not yet ported" not in capsys.readouterr().err
-    assert os.path.exists(tmp_path / "out" / "train_images_cache.h5")
+    if "--pack" in argv:
+        assert os.path.exists(tmp_path / "out" / "train_images_cache.h5")
+    else:
+        assert glob.glob(str(tmp_path / "out" / "trained_models_*" / "models" /
+                             "HELEN_epoch_1_checkpoint.npz"))
 
 
 def test_version_and_devices(capsys):

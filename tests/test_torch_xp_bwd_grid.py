@@ -210,7 +210,8 @@ def test_wrappers_take_the_plain_version_on_cpu_and_count_no_launch():
     assert set(gb.launch_counts.values()) == {0}
     assert set(gxb.launch_counts) == {
         "bigru_window_xp_bwd_rec", "bigru_window_xp_bwd_wgrad", "bigru_window_xp_bwd_hp",
-        "bigru_window_xp_bwd_rec_grid", "bigru_window_xp_bwd_rec_chain"}
+        "bigru_window_xp_bwd_rec_grid", "bigru_window_xp_bwd_rec_chain",
+        *(f"bigru_window_xp_bwd_rec_chain_r{r}" for r in (8, 4, 2, 1))}
 
 
 def test_wrappers_raise_off_cpu_and_cuda():

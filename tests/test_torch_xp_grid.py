@@ -365,7 +365,8 @@ def test_wrappers_take_the_plain_version_on_cpu_and_count_no_launch():
     assert set(gx.launch_counts.values()) == {0}
     assert set(gx.launch_counts) == {
         "bigru_window_xp", "bigru_window_xp_fast", "bigru_window_xp_grid",
-        "bigru_window_xp_chain", "bigru_window_xp_fast_grid", "bigru_window_xp_fast_chain"}
+        "bigru_window_xp_chain", "bigru_window_xp_fast_grid", "bigru_window_xp_fast_chain",
+        *(f"bigru_window_xp{t}_chain_r{r}" for t in ("", "_fast") for r in (8, 4, 2, 1))}
 
 
 def test_wrappers_raise_off_cpu_and_cuda():
