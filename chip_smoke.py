@@ -70,8 +70,9 @@ it was, the new records in the store's next file; the stores stitch to phase
 6's FASTA byte for byte); ``polish --fast --pack`` against phase 10e (0
 flips); ``train --pack`` against phase 7c's first epoch (bit for bit).
 Phase 13 polishes the golden images as h5py writes them chunked and
-compressed, in the earliest format and in the newest (committed under
-tests/torch_hdf5_variants/; the port reads them with its own HDF5 reader),
+compressed, in the earliest format and in the newest, and after a 512-byte
+user block under h5py's lzf (committed under tests/torch_hdf5_variants/;
+the port reads them with its own HDF5 reader),
 and runs ``call_consensus --pack`` over the chunked one: each to the golden
 FASTA byte for byte with 0+0 label flips, its image reads timed beside the
 contiguous file's. Phase 14 runs multi-process jobs on the one card: two
@@ -96,6 +97,13 @@ best checkpoint re-tested), ``test --debug_mismatches``, ``train
 ["cuda:0", "cuda:0"] against the data-parallel trainer, ``convert`` to
 .pkl, .npz and .onnx (self-checked on the card), ``download_models`` over
 file:// then ``polish`` of the golden images, and ``assess`` with a BED.
+Phase 16 runs helen_tpu's last three tools as written for the card:
+``gpu_validation`` (tpu_validation's checks and bars: the kernels against
+their plain versions in both tiers, the two kernel families, three more
+geometries, a TBPTT batch), ``scaling_bench`` as jobs of one and two
+processes on the card (the job's label sums against one process's, each
+process's launches counted) and ``sharding_overhead`` (the two-process
+job's training loss against one process's).
 Every phase fails the script on error; nothing falls back.
 The second-to-last line is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
@@ -3333,10 +3341,11 @@ atexit.register(_report)
 
 # the golden images written again by h5py (tests/torch_hdf5_variants/
 # make_variants.py): the earliest format chunked under shuffle+gzip
-# (fletcher32 on position, contig a variable-length string), and
-# libver="latest" (a dense images/ group, the same datasets)
+# (fletcher32 on position, contig a variable-length string),
+# libver="latest" (a dense images/ group, the same datasets), and the
+# earliest format after a 512-byte user block under shuffle+lzf
 VARIANT_DIR = os.path.join(ROOT, "tests", "torch_hdf5_variants")
-VARIANTS = ("images_v1_chunked.h5", "images_latest.h5")
+VARIANTS = ("images_v1_chunked.h5", "images_latest.h5", "images_ub512_lzf.h5")
 
 
 def cli_timed(argv, module: str):
@@ -4157,6 +4166,94 @@ def run_assess(work: str, truth: dict) -> None:
         fail("assess --bed masked other counts than the BED's 1,500 bases")
 
 
+# ---------------------------------------------------------------------------
+# phase 16: helen_tpu's last three tools, written for the card
+# ---------------------------------------------------------------------------
+
+# 16b: scaling_bench at its defaults, on one and two processes of the card;
+# 16c: sharding_overhead at helen_tpu's CI sizes (ci/run_checks.sh: -b 2
+# --steps 3), two processes sharing the card as helen_tpu's CI shares cores
+SCALING_B, SCALING_STEPS = 256, 6
+SHARDING_B, SHARDING_STEPS = 2, 3
+TOOL_DEVICES = ["cuda:0", "cuda:0"]
+TOOL_JOB_S = 300
+
+
+def run_tools(smi: str) -> None:
+    """Phase 16. 16a ``gpu_validation.run(64)``: every check passes (each
+    printed with its numbers and kernel family). 16b ``scaling_bench`` on
+    ["cuda:0"] and ["cuda:0", "cuda:0"]: the rows; the two-process job's
+    label sums equal this process's ``consensus_labels`` over the same
+    global batch exactly, and each process's K1/K2 launches are its
+    batches x 19 x layers. 16c ``sharding_overhead`` on ["cuda:0",
+    "cuda:0"]: the row, the job's loss within 1e-5 relative of one
+    process's; the overheads are readings with no bar."""
+    import numpy as np
+    import torch
+
+    from helen_tpu_torch.config import IMAGE, WINDOW
+    from helen_tpu_torch.io.checkpoint import params_to_torch
+    from helen_tpu_torch.models.transducer import consensus_labels, init_params
+    from helen_tpu_torch.tools import gpu_validation, scaling_bench, sharding_overhead
+
+    # the card's memory for the jobs' processes, not this one's cached blocks
+    torch.cuda.empty_cache()
+    phase("16a. gpu_validation --batch 64")
+    t0 = time.perf_counter()
+    results = gpu_validation.run(64)
+    log(f"16a: {results['device_kind']}, power limit {results['power_limit']}; all passed: "
+        f"{results['all_passed']} ({time.perf_counter() - t0:.1f} s)")
+    if not results["all_passed"]:
+        fail("16a: gpu_validation: " + ", ".join(
+            n for n, c in results["checks"].items() if not c["passed"]))
+
+    phase(f"16b. scaling_bench -b {SCALING_B} --steps {SCALING_STEPS} on {TOOL_DEVICES[:1]} "
+          f"and {TOOL_DEVICES}")
+    t0 = time.perf_counter()
+    records = {}
+    rows = scaling_bench.measure([1, 2], SCALING_B, SCALING_STEPS, devices=TOOL_DEVICES,
+                                 records=records, timeout_s=TOOL_JOB_S)
+    log(f"16b: {len(rows)} rows in {time.perf_counter() - t0:.1f} s, start-up included "
+        f"({smi})")
+    n_win = WINDOW.num_windows(IMAGE.seq_length)
+    for k, procs in records.items():
+        for p in procs:
+            want = parity_counts(p["batches"] * n_win, p["batches"] * n_win)
+            log(f"16b: {k} process(es), rank {p['rank']}: {p['seconds']:.4f} s for "
+                f"{SCALING_STEPS} batches of {SCALING_B} ({p['kernel']}); launches "
+                f"{'as expected' if p['launches'] == want else p['launches']}")
+            if p["launches"] != want:
+                fail(f"16b: rank {p['rank']} of the {k}-process job launched other than its "
+                     f"{p['batches']} batches x {n_win} windows x 1 layer of K1 and K2")
+    device = torch.device("cuda", 0)
+    params = params_to_torch(init_params(torch.Generator().manual_seed(0)), device)
+    with torch.no_grad():
+        base, rle = consensus_labels(params, torch.from_numpy(scaling_bench.batch_images(
+            2 * SCALING_B)).to(device), backend="cuda")
+    want = [SCALING_STEPS * int(base.sum(dtype=torch.int64)),
+            SCALING_STEPS * int(rle.sum(dtype=torch.int64))]
+    got = [p["label_sums"] for p in records[2]]
+    log(f"16b: the two-process job's label sums {got[0]} over {SCALING_STEPS} batches; one "
+        f"process over the same {2 * SCALING_B} images x {SCALING_STEPS}: {want}")
+    if got != [want, want]:
+        fail("16b: the job's label sums differ from one process's consensus_labels")
+
+    phase(f"16c. sharding_overhead -b {SHARDING_B} --steps {SHARDING_STEPS} on {TOOL_DEVICES}")
+    t0 = time.perf_counter()
+    records = {}
+    rows = sharding_overhead.measure([2], SHARDING_B, SHARDING_STEPS, devices=TOOL_DEVICES,
+                                     records=records, timeout_s=TOOL_JOB_S)
+    solo, shard = records[2]["unsharded"][0], records[2]["sharded"]
+    rel = max(abs(p["loss"] - solo["loss"]) / abs(solo["loss"]) for p in shard)
+    log(f"16c: train overhead {rows[0]['train_overhead']}, consensus overhead "
+        f"{rows[0]['consensus_overhead']} (readings: two processes share the card); loss "
+        f"{shard[0]['loss']!r} against one process's {solo['loss']!r} (relative {rel:.3g}); "
+        f"training on {solo['kernel']}, launches of one process {solo['launches']}; "
+        f"{time.perf_counter() - t0:.1f} s, start-up included ({smi})")
+    if not np.isfinite(solo["loss"]) or rel > 1e-5:
+        fail("16c: the sharded loss is not within 1e-5 of the unsharded one")
+
+
 def main() -> int:
     import torch
 
@@ -4286,7 +4383,7 @@ def main() -> int:
 
         t13 = time.perf_counter()
         phase("13. HDF5 inputs helen_tpu reads through h5py: chunked, compressed, "
-              "variable-length strings, the newest file format")
+              "variable-length strings, the newest file format, a user block, lzf")
         check_hdf5_variants(work)
         log(f"phase 13: {time.perf_counter() - t13:.1f} s")
 
@@ -4313,6 +4410,12 @@ def main() -> int:
         phase("15f. assess")
         run_assess(work, truth)
         log(f"phase 15: {time.perf_counter() - t15:.1f} s")
+
+        t16 = time.perf_counter()
+        phase("16. helen_tpu's tools on the card: gpu_validation, scaling_bench, "
+              "sharding_overhead")
+        run_tools(smi)
+        log(f"phase 16: {time.perf_counter() - t16:.1f} s")
 
     phase("8. result")
     log(smi)

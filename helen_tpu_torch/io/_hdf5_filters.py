@@ -2,9 +2,11 @@
 
 The pipeline message (0x000B, versions 1 and 2) lists the filters a chunk
 went through when it was written; reading undoes them in reverse order,
-skipping those the chunk's filter mask marks as not applied. Three filters
-are read: deflate (zlib), shuffle (a byte transpose) and fletcher32 (a
-checksum, verified). Any other raises :class:`UnsupportedHDF5` naming it.
+skipping those the chunk's filter mask marks as not applied. Four filters
+are read: deflate (zlib), shuffle (a byte transpose), fletcher32 (a
+checksum, verified) and lzf (h5py's own filter, ``compression="lzf"``,
+which h5py reads without a plugin). Any other raises
+:class:`UnsupportedHDF5` naming it.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ import numpy as np
 
 from helen_tpu_torch.io._hdf5_v2 import UnsupportedHDF5
 
-DEFLATE, SHUFFLE, FLETCHER32 = 1, 2, 3
+DEFLATE, SHUFFLE, FLETCHER32, LZF = 1, 2, 3, 32000
 # names of the registered filters libhdf5 and h5py know, for the refusal
 NAMES = {1: "deflate", 2: "shuffle", 3: "fletcher32", 4: "szip", 5: "nbit",
          6: "scaleoffset", 307: "bzip2", 32000: "lzf", 32001: "blosc", 32004: "lz4",
@@ -45,7 +47,7 @@ def parse_pipeline(mm, p: int, where: str) -> List[Filter]:
         q += name_len + (-name_len % 8 if version == 1 else 0)
         values = struct.unpack_from(f"<{nvalues}I", mm, q)
         q += 4 * nvalues + (4 if version == 1 and nvalues % 2 else 0)
-        if fid not in (DEFLATE, SHUFFLE, FLETCHER32):
+        if fid not in (DEFLATE, SHUFFLE, FLETCHER32, LZF):
             label = name or NAMES.get(fid, "unregistered")
             raise UnsupportedHDF5(f"{where}: filter {fid} ({label})")
         out.append((fid, values))
@@ -87,6 +89,44 @@ def unshuffle(data: bytes, size: int) -> bytes:
     return planes.T.tobytes() + data[n * size:]
 
 
+def unlzf(data, where: str) -> bytes:
+    """Undo liblzf's compression (h5py's lzf filter stores its raw stream,
+    no header). A control byte below 32 starts a literal run of it + 1
+    bytes; above, its top 3 bits are a back-reference's length - 2 (7: one
+    more byte adds to it) and its low 5 bits with the next byte the
+    distance - 1 to copy from, which may overlap what it writes."""
+    out = bytearray()
+    ip, n = 0, len(data)
+    while ip < n:
+        ctrl = data[ip]
+        ip += 1
+        if ctrl < 32:
+            if ip + ctrl + 1 > n:
+                raise OSError(f"{where}: lzf literal run past the end of the chunk")
+            out += data[ip:ip + ctrl + 1]
+            ip += ctrl + 1
+            continue
+        length = ctrl >> 5
+        if length == 7:
+            if ip >= n:
+                raise OSError(f"{where}: lzf back-reference cut short")
+            length += data[ip]
+            ip += 1
+        if ip >= n:
+            raise OSError(f"{where}: lzf back-reference cut short")
+        ref = len(out) - ((ctrl & 0x1F) << 8) - data[ip] - 1
+        ip += 1
+        if ref < 0:
+            raise OSError(f"{where}: lzf back-reference before the start of the chunk")
+        length += 2
+        dist = len(out) - ref
+        if dist >= length:
+            out += out[ref:ref + length]
+        else:  # the copy reads what it writes: a period of dist bytes
+            out += (out[ref:] * (length // dist + 1))[:length]
+    return bytes(out)
+
+
 def decode(pipeline: List[Filter], data: bytes, mask: int, where: str) -> bytes:
     """Undo the filters ``pipeline`` applied to ``data`` (not those whose
     bit is set in ``mask``), last first."""
@@ -101,6 +141,8 @@ def decode(pipeline: List[Filter], data: bytes, mask: int, where: str) -> bytes:
                 raise OSError(f"{where}: deflate failed ({exc})") from exc
         elif fid == SHUFFLE:
             data = unshuffle(data, values[0] if values else 1)
+        elif fid == LZF:
+            data = unlzf(data, where)
         else:
             if len(data) < 4:
                 raise OSError(f"{where}: fletcher32 chunk shorter than its checksum")

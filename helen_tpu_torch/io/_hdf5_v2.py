@@ -110,11 +110,8 @@ def limit_enc_size(x: int) -> int:
 
 def superblock_root(f) -> int:
     """The root group's object header address of a version-2/3 superblock."""
-    mm = f._mm
-    if mm[9] != 8 or mm[10] != 8:
-        raise UnsupportedHDF5("offset/length sizes other than 8 bytes")
     verify(f, 0, 44, "superblock")
-    return struct.unpack_from("<Q", mm, 36)[0]
+    return struct.unpack_from("<Q", f._mm, 36)[0]
 
 
 def ohdr_messages(f, addr: int, continuation: int) -> List[Tuple[int, int, int, int]]:

@@ -8,6 +8,9 @@ earliest format and in the newest (``libver="latest"``):
 
 * superblock versions 0-3, 8-byte offsets and lengths; the checksums of the
   newer metadata (Jenkins lookup3) verified, a mismatch an ``OSError``;
+* a user block before the superblock: the signature looked for at 0, 512,
+  1024, 2048 and so on, as libhdf5 does, and every address read from that
+  base;
 * object headers of version 1 and 2, with continuation blocks;
 * groups as symbol tables (a version-1 B-tree over symbol-table nodes, names
   in a local heap), or new-style: link messages in the header (compact) or
@@ -19,11 +22,11 @@ earliest format and in the newest (``libver="latest"``):
   scalar or n-dimensional, with dataspace versions 1-2, datatype versions
   1-3 and layout versions 3-4: compact, contiguous or chunked, a chunk
   found through any of HDF5's indexes (io._hdf5_chunks) and filtered by
-  deflate, shuffle or fletcher32 (io._hdf5_filters); a chunk never written
-  reads as the fill value.
+  deflate, shuffle, fletcher32 or h5py's lzf (io._hdf5_filters); a chunk
+  never written reads as the fill value.
 
-Anything else raises :class:`UnsupportedHDF5` naming it: other filters (lzf,
-szip, n-bit, scale-offset, ...), variable-length sequences, compound, enum
+Anything else raises :class:`UnsupportedHDF5` naming it: other filters
+(szip, n-bit, scale-offset, ...), variable-length sequences, compound, enum
 and array types, virtual datasets, shared (committed) datatypes, and heap
 objects other than managed ones (io._hdf5_v2).
 
@@ -221,6 +224,49 @@ class Group:
         return node
 
 
+def signature_offset(mm) -> Optional[int]:
+    """Where the superblock starts: the first of 0, 512, 1024, 2048, ... at
+    which the file holds the signature (libhdf5's H5FD_locate_signature),
+    None if none does. A user block fills the bytes before it."""
+    at = 0
+    while at + len(SIGNATURE) <= len(mm):
+        if mm[at:at + len(SIGNATURE)] == SIGNATURE:
+            return at
+        at = at * 2 or 512
+    return None
+
+
+class _Shifted:
+    """The file's bytes from ``base`` on, where a user block of ``base``
+    bytes comes first: HDF5's addresses count from the superblock. Indexing
+    and slicing read like the map's (an int, ``bytes``), and the buffer it
+    exports (``struct.unpack_from``, ``np.frombuffer``) starts at ``base``.
+    A map cannot start there itself: its offset must be a multiple of the
+    page size."""
+
+    def __init__(self, mm: mmap.mmap, base: int):
+        self._mm, self._base = mm, base
+
+    def __len__(self) -> int:
+        return len(self._mm) - self._base
+
+    def __getitem__(self, key):
+        if isinstance(key, slice):
+            start, stop, step = key.indices(len(self))
+            return self._mm[self._base + start:self._base + stop:step]
+        return self._mm[self._base + (key if key >= 0 else key + len(self))]
+
+    def find(self, sub: bytes, start: int = 0) -> int:
+        at = self._mm.find(sub, self._base + start)
+        return at - self._base if at >= 0 else -1
+
+    def __buffer__(self, flags: int) -> memoryview:
+        return memoryview(self._mm)[self._base:]
+
+    def close(self) -> None:
+        self._mm.close()
+
+
 class File(Group):
     """Read-only HDF5 file (see the module docstring for the subset)."""
 
@@ -242,18 +288,29 @@ class File(Group):
         super().__init__(self, root, "/")
 
     def _root_address(self) -> int:
-        mm = self._mm
-        if mm[:8] != SIGNATURE:
-            raise OSError(f"{self.filename}: not an HDF5 file (no signature at 0)")
+        """The root group's address, read from the superblock, after which
+        ``self._mm`` reads from the superblock on (:class:`_Shifted`)."""
+        base = signature_offset(self._mm)
+        if base is None:
+            raise OSError(f"{self.filename}: not an HDF5 file (no signature at 0, 512, "
+                          f"1024, ... up to its {len(self._mm)} bytes)")
+        mm = self._mm = _Shifted(self._mm, base) if base else self._mm
         version = mm[8]
-        if version in (0, 1):
-            if mm[13] != 8 or mm[14] != 8:
-                raise UnsupportedHDF5("offset/length sizes other than 8 bytes")
+        if version not in (0, 1, 2, 3):
+            raise UnsupportedHDF5(f"superblock version {version}")
+        sizes = (mm[13], mm[14]) if version < 2 else (mm[9], mm[10])
+        if sizes != (8, 8):
+            raise UnsupportedHDF5("offset/length sizes other than 8 bytes")
+        # the superblock's base address, which every other address counts
+        # from: libhdf5 writes the user block's size there
+        stored, = struct.unpack_from("<Q", mm, (24, 28, 12, 12)[version])
+        if stored != base:
+            raise UnsupportedHDF5(f"{self.filename}: superblock base address {stored} is "
+                                  f"not the signature's offset {base}")
+        if version < 2:
             entry = 56 if version == 0 else 60
             return struct.unpack_from("<Q", mm, entry + 8)[0]
-        if version in (2, 3):
-            return _hdf5_v2.superblock_root(self)
-        raise UnsupportedHDF5(f"superblock version {version}")
+        return _hdf5_v2.superblock_root(self)
 
     def _messages(self, addr: int) -> List[Tuple[int, int, int]]:
         """(type, data offset, size) of each message of an object header

@@ -7,6 +7,6 @@ stage timers that aggregate into a report, throughput (windows/s) counters and
 an optional torch.profiler trace hook.
 """
 from helen_tpu_torch.obs.logging import get_logger, log
-from helen_tpu_torch.obs.timing import StageTimer, Throughput, profile_trace
+from helen_tpu_torch.obs.timing import StageTimer, Throughput, card_label, profile_trace
 
-__all__ = ["get_logger", "log", "StageTimer", "Throughput", "profile_trace"]
+__all__ = ["get_logger", "log", "StageTimer", "Throughput", "card_label", "profile_trace"]

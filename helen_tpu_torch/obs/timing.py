@@ -6,6 +6,7 @@ First-class replacement for the reference's inline elapsed-time arithmetic
 from __future__ import annotations
 
 import contextlib
+import subprocess
 import time
 from dataclasses import dataclass, field
 from typing import Dict, Iterator, Optional
@@ -93,3 +94,19 @@ def profile_trace(log_dir: Optional[str]) -> Iterator[None]:
     with profile(activities=activities) as prof:
         yield
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def card_label() -> Optional[str]:
+    """The first card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them (a card
+    may be set below its maximum, and runs slower under load then): the
+    label every time measured on a card carries. None where nvidia-smi does
+    not answer."""
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             timeout=30)
+    except (OSError, subprocess.TimeoutExpired):
+        return None
+    lines = out.stdout.strip().splitlines()
+    return lines[0].strip() if out.returncode == 0 and lines else None

@@ -21,17 +21,23 @@ The collectives carry small host arrays (names, counts, the flattened
 gradients), so gloo serves whether the processes share a card or each has
 its own. :func:`launch_local` runs one worker process per local device of
 one host over a loopback address: the port's counterpart of helen_tpu's
-default data parallelism over a process's local devices.
+default data parallelism over a process's local devices. :func:`run_task`
+runs a measurement that way (the tools scaling_bench and
+sharding_overhead): a job of one process per device, each returning its
+result to the caller.
 """
 from __future__ import annotations
 
+import argparse
 import datetime
+import json
 import os
 import socket
 import subprocess
 import sys
+import tempfile
 import time
-from typing import List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 
@@ -274,8 +280,12 @@ def free_port() -> int:
 def worker_env(device: str, environ=os.environ) -> dict:
     """The environment of a worker on ``device`` (``"cpu"`` or
     ``"cuda:k"``): a CUDA worker sees only its card, as its ``cuda:0``, so
-    ``--device cuda`` reaches it and it launches no workers of its own."""
+    ``--device cuda`` reaches it and it launches no workers of its own; and
+    ``python -m`` finds this copy of the package first, whatever the
+    working directory."""
     env = dict(environ)
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    env["PYTHONPATH"] = os.pathsep.join([root] + [p for p in [environ.get("PYTHONPATH")] if p])
     if device.startswith("cuda"):
         index = int(device.partition(":")[2] or 0)
         visible = environ.get("CUDA_VISIBLE_DEVICES")
@@ -285,10 +295,10 @@ def worker_env(device: str, environ=os.environ) -> dict:
 
 
 def launch_local(argv: Sequence[str], devices: Sequence[str],
-                 timeout_s: Optional[float] = None) -> int:
+                 timeout_s: Optional[float] = None, module: str = "helen_tpu_torch") -> int:
     """Run the command line ``argv`` (a subcommand and its flags) as
     ``len(devices)`` worker processes of one job over a loopback
-    ``tcp://`` address: ``<this python> -m helen_tpu_torch
+    ``tcp://`` address: ``<this python> -m <module>
     --coordinator_address 127.0.0.1:<free port> --num_processes N
     --process_id i <argv>``, worker i on ``devices[i]`` (:func:`worker_env`;
     ``"cpu"`` workers need ``--device cpu`` in ``argv``); their output and
@@ -300,7 +310,7 @@ def launch_local(argv: Sequence[str], devices: Sequence[str],
         raise ValueError("launch_local needs at least one device")
     addr = f"127.0.0.1:{free_port()}"
     procs = [subprocess.Popen(
-        [sys.executable, "-m", "helen_tpu_torch", "--coordinator_address", addr,
+        [sys.executable, "-m", module, "--coordinator_address", addr,
          "--num_processes", str(n), "--process_id", str(i), *argv], env=worker_env(dev))
         for i, dev in enumerate(devices)]
     log.info("launched %d worker processes on %s (gloo at %s)", n, list(devices), addr)
@@ -328,3 +338,74 @@ def launch_local(argv: Sequence[str], devices: Sequence[str],
     if rc:
         log.error("a worker process failed (exit code %d); stopped the others", rc)
     return rc
+
+
+# ---------------------------------------------------------------------------
+# a measurement as a job of one process per device
+# ---------------------------------------------------------------------------
+
+def job_devices(devices: Optional[Sequence[str]] = None) -> List[str]:
+    """The devices of a measured job, one process each: ``devices`` as
+    given (a list may name one device more than once, ``["cuda:0",
+    "cuda:0"]`` or ``["cpu", "cpu"]``, as parallel.mesh allows), or every
+    visible GPU. With none visible it raises: a measurement never falls
+    back to the CPU unless the caller names it."""
+    if devices is not None:
+        devices = [str(d) for d in devices]
+        if not devices or any(d != "cpu" and not d.startswith("cuda") for d in devices):
+            raise ValueError(f"devices must be 'cpu' or 'cuda[:k]' names, got {devices}")
+        return devices
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA GPU is visible: name the devices to run on the CPU "
+                           "(devices=['cpu', 'cpu'], --device_list cpu,cpu)")
+    return [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+
+
+def run_task(module: str, task: dict, devices: Sequence[str],
+             timeout_s: Optional[float] = None) -> List[dict]:
+    """Run ``task`` (a JSON-able dict) as a job of ``len(devices)``
+    processes of ``python -m <module>`` through :func:`launch_local`, each
+    on its device, whose ``main`` hands its arguments to
+    :func:`task_worker`; returns each process's result, by rank. A process
+    that fails, or a job past ``timeout_s``, raises."""
+    with tempfile.TemporaryDirectory(prefix="helen_job_") as out:
+        spec = os.path.join(out, "task.json")
+        with open(spec, "w") as f:
+            json.dump({**task, "devices": list(devices), "out": out}, f)
+        rc = launch_local(["--task", spec], devices, timeout_s, module=module)
+        if rc:
+            raise RuntimeError(f"the {module} job on {list(devices)} failed (exit code {rc})")
+        results = []
+        for rank in range(len(devices)):
+            with open(os.path.join(out, f"result_{rank}.json")) as f:
+                results.append(json.load(f))
+        return results
+
+
+def task_worker(argv: Sequence[str], run: Callable) -> int:
+    """One process of a :func:`run_task` job: ``argv`` holds the job flags
+    and ``--task <spec>``. Joins the job, calls ``run(task, device)`` on its
+    device (a CUDA worker sees only its card, as ``cuda:0``) and writes what
+    it returns where :func:`run_task` reads it."""
+    import torch
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--coordinator_address", required=True)
+    ap.add_argument("--num_processes", type=int, required=True)
+    ap.add_argument("--process_id", type=int, required=True)
+    ap.add_argument("--task", required=True)
+    args = ap.parse_args(argv)
+    with open(args.task) as f:
+        task = json.load(f)
+    device = (torch.device("cpu") if task["devices"][args.process_id] == "cpu"
+              else torch.device("cuda", 0))
+    initialize(args.coordinator_address, args.num_processes, args.process_id)
+    try:
+        result = run(task, device)
+    finally:
+        shutdown()
+    with open(os.path.join(task["out"], f"result_{args.process_id}.json"), "w") as f:
+        json.dump(result, f)
+    return 0

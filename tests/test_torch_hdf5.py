@@ -126,8 +126,9 @@ def test_reads_helen_tpu_prediction_store(tmp_path):
 
 def test_refuses_what_it_does_not_read(tmp_path):
     """Chunked+gzip and ``libver="latest"`` files read as h5py reads them
-    (tests/test_torch_hdf5_formats.py holds the whole matrix); an lzf
-    filter and a file that is not HDF5 are refused, naming what they are."""
+    (tests/test_torch_hdf5_formats.py holds the whole matrix), and so does
+    an lzf one; a scale-offset filter and a file that is not HDF5 are
+    refused, naming what they are."""
     from helen_tpu_torch.io import hdf5
 
     chunked = str(tmp_path / "c.h5")
@@ -141,8 +142,13 @@ def test_refuses_what_it_does_not_read(tmp_path):
     lzf = str(tmp_path / "lzf.h5")
     with h5py.File(lzf, "w") as f:
         f.create_dataset("x", data=np.arange(100), chunks=(10,), compression="lzf")
-    with pytest.raises(hdf5.UnsupportedHDF5, match="filter 32000 .lzf"):
-        hdf5.File(lzf)["x"][()]
+    assert_same_tree(port_tree(lzf), h5py_tree(lzf))
+    scaleoffset = str(tmp_path / "so.h5")
+    with h5py.File(scaleoffset, "w") as f:
+        f.create_dataset("x", data=np.arange(100, dtype=np.int32), chunks=(10,),
+                         scaleoffset=0)
+    with pytest.raises(hdf5.UnsupportedHDF5, match="filter 6 .scaleoffset"):
+        hdf5.File(scaleoffset)["x"][()]
     junk = tmp_path / "junk.h5"
     junk.write_bytes(b"not an hdf5 file at all")
     with pytest.raises(OSError, match="not an HDF5 file"):

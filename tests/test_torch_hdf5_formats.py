@@ -1,9 +1,10 @@
 """helen_tpu_torch.io.hdf5's reader against h5py on the HDF5 forms libhdf5
 writes: the earliest and the newest (``libver="latest"``) format, every
 chunk index (version-1 B-tree; single chunk, implicit, fixed array paged
-and not, extensible array, version-2 B-tree), the deflate, shuffle and
-fletcher32 filters, variable-length strings, fill values, and groups in
-symbol-table, compact and dense storage. Each case holds ``dset[()]``,
+and not, extensible array, version-2 B-tree), the deflate, shuffle,
+fletcher32 and lzf filters, variable-length strings, fill values, groups in
+symbol-table, compact and dense storage, and a user block before the
+superblock. Each case holds ``dset[()]``,
 ``dset[a:b]`` and ``dset[index_array]`` to what h5py reads; corrupt data
 and checksums raise ``OSError`` naming the file; what the reader does not
 read raises ``UnsupportedHDF5`` naming it.
@@ -33,6 +34,8 @@ FILTERS = {
     "gzip": dict(compression="gzip"),
     "shuffle_gzip": dict(compression="gzip", shuffle=True),
     "fletcher32": dict(fletcher32=True),
+    "lzf": dict(compression="lzf"),
+    "shuffle_lzf": dict(compression="lzf", shuffle=True),
 }
 DTYPES = ("u8", "i64", ">i4", "f32", "S", "vlen")
 
@@ -287,8 +290,9 @@ def test_refuses_other_filters_and_links_naming_them(tmp_path, libver):
         f["soft"] = h5py.SoftLink("/x")
         f["ext"] = h5py.ExternalLink("other.h5", "/y")
     with hdf5.File(path) as g:
-        with pytest.raises(hdf5.UnsupportedHDF5, match=r"filter 32000 \(lzf\)"):
-            g["lzf"]
+        # h5py's lzf reads (test_chunked_dataset_reads_like_h5py); the
+        # other filters still raise by name
+        np.testing.assert_array_equal(g["lzf"][()], np.arange(100))
         with pytest.raises(hdf5.UnsupportedHDF5, match=r"filter 6 \(scaleoffset\)"):
             g["so"]
         with pytest.raises(hdf5.UnsupportedHDF5, match="variable-length sequence"):
@@ -300,6 +304,69 @@ def test_refuses_other_filters_and_links_naming_them(tmp_path, libver):
         with pytest.raises(hdf5.UnsupportedHDF5, match=r"/ext is an external link.*other\.h5"):
             g["ext"]
         np.testing.assert_array_equal(g["x"][()], np.arange(3))
+
+
+@pytest.mark.parametrize("libver", LIBVERS)
+@pytest.mark.parametrize("userblock", [512, 4096])
+def test_a_user_block_reads_like_h5py(tmp_path, libver, userblock):
+    """A file h5py writes after a user block (``userblock_size``): libhdf5
+    finds the signature at 512, 1024, 2048, ... and counts every address
+    from it, so groups (a dense one past 8 links), contiguous and lzf
+    chunked datasets of each dtype and a soft link all read as h5py reads
+    them, whatever the user block holds."""
+    rng = np.random.default_rng(userblock)
+    path = str(tmp_path / "u.h5")
+    with h5py.File(path, "w", libver=libver, userblock_size=userblock) as f:
+        for dt in DTYPES:
+            data = make_data(dt, (300, 7) if dt not in ("S", "vlen") else (300,), rng)
+            create(f, f"contiguous/{dt}", data)
+            create(f, f"chunked/{dt}", data, chunks=(128, 4)[:data.ndim],
+                   compression="lzf", shuffle=True)
+        for i in range(12):
+            f[f"many/d{i}"] = np.arange(i)
+        f["soft"] = h5py.SoftLink("/contiguous/u8")
+    with open(path, "r+b") as fh:
+        fh.write(b"a user block: anything but the signature " * 4)
+    with h5py.File(path, "r") as f:
+        assert f.userblock_size == userblock
+    for group in ("contiguous", "chunked"):
+        for dt in DTYPES:
+            assert_reads_like_h5py(path, f"{group}/{dt}", rng)
+    with h5py.File(path, "r") as f, hdf5.File(path) as g:
+        assert g.keys() == sorted(f.keys()) and g["many"].keys() == sorted(f["many"].keys())
+        assert_same(g["many/d11"][()], f["many/d11"][()])
+        assert_same(g["soft"][()], f["contiguous/u8"][()])
+
+
+def test_the_signature_is_looked_for_only_where_libhdf5_looks(tmp_path):
+    """At 0, 512, 1024, ... within the file: one that lies past the file's
+    end (a user-block file cut short) or at another offset is "not an HDF5
+    file", as h5py says; one found where the superblock's base address does
+    not say it lies raises by name."""
+    plain = str(tmp_path / "plain.h5")
+    with h5py.File(plain, "w") as f:
+        f["x"] = np.arange(5)
+    with open(plain, "rb") as fh:
+        body = fh.read()
+    with h5py.File(str(tmp_path / "ub.h5"), "w", userblock_size=4096) as f:
+        f["x"] = np.arange(5)
+    with open(str(tmp_path / "ub.h5"), "rb") as fh:
+        cut = fh.read()[:3000]
+    for name, blob in (("cut.h5", cut), ("at100.h5", bytes(100) + body),
+                       ("at768.h5", bytes(768) + body)):
+        path = str(tmp_path / name)
+        with open(path, "wb") as fh:
+            fh.write(blob)
+        with pytest.raises(OSError):
+            h5py.File(path, "r")
+        with pytest.raises(OSError, match="not an HDF5 file"):
+            hdf5.File(path)
+    moved = str(tmp_path / "moved.h5")
+    with open(moved, "wb") as fh:
+        fh.write(bytes(512) + body)
+    with pytest.raises(hdf5.UnsupportedHDF5,
+                       match="base address 0 is not the signature's offset 512"):
+        hdf5.File(moved)
 
 
 @pytest.mark.parametrize("libver", LIBVERS)

@@ -1,7 +1,9 @@
 """The port on the HDF5 inputs helen_tpu reads through h5py: the golden
 images written again chunked and compressed in the earliest format and in
-the newest (tests/torch_hdf5_variants/, by its make_variants.py), and
-prediction stores h5py writes under either ``libver``.
+the newest, and after a user block under h5py's lzf
+(tests/torch_hdf5_variants/, by its make_variants.py), the golden images
+after a user block of 512 or 4096 bytes or under lzf, and prediction stores
+h5py writes under either ``libver``.
 
 The committed variants hold the golden arrays; the port's
 MarginPolishDataset loads every record of each as helen_tpu's does; ``polish
@@ -98,6 +100,69 @@ def test_polish_of_each_variant_writes_the_golden_fasta(tmp_path, name):
     with open(out / "HELEN_prediction.fa", "rb") as a, \
             open(os.path.join(GOLDEN_DIR, "golden.fa"), "rb") as b:
         assert hashlib.sha256(a.read()).digest() == hashlib.sha256(b.read()).digest()
+
+
+# h5py's keywords for the golden images written again: after a user block,
+# or ``image`` and ``position`` chunked under lzf, with and without shuffle
+FORMS = {"userblock512": ({"userblock_size": 512}, {}),
+         "userblock4096": ({"userblock_size": 4096}, {}),
+         "lzf": ({}, {"compression": "lzf"}),
+         "shuffle_lzf": ({}, {"compression": "lzf", "shuffle": True})}
+
+
+@pytest.mark.parametrize("form", sorted(FORMS))
+def test_polish_of_a_user_block_or_lzf_file_writes_the_golden_fasta(tmp_path, form):
+    """The golden images as h5py writes them in ``form``: the port reads
+    every dataset equal to h5py, and ``polish --device cpu`` of the file
+    writes tests/golden/golden.fa byte for byte, as helen_tpu's consensus
+    and stitch do on the same file."""
+    from helen_tpu.infer.consensus import call_consensus
+    from helen_tpu.infer.polish import perform_stitch
+
+    from helen_tpu_torch.cli import main
+    from helen_tpu_torch.io import hdf5
+    from torch_port_fixtures import stage_golden_images
+
+    file_kw, chunk_kw = FORMS[form]
+    src = os.path.join(stage_golden_images(tmp_path / "golden"), "golden_images.h5")
+    images = tmp_path / "images"
+    images.mkdir()
+    path = str(images / f"{form}.h5")
+    with h5py.File(src, "r") as f, h5py.File(path, "w", **file_kw) as g:
+        def copy(name, obj):
+            if isinstance(obj, h5py.Group):
+                g.require_group(name)
+            elif chunk_kw and name.rpartition("/")[2] in make_variants.CHUNKS:
+                shape = make_variants.CHUNKS[name.rpartition("/")[2]]
+                g.create_dataset(name, data=obj[()], **chunk_kw,
+                                 chunks=tuple(min(c, n) for c, n in zip(shape, obj.shape)))
+            else:
+                g.create_dataset(name, data=obj[()])
+        f.visititems(copy)
+    with h5py.File(path, "r") as f, hdf5.File(path) as p:
+        if file_kw:
+            assert f.userblock_size == file_kw["userblock_size"]
+        names = []
+        f.visititems(lambda n, o: names.append(n) if isinstance(o, h5py.Dataset) else None)
+        assert len(names) == 11 * 6
+        for name in names:
+            want, got = f[name][()], p[name][()]
+            assert got.dtype == want.dtype and got.shape == want.shape, name
+            assert np.asarray(got).tolist() == np.asarray(want).tolist(), name
+            if chunk_kw and name.endswith("/image"):
+                assert f[name].compression == "lzf"
+    with open(os.path.join(GOLDEN_DIR, "golden.fa"), "rb") as fh:
+        want = fh.read()
+    out = tmp_path / "out"
+    assert main(["polish", "-i", str(images), "-m", golden("golden_model.pkl"), "-o",
+                 str(out), "--device", "cpu", "-t", "2"]) == 0
+    with open(out / "HELEN_prediction.fa", "rb") as fh:
+        assert fh.read() == want
+    theirs = str(tmp_path / "helen_tpu")
+    call_consensus(image_files=[path], model_path=golden("golden_model.pkl"),
+                   output_dir=theirs, batch_size=4, num_workers=2)
+    with open(perform_stitch(theirs, theirs, "polished", threads=1), "rb") as fh:
+        assert fh.read() == want
 
 
 def rewrite(src: str, dst: str, libver: str) -> None:

@@ -8,7 +8,9 @@ the HDF5 forms h5py and libhdf5 produce beside the earliest contiguous one:
   variable-length ``str``;
 * ``images_latest.h5``, ``libver="latest"``: the same datasets, and the
   ``images/`` group in dense storage (a fractal heap and a B-tree of names:
-  h5py's choice past 8 links).
+  h5py's choice past 8 links);
+* ``images_ub512_lzf.h5``, the earliest format after a 512-byte user block:
+  the same datasets, under shuffle + h5py's lzf in place of gzip.
 
 The port reads these through its own reader (helen_tpu_torch/io/hdf5.py),
 and polishes each to tests/golden/golden.fa; tests/test_torch_hdf5_variants.py
@@ -28,7 +30,10 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_GZ = os.path.join(HERE, os.pardir, "golden", "golden_images.h5.gz")
-VARIANTS = {"images_v1_chunked.h5": "earliest", "images_latest.h5": "latest"}
+# file name: (libver, user block bytes, compression)
+VARIANTS = {"images_v1_chunked.h5": ("earliest", 0, "gzip"),
+            "images_latest.h5": ("latest", 0, "gzip"),
+            "images_ub512_lzf.h5": ("earliest", 512, "lzf")}
 CHUNKS = {"image": (128, 90), "position": (128, 3)}
 
 
@@ -51,8 +56,9 @@ def variant_records():
     return out
 
 
-def write_variant(path: str, libver: str) -> None:
-    with h5py.File(path, "w", libver=libver) as f:
+def write_variant(path: str, libver: str, userblock: int = 0,
+                  compression: str = "gzip") -> None:
+    with h5py.File(path, "w", libver=libver, userblock_size=userblock) as f:
         images = f.create_group("images")
         for name, ds in golden_records().items():
             g = images.create_group(name)
@@ -60,7 +66,7 @@ def write_variant(path: str, libver: str) -> None:
                 if key in CHUNKS:  # an image shorter than a chunk is one chunk
                     chunks = tuple(min(c, n) for c, n in zip(CHUNKS[key], value.shape))
                     g.create_dataset(key, data=value, chunks=chunks, shuffle=True,
-                                     compression="gzip", fletcher32=key == "position")
+                                     compression=compression, fletcher32=key == "position")
                 elif key == "contig":
                     g.create_dataset(key, data=[c.decode() for c in value],
                                      dtype=h5py.string_dtype())
@@ -69,9 +75,9 @@ def write_variant(path: str, libver: str) -> None:
 
 
 def main() -> None:
-    for name, libver in VARIANTS.items():
+    for name, form in VARIANTS.items():
         path = os.path.join(HERE, name)
-        write_variant(path, libver)
+        write_variant(path, *form)
         print(f"{path}: {os.path.getsize(path)} bytes")
 
 
