@@ -32,7 +32,7 @@ from helen_tpu_torch.config import IMAGE, WINDOW
 from helen_tpu_torch.io.checkpoint import load_model_any
 from helen_tpu_torch.io.images import MarginPolishDataset, batched_image_iterator, prefetched
 from helen_tpu_torch.io.prediction_store import PredictionStore, _chunk_keys, store_files
-from helen_tpu_torch.obs import StageTimer, Throughput, get_logger, profile_trace
+from helen_tpu_torch.obs import StageTimer, Throughput, get_logger, profile_trace, span
 from helen_tpu_torch.utils.filesystem import ensure_output_dir, list_image_files
 
 log = get_logger("consensus")
@@ -62,6 +62,8 @@ class ConsensusStep:
     a side stream, and an event the compute stream waits on); ``submit``
     enqueues the vote + argmax and the device->host copy of the labels and
     returns at once; ``read`` waits for that copy and returns numpy labels.
+    Each is a span (``consensus.transfer``, ``.submit``, ``.read``, with
+    ``batch``, the batch's sequence number) over its parts' spans.
     """
 
     def __init__(self, params, device, backend: Optional[str] = None,
@@ -98,22 +100,29 @@ class ConsensusStep:
             self._pack_nr = geom.num_rle_classes
         self._copy_stream = (torch.cuda.Stream(self.device)
                              if self.device.type == "cuda" else None)
+        self._batches = itertools.count()
 
     def transfer(self, images_u8: np.ndarray):
         """Host->device copy of one batch; call_consensus runs it on a
         background thread. On CUDA the copy is issued on a side stream from
-        pinned memory and returns ``(device tensor, ready event)``."""
+        pinned memory. Returns the handle ``submit`` takes: the batch's
+        sequence number, which the spans of its transfer, submit and read
+        share, the images and, on CUDA, the copy's ready event."""
         import torch
 
-        host = torch.from_numpy(images_u8)
-        if self._copy_stream is None:
-            return host
-        host = host.pin_memory()
-        with torch.cuda.stream(self._copy_stream):
-            dev = host.to(self.device, non_blocking=True)
-            ready = torch.cuda.Event()
-            ready.record(self._copy_stream)
-        return dev, ready
+        seq = next(self._batches)
+        with span("consensus.transfer", batch=seq, rows=images_u8.shape[0],
+                  bytes=images_u8.nbytes):
+            host = torch.from_numpy(images_u8)
+            if self._copy_stream is None:
+                return seq, host, None
+            with span("consensus.transfer.pin"):
+                host = host.pin_memory()
+            with span("consensus.transfer.issue"), torch.cuda.stream(self._copy_stream):
+                dev = host.to(self.device, non_blocking=True)
+                ready = torch.cuda.Event()
+                ready.record(self._copy_stream)
+        return seq, dev, ready
 
     def submit(self, images):
         """Enqueue one batch (numpy, or what ``transfer`` returned)."""
@@ -126,47 +135,52 @@ class ConsensusStep:
 
         if isinstance(images, np.ndarray):
             images = self.transfer(images)
-        if self._copy_stream is not None:
-            images, ready = images
-            compute = torch.cuda.current_stream(self.device)
-            compute.wait_event(ready)
-            # the copy stream allocated this tensor; keep its memory from
-            # being reused until the compute stream is done with it
-            images.record_stream(compute)
-        with torch.no_grad():
-            if self.qualities:
-                base, rle, q = consensus_labels_and_quality(self.params, images, WINDOW,
-                                                            backend=self.backend)
-            else:
-                base, rle = consensus_labels(self.params, images, WINDOW,
-                                             backend=self.backend)
-            outs = ((base * self._pack_nr + rle,) if self._pack_nr is not None
-                    else (base, rle))
-            if self.qualities:
-                outs = outs + (q,)
-        if self._copy_stream is None:
-            return outs, None
-        host = tuple(torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
-                     for o in outs)
-        for h, o in zip(host, outs):
-            h.copy_(o, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
-        return host, done
+        seq, images, ready = images
+        with span("consensus.submit", batch=seq):
+            if ready is not None:
+                compute = torch.cuda.current_stream(self.device)
+                compute.wait_event(ready)
+                # the copy stream allocated this tensor; keep its memory from
+                # being reused until the compute stream is done with it
+                images.record_stream(compute)
+            with torch.no_grad():
+                if self.qualities:
+                    base, rle, q = consensus_labels_and_quality(self.params, images, WINDOW,
+                                                                backend=self.backend)
+                else:
+                    base, rle = consensus_labels(self.params, images, WINDOW,
+                                                 backend=self.backend)
+                with span("consensus.readback"):
+                    outs = ((base * self._pack_nr + rle,) if self._pack_nr is not None
+                            else (base, rle))
+                    if self.qualities:
+                        outs = outs + (q,)
+                    if self._copy_stream is None:
+                        return seq, outs, None
+                    host = tuple(torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
+                                 for o in outs)
+                    for h, o in zip(host, outs):
+                        h.copy_(o, non_blocking=True)
+                    done = torch.cuda.Event()
+                    done.record()
+        return seq, host, done
 
     def read(self, handle) -> Tuple[np.ndarray, ...]:
         """Wait for one submitted batch; returns ``(base, rle)`` uint8, plus
         the phred array with ``qualities``."""
-        outs, done = handle
-        if done is not None:
-            done.synchronize()
-        arrays = [o.numpy() for o in outs]
-        if self._pack_nr is not None:
-            packed = arrays[0]
-            base = packed // np.uint8(self._pack_nr)
-            rle = packed - base * np.uint8(self._pack_nr)
-            arrays = [base.astype(np.uint8, copy=False), rle.astype(np.uint8, copy=False),
-                      *arrays[1:]]
+        seq, outs, done = handle
+        with span("consensus.read", batch=seq):
+            if done is not None:
+                with span("consensus.read.wait"):
+                    done.synchronize()
+            with span("consensus.read.decode"):
+                arrays = [o.numpy() for o in outs]
+                if self._pack_nr is not None:
+                    packed = arrays[0]
+                    base = packed // np.uint8(self._pack_nr)
+                    rle = packed - base * np.uint8(self._pack_nr)
+                    arrays = [base.astype(np.uint8, copy=False),
+                              rle.astype(np.uint8, copy=False), *arrays[1:]]
         return tuple(arrays)
 
     def __call__(self, images_u8: np.ndarray) -> Tuple[np.ndarray, ...]:

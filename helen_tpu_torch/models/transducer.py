@@ -54,6 +54,7 @@ import torch
 
 from helen_tpu_torch.config import MODEL, WINDOW, ModelConfig, WindowConfig
 from helen_tpu_torch.io.checkpoint import fast_weights
+from helen_tpu_torch.obs.timing import span
 from helen_tpu_torch.ops.gru_window import (
     MAX_H,
     bigru_window_in1_fast,
@@ -415,6 +416,9 @@ def consensus_probs(
     :param route: as in :func:`forward`
     :returns: (base votes (B, L, nb), rle votes (B, L, nr))
 
+    Spans: ``consensus.windows`` around the whole, ``consensus.window``
+    (count ``k``) around each window's forward and vote.
+
     On a fast backend the bf16 weight copies are made here, once for all
     windows, unless ``params`` holds them already (ConsensusStep makes them
     once per run). The heads, softmax and vote stay float32: helen_tpu's
@@ -422,21 +426,23 @@ def consensus_probs(
     float32 off the TPU and single-pass bf16 only on it, a TPU artefact the
     port does not copy.
     """
-    if backend in FAST_BACKENDS:
-        params = fast_weights(params)
-    B, L, _ = images.shape
-    W = window_cfg.window
-    geom = model_geometry(params)
-    base_acc = torch.zeros((B, L, geom.num_base_classes), dtype=torch.float32,
-                           device=images.device)
-    rle_acc = torch.zeros((B, L, geom.num_rle_classes), dtype=torch.float32,
-                          device=images.device)
-    hidden = init_hidden(B, geom, images.device)
-    for start in window_cfg.starts(L):
-        base, rle, hidden = forward(params, images, hidden, backend,
-                                    start=start, window=W, route=route)
-        base_acc[:, start:start + W] += torch.softmax(base, dim=-1)
-        rle_acc[:, start:start + W] += torch.softmax(rle, dim=-1)
+    with span("consensus.windows"):
+        if backend in FAST_BACKENDS:
+            params = fast_weights(params)
+        B, L, _ = images.shape
+        W = window_cfg.window
+        geom = model_geometry(params)
+        base_acc = torch.zeros((B, L, geom.num_base_classes), dtype=torch.float32,
+                               device=images.device)
+        rle_acc = torch.zeros((B, L, geom.num_rle_classes), dtype=torch.float32,
+                              device=images.device)
+        hidden = init_hidden(B, geom, images.device)
+        for k, start in enumerate(window_cfg.starts(L)):
+            with span("consensus.window", k=k):
+                base, rle, hidden = forward(params, images, hidden, backend,
+                                            start=start, window=W, route=route)
+                base_acc[:, start:start + W] += torch.softmax(base, dim=-1)
+                rle_acc[:, start:start + W] += torch.softmax(rle, dim=-1)
     return base_acc, rle_acc
 
 
@@ -450,8 +456,9 @@ def consensus_labels(
     """Vote then argmax -> uint8 labels. ``torch.argmax`` returns the first
     maximal index, the same tie-break as ``jnp.argmax`` and ``torch.max``."""
     base_probs, rle_probs = consensus_probs(params, images, window_cfg, backend, route)
-    return (torch.argmax(base_probs, dim=-1).to(torch.uint8),
-            torch.argmax(rle_probs, dim=-1).to(torch.uint8))
+    with span("consensus.vote"):
+        return (torch.argmax(base_probs, dim=-1).to(torch.uint8),
+                torch.argmax(rle_probs, dim=-1).to(torch.uint8))
 
 
 def consensus_labels_and_quality(
@@ -468,10 +475,11 @@ def consensus_labels_and_quality(
     [0, max_q] and rounded half to even. The labels are
     :func:`consensus_labels`' (the same vote, the same argmax)."""
     base_probs, rle_probs = consensus_probs(params, images, window_cfg, backend, route)
-    p_base = base_probs.amax(dim=-1) / torch.clamp(base_probs.sum(dim=-1), min=1e-12)
-    p_rle = rle_probs.amax(dim=-1) / torch.clamp(rle_probs.sum(dim=-1), min=1e-12)
-    err = torch.clamp(1.0 - p_base * p_rle, 10.0 ** (-(max_q / 10.0)), 1.0)
-    q = torch.clamp(-10.0 * torch.log10(err), 0.0, float(max_q))
-    return (torch.argmax(base_probs, dim=-1).to(torch.uint8),
-            torch.argmax(rle_probs, dim=-1).to(torch.uint8),
-            torch.round(q).to(torch.uint8))
+    with span("consensus.vote"):
+        p_base = base_probs.amax(dim=-1) / torch.clamp(base_probs.sum(dim=-1), min=1e-12)
+        p_rle = rle_probs.amax(dim=-1) / torch.clamp(rle_probs.sum(dim=-1), min=1e-12)
+        err = torch.clamp(1.0 - p_base * p_rle, 10.0 ** (-(max_q / 10.0)), 1.0)
+        q = torch.clamp(-10.0 * torch.log10(err), 0.0, float(max_q))
+        return (torch.argmax(base_probs, dim=-1).to(torch.uint8),
+                torch.argmax(rle_probs, dim=-1).to(torch.uint8),
+                torch.round(q).to(torch.uint8))

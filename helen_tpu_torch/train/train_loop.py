@@ -67,7 +67,7 @@ from helen_tpu_torch.models.transducer import (
     resolve_backend,
     set_fp32_precision,
 )
-from helen_tpu_torch.obs import Throughput, get_logger
+from helen_tpu_torch.obs import Throughput, get_logger, span
 from helen_tpu_torch.parallel import multihost
 from helen_tpu_torch.train.evaluate import evaluate
 from helen_tpu_torch.train.loss import (
@@ -180,6 +180,9 @@ def tbptt_step(params: Params, adam: Adam, opt_state: Dict, lr: float,
     :returns: device scalars (loss sum, base loss sum, rle loss sum) over
         the windows, each window's loss a mean over its real rows (of the
         global batch, with ``allsum``)
+
+    Spans: ``train.step`` over each window's ``train.forward``,
+    ``train.loss``, ``train.backward`` and ``train.adam``, in window order.
     """
     if route == "encdec":
         raise ValueError("route 'encdec' is inference only (helen_tpu's fused kernel has "
@@ -187,46 +190,51 @@ def tbptt_step(params: Params, adam: Adam, opt_state: Dict, lr: float,
     W = WINDOW.window
     B, L, _ = images.shape
     dev = images.device
-    geom = model_geometry(params)
-    rle_w = torch.tensor(TRAIN.rle_class_weights, dtype=torch.float32, device=dev)
-    row_mask = (torch.arange(B, device=dev) < valid).to(torch.float32)
-    leaves = param_leaves(params)
-    hidden = init_hidden(B, geom, dev)
-    tot = torch.zeros((), device=dev)
-    tot_b = torch.zeros((), device=dev)
-    tot_r = torch.zeros((), device=dev)
     starts = WINDOW.starts(L)
-    if allsum is not None:
-        # each window's global denominators
-        dens = allsum(torch.stack([torch.stack([
-            masked_denominator(label_base[:, s:s + W], row_mask),
-            masked_weighted_denominator(label_rle[:, s:s + W], rle_w, row_mask)])
-            for s in starts]))
-    for k, start in enumerate(starts):
-        base, rle, hidden_new = forward(params, images, hidden, backend,
-                                        start=start, window=W, route=route)
-        nb, db = masked_cross_entropy_parts(base, label_base[:, start:start + W],
-                                            row_mask)
-        nr, dr = masked_weighted_cross_entropy_parts(
-            rle, label_rle[:, start:start + W], rle_w, row_mask)
+    with span("train.step"):
+        geom = model_geometry(params)
+        rle_w = torch.tensor(TRAIN.rle_class_weights, dtype=torch.float32, device=dev)
+        row_mask = (torch.arange(B, device=dev) < valid).to(torch.float32)
+        leaves = param_leaves(params)
+        hidden = init_hidden(B, geom, dev)
+        tot = torch.zeros((), device=dev)
+        tot_b = torch.zeros((), device=dev)
+        tot_r = torch.zeros((), device=dev)
         if allsum is not None:
-            db, dr = dens[k]
-        lb = nb / torch.clamp(db, min=1.0)
-        lr_ = nr / torch.clamp(dr, min=1e-12)
-        loss = lb + lr_
-        grads = torch.autograd.grad(loss, leaves)
-        if allsum is not None:
-            # this process's share of the global mean: the sum completes it
-            flat = allsum(torch.cat([g.reshape(-1) for g in grads]
-                                    + [torch.stack([loss, lb, lr_]).detach()]))
-            grads = [g.view_as(p) for g, p in
-                     zip(flat[:-3].split([p.numel() for p in leaves]), leaves)]
-            loss, lb, lr_ = flat[-3], flat[-2], flat[-1]
-        adam.update(leaves, grads, opt_state, lr)
-        hidden = hidden_new.detach()
-        tot = tot + loss.detach()
-        tot_b = tot_b + lb.detach()
-        tot_r = tot_r + lr_.detach()
+            # each window's global denominators
+            dens = allsum(torch.stack([torch.stack([
+                masked_denominator(label_base[:, s:s + W], row_mask),
+                masked_weighted_denominator(label_rle[:, s:s + W], rle_w, row_mask)])
+                for s in starts]))
+        for k, start in enumerate(starts):
+            with span("train.forward"):
+                base, rle, hidden_new = forward(params, images, hidden, backend,
+                                                start=start, window=W, route=route)
+            with span("train.loss"):
+                nb, db = masked_cross_entropy_parts(base, label_base[:, start:start + W],
+                                                    row_mask)
+                nr, dr = masked_weighted_cross_entropy_parts(
+                    rle, label_rle[:, start:start + W], rle_w, row_mask)
+                if allsum is not None:
+                    db, dr = dens[k]
+                lb = nb / torch.clamp(db, min=1.0)
+                lr_ = nr / torch.clamp(dr, min=1e-12)
+                loss = lb + lr_
+            with span("train.backward"):
+                grads = torch.autograd.grad(loss, leaves)
+            if allsum is not None:
+                # this process's share of the global mean: the sum completes it
+                flat = allsum(torch.cat([g.reshape(-1) for g in grads]
+                                        + [torch.stack([loss, lb, lr_]).detach()]))
+                grads = [g.view_as(p) for g, p in
+                         zip(flat[:-3].split([p.numel() for p in leaves]), leaves)]
+                loss, lb, lr_ = flat[-3], flat[-2], flat[-1]
+            with span("train.adam"):
+                adam.update(leaves, grads, opt_state, lr)
+            hidden = hidden_new.detach()
+            tot = tot + loss.detach()
+            tot_b = tot_b + lb.detach()
+            tot_r = tot_r + lr_.detach()
     return tot, tot_b, tot_r
 
 
