@@ -160,6 +160,9 @@ WGRAD_IN = ("bigru_window_wgrad_split_in", "bigru_window_wgrad_sum")
 WGRAD_XP = ("bigru_window_wgrad_split_xp", "bigru_window_wgrad_sum")
 WGRAD_KERNELS = ("bigru_window_wgrad_split", "bigru_window_wgrad_sum")
 PEAK_TF32 = 495e12
+# the xp route's projection (phase 9f): 3xTF32, three TF32 products a
+# product, so its bound counts the FLOP at a third of the TF32 peak
+PEAK_3XTF32 = PEAK_TF32 / 3
 # the wide configuration (phase 9): the flagship transducer at H=1024,
 # trained at -b 64 on 128 images, polished at -b 256
 WH = 1024
@@ -1332,6 +1335,86 @@ def xp_cost(bsz: int, stream_bytes: int, w_bytes: int, h: int = WH) -> tuple:
             + 2 * (w_bytes * h * 3 * h + 4 * 3 * h) + 4 * 4 * bsz * h)
 
 
+def proj_cost(bsz: int, d: int, in_bytes: int, h: int = WH) -> tuple:
+    """(FLOP, bytes) of one projection launch at batch ``bsz``, T=100,
+    input width ``d``: both directions' products; x read once
+    (``in_bytes`` per element), W_ih and b_ih read once, xp written."""
+    m = T * bsz
+    return (2.0 * m * d * 6 * h,
+            in_bytes * m * d + 4 * (d * 6 * h + 6 * h) + 4 * m * 6 * h)
+
+
+def check_xp_proj(images_u8, results) -> None:
+    """Phase 9f: the xp route's projection (ops.gru_window_proj) at H=1024,
+    T=100, B=512 and the wide train's B=64, for both layer kinds (the uint8
+    image window, D=90; the decoder's pair of halves, D=2048): its largest
+    error against a float64 product beside torch.matmul's (TF32 off), two
+    launches bit for bit, and its time beside its bound (FLOP at 3xTF32's
+    165 TFLOP/s against bytes at 3.35 TB/s), the plain version's (the
+    route's expression: the input's cat or cast, two matmuls, two bias
+    adds) and torch.matmul + add on the input as it is made (library)."""
+    import numpy as np
+    import torch
+
+    from helen_tpu_torch.ops import gru_window_proj as gp
+    from helen_tpu_torch.ops.gru_window_bwd import window_input
+
+    dev = images_u8.device
+    rng = np.random.default_rng(20261019)
+    start = 450
+    entry = {"name": "bigru_window_xp_proj", "route": "cuda",
+             "source": "helen_tpu_torch/ops/csrc/gru_window_proj.cu (proj_kernel)",
+             "replaces": "no Pallas body: helen_tpu leaves it to XLA's dot "
+                         "(helen_tpu/ops/gru_pallas.py bigru_apply_fused)"}
+    halves = [torch.from_numpy(rng.uniform(-1, 1, (T, B, WH)).astype("float32")).to(dev)
+              for _ in range(2)]
+    for bsz in (B, WB_TRAIN):
+        for label, d, src, st in (("image", F, images_u8[:bsz], start),
+                                  ("pair", 2 * WH, tuple(x[:, :bsz].contiguous()
+                                                         for x in halves), 0)):
+            layer = random_layer(rng, d, WH, dev)
+            with torch.no_grad():
+                got = gp.bigru_window_xp_proj(src, st, T, layer)
+                again = gp.bigru_window_xp_proj(src, st, T, layer)
+                x = window_input(src, st, T, torch.float32)
+                want = [x.double() @ layer[k]["w_ih"].double() + layer[k]["b_ih"].double()
+                        for k in ("fwd", "bwd")]
+                mm = [x @ layer[k]["w_ih"] + layer[k]["b_ih"] for k in ("fwd", "bwd")]
+                torch.cuda.synchronize()
+                err = max(float((g.double() - w).abs().max()) for g, w in zip(got, want))
+                err_mm = max(float((g.double() - w).abs().max()) for g, w in zip(mm, want))
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    fail(f"the projection ({label}, B={bsz}): two launches differ")
+                if not err <= 4 * err_mm:
+                    fail(f"the projection ({label}, B={bsz}): error {err!r} against float64, "
+                         f"over 4x torch.matmul's {err_mm!r}")
+                ms = cuda_ms(lambda: gp.bigru_window_xp_proj(src, st, T, layer), iters=10)
+                plain_ms = cuda_ms(lambda: gp.bigru_window_xp_proj_plain(src, st, T, layer),
+                                   iters=10)
+                lib_ms = cuda_ms(lambda: [x @ layer[k]["w_ih"] + layer[k]["b_ih"]
+                                          for k in ("fwd", "bwd")], iters=10)
+            flops, nbytes = proj_cost(bsz, d, 1 if label == "image" else 4)
+            bound_ms, bound_by = bound(flops, nbytes, PEAK_3XTF32)
+            log(f"projection bigru_window_xp_proj ({label}, D={d}, B={bsz}): max |kernel - "
+                f"float64| {err:.3g} (torch.matmul fp32 {err_mm:.3g}); {ms:.4f} ms = "
+                f"{flops / ms / 1e9:.1f} TFLOP/s, bound {bound_ms:.4f} ms ({bound_by}: "
+                f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB); plain {plain_ms:.4f} ms, "
+                f"torch.matmul + add {lib_ms:.4f} ms")
+            key = f"{label}_b{bsz}"
+            entry.update({f"ms_{key}": ms, f"bound_ms_{key}": bound_ms,
+                          f"bound_by_{key}": bound_by, f"plain_ms_{key}": plain_ms,
+                          f"library_ms_{key}": lib_ms, f"max_abs_err_{key}": err,
+                          f"matmul_err_{key}": err_mm})
+    entry.update({"ms": entry[f"ms_pair_b{B}"], "kernel_ms": entry[f"ms_pair_b{B}"],
+                  "bound_ms": entry[f"bound_ms_pair_b{B}"],
+                  "plain_ms": entry[f"plain_ms_pair_b{B}"],
+                  "library_ms": entry[f"library_ms_pair_b{B}"],
+                  "per": f"one launch, both directions, at T=100, H={WH} (ms, bound_ms, plain_ms, "
+                         f"library_ms: the decoder's pair at B={B}; *_image_b*, *_pair_b*: each "
+                         "layer kind and batch)"})
+    results["bigru_window_xp_proj"] = entry
+
+
 def check_xp_kernel(images_u8, results) -> None:
     """Phase 9a: K3 at B=512, T=100, H=1024 for both layer kinds (xp from
     the uint8 image window, D=90; from the pair of K3's outputs, D=2048). In
@@ -1835,11 +1918,12 @@ def run_wide_cli(work: str, results) -> tuple:
     from helen_tpu_torch.obs import StageTimer
     from helen_tpu_torch.ops import gru_window as gw
     from helen_tpu_torch.ops import gru_window_bwd as gb
+    from helen_tpu_torch.ops import gru_window_proj as gp
     from helen_tpu_torch.ops import gru_window_xp as gx
     from helen_tpu_torch.ops import gru_window_wgrad as gwg
     from helen_tpu_torch.ops import gru_window_xp_bwd as gxb
 
-    mods = (gw, gb, gx, gxb, gwg)
+    mods = (gw, gb, gx, gxb, gwg, gp)
     counts = lambda: {k: v for m in mods for k, v in m.launch_counts.items()}  # noqa: E731
 
     def reset():
@@ -1854,7 +1938,7 @@ def run_wide_cli(work: str, results) -> tuple:
         write_exact(os.path.join(d, f"{k}.h5"), f"wide_{k}", n, seed)
     n_win = WINDOW.num_windows(IMAGE.seq_length)
     zero_inproj = {k: 0 for m in (gw, gb) for k in m.launch_counts}
-    zero_xp = {k: 0 for m in (gx, gxb, gwg) for k in m.launch_counts}
+    zero_xp = {k: 0 for m in (gx, gxb, gwg, gp) for k in m.launch_counts}
     if gxb.xp_bwd_design(WH, WB_TRAIN) != "grid":
         fail(f"K4 pass 1 at H={WH}, B={WB_TRAIN} does not take the grid design")
 
@@ -1873,9 +1957,12 @@ def run_wide_cli(work: str, results) -> tuple:
     train_b, test_b = N_WIDE_TRAIN // WB_TRAIN, 1
     trained = train_b * n_win * 2
     fwd = (train_b + test_b) * n_win * 2
+    # the projection's weights split again after every Adam step (each train
+    # layer-window), then once for the evaluation's weights
     want = {**zero_inproj, **zero_xp, "bigru_window_xp": fwd, "bigru_window_xp_grid": fwd,
             XP_PASSES[0]: trained, XP_PASSES[1]: trained, "bigru_window_xp_bwd_hp": trained,
-            "bigru_window_xp_bwd_rec_grid": trained, **wgrad_counts(trained)}
+            "bigru_window_xp_bwd_rec_grid": trained, **wgrad_counts(trained),
+            "bigru_window_xp_proj": fwd, "bigru_window_xp_proj_split": trained + 2}
     log(f"wide train (H={WH}, {N_WIDE_TRAIN} images, -b {WB_TRAIN}, 1 epoch): train loss "
         f"{epoch['train_loss']:.5f}, test loss {epoch['test_loss']:.5f}, base acc "
         f"{epoch['base_accuracy']:.3f}%, training {epoch['train_seconds']:.2f} s = "
@@ -1886,7 +1973,8 @@ def run_wide_cli(work: str, results) -> tuple:
         f"test batches x {n_win} windows x 2 layers; K3 in the grid design, 0 "
         "xp_window_kernel; K4 on the train batches only, pass 1 in the grid design: the gate "
         "pass and the grid recurrence, 0 xp_bwd_rec_kernel; pass 2 as the split kernel and "
-        "the slice sum, 0 tile32)")
+        "the slice sum, 0 tile32; the projection once a layer-window, its weights split "
+        "after each Adam step and once for the evaluation)")
     if launches != want:
         fail("wide train launch counts differ from batches x windows x layers")
     for name in (*XP_PASSES, "bigru_window_xp_bwd_hp", "bigru_window_xp_bwd_rec_grid"):
@@ -1897,6 +1985,8 @@ def run_wide_cli(work: str, results) -> tuple:
     results[XP_PASSES[0]]["wide_train_windows_per_s"] = rate
     results["bigru_window_xp"]["wide_train_windows_per_s"] = rate
     results["bigru_window_xp"]["launches_train"] = launches["bigru_window_xp"]
+    for name in ("bigru_window_xp_proj", "bigru_window_xp_proj_split"):
+        results["bigru_window_xp_proj"][f"launches_train_{name}"] = launches[name]
 
     latest = os.path.join(run, "models", "HELEN_latest_checkpoint.npz")
     params, _ = load_model_any(latest)
@@ -1920,7 +2010,8 @@ def run_wide_cli(work: str, results) -> tuple:
     if not same:
         fail("wide test did not reproduce the epoch's loss and confusion matrices")
     if tl != {**zero_inproj, **zero_xp, "bigru_window_xp": test_b * n_win * 2,
-              "bigru_window_xp_grid": test_b * n_win * 2}:
+              "bigru_window_xp_grid": test_b * n_win * 2,
+              "bigru_window_xp_proj": test_b * n_win * 2, "bigru_window_xp_proj_split": 2}:
         fail("wide test launch counts differ from batches x windows x layers")
 
     pout = os.path.join(work, "wide_polish_out")
@@ -1936,9 +2027,12 @@ def run_wide_cli(work: str, results) -> tuple:
         f"{consensus_s:.2f} s = {WB_POLISH * n_win / consensus_s:,.1f} windows/s, peak "
         f"device memory {peak:.0f} MiB; launches {pl}")
     if pl != {**zero_inproj, **zero_xp, "bigru_window_xp": n_win * 2,
-              "bigru_window_xp_grid": n_win * 2}:
+              "bigru_window_xp_grid": n_win * 2, "bigru_window_xp_proj": n_win * 2,
+              "bigru_window_xp_proj_split": 2}:
         fail("wide polish launch counts differ from batches x windows x layers")
     results["bigru_window_xp"]["launches"] = pl["bigru_window_xp"]
+    results["bigru_window_xp_proj"]["launches"] = pl["bigru_window_xp_proj"]
+    results["bigru_window_xp_proj"]["launches_split"] = pl["bigru_window_xp_proj_split"]
     results["bigru_window_xp"]["wide_polish_windows_per_s"] = WB_POLISH * n_win / consensus_s
 
     ds = MarginPolishDataset(glob.glob(os.path.join(dirs["polish"], "*.h5")))
@@ -3703,11 +3797,12 @@ def run_wide_paths(work: str, entries: dict, results) -> None:
     from helen_tpu_torch.models.transducer import engaged_kernel, resolve_backend
     from helen_tpu_torch.ops import gru_window as gw
     from helen_tpu_torch.ops import gru_window_bwd as gb
+    from helen_tpu_torch.ops import gru_window_proj as gp
     from helen_tpu_torch.ops import gru_window_wgrad as gwg
     from helen_tpu_torch.ops import gru_window_xp as gx
     from helen_tpu_torch.ops import gru_window_xp_bwd as gxb
 
-    mods = (gw, gb, gwg, gx, gxb)
+    mods = (gw, gb, gwg, gx, gxb, gp)
     n_win = WINDOW.num_windows(IMAGE.seq_length)
     img_dir = os.path.join(work, "c3_images")
     os.makedirs(img_dir)
@@ -3729,7 +3824,8 @@ def run_wide_paths(work: str, entries: dict, results) -> None:
     launches = {k: v for m in mods for k, v in m.launch_counts.items()}
     k3 = n_win * 2  # one batch at the default -b 512, two layers
     want = {**dict.fromkeys(launches, 0), "bigru_window_xp": k3, "bigru_window_xp_chain": k3,
-            "bigru_window_xp_chain_r8": k3}
+            "bigru_window_xp_chain_r8": k3, "bigru_window_xp_proj": k3,
+            "bigru_window_xp_proj_split": 2}
     log(f"15a polish (default flags) of {C3_POLISH} images at H=1056: engaged kernel "
         f"{engaged!r}, wall {wall:.2f} s, launches { {k: v for k, v in launches.items() if v} }")
     if engaged != "cuda_xp":
@@ -3756,7 +3852,8 @@ def run_wide_paths(work: str, entries: dict, results) -> None:
                {"bigru_window_xp": k3, "bigru_window_xp_chain": k3,
                 "bigru_window_xp_chain_r8": k3, XP_PASSES[0]: k3, XP_PASSES[1]: k3,
                 "bigru_window_xp_bwd_rec_chain": k3, "bigru_window_xp_bwd_rec_chain_r8": k3,
-                **wgrad_counts(k3)})
+                **wgrad_counts(k3), "bigru_window_xp_proj": k3,
+                "bigru_window_xp_proj_split": k3})
     add("bigru_window_xp_chain_r8", k3)
     add("bigru_window_xp_bwd_rec_chain_r8", k3)
 
@@ -3789,7 +3886,8 @@ def run_wide_paths(work: str, entries: dict, results) -> None:
                mods, {"bigru_window_xp": 2, "bigru_window_xp_chain": 2,
                       "bigru_window_xp_chain_r8": 2, XP_PASSES[0]: 2, XP_PASSES[1]: 2,
                       "bigru_window_xp_bwd_rec_chain": 2,
-                      "bigru_window_xp_bwd_rec_chain_r4": 2, **wgrad_counts(2)})
+                      "bigru_window_xp_bwd_rec_chain_r4": 2, **wgrad_counts(2),
+                      "bigru_window_xp_proj": 2, "bigru_window_xp_proj_split": 2})
     add("bigru_window_xp_chain_r8", 2)
     add("bigru_window_xp_bwd_rec_chain_r4", 2)
     for name, e in entries.items():
@@ -4331,6 +4429,9 @@ def main() -> int:
         t9 = time.perf_counter()
         phase(f"9a. K3 against its plain version (B={B}, T={T}, H={WH})")
         check_xp_kernel(images_u8, results)
+
+        phase(f"9f. the xp route's projection, 3xTF32 (B={B} and {WB_TRAIN}, T={T}, H={WH})")
+        check_xp_proj(images_u8, results)
 
         phase(f"9b. K4 against its plain version (B={WB_TRAIN}, T={T}, H={WH})")
         check_xp_backward(results)

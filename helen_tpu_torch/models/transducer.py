@@ -16,9 +16,9 @@ two routes, chosen by :func:`kernel_route` from the hidden size:
   or projection array is built between layers;
 * ``"xp"`` (H > MAX_H, the wide models, at every width the card's shared
   memory holds at one batch row per block): each layer's
-  input projection is one float32 matrix product per direction in torch,
-  and only the recurrence runs in a kernel (K3, ops.gru_window_xp), as
-  helen_tpu's xp-stream kernels do.
+  input projection, both directions, is one launch of a 3xTF32 tensor-core
+  kernel (ops.gru_window_proj), then the recurrence runs in K3
+  (ops.gru_window_xp), as helen_tpu's xp-stream kernels follow XLA's dot.
 
 A third family, ``"encdec"`` (ops.gru_window_encdec: K5, and K5f in the
 fast tier), runs the whole window of a model with one encoder and one
@@ -140,7 +140,7 @@ def engaged_kernel(params: Params, backend: str, route: Optional[str] = None) ->
     """Which kernel family :func:`forward` runs for ``(params, backend,
     route)`` (helen_tpu's ``engaged_kernel``, ``transducer.py:431``):
     ``"torch"`` (the plain versions), ``"cuda_inproj"`` (K1/K2 and their
-    backward), ``"cuda_xp"`` (projection GEMMs, K3/K4), ``"cuda_encdec"``
+    backward), ``"cuda_xp"`` (the projection kernel, K3/K4), ``"cuda_encdec"``
     (K5, forced only), and in the fast tier ``"cuda_fast_inproj"``
     (K1f/K2f), ``"cuda_fast_xp"`` (projection GEMMs, K3f),
     ``"cuda_fast_encdec"`` (K5f) or ``"torch_fast"`` (their plain

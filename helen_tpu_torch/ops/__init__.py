@@ -10,7 +10,7 @@ from typing import Dict
 
 #: the modules whose ``launch_counts`` count kernel launches
 COUNTED = ("gru_window", "gru_window_bwd", "gru_window_wgrad", "gru_window_xp",
-           "gru_window_xp_bwd")
+           "gru_window_xp_bwd", "gru_window_proj")
 
 
 def reset_launch_counts() -> None:

@@ -87,6 +87,21 @@ __device__ __forceinline__ float bf16_rn(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
+// x rounded to the nearest TF32 value, ties away from zero: half a TF32 ulp
+// added to the magnitude's bits, then the 13 bits TF32 drops cleared. It is
+// cvt.rna.tf32.f32 for every finite x that does not round past the largest
+// float (two integer operations, where ptxas expands the cvt into about six).
+// The 3xTF32 products (gru_window_wgrad.cu, gru_window_proj.cu) split with it.
+__device__ __forceinline__ unsigned tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// a = hi + lo, each TF32 rounded to nearest (ties away), lo the rest of a
+__device__ __forceinline__ void split_tf32(float a, unsigned& hi, unsigned& lo) {
+  hi = tf32_rna(a);
+  lo = tf32_rna(a - __uint_as_float(hi));
+}
+
 // ---------------------------------------------------------------------------
 // The forward cell step of the in-projection kernels (K1/K2 and their fast
 // twins, gru_window.cu; K5, gru_window_encdec.cu): one direction, ROWS batch

@@ -110,20 +110,6 @@ __device__ __forceinline__ void cp_async_wait_group() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// x rounded to the nearest TF32 value, ties away from zero: half a TF32 ulp
-// added to the magnitude's bits, then the 13 bits TF32 drops cleared. It is
-// cvt.rna.tf32.f32 for every finite x that does not round past the largest
-// float (two integer operations, where ptxas expands the cvt into about six).
-__device__ __forceinline__ unsigned tf32_rna(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// a = hi + lo, each TF32 rounded to nearest (ties away), lo the rest of a
-__device__ __forceinline__ void split_tf32(float a, unsigned& hi, unsigned& lo) {
-  hi = tf32_rna(a);
-  lo = tf32_rna(a - __uint_as_float(hi));
-}
-
 // c += a b: A 16 x 8 (row-major fragment), B 8 x 8 (column), C 16 x 8 fp32.
 // The tensor cores add into c with truncation, not to nearest, so each mma
 // leaves an error of up to an ulp of c, always toward zero. Carried over

@@ -42,7 +42,8 @@ to :data:`launch_counts` under its own name, whichever design ran, and each
 launch of the two-launch design adds one under the kernel's name.
 
 The same library holds the backward kernels (ops.gru_window_bwd), the
-xp-stream kernels (ops.gru_window_xp, ops.gru_window_xp_bwd) and the fused
+xp-stream kernels (ops.gru_window_xp, ops.gru_window_xp_bwd), the xp
+route's projection (ops.gru_window_proj) and the fused
 encoder+decoder window (ops.gru_window_encdec, K5/K5f, counted in
 :data:`launch_counts` beside K1/K2, whose cell step it shares).
 
@@ -205,6 +206,15 @@ def get_lib() -> ctypes.CDLL:
             lib.bigru_window_xp_bwd_rec.argtypes = [p] * 20 + [i, i, i, i, p]
             lib.bigru_window_xp_bwd_wgrad.restype = i
             lib.bigru_window_xp_bwd_wgrad.argtypes = [p] * 10 + [i, i, i, p]
+            # the xp route's projection (csrc/gru_window_proj.cu; wrapper in
+            # gru_window_proj.py): the source, the split weights, the biases,
+            # the output; and the split itself
+            lib.bigru_window_xp_proj.restype = i
+            lib.bigru_window_xp_proj.argtypes = (
+                [i, p, p, ll, ll, i, ll, p, i] + [p] * 3 + [i] * 4 + [p])
+            lib.bigru_window_xp_proj_split.restype = i
+            lib.bigru_window_xp_proj_split.argtypes = [p, p] + [i] * 4 + [p, p]
+            lib.bigru_window_xp_proj_chunk.restype = i
             lib.bigru_window_xp_chain_smem_bytes.restype = ll
             lib.bigru_window_xp_chain_smem_bytes.argtypes = [i, i, i]
             lib.bigru_window_xp_bwd_chain_smem_bytes.restype = ll
@@ -297,7 +307,11 @@ def get_lib() -> ctypes.CDLL:
                    for h in (640, 1056, 2048) for r in gx.CHAIN_ROWS for f in (0, 1)):
                 raise RuntimeError("chain_smem_bytes disagrees with csrc/gru_window_xp*.cu")
             from helen_tpu_torch.ops import gru_window_smem as gs
+            from helen_tpu_torch.ops.gru_window_proj import CHUNK
             from helen_tpu_torch.ops.gru_window_wgrad import SLICE_ROWS
+
+            if lib.bigru_window_xp_proj_chunk() != CHUNK:
+                raise RuntimeError("CHUNK disagrees with csrc/gru_window_proj.cu")
 
             if lib.bigru_window_wgrad_slice_rows() != SLICE_ROWS:
                 raise RuntimeError("SLICE_ROWS disagrees with csrc/gru_window_wgrad.cu")

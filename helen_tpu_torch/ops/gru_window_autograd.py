@@ -14,10 +14,12 @@ layer kind:
   layer's ``(out_f, out_b)`` halves; the backward returns their cotangents.
 
 The xp route (the wide models, H > MAX_H), :func:`window_xp` for both
-layer kinds: the projection ``xp = x @ W_ih + b_ih`` per direction in torch
-ops (autograd gives its dx, dW_ih and db_ih), then ``_XpWindow``: forward
-K3 (``gru_window_xp.bigru_window_xp``), backward K4
-(``gru_window_xp_bwd.bigru_window_xp_bwd``).
+layer kinds: ``_XpProjection``, the projection ``xp = x @ W_ih + b_ih`` of
+both directions (forward ``gru_window_proj.bigru_window_xp_proj``, one
+launch reading the layer's input where it lies; backward dx, dW_ih and
+db_ih on ``torch.matmul``, the ops torch's autograd of ``x @ w + b`` runs),
+then ``_XpWindow``: forward K3 (``gru_window_xp.bigru_window_xp``), backward
+K4 (``gru_window_xp_bwd.bigru_window_xp_bwd``).
 
 Each Function saves its inputs, the forward's ``out_f``/``out_b`` and the
 weights, and nothing else: the backward recomputes the gates. On CPU
@@ -38,6 +40,7 @@ from helen_tpu_torch.ops.gru_window import (
     bigru_window_in2,
 )
 from helen_tpu_torch.ops.gru_window_bwd import KEYS, Source, bigru_window_bwd, window_input
+from helen_tpu_torch.ops.gru_window_proj import bigru_window_xp_proj
 from helen_tpu_torch.ops.gru_window_xp import bigru_window_xp
 from helen_tpu_torch.ops.gru_window_xp_bwd import bigru_window_xp_bwd
 
@@ -129,15 +132,58 @@ class _XpWindow(torch.autograd.Function):
                 g["bwd"]["w_hh"], g["bwd"]["b_hh"])
 
 
+class _XpProjection(torch.autograd.Function):
+    """Both directions' ``x @ w_ih + b_ih`` of the layer's input ``src``
+    (the image, or the pair ``(xa, xb)``). The backward takes the steps
+    torch's autograd takes for that expression, so on the CPU it gives its
+    bits: ``dW = x2.t().mm(g)``, ``dx2 = g.mm(w.t())`` per direction (``x2``,
+    ``g``: the input and the cotangent folded to 2-D), the two dx added,
+    ``db = g.sum_to_size(b)``; the pair's x made again by
+    ``gru_window_bwd.window_input``'s cat."""
+
+    @staticmethod
+    def forward(ctx, start, T, dtype, xa, xb, w_f, b_f, w_b, b_b):
+        src = xa if xb is None else (xa, xb)
+        layer = {"fwd": {"w_ih": w_f, "b_ih": b_f}, "bwd": {"w_ih": w_b, "b_ih": b_b}}
+        ctx.start, ctx.T, ctx.dtype, ctx.pair = start, T, dtype, xb is not None
+        ctx.save_for_backward(xa, xb, w_f, w_b)
+        return bigru_window_xp_proj(src, start, T, layer, dtype)
+
+    @staticmethod
+    def backward(ctx, dxp_f, dxp_b):
+        xa, xb, w_f, w_b = ctx.saved_tensors
+        x = window_input((xa, xb) if ctx.pair else xa, ctx.start, ctx.T, ctx.dtype)
+        x2 = x.reshape(-1, x.shape[-1])
+        g_f = dxp_f.reshape(-1, dxp_f.shape[-1])
+        g_b = dxp_b.reshape(-1, dxp_b.shape[-1])
+        need = ctx.needs_input_grad
+        dxa = dxb = None
+        if need[3] or need[4]:
+            dx = g_f.mm(w_f.t()).reshape(x.shape) + g_b.mm(w_b.t()).reshape(x.shape)
+            if ctx.pair:
+                H = xa.shape[-1]
+                dxa, dxb = dx[..., :H], dx[..., H:]
+            else:  # a float image read at columns [start, start + T)
+                dxa = torch.zeros_like(xa)
+                dxa[:, ctx.start:ctx.start + ctx.T] = dx.transpose(0, 1).to(xa.dtype)
+        dims = dxp_f.shape[-1:]
+        return (None, None, None, dxa, dxb,
+                x2.t().mm(g_f) if need[5] else None,
+                dxp_f.sum_to_size(dims) if need[6] else None,
+                x2.t().mm(g_b) if need[7] else None,
+                dxp_b.sum_to_size(dims) if need[8] else None)
+
+
 def window_xp(src: Source, start: int, T: int, h0_f: torch.Tensor,
               h0_b: torch.Tensor, layer: Layer) -> Outputs:
     """One bi-GRU layer over one window on the xp route, differentiable:
-    the projection of the layer's input (the uint8 image window, cast to
-    float32, which is exact; or the previous layer's halves concatenated),
-    then K3 (backward K4). ``src``, ``start``, ``T`` as in
-    :func:`gru_window_bwd.bigru_window_bwd`; returns ``(out_f, out_b, h_f,
-    h_b)``."""
-    x = window_input(src, start, T, h0_f.dtype)
+    ``_XpProjection`` of the layer's input (the uint8 image window, exact in
+    float32, or the previous layer's halves), then K3 (backward K4).
+    ``src``, ``start``, ``T`` as in :func:`gru_window_bwd.bigru_window_bwd`;
+    returns ``(out_f, out_b, h_f, h_b)``."""
     f, b = layer["fwd"], layer["bwd"]
-    return _XpWindow.apply(x @ f["w_ih"] + f["b_ih"], x @ b["w_ih"] + b["b_ih"],
-                           h0_f, h0_b, f["w_hh"], f["b_hh"], b["w_hh"], b["b_hh"])
+    xa, xb = src if isinstance(src, tuple) else (src, None)
+    xp_f, xp_b = _XpProjection.apply(start, T, h0_f.dtype, xa, xb, f["w_ih"], f["b_ih"],
+                                     b["w_ih"], b["b_ih"])
+    return _XpWindow.apply(xp_f, xp_b, h0_f, h0_b, f["w_hh"], f["b_hh"], b["w_hh"],
+                           b["b_hh"])

@@ -3,7 +3,7 @@ plain version.
 
 :func:`bigru_window_xp` runs the recurrence of one bi-GRU layer over one
 window whose input projection ``xp = x @ W_ih + b_ih`` was computed outside
-(one large matrix product per direction). It is the port of helen_tpu's
+(both directions in one launch of ops.gru_window_proj). It is the port of helen_tpu's
 ``_kernel`` (``helen_tpu/ops/gru_pallas.py:231``, the inference form) and
 ``_fwd_kernel`` (``helen_tpu/ops/gru_pallas_train.py:119``, the training
 forward), which compute the same function; its source is

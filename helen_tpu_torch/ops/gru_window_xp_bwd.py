@@ -6,7 +6,8 @@ kernels, their plain version and their launch counters.
 window whose forward is K3 (``ops.gru_window_xp``). It returns the
 cotangents of the projected streams, ``dxp`` ``(T, B, 3H)`` per direction,
 of ``h0`` and of ``w_hh``/``b_hh``; the projection ``xp = x @ W_ih + b_ih``
-and its cotangents stay in torch autograd around it. It runs as two
+and its cotangents stay outside it (ops.gru_window_autograd
+``_XpProjection``: ops.gru_window_proj forward, torch.matmul backward). It runs as two
 passes, each counted once per layer-window in :data:`launch_counts`:
 
 * ``bigru_window_xp_bwd_rec`` (pass 1, :func:`bigru_window_xp_bwd_rec`):

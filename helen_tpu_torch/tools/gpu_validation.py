@@ -13,7 +13,7 @@ numeric claims ON the card and emits one JSON document
     ``torch``;
   * inproj_vs_classic_kernels: the two kernel families of the ``cuda``
     backend at the flagship, ``route="inproj"`` (K1/K2) against
-    ``route="xp"`` (the projection GEMMs and K3): the same contract, two
+    ``route="xp"`` (the projection kernel and K3): the same contract, two
     independent kernels, so agreement localizes a regression to one family;
   * geom_l2_h128, geom_h256, geom_h160_padded: a stacked 2-layer, an H=256
     and an H=160 model through ``cuda`` against ``torch``;

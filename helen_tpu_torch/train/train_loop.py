@@ -18,8 +18,8 @@ reference semantics are kept (train.py:144-250):
 
 On the ``"cuda"`` backend each window's bi-GRU layers run forward and
 backward through hand-written kernels (ops.gru_window_autograd): K1/K2 and
-the in-projection backward up to H=512, the projection GEMMs with K3/K4
-for the wide models; on ``"torch"`` torch's autograd differentiates the
+the in-projection backward up to H=512, the projection kernel (its
+backward on torch.matmul) with K3/K4 for the wide models; on ``"torch"`` torch's autograd differentiates the
 plain ops. The data order (the per-epoch permutation),
 the checkpoints and the CSVs are byte-compatible with helen_tpu's, so a run
 of either package resumes in the other.

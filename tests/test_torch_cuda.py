@@ -457,6 +457,154 @@ def test_xp_wrappers_refuse_what_the_kernels_do_not_take(dev):
 
 
 # ---------------------------------------------------------------------------
+# the xp route's projection (ops.gru_window_proj): 3xTF32 on the tensor cores
+# ---------------------------------------------------------------------------
+
+def proj_case(rng, kind, T, B, H, dev):
+    """(src, start, layer) of one projection: the uint8 image at D=90 (W_ih
+    at the scale of the published model's), or the pair of halves in (-1, 1)."""
+    if kind == "pair":
+        src = tuple(torch.from_numpy(rng.uniform(-1, 1, (T, B, H)).astype(np.float32)).to(dev)
+                    for _ in range(2))
+        return src, 0, make_layer(rng, 2 * H, H, dev)
+    image = rng.integers(0, 256, size=(B, 1000, 90), dtype=np.uint8)
+    return torch.from_numpy(image).to(dev), 450, make_layer(rng, 90, H, dev, w_ih_scale=1 / 64)
+
+
+def proj_error(got, x, layer):
+    """Largest |got - x @ w_ih + b_ih| over both directions, the reference in
+    float64."""
+    return max(float((g.double() - (x.double() @ layer[d]["w_ih"].double()
+                                    + layer[d]["b_ih"].double())).abs().max())
+               for g, d in zip(got, ("fwd", "bwd")))
+
+
+# D = 90 (the image), 2048 and 4096 (the halves of H = 1024 and 2048), at the
+# wide train's and the consensus batch
+@pytest.mark.parametrize("kind,H", [("image", 1024), ("pair", 1024), ("pair", 2048)])
+@pytest.mark.parametrize("B", [64, 512])
+def test_xp_projection_error_is_fp32s_not_tf32s(dev, kind, H, B):
+    """Against a float64 product, the kernel's largest error is at most 4x
+    that of torch.matmul in float32 (TF32 off) and at least 50x below
+    single-pass TF32's: 3xTF32, never single-pass TF32. Two launches give
+    the same bits, and each adds one launch."""
+    from helen_tpu_torch.ops import gru_window_proj as gp
+    from helen_tpu_torch.ops.gru_window_bwd import window_input
+
+    T = 100
+    src, start, layer = proj_case(np.random.default_rng(B + H), kind, T, B, H, dev)
+    before = gp.launch_counts["bigru_window_xp_proj"]
+    got = gp.bigru_window_xp_proj(src, start, T, layer)
+    again = gp.bigru_window_xp_proj(src, start, T, layer)
+    torch.cuda.synchronize()
+    assert gp.launch_counts["bigru_window_xp_proj"] == before + 2
+    assert all(g.shape == (T, B, 3 * H) for g in got)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    x = window_input(src, start, T, torch.float32)
+    err = proj_error(got, x, layer)
+    fp32 = proj_error([x @ layer[d]["w_ih"] + layer[d]["b_ih"] for d in ("fwd", "bwd")], x,
+                      layer)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = proj_error([x @ layer[d]["w_ih"] + layer[d]["b_ih"] for d in ("fwd", "bwd")],
+                          x, layer)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert err <= 4 * fp32, (err, fp32)
+    assert 50 * err <= tf32, (err, tf32)
+
+
+# ragged rows (M = 91, 153 against 128-row tiles), columns (6H = 3120, 3366
+# against 128) and reduction (H = 520, 561 against 32-column chunks); the
+# uint8 image at B = 3 (no TMA for its rows) and a float image (cp.async)
+@pytest.mark.parametrize("kind,T,B,H", [("pair", 7, 13, 520), ("pair", 9, 17, 561),
+                                        ("image", 5, 3, 40), ("dense", 6, 5, 40)])
+def test_xp_projection_takes_ragged_shapes(dev, kind, T, B, H):
+    from helen_tpu_torch.ops import gru_window_proj as gp
+    from helen_tpu_torch.ops.gru_window_bwd import window_input
+
+    rng = np.random.default_rng(T * B + H)
+    if kind == "pair":
+        src, start, layer = proj_case(rng, kind, T, B, H, dev)
+    else:
+        image = rng.integers(0, 256, size=(B, T + 9, 90), dtype=np.uint8)
+        src = torch.from_numpy(image).to(dev)
+        if kind == "dense":
+            src = src.float()
+        start, layer = 4, make_layer(rng, 90, H, dev, w_ih_scale=1 / 64)
+    got = gp.bigru_window_xp_proj(src, start, T, layer)
+    x = window_input(src, start, T, torch.float32)
+    err = proj_error(got, x, layer)
+    fp32 = proj_error([x @ layer[d]["w_ih"] + layer[d]["b_ih"] for d in ("fwd", "bwd")], x,
+                      layer)
+    assert err <= 4 * fp32, (err, fp32)
+
+
+@pytest.mark.parametrize("pair,D,H", [(False, 90, 1024), (True, 2048, 1024), (True, 1040, 520),
+                                      (False, 37, 40)])
+def test_xp_projection_split_kernel_equals_plain(dev, pair, D, H):
+    from helen_tpu_torch.ops import gru_window_proj as gp
+
+    layer = make_layer(np.random.default_rng(D + H), D, H, dev)
+    before = gp.launch_counts["bigru_window_xp_proj_split"]
+    got = gp.split_weights(layer, pair, dev)
+    assert torch.equal(got, gp.split_weights_plain(layer, pair))
+    assert gp.split_weights(layer, pair, dev) is got  # cached
+    layer["bwd"]["w_ih"].add_(1.0)  # an in-place update splits again, into the same buffer
+    again = gp.split_weights(layer, pair, dev)
+    assert again.data_ptr() == got.data_ptr()
+    assert torch.equal(again, gp.split_weights_plain(layer, pair))
+    assert gp.launch_counts["bigru_window_xp_proj_split"] == before + 2
+
+
+def test_xp_route_projects_once_per_layer_window(dev):
+    """One h1024 consensus batch launches the projection 19 windows x 2
+    layers = 38 times (and splits each layer's weights once); the
+    in-projection route launches it never."""
+    import dataclasses
+
+    from helen_tpu_torch.config import MODEL, WINDOW
+    from helen_tpu_torch.io.checkpoint import params_to_torch
+    from helen_tpu_torch.models.transducer import consensus_labels, init_params
+    from helen_tpu_torch.ops import gru_window_proj as gp
+
+    rng = np.random.default_rng(38)
+    images = torch.from_numpy(rng.integers(0, 40, size=(8, 1000, 90), dtype=np.uint8)).to(dev)
+    n_win = WINDOW.num_windows(1000)
+    for H, want in ((1024, {"bigru_window_xp_proj": 2 * n_win,
+                            "bigru_window_xp_proj_split": 2}),
+                    (128, {"bigru_window_xp_proj": 0, "bigru_window_xp_proj_split": 0})):
+        params = params_to_torch(init_params(torch.Generator().manual_seed(H),
+                                             dataclasses.replace(MODEL, hidden_size=H)), dev)
+        gp.reset_launch_counts()
+        with torch.no_grad():
+            consensus_labels(params, images, backend="cuda")
+        torch.cuda.synchronize()
+        assert gp.launch_counts == want, H
+    assert 2 * n_win == 38
+
+
+def test_xp_projection_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    from helen_tpu_torch.ops import gru_window_proj as gp
+
+    src, start, layer = proj_case(np.random.default_rng(9), "pair", 4, 8, 640, dev)
+    with pytest.raises(TypeError):  # float64 on the card
+        gp.bigru_window_xp_proj(src, start, 4, layer, torch.float64)
+    with pytest.raises(ValueError):  # the halves' shapes differ
+        gp.bigru_window_xp_proj((src[0], src[1][:-1]), start, 4, layer)
+    with pytest.raises(ValueError):  # a half on the CPU
+        gp.bigru_window_xp_proj((src[0], src[1].cpu()), start, 4, layer)
+    with pytest.raises(ValueError):  # a non-contiguous half
+        gp.bigru_window_xp_proj((src[0], src[1].transpose(0, 1).contiguous().transpose(0, 1)),
+                                start, 4, layer)
+    image, _, il = proj_case(np.random.default_rng(10), "image", 4, 8, 640, dev)
+    with pytest.raises(ValueError):  # a window past the image's end
+        gp.bigru_window_xp_proj(image, 998, 4, il)
+    with pytest.raises(ValueError):  # an int32 image
+        gp.bigru_window_xp_proj(image.int(), 0, 4, il)
+
+
+# ---------------------------------------------------------------------------
 # the fast tier: K1f, K2f (H <= 512) and K3f (the wide models)
 # ---------------------------------------------------------------------------
 

@@ -299,6 +299,128 @@ def test_xp_wrappers_raise_off_cpu_and_cuda():
 
 
 # ---------------------------------------------------------------------------
+# the projection (ops.gru_window_proj): its plain version and its backward
+# are the expression the route had, bit for bit, on the CPU
+# ---------------------------------------------------------------------------
+
+def proj_source(kind, rng, T, B, H, start, grad=False):
+    """(src, D) of one layer input kind: the uint8 image (D=90), a float32
+    image (D=90) or the pair of halves (D=2H)."""
+    if kind == "pair":
+        src = tuple(torch.from_numpy(rng.uniform(-1, 1, (T, B, H)).astype(np.float32))
+                    .requires_grad_(grad) for _ in range(2))
+        return src, 2 * H
+    if kind == "image":
+        return torch.from_numpy(rng.integers(0, 256, (B, T + start + 3, F), dtype=np.uint8)), F
+    image = rng.uniform(0, 8, (B, T + start + 3, F)).astype(np.float32)
+    return torch.from_numpy(image).requires_grad_(grad), F
+
+
+@pytest.mark.parametrize("kind", ["image", "dense", "pair"])
+@pytest.mark.parametrize("T,B,H", [(3, 5, 41), (2, 7, 520)])
+def test_xp_projection_plain_is_the_routes_expression(kind, T, B, H):
+    """On CPU tensors ``bigru_window_xp_proj`` is ``window_input(...) @ w_ih
+    + b_ih`` per direction, bit for bit, at ragged M = T B, N = 6H (H odd,
+    and 520, no multiple of the kernel's 128 columns) and K (D = 90, 2H)."""
+    from helen_tpu_torch.ops.gru_window_bwd import window_input
+    from helen_tpu_torch.ops.gru_window_proj import bigru_window_xp_proj
+
+    rng = np.random.default_rng(T * B + H)
+    start = 2
+    src, D = proj_source(kind, rng, T, B, H, start)
+    layer = to_torch(make_layer(rng, D, H, w_ih_scale=1 / 8))
+    x = window_input(src, start if kind != "pair" else 0, T, torch.float32)
+    got = bigru_window_xp_proj(src, start if kind != "pair" else 0, T, layer)
+    for g, d in zip(got, ("fwd", "bwd")):
+        assert g.shape == (T, B, 3 * H)
+        assert torch.equal(g, x @ layer[d]["w_ih"] + layer[d]["b_ih"]), d
+
+
+@pytest.mark.parametrize("kind", ["image", "dense", "pair"])
+def test_xp_projection_gradients_equal_the_routes_autograd(kind):
+    """``_XpProjection``'s backward (dx, dW_ih, db_ih) equals torch's
+    autograd of the expression the route had, bit for bit on the CPU, for
+    the uint8 image (no dx), a float image and the pair."""
+    from helen_tpu_torch.ops.gru_window_autograd import _XpProjection
+    from helen_tpu_torch.ops.gru_window_bwd import window_input
+
+    rng = np.random.default_rng(53)
+    T, B, H, start = 4, 6, 41, 3 if kind != "pair" else 0
+    src, D = proj_source(kind, rng, T, B, H, start, grad=True)
+    layer = to_torch(make_layer(rng, D, H))
+    leaves = [layer[d][k].requires_grad_(True) for d in ("fwd", "bwd") for k in ("w_ih", "b_ih")]
+    cts = [torch.from_numpy(rng.standard_normal((T, B, 3 * H)).astype(np.float32))
+           for _ in range(2)]
+    inputs = list(src) if kind == "pair" else ([src] if kind == "dense" else [])
+    xa, xb = src if kind == "pair" else (src, None)
+
+    def grads(outs):
+        return torch.autograd.grad(outs, inputs + leaves, cts)
+
+    x = window_input(src, start, T, torch.float32)
+    want = grads([x @ layer[d]["w_ih"] + layer[d]["b_ih"] for d in ("fwd", "bwd")])
+    got = grads(_XpProjection.apply(start, T, torch.float32, xa, xb, *leaves))
+    assert len(got) == len(want) == len(inputs) + 4
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.equal(g, w)
+
+
+def test_xp_route_counts_no_projection_launch_on_cpu():
+    """The xp layer on CPU tensors takes the plain versions: no launch of the
+    projection or its split is counted, and ops.launch_counts() is empty."""
+    from helen_tpu_torch import ops
+    from helen_tpu_torch.ops import gru_window_proj as gp
+    from helen_tpu_torch.ops.gru_window_autograd import window_xp
+
+    assert "gru_window_proj" in ops.COUNTED
+    rng = np.random.default_rng(7)
+    T, B, H = 3, 4, 16
+    ops.reset_launch_counts()
+    src, D = proj_source("pair", rng, T, B, H, 0)
+    h0 = [torch.zeros(B, H) for _ in range(2)]
+    with torch.no_grad():
+        window_xp(src, 0, T, *h0, to_torch(make_layer(rng, D, H)))
+    assert gp.launch_counts == {"bigru_window_xp_proj": 0, "bigru_window_xp_proj_split": 0}
+    assert ops.launch_counts() == {}
+
+
+@pytest.mark.parametrize("pair,D,H", [(False, 90, 41), (True, 80, 40), (True, 1040, 520)])
+def test_split_weights_plain_layout(pair, D, H):
+    """The kernel's weights: (2, 6H, KP), KP whole chunks of 32 with zero rows
+    at each pad; hi and lo TF32 values (13 low bits clear), hi the value
+    rounded to nearest, hi + lo the weight within lo's own rounding."""
+    from helen_tpu_torch.ops.gru_window_proj import CHUNK, proj_rows, split_weights_plain
+
+    rng = np.random.default_rng(D + H)
+    layer = to_torch(make_layer(rng, D, H))
+    w = torch.cat([layer["fwd"]["w_ih"], layer["bwd"]["w_ih"]], 1)  # (D, 6H)
+    rows = proj_rows(D, H, pair)
+    half = -(-H // CHUNK) * CHUNK
+    assert len(rows) % CHUNK == 0
+    assert rows == (list(range(H)) + [-1] * (half - H) + list(range(H, 2 * H))
+                    + [-1] * (half - H) if pair else list(range(D)) + [-1] * (len(rows) - D))
+    s = split_weights_plain(layer, pair)
+    assert s.shape == (2, 6 * H, len(rows)) and s.dtype == torch.float32
+    assert not (s.view(torch.int32) & 0x1FFF).any()
+    live = torch.tensor([r >= 0 for r in rows])
+    assert not s[:, :, ~live].any()
+    wt = w.t()[:, [r for r in rows if r >= 0]].double()
+    hi, lo = s[0][:, live].double(), s[1][:, live].double()
+    assert float((wt - hi).abs().max() / wt.abs().max()) <= 2.0 ** -11
+    assert float(((wt - hi - lo).abs() / wt.abs().clamp_min(1e-30)).max()) <= 2.0 ** -21
+
+
+def test_xp_projection_wrapper_raises_off_cpu_and_cuda():
+    from helen_tpu_torch.ops.gru_window_proj import bigru_window_xp_proj
+
+    T, B, H = 3, 2, 16
+    meta = lambda *s: torch.empty(s, device="meta")  # noqa: E731
+    layer = {d: {"w_ih": meta(2 * H, 3 * H), "b_ih": meta(3 * H)} for d in ("fwd", "bwd")}
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        bigru_window_xp_proj((meta(T, B, H), meta(T, B, H)), 0, T, layer)
+
+
+# ---------------------------------------------------------------------------
 # the route: dispatch, precision, and the slice as a whole
 # ---------------------------------------------------------------------------
 

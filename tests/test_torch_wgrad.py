@@ -270,4 +270,7 @@ def test_source_is_built_with_the_others():
     assert const("WS_SLICE_ROWS") == SLICE_ROWS
     assert (32 * const("WS_WARPS_M"), 32 * const("WS_WARPS_N")) == TILE
     assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in text
-    assert "(__float_as_uint(x) + 0x1000u) & 0xffffe000u" in text  # rna to TF32
+    # the split into TF32 parts, shared with the xp projection
+    assert "split_tf32(" in text and '#include "gru_window_common.cuh"' in text
+    with open(os.path.join(gw._CSRC, "gru_window_common.cuh")) as f:
+        assert "(__float_as_uint(x) + 0x1000u) & 0xffffe000u" in f.read()  # rna to TF32
