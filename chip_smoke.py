@@ -1415,6 +1415,18 @@ def check_xp_proj(images_u8, results) -> None:
     results["bigru_window_xp_proj"] = entry
 
 
+def ptxas_report(kernel: str) -> dict:
+    """ptxas's report for each instance of the ``__global__`` function
+    ``kernel`` in the kernel library's build log: {"kernel<8,3>": "N regs, S
+    B spilled"}."""
+    from helen_tpu_torch.obs.grid_variants import ptxas_summary
+    from helen_tpu_torch.ops import gru_window as gw
+
+    with open(gw.build_kernels() + ".log") as f:
+        entries = ptxas_summary(f.read()).split("; ")
+    return dict(e.split(": ", 1) for e in entries if e.startswith(kernel + "<"))
+
+
 def check_xp_kernel(images_u8, results) -> None:
     """Phase 9a: K3 at B=512, T=100, H=1024 for both layer kinds (xp from
     the uint8 image window, D=90; from the pair of K3's outputs, D=2048). In
@@ -1424,7 +1436,8 @@ def check_xp_kernel(images_u8, results) -> None:
     of two launches; both designs timed in turns (grid, chain, chain, grid)
     beside the plain version, the projection GEMMs and cuDNN's GRU forward
     at the same (D, H); then both designs in turns at the wide train's
-    B=64 (the decoder layer)."""
+    B=64 (the decoder layer). Logs the thread tile at each batch and ptxas's
+    registers and spills for each instance of the kernel."""
     import numpy as np
     import torch
 
@@ -1439,6 +1452,12 @@ def check_xp_kernel(images_u8, results) -> None:
         f"shared memory each; card: (SMs, opt-in bytes) {card_limits()})")
     if design != "grid":
         fail(f"K3 at H={WH}, B={B} does not take the grid design")
+    tiles = {b: xg.grid_tile(b) for b in (B, WB_TRAIN)}
+    log("K3's thread tiles: " + "; ".join(
+        f"B={b}: {r} rows x {xg.XG_UPT} units x 3 gates a thread, "
+        f"{xg.grid_threads(b, r)} threads" for b, r in tiles.items()))
+    ptxas = ptxas_report("xp_grid_kernel")
+    log("ptxas: " + "; ".join(f"{k}: {v}" for k, v in sorted(ptxas.items())))
     rng = np.random.default_rng(20261018)
     h0 = [torch.from_numpy(rng.uniform(-0.5, 0.5, (B, WH)).astype("float32")).to(dev)
           for _ in range(4)]
@@ -1449,7 +1468,7 @@ def check_xp_kernel(images_u8, results) -> None:
     flops, nbytes = xp_cost(B, 4, 4)
     bound_ms, bound_by = bound(flops, nbytes)
     x, hf, hb = x0, h0[0], h0[1]
-    layers = []
+    layers, ms_by, chain_by = [], {}, {}
     for label, D in (("layer 0, image D=90", F), ("decoder, pair D=2048", 2 * WH)):
         layer = random_layer(rng, D, WH, dev)
         layers.append(layer)
@@ -1485,6 +1504,7 @@ def check_xp_kernel(images_u8, results) -> None:
         for k, v in (("ms", ms), ("chain_ms", chain_ms), ("plain_ms", plain_ms),
                      ("library_ms", lib_ms), ("projection_ms", proj_ms)):
             acc[k] += v / 2
+        ms_by[D], chain_by[D] = ms, chain_ms
         acc["err"] = max(acc["err"], err)
         # the decoder reads layer 0's outputs, as on the main path
         x, hf, hb = torch.cat([got[0], got[1]], -1), h0[2], h0[3]
@@ -1525,7 +1545,10 @@ def check_xp_kernel(images_u8, results) -> None:
         "projection_ms": acc["projection_ms"], "design": design, "units": units,
         "ms_b64": ms64, "chain_ms_b64": chain64, "bound_ms_b64": bound64,
         "plain_ms_b64": plain64, "library_ms_b64_d90": lib64[F],
-        "library_ms_b64_d2048": lib64[2 * WH],
+        "library_ms_b64_d2048": lib64[2 * WH], "tile_rows": tiles[B],
+        "tile_rows_b64": tiles[WB_TRAIN], "ptxas": ptxas,
+        "ms_d90": ms_by[F], "ms_d2048": ms_by[2 * WH], "chain_ms_d90": chain_by[F],
+        "chain_ms_d2048": chain_by[2 * WH],
         "per": "one launch at B=512, T=100, H=1024 (mean of layer 0, D=90, and the "
                "decoder, D=2048; ms: the grid design; chain_ms: xp_window_kernel in the same "
                "call; library: cuDNN's GRU forward of the layer, projection included; *_b64: "

@@ -14,9 +14,13 @@ outputs equal the one-launch ``xp_bwd_rec_kernel`` bit for bit (the cut
 variants cannot). ``fwd``: ``ops/csrc/gru_window_xp_grid.cu``, K3 and K3f
 in their grid design on the same kind of window; a K3 line says whether its
 outputs equal ``xp_window_kernel`` bit for bit, a K3f line gives its largest
-distance from the fast plain version's kernel, ``xp_window_kernel<FAST>``.
-Every variant is timed with CUDA events over 5 launches. It needs a CUDA
-device and ``nvcc``; it prints the card's name and power limit first.
+distance from the fast plain version's kernel, ``xp_window_kernel<FAST>``;
+each K3 variant runs at each of its thread tiles (8 and 4 rows a
+thread), the one ``grid_tile`` picks first, and the cut variants that make
+fragments in registers give wrong outputs by design. Every variant is timed
+with CUDA events over 5 launches, and each line of a build gives ptxas's
+registers and spills per kernel. It needs a CUDA device and ``nvcc``; it
+prints the card's name and power limit first.
 """
 from __future__ import annotations
 
@@ -61,28 +65,38 @@ VARIANTS = {
 
 
 FWD_SOURCE = "gru_window_xp_grid.cu"
-_FWD_FMA = """              ar[p] = fmaf(h, lane(wr, e), ar[p]);
-              az[p] = fmaf(h, lane(wz, e), az[p]);
-              an[p] = fmaf(h, lane(wn, e), an[p]);"""
-_FWD_CP = "cp_async16(dst, src);"
-_FWD_NCH = "const int nch = (H + XG_KC - 1) / XG_KC;"
+_FWD_FMA = "a = fmaf(hv[f & 1][p][e], wv[f & 1][e][j], a);"
+_FWD_CP = "if (fval >> n & 1) cp_async16(st + foff[n], hprev + fsrc[n] + fk0);"
+_FWD_LDS = "const float4 v = *reinterpret_cast<const float4*>(s);"
+_FWD_LDSW = ("const float4 a = *reinterpret_cast<const float4*>(row + 4 * ug);\n"
+             "  const float2 b = *reinterpret_cast<const float2*>(row + 4 * XG_UG + 2 * ug);")
+_FWD_NOW = ("const float4 a = make_float4(__int_as_float((int)(size_t)row + ug), 1.0f, 0.5f, "
+            "0.25f);\n  const float2 b = make_float2(__int_as_float((int)(size_t)row - ug), 0.5f);")
+_FWD_NCH = "const int nch = (H + KC - 1) / KC;"
+_FWD_PF = "for (int g = 0; g < 3; ++g) prefetch_l2(io.xp + ((size_t)tt * B + b) * H3 + g * H + u0);"
 _FAST_MMA = "mma_bf16(acc[m][n], a[m], bf[n]);"
 _FAST_CP = "cp_async16_cg(dst, hsrc + at);"
 _FAST_NCH = "const int nch = (H + XF_KC - 1) / XF_KC;"
 
 #: the forward's variants: name -> (constants to replace, (text, replacement)
-#: edits); K3's constants are XG_*, K3f's XF_*, and a library holds both
+#: edits); K3's constants are XG_*, K3f's XF_*, and a library holds both. A
+#: K3 variant is timed at each of its tiles (rows per thread, XG_TILES).
 FWD_VARIANTS = {
     "shipped": ({}, ()),
-    "K3: 32-k x 3 stages": ({"XG_KC": 32, "XG_STAGES": 3}, ()),
-    "K3: 16-k x 4 stages": ({"XG_KC": 16, "XG_STAGES": 4}, ()),
-    "K3: 128 threads of 8 rows x 1 unit": ({"XG_RPT": 8, "XG_ROW_GROUPS": 8}, ()),
-    "K3: 512 threads of 2 rows x 1 unit": ({"XG_RPT": 2, "XG_ROW_GROUPS": 32}, ()),
-    "K3: 256 threads of 8 rows x 1 unit, 32-k chunks": ({"XG_RPT": 8, "XG_KC": 32}, ()),
-    "K3: no FMAs in the step product": ({}, ((_FWD_FMA, ";"),)),
-    "K3: no h loads in the step product": ({}, ((_FWD_CP, "(void)dst;"),)),
-    "K3: no step product (gates and barriers only)": (
-        {}, ((_FWD_NCH, "const int nch = 0;"),)),
+    "K3: no L2 prefetch of the gate inputs": ({}, ((_FWD_PF, ";"),)),
+    "K3: no FMAs in the step product (nor the loads they read)": ({}, ((_FWD_FMA, ";"),)),
+    "K3: no h loads in the step product": ({}, ((_FWD_CP, "(void)st;"),)),
+    "K3: no shared-memory loads in the step product (fragments made in registers)": (
+        {}, ((_FWD_LDS, "const float4 v = make_float4(__int_as_float((int)(size_t)s), 1.0f, "
+                        "0.5f, 0.25f);"),
+             (_FWD_LDSW, _FWD_NOW))),
+    "K3: FMAs alone (no shared-memory loads, no h loads)": (
+        {}, ((_FWD_CP, "(void)st;"),
+             (_FWD_LDS, "const float4 v = make_float4(__int_as_float((int)(size_t)s), 1.0f, "
+                        "0.5f, 0.25f);"),
+             (_FWD_LDSW, _FWD_NOW))),
+    "K3: one chunk of the step product a row block (gates and barriers)": (
+        {}, ((_FWD_NCH, "const int nch = 1;"),)),
     "K3f: 3 stages": ({"XF_STAGES": 3}, ()),
     "K3f: 32-k x 4 stages": ({"XF_KC": 32, "XF_STAGES": 4}, ()),
     "K3f: 1 m-tile per warp (128-row blocks)": ({"XF_MT": 1}, ()),
@@ -129,11 +143,29 @@ def build_all(out_dir: str, source: str = SOURCE, variants=None) -> dict:
     built = {}
     for name, (so, proc) in procs.items():
         log, _ = proc.communicate()
-        regs = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-        keep = 2 if source == SOURCE else 8  # the forward's four kernels
         built[name] = ((so if proc.returncode == 0 else None),
-                       " / ".join(regs[-keep:]) if proc.returncode == 0 else log[-2000:])
+                       ptxas_summary(log) if proc.returncode == 0 else log[-2000:])
     return built
+
+
+def ptxas_summary(log: str) -> str:
+    """ptxas's report, one entry per kernel: "name<template args>: registers,
+    spill stores"."""
+    out, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\w*?\d+([a-z]\w*?kernel)(I\w*?E)?E", line)
+        if m:
+            args = re.findall(r"Li(\d+)E", m.group(2) or "")
+            # an anonymous namespace's name ends in digits: the kernel's follows
+            name = re.sub(r"^.*\d(?=[a-z])", "", m.group(1))
+            name += f"<{','.join(args)}>" if args else ""
+        elif name and "spill stores" in line:
+            spill = re.search(r"(\d+) bytes spill stores", line).group(1)
+        elif name and "Used" in line and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            out.append(f"{name}: {regs} regs, {spill} B spilled")
+            name = None
+    return "; ".join(out)
 
 
 def timed(launch, iters: int = 5) -> float:
@@ -191,26 +223,31 @@ def run_fwd(args) -> int:
                                         (True, fx, fast, fwant)):
                 units = xg.grid_units(H, *card_limits(), tier)
                 w = [lay[d][q] for d in ("fwd", "bwd") for q in ("w_hh", "b_hh")]
-                for name, lib in libs.items():
+                # K3 at each tile (rows per thread), the rule's first
+                tiles = [None] if tier else sorted(
+                    xg.XG_TILES, key=lambda t: t != xg.grid_tile(B))
+                for (name, lib), rpt in ((nl, t) for nl in libs.items() for t in tiles):
                     if name != "shipped" and name.startswith("K3f" if not tier else "K3:"):
                         continue
                     outs = gw._outputs(T, B, H, dev)
                     scratch = ([torch.empty((2, 2, B, H), dtype=torch.bfloat16, device=dev)]
                                if tier else [])
                     fn = getattr(lib, xg.KERNELS[tier])
+                    tile = [] if tier else [rpt]
 
                     def launch():
                         arrive = torch.zeros(GRID_COUNTERS, dtype=torch.int32, device=dev)
                         err = fn(*(t.data_ptr() for t in (*ins, h0f, h0b, *w, *outs, *scratch,
                                                           arrive)),
-                                 T, B, H, units, torch.cuda.current_stream().cuda_stream)
+                                 T, B, H, units, *tile, torch.cuda.current_stream().cuda_stream)
                         if err:
                             raise RuntimeError(f"{name}: CUDA error {err}")
 
+                    label = "K3f" if tier else f"K3 ({rpt} rows a thread)"
                     try:
                         ms = timed(launch)
                     except RuntimeError as e:
-                        print(f"B={B} T={T} H={H} U={units}: {name}: {e}", flush=True)
+                        print(f"B={B} T={T} H={H} U={units}: {label} {name}: {e}", flush=True)
                         continue
                     if tier:
                         cmp = ("max |grid - xp_window_kernel<FAST>| "
@@ -218,7 +255,6 @@ def run_fwd(args) -> int:
                     else:
                         cmp = ("equal to xp_window_kernel: "
                                f"{all(torch.equal(a, b) for a, b in zip(outs, ref))}")
-                    label = "K3f" if tier else "K3"
                     print(f"B={B} T={T} H={H} U={units}: {label} {name}: {ms:.4f} ms, {cmp}",
                           flush=True)
     return 0

@@ -21,9 +21,9 @@
 // once, by cp.async, for all T steps: after that no weight is read from
 // device memory. The block loops over row blocks of the batch, so all SMs
 // work at any B. Each step s (time tt = s forward, T-1-s backward):
-//   1. h_prev streams through a two-stage ring of k-chunks in shared memory.
-//      Its rows were written by other blocks in this launch, so they are read
-//      through L2 only (cp.async.cg, __ldcg).
+//   1. h_prev streams through a ring of k-chunks in shared memory. Its rows
+//      were written by other blocks in this launch, so they are read through
+//      L2 only (cp.async.cg, __ldcg).
 //   2. the step product hr, hz, hq = h_prev W_hh[:, {j, H + j, 2H + j}] for
 //      the block's (row, unit) pairs;
 //   3. the gates (gru_gates, gru_window_common.cuh, as xp_window_kernel),
@@ -35,9 +35,16 @@
 // buffer of its own. Each of the three sums is one fmaf chain from 0.0 over
 // k = 0 .. H-1 in order, as xp_window_kernel's; zero padding past H adds
 // fmaf(0, w, acc) = acc; the gates are the same gru_gates lines. So the two
-// designs give the same bits. Each thread holds XG_RPT rows of one unit in
-// registers: a float4 of W feeds 4 x XG_RPT FMAs, one of h (broadcast across
-// the warp's units) 4 x 3.
+// designs give the same bits. The step product is register-tiled, an
+// SGEMM's outer product: each thread holds RPT rows x 2 units x 3 gates of
+// sums, RPT = 8 (48 sums) above B=128, else 4 (grid_tile in
+// ops/gru_window_xp_grid.py), in blocks of 256 threads (128 at B <= 64).
+// Per 4 k it loads a float4 of h for each of its rows and its 24 weights,
+// k-major, as 4 float4 and 4 float2: at 8 rows 16 loads (56 words) feed 192
+// FMAs, 3.4 FMAs a word, twice the one-unit tile's 1.7. A warp is 8 unit
+// groups x 4 row groups and it alone reads those rows, so it fills their
+// ring chunks itself and meets only its own lanes at a chunk (__syncwarp):
+// no block-wide barrier inside a step.
 //
 // K3f, the fast tier (xp_grid_fast_kernel<NU>): the operand is h rounded to
 // bf16, as xp_window_kernel's bf16 copy, exchanged through a bf16 ping-pong
@@ -55,11 +62,20 @@
 // to the bit.
 //
 // What bounds it on this card (B=512, T=100, H=1024, per launch): 644.2
-// GFLOP of step products, 9.6 ms at the 67 TFLOP/s fp32 peak for K3, 0.65
-// ms at the 989 TFLOP/s dense bf16 peak for K3f, one step after another;
-// each block reads the step's whole h_prev from L2 (2 MB fp32 for K3, 1 MB
-// bf16 for K3f, 128 blocks), while W_hh stays on chip. PERF.md has the
-// measurement.
+// GFLOP of step products, 9.6 ms at the 67 TFLOP/s fp32 peak for K3 (9.9
+// on the 128 SMs the grid uses), 0.65 ms at the 989 TFLOP/s dense bf16 peak
+// for K3f, one step after another; each block reads the step's whole h_prev
+// from L2 (2 MB fp32 for K3, 1 MB bf16 for K3f, 128 blocks), while W_hh
+// stays on chip. K3: what fits at H=1024, U=16 is the k-major W slice
+// (196,608 of the 232,448 opt-in bytes) and a 32 KB ring of h: 4 chunks of
+// 256 rows x 8 k at 8 rows a thread (256 threads, two warps per SM quarter:
+// one alone leaves the FMA pipe idle between its loads), 8 of 64 rows x 16
+// k at B=64 (4 rows a thread, 128 threads). The 8-row tile's 48 sums and two sets of fragments
+// fill the register file (246 of 255); the gate inputs are prefetched to L2
+// and loaded after the product. A chunk's work outside its FMAs (the wait,
+// the warp's meeting, the fill's cp.async) is kept to a few instructions:
+// with one or two warps per SM quarter, each is an FMA issue slot lost.
+// PERF.md has the measurement.
 
 #include "gru_window_grid.cuh"
 #include "gru_window_mma.cuh"
@@ -70,28 +86,57 @@ namespace {
 // K3: fp32 FMA chains in k order
 // ---------------------------------------------------------------------------
 
-constexpr int XG_RPT = 4;          // batch rows per thread, strided by the row groups
-constexpr int XG_ROW_GROUPS = 16;  // the most row groups: a row block of 64 rows
-constexpr int XG_ROWS = XG_RPT * XG_ROW_GROUPS;
-constexpr int XG_KC = 64;          // k per ring stage
-constexpr int XG_KS = XG_KC + 4;   // a stage's row stride: rows 4 banks apart
-constexpr int XG_STAGES = 2;       // chunk ch + 1 lands while chunk ch is summed
-constexpr int XG_MAX_UNITS = 16;   // units per block, one per thread column
-constexpr int XG_MAX_THREADS = XG_MAX_UNITS * XG_ROW_GROUPS;
+constexpr int XG_UG = 8;            // unit groups: a warp is 8 unit groups x 4 row groups
+constexpr int XG_UPT = 2;           // units per thread, XG_UG apart
+constexpr int XG_RGW = 32 / XG_UG;  // row groups per warp
+constexpr int XG_MAX_UNITS = 16;    // units per block: XG_UG x XG_UPT
+constexpr int XG_MAX_THREADS = 256;  // 8 unit groups x at most 32 row groups
+constexpr int XG_KC = 8;            // k per chunk: one 32-byte sector of each row; twice
+                                    // that at row blocks of at most 64 rows
+constexpr int XG_RING = 8192;       // floats of h in the ring: 32 KB
+constexpr int XG_WK = 3 * XG_MAX_UNITS;  // a k-major W row: 8 unit groups x 2 units x 3 gates
+static_assert(XG_MAX_UNITS == XG_UG * XG_UPT, "a block's units fill its unit groups");
+static_assert(XG_KC % 4 == 0, "a chunk holds whole float4 of h");
 
-// W column stride in shared memory: H rounded up to whole chunks, plus 4,
-// so that the columns of neighbouring units start 4 banks apart
-__host__ __device__ inline int xg_wstride(int H) { return (H + XG_KC - 1) / XG_KC * XG_KC + 4; }
-
-// the block's dynamic shared memory: its 3U W_hh columns, then the h ring
-inline size_t xg_smem(int H, int U) {
-  return sizeof(float) *
-         ((size_t)3 * U * xg_wstride(H) + (size_t)XG_STAGES * XG_ROWS * XG_KS);
+// W_hh's rows staged: H rounded up to whole chunks of either size
+__host__ __device__ inline int xg_krows(int H) {
+  return (H + 2 * XG_KC - 1) / (2 * XG_KC) * (2 * XG_KC);
 }
 
-inline int xg_threads(int U, int B) {
-  const int rg = (B + XG_RPT - 1) / XG_RPT;
-  return U * (rg < XG_ROW_GROUPS ? rg : XG_ROW_GROUPS);
+// the block's dynamic shared memory: its W_hh slice, k-major, 3 x 16
+// columns (zeros past the block's units) of xg_krows(H) rows, then the h
+// ring; the same at every U and every tile
+inline size_t xg_smem(int H) {
+  return sizeof(float) * ((size_t)XG_WK * xg_krows(H) + XG_RING);
+}
+
+// the row groups of the tile of `rpt` rows per thread at batch B: 32 (a row
+// block of 256 rows at 8 rows a thread, 128 at 4), or 16 at 4 rows a thread
+// where 64 rows hold the batch
+inline int xg_row_groups(int B, int rpt) { return rpt == 4 && B <= 64 ? 16 : 32; }
+
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
+}
+
+// 4 floats of shared memory into registers, one vector load
+__device__ __forceinline__ void ld_frag4(float (&d)[4], const float* s) {
+  const float4 v = *reinterpret_cast<const float4*>(s);
+  d[0] = v.x, d[1] = v.y, d[2] = v.z, d[3] = v.w;
+}
+
+// a thread's 6 weights of one k from a k-major W row: its first 4 at 4 ug,
+// the other 2 at 32 + 2 ug (xg_wcol), one float4 and one float2
+__device__ __forceinline__ void ld_w6(float (&d)[6], const float* row, int ug) {
+  const float4 a = *reinterpret_cast<const float4*>(row + 4 * ug);
+  const float2 b = *reinterpret_cast<const float2*>(row + 4 * XG_UG + 2 * ug);
+  d[0] = a.x, d[1] = a.y, d[2] = a.z, d[3] = a.w, d[4] = b.x, d[5] = b.y;
+}
+
+// the place in a k-major W row of weight j = 3 q + g (unit ug + 8 q, gate g)
+// of unit group ug
+__host__ __device__ inline int xg_wcol(int ug, int j) {
+  return j < 4 ? 4 * ug + j : 4 * XG_UG + 2 * ug + j - 4;
 }
 
 // one direction's streams and weights: fp32 (K3) or bf16 (K3f) xp and W_hh
@@ -138,127 +183,240 @@ __device__ __forceinline__ void stage_columns(X* dst, const X* w, int H, int u0,
   }
 }
 
-__global__ void __launch_bounds__(XG_MAX_THREADS, 1)
+// K3's W_hh slice, k-major: dst[k XG_WK + xg_wcol(ug, 3 q + g)] = W_hh[k, g H
+// + u0 + ug + 8 q] for the block's units (u < Uc) and k < H, zeros up to HK
+// rows and 16 units; by cp.async (waited for with cp_async_wait_all)
+__device__ __forceinline__ void stage_kmajor(float* dst, const float* w, int H, int HK, int u0,
+                                             int Uc, int tid, int nthreads) {
+  for (int idx = tid; idx < HK * XG_WK; idx += nthreads) {
+    const int k = idx / XG_WK, ug = idx % XG_UG, j = idx / XG_UG % 6;
+    const int u = ug + XG_UG * (j / 3);
+    float* d = dst + k * XG_WK + xg_wcol(ug, j);
+    if (k < H && u < Uc) {
+      cp_async4(d, w + (size_t)k * 3 * H + (j % 3) * H + u0 + u);
+    } else {
+      *d = 0.0f;
+    }
+  }
+}
+
+// RPT: the tile's rows per thread (8 or 4; grid_tile picks by B); RG:
+// its row groups (xg_row_groups), 8 RG threads. A ring stage holds a row
+// block, SR = RG RPT rows, of KC = 8 k (16 at 64 rows or fewer), and the
+// ring S = XG_RING / (SR KC) chunks, at most 16. The thread (ug, rg) = (tid
+// % 8, tid / 8) holds the units u0 + ug + 8 q, q < 2, and the rows r0 + rg +
+// p RG, p < RPT, of each row block: RPT x 6 sums. A warp holds 4 row groups,
+// and it alone reads their rows: it fills them into the ring itself and
+// meets only its own lanes (__syncwarp) at each chunk, never the block, so
+// the warps run apart and the ring keeps S - 2 chunks in flight for each.
+// Per 4 k a thread loads a float4 of each of its rows and, from the k-major
+// W (staged once a launch, so its layout costs nothing), its 6 weights of
+// each k as a float4 and a float2. The next 4 k's fragments are loaded while
+// the FMAs of these run, across chunk boundaries too.
+template <int RPT, int RG>
+__global__ void __launch_bounds__(XG_UG * RG, 1)
 xp_grid_kernel(GridXp<float> pf, GridXp<float> pb, unsigned* arrive, int T, int B, int H,
                int U, int C) {
+  constexpr int UG = XG_UG, UPT = XG_UPT, WK = XG_WK;
+  constexpr int SR = RG * RPT, RB = SR;       // rows per stage and per row block
+  constexpr int KC = SR <= 64 ? 2 * XG_KC : XG_KC;
+  constexpr int NF = KC / 4;                  // float4 of h per row and chunk
+  constexpr int S = XG_RING / (SR * KC) < 16 ? XG_RING / (SR * KC) : 16;  // the ring's chunks
+  static_assert(S >= 3, "the ring keeps a chunk in flight beyond the next");
+  static_assert(NF % 2 == 0, "a chunk's first fragments land in buffer 0");
+  static_assert(RG % XG_RGW == 0 && UG * RG <= XG_MAX_THREADS, "whole warps, at most 256");
+  constexpr int NSLOT = (XG_RGW * RPT * NF + 31) / 32;  // a lane's float4 of a fill
   const int dir = blockIdx.x >= C;
   const int c = blockIdx.x - dir * C;
   const GridXp<float> io = dir ? pb : pf;
-  const int H3 = 3 * H, WS = xg_wstride(H);
+  const int H3 = 3 * H, HK = xg_krows(H);
   const int u0 = c * U;
   const int Uc = min(U, H - u0);  // the last block of a direction may own fewer
-  const int tid = threadIdx.x, nthreads = blockDim.x;
-  const int RG = nthreads / U;    // row groups: the host's xg_threads
-  const int RB = RG * XG_RPT;     // rows per row block
-  const int ug = tid % U, rg = tid / U;
+  const int tid = threadIdx.x, nthreads = UG * RG;
+  const int ug = tid % UG, rg = tid / UG;
+  const int lane = tid % 32, rg0 = tid / 32 * XG_RGW;  // the warp's first row group
 
   extern __shared__ __align__(16) float smem[];
-  float* ws = smem;              // [3][U][WS] the block's W_hh columns
-  float* ring = smem + 3 * U * WS;  // [XG_STAGES][XG_ROWS][XG_KS] h_prev chunks
-  stage_columns(ws, io.w_hh, H, u0, Uc, U, WS, tid, nthreads);
+  float* ws = smem;              // [HK][WK] the block's W_hh slice, k-major
+  float* ring = smem + HK * WK;  // [S][SR][KC] h_prev chunks
+  stage_kmajor(ws, io.w_hh, H, HK, u0, Uc, tid, nthreads);
 
-  const bool uok = ug < Uc;
-  const int j = u0 + (uok ? ug : 0);
-  const CellBias bias{0.0f, 0.0f, 0.0f, io.b_hh[j], io.b_hh[H + j], io.b_hh[2 * H + j]};
+  bool uok[UPT];
+  int jq[UPT];
+  CellBias bias[UPT];
+#pragma unroll
+  for (int q = 0; q < UPT; ++q) {
+    const int u = ug + q * UG;
+    uok[q] = u < Uc;
+    jq[q] = u0 + (uok[q] ? u : 0);
+    bias[q] = CellBias{0.0f, 0.0f, 0.0f, io.b_hh[jq[q]], io.b_hh[H + jq[q]],
+                       io.b_hh[2 * H + jq[q]]};
+  }
+  // the lane's float4 of each fill of its warp's rows rg0 + a + p RG (a < 4,
+  // p < RPT) x KC: float4 number j = lane + 32 n is row slot j / NF = a + 4 p
+  // at k offset fk = 4 (j % NF), stage offset foff[n]; -1 past RPT rows
+  int frow[NSLOT], foff[NSLOT];
+  const int fk = 4 * (lane % NF);
+#pragma unroll
+  for (int n = 0; n < NSLOT; ++n) {
+    const int rp = (lane + 32 * n) / NF;
+    const int a = rp % XG_RGW, p = rp / XG_RGW;
+    frow[n] = p < RPT ? rg0 + a + p * RG : -1;
+    foff[n] = frow[n] * KC + fk;
+  }
   unsigned* ctr = arrive + dir * GRID_CTR_STRIDE;
   const bool vec = (H & 3) == 0;  // h rows 16-byte aligned: cp.async.cg
-  const int nch = (H + XG_KC - 1) / XG_KC;
+  const int nch = (H + KC - 1) / KC;
+  const int nchunks = (B + RB - 1) / RB * nch;  // a step's chunks, row block by row block
   cp_async_wait_all();
   __syncthreads();
 
   for (int s = 0; s < T; ++s) {
     const int tt = dir ? T - 1 - s : s;
     const float* hprev = s == 0 ? io.h0 : io.out + (size_t)(dir ? tt + 1 : tt - 1) * B * H;
-    for (int r0 = 0; r0 < B; r0 += RB) {
-      // stage `ch` of the ring: rows [r0, min(r0 + RB, B)) x k [ch KC,
-      // (ch + 1) KC), zeros past H (the rows past B are left as they are:
-      // they feed only sums that are never written); one commit group per
-      // stage, empty past the last, so that wait_group counts stages
-      const int nr = min(RB, B - r0);
-      auto fill = [&](int ch) {
-        if (ch < nch) {
-          float* st = ring + (ch % XG_STAGES) * XG_ROWS * XG_KS;
-          const int k0 = ch * XG_KC;
-          for (int idx = tid; idx < nr * (XG_KC / 4); idx += nthreads) {
-            const int lr = idx / (XG_KC / 4);
-            const int kk = 4 * (idx - lr * (XG_KC / 4));
-            const int k = k0 + kk;
-            float* dst = st + lr * XG_KS + kk;
-            const float* src = hprev + (size_t)(r0 + lr) * H + k;
-            if (k < H && vec) {
-              cp_async16(dst, src);
-            } else {
+    // the fills, in chunk order, each into the next stage: the warp's rows
+    // [fr0, fr0 + RB) of a row block x k [fk0, fk0 + KC), zeros past H (rows
+    // past B are left as they are: they feed only sums that are never
+    // written); one commit group per chunk, empty past the last, so that
+    // wait_group counts chunks. Each slot's source row and whether it lies
+    // in the batch are set once per row block.
+    int fi = 0, fk0 = 0, fr0 = 0, fs = 0;
+    int fsrc[NSLOT];  // the slots' offsets in h_prev (B H <= 2^30)
+    unsigned fval = 0;
+    auto fill_rows = [&]() {
+      fval = 0;
 #pragma unroll
-              for (int e = 0; e < 4; ++e) dst[e] = k + e < H ? __ldcg(src + e) : 0.0f;
+      for (int n = 0; n < NSLOT; ++n) {
+        const bool in = frow[n] >= 0 && fr0 + frow[n] < B;
+        fval |= (unsigned)in << n;
+        fsrc[n] = (in ? fr0 + frow[n] : 0) * H + fk;
+      }
+    };
+    auto fill = [&]() {
+      if (fi < nchunks) {
+        float* st = ring + fs * SR * KC;
+        if (vec && fk0 + KC <= H) {
+#pragma unroll
+          for (int n = 0; n < NSLOT; ++n) {
+            if (fval >> n & 1) cp_async16(st + foff[n], hprev + fsrc[n] + fk0);
+          }
+        } else {
+#pragma unroll
+          for (int n = 0; n < NSLOT; ++n) {
+            if (fval >> n & 1) {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                st[foff[n] + e] = fk0 + fk + e < H ? __ldcg(hprev + fsrc[n] + fk0 + e) : 0.0f;
+              }
             }
           }
         }
-        cp_async_commit();
-      };
-      // the gates' inputs, loaded now so that they land during the product
-      float gx[XG_RPT][3], gh[XG_RPT];
-#pragma unroll
-      for (int p = 0; p < XG_RPT; ++p) {
-        const int b = r0 + rg + p * RG;
-        gx[p][0] = gx[p][1] = gx[p][2] = gh[p] = 0.0f;
-        if (b < B && uok) {
-          const float* x = io.xp + ((size_t)tt * B + b) * H3 + j;
-          gx[p][0] = __ldg(x);
-          gx[p][1] = __ldg(x + H);
-          gx[p][2] = __ldg(x + 2 * H);
-          gh[p] = __ldcg(hprev + (size_t)b * H + j);
+        fk0 += KC;
+        fs = fs + 1 == S ? 0 : fs + 1;
+        ++fi;
+        if (fk0 == nch * KC) {
+          fk0 = 0;
+          fr0 += RB;
+          fill_rows();
         }
       }
-      float ar[XG_RPT], az[XG_RPT], an[XG_RPT];
+      cp_async_commit();
+    };
+    float acc[RPT][UPT][3], hv[2][RPT][4], wv[2][4][6];
+    // the fragments of 4 k: h of the thread's rows at `st`, its weights of
+    // the 4 rows of W from `wk`
+    auto load = [&](int buf, const float* st, const float* wk) {
 #pragma unroll
-      for (int p = 0; p < XG_RPT; ++p) ar[p] = az[p] = an[p] = 0.0f;
+      for (int p = 0; p < RPT; ++p) ld_frag4(hv[buf][p], st + p * RG * KC);
 #pragma unroll
-      for (int i = 0; i < XG_STAGES - 1; ++i) fill(i);
+      for (int e = 0; e < 4; ++e) ld_w6(wv[buf][e], wk + e * WK, ug);
+    };
+    fill_rows();
+#pragma unroll
+    for (int i = 0; i < S - 1; ++i) fill();
+    cp_async_wait_group<S - 2>();
+    __syncwarp();
+    load(0, ring + rg * KC, ws);
+    for (int r0 = 0, cs = 0; r0 < B; r0 += RB) {
+#pragma unroll
+      for (int p = 0; p < RPT; ++p) {
+#pragma unroll
+        for (int q = 0; q < UPT; ++q) acc[p][q][0] = acc[p][q][1] = acc[p][q][2] = 0.0f;
+        // the block's 16 units of a gate lie in one 64-byte run of xp
+        const int b = r0 + rg + p * RG;
+        if (ug == 0 && b < B) {
+#pragma unroll
+          for (int g = 0; g < 3; ++g) prefetch_l2(io.xp + ((size_t)tt * B + b) * H3 + g * H + u0);
+        }
+      }
       for (int ch = 0; ch < nch; ++ch) {
-        cp_async_wait_group<XG_STAGES - 2>();
-        // stage ch is in; every thread is done with stage ch - 1, whose
-        // buffer the next fill overwrites
-        __syncthreads();
-        fill(ch + XG_STAGES - 1);
-        const float* st = ring + (ch % XG_STAGES) * XG_ROWS * XG_KS + rg * XG_KS;
-        const float* wk = ws + ug * WS + ch * XG_KC;
+        cp_async_wait_group<S - 3>();
+        // the next chunk is in, from every lane; every lane is done with the
+        // chunk before this one, whose stage the next fill overwrites
+        __syncwarp();
+        fill();
+        const int cn = cs + 1 == S ? 0 : cs + 1;
+        const float* st = ring + cs * SR * KC + rg * KC;
+        const float* wk = ws + ch * KC * WK;
 #pragma unroll
-        for (int kk = 0; kk < XG_KC; kk += 4) {
-          float4 hv[XG_RPT];
-#pragma unroll
-          for (int p = 0; p < XG_RPT; ++p) {
-            hv[p] = *reinterpret_cast<const float4*>(st + p * RG * XG_KS + kk);
+        for (int f = 0; f < NF; ++f) {
+          // the next fragments: this chunk's, else the next chunk's first
+          // (past the step's last chunk they are loaded and not used)
+          if (f + 1 < NF) {
+            load((f + 1) & 1, st + (f + 1) * 4, wk + (f + 1) * 4 * WK);
+          } else {
+            load((f + 1) & 1, ring + cn * SR * KC + rg * KC,
+                 ws + (ch + 1 == nch ? 0 : (ch + 1) * KC) * WK);
           }
-          const float4 wr = *reinterpret_cast<const float4*>(wk + kk);
-          const float4 wz = *reinterpret_cast<const float4*>(wk + U * WS + kk);
-          const float4 wn = *reinterpret_cast<const float4*>(wk + 2 * U * WS + kk);
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
 #pragma unroll
-            for (int p = 0; p < XG_RPT; ++p) {
-              const float h = lane(hv[p], e);
-              ar[p] = fmaf(h, lane(wr, e), ar[p]);
-              az[p] = fmaf(h, lane(wz, e), az[p]);
-              an[p] = fmaf(h, lane(wn, e), an[p]);
+            for (int p = 0; p < RPT; ++p) {
+#pragma unroll
+              for (int j = 0; j < 6; ++j) {
+                float& a = acc[p][j / 3][j % 3];
+                a = fmaf(hv[f & 1][p][e], wv[f & 1][e][j], a);
+              }
             }
           }
         }
+        cs = cn;
       }
-      // the ring is refilled by the next row block and the next step
-      __syncthreads();
+      // the gates: every input loaded before the first is used
+      float gx[RPT][UPT][3], gh[RPT][UPT];
 #pragma unroll
-      for (int p = 0; p < XG_RPT; ++p) {
+      for (int p = 0; p < RPT; ++p) {
         const int b = r0 + rg + p * RG;
-        if (b < B && uok) {
-          const size_t row = (size_t)tt * B + b;
-          const float hnew = gru_gates<false>(gx[p][0], gx[p][1], gx[p][2], ar[p], az[p],
-                                              an[p], bias, gh[p]);
-          io.out[row * H + j] = hnew;
-          if (s == T - 1) io.hn[(size_t)b * H + j] = hnew;
+#pragma unroll
+        for (int q = 0; q < UPT; ++q) {
+          gx[p][q][0] = gx[p][q][1] = gx[p][q][2] = gh[p][q] = 0.0f;
+          if (b < B && uok[q]) {
+            const float* x = io.xp + ((size_t)tt * B + b) * H3 + jq[q];
+            gx[p][q][0] = __ldg(x);
+            gx[p][q][1] = __ldg(x + H);
+            gx[p][q][2] = __ldg(x + 2 * H);
+            gh[p][q] = __ldcg(hprev + (size_t)b * H + jq[q]);
+          }
+        }
+      }
+#pragma unroll
+      for (int p = 0; p < RPT; ++p) {
+        const int b = r0 + rg + p * RG;
+#pragma unroll
+        for (int q = 0; q < UPT; ++q) {
+          if (b < B && uok[q]) {
+            const size_t row = (size_t)tt * B + b;
+            const float hnew = gru_gates<false>(gx[p][q][0], gx[p][q][1], gx[p][q][2],
+                                                acc[p][q][0], acc[p][q][1], acc[p][q][2],
+                                                bias[q], gh[p][q]);
+            io.out[row * H + jq[q]] = hnew;
+            if (s == T - 1) io.hn[(size_t)b * H + jq[q]] = hnew;
+          }
         }
       }
     }
-    // every block of the direction has written its units of out[tt]
+    // every block of the direction has written its units of out[tt]; the
+    // barrier's first __syncthreads also frees the ring for the next step
     if (s + 1 < T) grid_barrier(ctr, (unsigned)C * (unsigned)(s + 1));
   }
 }
@@ -494,7 +652,7 @@ extern "C" {
 // in the parity tier (fast = 0) or the fast one (ops/gru_window_xp_grid.py
 // grid_smem_bytes mirrors it)
 long long bigru_window_xp_grid_smem_bytes(int H, int U, int fast) {
-  return (long long)(fast ? xf_smem(H, U) : xg_smem(H, U));
+  return (long long)(fast ? xf_smem(H, U) : xg_smem(H));
 }
 
 // K3 in the grid design: xp_f, xp_b (T, B, 3H) f32 (x W_ih + b_ih per
@@ -503,18 +661,26 @@ long long bigru_window_xp_grid_smem_bytes(int H, int U, int fast) {
 // `arrive`: 2 * 32 zeroed uint32, the directions' barrier counters. U units
 // per block, ceil(H / U) blocks per direction, all co-resident: a grid the
 // card cannot hold at once is refused (cudaErrorCooperativeLaunchTooLarge).
+// `rpt`: the tile's rows per thread, 8 or 4 (ops/gru_window_xp_grid.py
+// grid_tile, a rule of B).
 int bigru_window_xp_grid(const float* xp_f, const float* xp_b, const float* h0_f,
                          const float* h0_b, const float* wh_f, const float* bh_f,
                          const float* wh_b, const float* bh_b, float* out_f, float* out_b,
                          float* hn_f, float* hn_b, unsigned* arrive, int T, int B, int H,
-                         int U, void* stream) {
+                         int U, int rpt, void* stream) {
   if (int e = check_grid(T, B, H, U, XG_MAX_UNITS)) return e;
   int C = (H + U - 1) / U;
   GridXp<float> pf{xp_f, h0_f, wh_f, bh_f, out_f, hn_f, nullptr};
   GridXp<float> pb{xp_b, h0_b, wh_b, bh_b, out_b, hn_b, nullptr};
   void* args[] = {&pf, &pb, &arrive, &T, &B, &H, &U, &C};
-  return launch_cooperative(xp_grid_kernel, 2 * C, xg_threads(U, B), xg_smem(H, U), args,
-                            stream);
+  if (rpt != 8 && rpt != 4) return (int)cudaErrorInvalidValue;
+  const int rg = xg_row_groups(B, rpt), threads = XG_UG * rg;
+  const size_t smem = xg_smem(H);
+  switch (rpt * 100 + rg) {
+    case 832: return launch_cooperative(xp_grid_kernel<8, 32>, 2 * C, threads, smem, args, stream);
+    case 432: return launch_cooperative(xp_grid_kernel<4, 32>, 2 * C, threads, smem, args, stream);
+    default: return launch_cooperative(xp_grid_kernel<4, 16>, 2 * C, threads, smem, args, stream);
+  }
 }
 
 // K3f in the grid design: K3's arguments with bf16 xp streams and bf16 W_hh

@@ -11,9 +11,10 @@ ceil(H / U)`` per direction, all co-resident (a cooperative launch), block
 ``c`` holding the ``W_hh`` columns of its ``U`` hidden units in shared
 memory for all T steps, one grid barrier per direction and step. K3 sums
 in fp32 FMA chains in k order, so it gives the bits of the one-launch
-``xp_window_kernel``; K3f's step product runs on bf16 tensor cores
-(``mma.sync``) with fp32 sums, so it agrees with its plain version to the
-fast tier's tolerance.
+``xp_window_kernel``; its step product is register-tiled, each thread
+holding :func:`grid_tile`'s 8 or 4 rows x 2 units x 3 gates of sums.
+K3f's step product runs on bf16 tensor cores (``mma.sync``) with fp32
+sums, so it agrees with its plain version to the fast tier's tolerance.
 
 :func:`grid_units` is the fit rule: the smallest ``U`` whose ``2 C``
 blocks fit the card's SMs, one block each, if its shared memory
@@ -21,6 +22,8 @@ blocks fit the card's SMs, one block each, if its shared memory
 most the tier's :data:`MAX_UNITS`; else none, and ``xp_window_kernel``
 takes the shape. It is a rule of the shape, the tier and the card, whose
 limits ``gru_window_xp_bwd_grid.card_limits`` reads once from the device.
+K3's thread tile (rows per thread, :func:`grid_tile`) is a rule of B
+alone: its shared memory is the same at every tile.
 
 The plain versions are ops.gru_window_xp's; the wrappers there pick the
 design (``xp_fwd_design``) and call :func:`launch_xp_grid`.
@@ -37,27 +40,45 @@ from helen_tpu_torch.ops import gru_window as gw
 from helen_tpu_torch.ops.gru_window import Layer, Outputs
 from helen_tpu_torch.ops.gru_window_xp_bwd_grid import GRID_COUNTERS
 
-# csrc/gru_window_xp_grid.cu's constants. K3: batch rows per thread, row
-# groups per block, the k-chunks of the ring (chunk, row stride, stages);
-# K3f: rows per row block (8 warps of 2 m16 tiles), its ring (bf16)
-XG_RPT, XG_ROW_GROUPS, XG_KC, XG_KS, XG_STAGES = 4, 16, 64, 68, 2
+# csrc/gru_window_xp_grid.cu's constants. K3: unit groups (a warp is 8 unit
+# groups x 4 row groups), units per thread, the most threads, k per chunk,
+# the ring's floats, the tiles' rows per thread; K3f: rows per row block
+# (8 warps of 2 m16 tiles), its ring (bf16)
+XG_UG, XG_UPT, XG_MAX_THREADS, XG_KC, XG_RING = 8, 2, 256, 8, 8192
+XG_TILES = (8, 4)
 XF_ROWS, XF_KC, XF_KS, XF_STAGES = 256, 64, 72, 2
-#: the most hidden units per block, per tier (parity: one per thread
-#: column; fast: three tiles of 8)
+#: the most hidden units per block, per tier (parity: 8 unit groups of 2;
+#: fast: three tiles of 8)
 MAX_UNITS = {False: 16, True: 24}
 
 
 def grid_smem_bytes(h: int, u: int, fast: bool = False) -> int:
     """Dynamic shared memory of one block of the grid recurrence at hidden
-    size ``h`` and ``u`` units per block: its ``3u`` W_hh columns (fast:
-    ``u`` rounded up to 8, bf16), each ``h`` rounded up to 64 plus 4 floats
-    (fast: 8 bf16), then the ring of h_prev chunks (2 x 64 rows x 68 floats;
-    fast: 2 x 256 rows x 72 bf16); csrc/gru_window_xp_grid.cu ``xg_smem`` /
-    ``xf_smem``."""
-    k = -(-h // 64) * 64
+    size ``h`` and ``u`` units per block: its W_hh columns, then the ring of
+    h_prev chunks; csrc/gru_window_xp_grid.cu ``xg_smem`` / ``xf_smem``.
+    Parity, at any ``u``: 3 x 16 fp32 columns (zeros past ``u``) of ``h``
+    rounded up to 16 rows, k-major, and the ring's 8192 floats of h;
+    fast: ``3 x u`` rounded up to 8 bf16 columns of ``h`` rounded up to 64
+    plus 8, and 2 x 256 rows x 72 bf16."""
     if fast:
+        k = -(-h // XF_KC) * XF_KC
         return 2 * (3 * (-(-u // 8) * 8) * (k + 8) + XF_STAGES * XF_ROWS * XF_KS)
-    return 4 * (3 * u * (k + 4) + XG_STAGES * XG_RPT * XG_ROW_GROUPS * XG_KS)
+    k = -(-h // (2 * XG_KC)) * 2 * XG_KC
+    return 4 * (3 * MAX_UNITS[False] * k + XG_RING)
+
+
+def grid_threads(b: int, rpt: int) -> int:
+    """K3's threads per block at batch ``b`` and ``rpt`` rows per thread: 8
+    unit groups x 32 row groups, or 16 at 4 rows a thread where 64 rows
+    hold the batch (csrc ``xg_row_groups``)."""
+    return XG_UG * (16 if rpt == 4 and b <= 64 else 32)
+
+
+def grid_tile(b: int) -> int:
+    """K3's rows per thread at batch ``b``: 8 above B=128 (the consensus
+    batch: a row block of 256 rows, two warps an SM quarter), else 4 (the
+    wide train's 64: one row block of 64 rows)."""
+    return 8 if b > 128 else 4
 
 
 def grid_units(h: int, sms: int, budget: int, fast: bool = False) -> Optional[int]:
@@ -97,7 +118,7 @@ def get_lib() -> ctypes.CDLL:
         if _bound is not lib:
             p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             lib.bigru_window_xp_grid.restype = i
-            lib.bigru_window_xp_grid.argtypes = [p] * 13 + [i, i, i, i, p]
+            lib.bigru_window_xp_grid.argtypes = [p] * 13 + [i, i, i, i, i, p]
             lib.bigru_window_xp_fast_grid.restype = i
             lib.bigru_window_xp_fast_grid.argtypes = [p] * 14 + [i, i, i, i, p]
             lib.bigru_window_xp_grid_smem_bytes.restype = ll
@@ -114,8 +135,9 @@ def get_lib() -> ctypes.CDLL:
 def launch_xp_grid(xp_f, xp_b, h0_f, h0_b, layer: Layer, units: int, counts: Dict[str, int],
                    dev, fast: bool = False) -> Outputs:
     """One launch of the grid recurrence in the tier ``fast`` picks, at
-    ``units`` hidden units per block, counted in ``counts`` under its
-    kernel's name (:data:`KERNELS`); raises on a refused launch (a grid the
+    ``units`` hidden units per block (K3 in the tile :func:`grid_tile`
+    picks), counted in ``counts`` under its kernel's name
+    (:data:`KERNELS`); raises on a refused launch (a grid the
     card cannot hold at once among them). The fast tier's bf16 exchange
     buffer ``(2 dirs, 2, B, H)`` and the barrier counters are allocated
     here."""
@@ -126,10 +148,11 @@ def launch_xp_grid(xp_f, xp_b, h0_f, h0_b, layer: Layer, units: int, counts: Dic
     scratch = [torch.empty((2, 2, B, H), dtype=torch.bfloat16, device=dev)] if fast else []
     w = [layer[d][k] for d in ("fwd", "bwd") for k in ("w_hh", "b_hh")]
     name = KERNELS[fast]
+    tile = [] if fast else [grid_tile(B)]
     with torch.cuda.device(dev):
         err = getattr(get_lib(), name)(
             *(t.data_ptr() for t in (xp_f, xp_b, h0_f, h0_b, *w, *outs, *scratch, arrive)),
-            T, B, H, units, torch.cuda.current_stream(dev).cuda_stream)
+            T, B, H, units, *tile, torch.cuda.current_stream(dev).cuda_stream)
     gw._raise_on(err, name)
     counts[name] += 1
     return outs

@@ -1513,11 +1513,17 @@ def test_tbptt_batch_xp_bwd_grid_design_equals_chain_design(dev, monkeypatch):
 # ---------------------------------------------------------------------------
 
 # the wide inference and training batches at H=1024, H=640 and 768 (10 and 12
-# units per block) at ragged batches, one of them past K3's 64-row and K3f's
+# units per block) at ragged batches, one of them past K3's 128-row and K3f's
 # 256-row block, the forced route's H=128 (2 units per block), and an H that
-# is no multiple of 8 (h rows loaded an element at a time)
+# is no multiple of 8 (h rows loaded an element at a time); then the edges
+# of K3's thread tiles: B=1 at H=1024 (4 rows a thread, one row of 64), a
+# last block short of U (1000 = 62 x 16 + 8; 1020 = 63 x 16 + 12; 700 = 63 x
+# 11 + 7, an odd U) at Hs no multiple of a chunk's 16 k (1020 and 700 not of
+# 8), at 4 rows a thread (B=13) and 8 (B=300 and 200 in ragged row blocks of
+# 256; 129 at U=11)
 XP_GRID_SHAPES = [(100, 512, 1024), (100, 64, 1024), (7, 13, 640), (5, 300, 768), (6, 8, 128),
-                  (4, 7, 610)]
+                  (4, 7, 610), (3, 1, 1024), (4, 13, 1000), (3, 300, 1000), (3, 200, 1020),
+                  (5, 129, 700)]
 
 
 def xp_grid_counts(before, name, design, H):
@@ -1586,6 +1592,58 @@ def test_xp_fast_designs_equal_their_plain_orders(dev, T, B, H):
 
 def max_diff(a, b):
     return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("B", [512, 64])
+@pytest.mark.parametrize("D", [90, 2048])
+def test_xp_grid_equals_chain_for_both_layer_kinds(dev, B, D):
+    """K3's grid design against xp_window_kernel, bit for bit, on xp
+    projected as the main path projects each layer kind: layer 0 from an
+    image window of counts (D=90, large and saturating inputs), the decoder
+    from a pair of K3 outputs in [-1, 1] (D=2048); a window of T=100 at the
+    consensus batch (the 8-row tile) and the wide train's B=64 (4 rows)."""
+    from helen_tpu_torch.ops import gru_window_xp as gx
+    from helen_tpu_torch.ops import gru_window_xp_grid as xg
+
+    T, H = 100, 1024
+    rng = np.random.default_rng(B + D)
+    layer = make_layer(rng, D, H, dev)
+    if D == 90:
+        x = torch.from_numpy(rng.integers(0, 60, (T, B, D)).astype(np.float32)).to(dev)
+    else:
+        x = torch.from_numpy(rng.uniform(-1, 1, (T, B, D)).astype(np.float32)).to(dev)
+    xp_f, xp_b = (x @ layer[d]["w_ih"] + layer[d]["b_ih"] for d in ("fwd", "bwd"))
+    h0f, h0b = (torch.from_numpy(rng.uniform(-1, 1, (B, H)).astype(np.float32)).to(dev)
+                for _ in range(2))
+    assert xg.grid_tile(B) == (8 if B == 512 else 4)
+    new = gx.bigru_window_xp(xp_f, xp_b, h0f, h0b, layer, design="grid")
+    old = gx.bigru_window_xp(xp_f, xp_b, h0f, h0b, layer, design="chain")
+    torch.cuda.synchronize()
+    for what, n, o in zip(("out_f", "out_b", "h_f", "h_b"), new, old):
+        assert torch.equal(n, o), f"{what}: max |grid - chain| {float((n - o).abs().max())}"
+
+
+def test_xp_grid_refuses_a_tile_it_does_not_have(dev):
+    """The kernel's entry takes 8 or 4 rows a thread; any other is
+    refused before a launch (cudaErrorInvalidValue) and the outputs are left
+    as they were."""
+    from helen_tpu_torch.ops import gru_window as gw
+    from helen_tpu_torch.ops import gru_window_xp_grid as xg
+    from helen_tpu_torch.ops.gru_window_xp_bwd_grid import GRID_COUNTERS, card_limits
+
+    T, B, H = 3, 16, 1024
+    xp_f, xp_b, h0f, h0b, layer = xp_case(np.random.default_rng(47), T, B, H, dev)
+    units = xg.grid_units(H, *card_limits())
+    w = [layer[d][k] for d in ("fwd", "bwd") for k in ("w_hh", "b_hh")]
+    for rpt in (0, 1, 2, 3, 16):
+        outs = [o.fill_(7.0) for o in gw._outputs(T, B, H, dev)]
+        arrive = torch.zeros(GRID_COUNTERS, dtype=torch.int32, device=dev)
+        err = xg.get_lib().bigru_window_xp_grid(
+            *(t.data_ptr() for t in (xp_f, xp_b, h0f, h0b, *w, *outs, arrive)), T, B, H, units,
+            rpt, torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        assert err == 1, rpt  # cudaErrorInvalidValue
+        assert all(bool((o == 7.0).all()) for o in outs)
 
 
 @pytest.mark.parametrize("tier", ["parity", "fast"])

@@ -1,8 +1,9 @@
 """K3 and K3f in their "grid" design (ops.gru_window_xp_grid): their plain
 versions against helen_tpu's ``_kernel`` and ``_fwd_kernel`` (interpret
 mode) at the grid's ragged shapes, the rule that picks the design, the
-mirror of the kernels' shared-memory formula, the wrappers off the card,
-and a CPU emulation of the grid's block decomposition.
+mirror of the kernels' shared-memory formula, K3's thread-tile rule, the
+wrappers off the card, and a CPU emulation of the grid's block
+decomposition down to each thread's (row, unit) pairs.
 
 helen_tpu's window kernels take hidden sizes on the 128-lane grid;
 ``bigru_apply_fused`` zero-pads any other H per gate block (its
@@ -152,25 +153,57 @@ def block_columns(w_hh: torch.Tensor, c: int, U: int) -> torch.Tensor:
     return sl
 
 
-def grid_emulation(xp_f, xp_b, h0_f, h0_b, layer, U):
+def thread_pairs(B, Uc, rpt):
+    """The (row, unit) pairs of one block's threads in the tile of ``rpt``
+    rows per thread, as the kernel assigns them: 8 unit groups x ``RG`` row
+    groups (ops.gru_window_xp_grid.grid_threads); thread ``tid`` is ``(ug,
+    rg) = (tid % 8, tid // 8)`` and holds units ``ug + 8 q``, q < 2, and
+    rows ``r0 + rg + p RG``, p < ``rpt``, of each row block of ``RG rpt``
+    rows; the pairs past B or past the block's ``Uc`` units are not
+    written. Rows and units as (n,) index tensors, one entry per write."""
+    from helen_tpu_torch.ops import gru_window_xp_grid as xg
+
+    threads = xg.grid_threads(B, rpt)
+    rg_n = threads // xg.XG_UG
+    tid = torch.arange(threads)
+    ug, rg = tid % xg.XG_UG, tid // xg.XG_UG
+    p, q = torch.arange(rpt), torch.arange(xg.XG_UPT)
+    rows, units = [], []
+    for r0 in range(0, B, rg_n * rpt):
+        b = r0 + rg[:, None, None] + p[None, :, None] * rg_n
+        u = ug[:, None, None] + q[None, None, :] * xg.XG_UG
+        b, u = torch.broadcast_tensors(b, u)
+        keep = (b < B) & (u < Uc)
+        rows.append(b[keep])
+        units.append(u[keep])
+    return torch.cat(rows), torch.cat(units)
+
+
+def grid_emulation(xp_f, xp_b, h0_f, h0_b, layer, U, rpt=None):
     """K3's grid design on the CPU: ``C = ceil(H / U)`` blocks per direction,
     block ``c`` owning units ``[c U, (c + 1) U)`` and its slice of ``W_hh``
     (:func:`block_columns`); at each step every block reads the whole h_prev
     from ``out``'s row tt -/+ 1 (h0 at step 0), forms its units' gates and
-    writes only their columns of ``out[tt]``; hn is the last written row.
+    its threads write their (row, unit) pairs of ``out[tt]``
+    (:func:`thread_pairs`, the tile of ``rpt`` rows per thread, by default
+    the one ``grid_tile`` picks), each pair once; hn is the last written
+    row.
 
     The block's product is its slice scattered back into a zero ``(H, 3H)``
     matrix, ``h_prev @ that``: the CPU's matmul gives a column the same bits
     whatever the other columns hold at one shape, not at another, and the
     kernel's own order (one fmaf chain over k) is the card's to check
     (tests/test_torch_cuda.py)."""
+    from helen_tpu_torch.ops import gru_window_xp_grid as xg
+
     T, B, H3 = xp_f.shape
     H = H3 // 3
     C = -(-H // U)
+    rpt = xg.grid_tile(B) if rpt is None else rpt
     outs = []
     for d, xp, h0, rev in (("fwd", xp_f, h0_f, False), ("bwd", xp_b, h0_b, True)):
         w, bh = layer[d]["w_hh"], layer[d]["b_hh"]
-        mats = []
+        mats, pairs = [], []
         for c in range(C):
             sl = block_columns(w, c, U)
             full = torch.zeros_like(w)
@@ -178,6 +211,8 @@ def grid_emulation(xp_f, xp_b, h0_f, h0_b, layer, U):
                 for u in range(min(U, H - c * U)):
                     full[:, g * H + c * U + u] = sl[:, g * U + u]
             mats.append(full)
+            rows, units = thread_pairs(B, min(U, H - c * U), rpt)
+            pairs.append((rows, c * U + units))
         out = torch.full((T, B, H), float("nan"), dtype=xp.dtype)
         for s in range(T):
             tt = T - 1 - s if rev else s
@@ -188,27 +223,65 @@ def grid_emulation(xp_f, xp_b, h0_f, h0_b, layer, U):
                 z = torch.sigmoid(xp[tt][:, H:2 * H] + hp[:, H:2 * H])
                 n = torch.tanh(xp[tt][:, 2 * H:] + r * hp[:, 2 * H:])
                 hnew = (1.0 - z) * n + z * hprev
-                units = slice(c * U, min((c + 1) * U, H))
-                out[tt][:, units] = hnew[:, units]
+                rows, cols = pairs[c]
+                assert out[tt][rows, cols].isnan().all(), "a pair written twice"
+                out[tt][rows, cols] = hnew[rows, cols]
         outs.append(out)
     return outs[0], outs[1], outs[0][-1], outs[1][0]
 
 
 # a ragged last block (40 = 13 x 3 + 1; 37 = 7 x 5 + 2), one unit per block,
 # exact blocks (48 = 3 x 16), the H100's U at H=160 (3) and at 132 / 114 SMs'
-# U for H=128 (2, 3); one step, ragged batches
+# U for H=128 (2, 3); one step, ragged batches; each at the tile the rule
+# picks and at every tile
 @pytest.mark.parametrize("T,B,H,U", [(5, 13, 40, 3), (4, 7, 37, 5), (3, 1, 48, 16),
                                      (6, 7, 48, 1), (4, 13, 160, 3), (1, 7, 128, 2),
                                      (5, 1, 128, 3)])
 def test_grid_emulation_equals_plain_to_the_bit(T, B, H, U):
+    from helen_tpu_torch.ops import gru_window_xp_grid as xg
     from helen_tpu_torch.ops.gru_window_xp import bigru_window_xp_plain
 
     xp_f, xp_b, h0f, h0b, layer = case(T, B, H, seed=T * B + H + U)
     args = (*(torch.from_numpy(a) for a in (xp_f, xp_b, h0f, h0b)), torch_layer(layer))
-    got = grid_emulation(*args, U)
     want = bigru_window_xp_plain(*args)
-    for g, w, what in zip(got, want, ("out_f", "out_b", "h_f", "h_b")):
-        assert torch.equal(g, w), f"{what}: max diff {float((g - w).abs().max())}"
+    for rpt in (None, *xg.XG_TILES):
+        got = grid_emulation(*args, U, rpt)
+        for g, w, what in zip(got, want, ("out_f", "out_b", "h_f", "h_b")):
+            assert torch.equal(g, w), f"{what}, tile {rpt}: max diff {float((g - w).abs().max())}"
+
+
+# the 8-row tile's batches (ragged row blocks of 128 rows: 300 = 2 x 128 +
+# 44, 129 = 128 + 1) and the 4-row tile's B=64, at U=16 (8 unit groups, the
+# H100's U at H=1024), an odd U (11: a zero unit column) and a short last
+# block (70 = 4 x 16 + 6; 40 = 3 x 11 + 7)
+@pytest.mark.parametrize("T,B,H,U", [(2, 300, 48, 16), (2, 129, 70, 16), (2, 64, 48, 16),
+                                     (3, 200, 40, 11), (2, 77, 33, 11)])
+def test_grid_emulation_at_the_wide_tiles_equals_plain_to_the_bit(T, B, H, U):
+    from helen_tpu_torch.ops import gru_window_xp_grid as xg
+    from helen_tpu_torch.ops.gru_window_xp import bigru_window_xp_plain
+
+    xp_f, xp_b, h0f, h0b, layer = case(T, B, H, seed=T * B + H + U)
+    args = (*(torch.from_numpy(a) for a in (xp_f, xp_b, h0f, h0b)), torch_layer(layer))
+    want = bigru_window_xp_plain(*args)
+    for rpt in xg.XG_TILES:
+        got = grid_emulation(*args, U, rpt)
+        for g, w, what in zip(got, want, ("out_f", "out_b", "h_f", "h_b")):
+            assert torch.equal(g, w), f"{what}, tile {rpt}: max diff {float((g - w).abs().max())}"
+
+
+@pytest.mark.parametrize("B", [1, 13, 64, 127, 128, 300, 512])
+@pytest.mark.parametrize("U", [1, 2, 3, 10, 11, 16])
+def test_thread_tiles_cover_each_pair_once(B, U):
+    """Every tile's threads write each (row, unit) pair of a block exactly
+    once, for a full block and a short last one; a warp's 32 threads are 8
+    unit groups x 4 whole row groups, so the rows a warp reads are its own."""
+    from helen_tpu_torch.ops import gru_window_xp_grid as xg
+
+    for rpt in xg.XG_TILES:
+        for Uc in {U, max(1, U // 2)}:
+            rows, units = thread_pairs(B, Uc, rpt)
+            got = sorted(zip(rows.tolist(), units.tolist()))
+            assert got == [(b, u) for b in range(B) for u in range(Uc)], (rpt, Uc)
 
 
 def test_block_columns_are_gate_major_with_zero_units():
@@ -236,21 +309,38 @@ def test_block_columns_are_gate_major_with_zero_units():
 
 # the H100 SXM: 132 SMs, 232,448 bytes of opt-in shared memory per block
 @pytest.mark.parametrize("H,units,smem,fast_smem", [
-    (1024, 16, 232_192, 172_800), (768, 12, 145_984, 148_224), (640, 10, 112_096, 135_936),
-    (512, 8, 84_352, 98_688), (160, 3, 41_872, 83_328), (128, 2, 37_984, 80_256),
+    (1024, 16, 229_376, 172_800), (768, 12, 180_224, 148_224), (640, 10, 155_648, 135_936),
+    (512, 8, 131_072, 98_688), (160, 3, 63_488, 83_328), (128, 2, 57_344, 80_256),
 ])
 def test_grid_units_on_the_h100(H, units, smem, fast_smem):
     """The smallest U whose 2 ceil(H / U) blocks fit the 132 SMs, in both
-    tiers, and its shared memory: parity, 3U fp32 columns of H rounded up to
-    64 plus 4 and two stages of 64 x 68 floats; fast, 3 x U rounded up to 8
-    bf16 columns of H rounded up to 64 plus 8 and two stages of 256 x 72
-    bf16."""
+    tiers, and its shared memory: parity, at any U, H rounded up to 16 rows
+    of 3 x 16 fp32 weights (k-major) and the ring's 8192 floats;
+    fast, 3 x U rounded up to 8 bf16
+    columns of H rounded up to 64 plus 8 and two stages of 256 x 72 bf16."""
     from helen_tpu_torch.ops import gru_window_xp_grid as xg
 
     for fast, want in ((False, smem), (True, fast_smem)):
         assert xg.grid_units(H, 132, 232_448, fast) == units
         assert xg.grid_smem_bytes(H, units, fast) == want <= 232_448
     assert 2 * -(-H // units) <= 132 < 2 * -(-H // (units - 1))
+
+
+# B -> (rows per thread, threads): the 8-row tile above B=128 (32 row groups
+# of 8 unit groups), 4 rows below, at 16 row groups up to B=64
+@pytest.mark.parametrize("B,rpt,threads", [
+    (512, 8, 256), (300, 8, 256), (129, 8, 256), (128, 4, 256), (120, 4, 256), (65, 4, 256),
+    (64, 4, 128), (13, 4, 128), (1, 4, 128),
+])
+def test_grid_tile_rule(B, rpt, threads):
+    from helen_tpu_torch.ops import gru_window_xp_grid as xg
+
+    assert xg.grid_tile(B) == rpt
+    assert xg.grid_threads(B, rpt) == threads
+    # the launch bound holds every tile's threads, whole warps of whole row
+    # groups, a row block of at most 256 rows
+    assert threads <= xg.XG_MAX_THREADS and threads % 32 == 0 and 32 % xg.XG_UG == 0
+    assert threads // xg.XG_UG * rpt <= 256
 
 
 @pytest.fixture
@@ -276,10 +366,11 @@ def test_xp_fwd_design_takes_every_xp_width_on_the_h100(card, H, B, fast):
     # fewer SMs: a larger U, until the parity tier's 16 units per block
     (1024, 114, 232_448, None, 18), (768, 114, 232_448, 14, 14), (640, 114, 232_448, 12, 12),
     (128, 114, 232_448, 3, 3),
-    # a smaller budget: at H=1024 the fp32 slice is the first not to fit, at
-    # H=640 the fast tier's ring of 256 rows
+    # a smaller budget: the fp32 slice (16 columns a gate at any U) is the
+    # first not to fit, then the fast tier's
     (1024, 132, 200_000, None, 16), (1024, 132, 170_000, None, None),
-    (640, 132, 140_000, 10, 10), (640, 132, 120_000, 10, None), (640, 132, 110_000, None, None),
+    (640, 132, 160_000, 10, 10), (640, 132, 140_000, None, 10), (640, 132, 130_000, None, None),
+    (640, 132, 110_000, None, None),
     # a card too small for the most units per block
     (1024, 60, 10**9, None, None),
 ])
@@ -321,21 +412,32 @@ def test_smem_mirror_matches_the_source():
         src = f.read()
     const = {m.group(1): m.group(2) for m in
              re.finditer(r"constexpr int (X[GF]_[A-Z_]+) = ([^;]+);", src)}
-    assert const["XG_RPT"] == str(xg.XG_RPT)
-    assert const["XG_ROW_GROUPS"] == str(xg.XG_ROW_GROUPS)
-    assert const["XG_KC"] == str(xg.XG_KC) and const["XG_KS"] == "XG_KC + 4"
-    assert const["XG_STAGES"] == str(xg.XG_STAGES)
+    assert const["XG_UG"] == str(xg.XG_UG) and const["XG_UPT"] == str(xg.XG_UPT)
+    assert const["XG_MAX_THREADS"] == str(xg.XG_MAX_THREADS)
+    assert const["XG_KC"] == str(xg.XG_KC) and const["XG_RING"] == str(xg.XG_RING)
     assert const["XG_MAX_UNITS"] == str(xg.MAX_UNITS[False])
     assert const["XF_KC"] == str(xg.XF_KC) and const["XF_KS"] == "XF_KC + 8"
     assert const["XF_STAGES"] == str(xg.XF_STAGES)
     assert const["XF_MAX_UNITS"] == str(xg.MAX_UNITS[True])
     assert int(const["XF_WARPS"]) * int(const["XF_MT"]) * 16 == xg.XF_ROWS
+    # the entry point launches one instance per tile, and nothing else
+    cases = re.findall(r"(case \d+|default):\s+return launch_cooperative\("
+                       r"xp_grid_kernel<(\d+), (\d+)>", src)
+    assert sorted({int(r) for _, r, _ in cases}, reverse=True) == list(xg.XG_TILES)
+    for a, r, rg in cases:
+        assert a in ("default", f"case {100 * int(r) + int(rg)}")
+        # every (tile, batch) the rule picks has its instance
+        assert any(xg.grid_threads(b, int(r)) == 8 * int(rg) for b in range(1, 600))
+    assert {(r, xg.grid_threads(b, r) // 8) for b in range(1, 600) for r in xg.XG_TILES} == {
+        (int(r), int(rg)) for _, r, rg in cases}
     for h in (1, 37, 40, 128, 160, 610, 640, 1000, 1024):
-        k = -(-h // 64) * 64
         for u in (1, 2, 3, 10, 16, 24):
-            w32 = 3 * u * (k + 4)                         # [3][U][k + 4] floats
-            ring32 = 2 * (4 * 16) * (64 + 4)              # [2][64 rows][68]
+            k = -(-h // 16) * 16
+            w32 = k * 3 * 16                              # [k][8 ug x 2 units x 3 gates]
+            ring32 = 8192                                 # [S][32 RPT rows][8]
+            assert k >= h
             assert xg.grid_smem_bytes(h, u) == 4 * (w32 + ring32)
+            k = -(-h // 64) * 64
             w16 = 3 * (-(-u // 8) * 8) * (k + 8)          # [3 U8][k + 8] bf16
             ring16 = 2 * 256 * (64 + 8)                   # [2][256 rows][72] bf16
             assert xg.grid_smem_bytes(h, u, fast=True) == 2 * (w16 + ring16)
