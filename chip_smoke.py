@@ -1583,9 +1583,13 @@ def check_xp_backward(results) -> None:
     Bw, D, n = WB_TRAIN, 2 * WH, WB_TRAIN * T
     design = gxb.xp_bwd_design(WH, Bw)
     units = gg.grid_units(WH, *gg.card_limits())
+    rpt = gg.grid_tile(Bw)
     log(f"K4 pass 1 at H={WH}, B={Bw}: design {design!r} ({units} units per block, "
         f"{2 * -(-WH // (units or 1))} blocks, {gg.grid_smem_bytes(WH, units or 1)} bytes of "
-        f"shared memory each; card: (SMs, opt-in bytes) {gg.card_limits()})")
+        f"shared memory each; card: (SMs, opt-in bytes) {gg.card_limits()}); the carry "
+        f"product's tile {rpt} rows x 2 units a thread, {gg.BG_UG * gg.BG_RG} threads")
+    ptxas = ptxas_report("xp_bwd_rec_grid_kernel")
+    log("ptxas: " + "; ".join(f"{k}: {v}" for k, v in sorted(ptxas.items())))
     if design != "grid":
         fail(f"K4 pass 1 at H={WH}, B={Bw} does not take the grid design")
     layer = random_layer(rng, D, WH, dev)
@@ -1709,7 +1713,7 @@ def check_xp_backward(results) -> None:
                           if name == XP_PASSES[0] else " (library: cuBLAS's products)"),
         }
     results[XP_PASSES[0]].update(
-        design=design, chain_ms=chain_ms,
+        design=design, chain_ms=chain_ms, tile_rows=rpt, ptxas=ptxas,
         per=results[XP_PASSES[0]]["per"] + "; ms: the grid design's two kernels; chain_ms: "
         "xp_bwd_rec_kernel in the same call")
     w = wgrad_designs("K4 pass 2", lambda d: gwg.bigru_window_xp_wgrad(
@@ -1945,6 +1949,7 @@ def run_wide_cli(work: str, results) -> tuple:
     from helen_tpu_torch.ops import gru_window_xp as gx
     from helen_tpu_torch.ops import gru_window_wgrad as gwg
     from helen_tpu_torch.ops import gru_window_xp_bwd as gxb
+    from helen_tpu_torch.ops import gru_window_xp_bwd_grid as gg
 
     mods = (gw, gb, gx, gxb, gwg, gp)
     counts = lambda: {k: v for m in mods for k, v in m.launch_counts.items()}  # noqa: E731
@@ -1984,7 +1989,9 @@ def run_wide_cli(work: str, results) -> tuple:
     # layer-window), then once for the evaluation's weights
     want = {**zero_inproj, **zero_xp, "bigru_window_xp": fwd, "bigru_window_xp_grid": fwd,
             XP_PASSES[0]: trained, XP_PASSES[1]: trained, "bigru_window_xp_bwd_hp": trained,
-            "bigru_window_xp_bwd_rec_grid": trained, **wgrad_counts(trained),
+            "bigru_window_xp_bwd_rec_grid": trained,
+            f"bigru_window_xp_bwd_rec_grid_r{gg.grid_tile(WB_TRAIN)}": trained,
+            **wgrad_counts(trained),
             "bigru_window_xp_proj": fwd, "bigru_window_xp_proj_split": trained + 2}
     log(f"wide train (H={WH}, {N_WIDE_TRAIN} images, -b {WB_TRAIN}, 1 epoch): train loss "
         f"{epoch['train_loss']:.5f}, test loss {epoch['test_loss']:.5f}, base acc "

@@ -9,10 +9,12 @@ replaced, or one part of its step cut out, built with nvcc into a library of
 its own under the build directory, all builds started together. ``bwd``
 (the default): ``ops/csrc/gru_window_xp_bwd_grid.cu``, K4's pass 1, on a
 window of T=100 at the given batch and widths, random weights from a seed,
-the gate pass's ``hp`` from the shipped kernels; each line says whether its
-outputs equal the one-launch ``xp_bwd_rec_kernel`` bit for bit (the cut
-variants cannot). ``fwd``: ``ops/csrc/gru_window_xp_grid.cu``, K3 and K3f
-in their grid design on the same kind of window; a K3 line says whether its
+the gate pass's ``hp`` from the shipped kernels, each variant at each of
+the entry's tiles (rows per thread), the one ``grid_tile`` picks first;
+each line says whether its outputs equal the one-launch
+``xp_bwd_rec_kernel`` bit for bit (the cut variants cannot). ``fwd``:
+``ops/csrc/gru_window_xp_grid.cu``, K3 and K3f in their grid design on the
+same kind of window; a K3 line says whether its
 outputs equal ``xp_window_kernel`` bit for bit, a K3f line gives its largest
 distance from the fast plain version's kernel, ``xp_window_kernel<FAST>``;
 each K3 variant runs at each of its thread tiles (8 and 4 rows a
@@ -33,34 +35,33 @@ import subprocess
 import sys
 
 SOURCE = "gru_window_xp_bwd_grid.cu"
-_FMA = "acc[p][q] = fmaf(lane(dv[p], e), lane(wv[q], e), acc[p][q]);"
-_CP = ("cp_async16(dst, k < 2 * H ? gx + (size_t)b * H3 + k\n"
-       "                                        : gn + (size_t)b * H + (k - 2 * H));")
-_NCH = "const int nch = (H3 + GRID_KC - 1) / GRID_KC;"
-_SYNC = """        // buffer the next fill overwrites
-        __syncthreads();"""
-_LANES = "const int ug = tid % UG, rg = tid / UG;"
-# a warp of 8 unit groups x 4 row groups, where the block divides so
-_LANES_8X4 = ("const bool tiled = UG % 8 == 0 && RG % 4 == 0;\n"
-              "  const int ug = tiled ? tid / 32 % (UG / 8) * 8 + tid % 8 : tid % UG;\n"
-              "  const int rg = tiled ? tid / 32 / (UG / 8) * 4 + tid % 32 / 8 : tid / UG;")
+_FMA = "acc[p][q] = fmaf(dv[f & 1][p][e], wv[f & 1][q][e], acc[p][q]);"
+_CP = "cp_async16(st + foff[n], k < H2 ? fx[n] + k : fn[n] + (k - H2));"
+_LDD = ("*reinterpret_cast<const float4*>(st + ob[f ^ swz(4 * p, NF)] + 16 * p * NF);")
+_LDW = "const float4 v = *reinterpret_cast<const float4*>(wq[q] + k);"
+# fragments made in registers from their addresses, so that nothing is hoisted
+_NOLDD = "make_float4(__int_as_float((int)(size_t)st + p + f), 1.0f, 0.5f, 0.25f);"
+_NOLDW = "const float4 v = make_float4(__int_as_float(k + q), 0.5f, 0.25f, 1.0f);"
+_NCH = "const int nch = (H3 + KC - 1) / KC;"
+_PRE = "pre = s + 1 < T;"
 
-#: name -> (constants to replace, (text, replacement) edits)
+#: name -> (constants to replace, (text, replacement) edits); each is timed
+#: at each tile the entry has (GRID_TILES)
 VARIANTS = {
     "shipped": ({}, ()),
-    "128 threads of 4 rows x 2 units, 32-k x 3 stages (the first version)": (
-        {"GRID_UPT": 2, "GRID_MAX_UNITS": 32, "GRID_KC": 32, "GRID_STAGES": 3}, ()),
-    "32-k x 3 stages": ({"GRID_KC": 32, "GRID_STAGES": 3}, ()),
-    "16-k x 6 stages": ({"GRID_KC": 16, "GRID_STAGES": 6}, ()),
-    "512 threads of 2 rows x 1 unit": ({"GRID_RPT": 2, "GRID_ROW_GROUPS": 32}, ()),
-    "256 threads of 2 rows x 2 units": (
-        {"GRID_RPT": 2, "GRID_UPT": 2, "GRID_ROW_GROUPS": 32}, ()),
-    "128 threads of 8 rows x 1 unit": ({"GRID_RPT": 8, "GRID_ROW_GROUPS": 8}, ()),
-    "warps of 8 units x 4 row groups": ({}, ((_LANES, _LANES_8X4),)),
-    "no __syncthreads per chunk (races: the syncs' cost)": ({}, ((_SYNC, "        // buffer"),)),
-    "no carry product (gates and barriers only)": ({}, ((_NCH, "const int nch = 0;"),)),
-    "no FMAs in the carry product": ({}, ((_FMA, ";"),)),
-    "no dhp loads in the carry product": ({}, ((_CP, "(void)dst;"),)),
+    "128 threads (16 row groups: a warp an SM quarter)": ({"BG_RG": 16}, ()),
+    "16-k chunks x 8 stages": ({"BG_KC": 8}, ()),
+    "16-k chunks x 4 stages (a 16 KB ring)": ({"BG_KC": 8, "BG_RING": 4096}, ()),
+    "gate inputs loaded in the gate pass (not during the product)": (
+        {}, ((_PRE, "pre = false;"),)),
+    "no FMAs in the carry product (nor the loads they read)": ({}, ((_FMA, ";"),)),
+    "no dhp loads in the carry product": ({}, ((_CP, "(void)st;"),)),
+    "no shared-memory loads in the carry product (fragments made in registers)": (
+        {}, ((_LDD, _NOLDD), (_LDW, _NOLDW))),
+    "FMAs alone (no dhp loads, no shared-memory loads)": (
+        {}, ((_CP, "(void)st;"), (_LDD, _NOLDD), (_LDW, _NOLDW))),
+    "one chunk of the carry product a row block (gates and barriers)": (
+        {}, ((_NCH, "const int nch = 1;"),)),
 }
 
 
@@ -319,27 +320,26 @@ def main(argv=None) -> int:
         units = gg.grid_units(H, *gg.card_limits())
         e = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)  # noqa: E731
         w = [layer[d][k] for d in ("fwd", "bwd") for k in ("w_hh", "b_hh")]
-        for name, lib in libs.items():
+        # each tile the entry has (rows per thread), the rule's first
+        tiles = sorted(gg.GRID_TILES, key=lambda t: t != gg.grid_tile(B))
+        for (name, lib), rpt in ((nl, t) for nl in libs.items() for t in tiles):
             outs = (e(2, T, B, 3 * H), e(2, T, B, H), e(B, H), e(B, H))
 
             def launch():
                 arrive = torch.zeros(gg.GRID_COUNTERS, dtype=torch.int32, device=dev)
                 err = lib.bigru_window_xp_bwd_rec_grid(
                     *(t.data_ptr() for t in (xp_f, xp_b, hp, *rest, *w, *outs, arrive)),
-                    T, B, H, units, torch.cuda.current_stream().cuda_stream)
+                    T, B, H, units, rpt, torch.cuda.current_stream().cuda_stream)
                 if err:
                     raise RuntimeError(f"{name}: CUDA error {err}")
 
-            launch()
-            torch.cuda.synchronize()
-            t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            t0.record()
-            for _ in range(5):
-                launch()
-            t1.record()
-            torch.cuda.synchronize()
+            try:
+                ms = timed(launch)
+            except RuntimeError as err:
+                print(f"B={B} T={T} H={H} U={units}: {name}: {err}", flush=True)
+                continue
             same = all(torch.equal(a, b) for a, b in zip(outs, want))
-            print(f"B={B} T={T} H={H} U={units}: {name}: {t0.elapsed_time(t1) / 5:.4f} ms, "
+            print(f"B={B} T={T} H={H} U={units}: {rpt} rows a thread, {name}: {ms:.4f} ms, "
                   f"equal to xp_bwd_rec_kernel: {same}", flush=True)
     return 0
 

@@ -21,7 +21,8 @@ passes, each counted once per layer-window in :data:`launch_counts`:
     H100): the gate pass ``bigru_window_bwd_hp`` (``h_prev @ W_hh`` over the
     whole window, ``csrc/gru_window_bwd_smem.cu``; counted here as
     ``bigru_window_xp_bwd_hp``), then the grid-wide recurrence
-    ``bigru_window_xp_bwd_rec_grid`` (``csrc/gru_window_xp_bwd_grid.cu``);
+    ``bigru_window_xp_bwd_rec_grid`` (``csrc/gru_window_xp_bwd_grid.cu``,
+    counted under its tile too, ``_grid_r2`` or ``_grid_r4``);
   - ``"chain"``, elsewhere: one launch of ``xp_bwd_rec_kernel``
     (``csrc/gru_window_xp_bwd.cu``, counted as
     ``bigru_window_xp_bwd_rec_chain``, and under its rows per block,
@@ -72,6 +73,9 @@ launch_counts: Dict[str, int] = {"bigru_window_xp_bwd_rec": 0,
                                  # pass 1's kernels: the grid design's two
                                  "bigru_window_xp_bwd_hp": 0,
                                  "bigru_window_xp_bwd_rec_grid": 0,
+                                 # its launches by rows per thread
+                                 **{f"bigru_window_xp_bwd_rec_grid_r{r}": 0
+                                    for r in gg.GRID_TILES},
                                  # and the one-launch design
                                  "bigru_window_xp_bwd_rec_chain": 0,
                                  # its launches by rows per block

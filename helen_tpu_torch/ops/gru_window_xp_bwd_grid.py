@@ -12,6 +12,8 @@ per direction, all co-resident (a cooperative launch), block ``c`` holding
 the ``W_hh`` rows of its ``U`` hidden units in shared memory for all T
 steps, one grid barrier per direction and step. It writes pass 2's scratch
 ``dxp (2, T, B, 3H)`` and ``dhp_n (2, T, B, H)``, and ``dh0`` per direction.
+Its carry product is register-tiled: each thread holds :func:`grid_tile`'s
+rows x 2 units of sums, in blocks of 256 threads.
 
 :func:`grid_units` is the fit rule: the smallest ``U`` whose ``2 C`` blocks
 fit the card's SMs, one block each, if its shared memory
@@ -43,25 +45,33 @@ from helen_tpu_torch.ops.gru_window_encdec import device_smem_budget
 #: pass 1's outputs: (dxp (2, T, B, 3H), dhp_n (2, T, B, H), dh0_f, dh0_b)
 RecOutputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
-# csrc/gru_window_xp_bwd_grid.cu's constants: batch rows and hidden units
-# per thread, row groups per block, the k-chunks of the carry product
-# (chunk, row stride, stages), the most units per block
-GRID_RPT, GRID_UPT, GRID_ROW_GROUPS = 4, 1, 16
-GRID_KC, GRID_KS, GRID_STAGES = 64, 68, 2
+# csrc/gru_window_xp_bwd_grid.cu's constants: unit groups (a warp is 8 unit
+# groups x 4 row groups), unit slots per thread, row groups (8 x 32 = 256
+# threads at every tile), k per chunk (twice that at row blocks of at most 64
+# rows), the ring's floats, the most units per block; the tiles the entry
+# has (rows per thread)
+BG_UG, BG_UPT, BG_RG, BG_KC, BG_RING = 8, 2, 32, 16, 8192
 GRID_MAX_UNITS = 16
+GRID_TILES = (4, 2)
 #: the barrier counters, one per direction, 128 bytes apart (uint32)
 GRID_COUNTERS = 64
 
 
 def grid_smem_bytes(h: int, u: int) -> int:
     """Dynamic shared memory of one block of the grid recurrence at hidden
-    size ``h`` and ``u`` units per block: its ``W_hh`` rows (``u`` rounded
-    up to whole unit groups, each ``3h`` rounded up to 32 floats plus 4)
-    and the stages of dhp chunks (2 x 64 rows x 68 floats), float32;
-    csrc/gru_window_xp_bwd_grid.cu ``grid_smem``."""
-    rows = -(-u // GRID_UPT) * GRID_UPT
+    size ``h`` and ``u`` units per block, at any tile: its ``u`` ``W_hh``
+    rows (each ``3h`` rounded up to 32 floats plus 4) and the ring's 8192
+    floats of dhp, float32; csrc/gru_window_xp_bwd_grid.cu ``grid_smem``."""
     stride = -(-3 * h // 32) * 32 + 4
-    return 4 * (rows * stride + GRID_STAGES * GRID_RPT * GRID_ROW_GROUPS * GRID_KS)
+    return 4 * (u * stride + BG_RING)
+
+
+def grid_tile(b: int) -> int:
+    """The carry product's rows per thread at batch ``b``, each thread that
+    many rows x 2 units in blocks of 256 threads: 2 where 64 rows hold the
+    batch (the wide train's 64: one row block of 64 rows), else 4 (row blocks
+    of 128 rows, 6 loads to 32 FMAs against 4 to 16)."""
+    return 2 if b <= 64 else 4
 
 
 def grid_units(h: int, sms: int, budget: int) -> Optional[int]:
@@ -134,7 +144,7 @@ def get_lib() -> ctypes.CDLL:
         if _bound is not lib:
             p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             lib.bigru_window_xp_bwd_rec_grid.restype = i
-            lib.bigru_window_xp_bwd_rec_grid.argtypes = [p] * 20 + [i, i, i, i, p]
+            lib.bigru_window_xp_bwd_rec_grid.argtypes = [p] * 20 + [i, i, i, i, i, p]
             lib.bigru_window_xp_bwd_grid_smem_bytes.restype = ll
             lib.bigru_window_xp_bwd_grid_smem_bytes.argtypes = [i, i]
             lib.gru_window_sm_count.restype = i
@@ -148,10 +158,13 @@ def get_lib() -> ctypes.CDLL:
 
 def launch_rec_grid(xp_f, xp_b, hp, h0_f, h0_b, out_f, out_b, dout_f, dout_b, dh_f, dh_b,
                     layer: Layer, units: int, counts: Dict[str, int], dev) -> RecOutputs:
-    """One launch of the grid recurrence at ``units`` hidden units per block,
-    counted in ``counts["bigru_window_xp_bwd_rec_grid"]``; raises on a
-    refused launch (a grid the card cannot hold at once among them)."""
+    """One launch of the grid recurrence at ``units`` hidden units per block
+    in :func:`grid_tile`'s tile, counted in
+    ``counts["bigru_window_xp_bwd_rec_grid"]`` and under its tile,
+    ``..._grid_r{rpt}``; raises on a refused launch (a grid the card cannot
+    hold at once among them)."""
     T, B, H = out_f.shape
+    rpt = grid_tile(B)
     e = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)  # noqa: E731
     dxp, dhpn, dh0_f, dh0_b = e(2, T, B, 3 * H), e(2, T, B, H), e(B, H), e(B, H)
     arrive = torch.zeros(GRID_COUNTERS, dtype=torch.int32, device=dev)
@@ -160,9 +173,10 @@ def launch_rec_grid(xp_f, xp_b, hp, h0_f, h0_b, out_f, out_b, dout_f, dout_b, dh
         err = get_lib().bigru_window_xp_bwd_rec_grid(
             *(t.data_ptr() for t in (xp_f, xp_b, hp, h0_f, h0_b, out_f, out_b, dout_f, dout_b,
                                      dh_f, dh_b, *w, dxp, dhpn, dh0_f, dh0_b, arrive)),
-            T, B, H, units, torch.cuda.current_stream(dev).cuda_stream)
+            T, B, H, units, rpt, torch.cuda.current_stream(dev).cuda_stream)
     gw._raise_on(err, "bigru_window_xp_bwd_rec_grid")
     counts["bigru_window_xp_bwd_rec_grid"] += 1
+    counts[f"bigru_window_xp_bwd_rec_grid_r{rpt}"] += 1
     return dxp, dhpn, dh0_f, dh0_b
 
 

@@ -350,6 +350,7 @@ def assert_xp_grads_close(got, want):
                                    (50, 64, 1024)])
 def test_xp_backward_kernel_matches_plain(dev, T, B, H):
     from helen_tpu_torch.ops import gru_window_xp_bwd as gxb
+    from helen_tpu_torch.ops import gru_window_xp_bwd_grid as gg
 
     args = xp_bwd_case(np.random.default_rng(T * B + H), T, B, H, dev)
     assert gxb.xp_bwd_design(H, B) == "grid"
@@ -357,7 +358,7 @@ def test_xp_backward_kernel_matches_plain(dev, T, B, H):
     got = gxb.bigru_window_xp_bwd(*args)
     torch.cuda.synchronize()
     ran = ("bigru_window_xp_bwd_rec", "bigru_window_xp_bwd_wgrad", "bigru_window_xp_bwd_hp",
-           "bigru_window_xp_bwd_rec_grid")
+           "bigru_window_xp_bwd_rec_grid", f"bigru_window_xp_bwd_rec_grid_r{gg.grid_tile(B)}")
     assert gxb.launch_counts == {k: v + (k in ran) for k, v in before.items()}
     assert_xp_grads_close(got, gxb.bigru_window_xp_bwd_plain(*args))
 
@@ -1374,22 +1375,30 @@ def flat_xp(res):
 # the wide training shape, a shorter window at a batch of 24, H=640 and 768
 # (10 and 12 units per block) at ragged batches, one of them past a block's
 # 64-row block, the forced route's H=128 (2 units per block), and an H that
-# is no multiple of 4 (dhp rows not 16-byte aligned: loaded a float at a time)
+# is no multiple of 4 (dhp rows not 16-byte aligned: loaded a float at a
+# time); then the edges of the thread tile: one row (B=1), a ragged row
+# block past 64 rows (65 = 64 + 1; 129 = 128 + 1, with U=11 and a last block
+# of 7 units: 700 = 63 x 11 + 7), 1020 = 63 x 16 + 12 at 200 rows, and a
+# last block of 8 units at an H that is no multiple of 16 (1000 = 62 x 16 + 8)
 @pytest.mark.parametrize("T,B,H", [(100, 64, 1024), (40, 24, 1024), (7, 13, 640),
-                                   (5, 300, 768), (6, 8, 128), (4, 7, 610)])
+                                   (5, 300, 768), (6, 8, 128), (4, 7, 610),
+                                   (3, 1, 1024), (4, 65, 1024), (3, 129, 700),
+                                   (3, 200, 1020), (5, 13, 1000)])
 def test_xp_bwd_grid_design_equals_chain_design(dev, T, B, H):
     """Pass 1 as the gate pass and the grid recurrence against
     xp_bwd_rec_kernel: dxp, dhp_n, dh0 and (through pass 2) dW_hh, db_hh
-    exactly equal; each design counted as launched; pass 1 against its
-    plain version."""
+    exactly equal; each design counted as launched, the grid under its
+    tile; pass 1 against its plain version."""
     from helen_tpu_torch.ops import gru_window_xp_bwd as gxb
+    from helen_tpu_torch.ops import gru_window_xp_bwd_grid as gg
 
     args = xp_bwd_case(np.random.default_rng(T * B + H + 9), T, B, H, dev)
     assert gxb.xp_bwd_design(H, B) == "grid"
     before = dict(gxb.launch_counts)
     new = gxb.bigru_window_xp_bwd_rec(*args, design="grid")
     torch.cuda.synchronize()
-    ran = ("bigru_window_xp_bwd_rec", "bigru_window_xp_bwd_hp", "bigru_window_xp_bwd_rec_grid")
+    ran = ("bigru_window_xp_bwd_rec", "bigru_window_xp_bwd_hp", "bigru_window_xp_bwd_rec_grid",
+           f"bigru_window_xp_bwd_rec_grid_r{gg.grid_tile(B)}")
     assert gxb.launch_counts == {k: v + (k in ran) for k, v in before.items()}
     before = dict(gxb.launch_counts)
     old = gxb.bigru_window_xp_bwd_rec(*args, design="chain")
@@ -1463,6 +1472,41 @@ def test_xp_bwd_grid_refuses_what_the_card_does_not_hold(dev, monkeypatch):
             assert lib.bigru_window_xp_bwd_grid_smem_bytes(h, u) == gg.grid_smem_bytes(h, u)
 
 
+def test_xp_bwd_grid_refuses_a_tile_it_does_not_have(dev):
+    """The kernel's entry takes 4 or 2 rows a thread (GRID_TILES); any other
+    is refused before a launch (cudaErrorInvalidValue) and the outputs are
+    left as they were; each tile it has gives the chain design's bits."""
+    from helen_tpu_torch.ops import gru_window_bwd_smem as gbs
+    from helen_tpu_torch.ops import gru_window_xp_bwd as gxb
+    from helen_tpu_torch.ops import gru_window_xp_bwd_grid as gg
+
+    T, B, H = 4, 64, 1024
+    xp_f, xp_b, h0f, h0b, of, ob, dof, dob, dhf, dhb, layer = xp_bwd_case(
+        np.random.default_rng(33), T, B, H, dev)
+    hp = gbs.bigru_window_bwd_hp(h0f, h0b, of, ob, layer)
+    units = gg.grid_units(H, *gg.card_limits())
+    w = [layer[d][k] for d in ("fwd", "bwd") for k in ("w_hh", "b_hh")]
+    want = gxb.bigru_window_xp_bwd_rec(xp_f, xp_b, h0f, h0b, of, ob, dof, dob, dhf, dhb,
+                                       layer, design="chain")
+    assert set(gg.GRID_TILES) == {2, 4}
+    for rpt in (0, 1, 2, 3, 4, 5, 8, 16):
+        outs = [torch.full(s, 7.0, device=dev)
+                for s in ((2, T, B, 3 * H), (2, T, B, H), (B, H), (B, H))]
+        arrive = torch.zeros(gg.GRID_COUNTERS, dtype=torch.int32, device=dev)
+        err = gg.get_lib().bigru_window_xp_bwd_rec_grid(
+            *(t.data_ptr() for t in (xp_f, xp_b, hp, h0f, h0b, of, ob, dof, dob, dhf, dhb, *w,
+                                     *outs, arrive)),
+            T, B, H, units, rpt, torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        if rpt in gg.GRID_TILES:
+            assert err == 0, rpt
+            for what, g, x in zip(("dxp", "dhp_n", "dh0_f", "dh0_b"), outs, want):
+                assert torch.equal(g, x), (rpt, what)
+        else:
+            assert err == 1, rpt  # cudaErrorInvalidValue
+            assert all(bool((o == 7.0).all()) for o in outs), rpt
+
+
 def test_tbptt_batch_xp_bwd_grid_design_equals_chain_design(dev, monkeypatch):
     """One TBPTT batch at H=640 on the xp route (19 windows: forward,
     backward, Adam) with pass 1 in the grid design, then with every pass 1
@@ -1474,10 +1518,13 @@ def test_tbptt_batch_xp_bwd_grid_design_equals_chain_design(dev, monkeypatch):
     from helen_tpu_torch.io.checkpoint import opt_leaves, params_to_torch
     from helen_tpu_torch.models.transducer import init_params, param_leaves
     from helen_tpu_torch.ops import gru_window_xp_bwd as gxb
+    from helen_tpu_torch.ops import gru_window_xp_bwd_grid as gg
     from helen_tpu_torch.train.train_loop import Adam, tbptt_step
 
     rng = np.random.default_rng(32)
     B = 8
+    tile = f"bigru_window_xp_bwd_rec_grid_r{gg.grid_tile(B)}"
+    assert gg.grid_tile(B) == gg.grid_tile(64)  # the wide train's tile
     images = torch.from_numpy(rng.integers(0, 40, (B, 1000, 90), dtype=np.uint8)).to(dev)
     yb = torch.from_numpy(rng.integers(0, 5, (B, 1000))).to(dev)
     yr = torch.from_numpy(rng.integers(0, 11, (B, 1000))).to(dev)
@@ -1499,6 +1546,7 @@ def test_tbptt_batch_xp_bwd_grid_design_equals_chain_design(dev, monkeypatch):
         assert gxb.launch_counts["bigru_window_xp_bwd_rec"] == 2 * 19
         assert gxb.launch_counts["bigru_window_xp_bwd_hp"] == (2 * 19 if grid else 0)
         assert gxb.launch_counts["bigru_window_xp_bwd_rec_grid"] == (2 * 19 if grid else 0)
+        assert gxb.launch_counts[tile] == (2 * 19 if grid else 0)
         assert gxb.launch_counts["bigru_window_xp_bwd_rec_chain"] == (0 if grid else 2 * 19)
         runs[design] = ([t.detach().clone() for t in tot]
                         + [t.detach() for t in param_leaves(p)]

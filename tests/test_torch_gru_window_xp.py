@@ -279,6 +279,8 @@ def test_xp_wrappers_take_the_plain_version_on_cpu_and_count_no_launch():
                                  "bigru_window_xp_bwd_wgrad": 0,
                                  "bigru_window_xp_bwd_hp": 0,
                                  "bigru_window_xp_bwd_rec_grid": 0,
+                                 "bigru_window_xp_bwd_rec_grid_r4": 0,
+                                 "bigru_window_xp_bwd_rec_grid_r2": 0,
                                  "bigru_window_xp_bwd_rec_chain": 0,
                                  **{f"bigru_window_xp_bwd_rec_chain_r{r}": 0
                                     for r in (8, 4, 2, 1)}}

@@ -114,15 +114,281 @@ def test_chained_plain_equals_one_launch_plain(T, B, H):
         assert torch.equal(g, w), f"{what}: max diff {float((g - w).abs().max())}"
 
 
+# ---------------------------------------------------------------------------
+# a CPU emulation of the grid's carry decomposition
+# ---------------------------------------------------------------------------
+
+def thread_pairs(B, Uc, rpt):
+    """The (row, unit) pairs of one block's threads in the tile of ``rpt``
+    rows per thread, as the kernel assigns them, in the gates and in the
+    carry: 8 unit groups x 32 row groups (``RG``); thread
+    ``tid`` is ``(ug, rg) = (tid % 8, tid // 8)`` and holds unit slots ``ug
+    + 8 q``, q < 2, and rows ``r0 + rg + p RG``, p < ``rpt``, of each row
+    block of ``RG rpt`` rows; the pairs past B or past the block's ``Uc``
+    units are not written. Rows, units and the thread of each write, as
+    (n,) index tensors."""
+    from helen_tpu_torch.ops import gru_window_xp_bwd_grid as gg
+
+    rg_n = gg.BG_RG
+    tid = torch.arange(gg.BG_UG * rg_n)
+    ug, rg = tid % gg.BG_UG, tid // gg.BG_UG
+    p, q = torch.arange(rpt), torch.arange(gg.BG_UPT)
+    rows, units, tids = [], [], []
+    for r0 in range(0, B, rg_n * rpt):
+        b = r0 + rg[:, None, None] + p[None, :, None] * rg_n
+        u = ug[:, None, None] + q[None, None, :] * gg.BG_UG
+        t = tid[:, None, None].expand(-1, rpt, gg.BG_UPT)
+        b, u = torch.broadcast_tensors(b, u)
+        keep = (b < B) & (u < Uc)
+        rows.append(b[keep])
+        units.append(u[keep])
+        tids.append(t[keep])
+    return torch.cat(rows), torch.cat(units), torch.cat(tids)
+
+
+def fill_slots(rpt):
+    """Each warp's fills of one ring chunk, as the kernel assigns them: NF =
+    KC / 4 float4 of dhp per row (KC = 32 k at row blocks of at most 64 rows,
+    else 16), NSLOT = WR NF / 32 float4 per lane (WR = 4 ``rpt`` row slots a
+    warp); lane l fills float4 l % NF of slots l // NF + n (32 // NF), n <
+    NSLOT, slot a + 4 p being row 4 w + a + p RG of the row block, at the
+    ring's float4 slot NF + (f ^ swz(slot)). {warp: [(slot, f, row, at)]}."""
+    from helen_tpu_torch.ops import gru_window_xp_bwd_grid as gg
+
+    rg_n, wr = gg.BG_RG, 4 * rpt
+    nf = (2 * gg.BG_KC if rg_n * rpt <= 64 else gg.BG_KC) // 4
+    nslot = wr * nf // 32
+    assert nslot * 32 == wr * nf
+    got = {}
+    for w in range(gg.BG_UG * rg_n // 32):
+        for ln in range(32):
+            f = ln % nf
+            for n in range(nslot):
+                sl = ln // nf + n * (32 // nf)
+                row = 4 * w + sl % 4 + sl // 4 * rg_n
+                at = sl * nf + (f ^ (sl * nf // 8 % nf))
+                got.setdefault(w, []).append((sl, f, row, at))
+    return got
+
+
+def fill_rows(B, rpt):
+    """The rows each warp fills into its ring (:func:`fill_slots`), over
+    every row block of a batch of ``B``: {warp: set of rows}."""
+    from helen_tpu_torch.ops import gru_window_xp_bwd_grid as gg
+
+    got = {}
+    for w, fills in fill_slots(rpt).items():
+        rows = {r0 + row for r0 in range(0, B, gg.BG_RG * rpt) for _, _, row, _ in fills
+                if r0 + row < B}
+        if rows:
+            got[w] = rows
+    return got
+
+
+def grid_emulation(xp_f, xp_b, hp, h0_f, h0_b, out_f, out_b, dout_f, dout_b, dh_f, dh_b,
+                   layer, U, rpt=None):
+    """K4's grid recurrence on the CPU: ``C = ceil(H / U)`` blocks per
+    direction, block ``c`` owning units ``[c U, (c + 1) U)`` and their rows
+    of ``W_hh``; at each step every block writes the gates of its threads'
+    (row, unit) pairs (:func:`thread_pairs`, the tile of ``rpt`` rows per
+    thread, by default the one ``grid_tile`` picks), each pair once, then,
+    after the barrier, reads the whole step's dhp and adds its units' carry
+    product to the dh z that the same pairs wrote (``__fadd_rn``: one
+    float32 add, last). Returns ``(dxp, dhp_n, dh0_f, dh0_b)``.
+
+    The block's product is ``dhp @ rows.T``, its rows of ``W_hh`` scattered
+    back into a zero ``(H, 3H)`` matrix: the CPU's matmul gives a column the
+    same bits whatever the other rows hold at one shape, not at another, and
+    the kernel's own order (one fmaf chain over k) is the card's to check
+    (tests/test_torch_cuda.py)."""
+    from helen_tpu_torch.ops import gru_window_bwd as gb
+    from helen_tpu_torch.ops import gru_window_xp_bwd_grid as gg
+
+    T, B, H = out_f.shape
+    C = -(-H // U)
+    rpt = gg.grid_tile(B) if rpt is None else rpt
+    res = []
+    for i, (d, xp, out, h0, dout, dhf, rev) in enumerate(
+            (("fwd", xp_f, out_f, h0_f, dout_f, dh_f, False),
+             ("bwd", xp_b, out_b, h0_b, dout_b, dh_b, True))):
+        w = layer[d]["w_hh"]
+        hpb = hp[i] + layer[d]["b_hh"]
+        h_prev = gb._h_prev(out, h0, rev)
+        r = torch.sigmoid(xp[..., :H] + hpb[..., :H])
+        z = torch.sigmoid(xp[..., H:2 * H] + hpb[..., H:2 * H])
+        hp_n = hpb[..., 2 * H:]
+        n = torch.tanh(xp[..., 2 * H:] + r * hp_n)
+        mats, pairs = [], []
+        for c in range(C):
+            full = torch.zeros_like(w)
+            full[c * U:(c + 1) * U] = w[c * U:(c + 1) * U]
+            mats.append(full)
+            rows, units, _ = thread_pairs(B, min(U, H - c * U), rpt)
+            pairs.append((rows, c * U + units))
+        nan = lambda *s: torch.full(s, float("nan"), dtype=xp.dtype)  # noqa: E731
+        dxp, dhpn, carry = nan(T, B, 3 * H), nan(T, B, H), dhf
+        for t in (range(T) if rev else range(T - 1, -1, -1)):
+            dh = dout[t] + carry
+            dz = dh * (h_prev[t] - n[t])
+            da = dh * (1.0 - z[t]) * (1.0 - n[t] * n[t])
+            dr = da * hp_n[t]
+            drpre = dr * r[t] * (1.0 - r[t])
+            dzpre = dz * z[t] * (1.0 - z[t])
+            dn = da * r[t]
+            dhz = dh * z[t]
+            for rows, cols in pairs:
+                assert dhpn[t][rows, cols].isnan().all(), "a gate pair written twice"
+                for g, v in enumerate((drpre, dzpre, da)):
+                    dxp[t][rows, g * H + cols] = v[rows, cols]
+                dhpn[t][rows, cols] = dn[rows, cols]
+            dhp = torch.cat([dxp[t][:, :2 * H], dhpn[t]], dim=-1)
+            carry = torch.full_like(dhz, float("nan"))
+            for c, (rows, cols) in enumerate(pairs):
+                prod = dhp @ mats[c].T
+                assert carry[rows, cols].isnan().all(), "a carry pair written twice"
+                carry[rows, cols] = dhz[rows, cols] + prod[rows, cols]
+        res.append((dxp, dhpn, carry))
+    return (torch.stack([res[0][0], res[1][0]]), torch.stack([res[0][1], res[1][1]]),
+            res[0][2], res[1][2])
+
+
+# per U, a width whose last block is short (40 = 2 x 16 + 8 = 3 x 11 + 7; 36
+# = 3 x 10 + 6; 5 = 2 x 2 + 1): the H100's U at H=1024 (16), at H=700 (11)
+# and H=640 (10), and at the forced route's H=128 (2)
+EMULATION_H = {16: 40, 11: 40, 10: 36, 2: 5}
+
+
+# one row, a ragged batch, the wide train's 64, one row past a 64-row block,
+# and ragged 128-row blocks (300 = 2 x 128 + 44), each at the tile the rule
+# picks and at every tile the entry has
+@pytest.mark.parametrize("B", [1, 13, 64, 65, 300])
+@pytest.mark.parametrize("U", [16, 11, 10, 2])
+def test_grid_emulation_equals_plain_to_the_bit(B, U):
+    from helen_tpu_torch.ops import gru_window_bwd_smem as gbs
+    from helen_tpu_torch.ops import gru_window_xp_bwd_grid as gg
+
+    H = EMULATION_H[U]
+    args, _ = case(3, B, H, seed=B + 100 * U)
+    xp_f, xp_b, h0f, h0b, of, ob, dof, dob, dhf, dhb, lt = args
+    hp = gbs.bigru_window_bwd_hp(h0f, h0b, of, ob, lt)
+    rest = (h0f, h0b, of, ob, dof, dob, dhf, dhb, lt)
+    want = gg.xp_bwd_rec_grid_plain(xp_f, xp_b, hp, *rest)
+    for rpt in (None, *gg.GRID_TILES):
+        got = grid_emulation(xp_f, xp_b, hp, *rest, U, rpt)
+        for g, w, what in zip(got, want, ("dxp", "dhp_n", "dh0_f", "dh0_b")):
+            assert torch.equal(g, w), f"{what}, tile {rpt}: max diff {float((g - w).abs().max())}"
+
+
+@pytest.mark.parametrize("B", [1, 13, 64, 65, 127, 128, 300, 512])
+@pytest.mark.parametrize("U", [1, 2, 3, 10, 11, 16])
+def test_thread_tiles_cover_each_pair_once(B, U):
+    """Every tile's threads hold each (row, unit) pair of a block exactly
+    once, for a full block and a short last one; a warp's 32 threads are 8
+    unit groups x 4 whole row groups, and the rows a warp fills into its
+    ring are the rows its threads read."""
+    from helen_tpu_torch.ops import gru_window_xp_bwd_grid as gg
+
+    for rpt in gg.GRID_TILES:
+        for Uc in {U, max(1, U // 2)}:
+            rows, units, tids = thread_pairs(B, Uc, rpt)
+            got = sorted(zip(rows.tolist(), units.tolist()))
+            assert got == [(b, u) for b in range(B) for u in range(Uc)], (rpt, Uc)
+        rows, _, tids = thread_pairs(B, 16, rpt)
+        read = {}
+        for b, t in zip(rows.tolist(), tids.tolist()):
+            read.setdefault(t // 32, set()).add(b)
+        assert fill_rows(B, rpt) == read, rpt
+
+
+@pytest.mark.parametrize("rpt", [2, 4])
+def test_each_warp_fills_each_float4_of_its_chunk_once(rpt):
+    """A warp's lanes write every (row slot, float4) pair of a ring chunk
+    exactly once, each to its own float4 of the chunk (the swizzle is a
+    permutation of each slot's float4), and slot a + 4 p is the row its
+    threads read at p; the formulas are the source's."""
+    import os
+
+    from helen_tpu_torch.ops import gru_window as gw
+    from helen_tpu_torch.ops import gru_window_xp_bwd_grid as gg
+
+    with open(os.path.join(gw._CSRC, "gru_window_xp_bwd_grid.cu")) as f:
+        src = f.read()
+    for line in ("return s * nf / 8 % nf;", "const int sl = ln / NF + n * (32 / NF);",
+                 "frow[n] = warp * BG_RGW + sl % BG_RGW + sl / BG_RGW * RG;",
+                 "foff[n] = 4 * (sl * NF + (ln % NF ^ swz(sl, NF)));"):
+        assert line in src, line
+    assert rpt in gg.GRID_TILES
+    wr = 4 * rpt
+    nf = (2 * gg.BG_KC if gg.BG_RG * rpt <= 64 else gg.BG_KC) // 4
+    for w, fills in fill_slots(rpt).items():
+        assert sorted((sl, f) for sl, f, _, _ in fills) == [
+            (sl, f) for sl in range(wr) for f in range(nf)], w
+        assert sorted(at for *_, at in fills) == list(range(wr * nf)), w
+        assert {(sl, row) for sl, _, row, _ in fills} == {
+            (a + 4 * p, 4 * w + a + p * gg.BG_RG) for a in range(4) for p in range(rpt)}, w
+
+
+# B -> (rows per thread, rows per row block): 2 rows x 2 units up to B=64
+# (one row block of 64 rows), 4 rows x 2 units above (128-row blocks), in
+# 256 threads at every tile
+@pytest.mark.parametrize("B,rpt,rows", [
+    (512, 4, 128), (300, 4, 128), (128, 4, 128), (65, 4, 128), (64, 2, 64), (13, 2, 64),
+    (1, 2, 64),
+])
+def test_grid_tile_rule(B, rpt, rows):
+    from helen_tpu_torch.ops import gru_window_xp_bwd_grid as gg
+
+    assert gg.grid_tile(B) == rpt and rpt in gg.GRID_TILES
+    assert gg.BG_RG * rpt == rows
+    # whole warps of whole row groups, two warps an SM quarter
+    threads = gg.BG_UG * gg.BG_RG
+    assert threads == 256 and 32 % gg.BG_UG == 0 and gg.BG_RG % (32 // gg.BG_UG) == 0
+    assert gg.BG_UG * gg.BG_UPT == gg.GRID_MAX_UNITS
+
+
+def test_smem_mirror_matches_the_source():
+    """grid_smem_bytes, the thread layout and the tiles mirror
+    csrc/gru_window_xp_bwd_grid.cu (the library checks the byte counts when
+    it is bound, on the card): the constants are the source's, the entry
+    launches one instance per tile the rule can pick and refuses the rest,
+    and the byte count is the layout's, counted here element by element."""
+    import os
+    import re
+
+    from helen_tpu_torch.ops import gru_window as gw
+    from helen_tpu_torch.ops import gru_window_xp_bwd_grid as gg
+
+    with open(os.path.join(gw._CSRC, "gru_window_xp_bwd_grid.cu")) as f:
+        src = f.read()
+    const = {m.group(1): m.group(2) for m in
+             re.finditer(r"constexpr int (BG_[A-Z_]+) = ([^;]+);", src)}
+    assert const["BG_UG"] == str(gg.BG_UG) and const["BG_UPT"] == str(gg.BG_UPT)
+    assert const["BG_RG"] == str(gg.BG_RG)
+    assert const["BG_KC"] == str(gg.BG_KC) and const["BG_RING"] == str(gg.BG_RING)
+    assert const["BG_MAX_UNITS"] == str(gg.GRID_MAX_UNITS)
+    cases = re.findall(r"case (\d+): return launch_cooperative\("
+                       r"xp_bwd_rec_grid_kernel<(\d+)>", src)
+    assert [int(r) for _, r in cases] == sorted(gg.GRID_TILES)
+    assert all(key == r for key, r in cases)
+    assert "default: return (int)cudaErrorInvalidValue;" in src
+    # every tile the entry has is one the rule picks
+    assert {gg.grid_tile(b) for b in range(1, 600)} == set(gg.GRID_TILES)
+    for h in (1, 37, 40, 128, 160, 610, 640, 1000, 1024):
+        for u in (1, 2, 3, 10, 16):
+            stride = -(-3 * h // 32) * 32 + 4
+            assert stride >= 3 * h and stride % 32 == 4
+            assert gg.grid_smem_bytes(h, u) == 4 * (u * stride + 8192)
+
+
 # the H100 SXM: 132 SMs, 232,448 bytes of opt-in shared memory per block
 @pytest.mark.parametrize("H,units,blocks,smem", [
-    (1024, 16, 64, 231_680), (1000, 16, 63, 227_584), (768, 12, 64, 145_600),
-    (640, 10, 64, 111_776), (160, 3, 54, 40_624), (128, 2, 64, 37_920),
+    (1024, 16, 64, 229_632), (1000, 16, 63, 225_536), (768, 12, 64, 143_552),
+    (640, 10, 64, 109_728), (160, 3, 54, 38_576), (128, 2, 64, 35_872),
 ])
 def test_grid_units_on_the_h100(H, units, blocks, smem):
     """The smallest U whose 2 ceil(H / U) blocks fit the 132 SMs, and its
     shared memory: W_hh's U rows (3H rounded up to 32 floats plus 4) and
-    two stages of 64 x 68 floats of dhp."""
+    the ring's 8192 floats of dhp."""
     from helen_tpu_torch.ops import gru_window_xp_bwd_grid as gg
 
     assert gg.grid_units(H, 132, 232_448) == units
@@ -156,7 +422,7 @@ def test_xp_bwd_design_takes_every_xp_width_on_the_h100(card, H, B):
     (640, 114, 232_448, 12), (768, 114, 232_448, 14), (128, 114, 232_448, 3),
     (1024, 114, 232_448, None),
     # a smaller budget: H=1024's 16 rows no longer fit, H=640's 10 do
-    (1024, 132, 200_000, None), (640, 132, 120_000, 10), (640, 132, 110_000, None),
+    (1024, 132, 200_000, None), (640, 132, 120_000, 10), (640, 132, 109_000, None),
     # a card too small for 16 units per block
     (1024, 60, 10**9, None),
 ])
@@ -179,7 +445,7 @@ def test_forced_grid_design_is_checked(card):
     card(114, 232_448)
     with pytest.raises(ValueError, match="does not take H=1024"):
         gxb.xp_bwd_design(1024, 64, design="grid")
-    card(132, 110_000)
+    card(132, 109_000)
     with pytest.raises(ValueError, match="does not take H=640"):
         gxb.xp_bwd_design(640, 64, design="grid")
 
@@ -210,7 +476,8 @@ def test_wrappers_take_the_plain_version_on_cpu_and_count_no_launch():
     assert set(gb.launch_counts.values()) == {0}
     assert set(gxb.launch_counts) == {
         "bigru_window_xp_bwd_rec", "bigru_window_xp_bwd_wgrad", "bigru_window_xp_bwd_hp",
-        "bigru_window_xp_bwd_rec_grid", "bigru_window_xp_bwd_rec_chain",
+        "bigru_window_xp_bwd_rec_grid", "bigru_window_xp_bwd_rec_grid_r4",
+        "bigru_window_xp_bwd_rec_grid_r2", "bigru_window_xp_bwd_rec_chain",
         *(f"bigru_window_xp_bwd_rec_chain_r{r}" for r in (8, 4, 2, 1))}
 
 
