@@ -21,11 +21,11 @@ path's design, a gate pass, a recurrence with W_hh^T in shared memory and
 a dx pass, bit for bit against the one-launch bwd_rec_kernel and timed in
 turns with it; each of its new kernels alone; pass 2 in its split design,
 slices of rows on 3xTF32 tensor cores then a fixed-order slice sum, against
-its plain version at B=256 and 512 and timed in turns with the one-slice
-bwd_wgrad_kernel, design "tile32"), one TBPTT batch through the
+its plain version at B=256 and 512, timed beside it and cuBLAS's
+products), one TBPTT batch through the
 kernels against the plain route, and ``train`` then ``test`` through the
 CLI on the full-width images with the launches counted (0 of
-bwd_rec_kernel and of tile32). Phase 9 drives the
+bwd_rec_kernel). Phase 9 drives the
 wide models (H=1024) through the xp-stream kernels: K3 and K4 against their
 plain versions (phase 9a: K3 in the main path's design, a grid-wide
 recurrence with W_hh spread over the SMs' shared memory, bit for bit
@@ -33,11 +33,11 @@ against the one-launch xp_window_kernel and timed in turns with it, at
 B=512 and B=64; phase 9b: K4's pass 1 in the main path's design, the gate
 pass and a grid-wide recurrence, bit for bit against the one-launch
 xp_bwd_rec_kernel and timed in turns with it; each of its kernels alone;
-pass 2's split design against tile32, in turns),
+pass 2's split design against its plain version, timed),
 the golden fixtures and a cross-route check at H=512 through the forced xp
 route (K3 in the grid design; each fixture's encoder layer through K4's
 grid design), then ``train``, ``test`` and ``polish`` at H=1024 with the
-launches counted (0 of xp_window_kernel, xp_bwd_rec_kernel and tile32). Phase 10
+launches counted (0 of xp_window_kernel and xp_bwd_rec_kernel). Phase 10
 drives the fast (bf16) tier, ``polish --fast``: K1f, K2f and K3f against
 their plain versions (phase 10a: K1f and K2f in the main path's design, a
 projection pass and a recurrence on bf16 tensor cores, at B=512 and B=256,
@@ -222,9 +222,8 @@ def train_counts(fwd: int, trained: int) -> dict:
 def wgrad_counts(passes: int) -> dict:
     """The launches of ``passes`` passes 2 at a batch past one slice of
     1,600 rows (B=256 and B=64 at T=100): the split kernel and the slice sum
-    each, never the tile32 design."""
-    return {WGRAD_KERNELS[0]: passes, WGRAD_KERNELS[1]: passes,
-            "bigru_window_wgrad_tile32": 0}
+    each."""
+    return {WGRAD_KERNELS[0]: passes, WGRAD_KERNELS[1]: passes}
 
 
 def fail(msg: str) -> None:
@@ -858,7 +857,7 @@ def check_backward(images_u8, results) -> None:
         for i, (out, h0, rev) in enumerate(((of, h0f, False), (ob, h0b, True))):
             g_x = dxp[i].reshape(n, 3 * H)
             g_h = torch.cat([g_x[:, :2 * H], dhpn[i].reshape(n, H)], 1)
-            h1 = torch.cat([gb._h_prev(out, h0, rev).reshape(n, H), ones], 1)
+            h1 = torch.cat([gbs.h_prev_of(out, h0, rev).reshape(n, H), ones], 1)
             prods += [(x1, g_x), (h1, g_h)]
         cublas_ms = cuda_ms(lambda: [a.T @ b for a, b in prods])
         library = {BWD_PASSES[0]: cudnn_ms, BWD_PASSES[1]: cublas_ms}
@@ -895,7 +894,7 @@ def check_backward(images_u8, results) -> None:
         whl = {k: torch.stack([layer[d][k] for d in ("fwd", "bwd")]) for k in ("w_hh", "w_ih")}
         xp = (gs.bigru_window_proj_in2(*src, layer) if need_dx
               else gs.bigru_window_proj_in1(img, start, T, layer))
-        hprev = torch.stack([gb._h_prev(of, h0f, False), gb._h_prev(ob, h0b, True)]
+        hprev = torch.stack([gbs.h_prev_of(of, h0f, False), gbs.h_prev_of(ob, h0b, True)]
                             ).reshape(2, n, H)
         rest = (h0f, h0b, of, ob, dof, dob, dhf, dhb, layer)
         hp = gbs.bigru_window_bwd_hp(h0f, h0b, of, ob, layer)
@@ -986,38 +985,32 @@ def check_backward(images_u8, results) -> None:
             f"library {'none' if lib is None else f'{lib:.4f} ms'}")
 
 
-def wgrad_designs(label: str, run, want, lib_new, lib_old, iters: int = 10) -> dict:
-    """Pass 2 in its split design against its plain version ``want``
-    (TOL x scale per output), two launches bit-identical, the tile32
-    design's error beside it; then both designs timed in turns (split,
-    tile32, tile32, split) by their library calls. ``run(design)`` launches
-    one pass 2."""
+def wgrad_split(label: str, run, want, entries, iters: int = 10) -> dict:
+    """Pass 2 in its split design against its plain version ``want`` (TOL x
+    scale per output), two launches bit-identical, then timed by its
+    library calls ``entries`` (the split kernel, the slice sum). ``run()``
+    launches one pass 2."""
     import torch
 
-    got, again, old = run("split"), run("split"), run("tile32")
+    got, again = run(), run()
     torch.cuda.synchronize()
-    err = scaled = old_scaled = 0.0
+    err = scaled = 0.0
     for d in ("fwd", "bwd"):
         for k, w in want[d].items():
             scale = max(1.0, float(w.abs().max()))
             e = float((got[d][k] - w).abs().max())
             err, scaled = max(err, e), max(scaled, e / scale)
-            old_scaled = max(old_scaled, float((old[d][k] - w).abs().max()) / scale)
             if e > TOL * scale:
                 fail(f"{label}: {d}.{k} disagrees with its plain version: {e!r} (limit "
                      f"{TOL:g} x {scale:.4g})")
             if not torch.equal(got[d][k], again[d][k]):
                 fail(f"{label}: {d}.{k} differs between two launches")
-    turns = [timed_passes(lambda: run(d), iters=iters, warmup=2,
-                          passes=lib_new if d == "split" else (lib_old,))
-             for d in ("split", "tile32", "tile32", "split")]
-    split_ms, sum_ms = ((turns[0][k] + turns[3][k]) / 2 for k in lib_new)
-    tile32_ms = (turns[1][lib_old] + turns[2][lib_old]) / 2
-    log(f"{label}: max |split - plain| {err:.3g}, scaled {scaled:.3g} (limit {TOL:g}); "
-        f"tile32 scaled {old_scaled:.3g}; two launches bit-identical; in turns (split, tile32, "
-        "tile32, split): " + ", ".join(f"{sum(t.values()):.4f}" for t in turns) + " ms")
-    return {"ms": split_ms + sum_ms, "split_ms": split_ms, "sum_ms": sum_ms,
-            "tile32_ms": tile32_ms, "err": err, "scaled": scaled, "tile32_scaled": old_scaled}
+    t = timed_passes(run, iters=iters, warmup=2, passes=entries)
+    split_ms, sum_ms = (t[k] for k in entries)
+    log(f"{label}: max |split - plain| {err:.3g}, scaled {scaled:.3g} (limit {TOL:g}); two "
+        f"launches bit-identical; {split_ms + sum_ms:.4f} ms")
+    return {"ms": split_ms + sum_ms, "split_ms": split_ms, "sum_ms": sum_ms, "err": err,
+            "scaled": scaled}
 
 
 def check_wgrad(results) -> None:
@@ -1025,8 +1018,8 @@ def check_wgrad(results) -> None:
     at B=512, per training window: layer 0 on a full-range uint8 image
     (D=90) and the decoder on two halves (D=256), pass 1's dxp and dhp_n
     from its kernels. The split design against its plain version, two
-    launches bit-identical, both designs in turns (wgrad_designs) beside
-    the plain version, cuBLAS's products and the bounds: FLOP at the fp32
+    launches bit-identical, timed (wgrad_split) beside the plain version,
+    cuBLAS's products and the bounds: FLOP at the fp32
     rate, and 3 x FLOP (3xTF32) at the dense TF32 rate. Adds the split and
     sum kernels' entries."""
     import numpy as np
@@ -1034,6 +1027,8 @@ def check_wgrad(results) -> None:
 
     from helen_tpu_torch.ops import gru_window as gw
     from helen_tpu_torch.ops import gru_window_bwd as gb
+    from helen_tpu_torch.ops import gru_window_bwd_smem as gbs
+    from helen_tpu_torch.ops import gru_window_proj as gp
     from helen_tpu_torch.ops import gru_window_wgrad as gwg
 
     dev = torch.device("cuda")
@@ -1042,9 +1037,9 @@ def check_wgrad(results) -> None:
     per_b = {}
     for bsz in (TB, B):
         n = bsz * T
-        acc = dict.fromkeys(("ms", "split_ms", "sum_ms", "tile32_ms", "plain_ms", "library_ms",
+        acc = dict.fromkeys(("ms", "split_ms", "sum_ms", "plain_ms", "library_ms",
                              "sum_plain_ms", "sum_library_ms", "flops", "bytes", "sum_bytes",
-                             "err", "scaled", "tile32_scaled"), 0.0)
+                             "err", "scaled"), 0.0)
         for label, D in (("layer 0, full-range image D=90", F), ("decoder, halves D=256", 2 * H)):
             layer = random_layer(rng, D, H, dev)
             h0f, h0b, dhf, dhb = (r(bsz, H) for _ in range(4))
@@ -1061,20 +1056,19 @@ def check_wgrad(results) -> None:
             dxp, dhpn, *_ = gb.bigru_window_bwd_rec(src, start, h0f, h0b, of, ob, dof, dob,
                                                      dhf, dhb, layer, need_dx=False)
             args = (src, start, h0f, h0b, of, ob, dxp, dhpn)
-            w = wgrad_designs(f"pass 2 ({label}, B={bsz})",
-                              lambda d: gwg.bigru_window_wgrad(*args, design=d),
-                              gb.bigru_window_bwd_wgrad_plain(*args), WGRAD_IN,
-                              BWD_PASSES[1])
-            plain_ms = cuda_ms(lambda: gb.bigru_window_bwd_wgrad_plain(*args), iters=3,
+            w = wgrad_split(f"pass 2 ({label}, B={bsz})",
+                            lambda: gwg.bigru_window_wgrad(*args),
+                            gwg.bigru_window_bwd_wgrad_plain(*args), WGRAD_IN)
+            plain_ms = cuda_ms(lambda: gwg.bigru_window_bwd_wgrad_plain(*args), iters=3,
                                warmup=1)
             ones = torch.ones(n, 1, device=dev)
-            x1 = torch.cat([gb.window_input(src, start, T, torch.float32).reshape(n, D),
+            x1 = torch.cat([gp.window_input(src, start, T, torch.float32).reshape(n, D),
                             ones], 1)
             prods = []
             for i, (out, h0, rev) in enumerate(((of, h0f, False), (ob, h0b, True))):
                 g_x = dxp[i].reshape(n, 3 * H)
                 g_h = torch.cat([g_x[:, :2 * H], dhpn[i].reshape(n, H)], 1)
-                h1 = torch.cat([gb._h_prev(out, h0, rev).reshape(n, H), ones], 1)
+                h1 = torch.cat([gbs.h_prev_of(out, h0, rev).reshape(n, H), ones], 1)
                 prods += [(x1, g_x), (h1, g_h)]
             cublas_ms = cuda_ms(lambda: [a.T @ b for a, b in prods])
             # the slice sum alone: its plain version adds the partials in
@@ -1095,39 +1089,34 @@ def check_wgrad(results) -> None:
             nbytes = (x_bytes + 2 * stream + 2 * 4 * bsz * H + 2 * (3 * stream + stream)
                       + 4 * 2 * ((D + H) * 3 * H + 6 * H))
             for k, v in (("ms", w["ms"]), ("split_ms", w["split_ms"]), ("sum_ms", w["sum_ms"]),
-                         ("tile32_ms", w["tile32_ms"]), ("plain_ms", plain_ms),
+                         ("plain_ms", plain_ms),
                          ("library_ms", cublas_ms), ("sum_plain_ms", sum_plain_ms),
                          ("sum_library_ms", sum_library_ms), ("flops", flops),
                          ("bytes", nbytes), ("sum_bytes", plan.scratch_bytes
                                              + 4 * 2 * plan.rows * 3 * H)):
                 acc[k] += v
-            for k in ("err", "scaled", "tile32_scaled"):
+            for k in ("err", "scaled"):
                 acc[k] = max(acc[k], w[k])
         acc["bound_ms"], acc["bound_by"] = bound(acc["flops"], acc["bytes"])
         acc["bound_tf32_ms"], acc["bound_tf32_by"] = bound(3 * acc["flops"], acc["bytes"],
                                                            PEAK_TF32)
         log(f"pass 2, one training window at B={bsz} (layer 0 + decoder): split {acc['ms']:.4f} "
-            f"ms (split kernel {acc['split_ms']:.4f}, slice sum {acc['sum_ms']:.4f}), tile32 "
-            f"{acc['tile32_ms']:.4f} ms ({acc['tile32_ms'] / acc['ms']:.2f}x), plain "
+            f"ms (split kernel {acc['split_ms']:.4f}, slice sum {acc['sum_ms']:.4f}), plain "
             f"{acc['plain_ms']:.3f} ms, cuBLAS {acc['library_ms']:.4f} ms; bound "
             f"{acc['bound_ms']:.4f} ms ({acc['bound_by']}) at the fp32 rate, "
             f"{acc['bound_tf32_ms']:.4f} ms ({acc['bound_tf32_by']}) at 3 x FLOP on TF32 "
-            f"tensor cores; max scaled error {acc['scaled']:.3g} (tile32 "
-            f"{acc['tile32_scaled']:.3g})")
+            f"tensor cores; max scaled error {acc['scaled']:.3g}")
         per_b[bsz] = acc
     a, a512 = per_b[TB], per_b[B]
     results[BWD_PASSES[1]].update(
         ms=a["ms"], kernel_ms=a["ms"], plain_ms=a["plain_ms"], library_ms=a["library_ms"],
         bound_ms=a["bound_ms"], bound_by=a["bound_by"], bound_tf32_ms=a["bound_tf32_ms"],
-        max_abs_err=a["err"], max_scaled_err=a["scaled"], tile32_ms=a["tile32_ms"],
-        tile32_max_scaled_err=a["tile32_scaled"], ms_b512=a512["ms"],
-        tile32_ms_b512=a512["tile32_ms"], library_ms_b512=a512["library_ms"],
-        bound_ms_b512=a512["bound_ms"], max_scaled_err_b512=a512["scaled"],
-        tile32_max_scaled_err_b512=a512["tile32_scaled"],
+        max_abs_err=a["err"], max_scaled_err=a["scaled"], ms_b512=a512["ms"],
+        library_ms_b512=a512["library_ms"], bound_ms_b512=a512["bound_ms"],
+        max_scaled_err_b512=a512["scaled"],
         per="one training window: layer 0 (D=90, a full-range uint8 image) + decoder (D=256), "
-            "B=256 (*_b512: B=512); ms: the split design in turns with tile32_ms, "
-            "bwd_wgrad_kernel (design 'tile32'); bound_tf32_ms: 3 x FLOP at the dense TF32 "
-            "rate; library: cuBLAS's products")
+            "B=256 (*_b512: B=512); ms: the split design (split kernel + slice sum); "
+            "bound_tf32_ms: 3 x FLOP at the dense TF32 rate; library: cuBLAS's products")
     src = "helen_tpu_torch/ops/csrc/gru_window_wgrad.cu"
     replaces = ("helen_tpu/ops/gru_pallas_train.py:321 (_bwd_kernel_ip, pass 2); "
                 "helen_tpu/ops/gru_pallas_train.py:166 (_bwd_kernel, pass 2)")
@@ -1278,7 +1267,7 @@ def run_train(img_dir: str, n_images: int, work: str, results) -> None:
         f"({train_batches} train + {test_batches} test batches) x {n_win} windows; "
         f"the backward: 2 layers per training window, each pass counted, pass 1 as the "
         f"projection, the hp product, the recurrence and (decoder) the dx pass, never "
-        f"bwd_rec_kernel; pass 2 as the split kernel and the slice sum, never tile32)")
+        f"bwd_rec_kernel; pass 2 as the split kernel and the slice sum)")
     if launches != want:
         fail("train launch counts differ from batches x windows x layers")
     for name in (*BWD_PASSES, *BWD_SMEM_KERNELS, *WGRAD_KERNELS):
@@ -1420,9 +1409,9 @@ def ptxas_report(kernel: str) -> dict:
     ``kernel`` in the kernel library's build log: {"kernel<8,3>": "N regs, S
     B spilled"}."""
     from helen_tpu_torch.obs.grid_variants import ptxas_summary
-    from helen_tpu_torch.ops import gru_window as gw
+    from helen_tpu_torch.ops import library
 
-    with open(gw.build_kernels() + ".log") as f:
+    with open(library.build_kernels() + ".log") as f:
         entries = ptxas_summary(f.read()).split("; ")
     return dict(e.split(": ", 1) for e in entries if e.startswith(kernel + "<"))
 
@@ -1443,7 +1432,7 @@ def check_xp_kernel(images_u8, results) -> None:
 
     from helen_tpu_torch.ops import gru_window_xp as gx
     from helen_tpu_torch.ops import gru_window_xp_grid as xg
-    from helen_tpu_torch.ops.gru_window_xp_bwd_grid import card_limits
+    from helen_tpu_torch.ops.library import card_limits
 
     dev = images_u8.device
     design, units = gx.xp_fwd_design(WH, B), xg.grid_units(WH, *card_limits())
@@ -1571,22 +1560,23 @@ def check_xp_backward(results) -> None:
     import torch
 
     from helen_tpu_torch.ops import gru_window_bwd_smem as gbs
+    from helen_tpu_torch.ops import gru_window_wgrad as gwg
     from helen_tpu_torch.ops import gru_window_xp as gx
     from helen_tpu_torch.ops import gru_window_xp_bwd as gxb
-    from helen_tpu_torch.ops import gru_window_wgrad as gwg
     from helen_tpu_torch.ops import gru_window_xp_bwd_grid as gg
-    from helen_tpu_torch.ops.gru_window_bwd import _h_prev
+    from helen_tpu_torch.ops import library
+    from helen_tpu_torch.ops.gru_window_bwd_smem import h_prev_of
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(20261019)
     r = lambda *s: torch.from_numpy(rng.uniform(-1, 1, s).astype("float32")).to(dev)  # noqa: E731
     Bw, D, n = WB_TRAIN, 2 * WH, WB_TRAIN * T
     design = gxb.xp_bwd_design(WH, Bw)
-    units = gg.grid_units(WH, *gg.card_limits())
+    units = gg.grid_units(WH, *library.card_limits())
     rpt = gg.grid_tile(Bw)
     log(f"K4 pass 1 at H={WH}, B={Bw}: design {design!r} ({units} units per block, "
         f"{2 * -(-WH // (units or 1))} blocks, {gg.grid_smem_bytes(WH, units or 1)} bytes of "
-        f"shared memory each; card: (SMs, opt-in bytes) {gg.card_limits()}); the carry "
+        f"shared memory each; card: (SMs, opt-in bytes) {library.card_limits()}); the carry "
         f"product's tile {rpt} rows x 2 units a thread, {gg.BG_UG * gg.BG_RG} threads")
     ptxas = ptxas_report("xp_bwd_rec_grid_kernel")
     log("ptxas: " + "; ".join(f"{k}: {v}" for k, v in sorted(ptxas.items())))
@@ -1675,7 +1665,7 @@ def check_xp_backward(results) -> None:
     for i, (out, h0, rev) in enumerate(((of, h0f, False), (ob, h0b, True))):
         g_x = dxp[i].reshape(n, 3 * WH)
         g_h = torch.cat([g_x[:, :2 * WH], dhpn[i].reshape(n, WH)], 1)
-        prods.append((torch.cat([_h_prev(out, h0, rev).reshape(n, WH), ones], 1), g_h))
+        prods.append((torch.cat([h_prev_of(out, h0, rev).reshape(n, WH), ones], 1), g_h))
     cublas_ms = cuda_ms(lambda: [a.T @ b for a, b in prods], iters=5, warmup=1)
     library = {XP_PASSES[0]: cudnn_ms, XP_PASSES[1]: cublas_ms}
     stream, stream3, vec = 4 * n * WH, 4 * n * 3 * WH, 4 * Bw * WH
@@ -1716,27 +1706,24 @@ def check_xp_backward(results) -> None:
         design=design, chain_ms=chain_ms, tile_rows=rpt, ptxas=ptxas,
         per=results[XP_PASSES[0]]["per"] + "; ms: the grid design's two kernels; chain_ms: "
         "xp_bwd_rec_kernel in the same call")
-    w = wgrad_designs("K4 pass 2", lambda d: gwg.bigru_window_xp_wgrad(
-        h0f, h0b, of, ob, dxp, dhpn, design=d), gxb.bigru_window_xp_bwd_wgrad_plain(
-        h0f, h0b, of, ob, dxp, dhpn), WGRAD_XP, "bigru_window_xp_bwd_wgrad")
+    w = wgrad_split("K4 pass 2", lambda: gwg.bigru_window_xp_wgrad(h0f, h0b, of, ob, dxp, dhpn),
+                    gwg.bigru_window_xp_bwd_wgrad_plain(h0f, h0b, of, ob, dxp, dhpn), WGRAD_XP)
     flops, nbytes = cost[XP_PASSES[1]]
     bound_ms, _ = bound(flops, nbytes)
     tf32_ms, tf32_by = bound(3 * flops, nbytes, PEAK_TF32)
     log(f"K4 pass 2 (B={Bw}, H={WH}): split {w['ms']:.4f} ms (split kernel "
-        f"{w['split_ms']:.4f}, slice sum {w['sum_ms']:.4f}), tile32 {w['tile32_ms']:.4f} ms "
-        f"({w['tile32_ms'] / w['ms']:.2f}x), cuBLAS {cublas_ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"at the fp32 rate, {tf32_ms:.4f} ms ({tf32_by}) at 3 x FLOP on TF32 tensor cores")
+        f"{w['split_ms']:.4f}, slice sum {w['sum_ms']:.4f}), cuBLAS {cublas_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms at the fp32 rate, {tf32_ms:.4f} ms ({tf32_by}) at 3 x FLOP on TF32 "
+        "tensor cores")
     results[XP_PASSES[1]].update(
-        ms=w["ms"], kernel_ms=w["ms"], tile32_ms=w["tile32_ms"], bound_tf32_ms=tf32_ms,
-        max_scaled_err=w["scaled"], max_abs_err=w["err"],
-        tile32_max_scaled_err=w["tile32_scaled"],
-        per=results[XP_PASSES[1]]["per"] + "; ms: the split design (split kernel + slice sum) "
-        "in turns with tile32_ms, bwd_wgrad_kernel (design 'tile32'); bound_tf32_ms: 3 x FLOP "
-        "at the dense TF32 rate")
+        ms=w["ms"], kernel_ms=w["ms"], bound_tf32_ms=tf32_ms, max_scaled_err=w["scaled"],
+        max_abs_err=w["err"],
+        per=results[XP_PASSES[1]]["per"] + "; ms: the split design (split kernel + slice sum); "
+        "bound_tf32_ms: 3 x FLOP at the dense TF32 rate")
 
     # each kernel of the grid design alone, against its plain version
     whh = torch.stack([layer[d]["w_hh"] for d in ("fwd", "bwd")])
-    hprev = torch.stack([_h_prev(of, h0f, False), _h_prev(ob, h0b, True)]).reshape(2, n, WH)
+    hprev = torch.stack([h_prev_of(of, h0f, False), h_prev_of(ob, h0b, True)]).reshape(2, n, WH)
     hp = gbs.bigru_window_bwd_hp(h0f, h0b, of, ob, layer)
     rest = (h0f, h0b, of, ob, dof, dob, dhf, dhb, layer)
     kernels = {
@@ -1750,7 +1737,7 @@ def check_xp_backward(results) -> None:
             "library: torch.bmm"),
         "bigru_window_xp_bwd_rec_grid": (
             "helen_tpu_torch/ops/csrc/gru_window_xp_bwd_grid.cu", grid_names[1],
-            lambda: gg.bigru_window_xp_bwd_rec_grid(xp_f, xp_b, hp, *rest),
+            lambda: gxb.bigru_window_xp_bwd_rec_grid(xp_f, xp_b, hp, *rest),
             lambda: gg.xp_bwd_rec_grid_plain(xp_f, xp_b, hp, *rest),
             None,
             (2 * 2.0 * n * 3 * WH * WH,
@@ -2003,7 +1990,7 @@ def run_wide_cli(work: str, results) -> tuple:
         f"test batches x {n_win} windows x 2 layers; K3 in the grid design, 0 "
         "xp_window_kernel; K4 on the train batches only, pass 1 in the grid design: the gate "
         "pass and the grid recurrence, 0 xp_bwd_rec_kernel; pass 2 as the split kernel and "
-        "the slice sum, 0 tile32; the projection once a layer-window, its weights split "
+        "the slice sum; the projection once a layer-window, its weights split "
         "after each Adam step and once for the evaluation)")
     if launches != want:
         fail("wide train launch counts differ from batches x windows x layers")
@@ -2327,7 +2314,7 @@ def check_fast_xp(images_u8, results) -> None:
     from helen_tpu_torch.models.gru import bf16_round
     from helen_tpu_torch.ops import gru_window_xp as gx
     from helen_tpu_torch.ops import gru_window_xp_grid as xg
-    from helen_tpu_torch.ops.gru_window_xp_bwd_grid import card_limits
+    from helen_tpu_torch.ops.library import card_limits
 
     dev = images_u8.device
     design, units = gx.xp_fwd_design(WH, B, fast=True), xg.grid_units(WH, *card_limits(), True)
@@ -3646,7 +3633,7 @@ def check_wide_kernels(results) -> dict:
     from helen_tpu_torch.ops import gru_window_xp as gx
     from helen_tpu_torch.ops import gru_window_xp_bwd as gxb
     from helen_tpu_torch.ops import gru_window_xp_grid as xg
-    from helen_tpu_torch.ops.gru_window_xp_bwd_grid import card_limits
+    from helen_tpu_torch.ops.library import card_limits
 
     dev = torch.device("cuda")
     sms, budget = card_limits()
@@ -4403,15 +4390,16 @@ def main() -> int:
                          check=True).stdout.strip().splitlines()[0]
     log(smi)
     from helen_tpu_torch.ops import gru_window as gw
+    from helen_tpu_torch.ops import library
 
-    nvcc = subprocess.run([gw._nvcc(), "--version"], capture_output=True, text=True)
+    nvcc = subprocess.run([library.nvcc(), "--version"], capture_output=True, text=True)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"nvcc: {nvcc.stdout.strip().splitlines()[-1]}")
     log(f"device: {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
 
     phase("2. build")
     t0 = time.perf_counter()
-    so = gw.build_kernels()
+    so = library.build_kernels()
     gw.get_lib()
     log(f"built and loaded {os.path.relpath(so, ROOT)} in "
         f"{time.perf_counter() - t0:.1f} s")

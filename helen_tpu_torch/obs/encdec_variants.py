@@ -20,7 +20,6 @@ card's name and power limit first.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import subprocess
 
 _PARITY_FMA = ("        tile_fma_stage<ECP_BK, ECP_NB>(acc, k.as + s * ECP_BK * ECP_ALD + ty * 4, "
@@ -114,13 +113,12 @@ def main(argv=None) -> int:
         return 1
     from helen_tpu_torch.io.checkpoint import fast_layer
     from helen_tpu_torch.obs.grid_variants import build_all, timed
-    from helen_tpu_torch.ops import gru_window as gw
     from helen_tpu_torch.ops import gru_window_encdec as ge
+    from helen_tpu_torch.ops import library
     from helen_tpu_torch.utils.build import build_dir
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)
-    shipped = gw.get_lib()
     builds = {src: build_all(build_dir(f"encdec_variants_{src.split('.')[0]}"), src, v)
               for src, v in VARIANTS.items()}
     dev = torch.device("cuda")
@@ -136,43 +134,32 @@ def main(argv=None) -> int:
 
     enc, dec = layer(F), layer(2 * H)
     image = torch.from_numpy(rng.integers(0, 40, (512, T + 10, F), dtype=np.uint8)).to(dev)
-    get_lib = gw.get_lib
-    try:
-        for src, built in builds.items():
-            entry = ENTRIES[src]
-            fast = entry.endswith("_fast")
-            layers = (fast_layer(enc), fast_layer(dec)) if fast else (enc, dec)
-            kernel = getattr(ge, entry)
-            libs = {}
-            for name, (so, note) in built.items():
-                print(f"{src}: {name}: {note}", flush=True)
-                if so is None:
-                    continue
-                lib = ctypes.CDLL(so)
-                for fn in (entry, entry + "_active"):
-                    getattr(lib, fn).restype = getattr(shipped, fn).restype
-                    getattr(lib, fn).argtypes = getattr(shipped, fn).argtypes
-                lib.gru_window_error_string = shipped.gru_window_error_string
-                libs[name] = lib
-            for B in (512, 256):
-                h0f, h0b = (torch.from_numpy(rng.uniform(-0.5, 0.5, (B, H)).astype("float32"))
-                            .to(dev) for _ in range(2))
-                run = lambda: kernel(image[:B], 5, T, h0f, h0b, *layers)  # noqa: E731
-                gw.get_lib = get_lib
-                want = run()
-                for name, lib in libs.items():
-                    gw.get_lib = lambda lib=lib: lib
-                    try:
+    for src, built in builds.items():
+        entry = ENTRIES[src]
+        fast = entry.endswith("_fast")
+        layers = (fast_layer(enc), fast_layer(dec)) if fast else (enc, dec)
+        kernel = getattr(ge, entry)
+        libs = {}
+        for name, (so, note) in built.items():
+            print(f"{src}: {name}: {note}", flush=True)
+            if so is not None:
+                libs[name] = library.load_variant(so, ge.ENTRIES)
+        for B in (512, 256):
+            h0f, h0b = (torch.from_numpy(rng.uniform(-0.5, 0.5, (B, H)).astype("float32"))
+                        .to(dev) for _ in range(2))
+            run = lambda: kernel(image[:B], 5, T, h0f, h0b, *layers)  # noqa: E731
+            want = run()
+            for name, lib in libs.items():
+                try:
+                    with library.launching_into(lib):
                         got = run()
                         ms = timed(run, args.iters)
-                    except RuntimeError as e:
-                        print(f"B={B}: {entry}: {name}: {e}", flush=True)
-                        continue
-                    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-                    print(f"B={B} T={T} H={H}: {entry}: {name}: {ms:.4f} ms, "
-                          f"max |variant - shipped| {err:.3g}", flush=True)
-    finally:
-        gw.get_lib = get_lib
+                except RuntimeError as e:
+                    print(f"B={B}: {entry}: {name}: {e}", flush=True)
+                    continue
+                err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+                print(f"B={B} T={T} H={H}: {entry}: {name}: {ms:.4f} ms, "
+                      f"max |variant - shipped| {err:.3g}", flush=True)
     return 0
 
 

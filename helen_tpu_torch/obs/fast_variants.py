@@ -18,7 +18,6 @@ version (the cut variants cannot agree with it). It needs a CUDA device and
 from __future__ import annotations
 
 import argparse
-import ctypes
 import subprocess
 
 SOURCE = "gru_window_fast.cu"
@@ -41,7 +40,6 @@ VARIANTS = {
     "no xp copies (cut)": ({}, ((_COPY, "(void)st;"),)),
     "no output stores (cut)": ({}, ((_STORE, ";"),)),
 }
-ENTRIES = ("bigru_window_rec_fast", "bigru_window_proj_in2_fast")
 
 
 def main(argv=None) -> int:
@@ -57,24 +55,17 @@ def main(argv=None) -> int:
         return 1
     from helen_tpu_torch.io.checkpoint import fast_layer
     from helen_tpu_torch.obs.grid_variants import build_all, timed
-    from helen_tpu_torch.ops import gru_window as gw
     from helen_tpu_torch.ops import gru_window_smem as gs
+    from helen_tpu_torch.ops import library
     from helen_tpu_torch.utils.build import build_dir
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)
-    shipped = gw.get_lib()
     libs = {}
     for name, (so, note) in build_all(build_dir("fast_variants"), SOURCE, VARIANTS).items():
         print(f"{name}: {note}", flush=True)
         if so is not None:
-            lib = ctypes.CDLL(so)
-            for fn in ENTRIES:
-                getattr(lib, fn).restype = getattr(shipped, fn).restype
-                getattr(lib, fn).argtypes = getattr(shipped, fn).argtypes
-            # a failed launch is named through the shipped library
-            lib.gru_window_error_string = shipped.gru_window_error_string
-            libs[name] = lib
+            libs[name] = library.load_variant(so, gs.ENTRIES)
     dev = torch.device("cuda")
     rng = np.random.default_rng(args.seed)
     T, H = 100, 128
@@ -86,27 +77,22 @@ def main(argv=None) -> int:
     layer = fast_layer({d: {"w_ih": r(2 * H, 3 * H) * k, "w_hh": r(H, 3 * H) * k,
                             "b_ih": r(3 * H) * k, "b_hh": r(3 * H) * k}
                         for d in ("fwd", "bwd")})
-    get_lib = gw.get_lib
-    try:
-        for B in (512, 256):
-            gw.get_lib = get_lib
-            xp = gs.bigru_window_proj_in2_fast(r(T, B, H), r(T, B, H), layer)
-            h0f, h0b = r(B, H), r(B, H)
-            want = gs.window_rec_plain(xp, h0f, h0b, layer)
-            for name, lib in libs.items():
-                gw.get_lib = lambda lib=lib: lib
-                run = lambda: gs.bigru_window_rec_fast(xp, h0f, h0b, layer)  # noqa: E731
-                try:
+    for B in (512, 256):
+        xp = gs.bigru_window_proj_in2_fast(r(T, B, H), r(T, B, H), layer)
+        h0f, h0b = r(B, H), r(B, H)
+        want = gs.window_rec_plain(xp, h0f, h0b, layer)
+        for name, lib in libs.items():
+            run = lambda: gs.bigru_window_rec_fast(xp, h0f, h0b, layer)  # noqa: E731
+            try:
+                with library.launching_into(lib):
                     got = run()
                     ms = timed(run, args.iters)
-                except RuntimeError as e:
-                    print(f"B={B}: {name}: {e}", flush=True)
-                    continue
-                err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-                print(f"B={B} T={T} H={H} ({gs.rec_block_rows(B)} rows per block): {name}: "
-                      f"{ms:.4f} ms, max |variant - plain| {err:.3g}", flush=True)
-    finally:
-        gw.get_lib = get_lib
+            except RuntimeError as e:
+                print(f"B={B}: {name}: {e}", flush=True)
+                continue
+            err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+            print(f"B={B} T={T} H={H} ({gs.rec_block_rows(B)} rows per block): {name}: "
+                  f"{ms:.4f} ms, max |variant - plain| {err:.3g}", flush=True)
     return 0
 
 

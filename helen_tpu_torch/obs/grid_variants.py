@@ -27,7 +27,6 @@ prints the card's name and power limit first.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import glob
 import os
 import re
@@ -124,21 +123,21 @@ def variant_source(src: str, consts: dict, edits, source: str = SOURCE) -> str:
 
 def build_all(out_dir: str, source: str = SOURCE, variants=None) -> dict:
     """{name: (library path or None, ptxas's register lines or the error)}."""
-    from helen_tpu_torch.ops import gru_window as gw
+    from helen_tpu_torch.ops import library
 
     variants = VARIANTS if variants is None else variants
-    src = open(os.path.join(gw._CSRC, source)).read()
+    src = open(os.path.join(library.CSRC, source)).read()
     procs = {}
     for i, (name, (consts, edits)) in enumerate(variants.items()):
         d = os.path.join(out_dir, f"v{i}")
         os.makedirs(d, exist_ok=True)
-        for header in glob.glob(os.path.join(gw._CSRC, "*.cuh")):
+        for header in glob.glob(os.path.join(library.CSRC, "*.cuh")):
             with open(header) as f, open(os.path.join(d, os.path.basename(header)), "w") as g:
                 g.write(f.read())
         with open(os.path.join(d, source), "w") as f:
             f.write(variant_source(src, consts, edits, source))
         so = os.path.join(d, "lib.so")
-        cmd = [gw._nvcc(), *gw.NVCC_FLAGS, "-shared", "-o", so, os.path.join(d, source)]
+        cmd = [library.nvcc(), *library.NVCC_FLAGS, "-shared", "-o", so, os.path.join(d, source)]
         procs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT, text=True))
     built = {}
@@ -188,10 +187,10 @@ def run_fwd(args) -> int:
     import numpy as np
     import torch
 
-    from helen_tpu_torch.ops import gru_window as gw
     from helen_tpu_torch.ops import gru_window_xp as gx
     from helen_tpu_torch.ops import gru_window_xp_grid as xg
-    from helen_tpu_torch.ops.gru_window_xp_bwd_grid import GRID_COUNTERS, card_limits
+    from helen_tpu_torch.ops import library
+    from helen_tpu_torch.ops.library import GRID_COUNTERS, card_limits
     from helen_tpu_torch.utils.build import build_dir
 
     built = build_all(build_dir("grid_variants_fwd"), FWD_SOURCE, FWD_VARIANTS)
@@ -199,11 +198,7 @@ def run_fwd(args) -> int:
     for name, (so, note) in built.items():
         print(f"{name}: {note}")
         if so is not None:
-            lib = ctypes.CDLL(so)
-            for fn in xg.KERNELS.values():
-                getattr(lib, fn).restype = ctypes.c_int
-                getattr(lib, fn).argtypes = getattr(xg.get_lib(), fn).argtypes
-            libs[name] = lib
+            libs[name] = library.load_variant(so, xg.ENTRIES)
     dev = torch.device("cuda")
     T = 100
     for H in args.hidden:
@@ -230,7 +225,7 @@ def run_fwd(args) -> int:
                 for (name, lib), rpt in ((nl, t) for nl in libs.items() for t in tiles):
                     if name != "shipped" and name.startswith("K3f" if not tier else "K3:"):
                         continue
-                    outs = gw._outputs(T, B, H, dev)
+                    outs = library.outputs(T, B, H, dev)
                     scratch = ([torch.empty((2, 2, B, H), dtype=torch.bfloat16, device=dev)]
                                if tier else [])
                     fn = getattr(lib, xg.KERNELS[tier])
@@ -285,6 +280,7 @@ def main(argv=None) -> int:
     from helen_tpu_torch.ops import gru_window_xp as gx
     from helen_tpu_torch.ops import gru_window_xp_bwd as gxb
     from helen_tpu_torch.ops import gru_window_xp_bwd_grid as gg
+    from helen_tpu_torch.ops import library
     from helen_tpu_torch.utils.build import build_dir
 
     set_fp32_precision()
@@ -297,11 +293,7 @@ def main(argv=None) -> int:
     for name, (so, note) in built.items():
         print(f"{name}: {note}")
         if so is not None:
-            lib = ctypes.CDLL(so)
-            lib.bigru_window_xp_bwd_rec_grid.restype = ctypes.c_int
-            lib.bigru_window_xp_bwd_rec_grid.argtypes = (
-                gg.get_lib().bigru_window_xp_bwd_rec_grid.argtypes)
-            libs[name] = lib
+            libs[name] = library.load_variant(so, gg.ENTRIES)
     dev = torch.device("cuda")
     T, B = 100, args.batch[0]
     for H in args.hidden:
@@ -317,7 +309,7 @@ def main(argv=None) -> int:
         hp = gbs.bigru_window_bwd_hp(h0f, h0b, of, ob, layer)
         rest = (h0f, h0b, of, ob, dof, dob, dhf, dhb)
         want = gxb.bigru_window_xp_bwd_rec(xp_f, xp_b, *rest, layer, design="chain")
-        units = gg.grid_units(H, *gg.card_limits())
+        units = gg.grid_units(H, *library.card_limits())
         e = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)  # noqa: E731
         w = [layer[d][k] for d in ("fwd", "bwd") for k in ("w_hh", "b_hh")]
         # each tile the entry has (rows per thread), the rule's first
@@ -326,7 +318,7 @@ def main(argv=None) -> int:
             outs = (e(2, T, B, 3 * H), e(2, T, B, H), e(B, H), e(B, H))
 
             def launch():
-                arrive = torch.zeros(gg.GRID_COUNTERS, dtype=torch.int32, device=dev)
+                arrive = torch.zeros(library.GRID_COUNTERS, dtype=torch.int32, device=dev)
                 err = lib.bigru_window_xp_bwd_rec_grid(
                     *(t.data_ptr() for t in (xp_f, xp_b, hp, *rest, *w, *outs, arrive)),
                     T, B, H, units, rpt, torch.cuda.current_stream().cuda_stream)

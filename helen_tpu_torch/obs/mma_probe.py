@@ -66,14 +66,14 @@ extern "C" int run_probe(const void* A, const void* Bt, const void* C, void* D, 
 
 
 def build() -> ctypes.CDLL:
-    from helen_tpu_torch.ops import gru_window as gw
+    from helen_tpu_torch.ops import library
     from helen_tpu_torch.utils.build import build_dir
 
     d = build_dir("mma_probe")
     src, so = os.path.join(d, "probe.cu"), os.path.join(d, "probe.so")
     with open(src, "w") as f:
         f.write(SOURCE)
-    subprocess.run([gw._nvcc(), *gw.NVCC_FLAGS, "-shared", "-o", so, src], check=True,
+    subprocess.run([library.nvcc(), *library.NVCC_FLAGS, "-shared", "-o", so, src], check=True,
                    capture_output=True)
     return ctypes.CDLL(so)
 

@@ -20,41 +20,27 @@ limit first.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import subprocess
 
 SOURCE = "gru_window_wgrad.cu"
-_RNA = "  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;"
-_CVT = r"""  unsigned r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;"""
-_LO = "  lo = tf32_rna(a - __uint_as_float(hi));"
-_SPLIT = """  hi = tf32_rna(a);
-  lo = tf32_rna(a - __uint_as_float(hi));"""
 _MMA = r"""  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));"""
 _FILL = "    if (next < chunks) fill(next % WS_STAGES, n_begin + next * WS_KC);"
-#: name -> (constants to replace, (text, replacement) edits); the last three
-#: give wrong sums and show what their part costs
+#: name -> (constants to replace, (text, replacement) edits); the last two
+#: give wrong sums and show what their part costs (the TF32 split is in
+#: gru_window_common.cuh, shared with the xp projection, and is not edited)
 VARIANTS = {
     "shipped": ({}, ()),
-    "cvt.rna.tf32 for the split": ({}, ((_RNA, _CVT),)),
     "64 x 64 tiles, 4 warps, 3,200-row slices": (
         {"WS_WARPS_N": 2, "WS_MIN_BLOCKS": 3, "WS_SLICE_ROWS": 3200}, ()),
     "64-row stages": ({"WS_KC": 64}, ()),
     "3 stages": ({"WS_STAGES": 3}, ()),
-    "lo left unrounded (the tensor cores truncate it)": (
-        {}, ((_LO, "  lo = __float_as_uint(a - __uint_as_float(hi));"),)),
-    "no split (hi = a, lo = 0)": ({}, ((_SPLIT, "  hi = __float_as_uint(a);\n  lo = 0u;"),)),
     "no mma": ({}, ((_MMA, "  c[0] += __uint_as_float(a[0] ^ a[1] ^ a[2] ^ a[3] ^ b[0]"
                                 " ^ b[1]);"),)),
     "no fills past the first": ({}, ((_FILL, ""),)),
 }
-ENTRIES = ("bigru_window_wgrad_split_in", "bigru_window_wgrad_split_xp",
-           "bigru_window_wgrad_sum", "bigru_window_wgrad_slice_rows",
-           "bigru_window_wgrad_scratch_bytes")
 
 
 def cases(dev, seed: int):
@@ -115,8 +101,8 @@ def main(argv=None) -> int:
 
     from helen_tpu_torch.models.transducer import set_fp32_precision
     from helen_tpu_torch.obs.grid_variants import build_all, timed
-    from helen_tpu_torch.ops import gru_window as gw
     from helen_tpu_torch.ops import gru_window_wgrad as gwg
+    from helen_tpu_torch.ops import library
     from helen_tpu_torch.utils.build import build_dir
 
     if not torch.cuda.is_available():
@@ -125,29 +111,24 @@ def main(argv=None) -> int:
     set_fp32_precision()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)
-    shipped = gw.get_lib()
     built = build_all(build_dir("wgrad_variants"), SOURCE, VARIANTS)
     libs = {}
     for name, (so, note) in built.items():
         print(f"{name}: {note}", flush=True)
         if so is not None:
-            lib = ctypes.CDLL(so)
-            for fn in ENTRIES:
-                getattr(lib, fn).restype = getattr(shipped, fn).restype
-                getattr(lib, fn).argtypes = getattr(shipped, fn).argtypes
-            libs[name] = lib
+            libs[name] = library.load_variant(so, gwg.ENTRIES)
     dev = torch.device("cuda")
     runs = cases(dev, args.seed)
     rows = gwg.SLICE_ROWS
     ref = {}
     try:
         for name, lib in libs.items():
-            gwg.get_lib = lambda lib=lib: lib
             gwg.SLICE_ROWS = lib.bigru_window_wgrad_slice_rows()
             for label, run, want in runs:
                 try:
-                    got = run(gwg)
-                    ms = timed(lambda: run(gwg), args.iters)
+                    with library.launching_into(lib):
+                        got = run(gwg)
+                        ms = timed(lambda: run(gwg), args.iters)
                 except RuntimeError as e:
                     print(f"{label}: {name}: {e}", flush=True)
                     continue
@@ -160,7 +141,7 @@ def main(argv=None) -> int:
                 print(f"{label}: {name}: {ms:.4f} ms, max scaled error {err:.3g}, "
                       f"equal to shipped: {same}", flush=True)
     finally:
-        gwg.get_lib, gwg.SLICE_ROWS = gw.get_lib, rows
+        gwg.SLICE_ROWS = rows
     return 0
 
 

@@ -37,15 +37,10 @@
 //     and, for K2-kind layers, dx per direction (the wrapper adds the two,
 //     as helen_tpu's wrapper does at gru_pallas_train.py:658). Layer 0 reads
 //     the uint8 image in place at column `start`, as K1 does; it has no dx.
-//   pass 2: the weight cotangents over the N = T * B rows, by default the
-//     split design of gru_window_wgrad.cu (slices of N on 3xTF32 tensor
-//     cores, the slices added in a fixed order); bigru_window_bwd_wgrad
-//     below launches the earlier design, forced only (design "tile32",
-//     bwd_wgrad_kernel, gru_window_common.cuh, shared with the xp-stream
-//     backward): one block per 32 x 32 tile of [dW_ih; db_ih] ((D + 1) x
-//     3H, the bias as a row of ones) and of [dW_hh; db_hh] ((H + 1) x 3H),
-//     per direction, each summing all N rows itself in one fixed order. No
-//     float atomics in either: the same inputs give bit-identical gradients.
+//   pass 2: the weight cotangents over the N = T * B rows, the split
+//     design of gru_window_wgrad.cu (slices of N on 3xTF32 tensor cores,
+//     the slices added in a fixed order). No float atomics: the same inputs
+//     give bit-identical gradients.
 //
 // FLOPs per launch and direction: pass 1 2*B*T*3H*(2D + 2H) (the gate
 // recompute x W_ih and h W_hh, the carry dhp W_hh^T, and dx; without dx
@@ -286,29 +281,6 @@ int bigru_window_bwd_rec(const uint8_t* img, long long sb, long long sl, int sta
   return launch_rec<true>(in, D, h0_f, h0_b, out_f, out_b, dout_f, dout_b, dhf,
                           dhb, pf, pb, dxp, dhpn, dx_f, dx_b, dh0_f, dh0_b, T, B,
                           H, stream);
-}
-
-// Pass 2: the same window input and forward outputs, pass 1's dxp/dhpn;
-// writes dW_ih (D, 3H), dW_hh (H, 3H), db_ih, db_hh (3H,) per direction.
-int bigru_window_bwd_wgrad(const uint8_t* img, long long sb, long long sl,
-                           int start, const float* xa, const float* xb, int D,
-                           const float* h0_f, const float* h0_b,
-                           const float* out_f, const float* out_b,
-                           const float* dxp, const float* dhpn, float* dwi_f,
-                           float* dwh_f, float* dbi_f, float* dbh_f, float* dwi_b,
-                           float* dwh_b, float* dbi_b, float* dbh_b, int T, int B,
-                           int H, void* stream) {
-  const WindowIn in{img, sb, sl, start, xa, xb};
-  const DirG gf{dwi_f, dwh_f, dbi_f, dbh_f};
-  const DirG gb{dwi_b, dwh_b, dbi_b, dbh_b};
-  if (int e = check_geometry(D, T, B, H)) return e;
-  if (img != nullptr) {
-    return launch_wgrad<false>(in, D, true, h0_f, h0_b, out_f, out_b, dxp, dhpn, gf,
-                               gb, T, B, H, stream);
-  }
-  if (D != 2 * H) return (int)cudaErrorInvalidValue;
-  return launch_wgrad<true>(in, D, true, h0_f, h0_b, out_f, out_b, dxp, dhpn, gf, gb,
-                            T, B, H, stream);
 }
 
 }  // extern "C"

@@ -1,7 +1,7 @@
 // What the bi-GRU window kernels (gru_window*.cu) share: their limits, the
 // gate nonlinearity, the forward cell step of the in-projection kernels and
-// of the fused encoder+decoder kernel, the readers of a layer's input and of
-// h_prev, and the earlier weight-cotangent reduction of both backwards.
+// of the fused encoder+decoder kernel, and the readers of a layer's input and
+// of h_prev.
 //
 // Every kernel computes, per direction, the torch nn.GRU cell with gates
 // [r, z, n] and b_hh INSIDE the reset product:
@@ -290,127 +290,6 @@ int allow_smem(Kernel kernel, size_t smem) {
                                      (int)smem);
   }
   return 0;
-}
-
-// ---------------------------------------------------------------------------
-// The weight cotangents of one window, a tiled reduction over its N = T * B
-// rows in one fixed order (no float atomics: bit-identical across launches):
-// pass 2's earlier design, launched only where design "tile32" forces it
-// (ops/gru_window_wgrad.py); every default path takes gru_window_wgrad.cu.
-// One block per 32 x 32 tile of [dW_ih; db_ih] ((D + 1) x 3H, the bias as a
-// row of ones; only when with_ih) and of [dW_hh; db_hh] ((H + 1) x 3H), per
-// direction; blockIdx.x walks the ih tiles first, blockIdx.y is the
-// direction. 256 threads, each owning a 2 x 2 patch of the tile. dxp_all
-// (2, T, B, 3H) and dhpn_all (2, T, B, H) come from the recurrence pass:
-// dW_ih = sum x^T dxp, dW_hh = sum h_prev^T [dxp_r | dxp_z | dhpn].
-// ---------------------------------------------------------------------------
-
-constexpr int TM = 32;  // output rows per tile
-constexpr int TN = 32;  // output columns per tile
-constexpr int TR = 32;  // reduction rows per shared-memory chunk
-constexpr int WG_THREADS = 256;
-
-inline int wgrad_tiles(int D, bool with_ih, int H) {
-  const int col_tiles = (3 * H + TN - 1) / TN;
-  const int ih_rows = with_ih ? (D + 1 + TM - 1) / TM : 0;
-  return (ih_rows + (H + 1 + TM - 1) / TM) * col_tiles;
-}
-
-template <bool PAIR>
-__global__ void __launch_bounds__(WG_THREADS)
-bwd_wgrad_kernel(WindowIn in, int D, bool with_ih, const float* __restrict__ h0_f,
-                 const float* __restrict__ h0_b, const float* __restrict__ out_f,
-                 const float* __restrict__ out_b,
-                 const float* __restrict__ dxp_all,
-                 const float* __restrict__ dhpn_all, DirG gf, DirG gb, int T,
-                 int B, int H) {
-  const int dir = blockIdx.y;
-  const DirG g = dir ? gb : gf;
-  const float* __restrict__ h0 = dir ? h0_b : h0_f;
-  const float* __restrict__ out = dir ? out_b : out_f;
-  const int H3 = 3 * H;
-  const float* __restrict__ dxp = dxp_all + (size_t)dir * T * B * H3;
-  const float* __restrict__ dhpn = dhpn_all + (size_t)dir * T * B * H;
-  const int col_tiles = (H3 + TN - 1) / TN;
-  const int ih_tiles = with_ih ? ((D + 1 + TM - 1) / TM) * col_tiles : 0;
-  int tile = blockIdx.x;
-  const bool hh = tile >= ih_tiles;
-  if (hh) tile -= ih_tiles;
-  const int M = hh ? H : D;  // row M of the tile grid is the bias row
-  const int m0 = (tile / col_tiles) * TM;
-  const int c0 = (tile % col_tiles) * TN;
-
-  __shared__ float As[TR][TM];
-  __shared__ float Bs[TR][TN];
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc00 = 0.0f, acc01 = 0.0f, acc10 = 0.0f, acc11 = 0.0f;
-  const int N = T * B;
-  for (int n0 = 0; n0 < N; n0 += TR) {
-    for (int idx = threadIdx.x; idx < TR * TM; idx += WG_THREADS) {
-      const int i = idx / TM, m = idx % TM;
-      const int n = n0 + i, mm = m0 + m;
-      float v = 0.0f;
-      if (n < N && mm <= M) {
-        const int tt = n / B, b = n - (n / B) * B;
-        if (mm == M) {
-          v = 1.0f;
-        } else if (hh) {
-          v = hprev_at(out, h0, dir, tt, b, mm, T, B, H);
-        } else {
-          v = x_at<PAIR>(in, tt, b, mm, B, H);
-        }
-      }
-      As[i][m] = v;
-    }
-    for (int idx = threadIdx.x; idx < TR * TN; idx += WG_THREADS) {
-      const int i = idx / TN, c = idx % TN;
-      const int n = n0 + i, cc = c0 + c;
-      float v = 0.0f;
-      if (n < N && cc < H3) {
-        v = (!hh || cc < 2 * H) ? dxp[(size_t)n * H3 + cc]
-                                : dhpn[(size_t)n * H + (cc - 2 * H)];
-      }
-      Bs[i][c] = v;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int i = 0; i < TR; ++i) {
-      const float a0 = As[i][2 * ty], a1 = As[i][2 * ty + 1];
-      const float v0 = Bs[i][2 * tx], v1 = Bs[i][2 * tx + 1];
-      acc00 = fmaf(a0, v0, acc00);
-      acc01 = fmaf(a0, v1, acc01);
-      acc10 = fmaf(a1, v0, acc10);
-      acc11 = fmaf(a1, v1, acc11);
-    }
-    __syncthreads();
-  }
-  const float accs[2][2] = {{acc00, acc01}, {acc10, acc11}};
-  float* w = hh ? g.w_hh : g.w_ih;
-  float* bias = hh ? g.b_hh : g.b_ih;
-#pragma unroll
-  for (int u = 0; u < 2; ++u) {
-#pragma unroll
-    for (int v = 0; v < 2; ++v) {
-      const int mm = m0 + 2 * ty + u, cc = c0 + 2 * tx + v;
-      if (cc >= H3 || mm > M) continue;
-      if (mm < M) {
-        w[(size_t)mm * H3 + cc] = accs[u][v];
-      } else {
-        bias[cc] = accs[u][v];
-      }
-    }
-  }
-}
-
-template <bool PAIR>
-int launch_wgrad(const WindowIn& in, int D, bool with_ih, const float* h0_f,
-                 const float* h0_b, const float* out_f, const float* out_b,
-                 const float* dxp, const float* dhpn, DirG gf, DirG gb, int T,
-                 int B, int H, void* stream) {
-  dim3 grid(wgrad_tiles(D, with_ih, H), 2);
-  bwd_wgrad_kernel<PAIR><<<grid, WG_THREADS, 0, (cudaStream_t)stream>>>(
-      in, D, with_ih, h0_f, h0_b, out_f, out_b, dxp, dhpn, gf, gb, T, B, H);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace

@@ -38,10 +38,8 @@
 //     writes dxp (an output) and the n block of dhp (scratch) per direction,
 //     and dh0.
 //   pass 2: the [dW_hh; db_hh] half of the weight-cotangent reduction over
-//     those streams, by default the split design of gru_window_wgrad.cu;
-//     bigru_window_xp_bwd_wgrad below launches the earlier one, forced only
-//     (design "tile32", bwd_wgrad_kernel, gru_window_common.cuh). No float
-//     atomics in either: two launches are bit-identical.
+//     those streams, the split design of gru_window_wgrad.cu. No float
+//     atomics: two launches are bit-identical.
 //
 // Shapes whose W_hh slices fit the card's SMs take the grid design instead
 // (gru_window_xp_bwd_grid.cu: the gate pass, then a grid-wide recurrence with
@@ -235,20 +233,6 @@ int bigru_window_xp_bwd_rec(const float* xp_f, const float* xp_b, const float* h
     case 1: return launch_bwd_rows<1>(pf, pb, T, B, H, stream);
     default: return (int)cudaErrorInvalidValue;
   }
-}
-
-// Pass 2: h0 and the forward's out_f/out_b, pass 1's dxp and dhpn; writes
-// dW_hh (H, 3H) and db_hh (3H,) per direction.
-int bigru_window_xp_bwd_wgrad(const float* h0_f, const float* h0_b, const float* out_f,
-                              const float* out_b, const float* dxp, const float* dhpn,
-                              float* dwh_f, float* dbh_f, float* dwh_b, float* dbh_b,
-                              int T, int B, int H, void* stream) {
-  if (int e = check_xp_geometry(T, B, H)) return e;
-  const WindowIn none{nullptr, 0, 0, 0, nullptr, nullptr};
-  const DirG gf{nullptr, dwh_f, nullptr, dbh_f};
-  const DirG gb{nullptr, dwh_b, nullptr, dbh_b};
-  return launch_wgrad<false>(none, 0, false, h0_f, h0_b, out_f, out_b, dxp, dhpn, gf,
-                             gb, T, B, H, stream);
 }
 
 }  // extern "C"

@@ -33,16 +33,12 @@ from typing import List
 
 import torch
 
-from helen_tpu_torch.ops.gru_window import (
-    Layer,
-    Outputs,
-    bigru_window_in1,
-    bigru_window_in2,
-)
-from helen_tpu_torch.ops.gru_window_bwd import KEYS, Source, bigru_window_bwd, window_input
-from helen_tpu_torch.ops.gru_window_proj import bigru_window_xp_proj
+from helen_tpu_torch.ops.gru_window import bigru_window_in1, bigru_window_in2
+from helen_tpu_torch.ops.gru_window_bwd import bigru_window_bwd
+from helen_tpu_torch.ops.gru_window_proj import Source, bigru_window_xp_proj, window_input
 from helen_tpu_torch.ops.gru_window_xp import bigru_window_xp
 from helen_tpu_torch.ops.gru_window_xp_bwd import bigru_window_xp_bwd
+from helen_tpu_torch.ops.library import KEYS, Layer, Outputs
 
 
 def flat_layer(layer: Layer) -> List[torch.Tensor]:
@@ -139,7 +135,7 @@ class _XpProjection(torch.autograd.Function):
     bits: ``dW = x2.t().mm(g)``, ``dx2 = g.mm(w.t())`` per direction (``x2``,
     ``g``: the input and the cotangent folded to 2-D), the two dx added,
     ``db = g.sum_to_size(b)``; the pair's x made again by
-    ``gru_window_bwd.window_input``'s cat."""
+    ``gru_window_proj.window_input``'s cat."""
 
     @staticmethod
     def forward(ctx, start, T, dtype, xa, xb, w_f, b_f, w_b, b_b):

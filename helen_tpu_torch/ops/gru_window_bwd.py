@@ -44,40 +44,59 @@ kernels or raises.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple, Union
+from ctypes import c_int as i, c_longlong as ll, c_void_p as p
+from typing import Optional, Tuple
 
 import torch
 
-from helen_tpu_torch.ops.gru_window import (
-    MAX_H,
+from helen_tpu_torch.ops import gru_window_bwd_smem as gbs
+from helen_tpu_torch.ops import gru_window_smem as gs
+from helen_tpu_torch.ops import library
+from helen_tpu_torch.ops.gru_window import MAX_H
+from helen_tpu_torch.ops.gru_window_bwd_smem import (
+    bwd_fits_smem,
+    h_prev_of,
+    launch_counts,
+    unwind_gates,
+)
+from helen_tpu_torch.ops.gru_window_proj import Source, window_input
+from helen_tpu_torch.ops.gru_window_wgrad import (
+    bigru_window_bwd_wgrad_plain,
+    bigru_window_wgrad,
+    source_args,
+)
+from helen_tpu_torch.ops.library import (
     Layer,
-    _check,
-    _cuda_device,
-    _layer_args,
-    _raise_on,
+    check,
+    cuda_device,
+    empty,
     get_lib,
+    layer_args,
+    raise_on,
+    stream,
 )
 
-Source = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
 #: (dx (T, B, D) summed over the directions, or None; dh0_f; dh0_b;
 #: {"fwd", "bwd"} of {"w_ih", "w_hh", "b_ih", "b_hh"} cotangents)
 Grads = Tuple[Optional[torch.Tensor], torch.Tensor, torch.Tensor, Layer]
 
-#: launches of each pass since the last reset_launch_counts() — counted
-#: where the kernel is launched and nowhere else
-launch_counts: Dict[str, int] = {"bigru_window_bwd_rec": 0,
-                                 "bigru_window_bwd_wgrad": 0,
-                                 # pass 1's kernels: the one-launch design
-                                 "bigru_window_bwd_rec_chain": 0,
-                                 # and the other (ops.gru_window_bwd_smem)
-                                 "bigru_window_bwd_hp": 0,
-                                 "bigru_window_bwd_rec_smem": 0,
-                                 "bigru_window_bwd_dx": 0}
 #: pass 1's designs (see bwd_design)
 DESIGNS = ("smem", "chain")
+#: the C entries of csrc/gru_window_bwd.cu: pass 1's one-launch design (the
+#: layer input, h0, the forward's outputs, the cotangents, both directions'
+#: weights and transposes, the outputs) and its MAX_H
+ENTRIES = {"bigru_window_bwd_rec": (i, [p, ll, ll, i, p, p, i] + [p] * 8 + [p] * 12 + [p] * 6
+                                    + [i, i, i, p]),
+           "gru_window_bwd_max_h": (i, [])}
 
-#: one direction's params, in the order the kernel library takes them
-KEYS = ("w_ih", "w_hh", "b_ih", "b_hh")
+
+def check_fit(lib) -> None:
+    """Raise where ``MAX_H`` disagrees with the source's."""
+    if lib.gru_window_bwd_max_h() != MAX_H:
+        raise RuntimeError("MAX_H disagrees with csrc/gru_window_bwd.cu")
+
+
+library.register(ENTRIES, check_fit)
 
 
 def reset_launch_counts() -> None:
@@ -85,78 +104,19 @@ def reset_launch_counts() -> None:
         launch_counts[k] = 0
 
 
-def window_input(src: Source, start: int, T: int, dtype) -> torch.Tensor:
-    """The layer's time-major input ``(T, B, D)`` as a float tensor."""
-    if isinstance(src, tuple):
-        return torch.cat([src[0], src[1]], dim=-1).to(dtype)
-    return src[:, start:start + T].to(dtype).transpose(0, 1)
-
-
 # ---------------------------------------------------------------------------
 # plain version (CPU path, tests, and the on-card comparison)
 # ---------------------------------------------------------------------------
-
-def _h_prev(out: torch.Tensor, h0: torch.Tensor, rev: bool) -> torch.Tensor:
-    """Each step's previous hidden: the output stream shifted one step
-    (forward direction: out[t-1]; backward direction: out[t+1]), h0 at the
-    window boundary."""
-    if rev:
-        return torch.cat([out[1:], h0[None]], dim=0)
-    return torch.cat([h0[None], out[:-1]], dim=0)
-
 
 def unwind_plain(xp: torch.Tensor, h_prev: torch.Tensor, dout: torch.Tensor,
                  dh_final: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
                  rev: bool):
     """One direction's backward recurrence from its projected input ``xp``
-    (T, B, 3H) and its ``h_prev`` stream: :func:`unwind_gates` with ``hp =
-    h_prev @ w_hh + b_hh``.
+    (T, B, 3H) and its ``h_prev`` stream: ``gru_window_bwd_smem.unwind_gates``
+    with ``hp = h_prev @ w_hh + b_hh``.
 
     :returns: (dxp (T, B, 3H), dhp_n (T, B, H), dh0 (B, H))"""
     return unwind_gates(xp, h_prev @ w_hh + b_hh, h_prev, dout, dh_final, w_hh, rev)
-
-
-def unwind_gates(xp: torch.Tensor, hp: torch.Tensor, h_prev: torch.Tensor,
-                 dout: torch.Tensor, dh_final: torch.Tensor, w_hh: torch.Tensor,
-                 rev: bool):
-    """The backward recurrence given both projections, ``xp`` (``b_ih``
-    added) and ``hp = h_prev @ w_hh + b_hh``, each (T, B, 3H): the gates
-    recomputed for the whole window at once, the carry unwound step by step
-    (helen_tpu's equations, ``gru_pallas_train.py:51-62``, ``_bwd_dir``
-    ``:151-163``).
-
-    :returns: (dxp (T, B, 3H), dhp_n (T, B, H), dh0 (B, H))"""
-    T, _, H3 = xp.shape
-    H = H3 // 3
-    r = torch.sigmoid(xp[..., :H] + hp[..., :H])
-    z = torch.sigmoid(xp[..., H:2 * H] + hp[..., H:2 * H])
-    hp_n = hp[..., 2 * H:]
-    n = torch.tanh(xp[..., 2 * H:] + r * hp_n)
-    dxp = [None] * T
-    dhpn = [None] * T
-    carry = dh_final
-    for t in (range(T) if rev else range(T - 1, -1, -1)):
-        dh = dout[t] + carry
-        dz = dh * (h_prev[t] - n[t])
-        da = dh * (1.0 - z[t]) * (1.0 - n[t] * n[t])
-        dr = da * hp_n[t]
-        drpre = dr * r[t] * (1.0 - r[t])
-        dzpre = dz * z[t] * (1.0 - z[t])
-        dxp[t] = torch.cat([drpre, dzpre, da], dim=-1)
-        dhpn[t] = da * r[t]
-        dhp = torch.cat([drpre, dzpre, dhpn[t]], dim=-1)
-        carry = dh * z[t] + dhp @ w_hh.T
-    return torch.stack(dxp), torch.stack(dhpn), carry
-
-
-def hh_grads_plain(dxp: torch.Tensor, dhpn: torch.Tensor,
-                   h_prev: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """One direction's ``dW_hh = h_prev^T dhp`` and ``db_hh = sum dhp`` over
-    the window's T*B rows, ``dhp = [dxp_r | dxp_z | dhp_n]``."""
-    H = dhpn.shape[-1]
-    g_x = dxp.reshape(-1, 3 * H)
-    g_h = torch.cat([g_x[:, :2 * H], dhpn.reshape(-1, H)], dim=-1)
-    return {"w_hh": h_prev.reshape(-1, H).T @ g_h, "b_hh": g_h.sum(dim=0)}
 
 
 def bigru_window_bwd_rec_plain(src: Source, start: int, h0_f, h0_b, out_f, out_b,
@@ -177,7 +137,7 @@ def bigru_window_bwd_rec_plain(src: Source, start: int, h0_f, h0_b, out_f, out_b
             ("fwd", out_f, h0_f, dout_f, dh_f, False),
             ("bwd", out_b, h0_b, dout_b, dh_b, True)):
         p = layer[d]
-        dxp, dhpn, carry = unwind_plain(x @ p["w_ih"] + p["b_ih"], _h_prev(out, h0, rev),
+        dxp, dhpn, carry = unwind_plain(x @ p["w_ih"] + p["b_ih"], h_prev_of(out, h0, rev),
                                         dout, dh_final, p["w_hh"], p["b_hh"], rev)
         dxps.append(dxp)
         dhpns.append(dhpn)
@@ -186,22 +146,6 @@ def bigru_window_bwd_rec_plain(src: Source, start: int, h0_f, h0_b, out_f, out_b
             dx = dx_d if dx is None else dx + dx_d
         dh0.append(carry)
     return torch.stack(dxps), torch.stack(dhpns), dx, dh0[0], dh0[1]
-
-
-def bigru_window_bwd_wgrad_plain(src: Source, start: int, h0_f, h0_b, out_f, out_b,
-                                 dxp: torch.Tensor, dhpn: torch.Tensor) -> Layer:
-    """Pass 2's plain version: the weight cotangents as sums over all T*B
-    rows, ``dW_ih = x^T dxp``, ``db_ih = sum dxp`` and
-    :func:`hh_grads_plain`."""
-    T, B, H = out_f.shape
-    x = window_input(src, start, T, out_f.dtype).reshape(T * B, -1)
-    grads: Layer = {}
-    for i, (d, out, h0, rev) in enumerate((("fwd", out_f, h0_f, False),
-                                           ("bwd", out_b, h0_b, True))):
-        g_x = dxp[i].reshape(T * B, 3 * H)
-        grads[d] = {"w_ih": x.T @ g_x, "b_ih": g_x.sum(dim=0),
-                    **hh_grads_plain(dxp[i], dhpn[i], _h_prev(out, h0, rev))}
-    return grads
 
 
 def bigru_window_bwd_plain(src: Source, start: int, h0_f, h0_b, out_f, out_b,
@@ -229,8 +173,6 @@ def bwd_design(H: int, B: int, design=None) -> str:
     rule of the shape, not a fallback. ``design`` forces one (tests,
     chip_smoke.py's comparison of the two); ``"smem"`` raises where the
     rule does not hold."""
-    from helen_tpu_torch.ops.gru_window_bwd_smem import bwd_fits_smem
-
     fits = bwd_fits_smem(H, B)
     if design is None:
         return "smem" if fits else "chain"
@@ -242,25 +184,6 @@ def bwd_design(H: int, B: int, design=None) -> str:
     return design
 
 
-def source_args(name: str, src: Source, start: int, T: int, B: int, H: int, dev) -> list:
-    """The checked layer input as the kernel library takes it: ``[img, sb,
-    sl, start, xa, xb, D]`` (the image's pointer and element strides, or the
-    pair's pointers, and the input width)."""
-    if isinstance(src, tuple):
-        xa, xb = src
-        _check("xa", xa, (T, B, H), torch.float32, dev)
-        _check("xb", xb, (T, B, H), torch.float32, dev)
-        return [None, 0, 0, 0, xa.data_ptr(), xb.data_ptr(), 2 * H]
-    if src.dtype != torch.uint8 or src.dim() != 3 or src.stride(2) != 1:
-        raise ValueError(f"{name} takes a (B, L, F) uint8 image with unit feature "
-                         "stride, or an (xa, xb) pair")
-    Bi, L, D = src.shape
-    if Bi != B or not (0 <= start and start + T <= L):
-        raise ValueError(f"window [{start}, {start + T}) of a {tuple(src.shape)} "
-                         f"image for outputs of {(T, B, H)}")
-    return [src.data_ptr(), src.stride(0), src.stride(1), start, None, None, D]
-
-
 class _Window:
     """The checked arguments of one layer-window's backward launches."""
 
@@ -268,7 +191,7 @@ class _Window:
                  dout_f, dout_b, dh_f, dh_b, layer: Layer):
         self.pair = isinstance(src, tuple)
         lead = src[0] if self.pair else src
-        dev = self.dev = _cuda_device(lead, name)
+        dev = self.dev = cuda_device(lead, name)
         T, B, H = self.T, self.B, self.H = out_f.shape
         if not 0 < H <= MAX_H:
             raise ValueError(f"H={H} exceeds the backward kernel's maximum {MAX_H}")
@@ -278,12 +201,8 @@ class _Window:
                             ("out_f", out_f, (T, B, H)), ("out_b", out_b, (T, B, H)),
                             ("dout_f", dout_f, (T, B, H)), ("dout_b", dout_b, (T, B, H)),
                             ("dh_f", dh_f, (B, H)), ("dh_b", dh_b, (B, H))):
-            _check(n, t, shape, torch.float32, dev)
-        self.w = _layer_args(layer, D, H, dev)  # checks, and the forward's pointers
-
-
-def _empty(dev, *shape) -> torch.Tensor:
-    return torch.empty(shape, dtype=torch.float32, device=dev)
+            check(n, t, shape, torch.float32, dev)
+        self.w = layer_args(layer, D, H, dev)  # checks, and the forward's pointers
 
 
 def _rec_chain(a: _Window, h0_f, h0_b, out_f, out_b, dout_f, dout_b, dh_f, dh_b, layer,
@@ -298,18 +217,17 @@ def _rec_chain(a: _Window, h0_f, h0_b, out_f, out_b, dout_f, dout_b, dh_f, dh_b,
     for i, d in enumerate(("fwd", "bwd")):
         wi, wh, bi, bh = a.w[4 * i:4 * i + 4]
         weights += [wi, wh, wT[d][0].data_ptr(), wT[d][1].data_ptr(), bi, bh]
-    dxp, dhpn = _empty(dev, 2, T, B, 3 * H), _empty(dev, 2, T, B, H)
-    dx_f, dx_b = (_empty(dev, T, B, D), _empty(dev, T, B, D)) if want_dx else (None, None)
-    dh0_f, dh0_b = _empty(dev, B, H), _empty(dev, B, H)
+    dxp, dhpn = empty(dev, 2, T, B, 3 * H), empty(dev, 2, T, B, H)
+    dx_f, dx_b = (empty(dev, T, B, D), empty(dev, T, B, D)) if want_dx else (None, None)
+    dh0_f, dh0_b = empty(dev, B, H), empty(dev, B, H)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(dev):
         err = get_lib().bigru_window_bwd_rec(
             *a.img_args, *(t.data_ptr() for t in (h0_f, h0_b, out_f, out_b, dout_f,
                                                   dout_b, dh_f, dh_b)),
             *weights, dxp.data_ptr(), dhpn.data_ptr(), ptr(dx_f), ptr(dx_b),
-            dh0_f.data_ptr(), dh0_b.data_ptr(), T, B, H,
-            torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "bigru_window_bwd_rec")
+            dh0_f.data_ptr(), dh0_b.data_ptr(), T, B, H, stream(dev))
+    raise_on(err, "bigru_window_bwd_rec")
     launch_counts["bigru_window_bwd_rec_chain"] += 1
     return dxp, dhpn, (dx_f + dx_b if want_dx else None), dh0_f, dh0_b
 
@@ -319,9 +237,6 @@ def _rec_smem(a: _Window, src, start, h0_f, h0_b, out_f, out_b, dout_f, dout_b, 
     """Pass 1 as the gate pass (K1/K2's projection and the hp product), the
     recurrence with W_hh^T in shared memory, and the dx pass
     (ops.gru_window_bwd_smem)."""
-    from helen_tpu_torch.ops import gru_window_bwd_smem as gbs
-    from helen_tpu_torch.ops import gru_window_smem as gs
-
     dev = a.dev
     if a.pair:
         xp = gs.launch_proj_in2(src[0], src[1], a.w, dev)
@@ -378,8 +293,6 @@ def bigru_window_bwd(src: Source, start: int, h0_f, h0_b, out_f, out_b,
     pair = isinstance(src, tuple)
     if (src[0] if pair else src).device.type == "cpu":
         return bigru_window_bwd_plain(*args, need_dx and pair)
-    from helen_tpu_torch.ops.gru_window_wgrad import bigru_window_wgrad
-
     a = _Window("bigru_window_bwd", *args)
     dxp, dhpn, dx, dh0_f, dh0_b = _rec(a, design, *args, need_dx=need_dx)
     grads = bigru_window_wgrad(src, start, h0_f, h0_b, out_f, out_b, dxp, dhpn)

@@ -54,25 +54,36 @@ keeps its fused kernel off its own dispatch.
 from __future__ import annotations
 
 import threading
+from ctypes import c_int as i, c_longlong as ll, c_void_p as p
 
 import torch
 
 from helen_tpu_torch.io.checkpoint import fast_layer
-from helen_tpu_torch.ops import gru_window as gw
+from helen_tpu_torch.models.gru import bf16_round
+from helen_tpu_torch.ops import gru_window_smem as gs
+from helen_tpu_torch.ops import library
 from helen_tpu_torch.ops.gru_window import (
     MAX_H,
-    Layer,
-    Outputs,
     bigru_window_in1_fast_plain,
     bigru_window_in1_plain,
     bigru_window_in2_fast_plain,
     bigru_window_in2_plain,
+    launch_counts,
+)
+from helen_tpu_torch.ops.library import (
+    HOPPER_SMEM_OPTIN,
+    Layer,
+    Outputs,
+    check,
+    cuda_device,
+    device_smem_budget,
+    get_lib,
+    layer_args,
+    outputs,
+    raise_on,
+    stream,
 )
 
-#: the dynamic shared memory a block may opt in to on Hopper (H100 and H200:
-#: 232,448 bytes), the fit functions' budget off the card; on the card the
-#: wrapper reads the device's own limit
-HOPPER_SMEM_OPTIN = 232_448
 #: the batch rows per block the one-pass kernel is built for, most first
 BLOCK_ROWS = (4, 2, 1)
 #: K5's designs: the two-CTA cluster, and the one-pass kernel (gru_window_encdec.cu)
@@ -155,8 +166,6 @@ def cluster_smem_bytes(h: int, rows: int, fast: bool) -> int:
     their fragments, then the producers' ring (2 x 32 rows of 3h rounded up
     to 32, plus 4, float32), ``W_ih`` stages (2 x 32 rows) and A stages (2 x
     32 x 40); csrc/gru_window_fast.cu ``ecf_smem``."""
-    from helen_tpu_torch.ops import gru_window_smem as gs
-
     if not fast:
         return (CLUSTER_BAR_BYTES + _up(gs.rec_smem_bytes(h, rows), 16)
                 + 4 * 2 * CLUSTER_BK * (CLUSTER_ROWS + 4 + CLUSTER_N))
@@ -203,8 +212,6 @@ def encdec_design(H: int, B: int, fast: bool = False, design=None) -> str:
     ``rec_block_rows(B)`` rows (:func:`cluster_fits`), else ``"onepass"``.
     ``design`` forces one; ``"cluster"`` raises where the rule does not
     hold."""
-    from helen_tpu_torch.ops import gru_window_smem as gs
-
     fits = gs.takes_smem_design(H, B, fast) and cluster_fits(H, gs.rec_block_rows(B), fast)
     if design is None:
         return "cluster" if fits else "onepass"
@@ -224,24 +231,65 @@ def cluster_active(H: int, B: int, fast: bool) -> int:
     """How many of the cluster kernel's clusters the current card holds at
     once at hidden size ``H`` and batch ``B`` (read from the card once per
     shape): ``ceil(B / rec_block_rows(B))`` or more runs them in one wave."""
-    from helen_tpu_torch.ops import gru_window_smem as gs
-
     rows = gs.rec_block_rows(B)
     key = (torch.cuda.current_device(), H, rows, fast)
     with _active_lock:
         if key not in _active:
-            lib = gw.get_lib()
+            lib = get_lib()
             n = (lib.transducer_window_encdec_cluster_fast_active(H) if fast
                  else lib.transducer_window_encdec_cluster_active(H, rows))
             if n < 0:
-                gw._raise_on(-n, "transducer_window_encdec_cluster" + ("_fast" if fast else ""))
+                raise_on(-n, "transducer_window_encdec_cluster" + ("_fast" if fast else ""))
             _active[key] = n
         return _active[key]
 
 
-def device_smem_budget() -> int:
-    """The current CUDA device's opt-in shared memory per block, in bytes."""
-    return gw.get_lib().gru_window_smem_optin()
+#: K5's arguments: K1's, both layers' weights, the outputs
+_K5 = [p, ll, ll, i, i, p, p] + [p] * 16 + [p] * 4
+#: the C entries of csrc/gru_window_encdec.cu (K5/K5f's one-pass design: T,
+#: B, H and the block's batch rows) and of the cluster design's in
+#: csrc/gru_window_smem.cu and csrc/gru_window_fast.cu (the same, then the
+#: scratch), with their fit queries
+ENTRIES = {
+    "transducer_window_encdec": (i, _K5 + [i, i, i, i, p]),
+    "transducer_window_encdec_fast": (i, _K5 + [i, i, i, i, p]),
+    "transducer_window_encdec_smem": (ll, [i] * 5),
+    "transducer_window_encdec_max_threads": (i, [i]),
+    "transducer_window_encdec_cluster": (i, _K5 + [i, i, i, i, p, p]),
+    "transducer_window_encdec_cluster_fast": (i, _K5 + [i, i, i, i, p, p]),
+    "transducer_window_encdec_cluster_smem": (ll, [i, i]),
+    "transducer_window_encdec_cluster_threads": (i, [i, i]),
+    "transducer_window_encdec_cluster_active": (i, [i, i]),
+    "transducer_window_encdec_cluster_scratch": (ll, [i] * 4),
+    "transducer_window_encdec_cluster_fast_smem": (ll, [i]),
+    "transducer_window_encdec_cluster_fast_threads": (i, [i]),
+    "transducer_window_encdec_cluster_fast_active": (i, [i]),
+    "transducer_window_encdec_cluster_fast_max_h": (i, []),
+    "transducer_window_encdec_cluster_fast_scratch": (ll, [i] * 4),
+}
+
+
+def check_fit(lib) -> None:
+    """Raise where the cluster design's fit disagrees with the sources'."""
+    if (lib.transducer_window_encdec_cluster_fast_max_h() != CLUSTER_FAST_MAX_H
+            or any(lib.transducer_window_encdec_cluster_smem(h, r)
+                   != cluster_smem_bytes(h, r, False)
+                   or lib.transducer_window_encdec_cluster_threads(h, r)
+                   != cluster_threads(h, r, False)
+                   or lib.transducer_window_encdec_cluster_fast_smem(h)
+                   != cluster_smem_bytes(h, r, True)
+                   or lib.transducer_window_encdec_cluster_fast_threads(h)
+                   != cluster_threads(h, r, True)
+                   or lib.transducer_window_encdec_cluster_scratch(h, 300, 100, r)
+                   != cluster_scratch_bytes(h, 300, 100, r, False)
+                   or lib.transducer_window_encdec_cluster_fast_scratch(h, 300, 100, r)
+                   != cluster_scratch_bytes(h, 300, 100, r, True)
+                   for h in (1, 37, 64, 100, 128) for r in gs.BLOCK_ROWS)):
+        raise RuntimeError("K5's cluster fit disagrees with csrc/gru_window_smem.cu "
+                           "or gru_window_fast.cu")
+
+
+library.register(ENTRIES, check_fit)
 
 
 # ---------------------------------------------------------------------------
@@ -285,9 +333,6 @@ def transducer_window_encdec_cluster_fast_plain(image: torch.Tensor, start: int,
 
 
 def _cluster_plain(image, start, T, h0_f, h0_b, enc, dec, fast) -> Outputs:
-    from helen_tpu_torch.models.gru import bf16_round
-    from helen_tpu_torch.ops import gru_window_smem as gs
-
     def layer(x, h0f, h0b, params):
         xp = gs.window_proj_plain(bf16_round(x) if fast else x, params)
         return gs.window_rec_plain(xp, h0f, h0b, params)
@@ -310,19 +355,17 @@ def _check_args(name: str, fast: bool, image, start, T, h0_f, h0_b, enc, dec) ->
     H = h0_f.shape[-1]
     if not (0 <= start and start + T <= L and T > 0):
         raise ValueError(f"window [{start}, {start + T}) of {L} columns")
-    gw._check("h0_f", h0_f, (B, H), torch.float32, dev)
-    gw._check("h0_b", h0_b, (B, H), torch.float32, dev)
+    check("h0_f", h0_f, (B, H), torch.float32, dev)
+    check("h0_b", h0_b, (B, H), torch.float32, dev)
     wdtype = torch.bfloat16 if fast else torch.float32
     return ([image.data_ptr(), image.stride(0), image.stride(1), start, F,
              h0_f.data_ptr(), h0_b.data_ptr()]
-            + gw._layer_args(enc, F, H, dev, wdtype) + gw._layer_args(dec, 2 * H, H, dev, wdtype))
+            + layer_args(enc, F, H, dev, wdtype) + layer_args(dec, 2 * H, H, dev, wdtype))
 
 
 def _launch_cluster(fast: bool, image, start, T, h0_f, h0_b, enc, dec) -> Outputs:
     """One launch of the cluster kernel (the shape already checked by
     :func:`encdec_design`), counted under its name."""
-    from helen_tpu_torch.ops import gru_window_smem as gs
-
     name = "transducer_window_encdec_cluster" + ("_fast" if fast else "")
     args = _check_args(name, fast, image, start, T, h0_f, h0_b, enc, dec)
     dev = image.device
@@ -334,13 +377,12 @@ def _launch_cluster(fast: bool, image, start, T, h0_f, h0_b, enc, dec) -> Output
                            f"{cluster_smem_bytes(H, rows, fast)} bytes of shared memory each")
     scratch = torch.empty(cluster_scratch_bytes(H, B, T, rows, fast), dtype=torch.uint8,
                           device=dev)
-    outs = gw._outputs(T, B, H, dev)
+    outs = outputs(T, B, H, dev)
     with torch.cuda.device(dev):
-        err = getattr(gw.get_lib(), name)(
-            *args, *[o.data_ptr() for o in outs], T, B, H, rows, scratch.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    gw._raise_on(err, name)
-    gw.launch_counts[name] += 1
+        err = getattr(get_lib(), name)(
+            *args, *[o.data_ptr() for o in outs], T, B, H, rows, scratch.data_ptr(), stream(dev))
+    raise_on(err, name)
+    launch_counts[name] += 1
     return outs
 
 
@@ -352,13 +394,12 @@ def _launch_onepass(name: str, fast: bool, image, start, T, h0_f, h0_b, enc, dec
     B, _, F = image.shape
     H = h0_f.shape[-1]
     bt = encdec_block_rows(H, F, T, fast, device_smem_budget())
-    outs = gw._outputs(T, B, H, dev)
+    outs = outputs(T, B, H, dev)
     with torch.cuda.device(dev):
-        err = getattr(gw.get_lib(), name)(
-            *args, *[o.data_ptr() for o in outs], T, B, H, bt,
-            torch.cuda.current_stream(dev).cuda_stream)
-    gw._raise_on(err, name)
-    gw.launch_counts["transducer_window_encdec_onepass" + ("_fast" if fast else "")] += 1
+        err = getattr(get_lib(), name)(
+            *args, *[o.data_ptr() for o in outs], T, B, H, bt, stream(dev))
+    raise_on(err, name)
+    launch_counts["transducer_window_encdec_onepass" + ("_fast" if fast else "")] += 1
     return outs
 
 
@@ -384,7 +425,7 @@ def _encdec(name: str, fast: bool, image, start, T, h0_f, h0_b, enc, dec,
         outs = _launch_cluster(fast, image, start, T, h0_f, h0_b, enc, dec)
     else:
         outs = _launch_onepass(name, fast, image, start, T, h0_f, h0_b, enc, dec)
-    gw.launch_counts[name] += 1
+    launch_counts[name] += 1
     return outs
 
 
@@ -414,7 +455,7 @@ def _cluster(fast: bool, image, start, T, h0_f, h0_b, enc, dec) -> Outputs:
         plain = (transducer_window_encdec_cluster_fast_plain if fast
                  else transducer_window_encdec_cluster_plain)
         return plain(image, start, T, h0_f, h0_b, enc, dec)
-    gw._cuda_device(image, name)
+    cuda_device(image, name)
     encdec_design(h0_f.shape[-1], image.shape[0], fast, "cluster")
     return _launch_cluster(fast, image, start, T, h0_f, h0_b, enc, dec)
 

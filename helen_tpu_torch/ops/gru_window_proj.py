@@ -4,14 +4,14 @@ version.
 :func:`bigru_window_xp_proj` computes, for one bi-GRU layer over one window,
 both directions' input projections ``xp[d] = x @ W_ih[d] + b_ih[d]`` in one
 launch of ``csrc/gru_window_proj.cu`` (built into the one kernel library
-with the other window kernels, ``gru_window.build_kernels``), into one
+with the other window kernels, ``library.build_kernels``), into one
 ``(2, T, B, 3H)`` buffer whose two halves K3 (``ops.gru_window_xp``) takes
 as they are. It replaces no Pallas body: helen_tpu leaves this product to
 XLA's dot (``bigru_apply_fused``), and the port had it as two float32
 ``torch.matmul`` calls, their bias adds and the cat or cast of the layer's
 input.
 
-The layer's input ``src`` is read where it lies (``gru_window_bwd.Source``):
+The layer's input ``src`` is read where it lies (:data:`Source`):
 the ``(B, L, F)`` uint8 image at column ``start + t`` (a float32 image the
 same way), or the pair ``(xa, xb)`` of the previous layer's ``(T, B, H)``
 halves, row ``[xa | xb]``, with no ``torch.cat``.
@@ -40,25 +40,25 @@ buffer.
 
 On a CPU tensor :func:`bigru_window_xp_proj` computes its plain version,
 :func:`bigru_window_xp_proj_plain`, today's expression of the route (the
-layer input as ``gru_window_bwd.window_input`` makes it, ``@ w_ih + b_ih``
+layer input as :func:`window_input` makes it, ``@ w_ih + b_ih``
 per direction), so CPU results are what they were; on a CUDA tensor it
 launches the kernel or raises. Each launch adds one to
 :data:`launch_counts` under its name, each split under its own.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from ctypes import c_int as i, c_longlong as ll, c_void_p as p
+from typing import Dict, List, Tuple, Union
 
 import torch
 
-from helen_tpu_torch.ops.gru_window import (
-    Layer,
-    _check,
-    _cuda_device,
-    _raise_on,
-    get_lib,
-)
-from helen_tpu_torch.ops.gru_window_bwd import Source, window_input
+from helen_tpu_torch.ops import library
+from helen_tpu_torch.ops.library import Layer, check, cuda_device, empty, get_lib, raise_on, stream
+
+#: a window layer's input: the ``(B, L, F)`` image read at column ``start``
+#: (layer 0), or the pair ``(xa, xb)`` of the previous layer's ``(T, B, H)``
+#: halves
+Source = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
 
 #: columns of the sum per chunk (csrc/gru_window_proj.cu XJ_BK): the split
 #: weights' rows come in whole chunks
@@ -71,11 +71,33 @@ launch_counts: Dict[str, int] = {"bigru_window_xp_proj": 0,
                                  "bigru_window_xp_proj_split": 0}
 #: the attribute of the forward direction's ``w_ih`` that caches the split
 _CACHE = "_xp_proj_split"
+#: the C entries of csrc/gru_window_proj.cu: the projection (the source, the
+#: split weights, the biases, the output), the split, the chunk
+ENTRIES = {"bigru_window_xp_proj": (i, [i, p, p, ll, ll, i, ll, p, i] + [p] * 3 + [i] * 4
+                                    + [p]),
+           "bigru_window_xp_proj_split": (i, [p, p] + [i] * 4 + [p, p]),
+           "bigru_window_xp_proj_chunk": (i, [])}
+
+
+def check_fit(lib) -> None:
+    """Raise where :data:`CHUNK` disagrees with the source's."""
+    if lib.bigru_window_xp_proj_chunk() != CHUNK:
+        raise RuntimeError("CHUNK disagrees with csrc/gru_window_proj.cu")
+
+
+library.register(ENTRIES, check_fit)
 
 
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
+
+
+def window_input(src: Source, start: int, T: int, dtype) -> torch.Tensor:
+    """The layer's time-major input ``(T, B, D)`` as a float tensor."""
+    if isinstance(src, tuple):
+        return torch.cat([src[0], src[1]], dim=-1).to(dtype)
+    return src[:, start:start + T].to(dtype).transpose(0, 1)
 
 
 def bigru_window_xp_proj_plain(src: Source, start: int, T: int, layer: Layer,
@@ -139,13 +161,12 @@ def split_weights(layer: Layer, pair: bool, device) -> torch.Tensor:
     if cached is not None and cached[0][:3] == tensors and cached[1].shape == shape:
         out = cached[1]
     else:
-        out = torch.empty(shape, dtype=torch.float32, device=device)
+        out = empty(device, *shape)
     name = "bigru_window_xp_proj_split"
     with torch.cuda.device(device):
         err = get_lib().bigru_window_xp_proj_split(
-            f.data_ptr(), b.data_ptr(), D, H, int(pair), kp, out.data_ptr(),
-            torch.cuda.current_stream(device).cuda_stream)
-    _raise_on(err, name)
+            f.data_ptr(), b.data_ptr(), D, H, int(pair), kp, out.data_ptr(), stream(device))
+    raise_on(err, name)
     launch_counts[name] += 1
     f.__dict__[_CACHE] = ((*tensors, f._version, b._version), out)
     return out
@@ -158,8 +179,8 @@ def _source_args(src: Source, start: int, T: int, H: int, dev) -> tuple:
         if xa.dim() != 3:
             raise ValueError(f"xa must be (T, B, H), got {tuple(xa.shape)}")
         B = xa.shape[1]
-        _check("xa", xa, (T, B, H), torch.float32, dev)
-        _check("xb", xb, (T, B, H), torch.float32, dev)
+        check("xa", xa, (T, B, H), torch.float32, dev)
+        check("xb", xb, (T, B, H), torch.float32, dev)
         return PAIR, xa.data_ptr(), xb.data_ptr(), 0, 0, 0, B, 2 * H
     if src.dim() != 3 or src.stride(2) != 1 or src.dtype not in (torch.uint8, torch.float32):
         raise ValueError("the image must be (B, L, F) uint8 or float32 with unit feature "
@@ -184,12 +205,12 @@ def bigru_window_xp_proj(src: Source, start: int, T: int, layer: Layer,
     of the kernel (float32 only), the two outputs the halves of one
     ``(2, T, B, 3H)`` buffer. ``layer`` holds ``{"fwd", "bwd"}`` of ``w_ih
     (D, 3H)`` and ``b_ih (3H,)`` float32; ``src``, ``start``, ``T`` as in
-    :func:`gru_window_bwd.window_input`. See the module docstring."""
+    :func:`window_input`. See the module docstring."""
     first = src[0] if isinstance(src, tuple) else src
     if first.device.type == "cpu":
         return bigru_window_xp_proj_plain(src, start, T, layer, dtype)
     name = "bigru_window_xp_proj"
-    dev = _cuda_device(first, name)
+    dev = cuda_device(first, name)
     if dtype != torch.float32:
         raise TypeError(f"{name} computes in float32, not {dtype}")
     H3 = layer["fwd"]["w_ih"].shape[-1]
@@ -198,15 +219,15 @@ def bigru_window_xp_proj(src: Source, start: int, T: int, layer: Layer,
     H = H3 // 3
     kind, a0, a1, sb, sl, extent, B, D = _source_args(src, start, T, H, dev)
     for d in ("fwd", "bwd"):
-        _check(f"{d}.w_ih", layer[d]["w_ih"], (D, H3), torch.float32, dev)
-        _check(f"{d}.b_ih", layer[d]["b_ih"], (H3,), torch.float32, dev)
+        check(f"{d}.w_ih", layer[d]["w_ih"], (D, H3), torch.float32, dev)
+        check(f"{d}.b_ih", layer[d]["b_ih"], (H3,), torch.float32, dev)
     w = split_weights(layer, kind == PAIR, dev)
-    out = torch.empty((2, T, B, H3), dtype=torch.float32, device=dev)
+    out = empty(dev, 2, T, B, H3)
     with torch.cuda.device(dev):
         err = get_lib().bigru_window_xp_proj(
             kind, a0, a1, sb, sl, start, extent, w.data_ptr(), w.shape[-1],
             layer["fwd"]["b_ih"].data_ptr(), layer["bwd"]["b_ih"].data_ptr(),
-            out.data_ptr(), T, B, D, H, torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, name)
+            out.data_ptr(), T, B, D, H, stream(dev))
+    raise_on(err, name)
     launch_counts[name] += 1
     return out[0], out[1]

@@ -3,8 +3,7 @@ with W_hh in shared memory: the kernels' binding, their shape rules and
 their plain versions.
 
 Three hand-written CUDA kernels (``ops/csrc/gru_window_smem.cu``, in the
-library that ops.gru_window builds) carry a parity K1 or K2 as two
-launches:
+kernel library of ops.library) carry a parity K1 or K2 as two launches:
 
 * :func:`bigru_window_proj_in1` / :func:`bigru_window_proj_in2`: the input
   projection ``xp = x @ W_ih + b_ih`` of both directions over the window's
@@ -38,16 +37,53 @@ On a CPU tensor each wrapper computes its plain version
 (:func:`window_proj_plain`, the projection summed in k order, on
 bf16-rounded rows in the fast tier; ``gru_scan`` for the recurrence, the
 fast cell for a bf16 ``w_hh``); on a CUDA tensor it launches its kernel or
-raises. Each launch adds one to ``ops.gru_window.launch_counts``.
+raises. Each launch adds one to :data:`launch_counts`, the dict that
+``ops.gru_window`` exports as its own (K1/K2 and K5 count there too).
 """
 from __future__ import annotations
 
+from ctypes import c_int as i, c_longlong as ll, c_void_p as p
+from typing import Dict
+
 import torch
 
-from helen_tpu_torch.models.gru import bf16_round, ordered_product
-from helen_tpu_torch.ops import gru_window as gw
-from helen_tpu_torch.ops.gru_window import Layer, Outputs
-from helen_tpu_torch.ops.gru_window_encdec import HOPPER_SMEM_OPTIN
+from helen_tpu_torch.models.gru import bf16_round, gru_scan, ordered_product
+from helen_tpu_torch.ops import library
+from helen_tpu_torch.ops.library import (
+    HOPPER_SMEM_OPTIN,
+    Layer,
+    Outputs,
+    check,
+    cuda_device,
+    empty,
+    get_lib,
+    layer_args,
+    outputs,
+    raise_on,
+    stream,
+)
+
+#: launches of each kernel since the last ``gru_window.reset_launch_counts()``
+#: — counted where the kernel is launched and nowhere else: K1/K2 and K1f/K2f
+#: (ops.gru_window) whichever design ran, the kernels of their two-launch
+#: design (here), and K5/K5f (ops.gru_window_encdec). ``ops.gru_window``
+#: holds it as its ``launch_counts``.
+launch_counts: Dict[str, int] = {"bigru_window_in1": 0, "bigru_window_in2": 0,
+                                 # the two-launch design of K1/K2
+                                 "bigru_window_proj_in1": 0, "bigru_window_proj_in2": 0,
+                                 "bigru_window_rec_smem": 0,
+                                 "bigru_window_in1_fast": 0, "bigru_window_in2_fast": 0,
+                                 # the two-launch design of K1f/K2f
+                                 "bigru_window_proj_in1_fast": 0,
+                                 "bigru_window_proj_in2_fast": 0, "bigru_window_rec_fast": 0,
+                                 # the fused encoder+decoder window (ops.gru_window_encdec):
+                                 # K5/K5f per call, then the kernel of its design
+                                 "transducer_window_encdec": 0,
+                                 "transducer_window_encdec_fast": 0,
+                                 "transducer_window_encdec_cluster": 0,
+                                 "transducer_window_encdec_cluster_fast": 0,
+                                 "transducer_window_encdec_onepass": 0,
+                                 "transducer_window_encdec_onepass_fast": 0}
 
 #: the streaming multiprocessors of an H100, which one wave of recurrence
 #: blocks (one per SM: its shared memory) should fill
@@ -122,9 +158,51 @@ def takes_smem_design(h: int, b: int, fast: bool = False) -> bool:
     return fast_rec_fits(h) if fast else rec_fits_smem(h, rec_block_rows(b))
 
 
+_PROJ_IN1 = (i, [p, ll, ll, i, i] + [p] * 5 + [i, i, i, p])
+_PROJ_IN2 = (i, [p] * 7 + [i, i, i, p])
+_REC = (i, [p] * 11 + [i, i, i, i, p])
+#: the C entries of csrc/gru_window_smem.cu's projection and recurrence and
+#: of their fast-tier counterparts in csrc/gru_window_fast.cu (bf16 weights)
+ENTRIES = {
+    "bigru_window_proj_in1": _PROJ_IN1, "bigru_window_proj_in2": _PROJ_IN2,
+    "bigru_window_rec_smem": _REC,
+    "bigru_window_rec_smem_bytes": (ll, [i, i]),
+    "bigru_window_rec_max_threads": (i, []),
+    "bigru_window_proj_in1_fast": _PROJ_IN1, "bigru_window_proj_in2_fast": _PROJ_IN2,
+    "bigru_window_rec_fast": _REC,
+    "bigru_window_rec_fast_smem_bytes": (ll, [i]),
+    "bigru_window_rec_fast_max_h": (i, []),
+}
+
+
+def check_fit(lib) -> None:
+    """Raise where the recurrences' fit rules disagree with the sources'."""
+    if (lib.bigru_window_rec_max_threads() != REC_MAX_THREADS
+            or any(lib.bigru_window_rec_smem_bytes(h, r) != rec_smem_bytes(h, r)
+                   for h in (1, 127, 128, 136, 137) for r in BLOCK_ROWS)):
+        raise RuntimeError("the recurrence's fit disagrees with csrc/gru_window_smem.cu")
+    if (lib.bigru_window_rec_fast_max_h() != FAST_REC_MAX_H
+            or any(lib.bigru_window_rec_fast_smem_bytes(h) != fast_rec_smem_bytes(h)
+                   for h in (1, 16, 37, 128, 136, 160))):
+        raise RuntimeError("the fast recurrence's fit disagrees with csrc/gru_window_fast.cu")
+
+
+library.register(ENTRIES, check_fit)
+
+
 # ---------------------------------------------------------------------------
 # plain versions (CPU path, tests, and the on-card comparison)
 # ---------------------------------------------------------------------------
+
+def bidir(xp_f, xp_b, h0_f, h0_b, layer: Layer, product=None) -> Outputs:
+    """Both directions' ``gru_scan`` over their projected streams: forward
+    over ``xp_f``, reversed over ``xp_b`` (the fast cell for a bf16
+    ``w_hh``; ``product`` the step product's order)."""
+    f, b = layer["fwd"], layer["bwd"]
+    out_f, hf = gru_scan(xp_f, h0_f, f["w_hh"], f["b_hh"], product=product)
+    out_b, hb = gru_scan(xp_b, h0_b, b["w_hh"], b["b_hh"], reverse=True, product=product)
+    return out_f, out_b, hf, hb
+
 
 def window_proj_plain(x: torch.Tensor, layer: Layer) -> torch.Tensor:
     """The projection's plain version: ``x (T, B, D)`` times each
@@ -140,7 +218,7 @@ def window_rec_plain(xp: torch.Tensor, h0_f: torch.Tensor, h0_b: torch.Tensor,
                      layer: Layer) -> Outputs:
     """The recurrence's plain version: ``gru_scan`` over ``xp[0]`` forward
     and ``xp[1]`` backward (the fast cell for a bf16 ``w_hh``)."""
-    return gw._bidir(xp[0], xp[1], h0_f, h0_b, layer)
+    return bidir(xp[0], xp[1], h0_f, h0_b, layer)
 
 
 def image_window(image: torch.Tensor, start: int, T: int) -> torch.Tensor:
@@ -152,26 +230,18 @@ def image_window(image: torch.Tensor, start: int, T: int) -> torch.Tensor:
 # launches (the arguments checked by the caller) and kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _stream(dev) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
-def _scratch(T: int, B: int, H: int, dev) -> torch.Tensor:
-    return torch.empty((2, T, B, 3 * H), dtype=torch.float32, device=dev)
-
-
 def launch_proj_in1(image, start, T, F, H, w, dev, fast: bool = False) -> torch.Tensor:
     """K1's (K1f's) projection into a new scratch; ``w`` the pointers of
-    ``gw._layer_args``."""
+    ``library.layer_args``."""
     name = "bigru_window_proj_in1" + ("_fast" if fast else "")
     B = image.shape[0]
-    xp = _scratch(T, B, H, dev)
+    xp = empty(dev, 2, T, B, 3 * H)
     with torch.cuda.device(dev):
-        err = getattr(gw.get_lib(), name)(
+        err = getattr(get_lib(), name)(
             image.data_ptr(), image.stride(0), image.stride(1), start, F,
-            w[0], w[2], w[4], w[6], xp.data_ptr(), T, B, H, _stream(dev))
-    gw._raise_on(err, name)
-    gw.launch_counts[name] += 1
+            w[0], w[2], w[4], w[6], xp.data_ptr(), T, B, H, stream(dev))
+    raise_on(err, name)
+    launch_counts[name] += 1
     return xp
 
 
@@ -179,13 +249,13 @@ def launch_proj_in2(xa, xb, w, dev, fast: bool = False) -> torch.Tensor:
     """K2's (K2f's) projection into a new scratch."""
     name = "bigru_window_proj_in2" + ("_fast" if fast else "")
     T, B, H = xa.shape
-    xp = _scratch(T, B, H, dev)
+    xp = empty(dev, 2, T, B, 3 * H)
     with torch.cuda.device(dev):
-        err = getattr(gw.get_lib(), name)(
+        err = getattr(get_lib(), name)(
             xa.data_ptr(), xb.data_ptr(), w[0], w[2], w[4], w[6], xp.data_ptr(), T, B, H,
-            _stream(dev))
-    gw._raise_on(err, name)
-    gw.launch_counts[name] += 1
+            stream(dev))
+    raise_on(err, name)
+    launch_counts[name] += 1
     return xp
 
 
@@ -196,13 +266,13 @@ def launch_rec(xp, h0_f, h0_b, w, dev, fast: bool = False) -> Outputs:
     name = "bigru_window_rec_fast" if fast else "bigru_window_rec_smem"
     _, T, B, H3 = xp.shape
     H = H3 // 3
-    outs = gw._outputs(T, B, H, dev)
+    outs = outputs(T, B, H, dev)
     with torch.cuda.device(dev):
-        err = getattr(gw.get_lib(), name)(
+        err = getattr(get_lib(), name)(
             xp.data_ptr(), h0_f.data_ptr(), h0_b.data_ptr(), w[1], w[3], w[5], w[7],
-            *[o.data_ptr() for o in outs], T, B, H, rec_block_rows(B), _stream(dev))
-    gw._raise_on(err, name)
-    gw.launch_counts[name] += 1
+            *[o.data_ptr() for o in outs], T, B, H, rec_block_rows(B), stream(dev))
+    raise_on(err, name)
+    launch_counts[name] += 1
     return outs
 
 
@@ -229,7 +299,7 @@ def _proj_in1(image, start, T, layer, fast) -> torch.Tensor:
         x = image_window(image, start, T)
         return window_proj_plain(bf16_round(x) if fast else x, layer)
     name = "bigru_window_proj_in1" + ("_fast" if fast else "")
-    dev = gw._cuda_device(image, name)
+    dev = cuda_device(image, name)
     if image.dtype != torch.uint8 or image.dim() != 3 or image.stride(2) != 1:
         raise ValueError(f"{name} takes a (B, L, F) uint8 image with unit feature stride")
     B, L, F = image.shape
@@ -237,18 +307,18 @@ def _proj_in1(image, start, T, layer, fast) -> torch.Tensor:
     if not (0 <= start and start + T <= L and T > 0):
         raise ValueError(f"window [{start}, {start + T}) of {L} columns")
     return launch_proj_in1(image, start, T, F, H,
-                           gw._layer_args(layer, F, H, dev, _wdtype(fast)), dev, fast)
+                           layer_args(layer, F, H, dev, _wdtype(fast)), dev, fast)
 
 
 def _proj_in2(xa, xb, layer, fast) -> torch.Tensor:
     if xa.device.type == "cpu":
         x = torch.cat([xa, xb], dim=-1)
         return window_proj_plain(bf16_round(x) if fast else x, layer)
-    dev = gw._cuda_device(xa, "bigru_window_proj_in2" + ("_fast" if fast else ""))
+    dev = cuda_device(xa, "bigru_window_proj_in2" + ("_fast" if fast else ""))
     T, B, H = xa.shape
-    gw._check("xa", xa, (T, B, H), torch.float32, dev)
-    gw._check("xb", xb, (T, B, H), torch.float32, dev)
-    return launch_proj_in2(xa, xb, gw._layer_args(layer, 2 * H, H, dev, _wdtype(fast)), dev,
+    check("xa", xa, (T, B, H), torch.float32, dev)
+    check("xb", xb, (T, B, H), torch.float32, dev)
+    return launch_proj_in2(xa, xb, layer_args(layer, 2 * H, H, dev, _wdtype(fast)), dev,
                            fast)
 
 
@@ -256,16 +326,16 @@ def _rec(xp, h0_f, h0_b, layer, fast) -> Outputs:
     if xp.device.type == "cpu":
         return window_rec_plain(xp, h0_f, h0_b, layer)
     name = "bigru_window_rec_fast" if fast else "bigru_window_rec_smem"
-    dev = gw._cuda_device(xp, name)
+    dev = cuda_device(xp, name)
     _, T, B, H3 = xp.shape
     H = H3 // 3
     _fits(name, H, B, fast)
-    gw._check("xp", xp, (2, T, B, 3 * H), torch.float32, dev)
-    gw._check("h0_f", h0_f, (B, H), torch.float32, dev)
-    gw._check("h0_b", h0_b, (B, H), torch.float32, dev)
+    check("xp", xp, (2, T, B, 3 * H), torch.float32, dev)
+    check("h0_f", h0_f, (B, H), torch.float32, dev)
+    check("h0_b", h0_b, (B, H), torch.float32, dev)
     w_ih = layer["fwd"]["w_ih"]
     return launch_rec(xp, h0_f, h0_b,
-                      gw._layer_args(layer, w_ih.shape[0], H, dev, _wdtype(fast)), dev, fast)
+                      layer_args(layer, w_ih.shape[0], H, dev, _wdtype(fast)), dev, fast)
 
 
 def bigru_window_proj_in1(image: torch.Tensor, start: int, T: int,

@@ -8,7 +8,7 @@ window whose input projection ``xp = x @ W_ih + b_ih`` was computed outside
 ``_fwd_kernel`` (``helen_tpu/ops/gru_pallas_train.py:119``, the training
 forward), which compute the same function; its source is
 ``ops/csrc/gru_window_xp.cu``, built into the one kernel library with the
-other window kernels (``gru_window.build_kernels``). It serves the wide
+other window kernels (``library.build_kernels``). It serves the wide
 models, ``H > MAX_H``, whose weights the in-projection kernels K1/K2 do not
 take, at every width whose state fits one block's shared memory at one row
 (:func:`chain_rows`).
@@ -55,24 +55,27 @@ layer input, rounded once to bf16 after the bias, then K3f. Inference only.
 """
 from __future__ import annotations
 
+from ctypes import c_int as i, c_longlong as ll, c_void_p as p
 from typing import Dict, Optional
 
 import torch
 
 from helen_tpu_torch.models.gru import bf16_round, mma_product
 from helen_tpu_torch.ops import gru_window_xp_grid as xg
-from helen_tpu_torch.ops.gru_window_xp_bwd_grid import card_limits
-from helen_tpu_torch.ops.gru_window import (
+from helen_tpu_torch.ops import library
+from helen_tpu_torch.ops.gru_window_proj import Source, window_input
+from helen_tpu_torch.ops.gru_window_smem import bidir
+from helen_tpu_torch.ops.library import (
     Layer,
     Outputs,
-    _bidir,
-    _check,
-    _cuda_device,
-    _outputs,
-    _raise_on,
+    card_limits,
+    check,
+    cuda_device,
     get_lib,
+    outputs,
+    raise_on,
+    stream,
 )
-from helen_tpu_torch.ops.gru_window_bwd import Source, window_input
 
 #: the chain design's batch rows per block, largest first (csrc/gru_window_xp.cu
 #: and csrc/gru_window_xp_bwd.cu instantiate each)
@@ -108,6 +111,23 @@ def chain_rows(h: int, budget: int, fast: bool = False) -> Optional[int]:
     return next((r for r in CHAIN_ROWS if chain_smem_bytes(h, r, fast) <= budget), None)
 
 
+_XP = (i, [p] * 12 + [i, i, i, i, p])
+#: the C entries of csrc/gru_window_xp.cu: K3, K3f (the same arguments, bf16
+#: streams and w_hh) and the chain's shared memory
+ENTRIES = {"bigru_window_xp": _XP, "bigru_window_xp_fast": _XP,
+           "bigru_window_xp_chain_smem_bytes": (ll, [i, i, i])}
+
+
+def check_fit(lib) -> None:
+    """Raise where :func:`chain_smem_bytes` disagrees with the source's."""
+    if any(lib.bigru_window_xp_chain_smem_bytes(h, r, f) != chain_smem_bytes(h, r, bool(f))
+           for h in (640, 1056, 2048) for r in CHAIN_ROWS for f in (0, 1)):
+        raise RuntimeError("chain_smem_bytes disagrees with csrc/gru_window_xp.cu")
+
+
+library.register(ENTRIES, check_fit)
+
+
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
@@ -118,7 +138,7 @@ def bigru_window_xp_plain(xp_f: torch.Tensor, xp_b: torch.Tensor,
                           layer: Layer) -> Outputs:
     """K3's plain version: ``gru_scan`` forward over ``xp_f`` and reversed
     over ``xp_b``."""
-    return _bidir(xp_f, xp_b, h0_f, h0_b, layer)
+    return bidir(xp_f, xp_b, h0_f, h0_b, layer)
 
 
 def bigru_window_xp_fast_plain(xp_f: torch.Tensor, xp_b: torch.Tensor,
@@ -136,8 +156,8 @@ def bigru_window_xp_fast_plain(xp_f: torch.Tensor, xp_b: torch.Tensor,
         dev = xp_f.device
         design = (xp_fwd_design(xp_f.shape[-1] // 3, xp_f.shape[1], fast=True, device=dev)
                   if dev.type == "cuda" else "chain")
-    return _bidir(xp_f.to(h0_f.dtype), xp_b.to(h0_f.dtype), h0_f, h0_b, layer,
-                  product=mma_product if design == "grid" else None)
+    return bidir(xp_f.to(h0_f.dtype), xp_b.to(h0_f.dtype), h0_f, h0_b, layer,
+                 product=mma_product if design == "grid" else None)
 
 
 def recurrent_args(layer: Layer, H: int, device, wdtype=torch.float32) -> list:
@@ -146,8 +166,8 @@ def recurrent_args(layer: Layer, H: int, device, wdtype=torch.float32) -> list:
     args = []
     for d in ("fwd", "bwd"):
         p = layer[d]
-        _check(f"{d}.w_hh", p["w_hh"], (H, 3 * H), wdtype, device)
-        _check(f"{d}.b_hh", p["b_hh"], (3 * H,), torch.float32, device)
+        check(f"{d}.w_hh", p["w_hh"], (H, 3 * H), wdtype, device)
+        check(f"{d}.b_hh", p["b_hh"], (3 * H,), torch.float32, device)
         args += [p["w_hh"].data_ptr(), p["b_hh"].data_ptr()]
     return args
 
@@ -183,15 +203,15 @@ def xp_fwd_design(H: int, B: int, design=None, fast: bool = False, device=None) 
 
 
 def _launch_xp(name: str, dtype, xp_f, xp_b, h0_f, h0_b, layer, design=None) -> Outputs:
-    dev = _cuda_device(xp_f, name)
+    dev = cuda_device(xp_f, name)
     if xp_f.dim() != 3 or xp_f.shape[-1] % 3:
         raise ValueError(f"xp_f must be (T, B, 3H), got {tuple(xp_f.shape)}")
     T, B, H3 = xp_f.shape
     H = H3 // 3
-    _check("xp_f", xp_f, (T, B, H3), dtype, dev)
-    _check("xp_b", xp_b, (T, B, H3), dtype, dev)
-    _check("h0_f", h0_f, (B, H), torch.float32, dev)
-    _check("h0_b", h0_b, (B, H), torch.float32, dev)
+    check("xp_f", xp_f, (T, B, H3), dtype, dev)
+    check("xp_b", xp_b, (T, B, H3), dtype, dev)
+    check("h0_f", h0_f, (B, H), torch.float32, dev)
+    check("h0_b", h0_b, (B, H), torch.float32, dev)
     weights = recurrent_args(layer, H, dev, dtype)
     fast = dtype != torch.float32
     if xp_fwd_design(H, B, design, fast, dev) == "grid":
@@ -200,13 +220,12 @@ def _launch_xp(name: str, dtype, xp_f, xp_b, h0_f, h0_b, layer, design=None) -> 
                                  fast)
     else:
         rows = chain_rows(H, card_limits(dev)[1], fast)
-        outs = _outputs(T, B, H, dev)
+        outs = outputs(T, B, H, dev)
         with torch.cuda.device(dev):
             err = getattr(get_lib(), name)(
                 xp_f.data_ptr(), xp_b.data_ptr(), h0_f.data_ptr(), h0_b.data_ptr(),
-                *weights, *[o.data_ptr() for o in outs], T, B, H, rows,
-                torch.cuda.current_stream(dev).cuda_stream)
-        _raise_on(err, name)
+                *weights, *[o.data_ptr() for o in outs], T, B, H, rows, stream(dev))
+        raise_on(err, name)
         launch_counts[f"{name}_chain"] += 1
         launch_counts[f"{name}_chain_r{rows}"] += 1
     launch_counts[name] += 1
@@ -261,7 +280,7 @@ def window_xp_fast(src: Source, start: int, T: int, h0_f: torch.Tensor,
     halves concatenated and rounded to bf16) projected by
     :func:`project_fast` per direction, then K3f. ``layer`` is a fast layer
     (io.checkpoint.fast_weights); ``src``, ``start``, ``T`` as in
-    :func:`gru_window_bwd.window_input`."""
+    :func:`gru_window_proj.window_input`."""
     return bigru_window_xp_fast(*_fast_streams(src, start, T, h0_f.dtype, layer),
                                 h0_f, h0_b, layer)
 

@@ -44,23 +44,31 @@ or raises.
 """
 from __future__ import annotations
 
+from ctypes import c_int as i, c_longlong as ll, c_void_p as p
 from typing import Dict, Optional, Tuple
 
 import torch
 
-from helen_tpu_torch.ops.gru_window import (
-    Layer,
-    _check,
-    _cuda_device,
-    _raise_on,
-    get_lib,
-)
 from helen_tpu_torch.ops import gru_window_bwd_smem as gbs
 from helen_tpu_torch.ops import gru_window_xp_bwd_grid as gg
-from helen_tpu_torch.ops.gru_window_bwd import _h_prev, hh_grads_plain, unwind_plain
+from helen_tpu_torch.ops import library
+from helen_tpu_torch.ops.gru_window_bwd import unwind_plain
+from helen_tpu_torch.ops.gru_window_bwd_smem import RecOutputs, h_prev_of
+from helen_tpu_torch.ops.gru_window_wgrad import (
+    bigru_window_xp_bwd_wgrad_plain,
+    bigru_window_xp_wgrad,
+)
 from helen_tpu_torch.ops.gru_window_xp import CHAIN_ROWS, recurrent_args
-from helen_tpu_torch.ops.gru_window_xp_bwd_grid import RecOutputs
-from helen_tpu_torch.ops.gru_window_wgrad import bigru_window_xp_wgrad
+from helen_tpu_torch.ops.library import (
+    Layer,
+    card_limits,
+    check,
+    cuda_device,
+    empty,
+    get_lib,
+    raise_on,
+    stream,
+)
 
 #: (dxp_f (T, B, 3H), dxp_b (T, B, 3H), dh0_f, dh0_b,
 #:  {"fwd", "bwd"} of {"w_hh", "b_hh"} cotangents)
@@ -101,6 +109,23 @@ def bwd_chain_rows(h: int, budget: int) -> Optional[int]:
     return next((r for r in CHAIN_ROWS if bwd_chain_smem_bytes(h, r) <= budget), None)
 
 
+#: the C entries of csrc/gru_window_xp_bwd.cu: pass 1's one-launch design
+#: (the streams, h0, the forward's outputs, the cotangents, W_hh, W_hh^T and
+#: b_hh per direction, the outputs) and its shared memory
+ENTRIES = {"bigru_window_xp_bwd_rec": (i, [p] * 20 + [i, i, i, i, p]),
+           "bigru_window_xp_bwd_chain_smem_bytes": (ll, [i, i])}
+
+
+def check_fit(lib) -> None:
+    """Raise where :func:`bwd_chain_smem_bytes` disagrees with the source's."""
+    if any(lib.bigru_window_xp_bwd_chain_smem_bytes(h, r) != bwd_chain_smem_bytes(h, r)
+           for h in (640, 1056, 2048) for r in CHAIN_ROWS):
+        raise RuntimeError("bwd_chain_smem_bytes disagrees with csrc/gru_window_xp_bwd.cu")
+
+
+library.register(ENTRIES, check_fit)
+
+
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
@@ -116,22 +141,13 @@ def bigru_window_xp_bwd_rec_plain(xp_f, xp_b, h0_f, h0_b, out_f, out_b,
     direction.
 
     :returns: (dxp (2, T, B, 3H), dhp_n (2, T, B, H), dh0_f, dh0_b)"""
-    res = [unwind_plain(xp, _h_prev(out, h0, rev), dout, dh, layer[d]["w_hh"],
+    res = [unwind_plain(xp, h_prev_of(out, h0, rev), dout, dh, layer[d]["w_hh"],
                         layer[d]["b_hh"], rev)
            for d, xp, out, h0, dout, dh, rev in (
                ("fwd", xp_f, out_f, h0_f, dout_f, dh_f, False),
                ("bwd", xp_b, out_b, h0_b, dout_b, dh_b, True))]
     return (torch.stack([res[0][0], res[1][0]]), torch.stack([res[0][1], res[1][1]]),
             res[0][2], res[1][2])
-
-
-def bigru_window_xp_bwd_wgrad_plain(h0_f, h0_b, out_f, out_b, dxp: torch.Tensor,
-                                    dhpn: torch.Tensor) -> Layer:
-    """Pass 2's plain version: ``dW_hh`` and ``db_hh`` per direction as
-    sums over all T*B rows."""
-    return {d: hh_grads_plain(dxp[i], dhpn[i], _h_prev(out, h0, rev))
-            for i, (d, out, h0, rev) in enumerate((("fwd", out_f, h0_f, False),
-                                                   ("bwd", out_b, h0_b, True)))}
 
 
 def bigru_window_xp_bwd_plain(xp_f, xp_b, h0_f, h0_b, out_f, out_b, dout_f, dout_b,
@@ -162,7 +178,7 @@ def xp_bwd_design(H: int, B: int, design=None, device=None) -> str:
     state does not fit the card at one row."""
     if design is not None and design not in DESIGNS:
         raise ValueError(f"design {design!r} is not one of {DESIGNS}")
-    sms, budget = gg.card_limits(device)
+    sms, budget = card_limits(device)
     fits = gg.grid_units(H, sms, budget) is not None
     if design is None:
         design = "grid" if fits else "chain"
@@ -181,7 +197,7 @@ class _Window:
 
     def __init__(self, name: str, xp_f, xp_b, h0_f, h0_b, out_f, out_b, dout_f, dout_b,
                  dh_f, dh_b, layer: Layer):
-        dev = self.dev = _cuda_device(xp_f, name)
+        dev = self.dev = cuda_device(xp_f, name)
         if out_f.dim() != 3:
             raise ValueError(f"out_f must be (T, B, H), got {tuple(out_f.shape)}")
         T, B, H = self.T, self.B, self.H = out_f.shape
@@ -190,7 +206,7 @@ class _Window:
                             ("out_f", out_f, (T, B, H)), ("out_b", out_b, (T, B, H)),
                             ("dout_f", dout_f, (T, B, H)), ("dout_b", dout_b, (T, B, H)),
                             ("dh_f", dh_f, (B, H)), ("dh_b", dh_b, (B, H))):
-            _check(n, t, shape, torch.float32, dev)
+            check(n, t, shape, torch.float32, dev)
         self.w = recurrent_args(layer, H, dev)  # checks, and [w_hh_f, b_hh_f, w_hh_b, b_hh_b]
 
 
@@ -202,17 +218,17 @@ def _rec_chain(a: _Window, xp_f, xp_b, h0_f, h0_b, out_f, out_b, dout_f, dout_b,
     # W_hh^T, read coalesced by the carry product (helen_tpu's wrapper makes
     # the same swapaxes copies, gru_pallas_train.py:542)
     whT = {d: layer[d]["w_hh"].T.contiguous() for d in ("fwd", "bwd")}
-    e = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)  # noqa: E731
-    dxp, dhpn, dh0_f, dh0_b = e(2, T, B, 3 * H), e(2, T, B, H), e(B, H), e(B, H)
-    rows = bwd_chain_rows(H, gg.card_limits(dev)[1])
+    dxp, dhpn = empty(dev, 2, T, B, 3 * H), empty(dev, 2, T, B, H)
+    dh0_f, dh0_b = empty(dev, B, H), empty(dev, B, H)
+    rows = bwd_chain_rows(H, card_limits(dev)[1])
     with torch.cuda.device(dev):
         err = get_lib().bigru_window_xp_bwd_rec(
             *(t.data_ptr() for t in (xp_f, xp_b, h0_f, h0_b, out_f, out_b, dout_f,
                                      dout_b, dh_f, dh_b)),
             wh_f, whT["fwd"].data_ptr(), bh_f, wh_b, whT["bwd"].data_ptr(), bh_b,
             dxp.data_ptr(), dhpn.data_ptr(), dh0_f.data_ptr(), dh0_b.data_ptr(),
-            T, B, H, rows, torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "bigru_window_xp_bwd_rec")
+            T, B, H, rows, stream(dev))
+    raise_on(err, "bigru_window_xp_bwd_rec")
     launch_counts["bigru_window_xp_bwd_rec_chain"] += 1
     launch_counts[f"bigru_window_xp_bwd_rec_chain_r{rows}"] += 1
     return dxp, dhpn, dh0_f, dh0_b
@@ -225,7 +241,7 @@ def _rec_grid(a: _Window, xp_f, xp_b, h0_f, h0_b, out_f, out_b, dout_f, dout_b, 
     hp = gbs.launch_hp(h0_f, h0_b, out_f, out_b, layer["fwd"]["w_hh"], layer["bwd"]["w_hh"],
                        a.dev, launch_counts, "bigru_window_xp_bwd_hp")
     res = gg.launch_rec_grid(xp_f, xp_b, hp, h0_f, h0_b, out_f, out_b, dout_f, dout_b, dh_f,
-                             dh_b, layer, gg.grid_units(a.H, *gg.card_limits(a.dev)),
+                             dh_b, layer, gg.grid_units(a.H, *card_limits(a.dev)),
                              launch_counts, a.dev)
     del hp  # 2 x 78.6 MB at B=64, H=1024 back to the allocator
     return res
@@ -250,6 +266,22 @@ def bigru_window_xp_bwd_rec(xp_f, xp_b, h0_f, h0_b, out_f, out_b, dout_f, dout_b
     if xp_f.device.type == "cpu":
         return bigru_window_xp_bwd_rec_plain(*args)
     return _rec(_Window("bigru_window_xp_bwd_rec", *args), design, *args)
+
+
+def bigru_window_xp_bwd_rec_grid(xp_f, xp_b, hp, h0_f, h0_b, out_f, out_b, dout_f, dout_b,
+                                 dh_f, dh_b, layer: Layer) -> RecOutputs:
+    """The grid recurrence alone (ops.gru_window_xp_bwd_grid), over ``xp``
+    per direction and the gate pass's ``hp`` ``(2, T, B, 3H)``: ``(dxp,
+    dhp_n, dh0_f, dh0_b)``, counted in :data:`launch_counts`. Raises where
+    ``gru_window_xp_bwd_grid.grid_units`` finds no fit on the card."""
+    args = (h0_f, h0_b, out_f, out_b, dout_f, dout_b, dh_f, dh_b)
+    if xp_f.device.type == "cpu":
+        return gg.xp_bwd_rec_grid_plain(xp_f, xp_b, hp, *args, layer)
+    a = _Window("bigru_window_xp_bwd_rec_grid", xp_f, xp_b, *args, layer)
+    check("hp", hp, (2, a.T, a.B, 3 * a.H), torch.float32, a.dev)
+    xp_bwd_design(a.H, a.B, "grid", a.dev)  # raises where the rule does not hold
+    return gg.launch_rec_grid(xp_f, xp_b, hp, *args, layer,
+                              gg.grid_units(a.H, *card_limits(a.dev)), launch_counts, a.dev)
 
 
 def bigru_window_xp_bwd(xp_f, xp_b, h0_f, h0_b, out_f, out_b, dout_f, dout_b,

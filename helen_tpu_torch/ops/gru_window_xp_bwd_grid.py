@@ -1,10 +1,10 @@
 """Pass 1 of the xp-stream backward (K4) as a grid-wide recurrence with
 ``W_hh`` spread over the SMs' shared memory: the kernel's binding, its fit
-rule and its plain version.
+rule, its launch and its plain version.
 
 The hand-written CUDA kernel ``bigru_window_xp_bwd_rec_grid``
-(``ops/csrc/gru_window_xp_bwd_grid.cu``, in the library that ops.gru_window
-builds) carries pass 1 of :func:`ops.gru_window_xp_bwd.bigru_window_xp_bwd`
+(``ops/csrc/gru_window_xp_bwd_grid.cu``, in the kernel library of
+ops.library) carries pass 1 of :func:`ops.gru_window_xp_bwd.bigru_window_xp_bwd`
 in its ``"grid"`` design, after the gate pass ``bigru_window_bwd_hp``
 (ops.gru_window_bwd_smem: ``hp = h_prev @ W_hh`` without ``b_hh``, over the
 whole window). One persistent grid of ``2 C`` blocks, ``C = ceil(H / U)``
@@ -19,31 +19,26 @@ rows x 2 units of sums, in blocks of 256 threads.
 fit the card's SMs, one block each, if its shared memory
 (:func:`grid_smem_bytes`) fits the card's opt-in budget; else none, and
 the one-launch ``xp_bwd_rec_kernel`` takes the shape. It is a rule of the
-shape and the card, read once from the device (:func:`card_limits`).
+shape and the card, read once from the device (``library.card_limits``).
 
 Every sum is taken in the order of ``xp_bwd_rec_kernel``
 (``csrc/gru_window_xp_bwd.cu``), whose cotangent lines it shares
-(``gru_cell_bwd``), so on the card the two designs give the same bits. On
-a CPU tensor the wrapper computes the plain version; on a CUDA tensor it
-launches the kernel or raises. Chained, ``bwd_hp_plain`` and
-:func:`xp_bwd_rec_grid_plain` are
+(``gru_cell_bwd``), so on the card the two designs give the same bits. Its
+wrapper, ``gru_window_xp_bwd.bigru_window_xp_bwd_rec_grid``, computes the
+plain version on a CPU tensor and launches the kernel on a CUDA one.
+Chained, ``bwd_hp_plain`` and :func:`xp_bwd_rec_grid_plain` are
 ``gru_window_xp_bwd.bigru_window_xp_bwd_rec_plain`` to the bit.
 """
 from __future__ import annotations
 
-import ctypes
-import threading
-from typing import Dict, Optional, Tuple
+from ctypes import c_int as i, c_longlong as ll, c_void_p as p
+from typing import Dict, Optional
 
 import torch
 
-from helen_tpu_torch.ops import gru_window as gw
-from helen_tpu_torch.ops import gru_window_bwd as gb
-from helen_tpu_torch.ops.gru_window import Layer
-from helen_tpu_torch.ops.gru_window_encdec import device_smem_budget
-
-#: pass 1's outputs: (dxp (2, T, B, 3H), dhp_n (2, T, B, H), dh0_f, dh0_b)
-RecOutputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+from helen_tpu_torch.ops import library
+from helen_tpu_torch.ops.gru_window_bwd_smem import RecOutputs, h_prev_of, unwind_gates
+from helen_tpu_torch.ops.library import GRID_COUNTERS, Layer, empty, get_lib, raise_on, stream
 
 # csrc/gru_window_xp_bwd_grid.cu's constants: unit groups (a warp is 8 unit
 # groups x 4 row groups), unit slots per thread, row groups (8 x 32 = 256
@@ -53,8 +48,6 @@ RecOutputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 BG_UG, BG_UPT, BG_RG, BG_KC, BG_RING = 8, 2, 32, 16, 8192
 GRID_MAX_UNITS = 16
 GRID_TILES = (4, 2)
-#: the barrier counters, one per direction, 128 bytes apart (uint32)
-GRID_COUNTERS = 64
 
 
 def grid_smem_bytes(h: int, u: int) -> int:
@@ -90,24 +83,20 @@ def grid_units(h: int, sms: int, budget: int) -> Optional[int]:
     return u
 
 
-_card_lock = threading.Lock()
-#: (SMs, opt-in shared memory per block) of each CUDA device, by index
-_card: Dict[int, Tuple[int, int]] = {}
+#: the C entries of csrc/gru_window_xp_bwd_grid.cu
+ENTRIES = {"bigru_window_xp_bwd_rec_grid": (i, [p] * 20 + [i, i, i, i, i, p]),
+           "bigru_window_xp_bwd_grid_smem_bytes": (ll, [i, i])}
 
 
-def card_limits(device=None) -> Tuple[int, int]:
-    """(SMs, opt-in shared memory per block in bytes) of ``device`` (a CUDA
-    device or its index; default the current one, index 0 where no CUDA
-    device is visible), read once per device."""
-    index = torch.device("cuda", device) if isinstance(device, int) else device
-    index = torch.device(index).index if index is not None else None
-    if index is None:
-        index = torch.cuda.current_device() if torch.cuda.is_available() else 0
-    with _card_lock:
-        if index not in _card:
-            with torch.cuda.device(index):
-                _card[index] = (get_lib().gru_window_sm_count(), device_smem_budget())
-        return _card[index]
+def check_fit(lib) -> None:
+    """Raise where :func:`grid_smem_bytes` disagrees with the source's."""
+    if any(lib.bigru_window_xp_bwd_grid_smem_bytes(h, u) != grid_smem_bytes(h, u)
+           for h in (1, 37, 128, 160, 640, 1000, 1024) for u in (1, 2, 3, 10, 16)):
+        raise RuntimeError("the grid recurrence's fit disagrees with "
+                           "csrc/gru_window_xp_bwd_grid.cu")
+
+
+library.register(ENTRIES, check_fit)
 
 
 # ---------------------------------------------------------------------------
@@ -117,11 +106,11 @@ def card_limits(device=None) -> Tuple[int, int]:
 def xp_bwd_rec_grid_plain(xp_f, xp_b, hp: torch.Tensor, h0_f, h0_b, out_f, out_b, dout_f,
                           dout_b, dh_f, dh_b, layer: Layer) -> RecOutputs:
     """The recurrence given ``xp`` per direction (``b_ih`` added) and ``hp``
-    ``(2, T, B, 3H)`` (without ``b_hh``): ``gru_window_bwd.unwind_gates``
+    ``(2, T, B, 3H)`` (without ``b_hh``): ``gru_window_bwd_smem.unwind_gates``
     per direction. Returns ``(dxp, dhp_n, dh0_f, dh0_b)``."""
-    res = [gb.unwind_gates(xp, hp[i] + layer[d]["b_hh"], gb._h_prev(out, h0, rev), dout, dh,
-                           layer[d]["w_hh"], rev)
-           for i, (d, xp, out, h0, dout, dh, rev) in enumerate(
+    res = [unwind_gates(xp, hp[k] + layer[d]["b_hh"], h_prev_of(out, h0, rev), dout, dh,
+                        layer[d]["w_hh"], rev)
+           for k, (d, xp, out, h0, dout, dh, rev) in enumerate(
                (("fwd", xp_f, out_f, h0_f, dout_f, dh_f, False),
                 ("bwd", xp_b, out_b, h0_b, dout_b, dh_b, True)))]
     return (torch.stack([r[0] for r in res]), torch.stack([r[1] for r in res]),
@@ -132,30 +121,6 @@ def xp_bwd_rec_grid_plain(xp_f, xp_b, hp: torch.Tensor, h0_f, h0_b, out_f, out_b
 # binding and launch (the arguments checked by the caller)
 # ---------------------------------------------------------------------------
 
-_bind_lock = threading.Lock()
-_bound = None
-
-
-def get_lib() -> ctypes.CDLL:
-    """The kernel library with this module's entry points declared."""
-    global _bound
-    lib = gw.get_lib()
-    with _bind_lock:
-        if _bound is not lib:
-            p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            lib.bigru_window_xp_bwd_rec_grid.restype = i
-            lib.bigru_window_xp_bwd_rec_grid.argtypes = [p] * 20 + [i, i, i, i, i, p]
-            lib.bigru_window_xp_bwd_grid_smem_bytes.restype = ll
-            lib.bigru_window_xp_bwd_grid_smem_bytes.argtypes = [i, i]
-            lib.gru_window_sm_count.restype = i
-            if any(lib.bigru_window_xp_bwd_grid_smem_bytes(h, u) != grid_smem_bytes(h, u)
-                   for h in (1, 37, 128, 160, 640, 1000, 1024) for u in (1, 2, 3, 10, 16)):
-                raise RuntimeError("the grid recurrence's fit disagrees with "
-                                   "csrc/gru_window_xp_bwd_grid.cu")
-            _bound = lib
-    return lib
-
-
 def launch_rec_grid(xp_f, xp_b, hp, h0_f, h0_b, out_f, out_b, dout_f, dout_b, dh_f, dh_b,
                     layer: Layer, units: int, counts: Dict[str, int], dev) -> RecOutputs:
     """One launch of the grid recurrence at ``units`` hidden units per block
@@ -165,34 +130,16 @@ def launch_rec_grid(xp_f, xp_b, hp, h0_f, h0_b, out_f, out_b, dout_f, dout_b, dh
     hold at once among them)."""
     T, B, H = out_f.shape
     rpt = grid_tile(B)
-    e = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)  # noqa: E731
-    dxp, dhpn, dh0_f, dh0_b = e(2, T, B, 3 * H), e(2, T, B, H), e(B, H), e(B, H)
+    dxp, dhpn = empty(dev, 2, T, B, 3 * H), empty(dev, 2, T, B, H)
+    dh0_f, dh0_b = empty(dev, B, H), empty(dev, B, H)
     arrive = torch.zeros(GRID_COUNTERS, dtype=torch.int32, device=dev)
     w = [layer[d][k] for d in ("fwd", "bwd") for k in ("w_hh", "b_hh")]
     with torch.cuda.device(dev):
         err = get_lib().bigru_window_xp_bwd_rec_grid(
             *(t.data_ptr() for t in (xp_f, xp_b, hp, h0_f, h0_b, out_f, out_b, dout_f, dout_b,
                                      dh_f, dh_b, *w, dxp, dhpn, dh0_f, dh0_b, arrive)),
-            T, B, H, units, rpt, torch.cuda.current_stream(dev).cuda_stream)
-    gw._raise_on(err, "bigru_window_xp_bwd_rec_grid")
+            T, B, H, units, rpt, stream(dev))
+    raise_on(err, "bigru_window_xp_bwd_rec_grid")
     counts["bigru_window_xp_bwd_rec_grid"] += 1
     counts[f"bigru_window_xp_bwd_rec_grid_r{rpt}"] += 1
     return dxp, dhpn, dh0_f, dh0_b
-
-
-def bigru_window_xp_bwd_rec_grid(xp_f, xp_b, hp, h0_f, h0_b, out_f, out_b, dout_f, dout_b,
-                                 dh_f, dh_b, layer: Layer) -> RecOutputs:
-    """The grid recurrence alone, over ``xp`` per direction and the gate
-    pass's ``hp`` ``(2, T, B, 3H)``: ``(dxp, dhp_n, dh0_f, dh0_b)``, counted
-    in ``gru_window_xp_bwd.launch_counts``. Raises where
-    :func:`grid_units` finds no fit on the card."""
-    from helen_tpu_torch.ops import gru_window_xp_bwd as gxb
-
-    args = (h0_f, h0_b, out_f, out_b, dout_f, dout_b, dh_f, dh_b)
-    if xp_f.device.type == "cpu":
-        return xp_bwd_rec_grid_plain(xp_f, xp_b, hp, *args, layer)
-    a = gxb._Window("bigru_window_xp_bwd_rec_grid", xp_f, xp_b, *args, layer)
-    gw._check("hp", hp, (2, a.T, a.B, 3 * a.H), torch.float32, a.dev)
-    gxb.xp_bwd_design(a.H, a.B, "grid", a.dev)  # raises where the rule does not hold
-    return launch_rec_grid(xp_f, xp_b, hp, *args, layer, grid_units(a.H, *card_limits(a.dev)),
-                           gxb.launch_counts, a.dev)

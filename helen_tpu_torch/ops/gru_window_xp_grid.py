@@ -4,7 +4,7 @@ binding and their fit rule.
 
 The hand-written CUDA kernels ``bigru_window_xp_grid`` and
 ``bigru_window_xp_fast_grid`` (``ops/csrc/gru_window_xp_grid.cu``, in the
-library that ops.gru_window builds) carry :func:`ops.gru_window_xp.
+kernel library of ops.library) carry :func:`ops.gru_window_xp.
 bigru_window_xp` and :func:`~ops.gru_window_xp.bigru_window_xp_fast` in
 their ``"grid"`` design: one persistent grid of ``2 C`` blocks, ``C =
 ceil(H / U)`` per direction, all co-resident (a cooperative launch), block
@@ -21,7 +21,7 @@ blocks fit the card's SMs, one block each, if its shared memory
 (:func:`grid_smem_bytes`) fits the card's opt-in budget and ``U`` is at
 most the tier's :data:`MAX_UNITS`; else none, and ``xp_window_kernel``
 takes the shape. It is a rule of the shape, the tier and the card, whose
-limits ``gru_window_xp_bwd_grid.card_limits`` reads once from the device.
+limits ``library.card_limits`` reads once from the device.
 K3's thread tile (rows per thread, :func:`grid_tile`) is a rule of B
 alone: its shared memory is the same at every tile.
 
@@ -30,15 +30,21 @@ design (``xp_fwd_design``) and call :func:`launch_xp_grid`.
 """
 from __future__ import annotations
 
-import ctypes
-import threading
+from ctypes import c_int as i, c_longlong as ll, c_void_p as p
 from typing import Dict, Optional
 
 import torch
 
-from helen_tpu_torch.ops import gru_window as gw
-from helen_tpu_torch.ops.gru_window import Layer, Outputs
-from helen_tpu_torch.ops.gru_window_xp_bwd_grid import GRID_COUNTERS
+from helen_tpu_torch.ops import library
+from helen_tpu_torch.ops.library import (
+    GRID_COUNTERS,
+    Layer,
+    Outputs,
+    get_lib,
+    outputs,
+    raise_on,
+    stream,
+)
 
 # csrc/gru_window_xp_grid.cu's constants. K3: unit groups (a warp is 8 unit
 # groups x 4 row groups), units per thread, the most threads, k per chunk,
@@ -103,33 +109,23 @@ def grid_units(h: int, sms: int, budget: int, fast: bool = False) -> Optional[in
 # binding and launch (the arguments checked by the caller)
 # ---------------------------------------------------------------------------
 
-_bind_lock = threading.Lock()
-_bound = None
-
 #: the kernels' names, by tier
 KERNELS = {False: "bigru_window_xp_grid", True: "bigru_window_xp_fast_grid"}
+#: the C entries of csrc/gru_window_xp_grid.cu
+ENTRIES = {"bigru_window_xp_grid": (i, [p] * 13 + [i, i, i, i, i, p]),
+           "bigru_window_xp_fast_grid": (i, [p] * 14 + [i, i, i, i, p]),
+           "bigru_window_xp_grid_smem_bytes": (ll, [i, i, i])}
 
 
-def get_lib() -> ctypes.CDLL:
-    """The kernel library with this module's entry points declared."""
-    global _bound
-    lib = gw.get_lib()
-    with _bind_lock:
-        if _bound is not lib:
-            p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            lib.bigru_window_xp_grid.restype = i
-            lib.bigru_window_xp_grid.argtypes = [p] * 13 + [i, i, i, i, i, p]
-            lib.bigru_window_xp_fast_grid.restype = i
-            lib.bigru_window_xp_fast_grid.argtypes = [p] * 14 + [i, i, i, i, p]
-            lib.bigru_window_xp_grid_smem_bytes.restype = ll
-            lib.bigru_window_xp_grid_smem_bytes.argtypes = [i, i, i]
-            if any(lib.bigru_window_xp_grid_smem_bytes(h, u, f) != grid_smem_bytes(h, u, f)
-                   for h in (1, 37, 128, 160, 610, 640, 1000, 1024, 1056, 1088)
-                   for u in (1, 2, 3, 10, 16, 24) for f in (0, 1)):
-                raise RuntimeError("the forward grid's fit disagrees with "
-                                   "csrc/gru_window_xp_grid.cu")
-            _bound = lib
-    return lib
+def check_fit(lib) -> None:
+    """Raise where :func:`grid_smem_bytes` disagrees with the source's."""
+    if any(lib.bigru_window_xp_grid_smem_bytes(h, u, f) != grid_smem_bytes(h, u, f)
+           for h in (1, 37, 128, 160, 610, 640, 1000, 1024, 1056, 1088)
+           for u in (1, 2, 3, 10, 16, 24) for f in (0, 1)):
+        raise RuntimeError("the forward grid's fit disagrees with csrc/gru_window_xp_grid.cu")
+
+
+library.register(ENTRIES, check_fit)
 
 
 def launch_xp_grid(xp_f, xp_b, h0_f, h0_b, layer: Layer, units: int, counts: Dict[str, int],
@@ -143,7 +139,7 @@ def launch_xp_grid(xp_f, xp_b, h0_f, h0_b, layer: Layer, units: int, counts: Dic
     here."""
     T, B, H3 = xp_f.shape
     H = H3 // 3
-    outs = gw._outputs(T, B, H, dev)
+    outs = outputs(T, B, H, dev)
     arrive = torch.zeros(GRID_COUNTERS, dtype=torch.int32, device=dev)
     scratch = [torch.empty((2, 2, B, H), dtype=torch.bfloat16, device=dev)] if fast else []
     w = [layer[d][k] for d in ("fwd", "bwd") for k in ("w_hh", "b_hh")]
@@ -152,7 +148,7 @@ def launch_xp_grid(xp_f, xp_b, h0_f, h0_b, layer: Layer, units: int, counts: Dic
     with torch.cuda.device(dev):
         err = getattr(get_lib(), name)(
             *(t.data_ptr() for t in (xp_f, xp_b, h0_f, h0_b, *w, *outs, *scratch, arrive)),
-            T, B, H, units, *tile, torch.cuda.current_stream(dev).cuda_stream)
-    gw._raise_on(err, name)
+            T, B, H, units, *tile, stream(dev))
+    raise_on(err, name)
     counts[name] += 1
     return outs

@@ -162,7 +162,7 @@ def test_bwd_recurrence_shared_memory(H, rows, want):
     """W_hh^T (3H x H floats) and dhp double-buffered at rows x 3H rounded
     up to 4 floats."""
     from helen_tpu_torch.ops.gru_window_bwd_smem import bwd_rec_smem_bytes
-    from helen_tpu_torch.ops.gru_window_encdec import HOPPER_SMEM_OPTIN
+    from helen_tpu_torch.ops.library import HOPPER_SMEM_OPTIN
 
     assert bwd_rec_smem_bytes(H, rows) == want
     assert (want <= HOPPER_SMEM_OPTIN) is (H not in (132, 136))
@@ -248,15 +248,15 @@ def test_source_is_built_with_the_others():
     import glob
     import os
 
-    from helen_tpu_torch.ops import gru_window as gw
+    from helen_tpu_torch.ops import library
 
-    names = {os.path.basename(p) for p in glob.glob(os.path.join(gw._CSRC, "*.cu*"))}
+    names = {os.path.basename(p) for p in glob.glob(os.path.join(library.CSRC, "*.cu*"))}
     assert {"gru_window_bwd_smem.cu", "gru_window_smem.cuh"} <= names
-    with open(os.path.join(gw._CSRC, "gru_window_bwd_smem.cu")) as f:
+    with open(os.path.join(library.CSRC, "gru_window_bwd_smem.cu")) as f:
         text = f.read()
     for fn in ("bigru_window_bwd_hp", "bigru_window_bwd_rec_smem", "bigru_window_bwd_dx",
                "bigru_window_bwd_rec_smem_bytes"):
         assert f" {fn}(" in text, fn
     assert "gru_cell_bwd(" in text
-    with open(os.path.join(gw._CSRC, "gru_window_bwd.cu")) as f:
+    with open(os.path.join(library.CSRC, "gru_window_bwd.cu")) as f:
         assert "gru_cell_bwd(" in f.read()

@@ -291,7 +291,7 @@ def xp_case(rng, T, B, H, dev):
 
 def smem_budget():
     """The card's opt-in shared memory per block, as the design rules read it."""
-    from helen_tpu_torch.ops.gru_window_xp_bwd_grid import card_limits
+    from helen_tpu_torch.ops.library import card_limits
 
     return card_limits()[1]
 
@@ -827,6 +827,7 @@ def test_k5_fit_follows_the_card(dev):
     geometry past the fit is refused before any launch."""
     from helen_tpu_torch.ops import gru_window as gw
     from helen_tpu_torch.ops import gru_window_encdec as ge
+    from helen_tpu_torch.ops import library
 
     lib = gw.get_lib()
     for h, bt, d, t, fst in ((128, 2, 90, 100, False), (128, 4, 90, 100, True),
@@ -835,7 +836,7 @@ def test_k5_fit_follows_the_card(dev):
             ge.encdec_smem_bytes(h, bt, d, t, fst)
     for bt in ge.BLOCK_ROWS:
         assert lib.transducer_window_encdec_max_threads(bt) == ge.encdec_max_threads(bt)
-    assert ge.device_smem_budget() == ge.HOPPER_SMEM_OPTIN
+    assert library.device_smem_budget() == library.HOPPER_SMEM_OPTIN
     # the cluster design: its sizes (get_lib holds them to the source) and
     # the card holds at least one cluster of each kind
     assert lib.transducer_window_encdec_cluster_smem(128, 8) == \
@@ -1297,6 +1298,7 @@ def test_bwd_smem_kernels_match_their_plain_versions(dev, T, B, H):
 def test_bwd_smem_wrappers_refuse_what_the_kernels_do_not_take(dev):
     from helen_tpu_torch.ops import gru_window_bwd as gb
     from helen_tpu_torch.ops import gru_window_bwd_smem as gbs
+    from helen_tpu_torch.ops import library
 
     args = bwd_case(np.random.default_rng(26), "pair", 4, 8, 160, dev)
     src, start, h0f, h0b, of, ob, dof, dob, dhf, dhb, layer = args
@@ -1316,7 +1318,7 @@ def test_bwd_smem_wrappers_refuse_what_the_kernels_do_not_take(dev):
                                       h0f, h0b, of, ob, dof, dob, dhf, dhb, layer)
     with pytest.raises(ValueError):  # dxp of another width
         gbs.bigru_window_bwd_dx(torch.zeros(2, 4, 8, 390, device=dev), layer)
-    lib = gbs.get_lib()
+    lib = library.get_lib()
     for h in (1, 37, 128, 131, 135, 136):
         for rows in (1, 2, 4, 8):
             assert lib.bigru_window_bwd_rec_smem_bytes(h, rows) == gbs.bwd_rec_smem_bytes(h, rows)
@@ -1428,13 +1430,14 @@ def test_xp_bwd_grid_is_bit_identical_across_launches(dev):
 def test_xp_bwd_grid_kernel_matches_its_plain_version(dev):
     """The recurrence alone against unwind_gates over the gate pass's own hp."""
     from helen_tpu_torch.ops import gru_window_bwd_smem as gbs
+    from helen_tpu_torch.ops import gru_window_xp_bwd as gxb
     from helen_tpu_torch.ops import gru_window_xp_bwd_grid as gg
 
     xp_f, xp_b, h0f, h0b, of, ob, dof, dob, dhf, dhb, layer = xp_bwd_case(
         np.random.default_rng(30), 9, 70, 1024, dev)
     hp = gbs.bigru_window_bwd_hp(h0f, h0b, of, ob, layer)
     rest = (h0f, h0b, of, ob, dof, dob, dhf, dhb, layer)
-    got = gg.bigru_window_xp_bwd_rec_grid(xp_f, xp_b, hp, *rest)
+    got = gxb.bigru_window_xp_bwd_rec_grid(xp_f, xp_b, hp, *rest)
     want = gg.xp_bwd_rec_grid_plain(xp_f, xp_b, hp, *rest)
     for g, w, what in zip(got, want, ("dxp", "dhp_n", "dh0_f", "dh0_b")):
         _scaled_close(g, w, what)
@@ -1447,26 +1450,27 @@ def test_xp_bwd_grid_refuses_what_the_card_does_not_hold(dev, monkeypatch):
     from helen_tpu_torch.ops import gru_window_bwd_smem as gbs
     from helen_tpu_torch.ops import gru_window_xp_bwd as gxb
     from helen_tpu_torch.ops import gru_window_xp_bwd_grid as gg
+    from helen_tpu_torch.ops import library
 
     args = xp_bwd_case(np.random.default_rng(31), 4, 8, 1024, dev)
     xp_f, xp_b, h0f, h0b, of, ob, dof, dob, dhf, dhb, layer = args
-    sms, budget = gg.card_limits()
+    sms, budget = library.card_limits()
     before = dict(gxb.launch_counts)
-    monkeypatch.setattr(gg, "_card", {torch.cuda.current_device(): (114, budget)})
+    monkeypatch.setattr(library, "_card", {torch.cuda.current_device(): (114, budget)})
     assert gxb.xp_bwd_design(1024, 8) == "chain"
     with pytest.raises(ValueError, match="does not take H=1024"):
         gxb.bigru_window_xp_bwd(*args, design="grid")
     with pytest.raises(ValueError, match="does not take H=1024"):
-        gg.bigru_window_xp_bwd_rec_grid(xp_f, xp_b, torch.zeros(2, 4, 8, 3072, device=dev),
-                                        h0f, h0b, of, ob, dof, dob, dhf, dhb, layer)
+        gxb.bigru_window_xp_bwd_rec_grid(xp_f, xp_b, torch.zeros(2, 4, 8, 3072, device=dev),
+                                         h0f, h0b, of, ob, dof, dob, dhf, dhb, layer)
     assert gxb.launch_counts == before
-    monkeypatch.setattr(gg, "_card", {torch.cuda.current_device(): (sms, budget)})
+    monkeypatch.setattr(library, "_card", {torch.cuda.current_device(): (sms, budget)})
     hp = gbs.bigru_window_bwd_hp(h0f, h0b, of, ob, layer)
     with pytest.raises(RuntimeError, match="bigru_window_xp_bwd_rec_grid launch failed"):
         gg.launch_rec_grid(xp_f, xp_b, hp, h0f, h0b, of, ob, dof, dob, dhf, dhb, layer,
                            gg.grid_units(1024, sms, budget) - 1, gxb.launch_counts, dev)
     assert gxb.launch_counts == before
-    lib = gg.get_lib()
+    lib = library.get_lib()
     for h in (128, 160, 640, 768, 1000, 1024):
         for u in (2, 3, 10, 12, 16):
             assert lib.bigru_window_xp_bwd_grid_smem_bytes(h, u) == gg.grid_smem_bytes(h, u)
@@ -1479,12 +1483,13 @@ def test_xp_bwd_grid_refuses_a_tile_it_does_not_have(dev):
     from helen_tpu_torch.ops import gru_window_bwd_smem as gbs
     from helen_tpu_torch.ops import gru_window_xp_bwd as gxb
     from helen_tpu_torch.ops import gru_window_xp_bwd_grid as gg
+    from helen_tpu_torch.ops import library
 
     T, B, H = 4, 64, 1024
     xp_f, xp_b, h0f, h0b, of, ob, dof, dob, dhf, dhb, layer = xp_bwd_case(
         np.random.default_rng(33), T, B, H, dev)
     hp = gbs.bigru_window_bwd_hp(h0f, h0b, of, ob, layer)
-    units = gg.grid_units(H, *gg.card_limits())
+    units = gg.grid_units(H, *library.card_limits())
     w = [layer[d][k] for d in ("fwd", "bwd") for k in ("w_hh", "b_hh")]
     want = gxb.bigru_window_xp_bwd_rec(xp_f, xp_b, h0f, h0b, of, ob, dof, dob, dhf, dhb,
                                        layer, design="chain")
@@ -1492,8 +1497,8 @@ def test_xp_bwd_grid_refuses_a_tile_it_does_not_have(dev):
     for rpt in (0, 1, 2, 3, 4, 5, 8, 16):
         outs = [torch.full(s, 7.0, device=dev)
                 for s in ((2, T, B, 3 * H), (2, T, B, H), (B, H), (B, H))]
-        arrive = torch.zeros(gg.GRID_COUNTERS, dtype=torch.int32, device=dev)
-        err = gg.get_lib().bigru_window_xp_bwd_rec_grid(
+        arrive = torch.zeros(library.GRID_COUNTERS, dtype=torch.int32, device=dev)
+        err = library.get_lib().bigru_window_xp_bwd_rec_grid(
             *(t.data_ptr() for t in (xp_f, xp_b, hp, h0f, h0b, of, ob, dof, dob, dhf, dhb, *w,
                                      *outs, arrive)),
             T, B, H, units, rpt, torch.cuda.current_stream().cuda_stream)
@@ -1675,18 +1680,18 @@ def test_xp_grid_refuses_a_tile_it_does_not_have(dev):
     """The kernel's entry takes 8 or 4 rows a thread; any other is
     refused before a launch (cudaErrorInvalidValue) and the outputs are left
     as they were."""
-    from helen_tpu_torch.ops import gru_window as gw
     from helen_tpu_torch.ops import gru_window_xp_grid as xg
-    from helen_tpu_torch.ops.gru_window_xp_bwd_grid import GRID_COUNTERS, card_limits
+    from helen_tpu_torch.ops import library
+    from helen_tpu_torch.ops.library import GRID_COUNTERS, card_limits
 
     T, B, H = 3, 16, 1024
     xp_f, xp_b, h0f, h0b, layer = xp_case(np.random.default_rng(47), T, B, H, dev)
     units = xg.grid_units(H, *card_limits())
     w = [layer[d][k] for d in ("fwd", "bwd") for k in ("w_hh", "b_hh")]
     for rpt in (0, 1, 2, 3, 16):
-        outs = [o.fill_(7.0) for o in gw._outputs(T, B, H, dev)]
+        outs = [o.fill_(7.0) for o in library.outputs(T, B, H, dev)]
         arrive = torch.zeros(GRID_COUNTERS, dtype=torch.int32, device=dev)
-        err = xg.get_lib().bigru_window_xp_grid(
+        err = library.get_lib().bigru_window_xp_grid(
             *(t.data_ptr() for t in (xp_f, xp_b, h0f, h0b, *w, *outs, arrive)), T, B, H, units,
             rpt, torch.cuda.current_stream().cuda_stream)
         torch.cuda.synchronize()
@@ -1716,18 +1721,18 @@ def test_xp_grid_refuses_what_the_card_does_not_hold(dev, monkeypatch):
     the cooperative launch, and the wrapper raises: nothing falls back. The
     library's shared-memory formula is the Python mirror's."""
     from helen_tpu_torch.ops import gru_window_xp as gx
-    from helen_tpu_torch.ops import gru_window_xp_bwd_grid as gg
     from helen_tpu_torch.ops import gru_window_xp_grid as xg
+    from helen_tpu_torch.ops import library
 
     xp_f, xp_b, h0f, h0b, layer = xp_case(np.random.default_rng(45), 4, 8, 1024, dev)
-    sms, budget = gg.card_limits()
+    sms, budget = library.card_limits()
     before = dict(gx.launch_counts)
-    monkeypatch.setattr(gg, "_card", {torch.cuda.current_device(): (114, budget)})
+    monkeypatch.setattr(library, "_card", {torch.cuda.current_device(): (114, budget)})
     assert gx.xp_fwd_design(1024, 8) == "chain"
     with pytest.raises(ValueError, match="does not take H=1024"):
         gx.bigru_window_xp(xp_f, xp_b, h0f, h0b, layer, design="grid")
     assert gx.launch_counts == before
-    monkeypatch.setattr(gg, "_card", {torch.cuda.current_device(): (sms, budget)})
+    monkeypatch.setattr(library, "_card", {torch.cuda.current_device(): (sms, budget)})
     fl = fast(layer)
     for tier, ins, lay in ((False, (xp_f, xp_b), layer),
                            (True, (xp_f.to(torch.bfloat16), xp_b.to(torch.bfloat16)), fl)):
@@ -1735,7 +1740,7 @@ def test_xp_grid_refuses_what_the_card_does_not_hold(dev, monkeypatch):
         with pytest.raises(RuntimeError, match=f"{xg.KERNELS[tier]} launch failed"):
             xg.launch_xp_grid(*ins, h0f, h0b, lay, units, gx.launch_counts, dev, tier)
     assert gx.launch_counts == before
-    lib = xg.get_lib()
+    lib = library.get_lib()
     for h in (128, 160, 610, 640, 768, 1000, 1024):
         for u in (2, 3, 10, 12, 16, 24):
             for f in (0, 1):
@@ -1777,10 +1782,10 @@ def test_xp_kernels_at_each_rows_per_block_match_plain(dev, kernel, T, B, H, des
     counted under its design and its rows per block."""
     from helen_tpu_torch.ops import gru_window_xp as gx
     from helen_tpu_torch.ops import gru_window_xp_bwd as gxb
-    from helen_tpu_torch.ops import gru_window_xp_bwd_grid as gg
     from helen_tpu_torch.ops import gru_window_xp_grid as xg
+    from helen_tpu_torch.ops import library
 
-    sms, budget = gg.card_limits()
+    sms, budget = library.card_limits()
     xp_f, xp_b, h0f, h0b, layer = wide_xp_case(T, B, H, dev, seed=H + T * B)
     if kernel == "k4":
         assert gxb.xp_bwd_design(H, B) == design and gxb.bwd_chain_rows(H, budget) == n
@@ -1889,12 +1894,10 @@ def xp_wgrad_case(T, B, H, dev):
     return (*args[2:6], dxp.contiguous(), dhpn.contiguous())
 
 
-def wgrad_counts(before, T, B, design="split"):
+def wgrad_counts(before, T, B):
     """gru_window_wgrad.launch_counts after one pass 2 from ``before``: the
     split kernel and, past one slice of 1,600 rows, the slice sum."""
-    ran = {"bigru_window_wgrad_tile32": int(design == "tile32"),
-           "bigru_window_wgrad_split": int(design == "split"),
-           "bigru_window_wgrad_sum": int(design == "split" and T * B > 1600)}
+    ran = {"bigru_window_wgrad_split": 1, "bigru_window_wgrad_sum": int(T * B > 1600)}
     return {k: v + ran[k] for k, v in before.items()}
 
 
@@ -1958,31 +1961,10 @@ def test_wgrad_split_is_bit_identical_across_launches(dev, form):
             assert torch.equal(a[d][k], b[d][k]), (d, k)
 
 
-@pytest.mark.parametrize("form", ["image", "pair", "xp"])
-def test_wgrad_tile32_design_matches_plain(dev, form):
-    """The earlier design, forced: still its plain version, counted as
-    tile32 only."""
-    from helen_tpu_torch.ops import gru_window_bwd as gb
-    from helen_tpu_torch.ops import gru_window_wgrad as gwg
-    from helen_tpu_torch.ops import gru_window_xp_bwd as gxb
-
-    before = dict(gwg.launch_counts)
-    if form == "xp":
-        args = xp_wgrad_case(6, 13, 640, dev)
-        got = gwg.bigru_window_xp_wgrad(*args, design="tile32")
-        want = gxb.bigru_window_xp_bwd_wgrad_plain(*args)
-    else:
-        args = wgrad_case(form, 9, 13, 128, dev)
-        got = gwg.bigru_window_wgrad(*args, design="tile32")
-        want = gb.bigru_window_bwd_wgrad_plain(*args)
-    torch.cuda.synchronize()
-    assert gwg.launch_counts == wgrad_counts(before, 9, 13, design="tile32")
-    assert_wgrad_close(got, want)
-
-
 def test_default_backwards_launch_the_split_design_only(dev):
     """bigru_window_bwd (both layer kinds) and bigru_window_xp_bwd take pass
-    2's split design: each pass 2 counted once, 0 launches of tile32."""
+    2's split design: each pass 2 counted once, as the split kernel and the
+    slice sum."""
     from helen_tpu_torch.ops import gru_window_bwd as gb
     from helen_tpu_torch.ops import gru_window_wgrad as gwg
     from helen_tpu_torch.ops import gru_window_xp_bwd as gxb
@@ -1994,8 +1976,7 @@ def test_default_backwards_launch_the_split_design_only(dev):
         gb.bigru_window_bwd(*bwd_case(np.random.default_rng(61), kind, 100, 64, 128, dev))
     gxb.bigru_window_xp_bwd(*xp_bwd_case(np.random.default_rng(62), 5, 9, 160, dev))
     torch.cuda.synchronize()
-    assert gwg.launch_counts == {"bigru_window_wgrad_split": 3, "bigru_window_wgrad_sum": 2,
-                                 "bigru_window_wgrad_tile32": 0}
+    assert gwg.launch_counts == {"bigru_window_wgrad_split": 3, "bigru_window_wgrad_sum": 2}
     assert (gb.launch_counts["bigru_window_bwd_wgrad"], gxb.launch_counts[
         "bigru_window_xp_bwd_wgrad"]) == (before[0] + 2, before[1] + 1)
 
@@ -2006,8 +1987,6 @@ def test_wgrad_wrappers_refuse_what_the_kernels_do_not_take(dev):
 
     src, start, h0f, h0b, of, ob, dxp, dhpn = wgrad_case("pair", 4, 8, 128, dev)
     before = dict(gwg.launch_counts)
-    with pytest.raises(ValueError, match="not one of"):
-        gwg.bigru_window_wgrad(src, start, h0f, h0b, of, ob, dxp, dhpn, design="tile64")
     with pytest.raises(ValueError):  # dxp of one direction
         gwg.bigru_window_wgrad(src, start, h0f, h0b, of, ob, dxp[0], dhpn)
     with pytest.raises(ValueError):  # dhp_n on the CPU

@@ -324,11 +324,11 @@ def test_encdec_fit_functions():
     memory scales with T*BT*H, the block rows shrink until the budget fits,
     and the fit gate holds at the smallest block."""
     from helen_tpu_torch.ops.gru_window_encdec import (
-        HOPPER_SMEM_OPTIN,
         encdec_block_rows,
         encdec_fits_smem,
         encdec_smem_bytes,
     )
+    from helen_tpu_torch.ops.library import HOPPER_SMEM_OPTIN
 
     assert HOPPER_SMEM_OPTIN == 232_448
     small = encdec_smem_bytes(128, 1, 90, 100, fast=False)

@@ -119,9 +119,10 @@ def test_cluster_fit_numbers():
     B=512, T=100, and the parity ring 12.6 MB."""
     from helen_tpu_torch.ops import gru_window_encdec as ge
     from helen_tpu_torch.ops.gru_window_smem import rec_smem_bytes
+    from helen_tpu_torch.ops import library
 
     assert rec_smem_bytes(128, 8) == 204_800
-    assert ge.cluster_smem_bytes(128, 8, False) == 231_712 <= ge.HOPPER_SMEM_OPTIN
+    assert ge.cluster_smem_bytes(128, 8, False) == 231_712 <= library.HOPPER_SMEM_OPTIN
     assert ge.cluster_smem_bytes(128, 4, False) == 227_616
     assert ge.cluster_smem_bytes(128, 8, True) == 159_008
     assert ge.cluster_threads(128, 8, False) == 448
@@ -136,9 +137,9 @@ def test_cluster_fit_numbers():
 
 
 def read_csrc(name):
-    from helen_tpu_torch.ops import gru_window as gw
+    from helen_tpu_torch.ops import library
 
-    with open(os.path.join(gw._CSRC, name)) as f:
+    with open(os.path.join(library.CSRC, name)) as f:
         return f.read()
 
 
@@ -151,7 +152,7 @@ def csrc_int(text, name):
 def test_python_constants_mirror_the_sources():
     """The constants the Python fit functions use are the kernel sources'
     (the library checks the sizes themselves against the built kernels on
-    the card, in ops.gru_window.get_lib)."""
+    the card, in gru_window_encdec.check_fit when the library loads)."""
     from helen_tpu_torch.ops import gru_window_encdec as ge
 
     cluster = read_csrc("gru_window_cluster.cuh")

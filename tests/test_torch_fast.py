@@ -381,10 +381,10 @@ def tiny_params(h):
 
 def test_fast_backends_resolve_and_never_fall_back(monkeypatch):
     from helen_tpu_torch.models.transducer import resolve_backend
-    from helen_tpu_torch.ops import gru_window_xp_bwd_grid as gg
+    from helen_tpu_torch.ops import library
 
     # the H100's SMs and opt-in shared memory per block, set by hand
-    monkeypatch.setattr(gg, "_card", {0: (132, 232_448)})
+    monkeypatch.setattr(library, "_card", {0: (132, 232_448)})
 
     cpu, cuda = torch.device("cpu"), torch.device("cuda")
     for name in ("pallas_fast", "fast"):

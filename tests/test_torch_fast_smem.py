@@ -104,10 +104,10 @@ def test_fast_constants_match_the_source():
     """The Python rule's constants are the ones csrc/gru_window_fast.cu is
     built with (get_lib() checks the sizes against the built library on the
     card as well)."""
-    from helen_tpu_torch.ops import gru_window as gw
     from helen_tpu_torch.ops import gru_window_smem as gs
+    from helen_tpu_torch.ops import library
 
-    with open(os.path.join(gw._CSRC, "gru_window_fast.cu")) as f:
+    with open(os.path.join(library.CSRC, "gru_window_fast.cu")) as f:
         text = f.read()
     const = {m[0]: int(m[1]) for m in re.findall(r"constexpr int (FR_\w+) = (\d+);", text)}
     assert const["FR_MAX_H"] == gs.FAST_REC_MAX_H
@@ -117,7 +117,7 @@ def test_fast_constants_match_the_source():
                "bigru_window_rec_fast", "bigru_window_rec_fast_smem_bytes",
                "bigru_window_rec_fast_max_h"):
         assert f" {fn}(" in text, fn
-    with open(os.path.join(gw._CSRC, "gru_window_xp_grid.cu")) as f:
+    with open(os.path.join(library.CSRC, "gru_window_xp_grid.cu")) as f:
         grid = f.read()
     # K3f and the fast pair share one copy of the mma helpers
     assert '#include "gru_window_mma.cuh"' in grid and '#include "gru_window_mma.cuh"' in text
@@ -246,9 +246,9 @@ def test_fast_variants_edit_the_shipped_source():
     every text it replaces is there, and off the card it refuses."""
     from helen_tpu_torch.obs import fast_variants as fv
     from helen_tpu_torch.obs.grid_variants import variant_source
-    from helen_tpu_torch.ops import gru_window as gw
+    from helen_tpu_torch.ops import library
 
-    with open(os.path.join(gw._CSRC, fv.SOURCE)) as f:
+    with open(os.path.join(library.CSRC, fv.SOURCE)) as f:
         src = f.read()
     for name, (consts, edits) in fv.VARIANTS.items():
         out = variant_source(src, consts, edits, fv.SOURCE)

@@ -204,10 +204,10 @@ def test_wrappers_raise_off_cpu_and_cuda():
 
 
 def test_build_targets_hopper_and_raises_without_nvcc(monkeypatch, tmp_path):
-    from helen_tpu_torch.ops import gru_window as gw
+    from helen_tpu_torch.ops import library
 
-    assert "arch=compute_90a,code=sm_90a" in gw.NVCC_FLAGS
+    assert "arch=compute_90a,code=sm_90a" in library.NVCC_FLAGS
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        gw.build_kernels()
+        library.build_kernels()

@@ -216,9 +216,9 @@ def test_source_is_built_with_the_others():
     """build_kernels compiles every ops/csrc/*.cu: gru_window_smem.cu is one."""
     import os
 
-    from helen_tpu_torch.ops import gru_window as gw
+    from helen_tpu_torch.ops import library
 
-    src = os.path.join(gw._CSRC, "gru_window_smem.cu")
+    src = os.path.join(library.CSRC, "gru_window_smem.cu")
     with open(src) as f:
         text = f.read()
     for fn in ("bigru_window_proj_in1", "bigru_window_proj_in2", "bigru_window_rec_smem",

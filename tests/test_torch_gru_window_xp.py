@@ -453,10 +453,10 @@ def test_dispatch_rule_by_hidden_size(monkeypatch, h, want):
         resolve_backend,
     )
 
-    from helen_tpu_torch.ops import gru_window_xp_bwd_grid as gg
+    from helen_tpu_torch.ops import library
 
     # the H100's SMs and opt-in shared memory per block, set by hand
-    monkeypatch.setattr(gg, "_card", {0: (132, 232_448)})
+    monkeypatch.setattr(library, "_card", {0: (132, 232_448)})
     assert ROUTES["xp"] is None
     p = tiny_params(h)
     cuda = torch.device("cuda")
@@ -638,7 +638,7 @@ def test_a_failed_build_raises_and_leaves_no_objects(fails, tmp_path, monkeypatc
     that does not compile, or a link that fails, raises with nvcc's message
     and leaves neither objects nor a library behind (a stand-in nvcc on
     PATH refuses the xp backward's source or the link)."""
-    from helen_tpu_torch.ops import gru_window as gw
+    from helen_tpu_torch.ops import library
     from helen_tpu_torch.utils import build
 
     bindir, out = tmp_path / "bin", tmp_path / "build"
@@ -659,5 +659,5 @@ def test_a_failed_build_raises_and_leaves_no_objects(fails, tmp_path, monkeypatc
     monkeypatch.setenv("PATH", str(bindir))
     monkeypatch.setattr(build, "build_dir", lambda name: str(out))
     with pytest.raises(RuntimeError, match=f"{'link' if fails == 'link' else 'ptxas'} refused"):
-        gw.build_kernels()
+        library.build_kernels()
     assert list(out.iterdir()) == []

@@ -7,10 +7,18 @@ subprocesses with ``jax`` and ``h5py`` blocked import the package and polish
 the golden images (also in HDF5's newest format, and with ``--pack
 --writers 2 --fastq``), and train and test a small model (also with
 ``--pack``), on the CPU.
+
+The kernel layer ``helen_tpu_torch/ops`` is held to its order: each module
+imports only modules below it in :data:`OPS_ORDER`, at module level, and no
+name starting with ``_`` crosses a module line; every C entry a family
+declares is in the sources, in one family's table only.
 """
 import ast
+import ctypes
 import glob
+import importlib
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -81,6 +89,159 @@ def test_scan_catches_forbidden_imports(tmp_path):
         "helen_tpu.config", "helen_tpu.io", "jax.numpy"]
     src.write_text("import h5py\nfrom helen_tpu_torch.io import hdf5\n")
     assert [n for n in imported_names(str(src)) if _forbidden(n)] == ["h5py"]
+
+
+OPS_DIR = os.path.join(ROOT, "helen_tpu_torch", "ops")
+OPS_PACKAGE = "helen_tpu_torch.ops"
+#: the ops layer's modules, lowest first: the library, the forward families,
+#: the backward families, the autograd Functions, then the package itself
+OPS_ORDER = ("library",
+             "gru_window_smem", "gru_window_xp_grid", "gru_window_proj", "gru_window",
+             "gru_window_xp", "gru_window_encdec",
+             "gru_window_bwd_smem", "gru_window_xp_bwd_grid", "gru_window_wgrad",
+             "gru_window_bwd", "gru_window_xp_bwd",
+             "gru_window_autograd",
+             "__init__")
+OPS_MODULES = sorted(os.path.splitext(os.path.basename(p))[0]
+                     for p in glob.glob(os.path.join(OPS_DIR, "*.py")))
+
+
+def ops_imports(path: str):
+    """``(line, ops module imported, names taken from it, inside a
+    function)`` for each import of a module of ``helen_tpu_torch.ops`` in
+    ``path``, and ``(line, ops module, attributes read)`` for each attribute
+    read through a name bound to an ops module."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    imports, aliases = [], {}
+
+    def visit(node, inside):
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+            inside = True
+        if isinstance(node, ast.ImportFrom):
+            module = node.module or ""
+            if node.level:
+                module = ".".join([OPS_PACKAGE] + ([module] if module else []))
+            if module == OPS_PACKAGE:
+                for a in node.names:
+                    if a.name in OPS_MODULES:
+                        imports.append((node.lineno, a.name, (), inside))
+                        aliases[a.asname or a.name] = a.name
+                    else:
+                        imports.append((node.lineno, "__init__", (a.name,), inside))
+            elif module.startswith(OPS_PACKAGE + "."):
+                imports.append((node.lineno, module.split(".")[2],
+                                tuple(a.name for a in node.names), inside))
+        elif isinstance(node, ast.Import):
+            for a in node.names:
+                if a.name.startswith(OPS_PACKAGE + "."):
+                    imports.append((node.lineno, a.name.split(".")[2], (), inside))
+                    if a.asname:
+                        aliases[a.asname] = a.name.split(".")[2]
+        elif (isinstance(node, ast.Call) and node.args
+              and getattr(node.func, "attr", getattr(node.func, "id", None))
+              in ("import_module", "__import__")):
+            arg = node.args[0]
+            if not (isinstance(arg, ast.Constant) and isinstance(arg.value, str)):
+                imports.append((node.lineno, "<computed>", (), inside))
+            elif arg.value.startswith(OPS_PACKAGE + "."):
+                imports.append((node.lineno, arg.value.split(".")[2], (), inside))
+        for child in ast.iter_child_nodes(node):
+            visit(child, inside)
+
+    visit(tree, False)
+    reads = [(node.lineno, aliases[node.value.id], (node.attr,)) for node in ast.walk(tree)
+             if isinstance(node, ast.Attribute) and isinstance(node.value, ast.Name)
+             and node.value.id in aliases]
+    return imports, reads
+
+
+def ops_violations(module: str, path: str):
+    """Each way ``path`` (the ops module ``module``) breaks the layer order."""
+    rank = OPS_ORDER.index(module)
+    imports, reads = ops_imports(path)
+    bad = []
+    for line, target, names, inside in imports:
+        where = f"{module}.py:{line}"
+        if target not in OPS_ORDER:
+            bad.append(f"{where} imports {target}, which has no place in the order")
+            continue
+        if OPS_ORDER.index(target) >= rank:
+            bad.append(f"{where} imports {target}, which is not below it")
+        if inside:
+            bad.append(f"{where} imports {target} inside a function")
+        bad += [f"{where} takes {target}.{n}" for n in names if n.startswith("_")]
+    bad += [f"{module}.py:{line} takes {target}.{n}" for line, target, names in reads
+            for n in names if n.startswith("_") and target != module]
+    return bad
+
+
+def test_ops_order_names_every_module():
+    assert sorted(OPS_ORDER) == OPS_MODULES
+
+
+@pytest.mark.parametrize("module", OPS_MODULES)
+def test_ops_imports_point_one_way(module):
+    """The module imports only modules below it in the order, all at module
+    level (so the graph, function-level imports counted, has no cycle), and
+    takes no ``_`` name from another; ``library`` imports none."""
+    path = os.path.join(OPS_DIR, f"{module}.py")
+    assert not ops_violations(module, path)
+    if module == "library":
+        assert ops_imports(path) == ([], [])
+
+
+def test_ops_import_scan_catches_each_violation(tmp_path):
+    src = tmp_path / "m.py"
+    src.write_text("from helen_tpu_torch.ops import gru_window as gw\n"
+                   "from helen_tpu_torch.ops.library import _card, check\n"
+                   "def f():\n"
+                   "    from helen_tpu_torch.ops import library\n"
+                   "    return gw._bidir\n")
+    assert sorted(ops_violations("gru_window_smem", str(src))) == [
+        "gru_window_smem.py:1 imports gru_window, which is not below it",
+        "gru_window_smem.py:2 takes library._card",
+        "gru_window_smem.py:4 imports library inside a function",
+        "gru_window_smem.py:5 takes gru_window._bidir"]
+
+
+def c_entries():
+    """The names of the functions each ``extern "C"`` block of
+    ``ops/csrc/*.cu`` defines, by source."""
+    out = {}
+    for path in sorted(glob.glob(os.path.join(OPS_DIR, "csrc", "*.cu"))):
+        with open(path) as f:
+            text = f.read()
+        names = []
+        for block in re.findall(r'^extern "C" \{\n(.*?)^\}  // extern "C"', text, re.M | re.S):
+            names += re.findall(r"^[A-Za-z][\w \*]*?\b(\w+)\(", block, re.M)
+        out[os.path.basename(path)] = names
+    return out
+
+
+def test_every_declared_entry_is_in_the_sources():
+    """Every name in a family's ``ENTRIES`` is a C entry of the sources, in
+    no other table, with a ctypes result type and argument types; only
+    ``library`` sets a ctypes function's ``restype``/``argtypes``."""
+    sources = {n for names in c_entries().values() for n in names}
+    assert {"bigru_window_in1", "bigru_window_wgrad_split_in", "gru_window_error_string"} \
+        <= sources
+    owner = {}
+    for module in OPS_MODULES:
+        table = getattr(importlib.import_module(f"{OPS_PACKAGE}.{module}"), "ENTRIES", {})
+        for name, (restype, argtypes) in table.items():
+            assert name in sources, f"{module}.ENTRIES declares {name}, which no source defines"
+            assert name not in owner, f"{name} is declared by {owner.get(name)} and {module}"
+            owner[name] = module
+            for t in (restype, *argtypes):
+                assert isinstance(t, type) and issubclass(t, ctypes._SimpleCData), (name, t)
+    assert len(owner) > 50
+    for module in OPS_MODULES:
+        with open(os.path.join(OPS_DIR, f"{module}.py")) as f:
+            tree = ast.parse(f.read())
+        sets = [n.lineno for n in ast.walk(tree) if isinstance(n, ast.Attribute)
+                and isinstance(n.ctx, ast.Store) and n.attr in ("restype", "argtypes")]
+        assert module == "library" or not sets, (module, sets)
 
 
 def _run(code: str, timeout: int = 120):

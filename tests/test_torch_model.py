@@ -171,9 +171,9 @@ def test_resolve_backend_refuses_past_the_kernels_maximum(monkeypatch, h):
     leaves the process's TF32 setting alone. The device is only named:
     nothing runs on it."""
     from helen_tpu_torch.models.transducer import engaged_kernel, resolve_backend
-    from helen_tpu_torch.ops import gru_window_xp_bwd_grid as gg
+    from helen_tpu_torch.ops import library
 
-    monkeypatch.setattr(gg, "_card", {0: (132, 232_448)})
+    monkeypatch.setattr(library, "_card", {0: (132, 232_448)})
     cuda = torch.device("cuda")
     wide = _meta_params(h)
     tf32 = torch.backends.cuda.matmul.allow_tf32

@@ -102,12 +102,12 @@ def test_wgrad_design_rule(shape, want):
 def test_wgrad_design_ignores_the_card(monkeypatch, sms, budget):
     """The partition, and so the order of every sum, is the same on any
     card: the rule reads no card property."""
-    from helen_tpu_torch.ops import gru_window_xp_bwd_grid as gg
+    from helen_tpu_torch.ops import library
     from helen_tpu_torch.ops.gru_window_wgrad import wgrad_design
 
     shapes = [(90, 128, 100, 256, True), (0, 1024, 100, 64, False), (320, 160, 7, 13, True)]
     want = [wgrad_design(*s) for s in shapes]
-    monkeypatch.setattr(gg, "card_limits", lambda: (sms, budget))
+    monkeypatch.setattr(library, "card_limits", lambda: (sms, budget))
     assert [wgrad_design(*s) for s in shapes] == want
 
 
@@ -195,8 +195,8 @@ def test_split_plain_matches_pallas_train_backward_interpret():
 
 @pytest.mark.parametrize("kind", ["image", "pair", "xp"])
 def test_wrappers_take_the_plain_version_on_cpu_and_count_no_launch(kind):
-    """On CPU tensors the wrappers, in either design, and the backward that
-    calls them compute the unsplit plain version, and no counter moves."""
+    """On CPU tensors the wrappers and the backward that calls them compute
+    the unsplit plain version, and no counter moves."""
     from helen_tpu_torch.ops import gru_window_bwd as gb
     from helen_tpu_torch.ops import gru_window_wgrad as gwg
     from helen_tpu_torch.ops import gru_window_xp_bwd as gxb
@@ -211,27 +211,15 @@ def test_wrappers_take_the_plain_version_on_cpu_and_count_no_launch(kind):
         full = gxb.bigru_window_xp_bwd(*xp, *args[2:6], dof, dob, dhf, dhb, lt)[4]
     else:
         full = gb.bigru_window_bwd(*args[:6], dof, dob, dhf, dhb, lt)[3]
-    for design in gwg.DESIGNS:
-        got = (gwg.bigru_window_xp_wgrad(*args[2:], design=design) if kind == "xp"
-               else gwg.bigru_window_wgrad(*args, design=design))
-        for d in ("fwd", "bwd"):
-            for k, w in want[d].items():
-                assert torch.equal(got[d][k], w), (design, d, k)
-                assert torch.equal(full[d][k], w), (d, k)
+    got = (gwg.bigru_window_xp_wgrad(*args[2:]) if kind == "xp"
+           else gwg.bigru_window_wgrad(*args))
+    for d in ("fwd", "bwd"):
+        for k, w in want[d].items():
+            assert torch.equal(got[d][k], w), (d, k)
+            assert torch.equal(full[d][k], w), (d, k)
     for counts in (gwg.launch_counts, gb.launch_counts, gxb.launch_counts):
         assert set(counts.values()) == {0}
-    assert set(gwg.launch_counts) == {"bigru_window_wgrad_split", "bigru_window_wgrad_sum",
-                                      "bigru_window_wgrad_tile32"}
-
-
-def test_a_forced_unknown_design_raises():
-    from helen_tpu_torch.ops import gru_window_wgrad as gwg
-
-    args, _ = case("pair", 3, 2, 8, seed=6)
-    with pytest.raises(ValueError, match="not one of"):
-        gwg.bigru_window_wgrad(*args, design="tile64")
-    with pytest.raises(ValueError, match="not one of"):
-        gwg.bigru_window_xp_wgrad(*args[2:], design="fused")
+    assert set(gwg.launch_counts) == {"bigru_window_wgrad_split", "bigru_window_wgrad_sum"}
 
 
 def test_wrappers_raise_off_cpu_and_cuda():
@@ -252,12 +240,12 @@ def test_source_is_built_with_the_others():
     import glob
     import os
 
-    from helen_tpu_torch.ops import gru_window as gw
+    from helen_tpu_torch.ops import library
     from helen_tpu_torch.ops.gru_window_wgrad import SLICE_ROWS, TILE
 
     assert "gru_window_wgrad.cu" in {os.path.basename(p)
-                                     for p in glob.glob(os.path.join(gw._CSRC, "*.cu"))}
-    with open(os.path.join(gw._CSRC, "gru_window_wgrad.cu")) as f:
+                                     for p in glob.glob(os.path.join(library.CSRC, "*.cu"))}
+    with open(os.path.join(library.CSRC, "gru_window_wgrad.cu")) as f:
         text = f.read()
     for fn in ("bigru_window_wgrad_split_in", "bigru_window_wgrad_split_xp",
                "bigru_window_wgrad_sum", "bigru_window_wgrad_slice_rows",
@@ -272,5 +260,23 @@ def test_source_is_built_with_the_others():
     assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in text
     # the split into TF32 parts, shared with the xp projection
     assert "split_tf32(" in text and '#include "gru_window_common.cuh"' in text
-    with open(os.path.join(gw._CSRC, "gru_window_common.cuh")) as f:
+    with open(os.path.join(library.CSRC, "gru_window_common.cuh")) as f:
         assert "(__float_as_uint(x) + 0x1000u) & 0xffffe000u" in f.read()  # rna to TF32
+
+
+def test_wgrad_variants_edit_the_shipped_source():
+    """helen_tpu_torch.obs.wgrad_variants (the measurement of where pass 2's
+    time goes) edits the shipped source: every constant and every text it
+    replaces is there, and off the card it refuses."""
+    import os
+
+    from helen_tpu_torch.obs import wgrad_variants as wv
+    from helen_tpu_torch.obs.grid_variants import variant_source
+    from helen_tpu_torch.ops import library
+
+    with open(os.path.join(library.CSRC, wv.SOURCE)) as f:
+        src = f.read()
+    for name, (consts, edits) in wv.VARIANTS.items():
+        out = variant_source(src, consts, edits, wv.SOURCE)
+        assert (out == src) == (name == "shipped"), name
+    assert wv.main(["--iters", "1"]) == 1

@@ -23,9 +23,9 @@ H100 = (132, 232_448)
 
 @pytest.fixture
 def h100(monkeypatch):
-    from helen_tpu_torch.ops import gru_window_xp_bwd_grid as gg
+    from helen_tpu_torch.ops import library
 
-    monkeypatch.setattr(gg, "_card", {0: H100})
+    monkeypatch.setattr(library, "_card", {0: H100})
 
 
 # H: (K3 design, its units or rows), (K3f ...), (K4 pass 1 ...); units for

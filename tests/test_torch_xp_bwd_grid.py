@@ -55,11 +55,11 @@ def chained(xp_f, xp_b, h0f, h0b, of, ob, dof, dob, dhf, dhb, lt):
     """The grid design's plain pieces in the order the wrapper launches them:
     (dxp, dhp_n, dh0_f, dh0_b)."""
     from helen_tpu_torch.ops import gru_window_bwd_smem as gbs
-    from helen_tpu_torch.ops import gru_window_xp_bwd_grid as gg
+    from helen_tpu_torch.ops import gru_window_xp_bwd as gxb
 
     hp = gbs.bigru_window_bwd_hp(h0f, h0b, of, ob, lt)
-    return gg.bigru_window_xp_bwd_rec_grid(xp_f, xp_b, hp, h0f, h0b, of, ob, dof, dob, dhf,
-                                           dhb, lt)
+    return gxb.bigru_window_xp_bwd_rec_grid(xp_f, xp_b, hp, h0f, h0b, of, ob, dof, dob, dhf,
+                                            dhb, lt)
 
 
 def close(got, want, what, scaled=False):
@@ -201,7 +201,7 @@ def grid_emulation(xp_f, xp_b, hp, h0_f, h0_b, out_f, out_b, dout_f, dout_b, dh_
     same bits whatever the other rows hold at one shape, not at another, and
     the kernel's own order (one fmaf chain over k) is the card's to check
     (tests/test_torch_cuda.py)."""
-    from helen_tpu_torch.ops import gru_window_bwd as gb
+    from helen_tpu_torch.ops import gru_window_bwd_smem as gbs
     from helen_tpu_torch.ops import gru_window_xp_bwd_grid as gg
 
     T, B, H = out_f.shape
@@ -213,7 +213,7 @@ def grid_emulation(xp_f, xp_b, hp, h0_f, h0_b, out_f, out_b, dout_f, dout_b, dh_
              ("bwd", xp_b, out_b, h0_b, dout_b, dh_b, True))):
         w = layer[d]["w_hh"]
         hpb = hp[i] + layer[d]["b_hh"]
-        h_prev = gb._h_prev(out, h0, rev)
+        h_prev = gbs.h_prev_of(out, h0, rev)
         r = torch.sigmoid(xp[..., :H] + hpb[..., :H])
         z = torch.sigmoid(xp[..., H:2 * H] + hpb[..., H:2 * H])
         hp_n = hpb[..., 2 * H:]
@@ -308,10 +308,10 @@ def test_each_warp_fills_each_float4_of_its_chunk_once(rpt):
     threads read at p; the formulas are the source's."""
     import os
 
-    from helen_tpu_torch.ops import gru_window as gw
     from helen_tpu_torch.ops import gru_window_xp_bwd_grid as gg
+    from helen_tpu_torch.ops import library
 
-    with open(os.path.join(gw._CSRC, "gru_window_xp_bwd_grid.cu")) as f:
+    with open(os.path.join(library.CSRC, "gru_window_xp_bwd_grid.cu")) as f:
         src = f.read()
     for line in ("return s * nf / 8 % nf;", "const int sl = ln / NF + n * (32 / NF);",
                  "frow[n] = warp * BG_RGW + sl % BG_RGW + sl / BG_RGW * RG;",
@@ -355,10 +355,10 @@ def test_smem_mirror_matches_the_source():
     import os
     import re
 
-    from helen_tpu_torch.ops import gru_window as gw
     from helen_tpu_torch.ops import gru_window_xp_bwd_grid as gg
+    from helen_tpu_torch.ops import library
 
-    with open(os.path.join(gw._CSRC, "gru_window_xp_bwd_grid.cu")) as f:
+    with open(os.path.join(library.CSRC, "gru_window_xp_bwd_grid.cu")) as f:
         src = f.read()
     const = {m.group(1): m.group(2) for m in
              re.finditer(r"constexpr int (BG_[A-Z_]+) = ([^;]+);", src)}
@@ -400,9 +400,9 @@ def test_grid_units_on_the_h100(H, units, blocks, smem):
 @pytest.fixture
 def card(monkeypatch):
     """Set the card the rule reads (SMs, opt-in shared memory per block)."""
-    from helen_tpu_torch.ops import gru_window_xp_bwd_grid as gg
+    from helen_tpu_torch.ops import library
 
-    return lambda sms, budget: monkeypatch.setattr(gg, "_card", {0: (sms, budget)})
+    return lambda sms, budget: monkeypatch.setattr(library, "_card", {0: (sms, budget)})
 
 
 @pytest.mark.parametrize("H", [128, 160, 640, 768, 1024])
@@ -483,15 +483,14 @@ def test_wrappers_take_the_plain_version_on_cpu_and_count_no_launch():
 
 def test_wrappers_raise_off_cpu_and_cuda():
     from helen_tpu_torch.ops import gru_window_xp_bwd as gxb
-    from helen_tpu_torch.ops import gru_window_xp_bwd_grid as gg
 
     T, B, H = 3, 2, 32
     meta = lambda *s: torch.empty(s, dtype=torch.float32, device="meta")  # noqa: E731
     layer = {d: {"w_hh": meta(H, 3 * H), "b_hh": meta(3 * H)} for d in ("fwd", "bwd")}
     x, s, v = meta(T, B, 3 * H), meta(T, B, H), meta(B, H)
     with pytest.raises(ValueError, match="CUDA or CPU"):
-        gg.bigru_window_xp_bwd_rec_grid(x, x, meta(2, T, B, 3 * H), v, v, s, s, s, s, v, v,
-                                        layer)
+        gxb.bigru_window_xp_bwd_rec_grid(x, x, meta(2, T, B, 3 * H), v, v, s, s, s, s, v, v,
+                                         layer)
     for design in (None, "grid", "chain"):
         with pytest.raises(ValueError, match="CUDA or CPU"):
             gxb.bigru_window_xp_bwd_rec(x, x, v, v, s, s, s, s, v, v, layer, design=design)
@@ -506,11 +505,11 @@ def test_source_is_built_with_the_others():
     import glob
     import os
 
-    from helen_tpu_torch.ops import gru_window as gw
+    from helen_tpu_torch.ops import library
 
-    names = {os.path.basename(p) for p in glob.glob(os.path.join(gw._CSRC, "*.cu"))}
+    names = {os.path.basename(p) for p in glob.glob(os.path.join(library.CSRC, "*.cu"))}
     assert "gru_window_xp_bwd_grid.cu" in names
-    with open(os.path.join(gw._CSRC, "gru_window_xp_bwd_grid.cu")) as f:
+    with open(os.path.join(library.CSRC, "gru_window_xp_bwd_grid.cu")) as f:
         text = f.read()
     for fn in ("bigru_window_xp_bwd_rec_grid", "bigru_window_xp_bwd_grid_smem_bytes",
                "gru_window_sm_count"):
@@ -518,9 +517,9 @@ def test_source_is_built_with_the_others():
     # the cooperative launch and the barrier are the shared grid header's
     assert "gru_cell_bwd(" in text and "launch_cooperative(" in text
     assert '#include "gru_window_grid.cuh"' in text and "grid_barrier(" in text
-    with open(os.path.join(gw._CSRC, "gru_window_grid.cuh")) as f:
+    with open(os.path.join(library.CSRC, "gru_window_grid.cuh")) as f:
         assert "cudaLaunchCooperativeKernel(" in f.read()
-    with open(os.path.join(gw._CSRC, "gru_window_xp_bwd.cu")) as f:
+    with open(os.path.join(library.CSRC, "gru_window_xp_bwd.cu")) as f:
         assert "gru_cell_bwd(" in f.read()
 
 
@@ -531,9 +530,9 @@ def test_grid_variants_edit_the_shipped_source():
     import os
 
     from helen_tpu_torch.obs import grid_variants as gv
-    from helen_tpu_torch.ops import gru_window as gw
+    from helen_tpu_torch.ops import library
 
-    with open(os.path.join(gw._CSRC, gv.SOURCE)) as f:
+    with open(os.path.join(library.CSRC, gv.SOURCE)) as f:
         src = f.read()
     for name, (consts, edits) in gv.VARIANTS.items():
         out = gv.variant_source(src, consts, edits)

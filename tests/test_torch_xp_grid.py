@@ -346,9 +346,9 @@ def test_grid_tile_rule(B, rpt, threads):
 @pytest.fixture
 def card(monkeypatch):
     """Set the card the rule reads (SMs, opt-in shared memory per block)."""
-    from helen_tpu_torch.ops import gru_window_xp_bwd_grid as gg
+    from helen_tpu_torch.ops import library
 
-    return lambda sms, budget: monkeypatch.setattr(gg, "_card", {0: (sms, budget)})
+    return lambda sms, budget: monkeypatch.setattr(library, "_card", {0: (sms, budget)})
 
 
 @pytest.mark.parametrize("H", [128, 160, 512, 640, 768, 1024])
@@ -405,10 +405,10 @@ def test_smem_mirror_matches_the_source():
     xf_smem (the library checks the two agree when it is bound, on the
     card): the constants it reads are the source's, and its byte count is
     the layout's, counted here element by element."""
-    from helen_tpu_torch.ops import gru_window as gw
     from helen_tpu_torch.ops import gru_window_xp_grid as xg
+    from helen_tpu_torch.ops import library
 
-    with open(os.path.join(gw._CSRC, "gru_window_xp_grid.cu")) as f:
+    with open(os.path.join(library.CSRC, "gru_window_xp_grid.cu")) as f:
         src = f.read()
     const = {m.group(1): m.group(2) for m in
              re.finditer(r"constexpr int (X[GF]_[A-Z_]+) = ([^;]+);", src)}
@@ -493,11 +493,11 @@ def test_source_is_built_with_the_others():
     the barrier of gru_window_grid.cuh."""
     import glob
 
-    from helen_tpu_torch.ops import gru_window as gw
+    from helen_tpu_torch.ops import library
 
-    names = {os.path.basename(p) for p in glob.glob(os.path.join(gw._CSRC, "*.cu"))}
+    names = {os.path.basename(p) for p in glob.glob(os.path.join(library.CSRC, "*.cu"))}
     assert "gru_window_xp_grid.cu" in names
-    read = lambda n: open(os.path.join(gw._CSRC, n)).read()  # noqa: E731
+    read = lambda n: open(os.path.join(library.CSRC, n)).read()  # noqa: E731
     text = read("gru_window_xp_grid.cu")
     for fn in ("bigru_window_xp_grid", "bigru_window_xp_fast_grid",
                "bigru_window_xp_grid_smem_bytes"):
@@ -520,9 +520,9 @@ def test_forward_grid_variants_edit_the_shipped_source():
     K3's and K3f's time goes) edits the shipped source: every constant and
     every cut text it replaces is there, and off the card it refuses."""
     from helen_tpu_torch.obs import grid_variants as gv
-    from helen_tpu_torch.ops import gru_window as gw
+    from helen_tpu_torch.ops import library
 
-    with open(os.path.join(gw._CSRC, gv.FWD_SOURCE)) as f:
+    with open(os.path.join(library.CSRC, gv.FWD_SOURCE)) as f:
         src = f.read()
     for name, (consts, edits) in gv.FWD_VARIANTS.items():
         out = gv.variant_source(src, consts, edits, gv.FWD_SOURCE)
